@@ -75,3 +75,51 @@ def test_attention_dense(causal, geom):
     jout, jatt = JB.attention_dense(jnp.asarray(qkv), NH, causal=causal)
     _close(out, jout)
     _close(att, jatt)
+
+
+def _vjp_jax(fn, args, dout):
+    import jax
+    _, vjp = jax.vjp(fn, *(jnp.asarray(a) for a in args))
+    return vjp(jnp.asarray(dout))
+
+
+def _vjp_torch(fn, args, dout):
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    fn(*ts).backward(torch.from_numpy(dout))
+    return [t.grad for t in ts]
+
+
+@pytest.mark.parametrize("shape", [(3, 16), (2, 5, 128)])
+def test_layernorm_cv_backward(shape):
+    """The hand-written LN backward from (mean, rstd) against the JAX
+    custom VJP: dx, dw and db (reduced over every leading axis)."""
+    x = _x(shape, 10, 3.0) + 1.5
+    w, b = _x(shape[-1:], 11), _x(shape[-1:], 12)
+    dout = _x(shape, 13)
+    for g, w_ in zip(_vjp_torch(TB.layernorm_cv, (x, w, b), dout),
+                     _vjp_jax(JB.layernorm_cv, (x, w, b), dout)):
+        _close(g, w_)
+
+
+@pytest.mark.parametrize("fn", ["gelu_cv", "gelu_erf_cv"])
+def test_gelu_cv_backward(fn):
+    x, dout = _x((2, 9, 512), 14, 3.0), _x((2, 9, 512), 15)
+    _close(_vjp_torch(getattr(TB, fn), (x,), dout)[0],
+           _vjp_jax(getattr(JB, fn), (x,), dout)[0])
+
+
+@pytest.mark.parametrize("smoothing", [None, 0.1])
+def test_cross_entropy_forms(smoothing):
+    logits = _x((4, 7, 33), 16, 3.0)
+    t = np.random.default_rng(17).integers(0, 33, (4, 7))
+    if smoothing is None:
+        got = TB.cross_entropy_from_logits(torch.from_numpy(logits),
+                                           torch.from_numpy(t))
+        want = JB.cross_entropy_from_logits(jnp.asarray(logits),
+                                            jnp.asarray(t))
+    else:
+        got = TB.cross_entropy_smoothed(torch.from_numpy(logits),
+                                        torch.from_numpy(t), smoothing)
+        want = JB.cross_entropy_smoothed(jnp.asarray(logits), jnp.asarray(t),
+                                         smoothing)
+    _close(got, want)

@@ -7,6 +7,8 @@ import torch
 
 from vitrs_tpu.vit import ViT as JaxViT
 from vitrs_tpu_torch.cli import generate as cli
+from vitrs_tpu_torch.config import get_config
+from vitrs_tpu_torch.models import model as M
 from vitrs_tpu_torch.vit import ViT
 
 from test_torch_helpers import small_cfgs
@@ -58,13 +60,23 @@ def test_from_config_is_seeded_and_validates():
 
 
 def test_training_calls_raise_until_the_training_slice():
+    """The training slice is in: the calls run in gpt mode, raise when
+    called out of order, and vit mode still raises naming its ROADMAP
+    item."""
     m = ViT.from_config(TCFG, seed=3)
     toks = _toks(3)
+    with pytest.raises(RuntimeError, match="forward with targets"):
+        m.backward()
+    with pytest.raises(RuntimeError, match="backward"):
+        m.optimizer_step(1e-3)
+    loss = m.forward(toks, toks)
+    assert np.isfinite(loss) and loss > 0
+    m.backward()
+    m.optimizer_step(1e-3)
+    assert m.step == 1
+    vcfg = get_config("vit-tiny-4-cifar10", num_layers=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.forward(toks, toks)
-    for call in (m.backward, lambda: m.optimizer_step(1e-3)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+        M.loss_fn({}, toks, toks, vcfg)
 
 
 def test_cli_runs_at_gpt_nano(capsys):

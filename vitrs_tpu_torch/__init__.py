@@ -8,9 +8,14 @@ csrc/, built with nvcc at first use.  This package imports torch and never
 jax.
 
 Ported so far: the GPT serving path (config, params, checkpoint, ops,
-models/model.py forward, models/generate.py, serving_gen.py, the tokenizer,
-the vit.py inference API, cli/generate.py) and its one kernel, the
-flash-attention forward (csrc/flash_fwd.cu).
+models/model.py, models/generate.py, serving_gen.py, the tokenizer,
+cli/generate.py) and the single-device GPT training step (the ops'
+backwards, ops/fused_qkv_attention.py, ops/fused_ce.py, ops/optimizer.py,
+parallel/data_parallel.py at world size 1, train/loop.py, cli/train.py,
+the vit.py five-call API), with five kernels: the flash-attention forward
+(csrc/flash_fwd.cu) and backward (csrc/flash_bwd.cu), the fused
+cross-entropy forward and backward (csrc/fused_ce.cu) and the fused AdamW
+(csrc/fused_adamw.cu).
 """
 
 from .config import PRESETS, ViTConfig, get_config

@@ -1,0 +1,97 @@
+#!/usr/bin/env python
+"""vitrs-train-torch — train a GPT preset with the PyTorch port.
+
+The port of `vitrs_tpu/cli/train.py`.  This slice trains gpt mode with
+AdamW on one device, with the JAX CLI's flags for that path; the JAX CLI's
+other flags (--mesh, --optimizer, --ema-decay, --mixup-alpha, ...) are not
+ported yet (ROADMAP.md Queue 1).
+
+Examples:
+  vitrs-train-torch --preset gpt2-124m --steps 1000 --batch-size 8 --workdir run1
+  vitrs-train-torch --preset gpt-nano --cpu --steps 3 --batch-size 4
+  vitrs-train-torch --preset gpt2-124m --eval-only --workdir run1
+
+Checkpoints and metrics go to --workdir, and a run resumes from the latest
+checkpoint there; without --workdir a run writes to a fresh temporary
+directory (under $TMPDIR) and resumes nothing.  Without --cpu it needs a
+CUDA device and never falls back to the CPU.
+"""
+
+import argparse
+import json
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--preset", default="gpt2-124m",
+                   help="model preset (see vitrs_tpu_torch.config.PRESETS)")
+    p.add_argument("--dataset", default="cifar10",
+                   help="gpt mode reads tokens; empty skips the final val loss")
+    p.add_argument("--data-dir", default=None,
+                   help="llm.c uint16 token file (default: synthetic stream)")
+    p.add_argument("--steps", type=int, default=1000)
+    p.add_argument("--batch-size", type=int, default=128)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--warmup", type=int, default=100)
+    p.add_argument("--weight-decay", type=float, default=0.05)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--dtype", default="bfloat16",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--workdir", default="",
+                   help="checkpoints and metrics; resumes from the latest "
+                        "checkpoint here (default: a fresh temporary "
+                        "directory)")
+    p.add_argument("--log-every", type=int, default=20)
+    p.add_argument("--ckpt-every", type=int, default=500)
+    p.add_argument("--no-resume", action="store_true")
+    p.add_argument("--log-grad-norm", action="store_true")
+    p.add_argument("--decay-2d-only", action="store_true",
+                   help="weight-decay tensors with >= 2 axes only")
+    p.add_argument("--clip-norm", type=float, default=0.0,
+                   help="global grad-norm clip (1.0 = standard GPT recipe)")
+    p.add_argument("--accum-steps", type=int, default=1,
+                   help="gradient-accumulation micro-batches per step")
+    p.add_argument("--init-ckpt", default=None,
+                   help="warm-start weights from this checkpoint")
+    p.add_argument("--eval-only", action="store_true",
+                   help="evaluate the latest checkpoint in --workdir and exit")
+    p.add_argument("--cpu", action="store_true",
+                   help="train on the CPU (the kernels' plain versions)")
+    args = p.parse_args(argv)
+    device = "cpu" if args.cpu else "cuda"
+
+    from vitrs_tpu_torch.train import loop
+
+    if args.eval_only:
+        if not args.workdir:
+            raise SystemExit("--eval-only needs --workdir")
+        import glob
+        from vitrs_tpu_torch import checkpoint as C
+        from vitrs_tpu_torch import params as P
+        from vitrs_tpu_torch.models import model as M
+        paths = sorted(glob.glob(f"{args.workdir}/ckpt_*.bin"))
+        if not paths:
+            raise SystemExit(f"no checkpoints in {args.workdir}")
+        np_params, cfg, extras = C.load_checkpoint(paths[-1])
+        M.check_supported(cfg)
+        params = P.from_numpy(np_params, cfg, loop.resolve_device(device))
+        res = loop.evaluate_gpt(cfg, params, args.data_dir, seed=args.seed)
+        print(json.dumps({"ckpt": paths[-1], "step": extras["step"], **res}))
+        return
+
+    tc = loop.TrainConfig(
+        preset=args.preset, dataset=args.dataset, data_dir=args.data_dir,
+        steps=args.steps, batch_size=args.batch_size, lr=args.lr,
+        warmup=args.warmup, weight_decay=args.weight_decay, seed=args.seed,
+        dtype=args.dtype, workdir=args.workdir, log_every=args.log_every,
+        ckpt_every=args.ckpt_every, resume=not args.no_resume,
+        init_ckpt=args.init_ckpt, log_grad_norm=args.log_grad_norm,
+        clip_norm=args.clip_norm, decay_2d_only=args.decay_2d_only,
+        accum_steps=args.accum_steps, device=device)
+    summary = loop.train(tc)
+    print("[done]", summary)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,511 @@
+// K2: flash-attention backward over packed qkv, written for Hopper (sm_90a).
+//
+// Replaces the Pallas backward kernels of vitrs_tpu/ops/flash_attention.py:
+//   _bwd_single_kernel  (one tile; launched by _bwd_single),
+//   _bwd_combined_kernel, _bwd_dkv_kernel and _bwd_dq_kernel (multi-tile;
+//   launched by _bwd_parts).
+// It computes what they compute from the forward's out and compact lse,
+// recomputing the probabilities instead of storing them, with the numerics of
+// the multi-tile bodies (_bwd_body):
+//   q^ = q * sm_scale rounded to the input type;  s = q^ . k^T in fp32;
+//   p  = exp(s - lse), 0 where masked;  di = rowsum(o * do) in fp32;
+//   ds = p * (do . v^T - di) * sm_scale;
+//   dv += p(rounded)^T . do;  dk += ds(rounded)^T . q (unscaled q);
+//   dq += ds(rounded) . k;  dq, dk, dv written in the input type.
+// (The single-tile Pallas body scales s instead of q; the two agree to fp32
+// rounding.)  TPU-shaped choices are not carried over: no 128-lane head
+// groups, no (B, H, T, 128) lane-broadcast lse, no padded T, no VMEM
+// admission estimate choosing between a combined and a split kernel.
+//
+// Three launches, FlashAttention-2's split:
+//   1. flash_bwd_di   di = rowsum(o * do) per (batch, head, row), fp32;
+//   2. dK/dV kernel   one block per (kv tile of 64 rows, head, batch); a loop
+//                     over the q tiles that see the tile (in causal mode from
+//                     the diagonal down) accumulates dk and dv in registers;
+//   3. dQ kernel      one block per (q tile of 64 rows, head, batch); a loop
+//                     over the kv tiles up to the diagonal accumulates dq.
+// Splitting dq from dk/dv recomputes p twice but needs no atomics, so the
+// result does not depend on the order blocks run in.  The ragged end is
+// masked against seq_len.
+//
+// What bounds it on the H100: like the forward, attention at T = 1024,
+// D = 64 is compute-bound; the backward does 2.5x the forward's products.
+// The bf16 instance runs all five products per tile (S, dP, dV, dK and dQ)
+// on the tensor cores with mma.sync m16n8k16 in the FlashAttention-2
+// register layout.  The dK/dV kernel computes the transposed tiles
+// S^T = K . q^^T and dP^T = V . do^T, so that each warp's 16 kv rows are the
+// A operand held in registers and P^T and dS^T go from the accumulators
+// straight into the A operand of dV += P^T . do and dK += dS^T . q without
+// touching shared memory; the dQ kernel is the forward's layout with dS in
+// place of P.  Tiles are staged in shared memory with rows padded to 72
+// elements (no bank conflicts on fragment reads).  Plain 16-byte loads, no
+// pipelining, accurate expf: wgmma, TMA and cp.async are later work.  The
+// fp32 instance (a cross-check against the plain PyTorch version at fp32
+// accuracy) uses FMA with two threads per row, each owning half of D.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+#include "mma_bf16.cuh"
+
+namespace {
+
+using namespace vitrs;
+
+constexpr int kHeadDim = 64;    // D of every GPT-2 preset; the wrapper checks it
+constexpr int kBlock = 64;      // rows per q or kv tile, mma path
+constexpr int kLd = kHeadDim + 8;  // padded smem row: 72 bf16 = 144 B
+constexpr int kFmaTile = 32;    // rows per staged tile, FMA path
+constexpr int kHalf = kHeadDim / 2;
+
+struct Args {
+  const void* q;      // q, k, v: views into the packed (B, T, 3C) qkv
+  const void* k;
+  const void* v;
+  const void* o;      // forward output (B, T, C)
+  const void* dout;   // its gradient (B, T, C)
+  const float* lse;   // (B, NH, T)
+  float* di;          // (B, NH, T) scratch, written by launch 1
+  void* dq;           // (B, T, C) each
+  void* dk;
+  void* dv;
+  long long q_sb, q_st, k_sb, k_st, v_sb, v_st;  // batch, time strides (elements)
+  long long o_sb, o_st, do_sb, do_st;
+  long long g_sb, g_st;  // strides of dq, dk and dv
+  int num_heads;
+  int seq_len;
+  int causal;
+  float sm_scale;
+};
+
+__device__ __forceinline__ long long row_of(const Args& a, int b, int h) {
+  return ((long long)b * a.num_heads + h) * a.seq_len;
+}
+
+__device__ __forceinline__ bool visible(const Args& a, int q_row, int kv_row) {
+  return q_row < a.seq_len && kv_row < a.seq_len && (!a.causal || kv_row <= q_row);
+}
+
+// ---------------------------------------------------------------------------
+// Launch 1: di = rowsum(o * do), one thread per (batch, row, head).
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void flash_bwd_di(Args a, int batch) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long total = (long long)batch * a.seq_len * a.num_heads;
+  if (idx >= total) return;
+  const int h = idx % a.num_heads;
+  const long long bt = idx / a.num_heads;
+  const int t = bt % a.seq_len;
+  const int b = bt / a.seq_len;
+  const T* o = static_cast<const T*>(a.o) + b * a.o_sb + t * a.o_st + h * kHeadDim;
+  const T* d = static_cast<const T*>(a.dout) + b * a.do_sb + t * a.do_st + h * kHeadDim;
+  float s = 0.f;
+#pragma unroll 8
+  for (int c = 0; c < kHeadDim; ++c) s = fmaf(to_f(o[c]), to_f(d[c]), s);
+  a.di[row_of(a, b, h) + t] = s;
+}
+
+// ---------------------------------------------------------------------------
+// FMA instance (fp32): two threads per row, each owning half of D; the dot
+// products over D are finished with one shuffle between the pair.
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(2 * kBlock) flash_bwd_dkv_fma(Args a) {
+  __shared__ float qh[kFmaTile][kHeadDim];   // q^ (scaled, rounded)
+  __shared__ float qu[kFmaTile][kHeadDim];   // q
+  __shared__ float ds_[kFmaTile][kHeadDim];  // do
+  __shared__ float lse_s[kFmaTile], di_s[kFmaTile];
+  const int b = blockIdx.z, h = blockIdx.y, n0 = blockIdx.x * kBlock;
+  const int j = n0 + (threadIdx.x >> 1), half = threadIdx.x & 1;
+  const int c0 = half * kHalf;
+  const bool live = j < a.seq_len;
+  const T* K = static_cast<const T*>(a.k) + b * a.k_sb + (long long)j * a.k_st + h * kHeadDim;
+  const T* V = static_cast<const T*>(a.v) + b * a.v_sb + (long long)j * a.v_st + h * kHeadDim;
+  const T* Q = static_cast<const T*>(a.q) + b * a.q_sb + h * kHeadDim;
+  const T* DO = static_cast<const T*>(a.dout) + b * a.do_sb + h * kHeadDim;
+  const long long L = row_of(a, b, h);
+
+  float kr[kHalf], vr[kHalf], dk[kHalf], dv[kHalf];
+#pragma unroll
+  for (int d = 0; d < kHalf; ++d) {
+    kr[d] = live ? to_f(K[c0 + d]) : 0.f;
+    vr[d] = live ? to_f(V[c0 + d]) : 0.f;
+    dk[d] = dv[d] = 0.f;
+  }
+  const int m_start = a.causal ? n0 : 0;
+  for (int m0 = m_start; m0 < a.seq_len; m0 += kFmaTile) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < kFmaTile * kHeadDim; i += blockDim.x) {
+      const int r = i / kHeadDim, c = i % kHeadDim, row = m0 + r;
+      const bool ok = row < a.seq_len;
+      const float x = ok ? to_f(Q[(long long)row * a.q_st + c]) : 0.f;
+      qu[r][c] = x;
+      qh[r][c] = to_f(from_f<T>(x * a.sm_scale));
+      ds_[r][c] = ok ? to_f(DO[(long long)row * a.do_st + c]) : 0.f;
+    }
+    if (threadIdx.x < kFmaTile) {
+      const int row = m0 + threadIdx.x;
+      lse_s[threadIdx.x] = row < a.seq_len ? a.lse[L + row] : 0.f;
+      di_s[threadIdx.x] = row < a.seq_len ? a.di[L + row] : 0.f;
+    }
+    __syncthreads();
+    for (int ii = 0; ii < kFmaTile; ++ii) {
+      float s = 0.f, dp = 0.f;
+#pragma unroll
+      for (int d = 0; d < kHalf; ++d) {
+        s = fmaf(qh[ii][c0 + d], kr[d], s);
+        dp = fmaf(ds_[ii][c0 + d], vr[d], dp);
+      }
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      dp += __shfl_xor_sync(0xffffffffu, dp, 1);
+      const float p = visible(a, m0 + ii, j) ? expf(s - lse_s[ii]) : 0.f;
+      const float dsv = p * (dp - di_s[ii]) * a.sm_scale;
+      const float pr = to_f(from_f<T>(p)), dsr = to_f(from_f<T>(dsv));
+#pragma unroll
+      for (int d = 0; d < kHalf; ++d) {
+        dv[d] = fmaf(pr, ds_[ii][c0 + d], dv[d]);
+        dk[d] = fmaf(dsr, qu[ii][c0 + d], dk[d]);
+      }
+    }
+  }
+  if (!live) return;
+  T* DK = static_cast<T*>(a.dk) + b * a.g_sb + (long long)j * a.g_st + h * kHeadDim + c0;
+  T* DV = static_cast<T*>(a.dv) + b * a.g_sb + (long long)j * a.g_st + h * kHeadDim + c0;
+#pragma unroll
+  for (int d = 0; d < kHalf; ++d) {
+    DK[d] = from_f<T>(dk[d]);
+    DV[d] = from_f<T>(dv[d]);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(2 * kBlock) flash_bwd_dq_fma(Args a) {
+  __shared__ float ks[kFmaTile][kHeadDim];
+  __shared__ float vs[kFmaTile][kHeadDim];
+  const int b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * kBlock;
+  const int i = m0 + (threadIdx.x >> 1), half = threadIdx.x & 1;
+  const int c0 = half * kHalf;
+  const bool live = i < a.seq_len;
+  const T* Q = static_cast<const T*>(a.q) + b * a.q_sb + (long long)i * a.q_st + h * kHeadDim;
+  const T* DO = static_cast<const T*>(a.dout) + b * a.do_sb + (long long)i * a.do_st + h * kHeadDim;
+  const T* K = static_cast<const T*>(a.k) + b * a.k_sb + h * kHeadDim;
+  const T* V = static_cast<const T*>(a.v) + b * a.v_sb + h * kHeadDim;
+  const long long L = row_of(a, b, h);
+
+  float qr[kHalf], dor[kHalf], dq[kHalf];
+#pragma unroll
+  for (int d = 0; d < kHalf; ++d) {
+    qr[d] = live ? to_f(from_f<T>(to_f(Q[c0 + d]) * a.sm_scale)) : 0.f;
+    dor[d] = live ? to_f(DO[c0 + d]) : 0.f;
+    dq[d] = 0.f;
+  }
+  const float lse = live ? a.lse[L + i] : 0.f;
+  const float di = live ? a.di[L + i] : 0.f;
+  const int kv_end = a.causal ? min(a.seq_len, m0 + kBlock) : a.seq_len;
+  for (int n0 = 0; n0 < kv_end; n0 += kFmaTile) {
+    __syncthreads();
+    for (int e = threadIdx.x; e < kFmaTile * kHeadDim; e += blockDim.x) {
+      const int r = e / kHeadDim, c = e % kHeadDim, row = n0 + r;
+      const bool ok = row < a.seq_len;
+      ks[r][c] = ok ? to_f(K[(long long)row * a.k_st + c]) : 0.f;
+      vs[r][c] = ok ? to_f(V[(long long)row * a.v_st + c]) : 0.f;
+    }
+    __syncthreads();
+    for (int jj = 0; jj < kFmaTile; ++jj) {
+      float s = 0.f, dp = 0.f;
+#pragma unroll
+      for (int d = 0; d < kHalf; ++d) {
+        s = fmaf(qr[d], ks[jj][c0 + d], s);
+        dp = fmaf(dor[d], vs[jj][c0 + d], dp);
+      }
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      dp += __shfl_xor_sync(0xffffffffu, dp, 1);
+      const float p = visible(a, i, n0 + jj) ? expf(s - lse) : 0.f;
+      const float dsr = to_f(from_f<T>(p * (dp - di) * a.sm_scale));
+#pragma unroll
+      for (int d = 0; d < kHalf; ++d) dq[d] = fmaf(dsr, ks[jj][c0 + d], dq[d]);
+    }
+  }
+  if (!live) return;
+  T* DQ = static_cast<T*>(a.dq) + b * a.g_sb + (long long)i * a.g_st + h * kHeadDim + c0;
+#pragma unroll
+  for (int d = 0; d < kHalf; ++d) DQ[d] = from_f<T>(dq[d]);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 instance: tensor cores, 4 warps x 16 rows per block.
+// ---------------------------------------------------------------------------
+
+// A fragments of 16 rows (r0 = row of g, r1 = r0 + 8) x 64 columns of a
+// row-major bf16 matrix, read from global memory; rows >= n read as 0.
+// scale != 1 multiplies in fp32 and rounds to bf16 (q^).
+__device__ __forceinline__ void load_a(uint32_t (&fa)[kHeadDim / 16][4], const bf16* base,
+                                       long long stride, int r0, int r1, int n, int t,
+                                       float scale, bool scaled) {
+#pragma unroll
+  for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = (i & 1) ? r1 : r0;
+      const int c = kk * 16 + 2 * t + ((i & 2) ? 8 : 0);
+      uint32_t x = 0u;
+      if (r < n) {
+        const __nv_bfloat162 v2 =
+            *reinterpret_cast<const __nv_bfloat162*>(base + (long long)r * stride + c);
+        x = scaled ? pack_f32(__bfloat162float(v2.x) * scale, __bfloat162float(v2.y) * scale)
+                   : *reinterpret_cast<const uint32_t*>(&v2);
+      }
+      fa[kk][i] = x;
+    }
+  }
+}
+
+// acc[nt] += A (16 x 64, fragments fa) . X^T, X = 64 rows of smem tile xs:
+// B[k][n] = xs[n][k], a row read (the forward's S = Q K^T pattern)
+__device__ __forceinline__ void mma_rows(float (&acc)[kBlock / 8][4],
+                                         const uint32_t (&fa)[kHeadDim / 16][4],
+                                         const bf16 (*xs)[kLd], int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+#pragma unroll
+    for (int nt = 0; nt < kBlock / 8; ++nt) {
+      const bf16* xr = &xs[nt * 8 + g][kk * 16 + 2 * t];
+      mma_bf16(acc[nt], fa[kk], *reinterpret_cast<const uint32_t*>(xr),
+               *reinterpret_cast<const uint32_t*>(xr + 8));
+    }
+  }
+}
+
+// acc[nt] += P (16 x 64, accumulators p) . X, X = smem tile xs (64 x 64):
+// B[k][n] = xs[k][n], a column read (the forward's O += P V pattern)
+__device__ __forceinline__ void mma_cols(float (&acc)[kHeadDim / 8][4],
+                                         const float (&p)[kBlock / 8][4],
+                                         const bf16 (*xs)[kLd], int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < kBlock / 16; ++kk) {
+    uint32_t pa[4];
+    acc_to_a(pa, p[2 * kk], p[2 * kk + 1]);
+#pragma unroll
+    for (int nt = 0; nt < kHeadDim / 8; ++nt) {
+      const bf16* xc = &xs[kk * 16 + 2 * t][nt * 8 + g];
+      mma_bf16(acc[nt], pa, pack_raw(xc[0], xc[kLd]), pack_raw(xc[8 * kLd], xc[9 * kLd]));
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i][0] = x[i][1] = x[i][2] = x[i][3] = 0.f;
+}
+
+// 64 rows x 64 bf16 from global (row stride `stride`) into smem; rows
+// >= n are zero.  scaled: also write q^ into hs.
+__device__ __forceinline__ void stage(bf16 (*xs)[kLd], bf16 (*hs)[kLd], const bf16* base,
+                                      long long stride, int r0, int n, float scale) {
+  for (int i = threadIdx.x; i < kBlock * (kHeadDim / 8); i += blockDim.x) {
+    const int r = i >> 3, c = (i & 7) * 8, row = r0 + r;
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if (row < n) x = *reinterpret_cast<const uint4*>(base + (long long)row * stride + c);
+    *reinterpret_cast<uint4*>(&xs[r][c]) = x;
+    if (hs != nullptr) {
+      const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&x);
+      uint4 y;
+      uint32_t* y32 = reinterpret_cast<uint32_t*>(&y);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        y32[e] = pack_f32(__bfloat162float(x2[e].x) * scale, __bfloat162float(x2[e].y) * scale);
+      *reinterpret_cast<uint4*>(&hs[r][c]) = y;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(128) flash_bwd_dkv_mma(Args a) {
+  __shared__ __align__(16) bf16 qs[kBlock][kLd];   // q
+  __shared__ __align__(16) bf16 qhs[kBlock][kLd];  // q^
+  __shared__ __align__(16) bf16 dos[kBlock][kLd];  // do
+  __shared__ float lse_s[kBlock], di_s[kBlock];
+  const int b = blockIdx.z, h = blockIdx.y, n0 = blockIdx.x * kBlock;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int j0 = n0 + warp * 16 + g;  // this thread's kv rows: j0 and j0 + 8
+  const int j1 = j0 + 8;
+  const bf16* Q = static_cast<const bf16*>(a.q) + b * a.q_sb + h * kHeadDim;
+  const bf16* K = static_cast<const bf16*>(a.k) + b * a.k_sb + h * kHeadDim;
+  const bf16* V = static_cast<const bf16*>(a.v) + b * a.v_sb + h * kHeadDim;
+  const bf16* DO = static_cast<const bf16*>(a.dout) + b * a.do_sb + h * kHeadDim;
+  const long long L = row_of(a, b, h);
+
+  uint32_t ka[kHeadDim / 16][4], va[kHeadDim / 16][4];
+  load_a(ka, K, a.k_st, j0, j1, a.seq_len, t, 1.f, false);
+  load_a(va, V, a.v_st, j0, j1, a.seq_len, t, 1.f, false);
+  float dk[kHeadDim / 8][4], dv[kHeadDim / 8][4];
+  zero(dk);
+  zero(dv);
+
+  const int m_start = a.causal ? n0 : 0;
+  for (int m0 = m_start; m0 < a.seq_len; m0 += kBlock) {
+    __syncthreads();
+    stage(qs, qhs, Q, a.q_st, m0, a.seq_len, a.sm_scale);
+    stage(dos, nullptr, DO, a.do_st, m0, a.seq_len, 1.f);
+    if (threadIdx.x < kBlock) {
+      const int row = m0 + threadIdx.x;
+      lse_s[threadIdx.x] = row < a.seq_len ? a.lse[L + row] : 0.f;
+      di_s[threadIdx.x] = row < a.seq_len ? a.di[L + row] : 0.f;
+    }
+    __syncthreads();
+
+    // S^T = K q^^T and dP^T = V do^T: 16 kv rows x 64 q columns per warp
+    float s[kBlock / 8][4], dp[kBlock / 8][4];
+    zero(s);
+    zero(dp);
+    mma_rows(s, ka, qhs, g, t);
+    mma_rows(dp, va, dos, g, t);
+
+    // P^T and dS^T in place: s[nt][i] is (kv row j0 or j1, q column)
+#pragma unroll
+    for (int nt = 0; nt < kBlock / 8; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int qc = nt * 8 + 2 * t + (i & 1);
+        const int j = (i & 2) ? j1 : j0;
+        const float p = visible(a, m0 + qc, j) ? expf(s[nt][i] - lse_s[qc]) : 0.f;
+        s[nt][i] = p;
+        dp[nt][i] = p * (dp[nt][i] - di_s[qc]) * a.sm_scale;
+      }
+    }
+
+    // dV += P^T do and dK += dS^T q
+    mma_cols(dv, s, dos, g, t);
+    mma_cols(dk, dp, qs, g, t);
+  }
+
+  bf16* DK = static_cast<bf16*>(a.dk) + b * a.g_sb + h * kHeadDim;
+  bf16* DV = static_cast<bf16*>(a.dv) + b * a.g_sb + h * kHeadDim;
+#pragma unroll
+  for (int nt = 0; nt < kHeadDim / 8; ++nt) {
+    const int c = nt * 8 + 2 * t;
+    if (j0 < a.seq_len) {
+      *reinterpret_cast<__nv_bfloat162*>(DK + (long long)j0 * a.g_st + c) =
+          __floats2bfloat162_rn(dk[nt][0], dk[nt][1]);
+      *reinterpret_cast<__nv_bfloat162*>(DV + (long long)j0 * a.g_st + c) =
+          __floats2bfloat162_rn(dv[nt][0], dv[nt][1]);
+    }
+    if (j1 < a.seq_len) {
+      *reinterpret_cast<__nv_bfloat162*>(DK + (long long)j1 * a.g_st + c) =
+          __floats2bfloat162_rn(dk[nt][2], dk[nt][3]);
+      *reinterpret_cast<__nv_bfloat162*>(DV + (long long)j1 * a.g_st + c) =
+          __floats2bfloat162_rn(dv[nt][2], dv[nt][3]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(128) flash_bwd_dq_mma(Args a) {
+  __shared__ __align__(16) bf16 ks[kBlock][kLd];
+  __shared__ __align__(16) bf16 vs[kBlock][kLd];
+  const int b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * kBlock;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = m0 + warp * 16 + g;  // this thread's q rows: r0 and r0 + 8
+  const int r1 = r0 + 8;
+  const bf16* Q = static_cast<const bf16*>(a.q) + b * a.q_sb + h * kHeadDim;
+  const bf16* K = static_cast<const bf16*>(a.k) + b * a.k_sb + h * kHeadDim;
+  const bf16* V = static_cast<const bf16*>(a.v) + b * a.v_sb + h * kHeadDim;
+  const bf16* DO = static_cast<const bf16*>(a.dout) + b * a.do_sb + h * kHeadDim;
+  const long long L = row_of(a, b, h);
+
+  uint32_t qa[kHeadDim / 16][4], da[kHeadDim / 16][4];
+  load_a(qa, Q, a.q_st, r0, r1, a.seq_len, t, a.sm_scale, true);
+  load_a(da, DO, a.do_st, r0, r1, a.seq_len, t, 1.f, false);
+  const float lse_a = r0 < a.seq_len ? a.lse[L + r0] : 0.f;
+  const float lse_b = r1 < a.seq_len ? a.lse[L + r1] : 0.f;
+  const float di_a = r0 < a.seq_len ? a.di[L + r0] : 0.f;
+  const float di_b = r1 < a.seq_len ? a.di[L + r1] : 0.f;
+  float dq[kHeadDim / 8][4];
+  zero(dq);
+
+  const int kv_end = a.causal ? min(a.seq_len, m0 + kBlock) : a.seq_len;
+  for (int n0 = 0; n0 < kv_end; n0 += kBlock) {
+    __syncthreads();
+    stage(ks, nullptr, K, a.k_st, n0, a.seq_len, 1.f);
+    stage(vs, nullptr, V, a.v_st, n0, a.seq_len, 1.f);
+    __syncthreads();
+
+    // S = q^ K^T and dP = do V^T: 16 q rows x 64 kv columns per warp
+    float s[kBlock / 8][4], dp[kBlock / 8][4];
+    zero(s);
+    zero(dp);
+    mma_rows(s, qa, ks, g, t);
+    mma_rows(dp, da, vs, g, t);
+#pragma unroll
+    for (int nt = 0; nt < kBlock / 8; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = n0 + nt * 8 + 2 * t + (i & 1);
+        const bool second = (i & 2) != 0;
+        const int row = second ? r1 : r0;
+        const float p =
+            visible(a, row, col) ? expf(s[nt][i] - (second ? lse_b : lse_a)) : 0.f;
+        dp[nt][i] = p * (dp[nt][i] - (second ? di_b : di_a)) * a.sm_scale;
+      }
+    }
+    // dQ += dS K
+    mma_cols(dq, dp, ks, g, t);
+  }
+
+  bf16* DQ = static_cast<bf16*>(a.dq) + b * a.g_sb + h * kHeadDim;
+#pragma unroll
+  for (int nt = 0; nt < kHeadDim / 8; ++nt) {
+    const int c = nt * 8 + 2 * t;
+    if (r0 < a.seq_len)
+      *reinterpret_cast<__nv_bfloat162*>(DQ + (long long)r0 * a.g_st + c) =
+          __floats2bfloat162_rn(dq[nt][0], dq[nt][1]);
+    if (r1 < a.seq_len)
+      *reinterpret_cast<__nv_bfloat162*>(DQ + (long long)r1 * a.g_st + c) =
+          __floats2bfloat162_rn(dq[nt][2], dq[nt][3]);
+  }
+}
+
+}  // namespace
+
+// dtype: 0 = float32 (FMA instance), 1 = bfloat16 (tensor-core instance).
+// di is fp32 scratch of batch * num_heads * seq_len floats.  Launches three
+// kernels on `stream` without synchronising; returns the first launch error.
+extern "C" int vitrs_flash_bwd(int dtype, const void* q, const void* k, const void* v,
+                               const void* o, const void* dout, const float* lse, float* di,
+                               void* dq, void* dk, void* dv, long long q_sb, long long q_st,
+                               long long k_sb, long long k_st, long long v_sb, long long v_st,
+                               long long o_sb, long long o_st, long long do_sb,
+                               long long do_st, long long g_sb, long long g_st, int batch,
+                               int num_heads, int seq_len, int causal, float sm_scale,
+                               void* stream) {
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  Args a{q,    k,    v,    o,    dout, lse,  di,   dq,   dk,        dv,
+         q_sb, q_st, k_sb, k_st, v_sb, v_st, o_sb, o_st, do_sb,     do_st,
+         g_sb, g_st, num_heads, seq_len, causal, sm_scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long rows = (long long)batch * seq_len * num_heads;
+  const unsigned di_blocks = static_cast<unsigned>((rows + 255) / 256);
+  const dim3 grid((seq_len + kBlock - 1) / kBlock, num_heads, batch);
+  if (dtype == 1) {
+    flash_bwd_di<bf16><<<di_blocks, 256, 0, s>>>(a, batch);
+  } else {
+    flash_bwd_di<float><<<di_blocks, 256, 0, s>>>(a, batch);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dtype == 1) {
+    flash_bwd_dkv_mma<<<grid, 128, 0, s>>>(a);
+  } else {
+    flash_bwd_dkv_fma<float><<<grid, 2 * kBlock, 0, s>>>(a);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dtype == 1) {
+    flash_bwd_dq_mma<<<grid, 128, 0, s>>>(a);
+  } else {
+    flash_bwd_dq_fma<float><<<grid, 2 * kBlock, 0, s>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

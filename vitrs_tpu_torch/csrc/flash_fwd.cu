@@ -35,12 +35,14 @@
 // plain PyTorch version at fp32 accuracy) does its products with FMA, one
 // thread per q row.  Times on the card are in PERF.md.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
+
+using namespace vitrs;
 
 constexpr int kHeadDim = 64;   // D of every GPT-2 preset; the wrapper checks it
 constexpr int kBlockM = 64;    // q rows per thread block
@@ -65,15 +67,6 @@ struct Args {
   int causal;
   float sm_scale;
 };
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // exclusive end of the keys any row of the block at q rows [m0, m0+kBlockM) sees
 __device__ __forceinline__ int kv_end_of(const Args& a, int m0) {
@@ -153,43 +146,9 @@ __global__ void __launch_bounds__(kBlockM) flash_fwd_fma(Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 instance: tensor cores through mma.sync.m16n8k16, 4 warps x 16 rows.
-// Fragment layout (g = lane / 4, t = lane % 4):
-//   A 16x16: a0 = A[g][2t..2t+1], a1 = A[g+8][2t..], a2 = A[g][2t+8..], a3 = A[g+8][2t+8..]
-//   B 16x8 : b0 = B[2t..2t+1][g], b1 = B[2t+8..2t+9][g]
-//   C 16x8 : c0,c1 = C[g][2t..2t+1], c2,c3 = C[g+8][2t..2t+1]
+// bf16 instance: tensor cores through mma.sync.m16n8k16, 4 warps x 16 rows
+// (fragment layouts in mma_bf16.cuh).
 // ---------------------------------------------------------------------------
-typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 __global__ void __launch_bounds__(128) flash_fwd_mma_bf16(Args a) {
   __shared__ __align__(16) bf16 ks[kBlockN][kHeadDim + kPad];
   __shared__ __align__(16) bf16 vs[kBlockN][kHeadDim + kPad];
@@ -310,10 +269,8 @@ __global__ void __launch_bounds__(128) flash_fwd_mma_bf16(Args a) {
     // fragment of key chunk kk
 #pragma unroll
     for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      const uint32_t pa[4] = {pack_f32(s[2 * kk][0], s[2 * kk][1]),
-                              pack_f32(s[2 * kk][2], s[2 * kk][3]),
-                              pack_f32(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_f32(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      uint32_t pa[4];
+      acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
       for (int nt = 0; nt < kHeadDim / 8; ++nt) {
         const bf16* vc = &vs[kk * 16 + 2 * t][nt * 8 + g];

@@ -6,10 +6,13 @@ then loaded with ctypes.  No PyTorch header is included, so a build takes
 seconds; the library is named by a hash of the sources and flags, so an
 edited source builds anew and an unchanged one is reused.  Nothing here runs
 at import time: the CPU tests import every module without a CUDA toolkit.
+`on_device` is the one rule every kernel's caller follows: the kernel for a
+CUDA tensor, its plain PyTorch version for a CPU tensor, nothing else.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import dataclasses
 import functools
@@ -80,3 +83,22 @@ def load(name: str) -> Library:
             raise RuntimeError(f"nvcc failed on {src}:\n{log}")
         os.replace(tmp, path)    # atomic: concurrent builders never see half a file
     return Library(ctypes.CDLL(path), path, seconds, log)
+
+
+def on_device(device, kernel, plain, what: str):
+    """The kernel's wrapper for a CUDA device, its plain PyTorch version for
+    the CPU; any other device raises.  There is no fallback from one to the
+    other: the wrapper itself raises on what its kernel does not take."""
+    if device.type == "cuda":
+        return kernel
+    if device.type == "cpu":
+        return plain
+    raise ValueError(f"{what}: no path for device {device}")
+
+
+def load_all(names) -> dict:
+    """`load` each of `names` (a name per `csrc/<name>.cu`), running their
+    nvcc builds at the same time.  Returns {name: Library}."""
+    names = list(names)
+    with concurrent.futures.ThreadPoolExecutor(max(1, len(names))) as ex:
+        return dict(zip(names, ex.map(load, names)))

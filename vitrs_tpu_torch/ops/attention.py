@@ -3,8 +3,11 @@
 The JAX package sends attention to its Pallas flash kernel on a TPU and to
 dense XLA elsewhere.  Here the flash path (ops/flash_attention.py) takes
 every geometry the JAX package's kernel takes: on a CUDA tensor it is the
-hand-written kernel, on a CPU tensor its plain PyTorch version.  Geometries
-the JAX kernel does not take go to dense attention in both packages.
+hand-written kernels (K1-fwd forward, K2 backward), on a CPU tensor their
+plain PyTorch versions.  Geometries the JAX kernel does not take go to
+dense attention in both packages.  Both routes are differentiable: the
+flash route through its autograd.Function, the dense route through plain
+torch autograd.
 """
 
 from __future__ import annotations

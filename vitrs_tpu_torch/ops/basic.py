@@ -1,10 +1,16 @@
-"""Core ops — the port of the forward half of `vitrs_tpu/ops/basic.py`.
+"""Core ops — the port of `vitrs_tpu/ops/basic.py`.
 
 Plain functions on tensors, with the JAX package's dtype rules: LayerNorm
 statistics in fp32, tanh-GELU in the input dtype, linear with an fp32
 accumulator and an output in the input dtype.  The matmuls are left to
 torch.matmul (cuBLAS on the card), as the JAX package left them to XLA.
-Backward passes and the quirk/CE ops come with the training slice.
+
+The JAX package's custom-VJP ops (`layernorm_cv`, `gelu_cv`,
+`gelu_erf_cv`) are autograd.Functions here with the same saved tensors and
+the same hand-written backward; everything else differentiates through
+PyTorch's autograd, as it does through jax.grad there.  The quirk ops
+(G5/G6/G11) are not ported yet: models/model.check_supported refuses
+quirks=True.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import torch
 LN_EPS = 1e-5
 GELU_COEF = 0.044715
 INV_SQRT2 = 0.7071067811865476
+INV_SQRT_2PI = 0.3989422804014327
 
 
 def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
@@ -31,6 +38,43 @@ def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     return out.to(x.dtype), mean, rstd
 
 
+def layernorm_bwd_from_stats(x: torch.Tensor, w: torch.Tensor,
+                             mean: torch.Tensor, rstd: torch.Tensor,
+                             dout: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """LN backward from the saved (mean, rstd), in fp32: (dx in x's dtype,
+    dw and db in w's dtype), reduced over every leading axis."""
+    xf, df = x.float(), dout.float()
+    norm = (xf - mean[..., None]) * rstd[..., None]
+    dnorm = df * w.float()
+    red = tuple(range(dout.dim() - 1))
+    db = df.sum(dim=red)
+    dw = (norm * df).sum(dim=red)
+    dnorm_mean = dnorm.mean(dim=-1, keepdim=True)
+    dnorm_norm_mean = (dnorm * norm).mean(dim=-1, keepdim=True)
+    dx = (dnorm - dnorm_mean - norm * dnorm_norm_mean) * rstd[..., None]
+    return dx.to(x.dtype), dw.to(w.dtype), db.to(w.dtype)
+
+
+class _LayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b):
+        out, mean, rstd = layernorm(x, w, b)
+        ctx.save_for_backward(x, w, mean, rstd)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        return layernorm_bwd_from_stats(*ctx.saved_tensors, dout)
+
+
+def layernorm_cv(x: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """LayerNorm's output with the hand-written backward: saves only
+    (x in its own dtype, w, mean, rstd) and recomputes the normalisation."""
+    return _LayerNorm.apply(x, w, b)
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """tanh-approximation GELU, computed in x's dtype as the JAX op is."""
     s = math.sqrt(2.0 / math.pi)
@@ -42,6 +86,46 @@ def gelu_erf(x: torch.Tensor) -> torch.Tensor:
     """Exact GELU 0.5·x·(1 + erf(x/√2)), in fp32, output in x's dtype."""
     xf = x.float()
     return (0.5 * xf * (1.0 + torch.erf(xf * INV_SQRT2))).to(x.dtype)
+
+def gelu_grad_local(xf: torch.Tensor) -> torch.Tensor:
+    """d gelu(x)/dx in fp32 (the analytic tanh-GELU gradient)."""
+    s = math.sqrt(2.0 / math.pi)
+    t = torch.tanh(s * (xf + GELU_COEF * xf * xf * xf))
+    sech2 = 1.0 - t * t
+    return 0.5 * (1.0 + t) + xf * 0.5 * sech2 * s * (1.0 + 3.0 * GELU_COEF * xf * xf)
+
+
+def gelu_erf_grad_local(xf: torch.Tensor) -> torch.Tensor:
+    """d gelu_erf(x)/dx in fp32: Phi(x) + x phi(x)."""
+    cdf = 0.5 * (1.0 + torch.erf(xf * INV_SQRT2))
+    pdf = INV_SQRT_2PI * torch.exp(-0.5 * xf * xf)
+    return cdf + xf * pdf
+
+
+class _Gelu(torch.autograd.Function):
+    """GELU saving only its input; the gradient is recomputed in fp32."""
+
+    @staticmethod
+    def forward(ctx, x, erf):
+        ctx.save_for_backward(x)
+        ctx.erf = erf
+        return gelu_erf(x) if erf else gelu(x)
+
+    @staticmethod
+    def backward(ctx, dout):
+        (x,) = ctx.saved_tensors
+        local = (gelu_erf_grad_local if ctx.erf else gelu_grad_local)(x.float())
+        return (local * dout.float()).to(x.dtype), None
+
+
+def gelu_cv(x: torch.Tensor) -> torch.Tensor:
+    """tanh-GELU with the hand-written backward (the JAX `gelu_cv`)."""
+    return _Gelu.apply(x, False)
+
+
+def gelu_erf_cv(x: torch.Tensor) -> torch.Tensor:
+    """erf-GELU with the hand-written backward (the JAX `gelu_erf_cv`)."""
+    return _Gelu.apply(x, True)
 
 
 def linear(x: torch.Tensor, w: torch.Tensor,
@@ -82,3 +166,19 @@ def attention_dense(qkv: torch.Tensor, num_heads: int, causal: bool = True
     att = torch.softmax(scores, dim=-1)
     out = torch.matmul(att.to(qkv.dtype).float(), v).to(qkv.dtype)
     return out.transpose(1, 2).reshape(B, T, C), att
+
+
+def cross_entropy_from_logits(logits: torch.Tensor,
+                              targets: torch.Tensor) -> torch.Tensor:
+    """-log softmax(logits)[target] per row, in fp32."""
+    lf = logits.float()
+    picked = lf.gather(-1, targets.long()[..., None])[..., 0]
+    return torch.logsumexp(lf, dim=-1) - picked
+
+
+def cross_entropy_smoothed(logits: torch.Tensor, targets: torch.Tensor,
+                           smoothing: float = 0.1) -> torch.Tensor:
+    """Label-smoothed CE: (1 - s) CE(target) + s mean-over-classes CE."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, targets.long()[..., None])[..., 0]
+    return (1.0 - smoothing) * nll + smoothing * -logp.mean(dim=-1)

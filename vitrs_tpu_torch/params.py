@@ -6,6 +6,13 @@ and matmul weights stay in (OC, C) form used as y = x @ W.T + b.  So a
 parameter dict of this package holds the same arrays, under the same names,
 as the JAX package's pytree, and `from_numpy` / `to_numpy` carry one into the
 other.
+
+`flatten_params` / `unflatten_params` map a parameter dict to the flat fp32
+vector in canonical order (the reference's params arena) and back.  Where
+the JAX package copies, `unflatten_params` returns views into the flat
+vector: a trainer keeps its parameters (and gradients) as such views, so
+that the fused AdamW runs once over the whole vector with no copy;
+`flat_base` finds that vector again from the dict.
 """
 
 from __future__ import annotations
@@ -130,3 +137,45 @@ def to_numpy(params: Mapping[str, torch.Tensor], cfg: ViTConfig
     """Inverse of `from_numpy`: f32 numpy arrays in canonical order."""
     return {name: params[name].detach().to("cpu", torch.float32).numpy()
             for name in tensor_order(cfg)}
+
+
+def flatten_params(params: Mapping[str, torch.Tensor], cfg: ViTConfig
+                   ) -> torch.Tensor:
+    """A new flat 1-D fp32 tensor in canonical order, on the params' device."""
+    return torch.cat([params[n].detach().to(torch.float32).reshape(-1)
+                      for n in tensor_order(cfg)])
+
+
+def unflatten_params(flat: torch.Tensor, cfg: ViTConfig
+                     ) -> Dict[str, torch.Tensor]:
+    """The parameter dict as views into `flat` (canonical order and shapes);
+    copies instead where cfg.param_dtype is not flat's dtype."""
+    shapes = param_shapes(cfg)
+    dtype = getattr(torch, cfg.param_dtype)
+    out, off = {}, 0
+    for n in tensor_order(cfg):
+        size = int(np.prod(shapes[n]))
+        out[n] = flat[off:off + size].view(shapes[n]).to(dtype)
+        off += size
+    if off != flat.shape[0]:
+        raise ValueError(f"flat vector of {flat.shape[0]} values, the config "
+                         f"has {off} parameters")
+    return out
+
+
+def flat_base(params: Mapping[str, torch.Tensor], cfg: ViTConfig
+              ) -> Optional[torch.Tensor]:
+    """The flat fp32 vector that `params` are views into, in canonical order
+    with nothing between them (as `unflatten_params` makes them), or None."""
+    base = params[CANONICAL_16[0]]._base
+    if (base is None or base.dim() != 1 or base.dtype != torch.float32
+            or base.shape[0] != num_parameters(cfg) or not base.is_contiguous()):
+        return None
+    off = base.storage_offset()
+    for n in tensor_order(cfg):
+        t = params[n]
+        if (t._base is not base or t.storage_offset() != off
+                or not t.is_contiguous()):
+            return None
+        off += t.numel()
+    return base

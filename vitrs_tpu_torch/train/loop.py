@@ -1,0 +1,254 @@
+"""Training loop — the port of `vitrs_tpu/train/loop.py` for gpt mode,
+AdamW, one device.
+
+    init or resume -> loop { batch; cosine lr; train step; log; checkpoint }
+    -> final checkpoint -> held-out val loss
+
+* The parameters live as views into one flat fp32 vector on the device
+  (`params.unflatten_params`), so the step's fused AdamW (K7) updates them
+  in place with no flatten copy (parallel/data_parallel.py).
+* The log line per `log_every` steps is JSON: step, loss, lr, sequences/s
+  (`imgs_per_sec`, the JAX loop's name), tok/s and, on a CUDA device, MFU
+  against its peak (utils/flops.py; an unknown card raises; null on the
+  CPU, which has no peak to hold a run against).  Reading the
+  loss there is the loop's only synchronisation with the device.
+* Checkpoints (params, flat m/v, step, seed, data cursor) every
+  `ckpt_every` steps and at the end, in the format both packages read; a run
+  resumes from the latest in `workdir`.  With no `workdir` a run writes to
+  a fresh directory under `tempfile.gettempdir()` (which honours TMPDIR)
+  and so never resumes another run's checkpoint.
+
+What the JAX loop also does and this slice does not yet raises
+NotImplementedError naming its ROADMAP.md Queue 1 item: vit presets and
+mixup (5), EMA (12), Muon and Adafactor (13), async checkpoints (17), a
+mesh (18).  Its other options (remat, profiler traces, RandAugment, model
+overrides, run_steps) are not in this TrainConfig yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import glob
+import json
+import os
+import tempfile
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import checkpoint as ckpt_io
+from .. import params as PRM
+from ..config import ViTConfig, get_config
+from ..data import tokens as TOK
+from ..models import model as M
+from ..ops import optimizer as opt
+from ..parallel import data_parallel as dp
+from ..utils import flops as F
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    """The JAX TrainConfig's fields that a gpt-mode AdamW run on one device
+    reads, with its defaults except: preset (a GPT preset here) and
+    async_ckpt (off); `device` is the port's own.  mesh, optimizer,
+    ema_decay, mixup_alpha and async_ckpt are kept so that asking for them
+    raises, naming their ROADMAP item."""
+    preset: str = "gpt2-124m"
+    dataset: str = "cifar10"       # gpt mode reads tokens; a non-empty
+                                   # dataset asks for the final val loss
+    data_dir: Optional[str] = None  # an llm.c uint16 token file, else the
+                                    # synthetic stream
+    steps: int = 1000
+    batch_size: int = 128
+    lr: float = 1e-3
+    warmup: int = 100
+    weight_decay: float = 0.05
+    min_lr: float = 1e-5
+    seed: int = 0
+    dtype: str = "bfloat16"
+    log_every: int = 20
+    ckpt_every: int = 500
+    workdir: str = ""              # "" = a fresh temporary directory
+    resume: bool = True
+    init_ckpt: Optional[str] = None  # warm-start weights; step/cursor not
+                                     # loaded — fresh schedule
+    log_grad_norm: bool = False
+    clip_norm: float = 0.0         # 0 = off; 1.0 = the standard GPT recipe
+    decay_2d_only: bool = False    # the JAX package's ">= 2 axes" decay rule
+    accum_steps: int = 1           # micro-batches per step
+    mesh: str = ""
+    optimizer: str = "adamw"
+    ema_decay: float = 0.0
+    mixup_alpha: float = 0.0
+    async_ckpt: bool = False
+    device: str = "cuda"           # "cuda" (never falls back) or "cpu"
+
+
+def _check_supported(tc: TrainConfig) -> None:
+    unported = (
+        (tc.mesh, "--mesh: ROADMAP.md Queue 1 item 18"),
+        (tc.optimizer != "adamw",
+         f"optimizer {tc.optimizer}: ROADMAP.md Queue 1 item 13"),
+        (tc.ema_decay > 0.0, "EMA: ROADMAP.md Queue 1 item 12 (ops/ema.py)"),
+        (tc.mixup_alpha > 0.0, "mixup (vit mode): ROADMAP.md Queue 1 item 5"),
+        (tc.async_ckpt,
+         "async checkpoints: ROADMAP.md Queue 1 item 17 (checkpoint_async.py)"),
+    )
+    for cond, what in unported:
+        if cond:
+            raise NotImplementedError(what)
+
+
+def resolve_device(name: str) -> torch.device:
+    """torch.device(name); a CUDA device must exist (no fallback)."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass --cpu (device='cpu') to "
+                           "train on the CPU")
+    return device
+
+
+def device_kind(device: torch.device) -> str:
+    return (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else device.type)
+
+
+def _latest_ckpt(workdir: str) -> Optional[str]:
+    paths = sorted(glob.glob(os.path.join(workdir, "ckpt_*.bin")))
+    return paths[-1] if paths else None
+
+
+def _loss_on(cfg: ViTConfig, params, xb, yb, device) -> float:
+    with torch.no_grad():
+        return float(M.loss_fn(params, torch.as_tensor(xb, device=device).long(),
+                               torch.as_tensor(yb, device=device).long(), cfg))
+
+
+def evaluate_gpt(cfg: ViTConfig, params, data_dir: Optional[str] = None,
+                 seed: int = 0, batch: int = 16, max_batches: int = 8) -> dict:
+    """Held-out val loss and perplexity over the TokenLoader holdout
+    windows (the split training never wraps into).  params: a tensor dict;
+    batches go to the device of its wte."""
+    stream = TOK.get_tokens(data_dir, cfg.vocab_size, seed=seed)
+    total_w = (len(stream) - 1) // cfg.max_seq_len
+    holdout = TOK.default_holdout(total_w)
+    batch = min(batch, holdout)
+    val = TOK.TokenLoader(stream, batch, cfg.max_seq_len, holdout=holdout,
+                          val=True)
+    device = params["wte"].device
+    n = min(max_batches, max(1, holdout // batch))
+    losses = [_loss_on(cfg, params, *val.next_batch(), device)
+              for _ in range(n)]
+    mean = float(np.mean(losses))
+    return {"val_loss": mean, "ppl": float(np.exp(min(mean, 20.0))),
+            "windows": n * batch}
+
+
+def train(tc: TrainConfig) -> dict:
+    _check_supported(tc)
+    device = resolve_device(tc.device)
+    cfg = get_config(tc.preset, dtype=tc.dtype)
+    M.check_supported(cfg)
+    workdir = tc.workdir or tempfile.mkdtemp(prefix="vitrs_torch_run_")
+    os.makedirs(workdir, exist_ok=True)
+    print(f"[workdir] {workdir}")
+    mesh = dp.make_mesh(devices=[device])
+    kind = device_kind(device)
+    n = PRM.num_parameters(cfg)
+
+    # ---- init or resume ----------------------------------------------------
+    start_step, cursor = 0, 0
+    m_full = v_full = None
+    latest = _latest_ckpt(workdir) if tc.resume else None
+    if latest:
+        np_params, _, extras = ckpt_io.load_checkpoint(latest, cfg)
+        params = PRM.from_numpy(np_params, cfg)
+        start_step, cursor = extras["step"], extras["cursor"]
+        m_full, v_full = extras["m"], extras["v"]
+        print(f"[resume] {latest} at step {start_step}, cursor {cursor}")
+    elif tc.init_ckpt:
+        np_params, _, _ = ckpt_io.load_checkpoint(tc.init_ckpt, cfg)
+        params = PRM.from_numpy(np_params, cfg)
+        print(f"[init] warm start from {tc.init_ckpt}")
+    else:
+        params = PRM.init_params(cfg, torch.Generator().manual_seed(tc.seed))
+    # the flat arena: params are views into one fp32 vector on the device
+    params = PRM.unflatten_params(
+        PRM.flatten_params(params, cfg).to(device), cfg)
+
+    def state(flat):
+        if flat is None:
+            return torch.zeros(n, dtype=torch.float32, device=device)
+        return torch.as_tensor(np.asarray(flat, np.float32), device=device)
+
+    m, v = state(m_full), state(v_full)
+    step_fn = dp.make_dp_train_step(cfg, mesh, accum_steps=tc.accum_steps,
+                                    return_grad_norm=tc.log_grad_norm,
+                                    clip_norm=tc.clip_norm,
+                                    decay_2d_only=tc.decay_2d_only)
+
+    # ---- data ---------------------------------------------------------------
+    stream = TOK.get_tokens(tc.data_dir, cfg.vocab_size, seed=tc.seed)
+    total_w = (len(stream) - 1) // cfg.max_seq_len
+    loader = TOK.TokenLoader(stream, tc.batch_size, cfg.max_seq_len,
+                             cursor=cursor, holdout=TOK.default_holdout(total_w))
+
+    flops_per_seq = F.train_flops_per_example(cfg)
+    peak = F.peak_flops(kind, cfg.dtype) if device.type == "cuda" else None
+    summary = {"workdir": workdir}
+
+    def save(step):
+        # cursor = sequences consumed by completed steps
+        consumed = cursor + (step - start_step) * tc.batch_size
+        ckpt_io.save_checkpoint(
+            os.path.join(workdir, f"ckpt_{step:08d}.bin"), params, cfg,
+            m=m[:n], v=v[:n], step=step, seed=tc.seed, cursor=consumed)
+
+    stop_step = tc.steps
+    loss = None
+    with open(os.path.join(workdir, "metrics.jsonl"), "a") as log_f:
+        t_last, seqs_since = time.perf_counter(), 0
+        for step in range(start_step + 1, stop_step + 1):
+            inputs, targets = loader.next_batch()
+            lr = opt.cosine_lr_host(step, tc.lr, tc.warmup, tc.steps,
+                                    tc.min_lr)
+            outs = step_fn(params, m, v, inputs, targets, step, lr,
+                           tc.weight_decay)
+            params, m, v, loss = outs[:4]
+            gnorm = outs[4] if tc.log_grad_norm else None
+            seqs_since += tc.batch_size
+            if step % tc.log_every == 0 or step == tc.steps:
+                loss_val = float(loss)      # waits for the device
+                now = time.perf_counter()
+                sps = seqs_since / (now - t_last)
+                rec = {"step": step, "loss": round(loss_val, 5),
+                       "lr": round(float(lr), 7),
+                       "imgs_per_sec": round(sps, 1),
+                       "tok_per_sec": round(sps * cfg.max_seq_len, 1),
+                       "mfu": (round(sps * flops_per_seq / peak, 4)
+                               if peak else None),
+                       "device": kind}
+                if gnorm is not None:
+                    rec["grad_norm"] = round(float(gnorm), 5)
+                print("[train] " + json.dumps(rec))
+                log_f.write(json.dumps(rec) + "\n")
+                log_f.flush()
+                if not np.isfinite(loss_val):
+                    raise FloatingPointError(f"loss diverged at step {step}")
+                t_last, seqs_since = time.perf_counter(), 0
+            if tc.ckpt_every and step % tc.ckpt_every == 0:
+                save(step)
+    if stop_step > start_step:
+        save(stop_step)
+        summary["final_loss"] = float(loss)
+    if tc.dataset and stop_step == tc.steps:
+        # val loss over the reserved holdout windows
+        val = TOK.TokenLoader(loader.tokens, min(tc.batch_size, 16),
+                              cfg.max_seq_len, holdout=loader.holdout,
+                              val=True)
+        summary["eval"] = {"val_loss": _loss_on(cfg, params,
+                                                *val.next_batch(), device)}
+        print("[eval] " + json.dumps(summary["eval"]))
+    return summary

@@ -1,41 +1,71 @@
-"""The flat model API — the port of `vitrs_tpu/vit.py`, inference half.
+"""The flat model API — the port of `vitrs_tpu/vit.py` (gpt mode).
 
+Keeps the reference's five-call surface:
     build_from_checkpoint / from_config
-    forward(inputs)            -> -1.0, logits in .logits (inference mode)
-    save_checkpoint(path)
+    forward(inputs, targets) -> mean_loss
+    backward()
+    optimizer_step(lr)
+    save_checkpoint / load_checkpoint
+plus `train_step`, forward + backward + AdamW in one call.
 
-forward with targets, backward and optimizer_step come with the
-training slice (ROADMAP.md Queue 1 item 6) and raise NotImplementedError
-until then.
+Semantics kept from the reference, as in the JAX package:
+  * forward with no targets is inference mode and returns mean_loss = -1.0;
+  * grads accumulate with += across backward() calls and are cleared with
+    zero_grad() between steps;
+  * optimizer state m/v mirrors the parameter dict in fp32; a checkpoint
+    holds it as the flat vectors of num_parameters floats.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Dict, Mapping, Optional
 
+import numpy as np
 import torch
 
 from . import checkpoint as ckpt_io
 from . import params as P
 from .config import ViTConfig, get_config
 from .models import model as M
-
-_TRAINING = "training: ROADMAP.md Queue 1 item 6 (ops/optimizer.py + vit.py)"
+from .ops import optimizer as opt
 
 
 class ViT:
     def __init__(self, cfg: ViTConfig, params: Mapping[str, torch.Tensor],
-                 step: int = 0, seed: int = 0):
+                 step: int = 0, seed: int = 0,
+                 m: Optional[np.ndarray] = None,
+                 v: Optional[np.ndarray] = None):
         self.config = cfg.validate()
-        self.params = {k: v.detach() for k, v in params.items()}
-        # the forward's weights, cast once to the compute dtype
-        self._compute = M.prepare_params(self.params, self.config)
-        self.device = self.params["wte"].device
+        M.check_supported(self.config)
+        self.device = params["wte"].device
+        self._set_params({k: p.detach() for k, p in params.items()})
         self.num_parameters = P.num_parameters(cfg)
+        self.m = self._state(m)
+        self.v = self._state(v)
         self.step = step
         self.seed = seed
+        self.grads: Optional[Dict[str, torch.Tensor]] = None
         self.mean_loss = -1.0
         self.logits: Optional[torch.Tensor] = None
+        self._inputs: Optional[torch.Tensor] = None
+        self._targets: Optional[torch.Tensor] = None
+
+    def _set_params(self, params: Dict[str, torch.Tensor]):
+        self.params = params
+        # the forward's weights, cast once to the compute dtype
+        self._compute = M.prepare_params(params, self.config)
+
+    def _state(self, flat) -> Dict[str, torch.Tensor]:
+        """AdamW state as a dict mirroring params: zeros, or a flat vector
+        from a checkpoint cut into tensors."""
+        if flat is None:
+            return {k: torch.zeros(p.shape, dtype=torch.float32,
+                                   device=self.device)
+                    for k, p in self.params.items()}
+        flat = torch.as_tensor(np.asarray(flat, np.float32), device=self.device)
+        return P.unflatten_params(flat, self.config)
+
+    # -- construction -------------------------------------------------------
 
     @classmethod
     def from_config(cls, cfg_or_name, seed: int = 0,
@@ -60,26 +90,104 @@ class ViT:
         if overrides:
             cfg = cfg.replace(**overrides).validate()
         return cls(cfg, P.from_numpy(np_params, cfg, device),
-                   step=extras["step"], seed=extras["seed"])
+                   step=extras["step"], seed=extras["seed"], m=extras["m"],
+                   v=extras["v"])
+
+    # -- the reference's five-call API ---------------------------------------
+
+    def _tokens(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=torch.long, device=self.device)
 
     def forward(self, inputs, targets=None) -> float:
-        """Inference mode: fills self.logits (B, T, V) and returns -1.0, the
-        reference's no-target sentinel (rusty_vit.rs:348-350)."""
-        if targets is not None:
-            raise NotImplementedError(f"forward with targets: {_TRAINING}")
-        tokens = torch.as_tensor(inputs, dtype=torch.long, device=self.device)
-        self.logits = M.gpt_forward(self._compute, tokens, self.config)
-        self.mean_loss = -1.0
+        """Fills self.logits (B, T, V); returns the mean loss, or -1.0 in
+        inference mode (no targets), the reference's sentinel
+        (rusty_vit.rs:348-350).  Logits and loss come from one pass."""
+        self._inputs = self._tokens(inputs)
+        self._targets = None if targets is None else self._tokens(targets)
+        with torch.no_grad():
+            if targets is None:
+                self.logits = M.gpt_forward(self._compute, self._inputs,
+                                            self.config)
+                self.mean_loss = -1.0
+            else:
+                self.logits, loss = M.forward_with_loss(
+                    self._compute, self._inputs, self._targets, self.config)
+                self.mean_loss = float(loss)
         return self.mean_loss
 
-    def backward(self):
-        raise NotImplementedError(f"backward: {_TRAINING}")
+    def _loss_and_grads(self, inputs: torch.Tensor, targets: torch.Tensor):
+        leaves = {k: p.detach().requires_grad_(True)
+                  for k, p in self.params.items()}
+        loss = M.loss_fn(leaves, inputs, targets, self.config)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.detach(), dict(zip(leaves, grads))
+
+    def zero_grad(self):
+        self.grads = None
+
+    def backward(self) -> Dict[str, torch.Tensor]:
+        """Gradients at the last forward's (inputs, targets), added += into
+        self.grads like the reference's arena (zero_grad clears them)."""
+        if self._targets is None:
+            raise RuntimeError("backward requires a forward with targets")
+        loss, grads = self._loss_and_grads(self._inputs, self._targets)
+        self.mean_loss = float(loss)
+        if self.grads is None:
+            self.grads = grads
+        else:
+            self.grads = {k: self.grads[k] + g for k, g in grads.items()}
+        return self.grads
 
     def optimizer_step(self, lr: float, optimizer: str = "adamw",
                        weight_decay: float = 0.0):
-        raise NotImplementedError(f"optimizer_step: {_TRAINING}")
+        """"sgd": the reference-as-written update over the flat arena
+        (train_vit.rs:737-743); anything else: AdamW per tensor."""
+        if self.grads is None:
+            raise RuntimeError("call backward() first")
+        cfg = self.config
+        if optimizer == "sgd":
+            flat_p = P.flatten_params(self.params, cfg)
+            opt.sgd_step(flat_p, P.flatten_params(self.grads, cfg), lr)
+            self._set_params(P.unflatten_params(flat_p, cfg))
+        else:
+            self.step += 1
+            params, self.m, self.v = opt.adamw_tree(
+                self.params, self.grads, self.m, self.v, self.step, lr,
+                weight_decay=weight_decay)
+            self._set_params(params)
 
-    def save_checkpoint(self, path: str):
-        """Parameters only (no optimizer state: none exists yet)."""
-        ckpt_io.save_checkpoint(path, self.params, self.config,
-                                step=self.step, seed=self.seed)
+    # -- forward + backward + update in one call -------------------------------
+
+    def train_step(self, inputs, targets, lr: float,
+                   weight_decay: float = 0.0) -> float:
+        """forward + backward + AdamW; returns the loss before the update."""
+        self.step += 1
+        loss, grads = self._loss_and_grads(self._tokens(inputs),
+                                           self._tokens(targets))
+        params, self.m, self.v = opt.adamw_tree(
+            self.params, grads, self.m, self.v, self.step, lr,
+            weight_decay=weight_decay)
+        self._set_params(params)
+        self.mean_loss = float(loss)
+        return self.mean_loss
+
+    # -- checkpoint ------------------------------------------------------------
+
+    def save_checkpoint(self, path: str, with_opt: bool = True,
+                        cursor: int = 0):
+        """Parameters, and the AdamW state as flat m/v unless with_opt is
+        False."""
+        cfg = self.config
+        ckpt_io.save_checkpoint(
+            path, self.params, cfg,
+            m=P.flatten_params(self.m, cfg) if with_opt else None,
+            v=P.flatten_params(self.v, cfg) if with_opt else None,
+            step=self.step, seed=self.seed, cursor=cursor)
+
+    def load_checkpoint(self, path: str):
+        np_params, cfg, extras = ckpt_io.load_checkpoint(path, self.config)
+        self._set_params(P.from_numpy(np_params, cfg, self.device))
+        self.step = extras["step"]
+        if extras["m"] is not None:
+            self.m = self._state(extras["m"])
+            self.v = self._state(extras["v"])
