@@ -5,7 +5,8 @@ These need an NVIDIA GPU with sm_90a and nvcc: each test skips without a
 CUDA device (decided inside the `cuda` fixture, never at import).  Run them
 on the card with
     python -m pytest tests/test_torch_flash_cuda.py -q
-Tolerances as in chip_smoke.py: bf16 out 2e-2, lse 1e-3; fp32 1e-5."""
+Tolerances as in chip_smoke.py: out as its `out_errors`
+(tests/flash_tolerance.py), lse 1e-4 bf16 and 1e-5 fp32."""
 
 import numpy as np
 import pytest
@@ -13,7 +14,9 @@ import torch
 
 from vitrs_tpu_torch.ops import flash_attention as FA
 
-TOL = {torch.bfloat16: (2e-2, 1e-3), torch.float32: (1e-5, 1e-5)}
+from flash_tolerance import assert_out_close
+
+LSE_TOL = {torch.bfloat16: 1e-4, torch.float32: 1e-5}
 
 
 @pytest.fixture
@@ -37,10 +40,8 @@ def test_kernel_matches_plain(cuda, dtype, T, causal):
     ref, ref_lse = FA.flash_fwd_plain(q, k, v, NH, causal, 0.125)
     torch.cuda.synchronize()
     assert FA.flash_fwd_cuda.launches == before + 1
-    out_tol, lse_tol = TOL[dtype]
-    torch.testing.assert_close(out.float(), ref.float(), rtol=out_tol,
-                               atol=out_tol)
-    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=lse_tol)
+    assert_out_close(out, ref)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=LSE_TOL[dtype])
 
 
 def test_kernel_refuses_other_head_dims(cuda):

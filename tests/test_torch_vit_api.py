@@ -33,7 +33,7 @@ def jax_model(tmp_path_factory):
 def test_build_from_jax_checkpoint_forward_matches(jax_model):
     jm, path = jax_model
     toks = _toks(0)
-    m = ViT.build_from_checkpoint(path)
+    m = ViT.build_from_checkpoint(path, device="cpu")
     assert m.config.channels == 128 and m.num_parameters == jm.num_parameters
     assert m.forward(toks) == -1.0 and m.mean_loss == -1.0
     np.testing.assert_allclose(m.logits.numpy(), np.asarray(jm.logits),
@@ -42,7 +42,7 @@ def test_build_from_jax_checkpoint_forward_matches(jax_model):
 
 def test_port_checkpoint_loads_in_jax(tmp_path):
     path = str(tmp_path / "t.bin")
-    m = ViT.from_config(TCFG, seed=1)
+    m = ViT.from_config(TCFG, seed=1, device="cpu")
     m.save_checkpoint(path)
     jm = JaxViT.build_from_checkpoint(path)
     toks = _toks(1)
@@ -53,17 +53,30 @@ def test_port_checkpoint_loads_in_jax(tmp_path):
 
 
 def test_from_config_is_seeded_and_validates():
-    a, b = ViT.from_config(TCFG, seed=2), ViT.from_config(TCFG, seed=2)
+    a, b = (ViT.from_config(TCFG, seed=2, device="cpu") for _ in range(2))
     assert all(torch.equal(a.params[k], b.params[k]) for k in a.params)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ViT.from_config("vit-tiny-4-cifar10", num_layers=1)
+        ViT.from_config("vit-tiny-4-cifar10", num_layers=1, device="cpu")
+
+
+def test_entry_points_need_a_card_unless_asked_for_the_cpu(jax_model,
+                                                         monkeypatch):
+    """from_config and build_from_checkpoint run on the card by default and
+    raise when torch sees none; device="cpu" is the caller's choice."""
+    _, path = jax_model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ViT.from_config(TCFG, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ViT.build_from_checkpoint(path)
+    assert ViT.build_from_checkpoint(path, device="cpu").device.type == "cpu"
 
 
 def test_training_calls_raise_until_the_training_slice():
     """The training slice is in: the calls run in gpt mode, raise when
     called out of order, and vit mode still raises naming its ROADMAP
     item."""
-    m = ViT.from_config(TCFG, seed=3)
+    m = ViT.from_config(TCFG, seed=3, device="cpu")
     toks = _toks(3)
     with pytest.raises(RuntimeError, match="forward with targets"):
         m.backward()
@@ -92,7 +105,7 @@ def test_cli_from_checkpoint_with_trained_tokenizer(tmp_path, capsys):
     corpus.write_text("hello world, hello there " * 30, encoding="utf-8")
     cfg = TCFG.replace(vocab_size=300)
     ckpt = str(tmp_path / "m.bin")
-    ViT.from_config(cfg, seed=4).save_checkpoint(ckpt)
+    ViT.from_config(cfg, seed=4, device="cpu").save_checkpoint(ckpt)
     cli.main(["--ckpt", ckpt, "--device", "cpu", "--train-tokenizer",
               str(corpus), "--vocab-size", "290", "-p", "hello",
               "--max-new", "5", "--chunk", "2", "--echo"])
@@ -103,7 +116,7 @@ def test_cli_from_checkpoint_with_trained_tokenizer(tmp_path, capsys):
 def test_jax_preset_init_differs_but_layout_matches(jax_model):
     """Same seed, other generator: different numbers, same layout."""
     jm, _ = jax_model
-    m = ViT.from_config(TCFG, seed=0)
+    m = ViT.from_config(TCFG, seed=0, device="cpu")
     assert list(m.params) == list(jm.params)
     for k, v in m.params.items():
         assert tuple(v.shape) == jm.params[k].shape

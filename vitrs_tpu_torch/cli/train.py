@@ -9,6 +9,7 @@ ported yet (ROADMAP.md Queue 1).
 Examples:
   vitrs-train-torch --preset gpt2-124m --steps 1000 --batch-size 8 --workdir run1
   vitrs-train-torch --preset gpt-nano --cpu --steps 3 --batch-size 4
+  vitrs-train-torch --preset gpt2-124m --kv-heads 4 --steps 100 --batch-size 8
   vitrs-train-torch --preset gpt2-124m --eval-only --workdir run1
 
 Checkpoints and metrics go to --workdir, and a run resumes from the latest
@@ -52,6 +53,8 @@ def main(argv=None):
                    help="global grad-norm clip (1.0 = standard GPT recipe)")
     p.add_argument("--accum-steps", type=int, default=1,
                    help="gradient-accumulation micro-batches per step")
+    p.add_argument("--kv-heads", type=int, default=0,
+                   help="GQA/MQA K/V head count (0 = MHA)")
     p.add_argument("--init-ckpt", default=None,
                    help="warm-start weights from this checkpoint")
     p.add_argument("--eval-only", action="store_true",
@@ -70,12 +73,13 @@ def main(argv=None):
         from vitrs_tpu_torch import checkpoint as C
         from vitrs_tpu_torch import params as P
         from vitrs_tpu_torch.models import model as M
+        from vitrs_tpu_torch.ops._build import resolve_device
         paths = sorted(glob.glob(f"{args.workdir}/ckpt_*.bin"))
         if not paths:
             raise SystemExit(f"no checkpoints in {args.workdir}")
         np_params, cfg, extras = C.load_checkpoint(paths[-1])
         M.check_supported(cfg)
-        params = P.from_numpy(np_params, cfg, loop.resolve_device(device))
+        params = P.from_numpy(np_params, cfg, resolve_device(device))
         res = loop.evaluate_gpt(cfg, params, args.data_dir, seed=args.seed)
         print(json.dumps({"ckpt": paths[-1], "step": extras["step"], **res}))
         return
@@ -88,7 +92,7 @@ def main(argv=None):
         ckpt_every=args.ckpt_every, resume=not args.no_resume,
         init_ckpt=args.init_ckpt, log_grad_norm=args.log_grad_norm,
         clip_norm=args.clip_norm, decay_2d_only=args.decay_2d_only,
-        accum_steps=args.accum_steps, device=device)
+        accum_steps=args.accum_steps, kv_heads=args.kv_heads, device=device)
     summary = loop.train(tc)
     print("[done]", summary)
 

@@ -1,9 +1,14 @@
-// K2: flash-attention backward over packed qkv, written for Hopper (sm_90a).
+// K2 and K3-bwd: the flash-attention backward, written for Hopper (sm_90a).
 //
-// Replaces the Pallas backward kernels of vitrs_tpu/ops/flash_attention.py:
-//   _bwd_single_kernel  (one tile; launched by _bwd_single),
-//   _bwd_combined_kernel, _bwd_dkv_kernel and _bwd_dq_kernel (multi-tile;
-//   launched by _bwd_parts).
+// Replaces the Pallas backward kernels, one function at two geometries:
+//   K2      vitrs_tpu/ops/flash_attention.py  _bwd_single_kernel (one tile;
+//           launched by _bwd_single), _bwd_combined_kernel, _bwd_dkv_kernel
+//           and _bwd_dq_kernel (multi-tile; launched by _bwd_parts): MHA;
+//   K3-bwd  vitrs_tpu/ops/flash_attention_gqa.py  _bwd_single and
+//           _bwd_parts (the same tile kernels at GQA geometry): k/v, dk and
+//           dv at kv_dim = kv_heads * D width, dk/dv summed over each kv
+//           head's group of R = num_heads / kv_heads query heads in the
+//           kernel.
 // It computes what they compute from the forward's out and compact lse,
 // recomputing the probabilities instead of storing them, with the numerics of
 // the multi-tile bodies (_bwd_body):
@@ -15,18 +20,25 @@
 // (The single-tile Pallas body scales s instead of q; the two agree to fp32
 // rounding.)  TPU-shaped choices are not carried over: no 128-lane head
 // groups, no (B, H, T, 128) lane-broadcast lse, no padded T, no VMEM
-// admission estimate choosing between a combined and a split kernel.
+// admission estimate choosing between a combined and a split kernel, no
+// phantom kv lanes.
 //
 // Three launches, FlashAttention-2's split:
-//   1. flash_bwd_di   di = rowsum(o * do) per (batch, head, row), fp32;
-//   2. dK/dV kernel   one block per (kv tile of 64 rows, head, batch); a loop
-//                     over the q tiles that see the tile (in causal mode from
-//                     the diagonal down) accumulates dk and dv in registers;
-//   3. dQ kernel      one block per (q tile of 64 rows, head, batch); a loop
-//                     over the kv tiles up to the diagonal accumulates dq.
+//   1. flash_bwd_di   di = rowsum(o * do) per (batch, query head, row), fp32;
+//   2. dK/dV kernel   one block per (kv tile of 64 rows, kv head, batch); a
+//                     loop over the R query heads of the kv head's group and,
+//                     inside it, over the q tiles that see the tile (in
+//                     causal mode from the diagonal down) accumulates dk and
+//                     dv in registers, so they leave the kernel already
+//                     summed over the group, at kv width;
+//   3. dQ kernel      one block per (q tile of 64 rows, query head, batch);
+//                     a loop over the kv tiles (of kv head h / R) up to the
+//                     diagonal accumulates dq.
 // Splitting dq from dk/dv recomputes p twice but needs no atomics, so the
-// result does not depend on the order blocks run in.  The ragged end is
-// masked against seq_len.
+// result does not depend on the order blocks run in; the group sum needs
+// none either, and no (B, T, C)-wide dk/dv ever exists.  The ragged end is
+// masked against seq_len.  dq has its own strides, dk and dv theirs (they
+// are kv_dim wide under GQA).
 //
 // What bounds it on the H100: like the forward, attention at T = 1024,
 // D = 64 is compute-bound; the backward does 2.5x the forward's products.
@@ -66,13 +78,15 @@ struct Args {
   const void* dout;   // its gradient (B, T, C)
   const float* lse;   // (B, NH, T)
   float* di;          // (B, NH, T) scratch, written by launch 1
-  void* dq;           // (B, T, C) each
-  void* dk;
+  void* dq;           // (B, T, C)
+  void* dk;           // (B, T, kv_dim) each
   void* dv;
   long long q_sb, q_st, k_sb, k_st, v_sb, v_st;  // batch, time strides (elements)
   long long o_sb, o_st, do_sb, do_st;
-  long long g_sb, g_st;  // strides of dq, dk and dv
+  long long dq_sb, dq_st;    // strides of dq
+  long long dkv_sb, dkv_st;  // strides of dk and dv
   int num_heads;
+  int group;          // query heads per kv head: num_heads / kv_heads
   int seq_len;
   int causal;
   float sm_scale;
@@ -116,15 +130,12 @@ __global__ void __launch_bounds__(2 * kBlock) flash_bwd_dkv_fma(Args a) {
   __shared__ float qu[kFmaTile][kHeadDim];   // q
   __shared__ float ds_[kFmaTile][kHeadDim];  // do
   __shared__ float lse_s[kFmaTile], di_s[kFmaTile];
-  const int b = blockIdx.z, h = blockIdx.y, n0 = blockIdx.x * kBlock;
+  const int b = blockIdx.z, hk = blockIdx.y, n0 = blockIdx.x * kBlock;
   const int j = n0 + (threadIdx.x >> 1), half = threadIdx.x & 1;
   const int c0 = half * kHalf;
   const bool live = j < a.seq_len;
-  const T* K = static_cast<const T*>(a.k) + b * a.k_sb + (long long)j * a.k_st + h * kHeadDim;
-  const T* V = static_cast<const T*>(a.v) + b * a.v_sb + (long long)j * a.v_st + h * kHeadDim;
-  const T* Q = static_cast<const T*>(a.q) + b * a.q_sb + h * kHeadDim;
-  const T* DO = static_cast<const T*>(a.dout) + b * a.do_sb + h * kHeadDim;
-  const long long L = row_of(a, b, h);
+  const T* K = static_cast<const T*>(a.k) + b * a.k_sb + (long long)j * a.k_st + hk * kHeadDim;
+  const T* V = static_cast<const T*>(a.v) + b * a.v_sb + (long long)j * a.v_st + hk * kHeadDim;
 
   float kr[kHalf], vr[kHalf], dk[kHalf], dv[kHalf];
 #pragma unroll
@@ -134,44 +145,50 @@ __global__ void __launch_bounds__(2 * kBlock) flash_bwd_dkv_fma(Args a) {
     dk[d] = dv[d] = 0.f;
   }
   const int m_start = a.causal ? n0 : 0;
-  for (int m0 = m_start; m0 < a.seq_len; m0 += kFmaTile) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < kFmaTile * kHeadDim; i += blockDim.x) {
-      const int r = i / kHeadDim, c = i % kHeadDim, row = m0 + r;
-      const bool ok = row < a.seq_len;
-      const float x = ok ? to_f(Q[(long long)row * a.q_st + c]) : 0.f;
-      qu[r][c] = x;
-      qh[r][c] = to_f(from_f<T>(x * a.sm_scale));
-      ds_[r][c] = ok ? to_f(DO[(long long)row * a.do_st + c]) : 0.f;
-    }
-    if (threadIdx.x < kFmaTile) {
-      const int row = m0 + threadIdx.x;
-      lse_s[threadIdx.x] = row < a.seq_len ? a.lse[L + row] : 0.f;
-      di_s[threadIdx.x] = row < a.seq_len ? a.di[L + row] : 0.f;
-    }
-    __syncthreads();
-    for (int ii = 0; ii < kFmaTile; ++ii) {
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int d = 0; d < kHalf; ++d) {
-        s = fmaf(qh[ii][c0 + d], kr[d], s);
-        dp = fmaf(ds_[ii][c0 + d], vr[d], dp);
+  // the query heads of this kv head; dk and dv sum over all of them
+  for (int h = hk * a.group; h < (hk + 1) * a.group; ++h) {
+    const T* Q = static_cast<const T*>(a.q) + b * a.q_sb + h * kHeadDim;
+    const T* DO = static_cast<const T*>(a.dout) + b * a.do_sb + h * kHeadDim;
+    const long long L = row_of(a, b, h);
+    for (int m0 = m_start; m0 < a.seq_len; m0 += kFmaTile) {
+      __syncthreads();
+      for (int i = threadIdx.x; i < kFmaTile * kHeadDim; i += blockDim.x) {
+        const int r = i / kHeadDim, c = i % kHeadDim, row = m0 + r;
+        const bool ok = row < a.seq_len;
+        const float x = ok ? to_f(Q[(long long)row * a.q_st + c]) : 0.f;
+        qu[r][c] = x;
+        qh[r][c] = to_f(from_f<T>(x * a.sm_scale));
+        ds_[r][c] = ok ? to_f(DO[(long long)row * a.do_st + c]) : 0.f;
       }
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
-      dp += __shfl_xor_sync(0xffffffffu, dp, 1);
-      const float p = visible(a, m0 + ii, j) ? expf(s - lse_s[ii]) : 0.f;
-      const float dsv = p * (dp - di_s[ii]) * a.sm_scale;
-      const float pr = to_f(from_f<T>(p)), dsr = to_f(from_f<T>(dsv));
+      if (threadIdx.x < kFmaTile) {
+        const int row = m0 + threadIdx.x;
+        lse_s[threadIdx.x] = row < a.seq_len ? a.lse[L + row] : 0.f;
+        di_s[threadIdx.x] = row < a.seq_len ? a.di[L + row] : 0.f;
+      }
+      __syncthreads();
+      for (int ii = 0; ii < kFmaTile; ++ii) {
+        float s = 0.f, dp = 0.f;
 #pragma unroll
-      for (int d = 0; d < kHalf; ++d) {
-        dv[d] = fmaf(pr, ds_[ii][c0 + d], dv[d]);
-        dk[d] = fmaf(dsr, qu[ii][c0 + d], dk[d]);
+        for (int d = 0; d < kHalf; ++d) {
+          s = fmaf(qh[ii][c0 + d], kr[d], s);
+          dp = fmaf(ds_[ii][c0 + d], vr[d], dp);
+        }
+        s += __shfl_xor_sync(0xffffffffu, s, 1);
+        dp += __shfl_xor_sync(0xffffffffu, dp, 1);
+        const float p = visible(a, m0 + ii, j) ? expf(s - lse_s[ii]) : 0.f;
+        const float dsv = p * (dp - di_s[ii]) * a.sm_scale;
+        const float pr = to_f(from_f<T>(p)), dsr = to_f(from_f<T>(dsv));
+#pragma unroll
+        for (int d = 0; d < kHalf; ++d) {
+          dv[d] = fmaf(pr, ds_[ii][c0 + d], dv[d]);
+          dk[d] = fmaf(dsr, qu[ii][c0 + d], dk[d]);
+        }
       }
     }
   }
   if (!live) return;
-  T* DK = static_cast<T*>(a.dk) + b * a.g_sb + (long long)j * a.g_st + h * kHeadDim + c0;
-  T* DV = static_cast<T*>(a.dv) + b * a.g_sb + (long long)j * a.g_st + h * kHeadDim + c0;
+  T* DK = static_cast<T*>(a.dk) + b * a.dkv_sb + (long long)j * a.dkv_st + hk * kHeadDim + c0;
+  T* DV = static_cast<T*>(a.dv) + b * a.dkv_sb + (long long)j * a.dkv_st + hk * kHeadDim + c0;
 #pragma unroll
   for (int d = 0; d < kHalf; ++d) {
     DK[d] = from_f<T>(dk[d]);
@@ -189,8 +206,9 @@ __global__ void __launch_bounds__(2 * kBlock) flash_bwd_dq_fma(Args a) {
   const bool live = i < a.seq_len;
   const T* Q = static_cast<const T*>(a.q) + b * a.q_sb + (long long)i * a.q_st + h * kHeadDim;
   const T* DO = static_cast<const T*>(a.dout) + b * a.do_sb + (long long)i * a.do_st + h * kHeadDim;
-  const T* K = static_cast<const T*>(a.k) + b * a.k_sb + h * kHeadDim;
-  const T* V = static_cast<const T*>(a.v) + b * a.v_sb + h * kHeadDim;
+  const int hk = h / a.group;  // this query head's kv head
+  const T* K = static_cast<const T*>(a.k) + b * a.k_sb + hk * kHeadDim;
+  const T* V = static_cast<const T*>(a.v) + b * a.v_sb + hk * kHeadDim;
   const long long L = row_of(a, b, h);
 
   float qr[kHalf], dor[kHalf], dq[kHalf];
@@ -228,7 +246,7 @@ __global__ void __launch_bounds__(2 * kBlock) flash_bwd_dq_fma(Args a) {
     }
   }
   if (!live) return;
-  T* DQ = static_cast<T*>(a.dq) + b * a.g_sb + (long long)i * a.g_st + h * kHeadDim + c0;
+  T* DQ = static_cast<T*>(a.dq) + b * a.dq_sb + (long long)i * a.dq_st + h * kHeadDim + c0;
 #pragma unroll
   for (int d = 0; d < kHalf; ++d) DQ[d] = from_f<T>(dq[d]);
 }
@@ -326,16 +344,13 @@ __global__ void __launch_bounds__(128) flash_bwd_dkv_mma(Args a) {
   __shared__ __align__(16) bf16 qhs[kBlock][kLd];  // q^
   __shared__ __align__(16) bf16 dos[kBlock][kLd];  // do
   __shared__ float lse_s[kBlock], di_s[kBlock];
-  const int b = blockIdx.z, h = blockIdx.y, n0 = blockIdx.x * kBlock;
+  const int b = blockIdx.z, hk = blockIdx.y, n0 = blockIdx.x * kBlock;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int j0 = n0 + warp * 16 + g;  // this thread's kv rows: j0 and j0 + 8
   const int j1 = j0 + 8;
-  const bf16* Q = static_cast<const bf16*>(a.q) + b * a.q_sb + h * kHeadDim;
-  const bf16* K = static_cast<const bf16*>(a.k) + b * a.k_sb + h * kHeadDim;
-  const bf16* V = static_cast<const bf16*>(a.v) + b * a.v_sb + h * kHeadDim;
-  const bf16* DO = static_cast<const bf16*>(a.dout) + b * a.do_sb + h * kHeadDim;
-  const long long L = row_of(a, b, h);
+  const bf16* K = static_cast<const bf16*>(a.k) + b * a.k_sb + hk * kHeadDim;
+  const bf16* V = static_cast<const bf16*>(a.v) + b * a.v_sb + hk * kHeadDim;
 
   uint32_t ka[kHeadDim / 16][4], va[kHeadDim / 16][4];
   load_a(ka, K, a.k_st, j0, j1, a.seq_len, t, 1.f, false);
@@ -345,57 +360,63 @@ __global__ void __launch_bounds__(128) flash_bwd_dkv_mma(Args a) {
   zero(dv);
 
   const int m_start = a.causal ? n0 : 0;
-  for (int m0 = m_start; m0 < a.seq_len; m0 += kBlock) {
-    __syncthreads();
-    stage(qs, qhs, Q, a.q_st, m0, a.seq_len, a.sm_scale);
-    stage(dos, nullptr, DO, a.do_st, m0, a.seq_len, 1.f);
-    if (threadIdx.x < kBlock) {
-      const int row = m0 + threadIdx.x;
-      lse_s[threadIdx.x] = row < a.seq_len ? a.lse[L + row] : 0.f;
-      di_s[threadIdx.x] = row < a.seq_len ? a.di[L + row] : 0.f;
-    }
-    __syncthreads();
-
-    // S^T = K q^^T and dP^T = V do^T: 16 kv rows x 64 q columns per warp
-    float s[kBlock / 8][4], dp[kBlock / 8][4];
-    zero(s);
-    zero(dp);
-    mma_rows(s, ka, qhs, g, t);
-    mma_rows(dp, va, dos, g, t);
-
-    // P^T and dS^T in place: s[nt][i] is (kv row j0 or j1, q column)
-#pragma unroll
-    for (int nt = 0; nt < kBlock / 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qc = nt * 8 + 2 * t + (i & 1);
-        const int j = (i & 2) ? j1 : j0;
-        const float p = visible(a, m0 + qc, j) ? expf(s[nt][i] - lse_s[qc]) : 0.f;
-        s[nt][i] = p;
-        dp[nt][i] = p * (dp[nt][i] - di_s[qc]) * a.sm_scale;
+  // the query heads of this kv head; dk and dv sum over all of them
+  for (int h = hk * a.group; h < (hk + 1) * a.group; ++h) {
+    const bf16* Q = static_cast<const bf16*>(a.q) + b * a.q_sb + h * kHeadDim;
+    const bf16* DO = static_cast<const bf16*>(a.dout) + b * a.do_sb + h * kHeadDim;
+    const long long L = row_of(a, b, h);
+    for (int m0 = m_start; m0 < a.seq_len; m0 += kBlock) {
+      __syncthreads();
+      stage(qs, qhs, Q, a.q_st, m0, a.seq_len, a.sm_scale);
+      stage(dos, nullptr, DO, a.do_st, m0, a.seq_len, 1.f);
+      if (threadIdx.x < kBlock) {
+        const int row = m0 + threadIdx.x;
+        lse_s[threadIdx.x] = row < a.seq_len ? a.lse[L + row] : 0.f;
+        di_s[threadIdx.x] = row < a.seq_len ? a.di[L + row] : 0.f;
       }
-    }
+      __syncthreads();
 
-    // dV += P^T do and dK += dS^T q
-    mma_cols(dv, s, dos, g, t);
-    mma_cols(dk, dp, qs, g, t);
+      // S^T = K q^^T and dP^T = V do^T: 16 kv rows x 64 q columns per warp
+      float s[kBlock / 8][4], dp[kBlock / 8][4];
+      zero(s);
+      zero(dp);
+      mma_rows(s, ka, qhs, g, t);
+      mma_rows(dp, va, dos, g, t);
+
+      // P^T and dS^T in place: s[nt][i] is (kv row j0 or j1, q column)
+#pragma unroll
+      for (int nt = 0; nt < kBlock / 8; ++nt) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int qc = nt * 8 + 2 * t + (i & 1);
+          const int j = (i & 2) ? j1 : j0;
+          const float p = visible(a, m0 + qc, j) ? expf(s[nt][i] - lse_s[qc]) : 0.f;
+          s[nt][i] = p;
+          dp[nt][i] = p * (dp[nt][i] - di_s[qc]) * a.sm_scale;
+        }
+      }
+
+      // dV += P^T do and dK += dS^T q
+      mma_cols(dv, s, dos, g, t);
+      mma_cols(dk, dp, qs, g, t);
+    }
   }
 
-  bf16* DK = static_cast<bf16*>(a.dk) + b * a.g_sb + h * kHeadDim;
-  bf16* DV = static_cast<bf16*>(a.dv) + b * a.g_sb + h * kHeadDim;
+  bf16* DK = static_cast<bf16*>(a.dk) + b * a.dkv_sb + hk * kHeadDim;
+  bf16* DV = static_cast<bf16*>(a.dv) + b * a.dkv_sb + hk * kHeadDim;
 #pragma unroll
   for (int nt = 0; nt < kHeadDim / 8; ++nt) {
     const int c = nt * 8 + 2 * t;
     if (j0 < a.seq_len) {
-      *reinterpret_cast<__nv_bfloat162*>(DK + (long long)j0 * a.g_st + c) =
+      *reinterpret_cast<__nv_bfloat162*>(DK + (long long)j0 * a.dkv_st + c) =
           __floats2bfloat162_rn(dk[nt][0], dk[nt][1]);
-      *reinterpret_cast<__nv_bfloat162*>(DV + (long long)j0 * a.g_st + c) =
+      *reinterpret_cast<__nv_bfloat162*>(DV + (long long)j0 * a.dkv_st + c) =
           __floats2bfloat162_rn(dv[nt][0], dv[nt][1]);
     }
     if (j1 < a.seq_len) {
-      *reinterpret_cast<__nv_bfloat162*>(DK + (long long)j1 * a.g_st + c) =
+      *reinterpret_cast<__nv_bfloat162*>(DK + (long long)j1 * a.dkv_st + c) =
           __floats2bfloat162_rn(dk[nt][2], dk[nt][3]);
-      *reinterpret_cast<__nv_bfloat162*>(DV + (long long)j1 * a.g_st + c) =
+      *reinterpret_cast<__nv_bfloat162*>(DV + (long long)j1 * a.dkv_st + c) =
           __floats2bfloat162_rn(dv[nt][2], dv[nt][3]);
     }
   }
@@ -409,9 +430,10 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_mma(Args a) {
   const int g = lane >> 2, t = lane & 3;
   const int r0 = m0 + warp * 16 + g;  // this thread's q rows: r0 and r0 + 8
   const int r1 = r0 + 8;
+  const int hk = h / a.group;  // this query head's kv head
   const bf16* Q = static_cast<const bf16*>(a.q) + b * a.q_sb + h * kHeadDim;
-  const bf16* K = static_cast<const bf16*>(a.k) + b * a.k_sb + h * kHeadDim;
-  const bf16* V = static_cast<const bf16*>(a.v) + b * a.v_sb + h * kHeadDim;
+  const bf16* K = static_cast<const bf16*>(a.k) + b * a.k_sb + hk * kHeadDim;
+  const bf16* V = static_cast<const bf16*>(a.v) + b * a.v_sb + hk * kHeadDim;
   const bf16* DO = static_cast<const bf16*>(a.dout) + b * a.do_sb + h * kHeadDim;
   const long long L = row_of(a, b, h);
 
@@ -454,15 +476,15 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_mma(Args a) {
     mma_cols(dq, dp, ks, g, t);
   }
 
-  bf16* DQ = static_cast<bf16*>(a.dq) + b * a.g_sb + h * kHeadDim;
+  bf16* DQ = static_cast<bf16*>(a.dq) + b * a.dq_sb + h * kHeadDim;
 #pragma unroll
   for (int nt = 0; nt < kHeadDim / 8; ++nt) {
     const int c = nt * 8 + 2 * t;
     if (r0 < a.seq_len)
-      *reinterpret_cast<__nv_bfloat162*>(DQ + (long long)r0 * a.g_st + c) =
+      *reinterpret_cast<__nv_bfloat162*>(DQ + (long long)r0 * a.dq_st + c) =
           __floats2bfloat162_rn(dq[nt][0], dq[nt][1]);
     if (r1 < a.seq_len)
-      *reinterpret_cast<__nv_bfloat162*>(DQ + (long long)r1 * a.g_st + c) =
+      *reinterpret_cast<__nv_bfloat162*>(DQ + (long long)r1 * a.dq_st + c) =
           __floats2bfloat162_rn(dq[nt][2], dq[nt][3]);
   }
 }
@@ -470,24 +492,30 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_mma(Args a) {
 }  // namespace
 
 // dtype: 0 = float32 (FMA instance), 1 = bfloat16 (tensor-core instance).
-// di is fp32 scratch of batch * num_heads * seq_len floats.  Launches three
-// kernels on `stream` without synchronising; returns the first launch error.
+// di is fp32 scratch of batch * num_heads * seq_len floats; dq is (B, T, C),
+// dk and dv (B, T, kv_heads * D); kv_heads must divide num_heads.  Launches
+// three kernels on `stream` without synchronising; returns the first launch
+// error.
 extern "C" int vitrs_flash_bwd(int dtype, const void* q, const void* k, const void* v,
                                const void* o, const void* dout, const float* lse, float* di,
                                void* dq, void* dk, void* dv, long long q_sb, long long q_st,
                                long long k_sb, long long k_st, long long v_sb, long long v_st,
                                long long o_sb, long long o_st, long long do_sb,
-                               long long do_st, long long g_sb, long long g_st, int batch,
-                               int num_heads, int seq_len, int causal, float sm_scale,
+                               long long do_st, long long dq_sb, long long dq_st,
+                               long long dkv_sb, long long dkv_st, int batch, int num_heads,
+                               int kv_heads, int seq_len, int causal, float sm_scale,
                                void* stream) {
-  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  Args a{q,    k,    v,    o,    dout, lse,  di,   dq,   dk,        dv,
-         q_sb, q_st, k_sb, k_st, v_sb, v_st, o_sb, o_st, do_sb,     do_st,
-         g_sb, g_st, num_heads, seq_len, causal, sm_scale};
+  if ((dtype != 0 && dtype != 1) || kv_heads <= 0 || num_heads % kv_heads != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{q,     k,     v,      o,      dout,      lse,   di,    dq,   dk,   dv,
+         q_sb,  q_st,  k_sb,   k_st,   v_sb,      v_st,  o_sb,  o_st, do_sb, do_st,
+         dq_sb, dq_st, dkv_sb, dkv_st, num_heads, num_heads / kv_heads,
+         seq_len, causal, sm_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long rows = (long long)batch * seq_len * num_heads;
   const unsigned di_blocks = static_cast<unsigned>((rows + 255) / 256);
-  const dim3 grid((seq_len + kBlock - 1) / kBlock, num_heads, batch);
+  const unsigned tiles = (seq_len + kBlock - 1) / kBlock;
+  const dim3 kv_grid(tiles, kv_heads, batch), q_grid(tiles, num_heads, batch);
   if (dtype == 1) {
     flash_bwd_di<bf16><<<di_blocks, 256, 0, s>>>(a, batch);
   } else {
@@ -496,16 +524,16 @@ extern "C" int vitrs_flash_bwd(int dtype, const void* q, const void* k, const vo
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dtype == 1) {
-    flash_bwd_dkv_mma<<<grid, 128, 0, s>>>(a);
+    flash_bwd_dkv_mma<<<kv_grid, 128, 0, s>>>(a);
   } else {
-    flash_bwd_dkv_fma<float><<<grid, 2 * kBlock, 0, s>>>(a);
+    flash_bwd_dkv_fma<float><<<kv_grid, 2 * kBlock, 0, s>>>(a);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dtype == 1) {
-    flash_bwd_dq_mma<<<grid, 128, 0, s>>>(a);
+    flash_bwd_dq_mma<<<q_grid, 128, 0, s>>>(a);
   } else {
-    flash_bwd_dq_fma<float><<<grid, 2 * kBlock, 0, s>>>(a);
+    flash_bwd_dq_fma<float><<<q_grid, 2 * kBlock, 0, s>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

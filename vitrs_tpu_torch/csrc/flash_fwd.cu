@@ -1,39 +1,56 @@
-// K1-fwd: flash-attention forward over packed qkv, written for Hopper (sm_90a).
+// K1-fwd, K3-fwd and K4: the flash-attention forward, written for Hopper
+// (sm_90a).
 //
-// Replaces the two Pallas forward kernels of vitrs_tpu/ops/flash_attention.py:
-//   _fwd_single_kernel (one tile, T <= 512; driver _fwd_single) and
-//   _fwd_kernel        (online softmax over 512-wide kv tiles; driver _fwd).
+// Replaces these Pallas forwards, which compute one function at three
+// geometries:
+//   K1-fwd  vitrs_tpu/ops/flash_attention.py  _fwd_single_kernel (one tile,
+//           T <= 512; launched by _fwd_single) and _fwd_kernel (online
+//           softmax over 512-wide kv tiles; launched by _fwd): MHA;
+//   K3-fwd  vitrs_tpu/ops/flash_attention_gqa.py  _fwd_single and _fwd (the
+//           same tile kernels at GQA geometry): q at C width, k/v at
+//           kv_dim = kv_heads * D width;
+//   K4      vitrs_tpu/ops/flash_prefill.py  flash_prefill_qkv (the same tile
+//           kernel as a rectangle): tq chunk queries at absolute positions
+//           q_off .. q_off+tq-1 against a kv cache, MHA or GQA.
 // It computes what they compute, not their block structure:
-//   * q, k and v are read in place from the packed (B, T, 3C) activation
-//     through separate pointers and strides (head h at channels h*D of each
-//     third), so nothing is split, transposed or padded in device memory;
-//   * one thread block per (q tile of 64 rows, head, batch); a loop over kv
-//     tiles inside the block replaces the TPU's sequential grid axis, and in
-//     causal mode it stops at the diagonal;
-//   * q is pre-scaled by sm_scale and rounded to the input type, as both
+//   * q, k and v are read in place through separate pointers and strides
+//     (views into the packed qkv, or a q view and the kv caches); query
+//     head h reads channels h*D of q and kv head h / (num_heads/kv_heads)
+//     of k and v (the Llama/GQA grouping; MHA is kv_heads == num_heads), so
+//     K/V are never expanded to num_heads in device memory;
+//   * one thread block per (q tile of 64 rows, query head, batch); a loop
+//     over kv tiles inside the block replaces the TPU's sequential grid
+//     axis, and in causal mode it stops at the block's causal frontier
+//     (row + q_off), so cache slots beyond seq_len are never read;
+//   * q is pre-scaled by sm_scale and rounded to the input type, as the
 //     Pallas bodies do; scores, the running max m, the running sum l and the
 //     output accumulator stay in fp32; p rounds to the input type for P.V;
-//   * the ragged end is masked against seq_len instead of padding T;
+//   * the ragged end is masked against seq_len and tq instead of padding;
 //   * out is written in the input type and lse = m + log(l) compact at
-//     (B, NH, T) fp32 (the Pallas kernels broadcast it over 128 lanes).
-// q_off is the absolute position of query row 0 (0 for self-attention),
-// kept so that the continuation-prefill kernel (flash_prefill.py) can reuse
-// this one.
+//     (B, NH, tq) fp32 (the Pallas kernels broadcast it over 128 lanes).
+// TPU-shaped parts that are not carried over: the 128-lane head groups and
+// kv blocks, the phantom-lane padding of small kv widths (pad_gqa_weight),
+// the split-cell grid (_q_split) and the VMEM budgets.  The GQA Pallas grid
+// shares each kv block across its query group in VMEM; here the R query
+// heads of a group are R blocks that read the same k/v rows, which the 50 MB
+// L2 serves (sharing a staged tile across the group in shared memory is
+// later work).
 //
-// What bounds it on the H100: at the serving shapes (T = 128..1024, D = 64)
-// attention is compute-bound; per (q row, key) pair it does 2 x 64
-// multiply-adds and one exp.  The bf16 instance therefore runs both
-// products on the tensor cores with mma.sync m16n8k16 (fp32 accumulate) in
-// the FlashAttention-2 register layout: each warp owns 16 q rows, S = Q.K^T
-// and O += P.V stay in registers, and P goes from the S accumulator straight
-// into the A operand of P.V without touching shared memory.  K and V tiles
-// are staged in shared memory with rows padded to 72 elements so that the
-// fragment reads are free of bank conflicts.  Loads are plain 16-byte loads
-// without double buffering, and the exp is the accurate expf: making it
-// fast (cp.async or TMA pipelining, wgmma, exp2 with a folded log2 e) is
-// later work.  The fp32 instance (a cross-check of the bf16 one against the
-// plain PyTorch version at fp32 accuracy) does its products with FMA, one
-// thread per q row.  Times on the card are in PERF.md.
+// What bounds it on the H100: at the serving and training shapes (T =
+// 128..8192, D = 64) attention is compute-bound; per (q row, key) pair it
+// does 2 x 64 multiply-adds and one exp.  The bf16 instance therefore runs
+// both products on the tensor cores with mma.sync m16n8k16 (fp32
+// accumulate) in the FlashAttention-2 register layout: each warp owns 16 q
+// rows, S = Q.K^T and O += P.V stay in registers, and P goes from the S
+// accumulator straight into the A operand of P.V without touching shared
+// memory.  K and V tiles are staged in shared memory with rows padded to 72
+// elements so that the fragment reads are free of bank conflicts.  Loads
+// are plain 16-byte loads without double buffering, and the exp is the
+// accurate expf: making it fast (cp.async or TMA pipelining, wgmma, exp2
+// with a folded log2 e) is later work.  The fp32 instance (a cross-check of
+// the bf16 one against the plain PyTorch version at fp32 accuracy) does its
+// products with FMA, one thread per q row.  Times on the card are in
+// PERF.md.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -61,6 +78,7 @@ struct Args {
   long long v_sb, v_st;
   long long o_sb, o_st;
   int num_heads;
+  int group;     // query heads per kv head: num_heads / kv_heads
   int tq;        // query rows
   int seq_len;   // keys 0 .. seq_len-1 exist
   int q_off;     // absolute position of query row 0
@@ -88,8 +106,9 @@ __global__ void __launch_bounds__(kBlockM) flash_fwd_fma(Args a) {
   const int q_pos = row + a.q_off;
   const T* qp = static_cast<const T*>(a.q) + b * a.q_sb + (long long)row * a.q_st
                 + h * kHeadDim;
-  const T* kp = static_cast<const T*>(a.k) + b * a.k_sb + h * kHeadDim;
-  const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + h * kHeadDim;
+  const int hk = h / a.group;  // this query head's kv head
+  const T* kp = static_cast<const T*>(a.k) + b * a.k_sb + hk * kHeadDim;
+  const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + hk * kHeadDim;
 
   float q[kHeadDim], acc[kHeadDim];
 #pragma unroll
@@ -158,8 +177,9 @@ __global__ void __launch_bounds__(128) flash_fwd_mma_bf16(Args a) {
   const int r0 = m0 + warp * 16 + g;  // this thread's rows: r0 and r0 + 8
   const int r1 = r0 + 8;
   const bf16* Q = static_cast<const bf16*>(a.q) + b * a.q_sb + h * kHeadDim;
-  const bf16* K = static_cast<const bf16*>(a.k) + b * a.k_sb + h * kHeadDim;
-  const bf16* V = static_cast<const bf16*>(a.v) + b * a.v_sb + h * kHeadDim;
+  const int hk = h / a.group;  // this query head's kv head
+  const bf16* K = static_cast<const bf16*>(a.k) + b * a.k_sb + hk * kHeadDim;
+  const bf16* V = static_cast<const bf16*>(a.v) + b * a.v_sb + hk * kHeadDim;
 
   // Q as A fragments, pre-scaled and rounded to bf16
   uint32_t qa[kHeadDim / 16][4];
@@ -305,15 +325,21 @@ __global__ void __launch_bounds__(128) flash_fwd_mma_bf16(Args a) {
 }  // namespace
 
 // dtype: 0 = float32 (FMA instance), 1 = bfloat16 (tensor-core instance).
-// Launches on `stream` without synchronising; returns cudaGetLastError().
+// q rows 0..tq-1 sit at absolute positions q_off..q_off+tq-1 and attend keys
+// 0..seq_len-1 (causal: key j <= q_off + row); kv_heads must divide
+// num_heads.  Launches on `stream` without synchronising; returns
+// cudaGetLastError().
 extern "C" int vitrs_flash_fwd(int dtype, const void* q, const void* k, const void* v,
                                void* out, float* lse, long long q_sb, long long q_st,
                                long long k_sb, long long k_st, long long v_sb,
                                long long v_st, long long o_sb, long long o_st, int batch,
-                               int num_heads, int tq, int seq_len, int q_off, int causal,
-                               float sm_scale, void* stream) {
-  Args a{q,    k,    v,    out,  lse,       q_sb, q_st,    k_sb,   k_st,   v_sb,
-         v_st, o_sb, o_st, num_heads, tq, seq_len, q_off, causal, sm_scale};
+                               int num_heads, int kv_heads, int tq, int seq_len, int q_off,
+                               int causal, float sm_scale, void* stream) {
+  if (kv_heads <= 0 || num_heads % kv_heads != 0 || tq <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{q,    k,    v,    out,  lse,       q_sb,
+         q_st, k_sb, k_st, v_sb, v_st,      o_sb,
+         o_st, num_heads, num_heads / kv_heads, tq, seq_len, q_off, causal, sm_scale};
   const dim3 grid((tq + kBlockM - 1) / kBlockM, num_heads, batch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {

@@ -7,13 +7,17 @@ donates the cache buffers and returns updated ones, the port writes into the
 caches in place and returns the same tensors.
 
 Fresh-prompt prefill (pos == 0, S > 1) is causal self-attention over the
-prompt and goes through the flash kernel (ops/attention.py).  Decode and
-continuation steps attend against the cache with plain torch
-(`_cache_attention`), as the JAX package does with plain XLA.  The head
+prompt and goes through the flash kernels (ops/attention.py: K1-fwd for
+MHA, K3-fwd for GQA, reading K/V at kv width).  With `prefill_chunk` the
+prompt runs in chunks: the first is a fresh-prompt prefill, and every later
+chunk is a rectangle of S queries against the cache prefix, which goes
+through K4 (ops/flash_prefill.py) where `_flash_cont_ok` sends it, else
+to dense cache attention.
+Decode attends against the cache with plain torch (`_cache_attention`,
+grouped under GQA), as the JAX package does with plain XLA.  The head
 computes last-row logits only where the caller asks (`last_only`).
 
-Not ported yet: the int8 KV cache, chunked prefill (continuation chunks
-through the rectangular kernel K4), paged, beam and streaming decode —
+Not ported yet: the int8 KV cache, paged, beam and streaming decode —
 they raise NotImplementedError naming ROADMAP.md Queue 1 item 15.
 """
 
@@ -26,7 +30,9 @@ import torch
 
 from ..config import ViTConfig
 from ..ops import basic
-from ..ops.attention import attention, split_gqa
+from ..ops.attention import attention_gqa, split_gqa
+from ..ops.flash_prefill import (PREFILL_BLOCK, flash_prefill_qkv,
+                                 supports_prefill)
 from . import model as M
 
 _ITEM15 = "ROADMAP.md Queue 1 item 15 (generation and serving)"
@@ -60,6 +66,19 @@ def _cache_attention(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
     return out.reshape(B, NH, S, D).to(out_dtype)
 
 
+def _flash_cont_ok(cfg: ViTConfig, Tmax: int) -> bool:
+    """Whether K4 serves a continuation chunk against a cache of Tmax
+    slots: a geometry K4 takes (`supports_prefill`) and a cache length that
+    is a multiple of PREFILL_BLOCK.  The kernel itself needs no such
+    length; the condition is kept only so that the port routes the same
+    cache shapes as the JAX package's `_flash_cont_ok` under the same
+    allocation rule (`generate` rounds a chunked prefill's cache up to
+    PREFILL_BLOCK in both packages: ROADMAP.md Queue 3 hazard 6).  The JAX
+    rule's TPU knobs are not ported."""
+    return (supports_prefill(cfg.num_heads, cfg.kv_heads, cfg.head_size)
+            and Tmax % PREFILL_BLOCK == 0)
+
+
 def _heads(t: torch.Tensor, n: int) -> torch.Tensor:
     B, T, W = t.shape
     return t.reshape(B, T, n, W // n).transpose(1, 2)
@@ -75,13 +94,17 @@ def _block_with_kv(x, p, cfg: ViTConfig, k_cache, v_cache, pos: int):
     q, k, v = split_gqa(qkv, NH, KH)
     k_cache[:, pos:pos + S] = k
     v_cache[:, pos:pos + S] = v
+    Tmax = k_cache.shape[1]
     if pos == 0 and S > 1:
         # causal self-attention over the prompt: the cache holds nothing the
         # causal mask would admit beyond it, so the flash kernel reads the
-        # packed qkv in place
-        atty = attention(qkv, NH, causal=True)
+        # packed qkv in place (K1-fwd, or K3-fwd at kv width)
+        atty = attention_gqa(qkv, NH, KH, causal=True)
+    elif S > 1 and cfg.use_flash and _flash_cont_ok(cfg, Tmax):
+        # a continuation chunk: K4 streams the cache prefix up to the
+        # chunk's causal frontier at kv width
+        atty = flash_prefill_qkv(q, k_cache, v_cache, NH, KH, pos)
     else:
-        Tmax = k_cache.shape[1]
         q_pos = pos + torch.arange(S, device=x.device)[:, None]
         mask = torch.arange(Tmax, device=x.device)[None, :] <= q_pos
         atty = _cache_attention(_heads(q, NH), _heads(k_cache, KH),
@@ -149,18 +172,33 @@ def generate(params: Mapping[str, torch.Tensor], prompt: torch.Tensor,
     """prompt (B, T0) -> (B, T0 + max_new): prefill once, then decode one
     token per step.  Sampling draws from `generator` (required when
     temperature > 0); its stream differs from jax.random's, so only greedy
-    output is comparable across the two packages."""
-    if prefill_chunk:
-        raise NotImplementedError(
-            f"chunked prefill (kernel K4, flash_prefill): {_ITEM15}")
+    output is comparable across the two packages.
+
+    prefill_chunk > 0 with T0 > prefill_chunk prefills in chunks of that
+    many tokens, each writing its K/V into the cache before the next
+    attends it; only the last chunk's last-position logits are computed,
+    and they seed the first sampled token, so the math is the whole-prompt
+    prefill's.  T0 must be a multiple of prefill_chunk (ValueError
+    otherwise).  The cache is then allocated rounded up to PREFILL_BLOCK
+    slots, as in the JAX package, so that every continuation chunk can take
+    K4; the extra slots are never read."""
     B, T0 = prompt.shape
-    if T0 + max_new > cfg.max_seq_len:
+    Tmax = T0 + max_new
+    if Tmax > cfg.max_seq_len:
         raise ValueError(f"{T0} + {max_new} tokens exceed max_seq_len "
                          f"{cfg.max_seq_len}")
-    caches = init_kv_cache(cfg, B, T0 + max_new, int8=kv_int8,
+    chunked = bool(prefill_chunk) and T0 > prefill_chunk
+    if chunked and T0 % prefill_chunk:
+        raise ValueError(f"prompt length {T0} is not a multiple of "
+                         f"prefill_chunk {prefill_chunk}")
+    cache_len = (-(-Tmax // PREFILL_BLOCK) * PREFILL_BLOCK if chunked
+                 else Tmax)
+    caches = init_kv_cache(cfg, B, cache_len, int8=kv_int8,
                            device=prompt.device)
-    logits, caches = forward_with_cache(params, prompt, caches, 0, cfg,
-                                        last_only=True)
+    for off in range(0, T0, prefill_chunk if chunked else T0):
+        end = off + prefill_chunk if chunked else T0
+        logits, caches = forward_with_cache(params, prompt[:, off:end],
+                                            caches, off, cfg, last_only=True)
     tok = _sample(logits[:, -1], generator, temperature, top_k, top_p)
     out = [tok]
     for pos in range(T0, T0 + max_new - 1):

@@ -13,7 +13,10 @@ Two ways in, one block body:
 The block uses the custom-backward ops of ops/basic.py and, on the flash
 path, the fused qkv projection + attention op; the GPT loss pads the tied
 head to 50304 columns and runs the fused CE (K5/K6) where the JAX package
-would.  ViT mode and MoE come in later slices (ROADMAP.md, Queue 1).
+would.  GQA/MQA (cfg.num_kv_heads) projects with the small
+(C + 2*kv_dim, C) weight into K3 on the flash path, and expands the weight
+on the dense path, as the JAX package does.  ViT mode, MoE, rope and the
+sliding window come in later slices (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import torch.nn.functional as F
 
 from ..config import ViTConfig
 from ..ops import basic, fused_ce
-from ..ops.attention import supports as flash_supports
+from ..ops.attention import expand_qkv_weight, supports as flash_supports
 from ..ops.fused_qkv_attention import qkv_attention
 
 BLOCK_KEYS = ("ln1w", "ln1b", "qkvw", "qkvb", "attprojw", "attprojb",
@@ -46,9 +49,9 @@ def check_supported(cfg: ViTConfig) -> None:
             "quirks=True: ROADMAP.md Queue 1 item 3 (ops/basic.py quirk ops)")
     if cfg.is_moe:
         raise NotImplementedError("MoE MLP: ROADMAP.md Queue 1 item 14")
-    if cfg.is_gqa or cfg.window or cfg.pos_emb != "learned":
+    if cfg.window or cfg.pos_emb != "learned":
         raise NotImplementedError(
-            "GQA, sliding window and rope: ROADMAP.md Queue 1 item 12")
+            "sliding window and rope: ROADMAP.md Queue 1 item 12")
 
 
 def prepare_params(params: Mapping[str, torch.Tensor], cfg: ViTConfig
@@ -111,12 +114,15 @@ def mlp(p: Mapping[str, torch.Tensor], cfg: ViTConfig,
 def _project_and_attend(ln1: torch.Tensor, p: Mapping[str, torch.Tensor],
                         cfg: ViTConfig, causal: bool) -> torch.Tensor:
     """qkv projection + attention: the fused op on the flash path (whose
-    backward never builds the packed dqkv), else the plain composition
-    with dense attention, as the JAX package routes them."""
-    if cfg.use_flash and flash_supports(cfg.num_heads,
-                                        cfg.channels // cfg.num_heads):
-        return qkv_attention(ln1, p["qkvw"], p["qkvb"], cfg.num_heads, causal)
-    qkv = basic.linear(ln1, p["qkvw"].to(ln1.dtype), p["qkvb"].to(ln1.dtype))
+    backward never builds the packed dqkv; K3 under GQA), else the plain
+    composition with dense attention, the GQA weight expanded to MHA
+    (JAX model.py:54-58), as the JAX package routes them."""
+    if cfg.use_flash and flash_supports(cfg.num_heads, cfg.head_size):
+        return qkv_attention(ln1, p["qkvw"], p["qkvb"], cfg.num_heads, causal,
+                             kv_heads=cfg.kv_heads)
+    w, b = expand_qkv_weight(p["qkvw"], p["qkvb"], cfg.num_heads,
+                             cfg.kv_heads)
+    qkv = basic.linear(ln1, w.to(ln1.dtype), b.to(ln1.dtype))
     return basic.attention_dense(qkv, cfg.num_heads, causal=causal)[0]
 
 

@@ -85,6 +85,17 @@ def load(name: str) -> Library:
     return Library(ctypes.CDLL(path), path, seconds, log)
 
 
+def resolve_device(name) -> "torch.device":
+    """torch.device(name) for an entry point; a CUDA device must exist (no
+    fallback to the CPU)."""
+    import torch
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass --cpu (device='cpu') to "
+                           "run on the CPU")
+    return device
+
+
 def on_device(device, kernel, plain, what: str):
     """The kernel's wrapper for a CUDA device, its plain PyTorch version for
     the CPU; any other device raises.  There is no fallback from one to the

@@ -1,21 +1,32 @@
-"""Attention dispatch — the port of `vitrs_tpu/ops/attention.py`.
+"""Attention dispatch and the GQA helpers — the port of
+`vitrs_tpu/ops/attention.py`.
 
 The JAX package sends attention to its Pallas flash kernel on a TPU and to
-dense XLA elsewhere.  Here the flash path (ops/flash_attention.py) takes
-every geometry the JAX package's kernel takes: on a CUDA tensor it is the
-hand-written kernels (K1-fwd forward, K2 backward), on a CPU tensor their
-plain PyTorch versions.  Geometries the JAX kernel does not take go to
-dense attention in both packages.  Both routes are differentiable: the
-flash route through its autograd.Function, the dense route through plain
-torch autograd.
+dense XLA elsewhere.  Here the flash path takes every geometry the JAX
+package's kernel takes: on a CUDA tensor it is the hand-written kernels
+(K1-fwd and K2 for MHA, ops/flash_attention.py; K3 for GQA,
+ops/flash_attention_gqa.py), on a CPU tensor their plain PyTorch versions.
+Geometries the JAX kernel does not take go to dense attention in both
+packages.  Both routes are differentiable: the flash route through its
+autograd.Functions, the dense route through plain torch autograd.
+
+The GQA helpers (`expand_kv_heads`, `expand_packed`, `expand_qkv_weight`)
+are plain torch: the dense route for geometries the kernels do not tile
+(expanded weights, as the JAX model's plain composition does) and the
+oracle the tests compare the K3 kernels with.
+`attention_gqa` computes what the JAX function computes without its
+expansion: the JAX package expands K/V to num_heads and rides K1, the port
+reads K/V at kv width in K3.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import basic
 from .flash_attention import flash_attention_qkv
+from .flash_attention_gqa import flash_gqa_qkv, split_gqa
 
 
 def supports(num_heads: int, head_dim: int) -> bool:
@@ -38,11 +49,72 @@ def attention(qkv: torch.Tensor, num_heads: int,
     return flash_attention_qkv(qkv, num_heads, causal=causal)
 
 
-def split_gqa(qkv: torch.Tensor, num_heads: int, kv_heads: int):
-    """Split a packed projection (B, T, C + 2*kv_dim) into q/k/v views.
-    C = num_heads*D, kv_dim = kv_heads*D — solved from the packed width
-    W = (num_heads + 2*kv_heads)*D."""
-    W = qkv.shape[-1]
-    C = W * num_heads // (num_heads + 2 * kv_heads)
-    kvd = (W - C) // 2
-    return qkv[..., :C], qkv[..., C:C + kvd], qkv[..., C + kvd:]
+def expand_kv_heads(kv: torch.Tensor, kv_heads: int,
+                    num_heads: int) -> torch.Tensor:
+    """K or V (B, T, kv_heads*D) -> (B, T, num_heads*D): kv head g serves
+    the G = num_heads // kv_heads consecutive query heads [g*G, (g+1)*G)
+    (the Llama/GQA convention).  Its autograd transpose is the per-group
+    sum, the GQA dk/dv reduction."""
+    if kv_heads == num_heads:
+        return kv
+    B, T, kvd = kv.shape
+    D = kvd // kv_heads
+    return (kv.reshape(B, T, kv_heads, D)
+            .repeat_interleave(num_heads // kv_heads, dim=2)
+            .reshape(B, T, num_heads * D))
+
+
+def expand_packed(qkv: torch.Tensor, num_heads: int,
+                  kv_heads: int) -> torch.Tensor:
+    """GQA-packed projection (B, T, C + 2*kv_dim) -> packed MHA (B, T, 3C)."""
+    if not kv_heads or kv_heads == num_heads:
+        return qkv
+    q, k, v = split_gqa(qkv, num_heads, kv_heads)
+    return torch.cat([q, expand_kv_heads(k, kv_heads, num_heads),
+                      expand_kv_heads(v, kv_heads, num_heads)], dim=-1)
+
+
+def _expand_row_index(num_heads: int, kv_heads: int,
+                      head_size: int) -> np.ndarray:
+    """The row gather (length 3C) from the GQA projection's rows onto the
+    packed MHA output channels: q rows pass through, each kv head's D rows
+    repeat for its G = num_heads // kv_heads query heads."""
+    C = num_heads * head_size
+    kvd = kv_heads * head_size
+    base = np.arange(kvd).reshape(kv_heads, head_size)
+    kv = np.repeat(base, num_heads // kv_heads, axis=0).reshape(-1)
+    return np.concatenate([np.arange(C), C + kv, C + kvd + kv])
+
+
+def expand_qkv_weight(qkvw: torch.Tensor, qkvb, num_heads: int,
+                      kv_heads: int):
+    """GQA projection weight (..., C + 2*kv_dim, IC) and bias -> the MHA
+    (..., 3C, IC) weight and bias, repeating each kv head's D rows for its
+    query group: linear(x, expanded) == expand_packed(linear(x, w))
+    exactly.  The dense route's projection (models/model.py); its autograd
+    transpose sums the group's rows back (the JAX package's
+    `reduce_qkv_weight_grad`)."""
+    if not kv_heads or kv_heads == num_heads:
+        return qkvw, qkvb
+    D = qkvw.shape[-2] // (num_heads + 2 * kv_heads)
+    idx = torch.as_tensor(_expand_row_index(num_heads, kv_heads, D),
+                          device=qkvw.device)
+    w = qkvw.index_select(-2, idx)
+    b = None if qkvb is None else qkvb.index_select(-1, idx)
+    return w, b
+
+
+def attention_gqa(qkv: torch.Tensor, num_heads: int, kv_heads: int,
+                  causal: bool = True) -> torch.Tensor:
+    """Grouped-query attention over a GQA-packed projection
+    (B, T, C + 2*kv_dim) -> (B, T, C).  MHA (kv_heads == num_heads) is
+    `attention`; a flash geometry goes to K3, which reads K/V at kv width
+    (the JAX function expands K/V and rides K1: the same function); any
+    other geometry to dense attention over the expanded K/V."""
+    if kv_heads == num_heads:
+        return attention(qkv, num_heads, causal=causal)
+    head_dim = qkv.shape[-1] // (num_heads + 2 * kv_heads)
+    if not supports(num_heads, head_dim):
+        return basic.attention_dense(expand_packed(qkv, num_heads, kv_heads),
+                                     num_heads, causal=causal)[0]
+    return flash_gqa_qkv(qkv, num_heads, kv_heads, causal=causal)

@@ -13,6 +13,12 @@ Pallas backwards (`_bwd_single` and `_bwd_parts`, running
   the same functions in plain PyTorch, which the CPU tests hold against the
   JAX kernels and the card's checks hold the kernels against.
 * lse comes back compact at (B, NH, T) fp32, and the backward reads it so.
+* The two CUDA libraries also serve the GQA forward and backward (K3,
+  ops/flash_attention_gqa.py) and the continuation-prefill forward (K4,
+  ops/flash_prefill.py): `launch_fwd` takes kv_heads, a query length other
+  than the key length and a query offset, `launch_bwd` takes kv_heads, and
+  the plain versions take the same arguments.  Each kernel's wrapper counts
+  its own launches, so a run shows which kernel served it.
 * `flash_attention_qkv` is differentiable: an autograd.Function saves
   (qkv, out, lse) as the JAX package's `_flash_packed_fwd` does, and its
   backward returns the packed dqkv.
@@ -37,39 +43,57 @@ HEAD_DIM = 64       # the kernel's head_dim: D of every GPT-2 preset
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _grouped(t: torch.Tensor, heads: int, group: int) -> torch.Tensor:
+    """(B, T, heads*D) -> (B, heads, group, T, D) fp32 view-friendly layout:
+    query heads fold as (kv head, member of its group); k/v pass group=1
+    and broadcast over the group axis (no copy per query head)."""
+    B, T, W = t.shape
+    return (t.reshape(B, T, heads // group, group, W // heads)
+            .permute(0, 2, 3, 1, 4).float())
+
+
+def _causal_mask(Tq: int, Tk: int, q_offset: int, device) -> torch.Tensor:
+    """True where key j is hidden from query row i: j > q_offset + i."""
+    rows = q_offset + torch.arange(Tq, device=device)[:, None]
+    return torch.arange(Tk, device=device)[None, :] > rows
+
+
 def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    num_heads: int, causal: bool, sm_scale: float
+                    num_heads: int, causal: bool, sm_scale: float,
+                    kv_heads: int = 0, q_offset: int = 0
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's function in plain PyTorch: q (B, Tq, C), k/v (B, Tk, C)
-    -> (out (B, Tq, C) in q's dtype, lse (B, NH, Tq) fp32).
+    """The kernel's function in plain PyTorch: q (B, Tq, C) at absolute
+    positions q_offset..q_offset+Tq-1, k/v (B, Tk, kv_heads*D) ->
+    (out (B, Tq, C) in q's dtype, lse (B, NH, Tq) fp32).  kv_heads 0 means
+    num_heads; query head h reads kv head h // (num_heads // kv_heads).  In
+    causal mode the keys are cut at the frontier q_offset + Tq before any
+    arithmetic, so cache slots beyond it are never read (not even as 0 *
+    NaN); the kernel never loads them either.
 
     Same numerics as the Pallas and CUDA kernels: q scaled by sm_scale and
     rounded to its dtype, scores and softmax statistics in fp32, p rounded
     to v's dtype for P.V with an fp32 accumulator, out = acc / l."""
     B, Tq, C = q.shape
-    Tk = k.shape[1]
-    D = C // num_heads
-
-    def heads(t):
-        return t.reshape(B, t.shape[1], num_heads, D).transpose(1, 2)
-
-    qs = (heads(q).float() * sm_scale).to(q.dtype).float()
-    s = torch.matmul(qs, heads(k).float().transpose(-1, -2))
+    KH = kv_heads or num_heads
+    R = num_heads // KH
     if causal:
-        rows = torch.arange(Tq, device=q.device)[:, None]
-        cols = torch.arange(Tk, device=q.device)[None, :]
-        s = s.masked_fill(cols > rows, -math.inf)
+        k, v = k[:, :q_offset + Tq], v[:, :q_offset + Tq]
+    Tk = k.shape[1]
+    qs = (_grouped(q, num_heads, R) * sm_scale).to(q.dtype).float()
+    s = torch.matmul(qs, _grouped(k, KH, 1).transpose(-1, -2))
+    if causal:
+        s = s.masked_fill(_causal_mask(Tq, Tk, q_offset, q.device), -math.inf)
     m = s.amax(dim=-1, keepdim=True)
     # a row that sees no key keeps a finite reference, so p = 0, not NaN
     ref = torch.where(m == -math.inf, torch.zeros_like(m), m)
     p = torch.exp(s - ref)
     l = p.sum(dim=-1, keepdim=True)
-    pv = torch.matmul(p.to(v.dtype).float(), heads(v).float())
+    pv = torch.matmul(p.to(v.dtype).float(), _grouped(v, KH, 1))
     inv = torch.where(l > 0, 1.0 / l, torch.zeros_like(l))
-    out = (pv * inv).to(q.dtype).transpose(1, 2).reshape(B, Tq, C)
+    out = (pv * inv).to(q.dtype).permute(0, 3, 1, 2, 4).reshape(B, Tq, C)
     lse = torch.where(l > 0, ref + torch.log(l),
                       torch.full_like(l, -math.inf))[..., 0]
-    return out, lse
+    return out, lse.reshape(B, num_heads, Tq)
 
 
 @functools.cache
@@ -77,44 +101,63 @@ def _kernel():
     fn = _build.load("flash_fwd").lib.vitrs_flash_fwd
     P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     fn.argtypes = [I, P, P, P, P, P, LL, LL, LL, LL, LL, LL, LL, LL,
-                   I, I, I, I, I, I, ctypes.c_float, P]
+                   I, I, I, I, I, I, I, ctypes.c_float, P]
     fn.restype = I
     return fn
 
 
-def _check(q, k, v, num_heads):
-    ts = (q, k, v)
-    if any(t.device.type != "cuda" or t.device != q.device for t in ts):
-        raise ValueError("flash_fwd_cuda: q, k, v must be on one CUDA device")
-    if q.dtype not in _DTYPE_CODE or any(t.dtype != q.dtype for t in ts):
-        raise TypeError(f"flash_fwd_cuda takes float32 or bfloat16, got "
-                        f"{[t.dtype for t in ts]}")
-    if q.dim() != 3 or any(t.shape != q.shape for t in ts):
-        raise ValueError(f"flash_fwd_cuda: q, k, v must share one (B, T, C) "
-                         f"shape, got {[tuple(t.shape) for t in ts]}")
-    if q.shape[2] != num_heads * HEAD_DIM:
-        raise ValueError(f"flash_fwd_cuda takes head_dim {HEAD_DIM}, got C="
-                         f"{q.shape[2]} with {num_heads} heads")
+def _check_layout(what: str, ts, ref: torch.Tensor):
+    """The kernels' layout rules for every tensor they read or write: on
+    ref's CUDA device, in its dtype (float32 or bfloat16), (B, T, W) with
+    the inner dim contiguous and rows and base 16-byte aligned for the
+    kernels' vector loads."""
     for t in ts:
-        # inner dim contiguous; rows and the base 16-byte aligned for the
-        # kernel's vector loads
+        if t.device.type != "cuda" or t.device != ref.device:
+            raise ValueError(f"{what}: tensors must be on one CUDA device")
+        if ref.dtype not in _DTYPE_CODE or t.dtype != ref.dtype:
+            raise TypeError(f"{what} takes float32 or bfloat16, got "
+                            f"{[x.dtype for x in ts]}")
+        if t.dim() != 3 or t.shape[0] != ref.shape[0]:
+            raise ValueError(f"{what}: (B, T, W) tensors of one batch, got "
+                             f"{[tuple(x.shape) for x in ts]}")
         if (t.stride(2) != 1 or t.stride(1) % 8 or t.stride(0) % 8
                 or t.data_ptr() % 16):
-            raise ValueError(f"flash_fwd_cuda: unsupported layout, strides "
+            raise ValueError(f"{what}: unsupported layout, strides "
                              f"{t.stride()}")
 
 
-def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   num_heads: int, causal: bool, sm_scale: float
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K1-fwd on q's current stream; same contract as
-    `flash_fwd_plain` with Tq == Tk.  q/k/v may be strided views into one
-    packed buffer (the last dim must be contiguous).  Raises on anything the
-    kernel does not take, and if the launch is refused."""
-    _check(q, k, v, num_heads)
-    B, T, C = q.shape
-    out = torch.empty((B, T, C), dtype=q.dtype, device=q.device)
-    lse = torch.empty((B, num_heads, T), dtype=torch.float32, device=q.device)
+def _check_heads(what: str, q, k, num_heads: int, kv_heads: int):
+    if q.shape[2] != num_heads * HEAD_DIM:
+        raise ValueError(f"{what} takes head_dim {HEAD_DIM}, got C="
+                         f"{q.shape[2]} with {num_heads} heads")
+    if kv_heads <= 0 or num_heads % kv_heads or k.shape[2] != kv_heads * HEAD_DIM:
+        raise ValueError(f"{what}: k/v width {k.shape[2]} is not kv_heads="
+                         f"{kv_heads} (dividing {num_heads}) x {HEAD_DIM}")
+
+
+def launch_fwd(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               num_heads: int, kv_heads: int, causal: bool, sm_scale: float,
+               q_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch csrc/flash_fwd.cu on q's current stream: the contract of
+    `flash_fwd_plain`.  Counts nothing: each kernel's public wrapper (K1
+    `flash_fwd_cuda`, K3 `flash_gqa_fwd_cuda`, K4 `flash_prefill_cuda`)
+    counts its own launches.  q, k, v may be strided views (last dim
+    contiguous).  Raises on anything the kernel does not take, and if the
+    launch is refused."""
+    _check_layout(what, (q, k, v), q)
+    _check_heads(what, q, k, num_heads, kv_heads)
+    B, Tq, C = q.shape
+    Tk = k.shape[1]
+    if v.shape != k.shape or q_offset < 0 or (causal and q_offset + Tq > Tk):
+        raise ValueError(f"{what}: q {tuple(q.shape)} at offset {q_offset} "
+                         f"does not fit k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}")
+    # the causal frontier: keys past the last query's position are never
+    # loaded, so a cache tail may hold anything
+    seq_len = q_offset + Tq if causal else Tk
+    out = torch.empty((B, Tq, C), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, num_heads, Tq), dtype=torch.float32,
+                      device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _kernel()(
@@ -122,11 +165,28 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             out.data_ptr(), lse.data_ptr(),
             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-            B, num_heads, T, T, 0, int(causal), float(sm_scale), stream)
+            B, num_heads, kv_heads, Tq, seq_len, q_offset, int(causal),
+            float(sm_scale), stream)
     if rc != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {rc}")
-    flash_fwd_cuda.launches += 1
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
     return out, lse
+
+
+def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   num_heads: int, causal: bool, sm_scale: float
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K1-fwd on q's current stream: MHA self-attention, the
+    contract of `flash_fwd_plain` with q, k and v of one shape.  q/k/v may
+    be strided views into one packed buffer (the last dim must be
+    contiguous).  Raises on anything the kernel does not take, and if the
+    launch is refused."""
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"flash_fwd_cuda: q, k, v must share one (B, T, C) "
+                         f"shape, got {[tuple(t.shape) for t in (q, k, v)]}")
+    res = launch_fwd("flash_fwd_cuda", q, k, v, num_heads, num_heads, causal,
+                     sm_scale)
+    flash_fwd_cuda.launches += 1
+    return res
 
 
 flash_fwd_cuda.launches = 0
@@ -149,10 +209,14 @@ def flash_attention_fwd(qkv: torch.Tensor, num_heads: int,
 
 def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-                    num_heads: int, causal: bool, sm_scale: float
+                    num_heads: int, causal: bool, sm_scale: float,
+                    kv_heads: int = 0
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K2's function in plain PyTorch: q, k, v, out, do (B, T, C), lse
-    (B, NH, T) fp32 -> (dq, dk, dv), each (B, T, C) in q's dtype.
+    """K2's and K3-bwd's function in plain PyTorch: q, out, do (B, T, C),
+    k, v (B, T, kv_heads*D), lse (B, NH, T) fp32 -> (dq (B, T, C), dk, dv
+    (B, T, kv_heads*D)) in q's dtype.  kv_heads 0 means num_heads; dk and
+    dv are summed over each kv head's group of query heads in fp32, then
+    rounded once, as the kernel does.
 
     The numerics of the multi-tile Pallas backward bodies (`_bwd_body`):
     q^ = q * sm_scale rounded to its dtype, s = q^ . k^T in fp32,
@@ -161,29 +225,30 @@ def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the unscaled q, dq = ds . k, with p and ds rounded to the input dtype
     before their products and fp32 accumulation."""
     B, T, C = q.shape
-    D = C // num_heads
+    KH = kv_heads or num_heads
+    R = num_heads // KH
     dtype = q.dtype
-
-    def heads(t):
-        return t.reshape(B, T, num_heads, D).transpose(1, 2).float()
-
-    qf, kf, vf, dof = heads(q), heads(k), heads(v), heads(do)
+    qf, dof = _grouped(q, num_heads, R), _grouped(do, num_heads, R)
+    kf, vf = _grouped(k, KH, 1), _grouped(v, KH, 1)
     qh = (qf * sm_scale).to(dtype).float()
     s = torch.matmul(qh, kf.transpose(-1, -2))
-    rows = torch.arange(T, device=q.device)[:, None]
-    cols = torch.arange(T, device=q.device)[None, :]
-    seen = (cols <= rows) if causal else torch.ones_like(rows == cols)
-    p = torch.where(seen, torch.exp(s - lse[..., None]), torch.zeros_like(s))
-    di = (heads(out) * dof).sum(dim=-1, keepdim=True)
+    lse = lse.reshape(B, KH, R, T)[..., None]
+    p = torch.exp(s - lse)
+    if causal:
+        p = p.masked_fill(_causal_mask(T, T, 0, q.device), 0.0)
+    di = (_grouped(out, num_heads, R) * dof).sum(dim=-1, keepdim=True)
     dp = torch.matmul(dof, vf.transpose(-1, -2))
     ds = p * (dp - di) * sm_scale
     pr, dsr = p.to(dtype).float(), ds.to(dtype).float()
-    dv = torch.matmul(pr.transpose(-1, -2), dof)
-    dk = torch.matmul(dsr.transpose(-1, -2), qf)
+    dv = torch.matmul(pr.transpose(-1, -2), dof).sum(dim=2)
+    dk = torch.matmul(dsr.transpose(-1, -2), qf).sum(dim=2)
     dq = torch.matmul(dsr, kf)
 
-    def packed(t):
-        return t.to(dtype).transpose(1, 2).reshape(B, T, C)
+    def packed(t):      # (B, heads, [group,] T, D) -> (B, T, heads*D)
+        t = t.to(dtype)
+        if t.dim() == 5:
+            t = t.flatten(1, 2)
+        return t.transpose(1, 2).reshape(B, T, -1)
 
     return packed(dq), packed(dk), packed(dv)
 
@@ -192,40 +257,36 @@ def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _bwd_kernel():
     fn = _build.load("flash_bwd").lib.vitrs_flash_bwd
     P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fn.argtypes = [I] + [P] * 10 + [LL] * 12 + [I, I, I, I, ctypes.c_float, P]
+    fn.argtypes = [I] + [P] * 10 + [LL] * 14 + [I] * 5 + [ctypes.c_float, P]
     fn.restype = I
     return fn
 
 
-def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-                   num_heads: int, causal: bool, sm_scale: float
-                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch K2 (three kernels: di, dK/dV, dQ; `launches` counts the call
-    once) on q's current stream; same contract as `flash_bwd_plain`.
-    q/k/v may be strided views into the packed qkv, out and do strided
-    (B, T, C) tensors (last dim contiguous).  Raises on anything the kernel
-    does not take, and if a launch is refused."""
-    _check(q, k, v, num_heads)
-    if out.shape != q.shape or do.shape != q.shape:
-        raise ValueError(f"flash_bwd_cuda: out {tuple(out.shape)} and do "
-                         f"{tuple(do.shape)} must have q's shape "
-                         f"{tuple(q.shape)}")
-    for t in (out, do):
-        if t.device != q.device or t.dtype != q.dtype:
-            raise TypeError("flash_bwd_cuda: out and do must share q's device "
-                            "and dtype")
-        if (t.stride(2) != 1 or t.stride(1) % 8 or t.stride(0) % 8
-                or t.data_ptr() % 16):
-            raise ValueError(f"flash_bwd_cuda: unsupported layout, strides "
-                             f"{t.stride()}")
+def launch_bwd(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+               num_heads: int, kv_heads: int, causal: bool, sm_scale: float
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch csrc/flash_bwd.cu (three kernels: di, dK/dV, dQ) on q's
+    current stream: the contract of `flash_bwd_plain`.  Counts nothing:
+    K2's `flash_bwd_cuda` and K3's `flash_gqa_bwd_cuda` count their own
+    launches.  q/k/v may be strided views into the packed qkv, out and do
+    strided (B, T, C) tensors (last dim contiguous).  Raises on anything
+    the kernel does not take, and if a launch is refused."""
+    _check_layout(what, (q, k, v, out, do), q)
+    _check_heads(what, q, k, num_heads, kv_heads)
     B, T, C = q.shape
+    if (k.shape[1] != T or v.shape != k.shape or out.shape != q.shape
+            or do.shape != q.shape):
+        raise ValueError(f"{what}: q/out/do {[tuple(t.shape) for t in (q, out, do)]}"
+                         f" and k/v {[tuple(t.shape) for t in (k, v)]} do not "
+                         f"match")
     if (lse.shape != (B, num_heads, T) or lse.dtype != torch.float32
             or lse.device != q.device or not lse.is_contiguous()):
-        raise ValueError(f"flash_bwd_cuda: lse must be a contiguous fp32 "
+        raise ValueError(f"{what}: lse must be a contiguous fp32 "
                          f"({B}, {num_heads}, {T}) tensor on q's device")
-    dq, dk, dv = (torch.empty((B, T, C), dtype=q.dtype, device=q.device)
-                  for _ in range(3))
+    dq = torch.empty((B, T, C), dtype=q.dtype, device=q.device)
+    dk, dv = (torch.empty(k.shape, dtype=q.dtype, device=q.device)
+              for _ in range(2))
     di = torch.empty((B, num_heads, T), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -236,11 +297,27 @@ def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), out.stride(0), out.stride(1),
             do.stride(0), do.stride(1), dq.stride(0), dq.stride(1),
-            B, num_heads, T, int(causal), float(sm_scale), stream)
+            dk.stride(0), dk.stride(1),
+            B, num_heads, kv_heads, T, int(causal), float(sm_scale), stream)
     if rc != 0:
-        raise RuntimeError(f"flash_bwd kernel launch failed: CUDA error {rc}")
-    flash_bwd_cuda.launches += 1
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
     return dq, dk, dv
+
+
+def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                   num_heads: int, causal: bool, sm_scale: float
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch K2 (three kernels: di, dK/dV, dQ; `launches` counts the call
+    once) on q's current stream: MHA, the contract of `flash_bwd_plain`
+    with q, k and v of one shape."""
+    if k.shape != q.shape:
+        raise ValueError(f"flash_bwd_cuda: k {tuple(k.shape)} must have q's "
+                         f"shape {tuple(q.shape)}")
+    res = launch_bwd("flash_bwd_cuda", q, k, v, out, lse, do, num_heads,
+                     num_heads, causal, sm_scale)
+    flash_bwd_cuda.launches += 1
+    return res
 
 
 flash_bwd_cuda.launches = 0

@@ -1,15 +1,21 @@
 """Fused qkv projection + flash attention — the port of
-`vitrs_tpu/ops/fused_qkv_attention.py` (multi-head attention only).
+`vitrs_tpu/ops/fused_qkv_attention.py` (MHA and GQA; rope and the sliding
+window come with ROADMAP.md Queue 1 item 12).
 
-Forward: one packed matmul from the canonical (3C, C) weight, then the
-flash forward (K1-fwd) reading q, k and v in place.  Backward: the flash
-backward (K2) returns dq, dk and dv as three arrays, which go straight into
-the projection gradients,
+Forward: one packed matmul from the canonical (C + 2*kv_dim, C) weight,
+then the flash forward reading q, k and v in place: K1-fwd for MHA, K3-fwd
+for GQA, which reads k and v at kv width.  Backward: the flash backward (K2,
+or K3-bwd, whose dk and dv come back at kv width already summed over each
+group) returns dq, dk and dv as three arrays, which go straight into the
+projection gradients,
 
     dln1 = dq Wq + dk Wk + dv Wv,    dW_part = d_part^T ln1,    dqkvb = sum d_part,
 
-so the packed (B, T, 3C) dqkv is never built; only the (3C, C) weight
-gradient is assembled.
+so the packed dqkv is never built; only the weight gradient is assembled.
+Under GQA this is the JAX op's GQA-native branch (its "small projection");
+its expanded-weight MHA branch, which the JAX package takes for geometries
+its GQA kernels do not tile, computes the same function and is not needed
+here: the port's K3 takes any kv_heads dividing num_heads.
 
 The weight arrives in its storage dtype (the fp32 master during training)
 and is cast to the activations' dtype inside the op, as the JAX op's
@@ -27,8 +33,9 @@ import torch
 
 from . import basic
 from . import flash_attention as FA
+from . import flash_attention_gqa as FG
 
-_VARIANTS = "GQA, rope and sliding window: ROADMAP.md Queue 1 item 12"
+_VARIANTS = "rope and sliding window: ROADMAP.md Queue 1 item 12"
 _HALF = (torch.bfloat16, torch.float16)
 
 
@@ -49,7 +56,7 @@ def qkv_projection_bwd(dq: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor,
     grads: (dln1 in ln1's dtype, dqkvw fp32, dqkvb fp32).  qkvw is the
     weight in ln1's dtype, as the forward used it; the caller casts the
     fp32 grads to its storage dtype.  Part widths come from the grads
-    themselves."""
+    themselves (dk and dv are kv_dim wide under GQA)."""
     C = ln1.shape[-1]
     Cq, Ck = dq.shape[-1], dk.shape[-1]
     Wq, Wk, Wv = qkvw[:Cq], qkvw[Cq:Cq + Ck], qkvw[Cq + Ck:]
@@ -68,31 +75,42 @@ def qkv_projection_bwd(dq: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor,
 
 class _QKVAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, ln1, qkvw, qkvb, num_heads, causal):
+    def forward(ctx, ln1, qkvw, qkvb, num_heads, kv_heads, causal):
         w = qkvw.to(ln1.dtype)
         qkv = basic.linear(ln1, w, qkvb.to(ln1.dtype))
-        out, lse = FA.flash_attention_fwd(qkv, num_heads, causal)
+        if kv_heads == num_heads:
+            out, lse = FA.flash_attention_fwd(qkv, num_heads, causal)
+        else:
+            out, lse = FG.flash_gqa_attention_fwd(qkv, num_heads, kv_heads,
+                                                  causal)
         ctx.save_for_backward(ln1, w, qkv, out, lse)
-        ctx.args = (num_heads, causal)
+        ctx.args = (num_heads, kv_heads, causal)
         ctx.dtypes = (qkvw.dtype, qkvb.dtype)
         return out
 
     @staticmethod
     def backward(ctx, do):
         ln1, w, qkv, out, lse = ctx.saved_tensors
-        dq, dk, dv = FA.flash_attention_bwd(qkv, out, lse, do.contiguous(),
-                                            *ctx.args)
+        num_heads, kv_heads, causal = ctx.args
+        if kv_heads == num_heads:
+            dq, dk, dv = FA.flash_attention_bwd(qkv, out, lse, do.contiguous(),
+                                                num_heads, causal)
+        else:
+            dq, dk, dv = FG.flash_gqa_attention_bwd(
+                qkv, out, lse, do.contiguous(), num_heads, kv_heads, causal)
         dln1, dqkvw, dqkvb = qkv_projection_bwd(dq, dk, dv, ln1, w)
         w_dtype, b_dtype = ctx.dtypes
         return (dln1.to(ln1.dtype), dqkvw.to(w_dtype), dqkvb.to(b_dtype),
-                None, None)
+                None, None, None)
 
 
 def qkv_attention(ln1: torch.Tensor, qkvw: torch.Tensor, qkvb: torch.Tensor,
                   num_heads: int, causal: bool = False, window: int = 0,
                   rope: bool = False, kv_heads: int = 0) -> torch.Tensor:
-    """(B, T, C) -> (B, T, C): packed qkv projection + multi-head flash
-    attention, differentiable in ln1, qkvw and qkvb."""
-    if window or rope or (kv_heads and kv_heads != num_heads):
+    """(B, T, C) -> (B, T, C): packed qkv projection + flash attention,
+    differentiable in ln1, qkvw and qkvb.  kv_heads > 0 (GQA/MQA) takes the
+    small (C + 2*kv_dim, C) weight; 0 means num_heads."""
+    if window or rope:
         raise NotImplementedError(_VARIANTS)
-    return _QKVAttention.apply(ln1, qkvw, qkvb, num_heads, causal)
+    return _QKVAttention.apply(ln1, qkvw, qkvb, num_heads,
+                               kv_heads or num_heads, causal)

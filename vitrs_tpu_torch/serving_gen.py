@@ -1,10 +1,11 @@
 """Continuous-batching generation engine — the port of
 `vitrs_tpu/serving_gen.py` (dense slot cache).
 
-A fixed pool of decode slots shares one KV cache (L, slots, max_len, C) on
-the device.  Requests are admitted into free slots as others retire; prompts
-are right-padded to a bucket and same-bucket prompts prefill together in one
-pass (`generate.prefill_into_slots`, whose attention is the flash kernel);
+A fixed pool of decode slots shares one KV cache (L, slots, max_len,
+kv_dim) on the device.  Requests are admitted into free slots as others
+retire; prompts are right-padded to a bucket and same-bucket prompts
+prefill together in one pass (`generate.prefill_into_slots`, whose
+attention is the flash kernel: K1-fwd, or K3-fwd under GQA);
 every tick then decodes one token for all slots (`decode_step_multi`), or
 `decode_chunk` ticks at once with sampling on the device.  Inactive slots
 decode garbage that the host discards.

@@ -20,9 +20,11 @@ AdamW, one device.
 
 What the JAX loop also does and this slice does not yet raises
 NotImplementedError naming its ROADMAP.md Queue 1 item: vit presets and
-mixup (5), EMA (12), Muon and Adafactor (13), async checkpoints (17), a
-mesh (18).  Its other options (remat, profiler traces, RandAugment, model
-overrides, run_steps) are not in this TrainConfig yet.
+mixup (5), EMA (12), Muon and Adafactor (13), async checkpoints (17) and
+a mesh (18).  Of the JAX loop's model overrides only the K/V head count
+is here, as `kv_heads` (GQA/MQA, which trains through K3).  Its other
+options (remat, profiler traces, RandAugment, run_steps) are not in this
+TrainConfig yet.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ from ..config import ViTConfig, get_config
 from ..data import tokens as TOK
 from ..models import model as M
 from ..ops import optimizer as opt
+from ..ops._build import resolve_device
 from ..parallel import data_parallel as dp
 from ..utils import flops as F
 
@@ -52,7 +55,8 @@ from ..utils import flops as F
 class TrainConfig:
     """The JAX TrainConfig's fields that a gpt-mode AdamW run on one device
     reads, with its defaults except: preset (a GPT preset here) and
-    async_ckpt (off); `device` is the port's own.  mesh, optimizer,
+    async_ckpt (off), and `kv_heads` in place of the JAX config's
+    `model_overrides` dict; `device` is the port's own.  mesh, optimizer,
     ema_decay, mixup_alpha and async_ckpt are kept so that asking for them
     raises, naming their ROADMAP item."""
     preset: str = "gpt2-124m"
@@ -83,6 +87,7 @@ class TrainConfig:
     ema_decay: float = 0.0
     mixup_alpha: float = 0.0
     async_ckpt: bool = False
+    kv_heads: int = 0              # GQA/MQA K/V heads; 0 = MHA
     device: str = "cuda"           # "cuda" (never falls back) or "cpu"
 
 
@@ -99,15 +104,6 @@ def _check_supported(tc: TrainConfig) -> None:
     for cond, what in unported:
         if cond:
             raise NotImplementedError(what)
-
-
-def resolve_device(name: str) -> torch.device:
-    """torch.device(name); a CUDA device must exist (no fallback)."""
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass --cpu (device='cpu') to "
-                           "train on the CPU")
-    return device
 
 
 def device_kind(device: torch.device) -> str:
@@ -149,7 +145,7 @@ def evaluate_gpt(cfg: ViTConfig, params, data_dir: Optional[str] = None,
 def train(tc: TrainConfig) -> dict:
     _check_supported(tc)
     device = resolve_device(tc.device)
-    cfg = get_config(tc.preset, dtype=tc.dtype)
+    cfg = get_config(tc.preset, dtype=tc.dtype, num_kv_heads=tc.kv_heads)
     M.check_supported(cfg)
     workdir = tc.workdir or tempfile.mkdtemp(prefix="vitrs_torch_run_")
     os.makedirs(workdir, exist_ok=True)

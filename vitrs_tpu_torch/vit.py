@@ -28,6 +28,7 @@ from . import params as P
 from .config import ViTConfig, get_config
 from .models import model as M
 from .ops import optimizer as opt
+from .ops._build import resolve_device
 
 
 class ViT:
@@ -69,10 +70,12 @@ class ViT:
 
     @classmethod
     def from_config(cls, cfg_or_name, seed: int = 0,
-                    scheme: str = "production", device="cpu",
+                    scheme: str = "production", device="cuda",
                     **overrides) -> "ViT":
         """Random init from `seed`, drawn on the CPU so that every device
-        gets the same weights, then moved to `device`."""
+        gets the same weights, then moved to `device`: the card unless the
+        caller asks for the CPU (raises when torch sees no CUDA device)."""
+        device = resolve_device(device)
         cfg = (get_config(cfg_or_name, **overrides)
                if isinstance(cfg_or_name, str)
                else cfg_or_name.replace(**overrides))
@@ -82,10 +85,12 @@ class ViT:
                    seed=seed)
 
     @classmethod
-    def build_from_checkpoint(cls, path: str, device="cpu",
+    def build_from_checkpoint(cls, path: str, device="cuda",
                               **overrides) -> "ViT":
         """The file header is the config's source of truth; overrides may
-        change implementation switches such as dtype."""
+        change implementation switches such as dtype.  The model lives on
+        the card unless the caller asks for the CPU."""
+        device = resolve_device(device)
         np_params, cfg, extras = ckpt_io.load_checkpoint(path)
         if overrides:
             cfg = cfg.replace(**overrides).validate()
