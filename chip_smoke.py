@@ -49,6 +49,33 @@ on any failure.  Phases, each printed as it ends:
  12. xdevice-gqa    a small fp32 GQA model (NH=4, KH=2, D=64): one training
                     step and a chunked generate on CUDA (kernels) and on the
                     CPU (plain versions) agree.
+ 13. kernels-rope-window  K1-fwd, K2 and K3 with rope and the sliding-window
+                    band against their plain versions (W in {1, 63, 64, 65,
+                    1024}, T in {1000, 8192}; band-edge inputs that a band
+                    moved by one key fails), K1-fwd without rope at T=7680
+                    and K4 with the band at q_offset 7168 at the serving
+                    shapes, then times at T=8192, W=1024 beside the band-aware
+                    bound and SDPA with a band mask; the windowed K2 must
+                    take under half the full-causal K2's time.
+ 14. kernels-headce K8 (fused head + CE) against its plain version at
+                    R in {8192, 16384}, then times; loss and gradients
+                    through it against the two-op route (K5/K6).
+ 15. train-window   GPT-2 124M at T=8192 with window 1024 and rope
+                    (129,944,832 parameters), B=2, 12 steps through
+                    train/loop.train as in 6 (rope and the band inside K1-fwd
+                    and K2); then the full-causal control (W=0).
+ 16. train-headce   phase 6's run with ops/fused_head_ce.ENABLE set: K8 in
+                    place of K5, 12 launches in 12 steps.
+ 17. serve-window   the rope + window model at max_seq_len 8192, B=8, a
+                    7680-token prompt: generate whole (K1-fwd with the band)
+                    and in 512-token chunks (K4 with the band), last-position
+                    logits within 1e-3; generate_streaming (ring cache) for
+                    32 new tokens beside the dense-cache run.
+ 18. xdevice-window small fp32 rope + window models (kv 2 and 1): a training
+                    step and a chunked generate on CUDA and on the CPU agree.
+
+`python3 chip_smoke.py --phases a,b` runs only the named phases (after the
+device phase) and prints no result lines.
 
 Every kernel also gets a bound (the least time the card could take: the
 larger of its operations over the card's peak for their type and its bytes
@@ -60,6 +87,7 @@ package beside it, the script exits non-zero and prints no result.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -70,7 +98,7 @@ import numpy as np
 import torch
 
 CSRC = "vitrs_tpu_torch/csrc/"
-LIBS = ("flash_fwd", "flash_bwd", "fused_ce", "fused_adamw")
+LIBS = ("flash_fwd", "flash_bwd", "fused_ce", "fused_adamw", "fused_head_ce")
 # NVIDIA H100 SXM peaks (data sheet, dense): bf16 tensor cores, fp32
 # outside them, device memory
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
@@ -105,29 +133,37 @@ def bound(flops, kind, nbytes):
     return (ops_ms, "operations") if ops_ms >= mem_ms else (mem_ms, "bytes")
 
 
-def attn_pairs(tq, q_off, keys, causal):
+def attn_pairs(tq, q_off, keys, causal, window=0):
     """(query, key) pairs attention computes: each of tq rows at positions
-    q_off.. sees its causal prefix, or all `keys`."""
+    p = q_off.. sees its causal prefix, min(p + 1, window) keys under a
+    sliding window, or all `keys`."""
     if not causal:
         return tq * keys
-    return sum(min(q_off + i + 1, keys) for i in range(tq))
+    return sum(min(q_off + i + 1, keys, window or keys) for i in range(tq))
 
 
-def attn_fwd_bound(B, tq, q_off, keys, kh, es, causal=True):
+def attn_fwd_bound(B, tq, q_off, keys, kh, es, causal=True, window=0,
+                   rope=False):
     """Bound of a flash forward: 2 products of 2*D flops per pair on the
-    tensor cores; reads q and the k/v rows it needs, writes out and lse."""
-    flops = 4 * B * NH * D * attn_pairs(tq, q_off, keys, causal)
+    tensor cores; reads q and the k/v rows it needs (from the first row the
+    band reaches), and under rope the fp32 cos/sin rows of its positions;
+    writes out and lse."""
+    flops = 4 * B * NH * D * attn_pairs(tq, q_off, keys, causal, window)
     kv_rows = min(q_off + tq, keys) if causal else keys
+    if causal and window:
+        kv_rows -= max(0, q_off - window + 1)
     nbytes = (2 * B * tq * C * es + 2 * B * kv_rows * kh * D * es
-              + B * NH * tq * 4)
+              + B * NH * tq * 4 + (2 * (q_off + tq) * D * 4 if rope else 0))
     return bound(flops, "bf16" if es == 2 else "fp32", nbytes)
 
 
-def attn_bwd_bound(B, T, kh, es):
+def attn_bwd_bound(B, T, kh, es, window=0, rope=False):
     """Bound of a causal flash backward: 5 products per pair (s, dp, dv, dk,
-    dq); reads q, k, v, out, do and lse, writes dq, dk, dv."""
-    flops = 10 * B * NH * D * attn_pairs(T, 0, T, True)
-    nbytes = 4 * B * T * C * es + 4 * B * T * kh * D * es + B * NH * T * 4
+    dq); reads q, k, v, out, do and lse (and the rope table), writes dq, dk,
+    dv."""
+    flops = 10 * B * NH * D * attn_pairs(T, 0, T, True, window)
+    nbytes = (4 * B * T * C * es + 4 * B * T * kh * D * es + B * NH * T * 4
+              + (2 * T * D * 4 if rope else 0))
     return bound(flops, "bf16" if es == 2 else "fp32", nbytes)
 
 
@@ -168,10 +204,10 @@ def sdpa_fwd(q, k, v, kh, mask=None):
         is_causal=mask is None, enable_gqa=kh != NH)
 
 
-def sdpa_bwd(q, k, v, do, kh):
+def sdpa_bwd(q, k, v, do, kh, mask=None):
     """A closure running the backward of `sdpa_fwd` (a yardstick only)."""
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-    out = sdpa_fwd(*leaves, kh)
+    out = sdpa_fwd(*leaves, kh, mask)
     dout = heads(do, NH)
     return lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
 
@@ -357,10 +393,11 @@ def phase_xdevice():
 
 
 
-def timed_pair(kernel, plain):
+def timed_pair(kernel, plain, iters=20, warmup=3):
     """(kernel ms, plain ms): each the mean of two cuda_ms runs, in the
     order plain, kernel, kernel, plain, so both halves see the same card."""
-    p1, k1, k2, p2 = (cuda_ms(f) for f in (plain, kernel, kernel, plain))
+    p1, k1, k2, p2 = (cuda_ms(f, iters, warmup)
+                      for f in (plain, kernel, kernel, plain))
     return (k1 + k2) / 2, (p1 + p2) / 2, (k1, k2, p1, p2)
 
 
@@ -511,12 +548,13 @@ def _counters():
     from vitrs_tpu_torch.ops import flash_prefill as FP
     from vitrs_tpu_torch.ops import fused_adamw as FW
     from vitrs_tpu_torch.ops import fused_ce as CE
+    from vitrs_tpu_torch.ops import fused_head_ce as FH
     return {"flash_fwd": FA.flash_fwd_cuda, "flash_bwd": FA.flash_bwd_cuda,
             "flash_gqa_fwd": FG.flash_gqa_fwd_cuda,
             "flash_gqa_bwd": FG.flash_gqa_bwd_cuda,
             "flash_prefill": FP.flash_prefill_cuda,
             "ce_fwd": CE.ce_fwd_cuda, "ce_bwd": CE.ce_bwd_cuda,
-            "adamw": FW.adamw_cuda}
+            "adamw": FW.adamw_cuda, "head_ce_fwd": FH.head_ce_fwd_cuda}
 
 
 def reset_counts():
@@ -535,28 +573,39 @@ def designed(**counts):
     return want
 
 
-def phase_train(smi, steps=12, kv_heads=0):
+def phase_train(smi, steps=12, kv_heads=0, overrides=None, B=8, tag=None,
+                n_params=None, head_ce=False):
     """GPT-2 124M, full width and depth, through train/loop.train; with
-    kv_heads, its GQA variant through K3."""
+    kv_heads, its GQA variant through K3; `overrides` are the TrainConfig's
+    model_overrides (the long-context rope + window model); head_ce sets
+    ops/fused_head_ce.ENABLE, so the loss runs through K8 (and K6) instead
+    of K5/K6."""
     from vitrs_tpu_torch import params as P
     from vitrs_tpu_torch.config import get_config
+    from vitrs_tpu_torch.ops import fused_head_ce as FH
     from vitrs_tpu_torch.train import loop
-    tag = "[train-gqa]" if kv_heads else "[train]"
-    cfg = get_config("gpt2-124m", num_kv_heads=kv_heads)
-    n_params = 114_990_336 if kv_heads == 4 else 124_439_808
+    tag = tag or ("[train-gqa]" if kv_heads else "[train]")
+    overrides = dict(overrides or {})
+    cfg = get_config("gpt2-124m", num_kv_heads=kv_heads, **overrides)
+    n_params = n_params or (114_990_336 if kv_heads == 4 else 124_439_808)
     check(P.num_parameters(cfg) == n_params, f"{tag} parameter count")
-    B = 8
+    T = cfg.max_seq_len
     with tempfile.TemporaryDirectory() as work:
         tc = loop.TrainConfig(preset="gpt2-124m", dataset="", steps=steps,
                               batch_size=B, lr=6e-4, warmup=2, min_lr=6e-5,
                               weight_decay=0.1, dtype="bfloat16", log_every=1,
                               ckpt_every=0, workdir=work,
-                              kv_heads=kv_heads, device="cuda")
+                              kv_heads=kv_heads, device="cuda",
+                              model_overrides=overrides or None)
         torch.cuda.reset_peak_memory_stats()
+        FH.ENABLE = head_ce
         reset_counts()
         t0 = time.perf_counter()
-        summary = loop.train(tc)
-        torch.cuda.synchronize()
+        try:
+            summary = loop.train(tc)
+            torch.cuda.synchronize()
+        finally:
+            FH.ENABLE = False
         wall = time.perf_counter() - t0
         counts = read_counts()
         peak = torch.cuda.max_memory_allocated()
@@ -565,8 +614,9 @@ def phase_train(smi, steps=12, kv_heads=0):
     L = cfg.num_layers
     fwd, bwd = (("flash_gqa_fwd", "flash_gqa_bwd") if kv_heads
                 else ("flash_fwd", "flash_bwd"))
-    want = designed(**{fwd: L * steps, bwd: L * steps}, ce_fwd=steps,
-                    ce_bwd=steps, adamw=steps)
+    loss_kernel = {"head_ce_fwd": steps} if head_ce else {"ce_fwd": steps}
+    want = designed(**{fwd: L * steps, bwd: L * steps}, ce_bwd=steps,
+                    adamw=steps, **loss_kernel)
     check(counts == want, f"{tag} launches {counts} != designed {want}")
     losses = [r["loss"] for r in recs]
     check(len(losses) == steps and all(np.isfinite(losses)),
@@ -575,21 +625,24 @@ def phase_train(smi, steps=12, kv_heads=0):
     steady = recs[2:]                     # steps 1-2: warm-up (cuBLAS, allocator)
     tok_s = float(np.median([r["tok_per_sec"] for r in steady]))
     mfu = float(np.median([r["mfu"] for r in steady]))
-    step_ms = B * cfg.max_seq_len / tok_s * 1e3
-    print(f"{tag} gpt2-124m kv_heads={cfg.kv_heads} ({n_params} params) "
-          f"bf16/fp32-master B={B} T=1024 {steps} steps: "
+    step_ms = B * T / tok_s * 1e3
+    what = ", ".join(f"{k}={v}" for k, v in overrides.items())
+    print(f"{tag} gpt2-124m kv_heads={cfg.kv_heads} {what} ({n_params} "
+          f"params) bf16/fp32-master B={B} T={T} {steps} steps: "
           f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
     print(f"{tag} losses {losses}")
     print(f"{tag} launches per step: {fwd} {counts[fwd] // steps}, "
           f"{bwd} {counts[bwd] // steps} (3 kernels each), "
-          f"ce_fwd/ce_bwd/adamw 1, every other kernel 0")
+          f"{'head_ce_fwd' if head_ce else 'ce_fwd'}/ce_bwd/adamw 1, every "
+          f"other kernel 0")
     print(f"{tag} steady (steps 3-{steps}, median): {step_ms:.2f} ms/step, "
           f"{tok_s:.1f} tok/s, MFU {mfu:.4f} of 989 TFLOP/s; "
           f"max_memory_allocated {peak / 2**30:.3f} GiB; wall {wall:.1f} s "
           f"incl. init and final checkpoint  ({smi})")
     print(f"{tag} per-step tok/s {[r['tok_per_sec'] for r in recs]}")
     return counts, dict(step_ms=step_ms, tok_s=tok_s, mfu=mfu,
-                        peak_gib=peak / 2**30, final_loss=summary["final_loss"])
+                        peak_gib=peak / 2**30, final_loss=summary["final_loss"],
+                        losses=losses)
 
 
 def phase_xdevice_train(cfg=None, tag="xdevice-train"):
@@ -627,7 +680,9 @@ def phase_xdevice_train(cfg=None, tag="xdevice-train"):
         step = dp.make_dp_train_step(cfg, mesh, clip_norm=1.0)
         new, _, _, step_loss = step(P.unflatten_params(flat, cfg), m, v, x, y,
                                      1, lr, 0.1)
-        out[dev] = (loss.item(), {k: t.grad.cpu() for k, t in leaves.items()},
+        # a tensor the loss does not read (wpe under rope) has no gradient
+        out[dev] = (loss.item(), {k: torch.zeros(t.shape) if t.grad is None
+                                  else t.grad.cpu() for k, t in leaves.items()},
                     {k: t.detach().cpu() for k, t in new.items()},
                     step_loss.item(), read_counts())
     L = cfg.num_layers
@@ -656,6 +711,7 @@ def phase_xdevice_train(cfg=None, tag="xdevice-train"):
           f"C={cfg.channels} V={cfg.vocab_size}: loss {lc:.6f} (cuda) vs "
           f"{lp:.6f} (cpu); 16 grads max_abs_err {gerr:.3e}; params after "
           f"one AdamW step max_abs_err {perr:.3e}")
+    return out["cuda"][4]
 
 
 def phase_kernels_gqa():
@@ -957,24 +1013,594 @@ def phase_xdevice_gqa():
           f"cpu; last-chunk logits max_abs_err {err:.3e}")
 
 
+# ---------------------------------------------------------------------------
+# rope and the sliding window (K1-fwd, K2, K3, K4), and K8
+# ---------------------------------------------------------------------------
+
+EDGE_R2 = 12.0      # squared norm of each rotation pair of the band-edge q, k
+EDGE_PAIRS = 12     # the rotation pairs they use: rope's 12 fastest
+
+
+def band_edge_qk(B, S, Tk, nh, kh, window, q_off=0, rope=False,
+                 device="cuda"):
+    """q (B, S, nh*D) at positions q_off.. and k (B, Tk, kh*D) at 0.., fp32,
+    whose scores peak at the lower edge of every query's band: pair i <
+    EDGE_PAIRS of the rotated q and k gives EDGE_R2 cos(w_i (j - t - d0)),
+    w_i rope's frequencies and d0 = 1/2 - window (the other pairs are 0),
+    so the score of query t and key j is largest, and equal, at keys
+    t - window + 1 (the band's last key) and t - window (the first key
+    outside it), and at least 2 EDGE_R2 lower at every other key up to
+    9000 away (3 after the 1/8 softmax scale; the peak is 17.6, so fp32
+    scores keep most of their precision).  A band that ends one
+    key early or late then moves the output by about |v|, where random
+    inputs move it by about 1/window of its rms, below the bf16 bound
+    (tests/test_torch_smoke_tolerance.py).  rope=True: q and k come
+    unrotated (every row the same) for the kernels to rotate; else rotated
+    at their positions."""
+    from vitrs_tpu_torch.ops.rope import rope_table, rotate
+    half = D // 2
+    w = 10000.0 ** (-torch.arange(half, dtype=torch.float64) / half)
+    d0 = 0.5 - window
+    r = math.sqrt(EDGE_R2) * (torch.arange(half) < EDGE_PAIRS).double()
+    a = torch.cat([r, torch.zeros(half, dtype=torch.float64)])
+    b = torch.cat([r * torch.cos(w * d0), -r * torch.sin(w * d0)])
+    q = a.float().repeat(nh).to(device).expand(B, S, -1)
+    k = b.float().repeat(kh).to(device).expand(B, Tk, -1)
+    if not rope:
+        cos, sin = rope_table(max(q_off + S, Tk), D, device)
+        q = rotate(q, cos[q_off:q_off + S], sin[q_off:q_off + S], nh)
+        k = rotate(k, cos[:Tk], sin[:Tk], kh)
+    return q.contiguous(), k.contiguous()
+
+
+def band_mask(tq, q_off, keys, window, device="cuda"):
+    """(tq, keys) bool, True where query row i sees key j: the explicit
+    band PyTorch's SDPA takes."""
+    rows = q_off + torch.arange(tq, device=device)[:, None]
+    cols = torch.arange(keys, device=device)[None, :]
+    return (cols <= rows) & (cols > rows - window)
+
+
+def _attn_fns(kh):
+    """(fwd kernel, fwd plain, bwd kernel, bwd plain) at kv width kh, each
+    called as f(q, k, v, [out, lse, do,] causal, window, rope)."""
+    from vitrs_tpu_torch.ops import flash_attention as FA
+    from vitrs_tpu_torch.ops import flash_attention_gqa as FG
+    if kh == NH:
+        return (lambda q, k, v, c, w, r: FA.flash_fwd_cuda(q, k, v, NH, c, 0.125, w, r),
+                lambda q, k, v, c, w, r: FA.flash_fwd_plain(q, k, v, NH, c, 0.125,
+                                                            window=w, rope=r),
+                lambda q, k, v, o, l, d, c, w, r: FA.flash_bwd_cuda(
+                    q, k, v, o, l, d, NH, c, 0.125, w, r),
+                lambda q, k, v, o, l, d, c, w, r: FA.flash_bwd_plain(
+                    q, k, v, o, l, d, NH, c, 0.125, window=w, rope=r))
+    return (lambda q, k, v, c, w, r: FG.flash_gqa_fwd_cuda(q, k, v, NH, kh, c, 0.125,
+                                                           w, r),
+            lambda q, k, v, c, w, r: FG.flash_gqa_fwd_plain(q, k, v, NH, kh, c, 0.125,
+                                                            w, r),
+            lambda q, k, v, o, l, d, c, w, r: FG.flash_gqa_bwd_cuda(
+                q, k, v, o, l, d, NH, kh, c, 0.125, w, r),
+            lambda q, k, v, o, l, d, c, w, r: FG.flash_gqa_bwd_plain(
+                q, k, v, o, l, d, NH, kh, c, 0.125, w, r))
+
+
+def _check_band_fwd(where, W, out, lse, ref, ref_lse, v, kh, lse_tol):
+    """Holds a forward with window W (out, lse) to its plain version (ref,
+    ref_lse): out as `out_errors` and, at W=1, equal to v; lse relative to
+    max(1, |lse|).  Returns (max_abs_err, rms, lse_err)."""
+    check(torch.isfinite(out).all().item(), f"{where}: out non-finite")
+    bad, err, rms = out_errors(out, ref)
+    check(bad == 0, f"{where}: {bad} out values beyond tolerance "
+          f"(max_abs_err {err:.3e})")
+    if W == 1:        # p = 1 on the query's own key
+        B, T = v.shape[:2]
+        own = v.unflatten(-1, (kh, 1, D)).expand(
+            B, T, kh, NH // kh, D).reshape(B, T, C)
+        check(torch.equal(out, own), f"{where}: out != v at W=1")
+    lse_err = ((lse - ref_lse).abs()
+               / ref_lse.abs().clamp_min(1.0)).max().item()
+    check(lse_err <= lse_tol, f"{where}: lse err {lse_err}")
+    return err, rms, lse_err
+
+
+def phase_kernels_rope_window():
+    """K1-fwd and K2 (MHA), K3-fwd and K3-bwd (KH in {4, 1}) with rope and
+    the band against their plain versions, bf16 and fp32, B=2, W in
+    {1, 63, 64, 65, 1024}, T in {1000, 8192} with rope and T=1000 without
+    it; then K1-fwd alone without rope at T=7680 (the serving prefill's
+    band).  Inputs are the band-edge ones of `band_edge_qk`, except at
+    T=1000, W=1024 (causal), where q and k are random.  At W=1 the output
+    must equal v exactly.  Tolerances as K1-K3's: out as `out_errors`,
+    grads 2e-2 abs + rel bf16 and 1e-4 fp32; lse 1e-4 bf16 and 1e-5 fp32,
+    relative to max(1, |lse|) (the band-edge scores reach about 18).  Then
+    K4 with W=1024 at q_offset 7168 (NaN tail) at B=8, KH=12 (the serving
+    shape) and B=2, KH=4.  Times at T=8192, W=1024 with rope, and K4's at
+    the serving shape, beside the band-aware bound (pairs = sum_t min(t +
+    1, W) per (b, h)) and SDPA with an explicit band mask on q and k
+    rotated beforehand; the windowed K2 must take under half the
+    full-causal K2's time."""
+    from vitrs_tpu_torch.ops import flash_attention as FA
+    from vitrs_tpu_torch.ops import flash_attention_gqa as FG
+    from vitrs_tpu_torch.ops import flash_prefill as FP
+    from vitrs_tpu_torch.ops.rope import rope_qk
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    tols = {torch.bfloat16: (1e-4, 2e-2), torch.float32: (1e-5, 1e-4)}
+    worst = {}
+    B = 2
+    n_cases = 0
+    for dtype, (lse_tol, bwd_tol) in tols.items():
+        for kh in (NH, 4, 1):
+            fwd_k, fwd_p, bwd_k, bwd_p = _attn_fns(kh)
+            for T, ropes in ((1000, (False, True)), (8192, (True,))):
+                for rope in ropes:
+                    for W in (1, 63, 64, 65, 1024):
+                        if W < T:
+                            q, k = band_edge_qk(B, T, T, NH, kh, W, rope=rope)
+                        else:
+                            q = torch.randn(B, T, C, generator=gen, device="cuda")
+                            k = torch.randn(B, T, kh * D, generator=gen,
+                                            device="cuda")
+                        v = torch.randn(B, T, kh * D, generator=gen, device="cuda")
+                        do = torch.randn(B, T, C, generator=gen, device="cuda")
+                        q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
+                        where = (f"{str(dtype)[6:]} KH={kh} T={T} W={W} "
+                                 f"rope={int(rope)}")
+                        out, lse = fwd_k(q, k, v, True, W, rope)
+                        ref, ref_lse = fwd_p(q, k, v, True, W, rope)
+                        got = bwd_k(q, k, v, out, lse, do, True, W, rope)
+                        want = bwd_p(q, k, v, out, lse, do, True, W, rope)
+                        torch.cuda.synchronize()
+                        err, rms, lse_err = _check_band_fwd(
+                            where, W, out, lse, ref, ref_lse, v, kh, lse_tol)
+                        errs = [err]
+                        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+                            check(torch.isfinite(a).all().item(),
+                                  f"{where}: {name} non-finite")
+                            d = (a.float() - b.float()).abs()
+                            nbad = (d > bwd_tol + bwd_tol * b.float().abs()
+                                    ).sum().item()
+                            check(nbad == 0, f"{where}: {nbad} {name} values "
+                                  f"beyond {bwd_tol}")
+                            errs.append(d.max().item())
+                        n_cases += 1
+                        print(f"[kernels-rope-window] {where}: max_abs_err out "
+                              f"{errs[0]:.3e} (rms {rms:.3e}) lse(rel) "
+                              f"{lse_err:.3e} dq/dk/dv {errs[1]:.3e}/"
+                              f"{errs[2]:.3e}/{errs[3]:.3e}")
+                        if dtype == torch.bfloat16:
+                            key = "mha" if kh == NH else "gqa"
+                            worst[key + "_fwd"] = max(worst.get(key + "_fwd", 0.0),
+                                                      errs[0])
+                            worst[key + "_bwd"] = max(worst.get(key + "_bwd", 0.0),
+                                                      *errs[1:])
+                        del q, k, v, do, out, lse, ref, ref_lse, got, want
+    print(f"[kernels-rope-window] {n_cases} cases within tolerance")
+
+    # the serving prefill's K1-fwd: the band with rope=False (generate
+    # rotates q and k before the cache write) on a whole 7680-token prompt,
+    # as serve-window runs it (there at B=8; B=2 keeps the plain version's
+    # fp32 T x T scores small); forward only
+    T = 7680
+    fwd_k, fwd_p = _attn_fns(NH)[:2]
+    for dtype, (lse_tol, _) in tols.items():
+        for W in (1, 63, 64, 65, 1024):
+            q, k = band_edge_qk(B, T, T, NH, NH, W)
+            v = torch.randn(B, T, C, generator=gen, device="cuda")
+            q, k, v = (t.to(dtype) for t in (q, k, v))
+            where = f"{str(dtype)[6:]} KH={NH} T={T} W={W} rope=0 (fwd only)"
+            out, lse = fwd_k(q, k, v, True, W, False)
+            ref, ref_lse = fwd_p(q, k, v, True, W, False)
+            torch.cuda.synchronize()
+            err, rms, lse_err = _check_band_fwd(where, W, out, lse, ref,
+                                                ref_lse, v, NH, lse_tol)
+            print(f"[kernels-rope-window] {where}: max_abs_err out {err:.3e} "
+                  f"(rms {rms:.3e}) lse(rel) {lse_err:.3e}")
+            if dtype == torch.bfloat16:
+                worst["mha_fwd"] = max(worst["mha_fwd"], err)
+            del q, k, v, out, lse, ref, ref_lse
+
+    # K4: a 512-query chunk at q_offset 7168 against an 8K cache, W=1024:
+    # at the serving shape (B=8, the window model's 12 kv heads) and at
+    # B=2, KH=4
+    S, q_off, Tk, W = 512, 7168, 7936, 1024
+    for dtype in (torch.bfloat16, torch.float32):
+        for Bp, kh in ((8, NH), (B, 4)):
+            q, k = band_edge_qk(Bp, S, Tk, NH, kh, W, q_off=q_off)
+            v = torch.randn(Bp, Tk, kh * D, generator=gen, device="cuda")
+            q, k, v = (t.to(dtype) for t in (q, k, v))
+            k[:, q_off + S:] = float("nan")
+            v[:, q_off + S:] = float("nan")
+            got = FP.flash_prefill_cuda(q, k, v, NH, kh, q_off, 0.125, W)
+            want = FP.flash_prefill_plain(q, k, v, NH, kh, q_off, 0.125, W)
+            torch.cuda.synchronize()
+            check(torch.isfinite(got).all().item(), "K4 window: non-finite")
+            bad, err, rms = out_errors(got, want)
+            check(bad == 0, f"K4 window {dtype} B={Bp} KH={kh}: {bad} values "
+                  f"beyond tolerance")
+            print(f"[kernels-rope-window] K4 {str(dtype)[6:]} B={Bp} KH={kh} "
+                  f"S={S} q_off={q_off} W={W} (NaN tail): max_abs_err "
+                  f"{err:.3e} (rms {rms:.3e})")
+            del q, k, v, got, want
+            if dtype == torch.bfloat16:
+                worst["prefill"] = max(worst.get("prefill", 0.0), err)
+
+    # times at the training shape: bf16 B=2 T=8192 W=1024 rope
+    T = 8192
+    res = {}
+    for kh in (NH, 4):
+        fwd_k, fwd_p, bwd_k, bwd_p = _attn_fns(kh)
+        q, k, v, do = (torch.randn(B, T, n, generator=gen, device="cuda")
+                       .bfloat16() for n in (C, kh * D, kh * D, C))
+        out, lse = fwd_k(q, k, v, True, W, True)
+        qr, kr = rope_qk(q, k, torch.arange(T, device="cuda"), NH, kh)
+        mask = band_mask(T, 0, T, W)
+        key = "mha" if kh == NH else "gqa"
+        shape = f"bf16 B=2 T=8192 NH=12 KH={kh} D=64 W=1024 rope"
+        for part, kern, plain, lib, bnd in (
+                ("fwd", lambda: fwd_k(q, k, v, True, W, True),
+                 lambda: fwd_p(q, k, v, True, W, True),
+                 lambda: sdpa_fwd(qr, kr, v, kh, mask),
+                 attn_fwd_bound(B, T, 0, T, kh, 2, window=W, rope=True)),
+                ("bwd", lambda: bwd_k(q, k, v, out, lse, do, True, W, True),
+                 lambda: bwd_p(q, k, v, out, lse, do, True, W, True),
+                 sdpa_bwd(qr, kr, v, do, kh, mask),
+                 attn_bwd_bound(B, T, kh, 2, window=W, rope=True))):
+            km, pm, raw = timed_pair(kern, plain, iters=5, warmup=1)
+            lib_ms = cuda_ms(lib, iters=5, warmup=1)
+            print(f"[kernels-rope-window] {key}_{part} time {shape}: kernel "
+                  f"{raw[0]:.4f}/{raw[1]:.4f} ms, plain {raw[2]:.4f}/"
+                  f"{raw[3]:.4f} ms, SDPA (band mask) {lib_ms:.4f} ms, bound "
+                  f"{bnd[0]:.4f} ms ({bnd[1]})")
+            res[f"{key}_{part}"] = dict(
+                max_abs_err=worst[f"{key}_{part}"], ms=km, plain_ms=pm,
+                bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib_ms,
+                shape=shape)
+        if kh == NH:
+            # the band must skip tiles: the full-causal K2 at the same shape
+            out_c, lse_c = fwd_k(q, k, v, True, 0, True)
+            full = cuda_ms(lambda: bwd_k(q, k, v, out_c, lse_c, do, True, 0,
+                                         True), iters=5, warmup=1)
+            win = cuda_ms(lambda: bwd_k(q, k, v, out, lse, do, True, W, True),
+                          iters=5, warmup=1)
+            print(f"[kernels-rope-window] K2 T=8192 rope: W=1024 {win:.4f} ms, "
+                  f"full causal {full:.4f} ms (ratio {win / full:.3f})")
+            check(win < 0.5 * full, f"windowed K2 {win} ms is not under half "
+                  f"the full-causal {full} ms: the band skips nothing")
+            res["mha_bwd"]["full_causal_ms"] = full
+        del q, k, v, do, out, lse, qr, kr, mask
+    # K4 at the serving shape: B=8, the window model's 12 kv heads
+    Bp, kh = 8, NH
+    q, k = band_edge_qk(Bp, S, Tk, NH, kh, W, q_off=q_off)
+    v = torch.randn(Bp, Tk, kh * D, generator=gen, device="cuda")
+    q, k, v = (t.bfloat16() for t in (q, k, v))
+    front = q_off + S
+    mask = band_mask(S, q_off, front, W)
+    km, pm, raw = timed_pair(
+        lambda: FP.flash_prefill_cuda(q, k, v, NH, kh, q_off, 0.125, W),
+        lambda: FP.flash_prefill_plain(q, k, v, NH, kh, q_off, 0.125, W))
+    lib = cuda_ms(lambda: sdpa_fwd(q, k[:, :front], v[:, :front], kh, mask))
+    bms, by = attn_fwd_bound(Bp, S, q_off, Tk, kh, 2, window=W)
+    shape = "bf16 B=8 S=512 q_off=7168 Tk=7936 NH=12 KH=12 D=64 W=1024"
+    print(f"[kernels-rope-window] K4 time {shape}: kernel {raw[0]:.4f}/"
+          f"{raw[1]:.4f} ms, plain {raw[2]:.4f}/{raw[3]:.4f} ms, SDPA (band "
+          f"mask) {lib:.4f} ms, bound {bms:.4f} ms ({by})")
+    res["prefill"] = dict(max_abs_err=worst["prefill"], ms=km, plain_ms=pm,
+                          bound_ms=bms, bound_by=by, library_ms=lib,
+                          shape=shape)
+    return res
+
+
+def phase_kernels_headce():
+    """K8 against its plain version at R in {8192, 16384}, C=768, Vp=50304
+    (real vocab 50257, zero pad rows), bf16: logits within one bf16 ulp
+    plus the picked bound (2^-7 |want| + 1e-5: each side rounds an fp32 sum
+    of 768 products, summed in another order, so near 0, where the ulp is
+    smaller than that sum's error, the two roundings can differ by more
+    than one ulp), lse 1e-4 (K5's: an fp32 logsumexp over 50257 columns in
+    another order), picked 1e-5 (one fp32 dot, |picked| about 0.6).  Times
+    beside the bound (2 R C Vp operations on the tensor cores: 0.640 and
+    1.280 ms), torch.matmul + F.cross_entropy on the bf16 logits (two
+    calls: no one PyTorch call computes the same function) and the port's
+    two-op route that K8 replaces (cuBLAS, then K5).  Then the loss and both
+    gradients through `head_ce_mean` (K8, K6 and two matmuls) against the
+    two-op route (matmul, K5, K6) at R=8192: loss rtol 1e-4 (K8's lse reads
+    the fp32 product, K5's the bf16 logits), grads within 1e-2 of their
+    largest value."""
+    import torch.nn.functional as F
+    from vitrs_tpu_torch.ops import basic
+    from vitrs_tpu_torch.ops import fused_ce as CE
+    from vitrs_tpu_torch.ops import fused_head_ce as FH
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    V, Vp = 50257, 50304
+    res = {}
+    worst = 0.0
+    for R in (8192, 16384):
+        x = torch.randn(R, C, generator=gen, device="cuda").bfloat16()
+        w = (0.02 * torch.randn(Vp, C, generator=gen, device="cuda")).bfloat16()
+        w[V:] = 0
+        t = torch.randint(0, V, (R,), generator=gen, device="cuda")
+        logits, lse, picked = FH.head_ce_fwd_cuda(x, w, t, V)
+        rl, rlse, rpick = FH.head_ce_fwd_plain(x, w, t, V)
+        torch.cuda.synchronize()
+        dl = (logits.float() - rl.float()).abs()
+        over = dl - (2.0 ** -7 * rl.float().abs() + 1e-5)
+        bad = (over > 0).sum().item()
+        logit_err = dl.max().item()
+        i = int(over.argmax())
+        worst_pair = (logits.flatten()[i].item(), rl.flatten()[i].item())
+        lse_err = (lse - rlse).abs().max().item()
+        pick_err = (picked - rpick).abs().max().item()
+        check(torch.isfinite(logits).all().item(), f"K8 R={R}: non-finite")
+        check(bad == 0, f"K8 R={R}: {bad} logits beyond one bf16 ulp + "
+              f"1e-5 (worst got/want {worst_pair})")
+        check(lse_err <= 1e-4 and pick_err <= 1e-5,
+              f"K8 R={R}: lse err {lse_err}, picked err {pick_err}")
+        worst = max(worst, logit_err, lse_err, pick_err)
+        del rl, dl
+        km, pm, raw = timed_pair(lambda: FH.head_ce_fwd_cuda(x, w, t, V),
+                                 lambda: FH.head_ce_fwd_plain(x, w, t, V),
+                                 iters=10, warmup=2)
+        # the yardstick: the padded product (an aligned N for cuBLAS; the
+        # 50257 real rows alone take an odd N and a slower GEMM), then
+        # F.cross_entropy on the real columns of the bf16 logits, no cast
+        lib = cuda_ms(lambda: F.cross_entropy(
+            torch.matmul(x, w.t())[:, :V], t, reduction="none"),
+            iters=10, warmup=2)
+        # the port's own route that K8 replaces: cuBLAS, then K5
+        two_op = cuda_ms(lambda: CE.ce_fwd_cuda(basic.linear(x, w), t, V),
+                         iters=10, warmup=2)
+        # reads x, w and the targets, writes the bf16 logits, lse, picked
+        bms, by = bound(2 * R * C * Vp, "bf16",
+                        2 * R * C + 2 * Vp * C + 8 * R + 2 * R * Vp + 8 * R)
+        shape = f"bf16 R={R} C=768 Vp={Vp} real_vocab={V}"
+        print(f"[kernels-headce] K8 {shape}: logits max_abs_err "
+              f"{logit_err:.3e}, lse {lse_err:.3e}, picked {pick_err:.3e}; kernel {raw[0]:.4f}/"
+              f"{raw[1]:.4f} ms, plain {raw[2]:.4f}/{raw[3]:.4f} ms, "
+              f"torch.matmul + F.cross_entropy (bf16) {lib:.4f} ms, cuBLAS "
+              f"+ K5 {two_op:.4f} ms, bound {bms:.4f} ms ({by})")
+        res[R] = dict(ms=km, plain_ms=pm, bound_ms=bms, bound_by=by,
+                      library_ms=lib, two_op_ms=two_op, shape=shape)
+        del x, w, t, logits, lse, picked
+    res[8192]["max_abs_err"] = worst
+
+    R = 8192
+    x = torch.randn(R, C, generator=gen, device="cuda").bfloat16()
+    w = (0.02 * torch.randn(Vp, C, generator=gen, device="cuda")).bfloat16()
+    w[V:] = 0
+    t = torch.randint(0, V, (R,), generator=gen, device="cuda")
+    out = {}
+    for route in ("k8", "two-op"):
+        xl, wl = (a.detach().clone().requires_grad_(True) for a in (x, w))
+        if route == "k8":
+            loss = FH.head_ce_mean(xl, wl, t, V)
+        else:
+            loss = CE.cross_entropy_mean(basic.linear(xl, wl), t, real_vocab=V)
+        loss.backward()
+        out[route] = (loss.item(), xl.grad.float(), wl.grad.float())
+    (l8, dx8, dw8), (l2, dx2, dw2) = out["k8"], out["two-op"]
+    ex = ((dx8 - dx2).abs().max() / dx2.abs().max()).item()
+    ew = ((dw8 - dw2).abs().max() / dw2.abs().max()).item()
+    print(f"[kernels-headce] autograd R={R}: loss {l8:.6f} (K8) vs {l2:.6f} "
+          f"(two-op); dX, dW max err {ex:.3e}, {ew:.3e} of their largest; "
+          f"dW pad rows {dw8[V:].abs().max().item():.1e}")
+    check(abs(l8 - l2) <= 1e-4 * abs(l2), f"K8 loss {l8} vs two-op {l2}")
+    check(ex <= 1e-2 and ew <= 1e-2, f"K8 grads differ: {ex}, {ew}")
+    check(bool((dw8[V:] == 0).all()), "K8: dW pad rows not 0")
+    return res
+
+
+def phase_serve_window(smi):
+    """The JAX package's streaming-window serving row (benchmarks/
+    gen_variants.py --mode window): gpt2-124m at max_seq_len 8192 with
+    window 1024 and rope (129,944,832 parameters), seeded random weights,
+    bf16, B=8, a 7680-token seeded prompt, greedy.  `generate` whole (K1-fwd
+    with the band, q and k rotated before the cache write) and in 512-token
+    chunks (then K4 with the band): launches, prefill ms, and the chunked
+    and whole last-position logits within 1e-3 (they read the same 64-key
+    tiles in the same order).  Then `generate_streaming` (the ring cache,
+    plain torch) for 32 new tokens: ms per new token, and the first token
+    where it departs from the dense-cache `generate` (bf16 near-ties: the
+    ring attends in another order)."""
+    from vitrs_tpu_torch import params as P
+    from vitrs_tpu_torch.config import get_config
+    from vitrs_tpu_torch.models import generate as G
+    from vitrs_tpu_torch.models import model as M
+    cfg = get_config("gpt2-124m", max_seq_len=8192, window=1024,
+                     pos_emb="rope", dtype="bfloat16")
+    check(P.num_parameters(cfg) == 129_944_832, "rope + window 8K params")
+    params = P.init_params(cfg, torch.Generator().manual_seed(0))
+    pp = M.prepare_params({k: t.to("cuda") for k, t in params.items()}, cfg)
+    del params
+    B, T0, L = 8, 7680, cfg.num_layers
+    prompt = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, T0)), device="cuda")
+
+    def timed(fn):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3, read_counts()
+
+    res = {}
+    for chunk in (512, 0):
+        gen = lambda n: G.generate(pp, prompt, cfg, n, temperature=0.0,
+                                   prefill_chunk=chunk)
+        timed(lambda: gen(2))                  # warm-up: cuBLAS, allocator
+        _, ms1, counts = timed(lambda: gen(1))
+        want = designed(flash_fwd=L,
+                        flash_prefill=L * (T0 // chunk - 1) if chunk else 0)
+        check(counts == want, f"serve-window chunk {chunk}: launches "
+              f"{counts} != {want}")
+        res[chunk] = dict(prefill_ms=ms1, launches=counts)
+        print(f"[serve-window] chunk {chunk}: launches flash_fwd "
+              f"{counts['flash_fwd']}, flash_prefill {counts['flash_prefill']}"
+              f"; prefill (max_new=1) {ms1:.2f} ms  ({smi})")
+    chunked = _prefill_logits(G, pp, prompt, cfg, 512, 7936)
+    whole = _prefill_logits(G, pp, prompt, cfg, 0, T0 + 1)
+    d_cw = (chunked - whole).abs().max().item()
+    check(torch.isfinite(whole).all().item(), "serve-window: non-finite")
+    print(f"[serve-window] last-position logits chunked vs whole max_abs_err "
+          f"{d_cw:.4e} (max |logit| {whole.abs().max().item():.3f})")
+    check(d_cw <= 1e-3, f"serve-window: chunked vs whole logits differ by "
+          f"{d_cw}")
+    res["chunked_vs_whole"] = d_cw
+
+    n = 32
+    dense, dense_ms, _ = timed(lambda: G.generate(pp, prompt, cfg, n,
+                                                  temperature=0.0))
+    G.generate_streaming(pp, prompt, cfg, 2, temperature=0.0)   # warm-up
+    _, s1, c1 = timed(lambda: G.generate_streaming(pp, prompt, cfg, 1,
+                                                   temperature=0.0))
+    ring, sn, cn = timed(lambda: G.generate_streaming(pp, prompt, cfg, n,
+                                                      temperature=0.0))
+    check(c1 == designed() and cn == designed(),
+          f"serve-window: the ring path launched a kernel: {cn}")
+    check(ring.shape == (B, T0 + n) and bool(
+        ((ring[:, T0:] >= 0) & (ring[:, T0:] < cfg.vocab_size)).all()),
+        "serve-window: streaming output")
+    diff = (ring[:, T0:] != dense[:, T0:]).int()
+    first = [int(r.argmax()) if r.any() else None for r in diff.cpu()]
+    per_tok = (sn - s1) / (n - 1)
+    print(f"[serve-window] generate_streaming B={B} {n} new: prefill "
+          f"(max_new=1) {s1:.2f} ms, {sn:.2f} ms in all, {per_tok:.3f} ms per "
+          f"new token; dense-cache generate {dense_ms:.2f} ms; first new token "
+          f"where ring and dense differ, per row: {first}")
+    res.update(stream_ms_per_token=per_tok, stream_prefill_ms=s1,
+               dense_gen_ms=dense_ms, first_divergence=first)
+    return res
+
+
+def phase_xdevice_window():
+    """Small fp32 models with rope and window 8 (L=2, NH=2, C=128, D=64,
+    vocab 16500), kv in {2 (MHA), 1}: one training step (as xdevice-train:
+    K1/K2 or K3, K5, K6, K7 on CUDA) and a chunked generate (48-token
+    prompt, chunk 16, 8 new: K1-fwd or K3-fwd, then K4, each with the band)
+    on CUDA against the CPU's plain versions: the same greedy tokens,
+    last-chunk logits within 1e-4."""
+    from vitrs_tpu_torch import params as P
+    from vitrs_tpu_torch.config import get_config
+    from vitrs_tpu_torch.models import generate as G
+    from vitrs_tpu_torch.models import model as M
+    counts = {}
+    for kv in (2, 1):
+        cfg = get_config("gpt-nano").replace(
+            num_layers=2, num_heads=2, num_kv_heads=kv, channels=128,
+            max_seq_len=64, vocab_size=16500, pos_emb="rope", window=8)
+        train = phase_xdevice_train(cfg, f"xdevice-window kv={kv}")
+        params = P.init_params(cfg, torch.Generator().manual_seed(10))
+        prompt = torch.as_tensor(np.random.default_rng(10).integers(
+            0, cfg.vocab_size, (2, 48)))
+        fwd = "flash_gqa_fwd" if cfg.is_gqa else "flash_fwd"
+        toks, logits = {}, {}
+        for dev in ("cuda", "cpu"):
+            pp = M.prepare_params({k: t.to(dev) for k, t in params.items()},
+                                  cfg)
+            reset_counts()
+            toks[dev] = G.generate(pp, prompt.to(dev), cfg, 8,
+                                   temperature=0.0, prefill_chunk=16).cpu()
+            got = read_counts()
+            want = (designed(**{fwd: 2, "flash_prefill": 4}) if dev == "cuda"
+                    else designed())
+            check(got == want, f"xdevice-window generate on {dev}: {got}")
+            caches = G.init_kv_cache(cfg, 2, 256, device=dev)
+            for off in range(0, 48, 16):
+                lg, caches = G.forward_with_cache(
+                    pp, prompt[:, off:off + 16].to(dev), caches, off, cfg)
+            logits[dev] = lg.cpu()
+        check(torch.equal(toks["cuda"], toks["cpu"]),
+              f"xdevice-window kv={kv}: generate tokens differ")
+        err = (logits["cuda"] - logits["cpu"]).abs().max().item()
+        check(err <= 1e-4, f"xdevice-window kv={kv}: logits differ by {err}")
+        print(f"[xdevice-window] kv={kv} fp32 rope W=8 chunked generate: "
+              f"tokens equal on cuda and cpu; last-chunk logits max_abs_err "
+              f"{err:.3e}")
+        counts[kv] = train
+    return counts
+
+
+WINDOW = {"max_seq_len": 8192, "window": 1024, "pos_emb": "rope"}
+WINDOW_PARAMS = 129_944_832      # 124,439,808 + 7,168 extra wpe rows x 768
+
+
+def phase_train_window(smi):
+    """The long-context path: GPT-2 124M at T=8192, W=1024, rope, B=2, 12
+    steps (K1-fwd and K2 with the in-kernel rotation and the band), then
+    the full-causal control (W=0, rope) in the same call."""
+    counts, res = phase_train(smi, overrides=WINDOW, B=2, tag="[train-window]",
+                              n_params=WINDOW_PARAMS)
+    _, full = phase_train(smi, overrides=dict(WINDOW, window=0), B=2,
+                          tag="[train-window W=0]", n_params=WINDOW_PARAMS)
+    print(f"[train-window] W=1024 {res['step_ms']:.2f} ms/step vs full causal "
+          f"{full['step_ms']:.2f} ms/step (ratio "
+          f"{res['step_ms'] / full['step_ms']:.3f})")
+    res["full_causal"] = full
+    return counts, res
+
+
+def phase_train_headce(smi, two_op):
+    """The MHA step of phase 6 with ops/fused_head_ce.ENABLE set: K8 (and
+    K6) in place of K5/K6, 12 K8 launches and no K5 launch in 12 steps;
+    ms/step beside the two-op run of this call."""
+    counts, res = phase_train(smi, tag="[train-headce]", head_ce=True)
+    print(f"[train-headce] K8 loss route {res['step_ms']:.2f} ms/step vs "
+          f"two-op (phase train) {two_op['step_ms']:.2f} ms/step")
+    res["two_op_step_ms"] = two_op["step_ms"]
+    return counts, res
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch sees no CUDA device")
     import vitrs_tpu_torch  # noqa: F401  (fails outside a checkout)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # --phases a,b,...: run only those (no result lines); for iterating
+    only = None
+    if len(sys.argv) > 2 and sys.argv[1] == "--phases":
+        only = set(sys.argv[2].split(","))
     smi = phase_device()
-    k1 = phase_kernels()
-    serve_launches, prefill_ms, tok_s = phase_serve(smi)
-    phase_xdevice()
-    ktrain = phase_kernels_train()
-    counts, train = phase_train(smi)
-    phase_xdevice_train()
-    kgqa = phase_kernels_gqa()
-    kprefill = phase_kernels_prefill()
-    gqa_counts, gqa_train = phase_train(smi, kv_heads=4)
-    serve_gqa = phase_serve_gqa(smi)
-    phase_xdevice_gqa()
+    R = {}
+    phases = (
+        ("kernels", phase_kernels),
+        ("serve", lambda: phase_serve(smi)),
+        ("xdevice", phase_xdevice),
+        ("kernels-train", phase_kernels_train),
+        ("train", lambda: phase_train(smi)),
+        ("xdevice-train", phase_xdevice_train),
+        ("kernels-gqa", phase_kernels_gqa),
+        ("kernels-prefill", phase_kernels_prefill),
+        ("train-gqa", lambda: phase_train(smi, kv_heads=4)),
+        ("serve-gqa", lambda: phase_serve_gqa(smi)),
+        ("xdevice-gqa", phase_xdevice_gqa),
+        ("kernels-rope-window", phase_kernels_rope_window),
+        ("kernels-headce", phase_kernels_headce),
+        ("train-window", lambda: phase_train_window(smi)),
+        ("train-headce", lambda: phase_train_headce(smi, R["train"][1])),
+        ("serve-window", lambda: phase_serve_window(smi)),
+        ("xdevice-window", phase_xdevice_window),
+    )
+    for name, fn in phases:
+        if only is None or name in only:
+            t0 = time.perf_counter()
+            R[name] = fn()
+            print(f"[smoke] phase {name} done in "
+                  f"{time.perf_counter() - t0:.1f} s")
+    if only is not None:
+        print(f"[smoke] ran {sorted(R)}")
+        return
+    k1 = R["kernels"]
+    serve_launches, prefill_ms, tok_s = R["serve"]
+    ktrain = R["kernels-train"]
+    counts, train = R["train"]
+    kgqa, kprefill = R["kernels-gqa"], R["kernels-prefill"]
+    gqa_counts, gqa_train = R["train-gqa"]
+    serve_gqa = R["serve-gqa"]
+    krw, k8 = R["kernels-rope-window"], R["kernels-headce"]
+    win_counts, win_train = R["train-window"]
+    h8_counts, h8_train = R["train-headce"]
+    serve_win, xwin = R["serve-window"], R["xdevice-window"]
     fa = "vitrs_tpu/ops/flash_attention.py:"
     fg = "vitrs_tpu/ops/flash_attention_gqa.py:"
     kernels = [
@@ -1010,9 +1636,40 @@ def main():
              replaces="vitrs_tpu/ops/flash_prefill.py:123",
              launches=serve_gqa[512]["launches"]["flash_prefill"],
              **kprefill, serve_gqa=serve_gqa),
+        # the rope and band variants of the same kernels: launches on the
+        # long-context training run, the windowed serving run, and (K3) the
+        # rope + window GQA training step of xdevice-window
+        dict(name="flash_fwd_rope_window", route="cuda",
+             source=CSRC + "flash_fwd.cu", replaces=fa + "567",
+             launches=win_counts["flash_fwd"],
+             serve_launches=serve_win[512]["launches"]["flash_fwd"],
+             **krw["mha_fwd"]),
+        dict(name="flash_bwd_rope_window", route="cuda",
+             source=CSRC + "flash_bwd.cu", replaces=fa + "844",
+             also_replaces=[fa + "986", fa + "901"],
+             launches=win_counts["flash_bwd"], kernels_per_launch=3,
+             **krw["mha_bwd"]),
+        dict(name="flash_gqa_fwd_rope_window", route="cuda",
+             source=CSRC + "flash_fwd.cu", replaces=fg + "358",
+             launches=xwin[1]["flash_gqa_fwd"], **krw["gqa_fwd"]),
+        dict(name="flash_gqa_bwd_rope_window", route="cuda",
+             source=CSRC + "flash_bwd.cu", replaces=fg + "499",
+             launches=xwin[1]["flash_gqa_bwd"], kernels_per_launch=3,
+             **krw["gqa_bwd"]),
+        dict(name="flash_prefill_window", route="cuda",
+             source=CSRC + "flash_fwd.cu",
+             replaces="vitrs_tpu/ops/flash_prefill.py:123",
+             launches=serve_win[512]["launches"]["flash_prefill"],
+             **krw["prefill"], serve_window=serve_win),
+        dict(name="head_ce_fwd", route="cuda",
+             source=CSRC + "fused_head_ce.cu",
+             replaces="vitrs_tpu/ops/fused_head_ce.py:68",
+             launches=h8_counts["head_ce_fwd"], kernels_per_launch=2,
+             **k8[8192], r16384=k8[16384], train=h8_train),
     ]
     kernels[0]["train"] = train
     kernels[5]["train"] = gqa_train
+    kernels[8]["train"] = win_train
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

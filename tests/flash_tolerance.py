@@ -12,6 +12,7 @@ _spec = importlib.util.spec_from_file_location("chip_smoke", _path)
 chip_smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(chip_smoke)
 out_errors = chip_smoke.out_errors
+band_edge_qk = chip_smoke.band_edge_qk
 
 
 def assert_out_close(got, want):

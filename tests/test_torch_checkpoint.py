@@ -46,7 +46,7 @@ def test_jax_written_loads_in_port(tmp_path, with_opt):
 @pytest.mark.parametrize("with_opt", [False, True])
 def test_port_written_loads_in_jax(tmp_path, with_opt):
     jcfg, tcfg = small_cfgs()
-    tparams = TP.from_numpy(np_params(tcfg, seed=4), tcfg)
+    tparams = TP.from_numpy(np_params(tcfg, seed=4), tcfg, "cpu")
     m, v = _opt(TP.num_parameters(tcfg), 5) if with_opt else (None, None)
     tpath, jpath = str(tmp_path / "t.bin"), str(tmp_path / "j.bin")
     TC.save_checkpoint(tpath, tparams, tcfg, m=m, v=v,
@@ -65,7 +65,7 @@ def test_port_written_loads_in_jax(tmp_path, with_opt):
 
 def test_bf16_params_save_as_f32(tmp_path):
     _, tcfg = small_cfgs()
-    tparams = TP.from_numpy(np_params(tcfg), tcfg, dtype=torch.bfloat16)
+    tparams = TP.from_numpy(np_params(tcfg), tcfg, "cpu", torch.bfloat16)
     path = str(tmp_path / "bf.bin")
     TC.save_checkpoint(path, tparams, tcfg)
     got, _, _ = TC.load_checkpoint(path)

@@ -78,7 +78,7 @@ def test_from_numpy_rejects_wrong_shape():
     arrs = np_params(tcfg)
     arrs["qkvw"] = arrs["qkvw"][:, :-1]
     with pytest.raises(ValueError, match="qkvw"):
-        TP.from_numpy(arrs, tcfg)
+        TP.from_numpy(arrs, tcfg, "cpu")
 
 
 @pytest.mark.parametrize("scheme", ["production", "reference"])

@@ -10,7 +10,7 @@ the wrapper's contract.
   * a NaN-filled tail leaves the output finite and unchanged;
   * ValueError where the JAX function asserts (q_offset < 0, a cache length
     that is not a multiple of 256, an untileable geometry, a chunk that
-    does not fit), NotImplementedError for a window;
+    does not fit, a negative window);
   * `supports_prefill` against the JAX rule: every geometry it takes,
     and MQA at head_dim 64 besides.
 
@@ -83,8 +83,8 @@ def test_contract_raises_value_error():
         TP.flash_prefill_qkv(q[..., :3 * D], k[..., :D], v[..., :D], 3, 1, 0)
     with pytest.raises(ValueError, match="geometry"):      # k/v width
         TP.flash_prefill_qkv(q, k, v, 4, 1, 0)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TP.flash_prefill_qkv(q, k, v, 4, 2, 0, window=32)
+    with pytest.raises(ValueError, match="window"):
+        TP.flash_prefill_qkv(q, k, v, 4, 2, 0, window=-1)
     with pytest.raises(ValueError, match="CUDA"):
         TP.flash_prefill_cuda(q, k, v, 4, 2, 0, 1.0 / math.sqrt(D))
 

@@ -49,7 +49,7 @@ def test_prefill_logits_and_caches(params, last_only):
                                          JG.init_kv_cache(JCFG, 2, 48), 0,
                                          JCFG, last_only=last_only)
     tl, (tk, tv) = TG.forward_with_cache(tp, torch.as_tensor(toks),
-                                         TG.init_kv_cache(TCFG, 2, 48), 0,
+                                         TG.init_kv_cache(TCFG, 2, 48, device="cpu"), 0,
                                          TCFG, last_only=last_only)
     assert tuple(tl.shape) == jl.shape and tl.dtype == torch.float32
     _close(tl, jl)
@@ -62,7 +62,7 @@ def test_continuation_against_cache(params):
     jp, tp = params
     toks = _toks((2, 20), 2)
     jc = JG.init_kv_cache(JCFG, 2, 32)
-    tc = TG.init_kv_cache(TCFG, 2, 32)
+    tc = TG.init_kv_cache(TCFG, 2, 32, device="cpu")
     for pos, S in ((0, 12), (12, 1), (13, 4)):
         chunk = toks[:, pos:pos + S]
         jl, jc = JG.forward_with_cache(jp, jnp.asarray(chunk), jc, pos, JCFG)
@@ -99,7 +99,7 @@ def test_prefill_into_slots(params):
                                         JG.init_kv_cache(JCFG, 3, 32),
                                         jnp.asarray(slots), JCFG)
     tl, (tk, _) = TG.prefill_into_slots(tp, torch.as_tensor(prompts),
-                                        TG.init_kv_cache(TCFG, 3, 32),
+                                        TG.init_kv_cache(TCFG, 3, 32, device="cpu"),
                                         torch.as_tensor(slots), TCFG)
     _close(tl, jl)
     _close(tk, jk)
@@ -125,7 +125,7 @@ def test_decode_ticks_greedy_matches_jax(params):
                                JG.init_kv_cache(JCFG, 2, 32),
                                jnp.arange(2), JCFG)[1]
     tc = TG.prefill_into_slots(tp, torch.as_tensor(prompts),
-                               TG.init_kv_cache(TCFG, 2, 32),
+                               TG.init_kv_cache(TCFG, 2, 32, device="cpu"),
                                torch.arange(2), TCFG)[1]
     jt, _, jpos = JG.decode_ticks_multi(
         jp, jnp.asarray(toks), jc, jnp.asarray(pos),
@@ -164,9 +164,12 @@ def test_not_ported_yet_raises(params):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TG.generate(tp, prompt, TCFG, max_new=2, temperature=0.0,
                     kv_int8=True)
-    for fn in (TG.generate_beam, TG.generate_streaming):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(tp, prompt, TCFG, 2)
-    for kw in (dict(pos_emb="rope"), dict(window=4), dict(num_experts=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TM.prepare_params(tp, TCFG.replace(**kw).validate())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TG.generate_beam(tp, prompt, TCFG, 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TM.prepare_params(tp, TCFG.replace(num_experts=2).validate())
+    # rope and the sliding window are ported; a ring cache needs a window
+    for kw in (dict(pos_emb="rope"), dict(window=4)):
+        TM.prepare_params(tp, TCFG.replace(**kw).validate())
+    with pytest.raises(ValueError, match="sliding-window"):
+        TG.generate_streaming(tp, prompt, TCFG, 2)

@@ -84,7 +84,7 @@ def test_loss_and_all_grads_match_jax(route, monkeypatch):
     jloss, jgrads = jax.jit(jax.value_and_grad(JM.loss_fn), static_argnums=3)(
         jp, jnp.asarray(x), jnp.asarray(y), jcfg)
     params = {k: v.requires_grad_(True)
-              for k, v in TP.from_numpy(np_params(tcfg), tcfg).items()}
+              for k, v in TP.from_numpy(np_params(tcfg), tcfg, "cpu").items()}
     assert params["qkvw"].shape == (2, tcfg.qkv_dim, tcfg.channels)
     loss = TM.loss_fn(params, torch.from_numpy(x), torch.from_numpy(y), tcfg)
     loss.backward()
@@ -110,7 +110,7 @@ def test_dp_step_matches_jax():
                               jnp.asarray(m0), jnp.asarray(v0),
                               jnp.asarray(x), jnp.asarray(y), np.int32(3),
                               np.float32(1e-3), np.float32(0.1))
-    flat = TP.flatten_params(TP.from_numpy(arrs, TCFG), TCFG)
+    flat = TP.flatten_params(TP.from_numpy(arrs, TCFG, "cpu"), TCFG)
     tstep = TDP.make_dp_train_step(TCFG, TDP.make_mesh(devices=["cpu"]),
                                    clip_norm=1.0)
     m, v = torch.from_numpy(m0.copy()), torch.from_numpy(v0.copy())
@@ -132,7 +132,7 @@ def _prefill_logits(mod, params, prompt, cfg, chunk, cache_len):
         caches = JG.init_kv_cache(cfg, prompt.shape[0], cache_len)
         prompt = jnp.asarray(prompt)
     else:
-        caches = TG.init_kv_cache(cfg, prompt.shape[0], cache_len)
+        caches = TG.init_kv_cache(cfg, prompt.shape[0], cache_len, device="cpu")
         prompt = torch.as_tensor(prompt)
     for off in range(0, prompt.shape[1], chunk):
         logits, caches = mod.forward_with_cache(
@@ -195,7 +195,7 @@ def test_k3_and_k4_routes_never_expand_kv(monkeypatch):
     monkeypatch.setattr(TM, "expand_qkv_weight", refuse)
     monkeypatch.setattr(torch.Tensor, "repeat_interleave", refuse)
     params = {k: v.requires_grad_(True)
-              for k, v in TP.from_numpy(np_params(TCFG), TCFG).items()}
+              for k, v in TP.from_numpy(np_params(TCFG), TCFG, "cpu").items()}
     x, y = _batch(3)
     TM.loss_fn(params, torch.from_numpy(x), torch.from_numpy(y),
                TCFG).backward()
@@ -260,7 +260,7 @@ def test_from_numpy_carries_jax_weights():
     from vitrs_tpu import params as JP
     jparams = JP.init_params(JCFG, jax.random.PRNGKey(7))
     arrs = {k: np.asarray(v) for k, v in jparams.items()}
-    tp = TP.from_numpy(arrs, TCFG)
+    tp = TP.from_numpy(arrs, TCFG, "cpu")
     assert tuple(tp) == TP.tensor_order(TCFG)
     assert tp["qkvw"].shape == (2, 256 + 2 * 128, 256)
     for k, a in arrs.items():
@@ -302,9 +302,10 @@ def test_gqa_helpers_match_jax():
 
 
 def test_trainer_takes_kv_heads_and_refuses_other_overrides(tmp_path):
-    """`kv_heads` is the trainer's one model override: an MQA gpt-nano
-    trains; the JAX config's general `model_overrides` and the JAX CLI's
-    flags for unported model variants are refused."""
+    """`kv_heads` is the trainer's own field for num_kv_heads: an MQA
+    gpt-nano trains; `model_overrides` (the JAX config's dict) naming a
+    model variant the port does not run, and the JAX CLI's flags for
+    such variants, are refused."""
     tc = TL.TrainConfig(preset="gpt-nano", steps=2, batch_size=2,
                         device="cpu", dtype="float32", dataset="",
                         log_every=1, ckpt_every=0, warmup=1,
@@ -314,10 +315,15 @@ def test_trainer_takes_kv_heads_and_refuses_other_overrides(tmp_path):
     from vitrs_tpu_torch import checkpoint as TC
     last = sorted((tmp_path / "kv").glob("ckpt_*.bin"))[-1]
     assert TC.load_checkpoint(str(last))[1].num_kv_heads == 1
-    with pytest.raises(TypeError, match="model_overrides"):
-        TL.TrainConfig(model_overrides={"window": 8})
+    with pytest.raises(ValueError, match="both set"):
+        TL.train(TL.TrainConfig(preset="gpt-nano", steps=1, device="cpu",
+                                workdir=str(tmp_path / "both"), kv_heads=1,
+                                model_overrides={"num_kv_heads": 2}))
+    with pytest.raises(NotImplementedError, match="MoE"):
+        TL.train(TL.TrainConfig(preset="gpt-nano", steps=1, device="cpu",
+                                workdir=str(tmp_path / "moe"),
+                                model_overrides={"num_experts": 2}))
     from vitrs_tpu_torch.cli import train as cli
-    for flag in (["--pos-emb", "rope"], ["--window", "8"],
-                 ["--num-experts", "2"], ["--drop-path", "0.1"]):
+    for flag in (["--num-experts", "2"], ["--drop-path", "0.1"]):
         with pytest.raises(SystemExit):
             cli.main(flag + ["--cpu"])

@@ -9,13 +9,22 @@ sqrt(e / 7680) = 0.019.
     rounded to bf16 on both sides;
   * faults that move the output by a few percent of its rms fail: a
     dropped 64-key tile, and a causal frontier moved by 4 keys;
-  * fp32: other summation orders pass at 1e-5, an error of 1e-4 fails."""
+  * fp32: other summation orders pass at 1e-5, an error of 1e-4 fails.
+
+The sliding window's edge is a finer fault: a band that ends one key early
+or late at W=1024 moves a random input's output by about 1/W of its rms,
+under the bf16 bound, so the bound alone cannot see it.  The smoke's
+band-edge inputs (`band_edge_qk`) make every query's scores peak at the
+band's last key and the first key outside it, and there a band moved by one
+key fails the same bound, with and without rope; at W=1 the output is v
+exactly."""
 
 import numpy as np
 import pytest
 import torch
 
-from flash_tolerance import out_errors
+from flash_tolerance import band_edge_qk, out_errors
+from vitrs_tpu_torch.ops.flash_attention import flash_fwd_plain
 
 B, S, N, D = 2, 64, 7680, 64
 
@@ -57,3 +66,48 @@ def test_fp32_bound():
     want = torch.from_numpy(rng.standard_normal((4, 100), dtype=np.float32))
     assert out_errors(want + 1e-6, want)[0] == 0
     assert out_errors(want + 1e-4, want)[0] == want.numel()
+
+
+def _band_out(q, k, v, nh, window, rope):
+    return flash_fwd_plain(q, k, v, nh, True, 0.125,
+                           kv_heads=k.shape[-1] // 64, window=window,
+                           rope=rope)[0]
+
+
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("window", [1, 5, 63, 64, 65])
+@pytest.mark.parametrize("kh", [2, 1])
+def test_band_edge_inputs_catch_a_band_moved_by_one_key(kh, window, rope):
+    nh, T = 2, 200
+    q, k = band_edge_qk(1, T, T, nh, kh, window, rope=rope, device="cpu")
+    v = torch.from_numpy(np.random.default_rng(window).standard_normal(
+        (1, T, kh * 64), dtype=np.float32))
+    q, k, v = (t.bfloat16() for t in (q, k, v))
+    want = _band_out(q, k, v, nh, window, rope)
+    if window == 1:        # p = 1 on the query's own key: out is v exactly
+        own = v.unflatten(-1, (kh, 1, 64)).expand(1, T, kh, nh // kh, 64)
+        assert torch.equal(want, own.reshape(1, T, nh * 64))
+    for moved in (window - 1, window + 1):
+        got = _band_out(q, k, v, nh, moved, rope)     # 0: full causal
+        bad, err, rms = out_errors(got, want)
+        assert bad > (T - window) * nh * 64 // 4, (moved, bad, err, rms)
+
+
+def test_random_inputs_see_a_band_moved_by_one_key_only_faintly():
+    """W=1024 against W=1025 on random inputs (T=2048, one head): the extra
+    key carries about 1/W of the weight, so only the rows where its score
+    happens to be high cross the bound: about a tenth of the elements of
+    the rows past the band's start at this seed, where the band-edge
+    inputs move most of them."""
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2048, 64),
+                                                    dtype=np.float32))
+               .bfloat16() for _ in range(3))
+    want = _band_out(q, k, v, 1, 1024, False)
+    bad, err, rms = out_errors(_band_out(q, k, v, 1, 1025, False), want)
+    assert 0 < bad < 0.2 * (2048 - 1024) * 64, (bad, err, rms)
+    q, k = band_edge_qk(1, 2048, 2048, 1, 1, 1024, device="cpu")
+    q, k = q.bfloat16(), k.bfloat16()
+    want = _band_out(q, k, v, 1, 1024, False)
+    bad, err, rms = out_errors(_band_out(q, k, v, 1, 1025, False), want)
+    assert bad > 0.5 * (2048 - 1024) * 64, (bad, err, rms)

@@ -99,7 +99,7 @@ def test_loss_and_all_grads_match_jax(grads_case, monkeypatch):
     monkeypatch.setattr(TCE, "ce_fwd_plain",
                         lambda *a: calls.append(1) or plain(*a))
     params = {k: v.requires_grad_(True)
-              for k, v in TP.from_numpy(arrs, tcfg).items()}
+              for k, v in TP.from_numpy(arrs, tcfg, "cpu").items()}
     loss = TM.loss_fn(params, torch.from_numpy(x), torch.from_numpy(y), tcfg)
     loss.backward()
     padded = tcfg.vocab_size == 16500
@@ -123,7 +123,7 @@ def test_dp_step_matches_jax_with_clip_and_decay_2d():
         {k: jnp.asarray(a) for k, a in arrs.items()}, jnp.asarray(m0),
         jnp.asarray(v0), jnp.asarray(x), jnp.asarray(y), np.int32(3),
         np.float32(1e-3), np.float32(0.1))
-    flat = TP.flatten_params(TP.from_numpy(arrs, tcfg), tcfg)
+    flat = TP.flatten_params(TP.from_numpy(arrs, tcfg, "cpu"), tcfg)
     tstep = TDP.make_dp_train_step(tcfg, TDP.make_mesh(devices=["cpu"]), **kw)
     m, v = torch.from_numpy(m0.copy()), torch.from_numpy(v0.copy())
     params, m2, v2, loss, gnorm = tstep(TP.unflatten_params(flat, tcfg), m, v,
@@ -146,14 +146,14 @@ def test_dp_step_accumulation_equals_one_batch():
     x, y = _batch(97, 3)
     mesh = TDP.make_mesh(devices=["cpu"])
     leaves = {k: v.requires_grad_(True)
-              for k, v in TP.from_numpy(arrs, tcfg).items()}
+              for k, v in TP.from_numpy(arrs, tcfg, "cpu").items()}
     TM.loss_fn(leaves, torch.from_numpy(x), torch.from_numpy(y),
                tcfg).backward()
     out = {}
     for accum in (1, 2):
         step = TDP.make_dp_train_step(tcfg, mesh, accum_steps=accum)
         params = TP.unflatten_params(
-            TP.flatten_params(TP.from_numpy(arrs, tcfg), tcfg), tcfg)
+            TP.flatten_params(TP.from_numpy(arrs, tcfg, "cpu"), tcfg), tcfg)
         m, v = TDP.init_sharded_opt_state(tcfg, mesh)
         out[accum] = step(params, m, v, x, y, 1, 1e-3, 0.0)
     np.testing.assert_allclose(out[2][3].item(), out[1][3].item(), rtol=1e-6)
@@ -169,7 +169,7 @@ def test_dp_step_requires_the_flat_arena():
     arrs = np_params(tcfg)
     x, y = _batch(97, 6)
     mesh = TDP.make_mesh(devices=["cpu"])
-    params = TP.from_numpy(arrs, tcfg)
+    params = TP.from_numpy(arrs, tcfg, "cpu")
     m, v = TDP.init_sharded_opt_state(tcfg, mesh)
     step = TDP.make_dp_train_step(tcfg, mesh)
     with pytest.raises(ValueError, match="unflatten_params"):
@@ -196,7 +196,7 @@ def test_bf16_grads_match_jax_and_dqkvw_is_an_fp32_product(monkeypatch):
     monkeypatch.setattr(TQ, "qkv_projection_bwd",
                         lambda *a: seen.append(a) or bwd(*a))
     params = {k: v.requires_grad_(True)
-              for k, v in TP.from_numpy(np_params(tcfg), tcfg).items()}
+              for k, v in TP.from_numpy(np_params(tcfg), tcfg, "cpu").items()}
     loss = TM.loss_fn(params, torch.from_numpy(x), torch.from_numpy(y), tcfg)
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(jloss), rtol=2e-4)

@@ -10,6 +10,7 @@ Examples:
   vitrs-train-torch --preset gpt2-124m --steps 1000 --batch-size 8 --workdir run1
   vitrs-train-torch --preset gpt-nano --cpu --steps 3 --batch-size 4
   vitrs-train-torch --preset gpt2-124m --kv-heads 4 --steps 100 --batch-size 8
+  vitrs-train-torch --preset gpt2-124m --pos-emb rope --window 256 --steps 100
   vitrs-train-torch --preset gpt2-124m --eval-only --workdir run1
 
 Checkpoints and metrics go to --workdir, and a run resumes from the latest
@@ -55,6 +56,9 @@ def main(argv=None):
                    help="gradient-accumulation micro-batches per step")
     p.add_argument("--kv-heads", type=int, default=0,
                    help="GQA/MQA K/V head count (0 = MHA)")
+    p.add_argument("--pos-emb", default="learned", choices=["learned", "rope"])
+    p.add_argument("--window", type=int, default=0,
+                   help="sliding-window attention width (gpt mode; 0 = full)")
     p.add_argument("--init-ckpt", default=None,
                    help="warm-start weights from this checkpoint")
     p.add_argument("--eval-only", action="store_true",
@@ -92,7 +96,11 @@ def main(argv=None):
         ckpt_every=args.ckpt_every, resume=not args.no_resume,
         init_ckpt=args.init_ckpt, log_grad_norm=args.log_grad_norm,
         clip_norm=args.clip_norm, decay_2d_only=args.decay_2d_only,
-        accum_steps=args.accum_steps, kv_heads=args.kv_heads, device=device)
+        accum_steps=args.accum_steps, kv_heads=args.kv_heads, device=device,
+        model_overrides={
+            k: v for k, v in (("pos_emb", args.pos_emb),
+                              ("window", args.window))
+            if v not in (0, "learned")} or None)
     summary = loop.train(tc)
     print("[done]", summary)
 

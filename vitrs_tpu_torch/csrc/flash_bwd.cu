@@ -18,7 +18,19 @@
 //   dv += p(rounded)^T . do;  dk += ds(rounded)^T . q (unscaled q);
 //   dq += ds(rounded) . k;  dq, dk, dv written in the input type.
 // (The single-tile Pallas body scales s instead of q; the two agree to fp32
-// rounding.)  TPU-shaped choices are not carried over: no 128-lane head
+// rounding.)
+// Sliding window (window > 0, causal only): p is 0 outside the band
+// (i - window, i]; the dK/dV kernel's q loop ends at the last q tile whose
+// band reaches its kv tile, the dQ kernel's kv loop starts at the first
+// tile its band reaches, as the Pallas kernels skip tiles with
+// _tile_overlaps_band.
+// Rope (rope_cos != nullptr): q and k are rotated from the fp32 table as
+// they are loaded and rounded to the input type (q^ is then the rotated q
+// times sm_scale, rounded again), and dq (scaled) and dk are rotated back
+// by -theta in fp32 just before they are stored, as the Pallas epilogues
+// do (flash_attention.py l.892-893, 968-980).  Under GQA the dK/dV block
+// sums its group's query heads in registers first and rotates the sum
+// once: the rotation is linear, so that is exact.  TPU-shaped choices are not carried over: no 128-lane head
 // groups, no (B, H, T, 128) lane-broadcast lse, no padded T, no VMEM
 // admission estimate choosing between a combined and a split kernel, no
 // phantom kv lanes.
@@ -68,7 +80,7 @@ constexpr int kHeadDim = 64;    // D of every GPT-2 preset; the wrapper checks i
 constexpr int kBlock = 64;      // rows per q or kv tile, mma path
 constexpr int kLd = kHeadDim + 8;  // padded smem row: 72 bf16 = 144 B
 constexpr int kFmaTile = 32;    // rows per staged tile, FMA path
-constexpr int kHalf = kHeadDim / 2;
+constexpr int kHalf = kHeadDim / 2;  // also rope's pairing: dim c with c + kHalf
 
 struct Args {
   const void* q;      // q, k, v: views into the packed (B, T, 3C) qkv
@@ -89,7 +101,10 @@ struct Args {
   int group;          // query heads per kv head: num_heads / kv_heads
   int seq_len;
   int causal;
+  int window;         // > 0: the causal band (i - window, i]; 0: none
   float sm_scale;
+  const float* rope_cos;  // (positions, kHalf) fp32, or nullptr: no rope
+  const float* rope_sin;
 };
 
 __device__ __forceinline__ long long row_of(const Args& a, int b, int h) {
@@ -97,7 +112,39 @@ __device__ __forceinline__ long long row_of(const Args& a, int b, int h) {
 }
 
 __device__ __forceinline__ bool visible(const Args& a, int q_row, int kv_row) {
-  return q_row < a.seq_len && kv_row < a.seq_len && (!a.causal || kv_row <= q_row);
+  return q_row < a.seq_len && kv_row < a.seq_len &&
+         (!a.causal || in_band(kv_row, q_row, a.window));
+}
+
+// whether every (q row, kv row) pair of the q tile at m0 and the kv tile at
+// n0 (kBlock rows each) is visible: such a tile needs no per-element mask
+__device__ __forceinline__ bool tile_full(const Args& a, int m0, int n0) {
+  if (m0 + kBlock > a.seq_len || n0 + kBlock > a.seq_len) return false;
+  return !a.causal ||
+         (m0 >= n0 + kBlock - 1 && (a.window == 0 || m0 + kBlock - 1 - n0 < a.window));
+}
+
+// exclusive end of the q rows whose band reaches kv rows [n0, n0 + kBlock)
+__device__ __forceinline__ int q_end_of(const Args& a, int n0) {
+  if (!a.causal || a.window == 0) return a.seq_len;
+  return min(a.seq_len, n0 + kBlock + a.window - 1);
+}
+
+// The FMA instance's rotation of a row split over a thread pair: this
+// thread holds dims c0 + d (c0 = 0 or 32) of `x`, its partner (lane ^ 1)
+// the other half.  Rotated by the table row `pos` (inverse: by -theta).
+// Every thread of the warp must call it.
+__device__ __forceinline__ void rope_split(float (&x)[kHalf], int half, const Args& a,
+                                           int pos, bool inverse) {
+  const float* cr = a.rope_cos + (long long)pos * kHalf;
+  const float* sr = a.rope_sin + (long long)pos * kHalf;
+#pragma unroll
+  for (int d = 0; d < kHalf; ++d) {
+    const float other = __shfl_xor_sync(0xffffffffu, x[d], 1);
+    float x1 = half ? other : x[d], x2 = half ? x[d] : other;
+    rope_pair(x1, x2, cr[d], inverse ? -sr[d] : sr[d]);
+    x[d] = half ? x2 : x1;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -124,7 +171,7 @@ __global__ void flash_bwd_di(Args a, int batch) {
 // FMA instance (fp32): two threads per row, each owning half of D; the dot
 // products over D are finished with one shuffle between the pair.
 // ---------------------------------------------------------------------------
-template <typename T>
+template <typename T, bool kRope>
 __global__ void __launch_bounds__(2 * kBlock) flash_bwd_dkv_fma(Args a) {
   __shared__ float qh[kFmaTile][kHeadDim];   // q^ (scaled, rounded)
   __shared__ float qu[kFmaTile][kHeadDim];   // q
@@ -144,21 +191,39 @@ __global__ void __launch_bounds__(2 * kBlock) flash_bwd_dkv_fma(Args a) {
     vr[d] = live ? to_f(V[c0 + d]) : 0.f;
     dk[d] = dv[d] = 0.f;
   }
-  const int m_start = a.causal ? n0 : 0;
+  if constexpr (kRope) {
+    rope_split(kr, half, a, live ? j : 0, false);
+#pragma unroll
+    for (int d = 0; d < kHalf; ++d) kr[d] = to_f(from_f<T>(kr[d]));
+  }
+  const int m_start = a.causal ? n0 : 0, m_end = q_end_of(a, n0);
   // the query heads of this kv head; dk and dv sum over all of them
   for (int h = hk * a.group; h < (hk + 1) * a.group; ++h) {
     const T* Q = static_cast<const T*>(a.q) + b * a.q_sb + h * kHeadDim;
     const T* DO = static_cast<const T*>(a.dout) + b * a.do_sb + h * kHeadDim;
     const long long L = row_of(a, b, h);
-    for (int m0 = m_start; m0 < a.seq_len; m0 += kFmaTile) {
+    for (int m0 = m_start; m0 < m_end; m0 += kFmaTile) {
       __syncthreads();
+      for (int i = threadIdx.x; i < kFmaTile * kHalf; i += blockDim.x) {
+        const int r = i / kHalf, c = i % kHalf, row = m0 + r;
+        float x1 = 0.f, x2 = 0.f;
+        if (row < a.seq_len) {
+          x1 = to_f(Q[(long long)row * a.q_st + c]);
+          x2 = to_f(Q[(long long)row * a.q_st + c + kHalf]);
+          if constexpr (kRope)
+            rope_pair(x1, x2, a.rope_cos[(long long)row * kHalf + c],
+                      a.rope_sin[(long long)row * kHalf + c]);
+        }
+        x1 = to_f(from_f<T>(x1));
+        x2 = to_f(from_f<T>(x2));
+        qu[r][c] = x1;
+        qu[r][c + kHalf] = x2;
+        qh[r][c] = to_f(from_f<T>(x1 * a.sm_scale));
+        qh[r][c + kHalf] = to_f(from_f<T>(x2 * a.sm_scale));
+      }
       for (int i = threadIdx.x; i < kFmaTile * kHeadDim; i += blockDim.x) {
         const int r = i / kHeadDim, c = i % kHeadDim, row = m0 + r;
-        const bool ok = row < a.seq_len;
-        const float x = ok ? to_f(Q[(long long)row * a.q_st + c]) : 0.f;
-        qu[r][c] = x;
-        qh[r][c] = to_f(from_f<T>(x * a.sm_scale));
-        ds_[r][c] = ok ? to_f(DO[(long long)row * a.do_st + c]) : 0.f;
+        ds_[r][c] = row < a.seq_len ? to_f(DO[(long long)row * a.do_st + c]) : 0.f;
       }
       if (threadIdx.x < kFmaTile) {
         const int row = m0 + threadIdx.x;
@@ -186,6 +251,7 @@ __global__ void __launch_bounds__(2 * kBlock) flash_bwd_dkv_fma(Args a) {
       }
     }
   }
+  if constexpr (kRope) rope_split(dk, half, a, live ? j : 0, true);
   if (!live) return;
   T* DK = static_cast<T*>(a.dk) + b * a.dkv_sb + (long long)j * a.dkv_st + hk * kHeadDim + c0;
   T* DV = static_cast<T*>(a.dv) + b * a.dkv_sb + (long long)j * a.dkv_st + hk * kHeadDim + c0;
@@ -196,7 +262,7 @@ __global__ void __launch_bounds__(2 * kBlock) flash_bwd_dkv_fma(Args a) {
   }
 }
 
-template <typename T>
+template <typename T, bool kRope>
 __global__ void __launch_bounds__(2 * kBlock) flash_bwd_dq_fma(Args a) {
   __shared__ float ks[kFmaTile][kHeadDim];
   __shared__ float vs[kFmaTile][kHeadDim];
@@ -214,20 +280,39 @@ __global__ void __launch_bounds__(2 * kBlock) flash_bwd_dq_fma(Args a) {
   float qr[kHalf], dor[kHalf], dq[kHalf];
 #pragma unroll
   for (int d = 0; d < kHalf; ++d) {
-    qr[d] = live ? to_f(from_f<T>(to_f(Q[c0 + d]) * a.sm_scale)) : 0.f;
+    qr[d] = live ? to_f(Q[c0 + d]) : 0.f;
     dor[d] = live ? to_f(DO[c0 + d]) : 0.f;
     dq[d] = 0.f;
   }
+  if constexpr (kRope) {
+    rope_split(qr, half, a, live ? i : 0, false);
+#pragma unroll
+    for (int d = 0; d < kHalf; ++d) qr[d] = to_f(from_f<T>(qr[d]));
+  }
+#pragma unroll
+  for (int d = 0; d < kHalf; ++d) qr[d] = to_f(from_f<T>(qr[d] * a.sm_scale));
   const float lse = live ? a.lse[L + i] : 0.f;
   const float di = live ? a.di[L + i] : 0.f;
   const int kv_end = a.causal ? min(a.seq_len, m0 + kBlock) : a.seq_len;
-  for (int n0 = 0; n0 < kv_end; n0 += kFmaTile) {
+  const int kv_start = a.causal ? band_start(m0, a.window, kFmaTile) : 0;
+  for (int n0 = kv_start; n0 < kv_end; n0 += kFmaTile) {
     __syncthreads();
+    for (int e = threadIdx.x; e < kFmaTile * kHalf; e += blockDim.x) {
+      const int r = e / kHalf, c = e % kHalf, row = n0 + r;
+      float x1 = 0.f, x2 = 0.f;
+      if (row < a.seq_len) {
+        x1 = to_f(K[(long long)row * a.k_st + c]);
+        x2 = to_f(K[(long long)row * a.k_st + c + kHalf]);
+        if constexpr (kRope)
+          rope_pair(x1, x2, a.rope_cos[(long long)row * kHalf + c],
+                    a.rope_sin[(long long)row * kHalf + c]);
+      }
+      ks[r][c] = to_f(from_f<T>(x1));
+      ks[r][c + kHalf] = to_f(from_f<T>(x2));
+    }
     for (int e = threadIdx.x; e < kFmaTile * kHeadDim; e += blockDim.x) {
       const int r = e / kHeadDim, c = e % kHeadDim, row = n0 + r;
-      const bool ok = row < a.seq_len;
-      ks[r][c] = ok ? to_f(K[(long long)row * a.k_st + c]) : 0.f;
-      vs[r][c] = ok ? to_f(V[(long long)row * a.v_st + c]) : 0.f;
+      vs[r][c] = row < a.seq_len ? to_f(V[(long long)row * a.v_st + c]) : 0.f;
     }
     __syncthreads();
     for (int jj = 0; jj < kFmaTile; ++jj) {
@@ -245,6 +330,7 @@ __global__ void __launch_bounds__(2 * kBlock) flash_bwd_dq_fma(Args a) {
       for (int d = 0; d < kHalf; ++d) dq[d] = fmaf(dsr, ks[jj][c0 + d], dq[d]);
     }
   }
+  if constexpr (kRope) rope_split(dq, half, a, live ? i : 0, true);
   if (!live) return;
   T* DQ = static_cast<T*>(a.dq) + b * a.dq_sb + (long long)i * a.dq_st + h * kHeadDim + c0;
 #pragma unroll
@@ -255,26 +341,92 @@ __global__ void __launch_bounds__(2 * kBlock) flash_bwd_dq_fma(Args a) {
 // bf16 instance: tensor cores, 4 warps x 16 rows per block.
 // ---------------------------------------------------------------------------
 
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // A fragments of 16 rows (r0 = row of g, r1 = r0 + 8) x 64 columns of a
 // row-major bf16 matrix, read from global memory; rows >= n read as 0.
-// scale != 1 multiplies in fp32 and rounds to bf16 (q^).
+// kRope: rotated at the row's position and rounded to bf16 (column c < 32
+// of fragment kk pairs with column c + 32 of fragment kk + 2).  scaled:
+// then multiplied by `scale` in fp32 and rounded to bf16 (q^).
+template <bool kRope>
 __device__ __forceinline__ void load_a(uint32_t (&fa)[kHeadDim / 16][4], const bf16* base,
                                        long long stride, int r0, int r1, int n, int t,
-                                       float scale, bool scaled) {
+                                       float scale, bool scaled, const Args& a) {
+  if constexpr (!kRope) {
+#pragma unroll
+    for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = (i & 1) ? r1 : r0;
+        const int c = kk * 16 + 2 * t + ((i & 2) ? 8 : 0);
+        uint32_t x = 0u;
+        if (r < n) {
+          const __nv_bfloat162 v2 =
+              *reinterpret_cast<const __nv_bfloat162*>(base + (long long)r * stride + c);
+          x = scaled ? pack_f32(__bfloat162float(v2.x) * scale, __bfloat162float(v2.y) * scale)
+                     : *reinterpret_cast<const uint32_t*>(&v2);
+        }
+        fa[kk][i] = x;
+      }
+    }
+    return;
+  }
+  float f[kHeadDim / 16][4][2];
 #pragma unroll
   for (int kk = 0; kk < kHeadDim / 16; ++kk) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = (i & 1) ? r1 : r0;
       const int c = kk * 16 + 2 * t + ((i & 2) ? 8 : 0);
-      uint32_t x = 0u;
+      f[kk][i][0] = f[kk][i][1] = 0.f;
       if (r < n) {
         const __nv_bfloat162 v2 =
             *reinterpret_cast<const __nv_bfloat162*>(base + (long long)r * stride + c);
-        x = scaled ? pack_f32(__bfloat162float(v2.x) * scale, __bfloat162float(v2.y) * scale)
-                   : *reinterpret_cast<const uint32_t*>(&v2);
+        f[kk][i][0] = __bfloat162float(v2.x);
+        f[kk][i][1] = __bfloat162float(v2.y);
       }
-      fa[kk][i] = x;
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < kHeadDim / 32; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = (i & 1) ? r1 : r0;
+      if (r >= n) continue;
+      const int c = kk * 16 + 2 * t + ((i & 2) ? 8 : 0);
+      const long long row = (long long)r * kHalf;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        rope_pair(f[kk][i][e], f[kk + 2][i][e], a.rope_cos[row + c + e],
+                  a.rope_sin[row + c + e]);
+        f[kk][i][e] = round_bf16(f[kk][i][e]);
+        f[kk + 2][i][e] = round_bf16(f[kk + 2][i][e]);
+      }
+    }
+  }
+  const float sc = scaled ? scale : 1.f;
+#pragma unroll
+  for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) fa[kk][i] = pack_f32(f[kk][i][0] * sc, f[kk][i][1] * sc);
+  }
+}
+
+// Rotate the accumulators of a 16 x 64 C tile (rows r0, r1 = r0 + 8;
+// column nt * 8 + 2t + e pairs with the same column of tile nt + 4) back by
+// -theta at the rows' positions; rows >= n are left alone.
+__device__ __forceinline__ void unrotate_c(float (&acc)[kHeadDim / 8][4], int r0, int r1, int n,
+                                           int t, const Args& a) {
+#pragma unroll
+  for (int nt = 0; nt < kHeadDim / 16; ++nt) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = (i & 2) ? r1 : r0;
+      if (r >= n) continue;
+      const long long idx = (long long)r * kHalf + nt * 8 + 2 * t + (i & 1);
+      rope_pair(acc[nt][i], acc[nt + 4][i], a.rope_cos[idx], -a.rope_sin[idx]);
     }
   }
 }
@@ -319,9 +471,39 @@ __device__ __forceinline__ void zero(float (&x)[N][4]) {
 }
 
 // 64 rows x 64 bf16 from global (row stride `stride`) into smem; rows
-// >= n are zero.  scaled: also write q^ into hs.
+// >= n are zero.  hs != nullptr: also write q^ (the row times scale,
+// rounded) into hs.  kRope: rows rotated at their positions r0 + r and
+// rounded first.
+template <bool kRope>
 __device__ __forceinline__ void stage(bf16 (*xs)[kLd], bf16 (*hs)[kLd], const bf16* base,
-                                      long long stride, int r0, int n, float scale) {
+                                      long long stride, int r0, int n, float scale,
+                                      const Args& a) {
+  if constexpr (kRope) {
+    for (int i = threadIdx.x; i < kBlock * (kHalf / 8); i += blockDim.x) {
+      const int r = i >> 2, c = (i & 3) * 8, row = r0 + r;
+      uint4 lo = make_uint4(0u, 0u, 0u, 0u), hi = lo;
+      if (row < n)
+        rope_row8(base + (long long)row * stride + c, a.rope_cos + (long long)row * kHalf + c,
+                  a.rope_sin + (long long)row * kHalf + c, lo, hi);
+      *reinterpret_cast<uint4*>(&xs[r][c]) = lo;
+      *reinterpret_cast<uint4*>(&xs[r][c + kHalf]) = hi;
+      if (hs != nullptr) {
+#pragma unroll
+        for (int part = 0; part < 2; ++part) {
+          const uint4 x = part ? hi : lo;
+          const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&x);
+          uint4 y;
+          uint32_t* y32 = reinterpret_cast<uint32_t*>(&y);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            y32[e] = pack_f32(__bfloat162float(x2[e].x) * scale,
+                              __bfloat162float(x2[e].y) * scale);
+          *reinterpret_cast<uint4*>(&hs[r][c + part * kHalf]) = y;
+        }
+      }
+    }
+    return;
+  }
   for (int i = threadIdx.x; i < kBlock * (kHeadDim / 8); i += blockDim.x) {
     const int r = i >> 3, c = (i & 7) * 8, row = r0 + r;
     uint4 x = make_uint4(0u, 0u, 0u, 0u);
@@ -339,6 +521,7 @@ __device__ __forceinline__ void stage(bf16 (*xs)[kLd], bf16 (*hs)[kLd], const bf
   }
 }
 
+template <bool kRope>
 __global__ void __launch_bounds__(128) flash_bwd_dkv_mma(Args a) {
   __shared__ __align__(16) bf16 qs[kBlock][kLd];   // q
   __shared__ __align__(16) bf16 qhs[kBlock][kLd];  // q^
@@ -353,22 +536,22 @@ __global__ void __launch_bounds__(128) flash_bwd_dkv_mma(Args a) {
   const bf16* V = static_cast<const bf16*>(a.v) + b * a.v_sb + hk * kHeadDim;
 
   uint32_t ka[kHeadDim / 16][4], va[kHeadDim / 16][4];
-  load_a(ka, K, a.k_st, j0, j1, a.seq_len, t, 1.f, false);
-  load_a(va, V, a.v_st, j0, j1, a.seq_len, t, 1.f, false);
+  load_a<kRope>(ka, K, a.k_st, j0, j1, a.seq_len, t, 1.f, false, a);
+  load_a<false>(va, V, a.v_st, j0, j1, a.seq_len, t, 1.f, false, a);
   float dk[kHeadDim / 8][4], dv[kHeadDim / 8][4];
   zero(dk);
   zero(dv);
 
-  const int m_start = a.causal ? n0 : 0;
+  const int m_start = a.causal ? n0 : 0, m_end = q_end_of(a, n0);
   // the query heads of this kv head; dk and dv sum over all of them
   for (int h = hk * a.group; h < (hk + 1) * a.group; ++h) {
     const bf16* Q = static_cast<const bf16*>(a.q) + b * a.q_sb + h * kHeadDim;
     const bf16* DO = static_cast<const bf16*>(a.dout) + b * a.do_sb + h * kHeadDim;
     const long long L = row_of(a, b, h);
-    for (int m0 = m_start; m0 < a.seq_len; m0 += kBlock) {
+    for (int m0 = m_start; m0 < m_end; m0 += kBlock) {
       __syncthreads();
-      stage(qs, qhs, Q, a.q_st, m0, a.seq_len, a.sm_scale);
-      stage(dos, nullptr, DO, a.do_st, m0, a.seq_len, 1.f);
+      stage<kRope>(qs, qhs, Q, a.q_st, m0, a.seq_len, a.sm_scale, a);
+      stage<false>(dos, nullptr, DO, a.do_st, m0, a.seq_len, 1.f, a);
       if (threadIdx.x < kBlock) {
         const int row = m0 + threadIdx.x;
         lse_s[threadIdx.x] = row < a.seq_len ? a.lse[L + row] : 0.f;
@@ -383,16 +566,30 @@ __global__ void __launch_bounds__(128) flash_bwd_dkv_mma(Args a) {
       mma_rows(s, ka, qhs, g, t);
       mma_rows(dp, va, dos, g, t);
 
-      // P^T and dS^T in place: s[nt][i] is (kv row j0 or j1, q column)
+      // P^T and dS^T in place: s[nt][i] is (kv row j0 or j1, q column);
+      // a tile inside the band and the causal frontier skips the mask
+      if (tile_full(a, m0, n0)) {
 #pragma unroll
-      for (int nt = 0; nt < kBlock / 8; ++nt) {
+        for (int nt = 0; nt < kBlock / 8; ++nt) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int qc = nt * 8 + 2 * t + (i & 1);
-          const int j = (i & 2) ? j1 : j0;
-          const float p = visible(a, m0 + qc, j) ? expf(s[nt][i] - lse_s[qc]) : 0.f;
-          s[nt][i] = p;
-          dp[nt][i] = p * (dp[nt][i] - di_s[qc]) * a.sm_scale;
+          for (int i = 0; i < 4; ++i) {
+            const int qc = nt * 8 + 2 * t + (i & 1);
+            const float p = expf(s[nt][i] - lse_s[qc]);
+            s[nt][i] = p;
+            dp[nt][i] = p * (dp[nt][i] - di_s[qc]) * a.sm_scale;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < kBlock / 8; ++nt) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int qc = nt * 8 + 2 * t + (i & 1);
+            const int j = (i & 2) ? j1 : j0;
+            const float p = visible(a, m0 + qc, j) ? expf(s[nt][i] - lse_s[qc]) : 0.f;
+            s[nt][i] = p;
+            dp[nt][i] = p * (dp[nt][i] - di_s[qc]) * a.sm_scale;
+          }
         }
       }
 
@@ -402,6 +599,7 @@ __global__ void __launch_bounds__(128) flash_bwd_dkv_mma(Args a) {
     }
   }
 
+  if constexpr (kRope) unrotate_c(dk, j0, j1, a.seq_len, t, a);
   bf16* DK = static_cast<bf16*>(a.dk) + b * a.dkv_sb + hk * kHeadDim;
   bf16* DV = static_cast<bf16*>(a.dv) + b * a.dkv_sb + hk * kHeadDim;
 #pragma unroll
@@ -422,6 +620,7 @@ __global__ void __launch_bounds__(128) flash_bwd_dkv_mma(Args a) {
   }
 }
 
+template <bool kRope>
 __global__ void __launch_bounds__(128) flash_bwd_dq_mma(Args a) {
   __shared__ __align__(16) bf16 ks[kBlock][kLd];
   __shared__ __align__(16) bf16 vs[kBlock][kLd];
@@ -438,8 +637,8 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_mma(Args a) {
   const long long L = row_of(a, b, h);
 
   uint32_t qa[kHeadDim / 16][4], da[kHeadDim / 16][4];
-  load_a(qa, Q, a.q_st, r0, r1, a.seq_len, t, a.sm_scale, true);
-  load_a(da, DO, a.do_st, r0, r1, a.seq_len, t, 1.f, false);
+  load_a<kRope>(qa, Q, a.q_st, r0, r1, a.seq_len, t, a.sm_scale, true, a);
+  load_a<false>(da, DO, a.do_st, r0, r1, a.seq_len, t, 1.f, false, a);
   const float lse_a = r0 < a.seq_len ? a.lse[L + r0] : 0.f;
   const float lse_b = r1 < a.seq_len ? a.lse[L + r1] : 0.f;
   const float di_a = r0 < a.seq_len ? a.di[L + r0] : 0.f;
@@ -448,10 +647,11 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_mma(Args a) {
   zero(dq);
 
   const int kv_end = a.causal ? min(a.seq_len, m0 + kBlock) : a.seq_len;
-  for (int n0 = 0; n0 < kv_end; n0 += kBlock) {
+  const int kv_start = a.causal ? band_start(m0, a.window, kBlock) : 0;
+  for (int n0 = kv_start; n0 < kv_end; n0 += kBlock) {
     __syncthreads();
-    stage(ks, nullptr, K, a.k_st, n0, a.seq_len, 1.f);
-    stage(vs, nullptr, V, a.v_st, n0, a.seq_len, 1.f);
+    stage<kRope>(ks, nullptr, K, a.k_st, n0, a.seq_len, 1.f, a);
+    stage<false>(vs, nullptr, V, a.v_st, n0, a.seq_len, 1.f, a);
     __syncthreads();
 
     // S = q^ K^T and dP = do V^T: 16 q rows x 64 kv columns per warp
@@ -460,22 +660,36 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_mma(Args a) {
     zero(dp);
     mma_rows(s, qa, ks, g, t);
     mma_rows(dp, da, vs, g, t);
+    // a tile inside the band and the causal frontier skips the mask
+    if (tile_full(a, m0, n0)) {
 #pragma unroll
-    for (int nt = 0; nt < kBlock / 8; ++nt) {
+      for (int nt = 0; nt < kBlock / 8; ++nt) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = n0 + nt * 8 + 2 * t + (i & 1);
-        const bool second = (i & 2) != 0;
-        const int row = second ? r1 : r0;
-        const float p =
-            visible(a, row, col) ? expf(s[nt][i] - (second ? lse_b : lse_a)) : 0.f;
-        dp[nt][i] = p * (dp[nt][i] - (second ? di_b : di_a)) * a.sm_scale;
+        for (int i = 0; i < 4; ++i) {
+          const bool second = (i & 2) != 0;
+          const float p = expf(s[nt][i] - (second ? lse_b : lse_a));
+          dp[nt][i] = p * (dp[nt][i] - (second ? di_b : di_a)) * a.sm_scale;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < kBlock / 8; ++nt) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int col = n0 + nt * 8 + 2 * t + (i & 1);
+          const bool second = (i & 2) != 0;
+          const int row = second ? r1 : r0;
+          const float p =
+              visible(a, row, col) ? expf(s[nt][i] - (second ? lse_b : lse_a)) : 0.f;
+          dp[nt][i] = p * (dp[nt][i] - (second ? di_b : di_a)) * a.sm_scale;
+        }
       }
     }
     // dQ += dS K
     mma_cols(dq, dp, ks, g, t);
   }
 
+  if constexpr (kRope) unrotate_c(dq, r0, r1, a.seq_len, t, a);
   bf16* DQ = static_cast<bf16*>(a.dq) + b * a.dq_sb + h * kHeadDim;
 #pragma unroll
   for (int nt = 0; nt < kHeadDim / 8; ++nt) {
@@ -493,8 +707,10 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_mma(Args a) {
 
 // dtype: 0 = float32 (FMA instance), 1 = bfloat16 (tensor-core instance).
 // di is fp32 scratch of batch * num_heads * seq_len floats; dq is (B, T, C),
-// dk and dv (B, T, kv_heads * D); kv_heads must divide num_heads.  Launches
-// three kernels on `stream` without synchronising; returns the first launch
+// dk and dv (B, T, kv_heads * D); kv_heads must divide num_heads.  window
+// > 0 (causal only): the band of the forward.  rope_cos/rope_sin: the fp32
+// (positions >= seq_len, 32) rope table, or both null.  Launches three
+// kernels on `stream` without synchronising; returns the first launch
 // error.
 extern "C" int vitrs_flash_bwd(int dtype, const void* q, const void* k, const void* v,
                                const void* o, const void* dout, const float* lse, float* di,
@@ -503,14 +719,17 @@ extern "C" int vitrs_flash_bwd(int dtype, const void* q, const void* k, const vo
                                long long o_sb, long long o_st, long long do_sb,
                                long long do_st, long long dq_sb, long long dq_st,
                                long long dkv_sb, long long dkv_st, int batch, int num_heads,
-                               int kv_heads, int seq_len, int causal, float sm_scale,
+                               int kv_heads, int seq_len, int causal, int window,
+                               float sm_scale, const float* rope_cos, const float* rope_sin,
                                void* stream) {
-  if ((dtype != 0 && dtype != 1) || kv_heads <= 0 || num_heads % kv_heads != 0)
+  if ((dtype != 0 && dtype != 1) || kv_heads <= 0 || num_heads % kv_heads != 0 ||
+      window < 0 || (window > 0 && !causal) ||
+      ((rope_cos == nullptr) != (rope_sin == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{q,     k,     v,      o,      dout,      lse,   di,    dq,   dk,   dv,
          q_sb,  q_st,  k_sb,   k_st,   v_sb,      v_st,  o_sb,  o_st, do_sb, do_st,
          dq_sb, dq_st, dkv_sb, dkv_st, num_heads, num_heads / kv_heads,
-         seq_len, causal, sm_scale};
+         seq_len, causal, window, sm_scale, rope_cos, rope_sin};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long rows = (long long)batch * seq_len * num_heads;
   const unsigned di_blocks = static_cast<unsigned>((rows + 255) / 256);
@@ -523,17 +742,32 @@ extern "C" int vitrs_flash_bwd(int dtype, const void* q, const void* k, const vo
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+  // rope is a template argument, so the instances without it carry none of
+  // its registers or branches
+  const bool rope = rope_cos != nullptr;
   if (dtype == 1) {
-    flash_bwd_dkv_mma<<<kv_grid, 128, 0, s>>>(a);
+    if (rope)
+      flash_bwd_dkv_mma<true><<<kv_grid, 128, 0, s>>>(a);
+    else
+      flash_bwd_dkv_mma<false><<<kv_grid, 128, 0, s>>>(a);
   } else {
-    flash_bwd_dkv_fma<float><<<kv_grid, 2 * kBlock, 0, s>>>(a);
+    if (rope)
+      flash_bwd_dkv_fma<float, true><<<kv_grid, 2 * kBlock, 0, s>>>(a);
+    else
+      flash_bwd_dkv_fma<float, false><<<kv_grid, 2 * kBlock, 0, s>>>(a);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dtype == 1) {
-    flash_bwd_dq_mma<<<q_grid, 128, 0, s>>>(a);
+    if (rope)
+      flash_bwd_dq_mma<true><<<q_grid, 128, 0, s>>>(a);
+    else
+      flash_bwd_dq_mma<false><<<q_grid, 128, 0, s>>>(a);
   } else {
-    flash_bwd_dq_fma<float><<<q_grid, 2 * kBlock, 0, s>>>(a);
+    if (rope)
+      flash_bwd_dq_fma<float, true><<<q_grid, 2 * kBlock, 0, s>>>(a);
+    else
+      flash_bwd_dq_fma<float, false><<<q_grid, 2 * kBlock, 0, s>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

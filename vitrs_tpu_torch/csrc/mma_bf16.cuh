@@ -1,8 +1,9 @@
-// Device helpers shared by the port's attention kernels (flash_fwd.cu,
-// flash_bwd.cu): conversions between the storage types and fp32, and the
-// bf16 tensor-core product mma.sync.m16n8k16 with the packing of its
-// fragments.  Each .cu file is built into its own library, so these are
-// plain inline device functions.
+// Device helpers shared by the port's hand-written kernels (flash_fwd.cu,
+// flash_bwd.cu, fused_head_ce.cu): conversions between the storage types
+// and fp32, the bf16 tensor-core product mma.sync.m16n8k16 with the packing
+// of its fragments, and the rope rotation and window band of the attention
+// kernels.  Each .cu file is built into its own library, so these are plain
+// inline device functions.
 //
 // Fragment layout of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A 16x16: a0 = A[g][2t..2t+1], a1 = A[g+8][2t..], a2 = A[g][2t+8..], a3 = A[g+8][2t+8..]
@@ -65,6 +66,56 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// RoPE, half-split pairing: dim c of a head pairs with dim c + D/2.  The
+// angle's cos and sin come from the fp32 (positions, D/2) table of
+// ops/rope.py (pass -s for the inverse rotation).  Each product and sum is
+// rounded on its own, as PyTorch's separate elementwise ops round them (no
+// fused multiply-add), so a rotated value is bit-identical to the plain
+// version's before both round it to the storage type.
+__device__ __forceinline__ void rope_pair(float& x1, float& x2, float c, float s) {
+  const float y1 = __fsub_rn(__fmul_rn(x1, c), __fmul_rn(x2, s));
+  const float y2 = __fadd_rn(__fmul_rn(x1, s), __fmul_rn(x2, c));
+  x1 = y1;
+  x2 = y2;
+}
+
+// Eight pairs of one row of a 64-wide bf16 head: x points at column c of
+// the row (c a multiple of 8 below 32), cs and sn at column c of the table
+// row of its position.  Columns c..c+7 and c+32..c+39 rotated, rounded to
+// bf16 and packed into lo and hi.
+__device__ __forceinline__ void rope_row8(const bf16* x, const float* cs, const float* sn,
+                                          uint4& lo, uint4& hi) {
+  const uint4 x1 = *reinterpret_cast<const uint4*>(x);
+  const uint4 x2 = *reinterpret_cast<const uint4*>(x + 32);
+  const bf16* e1 = reinterpret_cast<const bf16*>(&x1);
+  const bf16* e2 = reinterpret_cast<const bf16*>(&x2);
+  uint32_t* l32 = reinterpret_cast<uint32_t*>(&lo);
+  uint32_t* h32 = reinterpret_cast<uint32_t*>(&hi);
+#pragma unroll
+  for (int e = 0; e < 8; e += 2) {
+    float a0 = __bfloat162float(e1[e]), a1 = __bfloat162float(e1[e + 1]);
+    float b0 = __bfloat162float(e2[e]), b1 = __bfloat162float(e2[e + 1]);
+    rope_pair(a0, b0, cs[e], sn[e]);
+    rope_pair(a1, b1, cs[e + 1], sn[e + 1]);
+    l32[e / 2] = pack_f32(a0, a1);
+    h32[e / 2] = pack_f32(b0, b1);
+  }
+}
+
+// The band of sliding-window attention: key j is visible from the query at
+// absolute position p when j <= p (causal) and, for window > 0, j > p - window.
+__device__ __forceinline__ bool in_band(int j, int p, int window) {
+  return j <= p && (window == 0 || j > p - window);
+}
+
+// First kv tile (of `tile` rows) that a block of queries whose first
+// absolute position is p0 must visit: the tile holding key p0 - window + 1,
+// or 0 without a window.
+__device__ __forceinline__ int band_start(int p0, int window, int tile) {
+  if (window == 0 || p0 - window + 1 <= 0) return 0;
+  return (p0 - window + 1) / tile * tile;
 }
 
 }  // namespace vitrs

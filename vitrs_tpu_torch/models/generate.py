@@ -17,8 +17,16 @@ Decode attends against the cache with plain torch (`_cache_attention`,
 grouped under GQA), as the JAX package does with plain XLA.  The head
 computes last-row logits only where the caller asks (`last_only`).
 
-Not ported yet: the int8 KV cache, paged, beam and streaming decode —
-they raise NotImplementedError naming ROADMAP.md Queue 1 item 15.
+Rope (cfg.pos_emb == "rope") rotates q and k at their absolute positions
+before the cache write, so the cache holds rotated K and the kernels run
+with rope=False; the wpe table is not read.  A sliding window
+(cfg.window) is the kernels' band in prefill and a mask in dense and
+decode attention.  A window model can also decode from a ring cache of
+window + chunk rows (`init_ring_kv`, `forward_with_ring`,
+`generate_streaming`), in plain torch as in the JAX package.
+
+Not ported yet: the int8 KV cache, paged and beam decode — they raise
+NotImplementedError naming ROADMAP.md Queue 1 item 15.
 """
 
 from __future__ import annotations
@@ -30,19 +38,24 @@ import torch
 
 from ..config import ViTConfig
 from ..ops import basic
+from ..ops._build import resolve_device
 from ..ops.attention import attention_gqa, split_gqa
 from ..ops.flash_prefill import (PREFILL_BLOCK, flash_prefill_qkv,
                                  supports_prefill)
+from ..ops.rope import rope_qk
 from . import model as M
 
 _ITEM15 = "ROADMAP.md Queue 1 item 15 (generation and serving)"
 
 
 def init_kv_cache(cfg: ViTConfig, B: int, Tmax: int, int8: bool = False,
-                  device="cpu"):
-    """Zeroed (K, V) caches, each (L, B, Tmax, kv_dim) in cfg.dtype."""
+                  device="cuda"):
+    """Zeroed (K, V) caches, each (L, B, Tmax, kv_dim) in cfg.dtype, on
+    `device`: the card unless the caller asks for the CPU (raises when
+    torch sees no CUDA device)."""
     if int8:
         raise NotImplementedError(f"int8 KV cache: {_ITEM15}")
+    device = resolve_device(device)
     shape = (cfg.num_layers, B, Tmax, cfg.kv_dim)
     dtype = getattr(torch, cfg.dtype)
     return (torch.zeros(shape, dtype=dtype, device=device),
@@ -84,34 +97,70 @@ def _heads(t: torch.Tensor, n: int) -> torch.Tensor:
     return t.reshape(B, T, n, W // n).transpose(1, 2)
 
 
+def _window_mask(key_pos: torch.Tensor, q_pos: torch.Tensor,
+                 window: int) -> torch.Tensor:
+    """Which keys a query sees: key_pos <= q_pos and, with a window,
+    key_pos > q_pos - window (broadcasting)."""
+    mask = key_pos <= q_pos
+    if window:
+        mask &= key_pos > q_pos - window
+    return mask
+
+
+def _qkv_rotated(x, p, cfg: ViTConfig, positions):
+    """ln1 -> packed projection -> (qkv, q, k, v), q and k rotated at
+    `positions` under rope (then qkv is rebuilt from the rotated parts)."""
+    NH, KH = cfg.num_heads, cfg.kv_heads
+    ln1 = basic.layernorm(x, p["ln1w"], p["ln1b"])[0]
+    qkv = basic.linear(ln1, p["qkvw"], p["qkvb"])
+    q, k, v = split_gqa(qkv, NH, KH)
+    if cfg.pos_emb == "rope":
+        # absolute positions: the cache stores rotated K, so attention
+        # never rotates history again
+        q, k = rope_qk(q, k, positions, NH, KH)
+        qkv = torch.cat([q, k, v], dim=-1)
+    return qkv, q, k, v
+
+
 def _block_with_kv(x, p, cfg: ViTConfig, k_cache, v_cache, pos: int):
     """One block over S tokens at positions pos..pos+S-1; writes their K/V
     into the (B, Tmax, kv_dim) caches in place."""
     B, S, C = x.shape
     NH, KH = cfg.num_heads, cfg.kv_heads
-    ln1 = basic.layernorm(x, p["ln1w"], p["ln1b"])[0]
-    qkv = basic.linear(ln1, p["qkvw"], p["qkvb"])
-    q, k, v = split_gqa(qkv, NH, KH)
+    qkv, q, k, v = _qkv_rotated(x, p, cfg,
+                                pos + torch.arange(S, device=x.device))
     k_cache[:, pos:pos + S] = k
     v_cache[:, pos:pos + S] = v
     Tmax = k_cache.shape[1]
     if pos == 0 and S > 1:
         # causal self-attention over the prompt: the cache holds nothing the
         # causal mask would admit beyond it, so the flash kernel reads the
-        # packed qkv in place (K1-fwd, or K3-fwd at kv width)
-        atty = attention_gqa(qkv, NH, KH, causal=True)
+        # packed qkv in place (K1-fwd, or K3-fwd at kv width), with the
+        # window's band; q and k are already rotated
+        atty = attention_gqa(qkv, NH, KH, causal=True, window=cfg.window)
     elif S > 1 and cfg.use_flash and _flash_cont_ok(cfg, Tmax):
-        # a continuation chunk: K4 streams the cache prefix up to the
-        # chunk's causal frontier at kv width
-        atty = flash_prefill_qkv(q, k_cache, v_cache, NH, KH, pos)
+        # a continuation chunk: K4 streams the cache from the chunk's band
+        # up to its causal frontier at kv width
+        atty = flash_prefill_qkv(q, k_cache, v_cache, NH, KH, pos,
+                                 window=cfg.window)
     else:
         q_pos = pos + torch.arange(S, device=x.device)[:, None]
-        mask = torch.arange(Tmax, device=x.device)[None, :] <= q_pos
+        mask = _window_mask(torch.arange(Tmax, device=x.device)[None, :],
+                            q_pos, cfg.window)
         atty = _cache_attention(_heads(q, NH), _heads(k_cache, KH),
                                 _heads(v_cache, KH), mask[None], x.dtype)
         atty = atty.transpose(1, 2).reshape(B, S, C)
     x = x + basic.linear(atty, p["attprojw"], p["attprojb"])
     return x + M.mlp(p, cfg, basic.layernorm(x, p["ln2w"], p["ln2b"])[0])
+
+
+def _embed(params, tokens: torch.Tensor, positions, cfg: ViTConfig):
+    """wte rows (+ wpe rows at `positions` unless rope) in cfg.dtype."""
+    dtype = getattr(torch, cfg.dtype)
+    x = params["wte"][tokens].to(dtype)
+    if cfg.pos_emb == "rope":
+        return x
+    return x + params["wpe"][positions].to(dtype)
 
 
 def forward_with_cache(params: Mapping[str, torch.Tensor],
@@ -121,10 +170,8 @@ def forward_with_cache(params: Mapping[str, torch.Tensor],
     caches in place.  Returns (logits (B, S, V) fp32, caches), or (B, 1, V)
     logits when last_only.  params from `model.prepare_params`."""
     k_caches, v_caches = caches
-    dtype = getattr(torch, cfg.dtype)
     S = tokens.shape[-1]
-    x = (params["wte"][tokens].to(dtype)
-         + params["wpe"][pos:pos + S][None].to(dtype))
+    x = _embed(params, tokens, slice(pos, pos + S), cfg)
     for i in range(cfg.num_layers):
         x = _block_with_kv(x, M.layer(params, i), cfg, k_caches[i],
                            v_caches[i], pos)
@@ -213,8 +260,99 @@ def generate_beam(*args, **kwargs):
     raise NotImplementedError(f"beam search: {_ITEM15}")
 
 
-def generate_streaming(*args, **kwargs):
-    raise NotImplementedError(f"ring-cache streaming decode: {_ITEM15}")
+# --------------------------------------------------------------------------
+# Streaming decode: a ring KV cache for sliding-window models (the JAX
+# package's l.450-578).  A window-W model never attends more than W
+# positions back, so the cache holds a rolling band of R = W + chunk rows
+# per layer, written at row pos % R; a row's absolute position is
+# reconstructed arithmetically (the latest p <= pos_end with p = j mod R).
+# With rope positions the generated length is unbounded.
+# --------------------------------------------------------------------------
+
+def init_ring_kv(cfg: ViTConfig, B: int, chunk: int, device="cuda"):
+    """Zeroed ring caches (L, B, window + chunk, kv_dim) in cfg.dtype: a
+    chunk of S <= chunk new positions never evicts a key still inside some
+    query's window.  On the card unless the caller asks for the CPU."""
+    if cfg.window <= 0:
+        raise ValueError("a ring cache needs a sliding-window config")
+    device = resolve_device(device)
+    shape = (cfg.num_layers, B, cfg.window + chunk, cfg.kv_dim)
+    dtype = getattr(torch, cfg.dtype)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+
+
+def _block_with_kv_ring(x, p, cfg: ViTConfig, k_cache, v_cache, pos: int):
+    """One block over S tokens at positions pos.. against (B, R, kv_dim)
+    ring caches, written in place."""
+    B, S, C = x.shape
+    NH, KH = cfg.num_heads, cfg.kv_heads
+    R = k_cache.shape[1]
+    positions = pos + torch.arange(S, device=x.device)
+    _, q, k, v = _qkv_rotated(x, p, cfg, positions)
+    rows = positions % R
+    k_cache[:, rows] = k
+    v_cache[:, rows] = v
+    # the absolute position ring row j holds after this write: the latest
+    # p <= pos_end with p = j (mod R); negative = never written
+    pos_end = pos + S - 1
+    j = torch.arange(R, device=x.device)
+    stored = pos_end - torch.remainder(pos_end - j, R)
+    mask = _window_mask(stored[None, :], positions[:, None], cfg.window)
+    mask &= stored[None, :] >= 0
+    atty = _cache_attention(_heads(q, NH), _heads(k_cache, KH),
+                            _heads(v_cache, KH), mask[None], x.dtype)
+    atty = atty.transpose(1, 2).reshape(B, S, C)
+    x = x + basic.linear(atty, p["attprojw"], p["attprojb"])
+    return x + M.mlp(p, cfg, basic.layernorm(x, p["ln2w"], p["ln2b"])[0])
+
+
+def forward_with_ring(params: Mapping[str, torch.Tensor],
+                      tokens: torch.Tensor, caches, pos: int,
+                      cfg: ViTConfig):
+    """The ring twin of `forward_with_cache`: tokens (B, S), S no more than
+    the chunk the ring was sized for.  Returns (logits (B, S, V) fp32,
+    caches)."""
+    k_caches, v_caches = caches
+    S = tokens.shape[-1]
+    x = _embed(params, tokens, slice(pos, pos + S), cfg)
+    for i in range(cfg.num_layers):
+        x = _block_with_kv_ring(x, M.layer(params, i), cfg, k_caches[i],
+                                v_caches[i], pos)
+    lnf = basic.layernorm(x, params["lnfw"], params["lnfb"])[0]
+    return basic.linear(lnf, params["head"]).float(), caches
+
+
+def generate_streaming(params: Mapping[str, torch.Tensor],
+                       prompt: torch.Tensor, cfg: ViTConfig, max_new: int,
+                       generator: Optional[torch.Generator] = None,
+                       temperature: float = 1.0, top_k: int = 0,
+                       top_p: float = 0.0) -> torch.Tensor:
+    """Windowed generation with O(window) cache memory, whatever the total
+    length: prompt (B, T0) -> (B, T0 + max_new).  The prompt prefills in
+    chunks of min(T0, window) through the ring, then one token per step.
+    With cfg.pos_emb == "rope" the length is unbounded; with learned
+    positions max_seq_len still caps it.  params from
+    `model.prepare_params`."""
+    B, T0 = prompt.shape
+    if cfg.window <= 0:
+        raise ValueError("generate_streaming needs a sliding-window config")
+    if cfg.pos_emb != "rope" and T0 + max_new > cfg.max_seq_len:
+        raise ValueError(f"{T0} + {max_new} tokens exceed max_seq_len "
+                         f"{cfg.max_seq_len}")
+    chunk = min(T0, cfg.window)
+    caches = init_ring_kv(cfg, B, chunk, device=prompt.device)
+    for off in range(0, T0, chunk):
+        logits, caches = forward_with_ring(params, prompt[:, off:off + chunk],
+                                           caches, off, cfg)
+    tok = _sample(logits[:, -1], generator, temperature, top_k, top_p)
+    out = [tok]
+    for pos in range(T0, T0 + max_new - 1):
+        logits, caches = forward_with_ring(params, tok[:, None], caches, pos,
+                                           cfg)
+        tok = _sample(logits[:, -1], generator, temperature, top_k, top_p)
+        out.append(tok)
+    return torch.cat([prompt, torch.stack(out, dim=1).to(prompt.dtype)], dim=1)
 
 
 # --------------------------------------------------------------------------
@@ -228,13 +366,12 @@ def _block_decode_multi(x, p, cfg: ViTConfig, k_cache, v_cache,
     B, _, C = x.shape
     NH, KH = cfg.num_heads, cfg.kv_heads
     Tmax = k_cache.shape[1]
-    ln1 = basic.layernorm(x, p["ln1w"], p["ln1b"])[0]
-    qkv = basic.linear(ln1, p["qkvw"], p["qkvb"])
-    q, k, v = split_gqa(qkv, NH, KH)
+    _, q, k, v = _qkv_rotated(x, p, cfg, pos[:, None])
     bidx = torch.arange(B, device=x.device)
     k_cache[bidx, pos] = k[:, 0]
     v_cache[bidx, pos] = v[:, 0]
-    mask = torch.arange(Tmax, device=x.device)[None, :] <= pos[:, None]
+    mask = _window_mask(torch.arange(Tmax, device=x.device)[None, :],
+                        pos[:, None], cfg.window)
     atty = _cache_attention(_heads(q, NH), _heads(k_cache, KH),
                             _heads(v_cache, KH), mask[:, None, :], x.dtype)
     atty = atty.transpose(1, 2).reshape(B, 1, C)
@@ -248,9 +385,7 @@ def decode_step_multi(params: Mapping[str, torch.Tensor],
     """tokens (B,) at per-slot positions pos (B,) -> (logits (B, V) fp32,
     caches).  Inactive slots decode too; the engine discards their logits."""
     k_caches, v_caches = caches
-    dtype = getattr(torch, cfg.dtype)
-    x = (params["wte"][tokens].to(dtype)
-         + params["wpe"][pos].to(dtype))[:, None, :]
+    x = _embed(params, tokens, pos, cfg)[:, None, :]
     for i in range(cfg.num_layers):
         x = _block_decode_multi(x, M.layer(params, i), cfg, k_caches[i],
                                 v_caches[i], pos)

@@ -13,10 +13,13 @@ Two ways in, one block body:
 The block uses the custom-backward ops of ops/basic.py and, on the flash
 path, the fused qkv projection + attention op; the GPT loss pads the tied
 head to 50304 columns and runs the fused CE (K5/K6) where the JAX package
-would.  GQA/MQA (cfg.num_kv_heads) projects with the small
-(C + 2*kv_dim, C) weight into K3 on the flash path, and expands the weight
-on the dense path, as the JAX package does.  ViT mode, MoE, rope and the
-sliding window come in later slices (ROADMAP.md, Queue 1).
+would, or, with `fused_head_ce.ENABLE` set, the fused head + CE (K8).
+GQA/MQA (cfg.num_kv_heads) projects with the small (C + 2*kv_dim, C)
+weight into K3 on the flash path, and expands the weight on the dense path,
+as the JAX package does.  Rope (cfg.pos_emb == "rope") rotates q and k
+inside the flash kernels and with an explicit `rope_qk` on the dense path;
+the wpe table is then not read.  cfg.window is the sliding-window band on
+both paths.  ViT mode and MoE come in later slices (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -27,8 +30,9 @@ import torch
 import torch.nn.functional as F
 
 from ..config import ViTConfig
-from ..ops import basic, fused_ce
-from ..ops.attention import expand_qkv_weight, supports as flash_supports
+from ..ops import basic, fused_ce, fused_head_ce
+from ..ops.attention import (expand_qkv_weight, rope_packed,
+                             supports as flash_supports)
 from ..ops.fused_qkv_attention import qkv_attention
 
 BLOCK_KEYS = ("ln1w", "ln1b", "qkvw", "qkvb", "attprojw", "attprojb",
@@ -49,9 +53,6 @@ def check_supported(cfg: ViTConfig) -> None:
             "quirks=True: ROADMAP.md Queue 1 item 3 (ops/basic.py quirk ops)")
     if cfg.is_moe:
         raise NotImplementedError("MoE MLP: ROADMAP.md Queue 1 item 14")
-    if cfg.window or cfg.pos_emb != "learned":
-        raise NotImplementedError(
-            "sliding window and rope: ROADMAP.md Queue 1 item 12")
 
 
 def prepare_params(params: Mapping[str, torch.Tensor], cfg: ViTConfig
@@ -114,16 +115,21 @@ def mlp(p: Mapping[str, torch.Tensor], cfg: ViTConfig,
 def _project_and_attend(ln1: torch.Tensor, p: Mapping[str, torch.Tensor],
                         cfg: ViTConfig, causal: bool) -> torch.Tensor:
     """qkv projection + attention: the fused op on the flash path (whose
-    backward never builds the packed dqkv; K3 under GQA), else the plain
-    composition with dense attention, the GQA weight expanded to MHA
-    (JAX model.py:54-58), as the JAX package routes them."""
+    backward never builds the packed dqkv; K3 under GQA; rope and the band
+    inside the kernels), else the plain composition with dense attention,
+    the GQA weight expanded to MHA and q, k rotated explicitly
+    (JAX model.py:54-68), as the JAX package routes them."""
+    rope = cfg.pos_emb == "rope"
     if cfg.use_flash and flash_supports(cfg.num_heads, cfg.head_size):
         return qkv_attention(ln1, p["qkvw"], p["qkvb"], cfg.num_heads, causal,
-                             kv_heads=cfg.kv_heads)
+                             cfg.window, rope, kv_heads=cfg.kv_heads)
     w, b = expand_qkv_weight(p["qkvw"], p["qkvb"], cfg.num_heads,
                              cfg.kv_heads)
     qkv = basic.linear(ln1, w.to(ln1.dtype), b.to(ln1.dtype))
-    return basic.attention_dense(qkv, cfg.num_heads, causal=causal)[0]
+    if rope:
+        qkv = rope_packed(qkv, cfg.num_heads)
+    return basic.attention_dense(qkv, cfg.num_heads, causal=causal,
+                                 window=cfg.window)[0]
 
 
 def _block(x: torch.Tensor, p: Mapping[str, torch.Tensor],
@@ -136,9 +142,12 @@ def _block(x: torch.Tensor, p: Mapping[str, torch.Tensor],
 
 
 def gpt_encode(tokens: torch.Tensor, params: Mapping[str, torch.Tensor],
-               dtype: torch.dtype) -> torch.Tensor:
+               dtype: torch.dtype, rope: bool = False) -> torch.Tensor:
     """wte lookup + learned positional embedding, summed in the parameter
-    dtype, then cast."""
+    dtype, then cast.  rope=True skips the wpe add (positions enter
+    attention through the rotation), so wpe gets an exact zero gradient."""
+    if rope:
+        return params["wte"][tokens].to(dtype)
     T = tokens.shape[-1]
     return (params["wte"][tokens] + params["wpe"][:T][None]).to(dtype)
 
@@ -147,7 +156,8 @@ def gpt_trunk(params: Mapping[str, torch.Tensor], tokens: torch.Tensor,
               cfg: ViTConfig) -> torch.Tensor:
     """Everything up to and including the final LayerNorm: (B, T, C) in
     cfg.dtype.  params from `prepare_params` or `train_params`."""
-    x = gpt_encode(tokens, params, getattr(torch, cfg.dtype))
+    x = gpt_encode(tokens, params, getattr(torch, cfg.dtype),
+                   rope=cfg.pos_emb == "rope")
     for p in layers(params):
         x = _block(x, p, cfg)
     return basic.layernorm_cv(x, params["lnfw"], params["lnfb"])
@@ -168,14 +178,21 @@ def gpt_loss(params: Mapping[str, torch.Tensor], tokens: torch.Tensor,
     the tied head is padded to a multiple of 128 rows (50257 -> 50304) with
     zeros and the pad columns are masked out of the logsumexp, as
     model.py:253-270 of the JAX package does; else plain CE on the
-    unpadded logits."""
+    unpadded logits.  On that route, with `fused_head_ce.ENABLE` set and a
+    shape K8 takes, the head matmul and the CE statistics are one op (K8),
+    as the JAX package routes them."""
     tp = train_params(params, cfg)
     lnf = gpt_trunk(tp, tokens, cfg)
     head = params["wte"].to(lnf.dtype)
     V = cfg.vocab_size
     Vp = fused_ce.pad_vocab(V)
-    if cfg.use_flash and fused_ce.supports(lnf.shape[0] * lnf.shape[1], Vp):
-        logits = basic.linear(lnf, F.pad(head, (0, 0, 0, Vp - V)))
+    R = lnf.shape[0] * lnf.shape[1]
+    if cfg.use_flash and fused_ce.supports(R, Vp):
+        wte_p = F.pad(head, (0, 0, 0, Vp - V))
+        if fused_head_ce.ENABLE and fused_head_ce.supports(R, Vp,
+                                                           lnf.shape[-1]):
+            return fused_head_ce.head_ce_mean(lnf, wte_p, targets, V)
+        logits = basic.linear(lnf, wte_p)
         return fused_ce.cross_entropy_mean(logits, targets, real_vocab=V)
     logits = basic.linear(lnf, head)
     return basic.cross_entropy_from_logits(logits, targets).mean()

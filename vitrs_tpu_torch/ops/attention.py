@@ -27,6 +27,7 @@ import torch
 from . import basic
 from .flash_attention import flash_attention_qkv
 from .flash_attention_gqa import flash_gqa_qkv, split_gqa
+from .rope import rope_qk
 
 
 def supports(num_heads: int, head_dim: int) -> bool:
@@ -40,13 +41,30 @@ def supports(num_heads: int, head_dim: int) -> bool:
     return 128 % head_dim == 0 and num_heads % (128 // head_dim) == 0
 
 
-def attention(qkv: torch.Tensor, num_heads: int,
-              causal: bool = True) -> torch.Tensor:
-    """Multi-head attention over packed qkv (B, T, 3C) -> (B, T, C)."""
+def rope_packed(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Packed MHA qkv with q and k rotated at positions 0..T-1 (`rope_qk`),
+    v untouched: the dense route's explicit rotation."""
+    C = qkv.shape[-1] // 3
+    q, k = rope_qk(qkv[..., :C], qkv[..., C:2 * C],
+                   torch.arange(qkv.shape[1], device=qkv.device), num_heads)
+    return torch.cat([q, k, qkv[..., 2 * C:]], dim=-1)
+
+
+def attention(qkv: torch.Tensor, num_heads: int, causal: bool = True,
+              window: int = 0, rope: bool = False) -> torch.Tensor:
+    """Multi-head attention over packed qkv (B, T, 3C) -> (B, T, C).
+    window > 0 (causal only) is sliding-window attention.  rope=True takes
+    UNROTATED qkv and rotates q and k at positions 0..T-1: inside the
+    kernels on the flash route, with an explicit `rope_qk` on the dense
+    route, as in the JAX function."""
     head_dim = qkv.shape[-1] // (3 * num_heads)
     if not supports(num_heads, head_dim):
-        return basic.attention_dense(qkv, num_heads, causal=causal)[0]
-    return flash_attention_qkv(qkv, num_heads, causal=causal)
+        if rope:
+            qkv = rope_packed(qkv, num_heads)
+        return basic.attention_dense(qkv, num_heads, causal=causal,
+                                     window=window)[0]
+    return flash_attention_qkv(qkv, num_heads, causal=causal, window=window,
+                               rope=rope)
 
 
 def expand_kv_heads(kv: torch.Tensor, kv_heads: int,
@@ -105,16 +123,21 @@ def expand_qkv_weight(qkvw: torch.Tensor, qkvb, num_heads: int,
 
 
 def attention_gqa(qkv: torch.Tensor, num_heads: int, kv_heads: int,
-                  causal: bool = True) -> torch.Tensor:
+                  causal: bool = True, window: int = 0,
+                  rope: bool = False) -> torch.Tensor:
     """Grouped-query attention over a GQA-packed projection
     (B, T, C + 2*kv_dim) -> (B, T, C).  MHA (kv_heads == num_heads) is
     `attention`; a flash geometry goes to K3, which reads K/V at kv width
     (the JAX function expands K/V and rides K1: the same function); any
-    other geometry to dense attention over the expanded K/V."""
+    other geometry to dense attention over the expanded K/V.  window and
+    rope as in `attention` (the JAX function takes no rope: its callers
+    rotate first; a rotation per head commutes with the expansion)."""
     if kv_heads == num_heads:
-        return attention(qkv, num_heads, causal=causal)
+        return attention(qkv, num_heads, causal=causal, window=window,
+                         rope=rope)
     head_dim = qkv.shape[-1] // (num_heads + 2 * kv_heads)
     if not supports(num_heads, head_dim):
-        return basic.attention_dense(expand_packed(qkv, num_heads, kv_heads),
-                                     num_heads, causal=causal)[0]
-    return flash_gqa_qkv(qkv, num_heads, kv_heads, causal=causal)
+        return attention(expand_packed(qkv, num_heads, kv_heads), num_heads,
+                         causal=causal, window=window, rope=rope)
+    return flash_gqa_qkv(qkv, num_heads, kv_heads, causal=causal,
+                         window=window, rope=rope)

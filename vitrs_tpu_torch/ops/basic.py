@@ -144,13 +144,16 @@ def linear(x: torch.Tensor, w: torch.Tensor,
     return y if b is None else y + b
 
 
-def attention_dense(qkv: torch.Tensor, num_heads: int, causal: bool = True
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+def attention_dense(qkv: torch.Tensor, num_heads: int, causal: bool = True,
+                    window: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Materialised multi-head attention over packed qkv (B, T, 3C).
 
     Returns (out (B, T, C), att (B, NH, T, T) fp32) like the JAX op without
-    its quirk and window options.  Scores and the softmax in fp32; the
-    probabilities round to v's dtype before the product with V."""
+    its quirk option.  window > 0 (causal only) is sliding-window attention:
+    query t sees keys in (t - window, t].  Scores and the softmax in fp32;
+    the probabilities round to v's dtype before the product with V."""
+    if window and not causal:
+        raise ValueError("sliding-window attention is causal-only")
     B, T, C3 = qkv.shape
     C = C3 // 3
     D = C // num_heads
@@ -162,6 +165,8 @@ def attention_dense(qkv: torch.Tensor, num_heads: int, causal: bool = True
     scores = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(D))
     if causal:
         mask = torch.ones(T, T, dtype=torch.bool, device=qkv.device).tril()
+        if window:
+            mask = mask & ~mask.tril(-window)
         scores = scores.masked_fill(~mask, -math.inf)
     att = torch.softmax(scores, dim=-1)
     out = torch.matmul(att.to(qkv.dtype).float(), v).to(qkv.dtype)

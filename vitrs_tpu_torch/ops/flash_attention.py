@@ -38,6 +38,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from .rope import rope_table, rotate
 
 HEAD_DIM = 64       # the kernel's head_dim: D of every GPT-2 preset
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -52,15 +53,50 @@ def _grouped(t: torch.Tensor, heads: int, group: int) -> torch.Tensor:
             .permute(0, 2, 3, 1, 4).float())
 
 
-def _causal_mask(Tq: int, Tk: int, q_offset: int, device) -> torch.Tensor:
-    """True where key j is hidden from query row i: j > q_offset + i."""
+def _hidden(Tq: int, Tk: int, q_offset: int, window: int,
+            device) -> torch.Tensor:
+    """True where key j is hidden from query row i in causal mode: j past
+    the row's position q_offset + i, or, with a window, j at or before
+    q_offset + i - window (query t sees keys in (t - window, t])."""
     rows = q_offset + torch.arange(Tq, device=device)[:, None]
-    return torch.arange(Tk, device=device)[None, :] > rows
+    cols = torch.arange(Tk, device=device)[None, :]
+    hidden = cols > rows
+    if window:
+        hidden |= cols <= rows - window
+    return hidden
+
+
+def _check_window(causal: bool, window: int):
+    if window < 0 or (window and not causal):
+        raise ValueError(f"window {window}: a sliding window is causal-only "
+                         f"and >= 0")
+
+
+def _rotated(x: torch.Tensor, heads: int, pos0: int, rope: bool,
+             scale: Optional[float] = None) -> torch.Tensor:
+    """x (B, T, heads*D) rotated at positions pos0.. with the kernels'
+    table, scale folded in, rounded to x's dtype: what the kernels compute
+    as they load q or k.  Without rope, x * scale rounded (x itself when
+    scale is None)."""
+    if not rope:
+        return x if scale is None else (x.float() * scale).to(x.dtype)
+    T = x.shape[1]
+    cos, sin = table_for(pos0 + T, x.device)
+    return rotate(x, cos[pos0:pos0 + T], sin[pos0:pos0 + T], heads,
+                  scale=scale).to(x.dtype)
+
+
+def table_for(rows: int, device):
+    """The rope table the kernels read for `rows` positions: `rope_table`
+    at rows rounded up to 256, so that a few table sizes serve every call
+    (the rows a table holds do not depend on its length)."""
+    return rope_table(-(-rows // 256) * 256, HEAD_DIM, device)
 
 
 def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     num_heads: int, causal: bool, sm_scale: float,
-                    kv_heads: int = 0, q_offset: int = 0
+                    kv_heads: int = 0, q_offset: int = 0, window: int = 0,
+                    rope: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch: q (B, Tq, C) at absolute
     positions q_offset..q_offset+Tq-1, k/v (B, Tk, kv_heads*D) ->
@@ -68,21 +104,29 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     num_heads; query head h reads kv head h // (num_heads // kv_heads).  In
     causal mode the keys are cut at the frontier q_offset + Tq before any
     arithmetic, so cache slots beyond it are never read (not even as 0 *
-    NaN); the kernel never loads them either.
+    NaN); the kernel never loads them either.  window > 0 (causal only)
+    hides keys at or before position - window.  rope=True rotates q (at
+    its positions, sm_scale folded in) and k (at 0..Tk-1) with the fp32
+    table and rounds both to their dtype, as the kernel does as it loads
+    them; q, k and v arrive unrotated.
 
     Same numerics as the Pallas and CUDA kernels: q scaled by sm_scale and
     rounded to its dtype, scores and softmax statistics in fp32, p rounded
     to v's dtype for P.V with an fp32 accumulator, out = acc / l."""
+    _check_window(causal, window)
     B, Tq, C = q.shape
     KH = kv_heads or num_heads
     R = num_heads // KH
     if causal:
         k, v = k[:, :q_offset + Tq], v[:, :q_offset + Tq]
     Tk = k.shape[1]
-    qs = (_grouped(q, num_heads, R) * sm_scale).to(q.dtype).float()
-    s = torch.matmul(qs, _grouped(k, KH, 1).transpose(-1, -2))
+    qs = _grouped(_rotated(q, num_heads, q_offset, rope, sm_scale),
+                  num_heads, R)
+    s = torch.matmul(qs, _grouped(_rotated(k, KH, 0, rope), KH, 1)
+                     .transpose(-1, -2))
     if causal:
-        s = s.masked_fill(_causal_mask(Tq, Tk, q_offset, q.device), -math.inf)
+        s = s.masked_fill(_hidden(Tq, Tk, q_offset, window, q.device),
+                          -math.inf)
     m = s.amax(dim=-1, keepdim=True)
     # a row that sees no key keeps a finite reference, so p = 0, not NaN
     ref = torch.where(m == -math.inf, torch.zeros_like(m), m)
@@ -101,7 +145,7 @@ def _kernel():
     fn = _build.load("flash_fwd").lib.vitrs_flash_fwd
     P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     fn.argtypes = [I, P, P, P, P, P, LL, LL, LL, LL, LL, LL, LL, LL,
-                   I, I, I, I, I, I, I, ctypes.c_float, P]
+                   I, I, I, I, I, I, I, I, ctypes.c_float, P, P, P]
     fn.restype = I
     return fn
 
@@ -135,9 +179,19 @@ def _check_heads(what: str, q, k, num_heads: int, kv_heads: int):
                          f"{kv_heads} (dividing {num_heads}) x {HEAD_DIM}")
 
 
+def _table_ptrs(rope: bool, rows: int, device):
+    """(cos, sin) data pointers of the rope table for `rows` positions, or
+    two nulls without rope."""
+    if not rope:
+        return None, None
+    cos, sin = table_for(rows, device)
+    return cos.data_ptr(), sin.data_ptr()
+
+
 def launch_fwd(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                num_heads: int, kv_heads: int, causal: bool, sm_scale: float,
-               q_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+               q_offset: int = 0, window: int = 0, rope: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch csrc/flash_fwd.cu on q's current stream: the contract of
     `flash_fwd_plain`.  Counts nothing: each kernel's public wrapper (K1
     `flash_fwd_cuda`, K3 `flash_gqa_fwd_cuda`, K4 `flash_prefill_cuda`)
@@ -146,6 +200,7 @@ def launch_fwd(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launch is refused."""
     _check_layout(what, (q, k, v), q)
     _check_heads(what, q, k, num_heads, kv_heads)
+    _check_window(causal, window)
     B, Tq, C = q.shape
     Tk = k.shape[1]
     if v.shape != k.shape or q_offset < 0 or (causal and q_offset + Tq > Tk):
@@ -158,6 +213,7 @@ def launch_fwd(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((B, Tq, C), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, num_heads, Tq), dtype=torch.float32,
                       device=q.device)
+    cos, sin = _table_ptrs(rope, max(seq_len, q_offset + Tq), q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _kernel()(
@@ -166,14 +222,15 @@ def launch_fwd(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), out.stride(0), out.stride(1),
             B, num_heads, kv_heads, Tq, seq_len, q_offset, int(causal),
-            float(sm_scale), stream)
+            int(window), float(sm_scale), cos, sin, stream)
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
     return out, lse
 
 
 def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   num_heads: int, causal: bool, sm_scale: float
+                   num_heads: int, causal: bool, sm_scale: float,
+                   window: int = 0, rope: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K1-fwd on q's current stream: MHA self-attention, the
     contract of `flash_fwd_plain` with q, k and v of one shape.  q/k/v may
@@ -184,7 +241,7 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_fwd_cuda: q, k, v must share one (B, T, C) "
                          f"shape, got {[tuple(t.shape) for t in (q, k, v)]}")
     res = launch_fwd("flash_fwd_cuda", q, k, v, num_heads, num_heads, causal,
-                     sm_scale)
+                     sm_scale, window=window, rope=rope)
     flash_fwd_cuda.launches += 1
     return res
 
@@ -193,10 +250,13 @@ flash_fwd_cuda.launches = 0
 
 
 def flash_attention_fwd(qkv: torch.Tensor, num_heads: int,
-                        causal: bool = True, sm_scale: Optional[float] = None
+                        causal: bool = True, sm_scale: Optional[float] = None,
+                        window: int = 0, rope: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Packed qkv (B, T, 3C) -> (out (B, T, C), lse (B, NH, T) fp32).
-    q, k and v are views into qkv: the kernel reads them in place."""
+    q, k and v are views into qkv: the kernel reads them in place.  rope
+    rotates q and k at positions 0..T-1 inside the kernel; window > 0 is
+    the causal band (t - window, t]."""
     B, T, C3 = qkv.shape
     C = C3 // 3
     if sm_scale is None:
@@ -204,13 +264,13 @@ def flash_attention_fwd(qkv: torch.Tensor, num_heads: int,
     q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
     fn = _build.on_device(qkv.device, flash_fwd_cuda, flash_fwd_plain,
                           "flash attention")
-    return fn(q, k, v, num_heads, causal, sm_scale)
+    return fn(q, k, v, num_heads, causal, sm_scale, window=window, rope=rope)
 
 
 def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                     num_heads: int, causal: bool, sm_scale: float,
-                    kv_heads: int = 0
+                    kv_heads: int = 0, window: int = 0, rope: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2's and K3-bwd's function in plain PyTorch: q, out, do (B, T, C),
     k, v (B, T, kv_heads*D), lse (B, NH, T) fp32 -> (dq (B, T, C), dk, dv
@@ -223,19 +283,25 @@ def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = exp(s - lse) (0 where masked), di = rowsum(out * do) in fp32,
     ds = p * (do . v^T - di) * sm_scale; dv = p^T . do, dk = ds^T . q with
     the unscaled q, dq = ds . k, with p and ds rounded to the input dtype
-    before their products and fp32 accumulation."""
+    before their products and fp32 accumulation.  rope=True: q and k are
+    first rotated at 0..T-1 and rounded to their dtype (q^ is then the
+    rotated q times sm_scale, rounded again), and dq and dk are rotated
+    back by -theta in fp32 before their rounding, as the Pallas kernels'
+    epilogues do.  window: the forward's band."""
+    _check_window(causal, window)
     B, T, C = q.shape
     KH = kv_heads or num_heads
     R = num_heads // KH
     dtype = q.dtype
-    qf, dof = _grouped(q, num_heads, R), _grouped(do, num_heads, R)
-    kf, vf = _grouped(k, KH, 1), _grouped(v, KH, 1)
+    qr, kr = _rotated(q, num_heads, 0, rope), _rotated(k, KH, 0, rope)
+    qf, dof = _grouped(qr, num_heads, R), _grouped(do, num_heads, R)
+    kf, vf = _grouped(kr, KH, 1), _grouped(v, KH, 1)
     qh = (qf * sm_scale).to(dtype).float()
     s = torch.matmul(qh, kf.transpose(-1, -2))
     lse = lse.reshape(B, KH, R, T)[..., None]
     p = torch.exp(s - lse)
     if causal:
-        p = p.masked_fill(_causal_mask(T, T, 0, q.device), 0.0)
+        p = p.masked_fill(_hidden(T, T, 0, window, q.device), 0.0)
     di = (_grouped(out, num_heads, R) * dof).sum(dim=-1, keepdim=True)
     dp = torch.matmul(dof, vf.transpose(-1, -2))
     ds = p * (dp - di) * sm_scale
@@ -244,27 +310,32 @@ def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk = torch.matmul(dsr.transpose(-1, -2), qf).sum(dim=2)
     dq = torch.matmul(dsr, kf)
 
-    def packed(t):      # (B, heads, [group,] T, D) -> (B, T, heads*D)
-        t = t.to(dtype)
+    def packed(t, heads):   # (B, heads, [group,] T, D) fp32 -> (B, T, heads*D)
         if t.dim() == 5:
             t = t.flatten(1, 2)
-        return t.transpose(1, 2).reshape(B, T, -1)
+        t = t.transpose(1, 2).reshape(B, T, -1)
+        if rope and heads:
+            cos, sin = table_for(T, q.device)
+            t = rotate(t, cos[:T], sin[:T], heads, inverse=True)
+        return t.to(dtype)
 
-    return packed(dq), packed(dk), packed(dv)
+    return packed(dq, num_heads), packed(dk, KH), packed(dv, 0)
 
 
 @functools.cache
 def _bwd_kernel():
     fn = _build.load("flash_bwd").lib.vitrs_flash_bwd
     P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fn.argtypes = [I] + [P] * 10 + [LL] * 14 + [I] * 5 + [ctypes.c_float, P]
+    fn.argtypes = ([I] + [P] * 10 + [LL] * 14 + [I] * 6
+                   + [ctypes.c_float, P, P, P])
     fn.restype = I
     return fn
 
 
 def launch_bwd(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-               num_heads: int, kv_heads: int, causal: bool, sm_scale: float
+               num_heads: int, kv_heads: int, causal: bool, sm_scale: float,
+               window: int = 0, rope: bool = False
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch csrc/flash_bwd.cu (three kernels: di, dK/dV, dQ) on q's
     current stream: the contract of `flash_bwd_plain`.  Counts nothing:
@@ -274,6 +345,7 @@ def launch_bwd(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the kernel does not take, and if a launch is refused."""
     _check_layout(what, (q, k, v, out, do), q)
     _check_heads(what, q, k, num_heads, kv_heads)
+    _check_window(causal, window)
     B, T, C = q.shape
     if (k.shape[1] != T or v.shape != k.shape or out.shape != q.shape
             or do.shape != q.shape):
@@ -288,6 +360,7 @@ def launch_bwd(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk, dv = (torch.empty(k.shape, dtype=q.dtype, device=q.device)
               for _ in range(2))
     di = torch.empty((B, num_heads, T), dtype=torch.float32, device=q.device)
+    cos, sin = _table_ptrs(rope, T, q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _bwd_kernel()(
@@ -298,7 +371,8 @@ def launch_bwd(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             v.stride(0), v.stride(1), out.stride(0), out.stride(1),
             do.stride(0), do.stride(1), dq.stride(0), dq.stride(1),
             dk.stride(0), dk.stride(1),
-            B, num_heads, kv_heads, T, int(causal), float(sm_scale), stream)
+            B, num_heads, kv_heads, T, int(causal), int(window),
+            float(sm_scale), cos, sin, stream)
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
     return dq, dk, dv
@@ -306,7 +380,8 @@ def launch_bwd(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-                   num_heads: int, causal: bool, sm_scale: float
+                   num_heads: int, causal: bool, sm_scale: float,
+                   window: int = 0, rope: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch K2 (three kernels: di, dK/dV, dQ; `launches` counts the call
     once) on q's current stream: MHA, the contract of `flash_bwd_plain`
@@ -315,7 +390,7 @@ def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_bwd_cuda: k {tuple(k.shape)} must have q's "
                          f"shape {tuple(q.shape)}")
     res = launch_bwd("flash_bwd_cuda", q, k, v, out, lse, do, num_heads,
-                     num_heads, causal, sm_scale)
+                     num_heads, causal, sm_scale, window, rope)
     flash_bwd_cuda.launches += 1
     return res
 
@@ -325,17 +400,20 @@ flash_bwd_cuda.launches = 0
 
 def flash_attention_bwd(qkv: torch.Tensor, out: torch.Tensor,
                         lse: torch.Tensor, do: torch.Tensor, num_heads: int,
-                        causal: bool = True, sm_scale: Optional[float] = None
+                        causal: bool = True, sm_scale: Optional[float] = None,
+                        window: int = 0, rope: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward of `flash_attention_fwd`: (dq, dk, dv), each (B, T, C),
-    as the separate arrays the JAX package's `_bwd_parts` returns."""
+    as the separate arrays the JAX package's `_bwd_parts` returns (under
+    rope, dq and dk are gradients of the unrotated q and k)."""
     C = qkv.shape[-1] // 3
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(C // num_heads)
     q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
     fn = _build.on_device(qkv.device, flash_bwd_cuda, flash_bwd_plain,
                           "flash attention backward")
-    return fn(q, k, v, out, lse, do, num_heads, causal, sm_scale)
+    return fn(q, k, v, out, lse, do, num_heads, causal, sm_scale,
+              window=window, rope=rope)
 
 
 class _FlashPacked(torch.autograd.Function):
@@ -343,22 +421,26 @@ class _FlashPacked(torch.autograd.Function):
     dqkv is the concatenation of dq, dk and dv."""
 
     @staticmethod
-    def forward(ctx, qkv, num_heads, causal, sm_scale):
-        out, lse = flash_attention_fwd(qkv, num_heads, causal, sm_scale)
+    def forward(ctx, qkv, num_heads, causal, sm_scale, window, rope):
+        out, lse = flash_attention_fwd(qkv, num_heads, causal, sm_scale,
+                                       window, rope)
         ctx.save_for_backward(qkv, out, lse)
-        ctx.args = (num_heads, causal, sm_scale)
+        ctx.args = (num_heads, causal, sm_scale, window, rope)
         return out
 
     @staticmethod
     def backward(ctx, do):
         qkv, out, lse = ctx.saved_tensors
         parts = flash_attention_bwd(qkv, out, lse, do.contiguous(), *ctx.args)
-        return torch.cat(parts, dim=-1), None, None, None
+        return torch.cat(parts, dim=-1), None, None, None, None, None
 
 
 def flash_attention_qkv(qkv: torch.Tensor, num_heads: int,
                         causal: bool = True,
-                        sm_scale: Optional[float] = None) -> torch.Tensor:
+                        sm_scale: Optional[float] = None, window: int = 0,
+                        rope: bool = False) -> torch.Tensor:
     """Flash attention over packed qkv (B, T, 3C) -> (B, T, C);
-    differentiable with respect to qkv."""
-    return _FlashPacked.apply(qkv, num_heads, causal, sm_scale)
+    differentiable with respect to qkv.  qkv arrives unrotated: rope=True
+    rotates q and k at positions 0..T-1 inside the kernels, and the
+    gradient is that of the unrotated qkv."""
+    return _FlashPacked.apply(qkv, num_heads, causal, sm_scale, window, rope)

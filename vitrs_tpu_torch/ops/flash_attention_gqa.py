@@ -30,6 +30,9 @@ take any kv_heads dividing num_heads at head_dim 64, MQA included.
   dQ) and counts once.
 * `flash_gqa_qkv` is differentiable in the packed qkv through an
   autograd.Function whose backward is the K3 backward.
+* The sliding window and rope are K1/K2's (the same kernels): the band
+  skips kv tiles outside it, q and k are rotated as they are loaded, and
+  dk is rotated back once, after the group sum.
 """
 
 from __future__ import annotations
@@ -55,17 +58,19 @@ def split_gqa(qkv: torch.Tensor, num_heads: int, kv_heads: int):
 
 def flash_gqa_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         num_heads: int, kv_heads: int, causal: bool,
-                        sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+                        sm_scale: float, window: int = 0, rope: bool = False
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3-fwd's function in plain PyTorch: q (B, T, C), k/v (B, T, kv_dim)
     -> (out (B, T, C) in q's dtype, lse (B, NH, T) fp32), with K1's
-    numerics (`flash_attention.flash_fwd_plain`)."""
+    numerics, band and rotation (`flash_attention.flash_fwd_plain`)."""
     return flash_fwd_plain(q, k, v, num_heads, causal, sm_scale,
-                           kv_heads=kv_heads)
+                           kv_heads=kv_heads, window=window, rope=rope)
 
 
 def flash_gqa_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        num_heads: int, kv_heads: int, causal: bool,
-                       sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+                       sm_scale: float, window: int = 0, rope: bool = False
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K3-fwd on q's current stream: the contract of
     `flash_gqa_fwd_plain`.  q/k/v may be strided views into the packed qkv
     (last dim contiguous).  Raises on anything the kernel does not take."""
@@ -73,7 +78,7 @@ def flash_gqa_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_gqa_fwd_cuda: q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} differ in length")
     res = launch_fwd("flash_gqa_fwd_cuda", q, k, v, num_heads, kv_heads,
-                     causal, sm_scale)
+                     causal, sm_scale, window=window, rope=rope)
     flash_gqa_fwd_cuda.launches += 1
     return res
 
@@ -84,25 +89,28 @@ flash_gqa_fwd_cuda.launches = 0
 def flash_gqa_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
                         do: torch.Tensor, num_heads: int, kv_heads: int,
-                        causal: bool, sm_scale: float
+                        causal: bool, sm_scale: float, window: int = 0,
+                        rope: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K3-bwd's function in plain PyTorch: (dq (B, T, C), dk, dv
-    (B, T, kv_dim)), dk/dv summed over each group in fp32 and rounded once
+    (B, T, kv_dim)), dk/dv summed over each group in fp32 and rounded once;
+    under rope dk is rotated back once, after the group sum
     (`flash_attention.flash_bwd_plain`)."""
     return flash_bwd_plain(q, k, v, out, lse, do, num_heads, causal,
-                           sm_scale, kv_heads=kv_heads)
+                           sm_scale, kv_heads=kv_heads, window=window,
+                           rope=rope)
 
 
 def flash_gqa_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                        num_heads: int, kv_heads: int, causal: bool,
-                       sm_scale: float
+                       sm_scale: float, window: int = 0, rope: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch K3-bwd (three kernels: di, dK/dV, dQ; `launches` counts the
     call once) on q's current stream: the contract of
     `flash_gqa_bwd_plain`."""
     res = launch_bwd("flash_gqa_bwd_cuda", q, k, v, out, lse, do, num_heads,
-                     kv_heads, causal, sm_scale)
+                     kv_heads, causal, sm_scale, window, rope)
     flash_gqa_bwd_cuda.launches += 1
     return res
 
@@ -118,23 +126,25 @@ def _scale(qkv, num_heads, kv_heads, sm_scale):
 
 def flash_gqa_attention_fwd(qkv: torch.Tensor, num_heads: int, kv_heads: int,
                             causal: bool = True,
-                            sm_scale: Optional[float] = None
+                            sm_scale: Optional[float] = None,
+                            window: int = 0, rope: bool = False
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """GQA-packed qkv (B, T, C + 2*kv_dim) -> (out (B, T, C), lse
     (B, NH, T) fp32).  q, k and v are views into qkv: the kernel reads
-    them in place."""
+    them in place (and rotates q and k under rope)."""
     sm_scale = _scale(qkv, num_heads, kv_heads, sm_scale)
     q, k, v = split_gqa(qkv, num_heads, kv_heads)
     fn = _build.on_device(qkv.device, flash_gqa_fwd_cuda, flash_gqa_fwd_plain,
                           "GQA flash attention")
-    return fn(q, k, v, num_heads, kv_heads, causal, sm_scale)
+    return fn(q, k, v, num_heads, kv_heads, causal, sm_scale, window, rope)
 
 
 def flash_gqa_attention_bwd(qkv: torch.Tensor, out: torch.Tensor,
                             lse: torch.Tensor, do: torch.Tensor,
                             num_heads: int, kv_heads: int,
                             causal: bool = True,
-                            sm_scale: Optional[float] = None
+                            sm_scale: Optional[float] = None,
+                            window: int = 0, rope: bool = False
                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward of `flash_gqa_attention_fwd`: (dq (B, T, C), dk, dv
     (B, T, kv_dim)), as the separate arrays the JAX package's GQA
@@ -143,7 +153,8 @@ def flash_gqa_attention_bwd(qkv: torch.Tensor, out: torch.Tensor,
     q, k, v = split_gqa(qkv, num_heads, kv_heads)
     fn = _build.on_device(qkv.device, flash_gqa_bwd_cuda, flash_gqa_bwd_plain,
                           "GQA flash attention backward")
-    return fn(q, k, v, out, lse, do, num_heads, kv_heads, causal, sm_scale)
+    return fn(q, k, v, out, lse, do, num_heads, kv_heads, causal, sm_scale,
+              window, rope)
 
 
 class _FlashGQAPacked(torch.autograd.Function):
@@ -151,11 +162,11 @@ class _FlashGQAPacked(torch.autograd.Function):
     gradient is the concatenation of dq and the group-summed dk, dv."""
 
     @staticmethod
-    def forward(ctx, qkv, num_heads, kv_heads, causal, sm_scale):
+    def forward(ctx, qkv, num_heads, kv_heads, causal, sm_scale, window, rope):
         out, lse = flash_gqa_attention_fwd(qkv, num_heads, kv_heads, causal,
-                                           sm_scale)
+                                           sm_scale, window, rope)
         ctx.save_for_backward(qkv, out, lse)
-        ctx.args = (num_heads, kv_heads, causal, sm_scale)
+        ctx.args = (num_heads, kv_heads, causal, sm_scale, window, rope)
         return out
 
     @staticmethod
@@ -163,12 +174,14 @@ class _FlashGQAPacked(torch.autograd.Function):
         qkv, out, lse = ctx.saved_tensors
         parts = flash_gqa_attention_bwd(qkv, out, lse, do.contiguous(),
                                         *ctx.args)
-        return torch.cat(parts, dim=-1), None, None, None, None
+        return torch.cat(parts, dim=-1), None, None, None, None, None, None
 
 
 def flash_gqa_qkv(qkv: torch.Tensor, num_heads: int, kv_heads: int,
-                  causal: bool = True,
-                  sm_scale: Optional[float] = None) -> torch.Tensor:
+                  causal: bool = True, sm_scale: Optional[float] = None,
+                  window: int = 0, rope: bool = False) -> torch.Tensor:
     """GQA flash attention over packed qkv (B, T, C + 2*kv_dim) ->
-    (B, T, C); differentiable with respect to qkv."""
-    return _FlashGQAPacked.apply(qkv, num_heads, kv_heads, causal, sm_scale)
+    (B, T, C); differentiable with respect to qkv, which arrives unrotated
+    (rope rotates q and k inside the kernels)."""
+    return _FlashGQAPacked.apply(qkv, num_heads, kv_heads, causal, sm_scale,
+                                 window, rope)

@@ -19,7 +19,10 @@ beyond q_offset+S are never read and may hold anything.
 * The JAX function's contract asserts become ValueError here (a bare
   assert vanishes under `python -O`): the geometry, q_offset >= 0, a cache
   length that is a multiple of PREFILL_BLOCK, and a chunk that fits it.
-* window > 0 raises NotImplementedError: the port's forward has no band yet.
+* window > 0 is the sliding-window band: query i sees keys in
+  (q_offset + i - window, q_offset + i], and the kernel's kv loop starts
+  at the first tile the chunk's band reaches.  Rope stays outside K4, as
+  in the JAX function: the caller passes q and the cache already rotated.
 * The JAX package's `VITRS_NO_FLASH_CONT` (A/B timing on the TPU) and
   `VITRS_FLASH_CONT_INTERPRET` (interpret mode) knobs are not ported.
 """
@@ -39,7 +42,6 @@ from .flash_attention import flash_fwd_plain, launch_fwd
 # rounds a chunked prefill's cache up to it, and so does the port, so that
 # both packages route the same shapes to this kernel
 PREFILL_BLOCK = 256
-_WINDOW = "sliding window: ROADMAP.md Queue 1 item 12"
 
 
 def supports_prefill(num_heads: int, kv_heads: int, head_dim: int) -> bool:
@@ -55,23 +57,24 @@ def supports_prefill(num_heads: int, kv_heads: int, head_dim: int) -> bool:
 
 def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         num_heads: int, kv_heads: int, q_offset: int,
-                        sm_scale: float) -> torch.Tensor:
+                        sm_scale: float, window: int = 0) -> torch.Tensor:
     """K4's function in plain PyTorch: q (B, S, C) at positions
     q_offset.. against k/v (B, Tk, kv_dim) caches -> out (B, S, C), with
-    K1's numerics (`flash_attention.flash_fwd_plain`, which cuts the cache
-    at the causal frontier q_offset + S first)."""
+    K1's numerics and band (`flash_attention.flash_fwd_plain`, which cuts
+    the cache at the causal frontier q_offset + S first)."""
     return flash_fwd_plain(q, k, v, num_heads, True, sm_scale,
-                           kv_heads=kv_heads, q_offset=q_offset)[0]
+                           kv_heads=kv_heads, q_offset=q_offset,
+                           window=window)[0]
 
 
 def flash_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        num_heads: int, kv_heads: int, q_offset: int,
-                       sm_scale: float) -> torch.Tensor:
+                       sm_scale: float, window: int = 0) -> torch.Tensor:
     """Launch K4 on q's current stream: the contract of
     `flash_prefill_plain`.  q may be a strided view into the chunk's packed
     qkv, k/v views of one layer's caches (last dim contiguous)."""
     out, _ = launch_fwd("flash_prefill_cuda", q, k, v, num_heads, kv_heads,
-                        True, sm_scale, q_offset)
+                        True, sm_scale, q_offset, window)
     flash_prefill_cuda.launches += 1
     return out
 
@@ -86,12 +89,14 @@ def flash_prefill_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B, S, C) at absolute positions q_offset..q_offset+S-1 against
     k/v (B, Tk, kv_dim) caches holding positions 0..Tk-1 -> (B, S, C).
 
-    Causal in absolute positions: query i attends keys j <= q_offset + i.
-    Cache slots >= q_offset + S are never read.  Raises ValueError unless
-    the geometry `supports_prefill`, q_offset is an int >= 0, Tk is a
+    Causal in absolute positions: query i attends keys j <= q_offset + i,
+    and with window > 0 only keys j > q_offset + i - window.  Cache slots
+    >= q_offset + S are never read.  Raises ValueError unless the geometry
+    `supports_prefill`, q_offset is an int >= 0, window >= 0, Tk is a
     multiple of PREFILL_BLOCK and the chunk fits the cache; forward only."""
-    if window:
-        raise NotImplementedError(_WINDOW)
+    if not isinstance(window, int) or window < 0:
+        raise ValueError(f"flash_prefill_qkv: window must be an int >= 0, "
+                         f"got {window!r}")
     if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
         raise ValueError(f"flash_prefill_qkv: q (B, S, C) and k, v of one "
                          f"(B, Tk, kv_dim) shape, got {tuple(q.shape)}, "
@@ -117,4 +122,4 @@ def flash_prefill_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         sm_scale = 1.0 / math.sqrt(D)
     fn = _build.on_device(q.device, flash_prefill_cuda, flash_prefill_plain,
                           "continuation prefill")
-    return fn(q, k, v, num_heads, kv_heads, q_offset, sm_scale)
+    return fn(q, k, v, num_heads, kv_heads, q_offset, sm_scale, window)

@@ -1,6 +1,6 @@
 """Fused qkv projection + flash attention — the port of
-`vitrs_tpu/ops/fused_qkv_attention.py` (MHA and GQA; rope and the sliding
-window come with ROADMAP.md Queue 1 item 12).
+`vitrs_tpu/ops/fused_qkv_attention.py` (MHA and GQA, rope and the sliding
+window).
 
 Forward: one packed matmul from the canonical (C + 2*kv_dim, C) weight,
 then the flash forward reading q, k and v in place: K1-fwd for MHA, K3-fwd
@@ -12,6 +12,10 @@ projection gradients,
     dln1 = dq Wq + dk Wk + dv Wv,    dW_part = d_part^T ln1,    dqkvb = sum d_part,
 
 so the packed dqkv is never built; only the weight gradient is assembled.
+Under rope the op saves the UNROTATED qkv: the kernels rotate q and k as
+they load them, in the forward and again in the backward, and return dq and
+dk already rotated back, so the projection backward never sees a rotation.
+window > 0 is the causal band, skipped tile by tile in the kernels.
 Under GQA this is the JAX op's GQA-native branch (its "small projection");
 its expanded-weight MHA branch, which the JAX package takes for geometries
 its GQA kernels do not tile, computes the same function and is not needed
@@ -35,7 +39,6 @@ from . import basic
 from . import flash_attention as FA
 from . import flash_attention_gqa as FG
 
-_VARIANTS = "rope and sliding window: ROADMAP.md Queue 1 item 12"
 _HALF = (torch.bfloat16, torch.float16)
 
 
@@ -75,33 +78,38 @@ def qkv_projection_bwd(dq: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor,
 
 class _QKVAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, ln1, qkvw, qkvb, num_heads, kv_heads, causal):
+    def forward(ctx, ln1, qkvw, qkvb, num_heads, kv_heads, causal, window,
+                rope):
         w = qkvw.to(ln1.dtype)
         qkv = basic.linear(ln1, w, qkvb.to(ln1.dtype))
         if kv_heads == num_heads:
-            out, lse = FA.flash_attention_fwd(qkv, num_heads, causal)
+            out, lse = FA.flash_attention_fwd(qkv, num_heads, causal,
+                                              window=window, rope=rope)
         else:
             out, lse = FG.flash_gqa_attention_fwd(qkv, num_heads, kv_heads,
-                                                  causal)
+                                                  causal, window=window,
+                                                  rope=rope)
         ctx.save_for_backward(ln1, w, qkv, out, lse)
-        ctx.args = (num_heads, kv_heads, causal)
+        ctx.args = (num_heads, kv_heads, causal, window, rope)
         ctx.dtypes = (qkvw.dtype, qkvb.dtype)
         return out
 
     @staticmethod
     def backward(ctx, do):
         ln1, w, qkv, out, lse = ctx.saved_tensors
-        num_heads, kv_heads, causal = ctx.args
+        num_heads, kv_heads, causal, window, rope = ctx.args
         if kv_heads == num_heads:
             dq, dk, dv = FA.flash_attention_bwd(qkv, out, lse, do.contiguous(),
-                                                num_heads, causal)
+                                                num_heads, causal,
+                                                window=window, rope=rope)
         else:
             dq, dk, dv = FG.flash_gqa_attention_bwd(
-                qkv, out, lse, do.contiguous(), num_heads, kv_heads, causal)
+                qkv, out, lse, do.contiguous(), num_heads, kv_heads, causal,
+                window=window, rope=rope)
         dln1, dqkvw, dqkvb = qkv_projection_bwd(dq, dk, dv, ln1, w)
         w_dtype, b_dtype = ctx.dtypes
         return (dln1.to(ln1.dtype), dqkvw.to(w_dtype), dqkvb.to(b_dtype),
-                None, None, None)
+                None, None, None, None, None)
 
 
 def qkv_attention(ln1: torch.Tensor, qkvw: torch.Tensor, qkvb: torch.Tensor,
@@ -109,8 +117,8 @@ def qkv_attention(ln1: torch.Tensor, qkvw: torch.Tensor, qkvb: torch.Tensor,
                   rope: bool = False, kv_heads: int = 0) -> torch.Tensor:
     """(B, T, C) -> (B, T, C): packed qkv projection + flash attention,
     differentiable in ln1, qkvw and qkvb.  kv_heads > 0 (GQA/MQA) takes the
-    small (C + 2*kv_dim, C) weight; 0 means num_heads."""
-    if window or rope:
-        raise NotImplementedError(_VARIANTS)
+    small (C + 2*kv_dim, C) weight; 0 means num_heads.  window > 0 (causal
+    only) is the sliding-window band; rope rotates q and k at positions
+    0..T-1 inside the kernels."""
     return _QKVAttention.apply(ln1, qkvw, qkvb, num_heads,
-                               kv_heads or num_heads, causal)
+                               kv_heads or num_heads, causal, window, rope)

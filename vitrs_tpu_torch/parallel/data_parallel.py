@@ -47,12 +47,15 @@ class Mesh:
 
 def make_mesh(n_devices: int = 0, devices: Sequence = None) -> Mesh:
     """The data mesh over `devices`, else over every CUDA device (the first
-    `n_devices` of them), else over the CPU."""
+    `n_devices` of them).  Without `devices` and without a CUDA device it
+    raises: a CPU mesh is asked for by name (devices=["cpu"])."""
     if devices is None:
         devices = [torch.device("cuda", i)
                    for i in range(torch.cuda.device_count())]
         devices = devices[:n_devices] if n_devices else devices
-        devices = devices or [torch.device("cpu")]
+        if not devices:
+            raise RuntimeError("make_mesh: torch sees no CUDA device; pass "
+                               "devices=['cpu'] for a CPU mesh")
     return Mesh(tuple(torch.device(d) for d in devices))
 
 

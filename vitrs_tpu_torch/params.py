@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from .config import ViTConfig
+from .ops._build import resolve_device
 
 CANONICAL_16 = (
     "wte", "wpe", "ln1w", "ln1b", "qkvw", "qkvb", "attprojw", "attprojb",
@@ -112,12 +113,14 @@ def init_params(cfg: ViTConfig, generator: torch.Generator,
 
 
 def from_numpy(np_params: Mapping[str, np.ndarray], cfg: ViTConfig,
-               device="cpu", dtype: Optional[torch.dtype] = None
+               device="cuda", dtype: Optional[torch.dtype] = None
                ) -> Dict[str, torch.Tensor]:
     """The JAX package's parameters, as numpy arrays (`jax.device_get` of its
-    pytree, or `checkpoint.load_checkpoint`), as a tensor dict on `device`.
-    dtype defaults to cfg.param_dtype.  Shapes are checked against the
-    canonical ones."""
+    pytree, or `checkpoint.load_checkpoint`), as a tensor dict on `device`:
+    the card unless the caller asks for the CPU (raises when torch sees no
+    CUDA device).  dtype defaults to cfg.param_dtype.  Shapes are checked
+    against the canonical ones."""
+    device = resolve_device(device)
     dtype = dtype or getattr(torch, cfg.param_dtype)
     shapes = param_shapes(cfg)
     out = {}

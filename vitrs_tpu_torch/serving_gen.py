@@ -8,7 +8,10 @@ prefill together in one pass (`generate.prefill_into_slots`, whose
 attention is the flash kernel: K1-fwd, or K3-fwd under GQA);
 every tick then decodes one token for all slots (`decode_step_multi`), or
 `decode_chunk` ticks at once with sampling on the device.  Inactive slots
-decode garbage that the host discards.
+decode garbage that the host discards.  A rope and sliding-window config
+serves the same way: prefill rotates q and k at absolute positions and
+runs the kernels with the band, and decode rotates at each slot's own
+position and masks to its window.
 
 Differences from the JAX engine: there is no jit, so nothing compiles per
 bucket; the cache is updated in place where JAX donated it; the weights are

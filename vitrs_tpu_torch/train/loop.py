@@ -21,10 +21,13 @@ AdamW, one device.
 What the JAX loop also does and this slice does not yet raises
 NotImplementedError naming its ROADMAP.md Queue 1 item: vit presets and
 mixup (5), EMA (12), Muon and Adafactor (13), async checkpoints (17) and
-a mesh (18).  Of the JAX loop's model overrides only the K/V head count
-is here, as `kv_heads` (GQA/MQA, which trains through K3).  Its other
-options (remat, profiler traces, RandAugment, run_steps) are not in this
-TrainConfig yet.
+a mesh (18).  `model_overrides` is the JAX TrainConfig's dict of config
+fields (e.g. {"max_seq_len": 8192, "window": 1024, "pos_emb": "rope"}, the
+long-context rope + sliding-window model); a model variant the port does
+not run yet (MoE, vit) raises in `models/model.check_supported`.  The
+port's `kv_heads` field is kept: it sets `num_kv_heads` among the
+overrides.  The JAX loop's other options (remat, profiler traces,
+RandAugment, run_steps) are not in this TrainConfig yet.
 """
 
 from __future__ import annotations
@@ -55,10 +58,11 @@ from ..utils import flops as F
 class TrainConfig:
     """The JAX TrainConfig's fields that a gpt-mode AdamW run on one device
     reads, with its defaults except: preset (a GPT preset here) and
-    async_ckpt (off), and `kv_heads` in place of the JAX config's
-    `model_overrides` dict; `device` is the port's own.  mesh, optimizer,
-    ema_decay, mixup_alpha and async_ckpt are kept so that asking for them
-    raises, naming their ROADMAP item."""
+    async_ckpt (off); `kv_heads` (shorthand for num_kv_heads among the
+    overrides; setting both raises) and
+    `device` are the port's own.  mesh, optimizer, ema_decay, mixup_alpha
+    and async_ckpt are kept so that asking for them raises, naming their
+    ROADMAP item."""
     preset: str = "gpt2-124m"
     dataset: str = "cifar10"       # gpt mode reads tokens; a non-empty
                                    # dataset asks for the final val loss
@@ -89,6 +93,7 @@ class TrainConfig:
     async_ckpt: bool = False
     kv_heads: int = 0              # GQA/MQA K/V heads; 0 = MHA
     device: str = "cuda"           # "cuda" (never falls back) or "cpu"
+    model_overrides: Optional[dict] = None   # config fields over the preset
 
 
 def _check_supported(tc: TrainConfig) -> None:
@@ -145,7 +150,13 @@ def evaluate_gpt(cfg: ViTConfig, params, data_dir: Optional[str] = None,
 def train(tc: TrainConfig) -> dict:
     _check_supported(tc)
     device = resolve_device(tc.device)
-    cfg = get_config(tc.preset, dtype=tc.dtype, num_kv_heads=tc.kv_heads)
+    overrides = dict(tc.model_overrides or {})
+    if tc.kv_heads:
+        if "num_kv_heads" in overrides:
+            raise ValueError("kv_heads and model_overrides['num_kv_heads'] "
+                             "are both set: give one")
+        overrides["num_kv_heads"] = tc.kv_heads
+    cfg = get_config(tc.preset, dtype=tc.dtype, **overrides)
     M.check_supported(cfg)
     workdir = tc.workdir or tempfile.mkdtemp(prefix="vitrs_torch_run_")
     os.makedirs(workdir, exist_ok=True)
@@ -160,13 +171,13 @@ def train(tc: TrainConfig) -> dict:
     latest = _latest_ckpt(workdir) if tc.resume else None
     if latest:
         np_params, _, extras = ckpt_io.load_checkpoint(latest, cfg)
-        params = PRM.from_numpy(np_params, cfg)
+        params = PRM.from_numpy(np_params, cfg, device)
         start_step, cursor = extras["step"], extras["cursor"]
         m_full, v_full = extras["m"], extras["v"]
         print(f"[resume] {latest} at step {start_step}, cursor {cursor}")
     elif tc.init_ckpt:
         np_params, _, _ = ckpt_io.load_checkpoint(tc.init_ckpt, cfg)
-        params = PRM.from_numpy(np_params, cfg)
+        params = PRM.from_numpy(np_params, cfg, device)
         print(f"[init] warm start from {tc.init_ckpt}")
     else:
         params = PRM.init_params(cfg, torch.Generator().manual_seed(tc.seed))

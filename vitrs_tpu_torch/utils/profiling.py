@@ -12,6 +12,8 @@ process (the profiler stretches its own window's wall time, which is
 reported apart).
 
     python -m vitrs_tpu_torch.utils.profiling train --kv-heads 4
+    python -m vitrs_tpu_torch.utils.profiling train --batch 2 \\
+        --max-seq-len 8192 --pos-emb rope --window 1024
     python -m vitrs_tpu_torch.utils.profiling prefill --kv-heads 4 \\
         --max-seq-len 8192 --batch 8 --prompt 7680 --chunk 512
 
@@ -38,6 +40,7 @@ GROUPS = (
     ("flash_bwd dK/dV", r"flash_bwd_dkv"),
     ("flash_bwd dQ", r"flash_bwd_dq"),
     ("flash_bwd di", r"flash_bwd_di"),
+    ("fused head + CE (K8)", r"head_ce"),
     ("fused CE (K5/K6)", r"ce_fwd|ce_bwd"),
     ("fused AdamW (K7)", r"adamw"),
     ("cuBLAS matmul", r"nvjet|gemm|cutlass|xmma|cublas"),
@@ -96,13 +99,15 @@ def op_breakdown(fn: Callable[[], object], iters: int = 3) -> Dict:
 
 def _train_step(args):
     """One training step of the trainer (fp32 masters in the flat arena,
-    bf16 compute) on the synthetic token stream."""
+    bf16 compute) on the synthetic token stream, at --max-seq-len, with
+    --pos-emb and --window."""
     from .. import params as P
     from ..config import get_config
     from ..data import tokens as TOK
     from ..parallel import data_parallel as dp
     cfg = get_config(args.preset, dtype="bfloat16",
-                     num_kv_heads=args.kv_heads)
+                     num_kv_heads=args.kv_heads, max_seq_len=args.max_seq_len,
+                     pos_emb=args.pos_emb, window=args.window)
     mesh = dp.make_mesh(devices=["cuda"])
     params = P.unflatten_params(P.flatten_params(
         P.init_params(cfg, torch.Generator().manual_seed(0)), cfg).cuda(), cfg)
@@ -121,7 +126,8 @@ def _prefill(args):
     from ..models import generate as G
     from ..models import model as M
     cfg = get_config(args.preset, dtype="bfloat16", num_kv_heads=args.kv_heads,
-                     max_seq_len=args.max_seq_len)
+                     max_seq_len=args.max_seq_len, pos_emb=args.pos_emb,
+                     window=args.window)
     pp = M.prepare_params({k: t.cuda() for k, t in P.init_params(
         cfg, torch.Generator().manual_seed(0)).items()}, cfg)
     prompt = torch.as_tensor(np.random.default_rng(0).integers(
@@ -139,6 +145,9 @@ def main(argv=None):
     p.add_argument("--kv-heads", type=int, default=0)
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--max-seq-len", type=int, default=1024)
+    p.add_argument("--pos-emb", default="learned", choices=["learned", "rope"])
+    p.add_argument("--window", type=int, default=0,
+                   help="sliding-window attention width (0 = full)")
     p.add_argument("--prompt", type=int, default=1024)
     p.add_argument("--chunk", type=int, default=0)
     p.add_argument("--iters", type=int, default=3)

@@ -124,8 +124,11 @@ class ViT:
         leaves = {k: p.detach().requires_grad_(True)
                   for k, p in self.params.items()}
         loss = M.loss_fn(leaves, inputs, targets, self.config)
-        grads = torch.autograd.grad(loss, list(leaves.values()))
-        return loss.detach(), dict(zip(leaves, grads))
+        # a tensor the loss does not read (wpe under rope) gets exact zeros
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True)
+        return loss.detach(), {k: torch.zeros_like(p) if g is None else g
+                               for (k, p), g in zip(leaves.items(), grads)}
 
     def zero_grad(self):
         self.grads = None
