@@ -21,21 +21,25 @@ on any failure.  Phases, each printed as it ends:
                     prefill logits within 1e-4.
   5. kernels-train  K2 (flash backward), K5/K6 (fused CE forward/backward)
                     and K7 (fused AdamW) against their plain versions at the
-                    training shapes, then kernel and plain times.
+                    training shapes; K2 also at ragged T (1 .. 1000 around
+                    its 64-row tiles), sm_scale 1/8 and 0.1, twice with
+                    bitwise equal results; then kernel and plain times, and
+                    K2's registers, shared memory and TFLOP/s.
   6. train          GPT-2 124M at full width and depth (fp32 masters, bf16
                     compute, B=8, T=1024, the synthetic token stream) for
                     12 steps through train/loop.train: finite, falling loss;
                     every kernel launched on every step in the designed
                     counts (a K2 launch is one call that runs its three
-                    kernels: di, dK/dV, dQ); step ms, tok/s, MFU and peak
-                    memory.
+                    kernels: pre-pass, dK/dV, dQ); step ms, tok/s, MFU and
+                    peak memory.
   7. xdevice-train  one training step of a small fp32 model (D=64, fused CE
                     route) on CUDA with the kernels and on the CPU with the
                     plain versions, from the same weights and tokens: loss,
                     all 16 grads and the updated params agree.
   8. kernels-gqa    K3-fwd and K3-bwd (GQA at kv width) against their plain
-                    versions, NH=12, KH in {4, 1}, then times at the GQA
-                    training shape.
+                    versions, NH=12, KH in {4, 1}, K3-bwd also at K2's
+                    ragged T, sm_scale and repeatability cases; then times
+                    at the GQA training shape.
   9. kernels-prefill K4 (continuation prefill) against its plain version
                     over an 8K cache whose tail past the chunk's frontier
                     is NaN, then times at the last chunk of an 8K prompt.
@@ -56,7 +60,8 @@ on any failure.  Phases, each printed as it ends:
                     and K4 with the band at q_offset 7168 at the serving
                     shapes, then times at T=8192, W=1024 beside the band-aware
                     bound and SDPA with a band mask; the windowed K2 must
-                    take under half the full-causal K2's time.
+                    take under half the full-causal K2's time; each
+                    backward's TFLOP/s and resources.
  14. kernels-headce K8 (fused head + CE) against its plain version at
                     R in {8192, 16384}, then times; loss and gradients
                     through it against the two-op route (K5/K6).
@@ -157,14 +162,95 @@ def attn_fwd_bound(B, tq, q_off, keys, kh, es, causal=True, window=0,
     return bound(flops, "bf16" if es == 2 else "fp32", nbytes)
 
 
+def bwd_flops(B, T, window=0):
+    """Operations of a causal flash backward: 5 products of 2*D flops per
+    (query, key) pair; the TFLOP/s each K2/K3-bwd time is printed with."""
+    return 10 * B * NH * D * attn_pairs(T, 0, T, True, window)
+
+
 def attn_bwd_bound(B, T, kh, es, window=0, rope=False):
     """Bound of a causal flash backward: 5 products per pair (s, dp, dv, dk,
     dq); reads q, k, v, out, do and lse (and the rope table), writes dq, dk,
     dv."""
-    flops = 10 * B * NH * D * attn_pairs(T, 0, T, True, window)
+    flops = bwd_flops(B, T, window)
     nbytes = (4 * B * T * C * es + 4 * B * T * kh * D * es + B * NH * T * 4
               + (2 * T * D * 4 if rope else 0))
     return bound(flops, "bf16" if es == 2 else "fp32", nbytes)
+
+
+def bwd_resources(rope=False):
+    """{kernel: registers per thread, spill bytes, shared memory per block,
+    threads} of the bf16 K2/K3-bwd kernels as built (the pre-pass, dK/dV,
+    dQ; csrc/flash_bwd.cu's vitrs_flash_bwd_attrs), at sm_scale 1/8."""
+    import ctypes
+    from vitrs_tpu_torch.ops import _build
+    fn = _build.load("flash_bwd").lib.vitrs_flash_bwd_attrs
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    res = {}
+    for i, name in enumerate(("prep", "dkv", "dq")):
+        out = (ctypes.c_int * 5)()
+        rc = fn(i, int(rope), 0, ctypes.cast(out, ctypes.c_void_p))
+        check(rc == 0, f"vitrs_flash_bwd_attrs({name}): CUDA error {rc}")
+        res[name] = dict(registers=out[0], spill_bytes=out[1],
+                         smem_bytes=out[2] + out[3], threads=out[4])
+    return res
+
+
+def print_bwd_rate(tag, name, ms, flops, res):
+    print(f"[{tag}] {name}: {flops / ms / 1e9:.1f} TFLOP/s on the five-product "
+          f"count; " + "; ".join(
+              f"{k} {v['registers']} registers, {v['spill_bytes']} B spilled, "
+              f"{v['smem_bytes']} B shared, {v['threads']} threads"
+              for k, v in res.items()))
+
+
+def bwd_edge_cases(tag, KHs, gen):
+    """K2 (KH = NH, flash_bwd_cuda) or K3-bwd (flash_gqa_bwd_cuda) in bf16
+    against the plain version at T in {1, 63, 64, 65, 127, 128, 129, 1000}
+    (around the 64-row tiles), causal and not, at sm_scale 1/8 (s scaled in
+    fp32) and 0.1 (q^ from the pre-pass), and with rope and the band (W=65)
+    at T=1000, sm_scale 0.1; 2e-2 abs + rel as every K2 check.  Each case
+    runs twice, and the two results must be the same bits (no atomics).
+    Returns the largest error."""
+    from vitrs_tpu_torch.ops import flash_attention as FA
+    from vitrs_tpu_torch.ops import flash_attention_gqa as FG
+    cases = [(T, causal, scale, 0, False)
+             for T in (1, 63, 64, 65, 127, 128, 129, 1000)
+             for causal in (True, False) for scale in (0.125, 0.1)]
+    cases.append((1000, True, 0.1, 65, True))
+    worst = 0.0
+    for KH in KHs:
+        errs = []
+        for T, causal, scale, W, rope in cases:
+            q, do = (torch.randn(2, T, C, generator=gen, device="cuda").bfloat16()
+                     for _ in range(2))
+            k, v = (torch.randn(2, T, KH * D, generator=gen, device="cuda").bfloat16()
+                    for _ in range(2))
+            args = (NH, KH, causal, scale, W, rope)
+            out, lse = FG.flash_gqa_fwd_plain(q, k, v, *args)
+            if KH == NH:
+                got, again = (FA.flash_bwd_cuda(q, k, v, out, lse, do, NH, causal,
+                                                scale, W, rope) for _ in range(2))
+            else:
+                got, again = (FG.flash_gqa_bwd_cuda(q, k, v, out, lse, do, *args)
+                              for _ in range(2))
+            want = FG.flash_gqa_bwd_plain(q, k, v, out, lse, do, *args)
+            torch.cuda.synchronize()
+            where = (f"KH={KH} T={T} causal={int(causal)} sm_scale={scale} W={W} "
+                     f"rope={int(rope)}")
+            for name, a, b, c in zip(("dq", "dk", "dv"), got, again, want):
+                check(torch.equal(a, b), f"{where}: {name} differs between two "
+                      f"calls")
+                d = (a.float() - c.float()).abs()
+                bad = ((d > 2e-2 + 2e-2 * c.float().abs()).sum().item()
+                       + (~torch.isfinite(a)).sum().item())
+                check(bad == 0, f"{where}: {bad} {name} values beyond 2e-2")
+                errs.append(d.max().item())
+        worst = max(worst, *errs)
+        print(f"[{tag}] KH={KH}: {len(cases)} ragged-T / sm_scale / rope cases "
+              f"within 2e-2 (max_abs_err {max(errs):.3e}), each bitwise equal "
+              f"over two calls")
+    return worst
 
 
 def out_errors(got, want):
@@ -227,7 +313,7 @@ def phase_device():
     for name, lib in libs.items():
         print(f"[device] {name}: {lib.path} ({lib.build_seconds:.3f} s)")
         for line in lib.log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
+            if any(w in line for w in ("registers", "spill", "Compiling", "wgmma")):
                 print(f"[device] ptxas: {line.strip()}")
     return smi
 
@@ -443,6 +529,7 @@ def phase_kernels_train():
                       f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}")
                 if dtype == torch.bfloat16:
                     worst = max(worst, *errs)
+    worst = max(worst, bwd_edge_cases("kernels-train", (NH,), gen))
     qkv = torch.randn(8, 1024, 3 * C, generator=gen, device="cuda").to(torch.bfloat16)
     out, lse = FA.flash_attention_fwd(qkv, NH, True)
     do = torch.randn(8, 1024, C, generator=gen, device="cuda").to(torch.bfloat16)
@@ -455,8 +542,11 @@ def phase_kernels_train():
     print(f"[kernels-train] K2 time bf16 B=8 T=1024 NH=12 causal: kernel "
           f"{raw[0]:.4f}/{raw[1]:.4f} ms, plain {raw[2]:.4f}/{raw[3]:.4f} ms, "
           f"SDPA backward {lib:.4f} ms, bound {bms:.4f} ms ({by})")
+    rsc, flops = bwd_resources(), bwd_flops(8, 1024)
+    print_bwd_rate("kernels-train", "K2", km, flops, rsc)
     res["flash_bwd"] = dict(max_abs_err=worst, ms=km, plain_ms=pm,
                             bound_ms=bms, bound_by=by, library_ms=lib,
+                            tflops=flops / km / 1e9, resources=rsc,
                             shape="bf16 B=8 T=1024 NH=12 D=64 causal")
 
     R, V = 8192, 50257
@@ -766,6 +856,7 @@ def phase_kernels_gqa():
                     if dtype == torch.bfloat16:
                         worst["fwd"] = max(worst["fwd"], errs[0])
                         worst["bwd"] = max(worst["bwd"], *errs[1:])
+    worst["bwd"] = max(worst["bwd"], bwd_edge_cases("kernels-gqa", (4, 1), gen))
     KH = 4
     qkv = torch.randn(8, 1024, C + 2 * KH * D, generator=gen,
                       device="cuda").to(torch.bfloat16)
@@ -793,6 +884,10 @@ def phase_kernels_gqa():
         res[name] = dict(max_abs_err=worst[name[-3:]], ms=km, plain_ms=pm,
                          bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib_ms,
                          shape=shape)
+    rsc, flops = bwd_resources(), bwd_flops(8, 1024)
+    print_bwd_rate("kernels-gqa", "K3-bwd", res["flash_gqa_bwd"]["ms"], flops, rsc)
+    res["flash_gqa_bwd"].update(tflops=flops / res["flash_gqa_bwd"]["ms"] / 1e9,
+                                resources=rsc)
     return res
 
 
@@ -1255,6 +1350,10 @@ def phase_kernels_rope_window():
                 max_abs_err=worst[f"{key}_{part}"], ms=km, plain_ms=pm,
                 bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib_ms,
                 shape=shape)
+            if part == "bwd":
+                rsc, flops = bwd_resources(True), bwd_flops(B, T, W)
+                print_bwd_rate("kernels-rope-window", f"{key}_bwd", km, flops, rsc)
+                res[f"{key}_bwd"].update(tflops=flops / km / 1e9, resources=rsc)
         if kh == NH:
             # the band must skip tiles: the full-causal K2 at the same shape
             out_c, lse_c = fwd_k(q, k, v, True, 0, True)
@@ -1263,10 +1362,13 @@ def phase_kernels_rope_window():
             win = cuda_ms(lambda: bwd_k(q, k, v, out, lse, do, True, W, True),
                           iters=5, warmup=1)
             print(f"[kernels-rope-window] K2 T=8192 rope: W=1024 {win:.4f} ms, "
-                  f"full causal {full:.4f} ms (ratio {win / full:.3f})")
+                  f"full causal {full:.4f} ms (ratio {win / full:.3f}, "
+                  f"{bwd_flops(B, T) / full / 1e9:.1f} TFLOP/s)")
             check(win < 0.5 * full, f"windowed K2 {win} ms is not under half "
                   f"the full-causal {full} ms: the band skips nothing")
             res["mha_bwd"]["full_causal_ms"] = full
+            res["mha_bwd"]["full_causal_bound_ms"] = attn_bwd_bound(
+                B, T, kh, 2, rope=True)[0]
         del q, k, v, do, out, lse, qr, kr, mask
     # K4 at the serving shape: B=8, the window model's 12 kv heads
     Bp, kh = 8, NH

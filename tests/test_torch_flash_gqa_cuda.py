@@ -78,6 +78,29 @@ def test_gqa_fwd_and_bwd_match_plain(cuda, dtype, KH, T, causal):
     assert got[1].shape == (2, T, KH * D)
 
 
+@pytest.mark.parametrize("sm_scale", [SCALE, 0.1])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("T", [63, 65, 127, 128, 129, 1000])
+@pytest.mark.parametrize("KH", [4, 1, 3])
+def test_gqa_bwd_ragged_scale_deterministic(cuda, KH, T, causal, sm_scale):
+    """bf16 K3-bwd at ragged T around its 64-row tiles, at sm_scale 1/8 (s
+    scaled in fp32) and 0.1 (q^ from the pre-pass), against its plain
+    version; two calls give the same bits (no atomics)."""
+    qkv, do = _gqa(cuda, torch.bfloat16, 2, T, KH, T + 7 * KH)
+    q, k, v = FG.split_gqa(qkv, NH, KH)
+    args = (NH, KH, causal, sm_scale)
+    out, lse = FG.flash_gqa_fwd_cuda(q, k, v, *args)
+    got = FG.flash_gqa_bwd_cuda(q, k, v, out, lse, do, *args)
+    again = FG.flash_gqa_bwd_cuda(q, k, v, out, lse, do, *args)
+    want = FG.flash_gqa_bwd_plain(q, k, v, out, lse, do, *args)
+    torch.cuda.synchronize()
+    tol = BWD_TOL[torch.bfloat16]
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, again, want):
+        assert torch.equal(a, b), name
+        torch.testing.assert_close(a.float(), c.float(), rtol=tol, atol=tol,
+                                   msg=name)
+
+
 def test_gqa_autograd_runs_k3_both_ways(cuda):
     qkv, do = _gqa(cuda, torch.bfloat16, 2, 100, 4, 0)
     qkv.requires_grad_(True)

@@ -70,6 +70,36 @@ def test_band_and_rope_match_plain(cuda, dtype, KH, T, window, rope):
                                    msg=lambda m, name=name: f"{name}: {m}")
 
 
+@pytest.mark.parametrize("sm_scale", [SCALE, 0.1])
+@pytest.mark.parametrize("T,window", [(63, 1), (65, 64), (129, 65), (1000, 300)])
+@pytest.mark.parametrize("KH", [12, 4, 1])
+def test_bwd_rope_band_ragged_scale_deterministic(cuda, KH, T, window,
+                                                  sm_scale):
+    """bf16 K2/K3-bwd with rope and the band at ragged T, at sm_scale 1/8
+    and 0.1 (the pre-pass writes rotated q and k, and then q^), against the
+    plain version on band-edge inputs; two calls give the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(T + window + KH)
+    q, k = band_edge_qk(2, T, T, NH, KH, window, rope=True, device=cuda)
+    v = torch.randn(2, T, KH * D, generator=g, device=cuda)
+    do = torch.randn(2, T, C, generator=g, device=cuda)
+    q, k, v, do = (t.bfloat16() for t in (q, k, v, do))
+    args = (NH, KH, True, sm_scale, window, True)
+    out, lse = FG.flash_gqa_fwd_plain(q, k, v, *args)
+    if KH == NH:
+        bwd = lambda: FA.flash_bwd_cuda(q, k, v, out, lse, do, NH, True,
+                                        sm_scale, window, True)
+    else:
+        bwd = lambda: FG.flash_gqa_bwd_cuda(q, k, v, out, lse, do, *args)
+    got, again = bwd(), bwd()
+    want = FG.flash_gqa_bwd_plain(q, k, v, out, lse, do, *args)
+    torch.cuda.synchronize()
+    tol = BWD_TOL[torch.bfloat16]
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, again, want):
+        assert torch.equal(a, b), name
+        torch.testing.assert_close(a.float(), c.float(), rtol=tol, atol=tol,
+                                   msg=lambda m, name=name: f"{name}: {m}")
+
+
 @pytest.mark.parametrize("window", [1, 65, 1024])
 @pytest.mark.parametrize("KH", [4, 12])
 def test_prefill_band_matches_plain(cuda, KH, window):

@@ -2,7 +2,10 @@
 plain versions at edge shapes, and one training step on CUDA against the
 same step on the CPU.
 
-  K2  csrc/flash_bwd.cu    flash backward      T in {1, 37, 64, 200, 1024}
+  K2  csrc/flash_bwd.cu    flash backward      T in {1, 37, 64, 200, 1024};
+                                               bf16 at ragged T, sm_scale
+                                               1/8 and 0.1, bitwise
+                                               repeatable
   K5  csrc/fused_ce.cu     CE forward          rows not a multiple of 32
   K6  csrc/fused_ce.cu     CE backward         same
   K7  csrc/fused_adamw.cu  AdamW               n not a multiple of 4
@@ -72,6 +75,30 @@ def test_flash_bwd_matches_plain(cuda, dtype, T, causal):
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == dtype and a.shape == (2, T, C)
         torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol,
+                                   msg=name)
+
+
+@pytest.mark.parametrize("sm_scale", [0.125, 0.1])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("T", [63, 65, 127, 128, 129, 1000])
+def test_flash_bwd_ragged_scale_deterministic(cuda, T, causal, sm_scale):
+    """bf16 K2 at ragged T around its 64-row tiles, at sm_scale 1/8 (s
+    scaled in fp32) and 0.1 (q^ from the pre-pass), against its plain
+    version; two calls give the same bits (no atomics)."""
+    NH, C = 12, 768
+    g = torch.Generator(device=cuda).manual_seed(T + 1)
+    qkv = torch.randn(2, T, 3 * C, generator=g, device=cuda).bfloat16()
+    do = torch.randn(2, T, C, generator=g, device=cuda).bfloat16()
+    q, k, v = qkv.split(C, dim=-1)
+    out, lse = FA.flash_fwd_cuda(q, k, v, NH, causal, sm_scale)
+    got = FA.flash_bwd_cuda(q, k, v, out, lse, do, NH, causal, sm_scale)
+    again = FA.flash_bwd_cuda(q, k, v, out, lse, do, NH, causal, sm_scale)
+    want = FA.flash_bwd_plain(q, k, v, out, lse, do, NH, causal, sm_scale)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[torch.bfloat16]
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, again, want):
+        assert torch.equal(a, b), name
+        torch.testing.assert_close(a.float(), c.float(), rtol=tol, atol=tol,
                                    msg=name)
 
 

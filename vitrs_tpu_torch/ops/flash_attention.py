@@ -25,7 +25,7 @@ Pallas backwards (`_bwd_single` and `_bwd_parts`, running
 * `flash_fwd_cuda.launches` and `flash_bwd_cuda.launches` count the
   wrappers' calls into the library, so that a run can show that its
   attention went through the kernels.  A K1-fwd call launches one kernel;
-  a K2 call launches three (di, dK/dV, dQ) and counts once.
+  a K2 call launches three (pre-pass, dK/dV, dQ) and counts once.
 """
 
 from __future__ import annotations
@@ -267,10 +267,19 @@ def flash_attention_fwd(qkv: torch.Tensor, num_heads: int,
     return fn(q, k, v, num_heads, causal, sm_scale, window=window, rope=rope)
 
 
+def scale_in_fp32(sm_scale: float) -> bool:
+    """Whether the backward scales s in fp32 instead of forming q^ = q *
+    sm_scale rounded: when sm_scale is a power of two (1/8 at D = 64), the
+    product q * sm_scale is exact in bf16 and fp32, so (q * sm_scale) . k^T
+    and sm_scale * (q . k^T) are the same bits."""
+    return sm_scale > 0 and math.frexp(sm_scale)[0] == 0.5
+
+
 def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                     num_heads: int, causal: bool, sm_scale: float,
-                    kv_heads: int = 0, window: int = 0, rope: bool = False
+                    kv_heads: int = 0, window: int = 0, rope: bool = False,
+                    *, fp32_scale: Optional[bool] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2's and K3-bwd's function in plain PyTorch: q, out, do (B, T, C),
     k, v (B, T, kv_heads*D), lse (B, NH, T) fp32 -> (dq (B, T, C), dk, dv
@@ -287,7 +296,10 @@ def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     first rotated at 0..T-1 and rounded to their dtype (q^ is then the
     rotated q times sm_scale, rounded again), and dq and dk are rotated
     back by -theta in fp32 before their rounding, as the Pallas kernels'
-    epilogues do.  window: the forward's band."""
+    epilogues do.  window: the forward's band.  fp32_scale: compute s as
+    sm_scale * (q . k^T) in fp32 instead of through q^; None takes the
+    kernel's choice, `scale_in_fp32(sm_scale)` (the same bits where it
+    applies)."""
     _check_window(causal, window)
     B, T, C = q.shape
     KH = kv_heads or num_heads
@@ -296,8 +308,11 @@ def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qr, kr = _rotated(q, num_heads, 0, rope), _rotated(k, KH, 0, rope)
     qf, dof = _grouped(qr, num_heads, R), _grouped(do, num_heads, R)
     kf, vf = _grouped(kr, KH, 1), _grouped(v, KH, 1)
-    qh = (qf * sm_scale).to(dtype).float()
-    s = torch.matmul(qh, kf.transpose(-1, -2))
+    if scale_in_fp32(sm_scale) if fp32_scale is None else fp32_scale:
+        s = torch.matmul(qf, kf.transpose(-1, -2)) * sm_scale
+    else:
+        qh = (qf * sm_scale).to(dtype).float()
+        s = torch.matmul(qh, kf.transpose(-1, -2))
     lse = lse.reshape(B, KH, R, T)[..., None]
     p = torch.exp(s - lse)
     if causal:
@@ -326,7 +341,7 @@ def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _bwd_kernel():
     fn = _build.load("flash_bwd").lib.vitrs_flash_bwd
     P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fn.argtypes = ([I] + [P] * 10 + [LL] * 14 + [I] * 6
+    fn.argtypes = ([I] + [P] * 13 + [LL] * 14 + [I] * 6
                    + [ctypes.c_float, P, P, P])
     fn.restype = I
     return fn
@@ -337,8 +352,8 @@ def launch_bwd(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                num_heads: int, kv_heads: int, causal: bool, sm_scale: float,
                window: int = 0, rope: bool = False
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch csrc/flash_bwd.cu (three kernels: di, dK/dV, dQ) on q's
-    current stream: the contract of `flash_bwd_plain`.  Counts nothing:
+    """Launch csrc/flash_bwd.cu (three kernels: the pre-pass, dK/dV, dQ) on
+    q's current stream: the contract of `flash_bwd_plain`.  Counts nothing:
     K2's `flash_bwd_cuda` and K3's `flash_gqa_bwd_cuda` count their own
     launches.  q/k/v may be strided views into the packed qkv, out and do
     strided (B, T, C) tensors (last dim contiguous).  Raises on anything
@@ -360,6 +375,13 @@ def launch_bwd(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk, dv = (torch.empty(k.shape, dtype=q.dtype, device=q.device)
               for _ in range(2))
     di = torch.empty((B, num_heads, T), dtype=torch.float32, device=q.device)
+    # the bf16 pre-pass's scratch: q and k rotated under rope, q^ when
+    # sm_scale is not a power of two (fp32 takes none)
+    bf16 = q.dtype == torch.bfloat16
+    q_rot, k_rot, q_hat = (
+        torch.empty((B, T, w), dtype=q.dtype, device=q.device) if need else None
+        for w, need in ((C, bf16 and rope), (k.shape[2], bf16 and rope),
+                        (C, bf16 and not scale_in_fp32(sm_scale))))
     cos, sin = _table_ptrs(rope, T, q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -367,6 +389,8 @@ def launch_bwd(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *(t.data_ptr() if t is not None else None
+              for t in (q_rot, k_rot, q_hat)),
             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), out.stride(0), out.stride(1),
             do.stride(0), do.stride(1), dq.stride(0), dq.stride(1),
@@ -383,9 +407,9 @@ def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    num_heads: int, causal: bool, sm_scale: float,
                    window: int = 0, rope: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch K2 (three kernels: di, dK/dV, dQ; `launches` counts the call
-    once) on q's current stream: MHA, the contract of `flash_bwd_plain`
-    with q, k and v of one shape."""
+    """Launch K2 (three kernels: pre-pass, dK/dV, dQ; `launches` counts
+    the call once) on q's current stream: MHA, the contract of
+    `flash_bwd_plain` with q, k and v of one shape."""
     if k.shape != q.shape:
         raise ValueError(f"flash_bwd_cuda: k {tuple(k.shape)} must have q's "
                          f"shape {tuple(q.shape)}")

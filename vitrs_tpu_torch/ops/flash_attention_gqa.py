@@ -26,13 +26,14 @@ take any kv_heads dividing num_heads at head_dim 64, MQA included.
   PyTorch versions, which the CPU tests hold against the JAX kernels.
 * `flash_gqa_fwd_cuda.launches` and `flash_gqa_bwd_cuda.launches` count
   the wrappers' calls, apart from K1's and K2's counts, so that a run shows
-  which kernel served it.  A backward call runs three kernels (di, dK/dV,
-  dQ) and counts once.
+  which kernel served it.  A backward call runs three kernels (pre-pass,
+  dK/dV, dQ) and counts once.
 * `flash_gqa_qkv` is differentiable in the packed qkv through an
   autograd.Function whose backward is the K3 backward.
 * The sliding window and rope are K1/K2's (the same kernels): the band
-  skips kv tiles outside it, q and k are rotated as they are loaded, and
-  dk is rotated back once, after the group sum.
+  skips kv tiles outside it, q and k are rotated as they are loaded (in
+  the backward, once, by its pre-pass), and dk is rotated back once, after
+  the group sum.
 """
 
 from __future__ import annotations
@@ -106,8 +107,8 @@ def flash_gqa_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        num_heads: int, kv_heads: int, causal: bool,
                        sm_scale: float, window: int = 0, rope: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch K3-bwd (three kernels: di, dK/dV, dQ; `launches` counts the
-    call once) on q's current stream: the contract of
+    """Launch K3-bwd (three kernels: pre-pass, dK/dV, dQ; `launches`
+    counts the call once) on q's current stream: the contract of
     `flash_gqa_bwd_plain`."""
     res = launch_bwd("flash_gqa_bwd_cuda", q, k, v, out, lse, do, num_heads,
                      kv_heads, causal, sm_scale, window, rope)

@@ -39,7 +39,7 @@ GROUPS = (
     ("flash_fwd (K1/K3-fwd/K4)", r"flash_fwd"),
     ("flash_bwd dK/dV", r"flash_bwd_dkv"),
     ("flash_bwd dQ", r"flash_bwd_dq"),
-    ("flash_bwd di", r"flash_bwd_di"),
+    ("flash_bwd pre-pass", r"flash_bwd_prep"),
     ("fused head + CE (K8)", r"head_ce"),
     ("fused CE (K5/K6)", r"ce_fwd|ce_bwd"),
     ("fused AdamW (K7)", r"adamw"),
