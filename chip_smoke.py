@@ -8,10 +8,15 @@ once) and drives the port's serving and training paths on the card, raising
 on any failure.  Phases, each printed as it ends:
 
   1. device         the card's name and power limit (nvidia-smi); each
-                    library's build time and ptxas resources.
+                    library's build time and ptxas resources; fails if
+                    ptxas serialised the flash kernels' wgmma (C7515).
   2. kernels        K1-fwd (flash-attention forward) against its plain
                     PyTorch version on the same inputs, bf16 and fp32, at the
-                    serving shapes; then kernel and plain times.
+                    serving shapes; the bf16 forward (K1-fwd, K3-fwd) at
+                    ragged T (1 .. 1000 around its 64-row tiles and K/V
+                    ring), KH 12/4/1, twice with bitwise equal results; then
+                    kernel and plain times, TFLOP/s, and the forward's
+                    registers, spills (a spill fails) and shared memory.
   3. serve          GPT-2 124M (full width, seeded random weights, bf16)
                     through GenerationEngine: 8 greedy requests, chunked and
                     per-tick decode, launches == 12 x prefill dispatches;
@@ -59,9 +64,10 @@ on any failure.  Phases, each printed as it ends:
                     moved by one key fails), K1-fwd without rope at T=7680
                     and K4 with the band at q_offset 7168 at the serving
                     shapes, then times at T=8192, W=1024 beside the band-aware
-                    bound and SDPA with a band mask; the windowed K2 must
-                    take under half the full-causal K2's time; each
-                    backward's TFLOP/s and resources.
+                    bound and SDPA with a band mask, and K1-fwd with the band
+                    at the serve-window prompt (B=8, T=7680); the windowed K2
+                    must take under half the full-causal K2's time; each
+                    kernel's TFLOP/s and resources.
  14. kernels-headce K8 (fused head + CE) against its plain version at
                     R in {8192, 16384}, then times; loss and gradients
                     through it against the two-op route (K5/K6).
@@ -147,13 +153,19 @@ def attn_pairs(tq, q_off, keys, causal, window=0):
     return sum(min(q_off + i + 1, keys, window or keys) for i in range(tq))
 
 
+def fwd_flops(B, tq, q_off, keys, causal=True, window=0):
+    """Operations of a flash forward: 2 products of 2*D flops per (query,
+    key) pair; the TFLOP/s each K1-fwd/K3-fwd/K4 time is printed with."""
+    return 4 * B * NH * D * attn_pairs(tq, q_off, keys, causal, window)
+
+
 def attn_fwd_bound(B, tq, q_off, keys, kh, es, causal=True, window=0,
                    rope=False):
-    """Bound of a flash forward: 2 products of 2*D flops per pair on the
-    tensor cores; reads q and the k/v rows it needs (from the first row the
-    band reaches), and under rope the fp32 cos/sin rows of its positions;
-    writes out and lse."""
-    flops = 4 * B * NH * D * attn_pairs(tq, q_off, keys, causal, window)
+    """Bound of a flash forward: `fwd_flops` on the tensor cores; reads q
+    and the k/v rows it needs (from the first row the band reaches), and
+    under rope the fp32 cos/sin rows of its positions; writes out and
+    lse."""
+    flops = fwd_flops(B, tq, q_off, keys, causal, window)
     kv_rows = min(q_off + tq, keys) if causal else keys
     if causal and window:
         kv_rows -= max(0, q_off - window + 1)
@@ -194,6 +206,37 @@ def bwd_resources(rope=False):
         res[name] = dict(registers=out[0], spill_bytes=out[1],
                          smem_bytes=out[2] + out[3], threads=out[4])
     return res
+
+
+def fwd_resources(rope=False, band=False):
+    """{kernel: registers per thread, spill bytes, shared memory per block,
+    threads} of the bf16 K1-fwd/K3-fwd/K4 kernels as built (the main
+    kernel's rope/band instance and, under rope, the k pre-pass;
+    csrc/flash_fwd.cu's vitrs_flash_fwd_attrs); fails on a spill."""
+    import ctypes
+    from vitrs_tpu_torch.ops import _build
+    fn = _build.load("flash_fwd").lib.vitrs_flash_fwd_attrs
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    res = {}
+    for i, name in ((1, "main"), (0, "rope_k")):
+        if i == 0 and not rope:
+            continue
+        out = (ctypes.c_int * 5)()
+        rc = fn(i, int(rope), int(band), ctypes.cast(out, ctypes.c_void_p))
+        check(rc == 0, f"vitrs_flash_fwd_attrs({name}): CUDA error {rc}")
+        res[name] = dict(registers=out[0], spill_bytes=out[1],
+                         smem_bytes=out[2] + out[3], threads=out[4])
+        check(out[1] == 0, f"flash forward {name} (rope={rope}, band={band}) "
+              f"spills {out[1]} bytes a thread")
+    return res
+
+
+def print_fwd_rate(tag, name, ms, flops, res=None):
+    rsc = "; ".join(f"{k} {v['registers']} registers, {v['spill_bytes']} B "
+                    f"spilled, {v['smem_bytes']} B shared, {v['threads']} "
+                    f"threads" for k, v in (res or {}).items())
+    print(f"[{tag}] {name}: {flops / ms / 1e9:.1f} TFLOP/s on the two-product "
+          f"count" + (f"; {rsc}" if rsc else ""))
 
 
 def print_bwd_rate(tag, name, ms, flops, res):
@@ -250,6 +293,47 @@ def bwd_edge_cases(tag, KHs, gen):
         print(f"[{tag}] KH={KH}: {len(cases)} ragged-T / sm_scale / rope cases "
               f"within 2e-2 (max_abs_err {max(errs):.3e}), each bitwise equal "
               f"over two calls")
+    return worst
+
+
+def fwd_edge_cases(tag, gen):
+    """The bf16 forward (K1-fwd at KH = NH, else K3-fwd) against the plain
+    version at T in {1, 63, 64, 65, 127, 128, 129, 1000} (around the 64-row
+    tiles and the K/V ring; causal frontiers that end mid-tile), KH in
+    {12, 4, 1}, causal and full; out as `out_errors`, lse 1e-4.  Each case
+    runs twice, and the two results must be the same bits.  Returns the
+    largest out error."""
+    from vitrs_tpu_torch.ops import flash_attention as FA
+    from vitrs_tpu_torch.ops import flash_attention_gqa as FG
+    worst, n = 0.0, 0
+    for KH in (NH, 4, 1):
+        for T in (1, 63, 64, 65, 127, 128, 129, 1000):
+            for causal in (True, False):
+                qkv = torch.randn(2, T, C + 2 * KH * D, generator=gen,
+                                  device="cuda").bfloat16()
+                q, k, v = FG.split_gqa(qkv, NH, KH)
+                if KH == NH:
+                    run = lambda: FA.flash_fwd_cuda(q, k, v, NH, causal, 0.125)
+                else:
+                    run = lambda: FG.flash_gqa_fwd_cuda(q, k, v, NH, KH, causal,
+                                                        0.125)
+                (out, lse), (out2, lse2) = run(), run()
+                ref, ref_lse = FG.flash_gqa_fwd_plain(q, k, v, NH, KH, causal,
+                                                      0.125)
+                torch.cuda.synchronize()
+                where = f"KH={KH} T={T} causal={int(causal)}"
+                check(torch.equal(out, out2) and torch.equal(lse, lse2),
+                      f"forward {where}: two calls differ")
+                bad, err, _ = out_errors(out, ref)
+                check(bad == 0, f"forward {where}: {bad} out values beyond "
+                      f"tolerance")
+                lse_err = (lse - ref_lse).abs().max().item()
+                check(lse_err <= 1e-4, f"forward {where}: lse err {lse_err}")
+                worst = max(worst, err)
+                n += 1
+    print(f"[{tag}] bf16 forward: {n} ragged-T cases (KH 12/4/1, causal and "
+          f"full) within tolerance (max_abs_err {worst:.3e}), each bitwise "
+          f"equal over two calls")
     return worst
 
 
@@ -315,6 +399,12 @@ def phase_device():
         for line in lib.log.splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling", "wgmma")):
                 print(f"[device] ptxas: {line.strip()}")
+    # the wgmma kernels must keep their pipeline: ptxas serialises every
+    # wgmma (warning C7515) when an accumulator is touched in flight
+    for name in ("flash_fwd", "flash_bwd"):
+        check(libs[name].log, f"{name}: no ptxas log kept beside the library")
+        check("C7515" not in libs[name].log, f"{name}: ptxas serialised wgmma "
+              f"(C7515)")
     return smi
 
 
@@ -342,6 +432,7 @@ def phase_kernels():
                   f"tolerance")
             check(lse_err <= lse_tol, f"{dtype} T={T}: lse err {lse_err}")
             worst[dtype] = max(worst.get(dtype, 0.0), err)
+    worst[torch.bfloat16] = max(worst[torch.bfloat16], fwd_edge_cases("kernels", gen))
     times = {}
     for T in (128, 512, 1024):
         qkv = torch.randn(8, T, 3 * C, generator=gen, device="cuda").to(torch.bfloat16)
@@ -352,16 +443,19 @@ def phase_kernels():
         k2 = cuda_ms(lambda: flash_fwd_cuda(q, k, v, NH, True, 0.125))
         p2 = cuda_ms(lambda: flash_fwd_plain(q, k, v, NH, True, 0.125))
         lib = cuda_ms(lambda: sdpa_fwd(q, k, v, NH))
+        flops = fwd_flops(8, T, 0, T)
         times[T] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-                        library_ms=lib)
+                        library_ms=lib, tflops=flops / ((k1 + k2) / 2) / 1e9)
         print(f"[kernels] time bf16 B=8 T={T:4d} NH=12 causal: kernel "
-              f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
-              f"SDPA {lib:.4f} ms")
+              f"{k1:.4f}/{k2:.4f} ms ({times[T]['tflops']:.1f} TFLOP/s), "
+              f"plain {p1:.4f}/{p2:.4f} ms, SDPA {lib:.4f} ms")
     bound_ms, by = attn_fwd_bound(8, 1024, 0, 1024, NH, 2)
+    rsc = fwd_resources()
     res = dict(max_abs_err=worst[torch.bfloat16], **times[1024],
-               bound_ms=bound_ms, bound_by=by,
+               bound_ms=bound_ms, bound_by=by, resources=rsc,
                shape="bf16 B=8 T=1024 NH=12 D=64 causal")
     print(f"[kernels] K1-fwd bound {bound_ms:.4f} ms ({by})")
+    print_fwd_rate("kernels", "K1-fwd", res["ms"], fwd_flops(8, 1024, 0, 1024), rsc)
     return res
 
 
@@ -884,6 +978,10 @@ def phase_kernels_gqa():
         res[name] = dict(max_abs_err=worst[name[-3:]], ms=km, plain_ms=pm,
                          bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib_ms,
                          shape=shape)
+    flops = fwd_flops(8, 1024, 0, 1024)
+    print_fwd_rate("kernels-gqa", "K3-fwd", res["flash_gqa_fwd"]["ms"], flops)
+    res["flash_gqa_fwd"].update(tflops=flops / res["flash_gqa_fwd"]["ms"] / 1e9,
+                                resources=fwd_resources())
     rsc, flops = bwd_resources(), bwd_flops(8, 1024)
     print_bwd_rate("kernels-gqa", "K3-bwd", res["flash_gqa_bwd"]["ms"], flops, rsc)
     res["flash_gqa_bwd"].update(tflops=flops / res["flash_gqa_bwd"]["ms"] / 1e9,
@@ -940,8 +1038,11 @@ def phase_kernels_prefill():
     print(f"[kernels-prefill] time {shape}: kernel {raw[0]:.4f}/{raw[1]:.4f}"
           f" ms, plain {raw[2]:.4f}/{raw[3]:.4f} ms, SDPA (mask, enable_gqa)"
           f" {lib:.4f} ms, bound {bms:.4f} ms ({by})")
+    flops = fwd_flops(B, S, q_off, Tk)
+    print_fwd_rate("kernels-prefill", "K4", km, flops)
     return dict(max_abs_err=worst, ms=km, plain_ms=pm, bound_ms=bms,
-                bound_by=by, library_ms=lib, shape=shape)
+                bound_by=by, library_ms=lib, tflops=flops / km / 1e9,
+                resources=fwd_resources(), shape=shape)
 
 
 def _prefill_logits(G, pp, prompt, cfg, chunk, cache_len):
@@ -1350,6 +1451,10 @@ def phase_kernels_rope_window():
                 max_abs_err=worst[f"{key}_{part}"], ms=km, plain_ms=pm,
                 bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib_ms,
                 shape=shape)
+            if part == "fwd":
+                rsc, flops = fwd_resources(True, True), fwd_flops(B, T, 0, T, window=W)
+                print_fwd_rate("kernels-rope-window", f"{key}_fwd", km, flops, rsc)
+                res[f"{key}_fwd"].update(tflops=flops / km / 1e9, resources=rsc)
             if part == "bwd":
                 rsc, flops = bwd_resources(True), bwd_flops(B, T, W)
                 print_bwd_rate("kernels-rope-window", f"{key}_bwd", km, flops, rsc)
@@ -1386,9 +1491,37 @@ def phase_kernels_rope_window():
     print(f"[kernels-rope-window] K4 time {shape}: kernel {raw[0]:.4f}/"
           f"{raw[1]:.4f} ms, plain {raw[2]:.4f}/{raw[3]:.4f} ms, SDPA (band "
           f"mask) {lib:.4f} ms, bound {bms:.4f} ms ({by})")
+    flops = fwd_flops(Bp, S, q_off, Tk, window=W)
+    rsc = fwd_resources(False, True)
+    print_fwd_rate("kernels-rope-window", "K4 band", km, flops, rsc)
     res["prefill"] = dict(max_abs_err=worst["prefill"], ms=km, plain_ms=pm,
                           bound_ms=bms, bound_by=by, library_ms=lib,
-                          shape=shape)
+                          tflops=flops / km / 1e9, resources=rsc, shape=shape)
+    del q, k, v, mask
+
+    # K1-fwd with the band and no rope at the serve-window whole-prompt
+    # shape (B=8, T=7680): kernel and SDPA with a band mask; the plain
+    # version's fp32 (8, 12, T, T) scores (22.6 GB a tensor) are not timed
+    # here (its B=2 check above)
+    T = 7680
+    q, k = band_edge_qk(8, T, T, NH, NH, W)
+    v = torch.randn(8, T, C, generator=gen, device="cuda")
+    q, k, v = (t.bfloat16() for t in (q, k, v))
+    mask = band_mask(T, 0, T, W)
+    ks = [cuda_ms(lambda: FA.flash_fwd_cuda(q, k, v, NH, True, 0.125, W),
+                  iters=5, warmup=1) for _ in range(2)]
+    lib = cuda_ms(lambda: sdpa_fwd(q, k, v, NH, mask), iters=5, warmup=1)
+    bms, by = attn_fwd_bound(8, T, 0, T, NH, 2, window=W)
+    flops = fwd_flops(8, T, 0, T, window=W)
+    km = sum(ks) / 2
+    shape = "bf16 B=8 T=7680 NH=12 D=64 W=1024"
+    print(f"[kernels-rope-window] K1-fwd band time {shape}: kernel "
+          f"{ks[0]:.4f}/{ks[1]:.4f} ms, SDPA (band mask) {lib:.4f} ms, bound "
+          f"{bms:.4f} ms ({by})")
+    print_fwd_rate("kernels-rope-window", "K1-fwd band T=7680", km, flops)
+    res["mha_fwd"]["serve_band"] = dict(ms=km, plain_ms=None, bound_ms=bms,
+                                        bound_by=by, library_ms=lib,
+                                        tflops=flops / km / 1e9, shape=shape)
     return res
 
 

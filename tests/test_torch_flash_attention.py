@@ -95,10 +95,17 @@ def test_cuda_wrapper_refuses_cpu_tensors():
 
 
 @pytest.mark.parametrize("nh,d,flash", [(12, 64, True), (2, 64, True),
-                                        (2, 8, False), (25, 64, False),
-                                        (4, 32, True)])
+                                        (2, 8, False), (25, 64, True),
+                                        (4, 32, False), (3, 64, True),
+                                        (1, 64, True), (2, 128, False)])
 def test_routing_follows_jax_supports(nh, d, flash):
-    assert TA.supports(nh, d) == JFA.supports(nh, d) == flash
+    """The port routes by its kernels' rule (D = 64, any head count).  At
+    D = 64 that is the JAX package's rule too, which runs odd head counts
+    on flash with phantom heads (`padded_num_heads`); other head dims go to
+    dense attention here, to flash there where its kernel tiles them."""
+    assert TA.supports(nh, d) == flash
+    if d == 64:
+        assert (JFA.padded_num_heads(nh, d) is not None) == flash
 
 
 def test_dense_route_for_unsupported_geometry():
@@ -108,3 +115,70 @@ def test_dense_route_for_unsupported_geometry():
     got = TA.attention(torch.from_numpy(qkv), 2, causal=True)
     want, _ = JB.attention_dense(jnp.asarray(qkv), 2, causal=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def _counting(monkeypatch, module, name):
+    """Wrap module.name so that each call is counted in the returned list."""
+    calls = []
+    fn = getattr(module, name)
+    monkeypatch.setattr(module, name,
+                        lambda *a, **k: calls.append(a[3]) or fn(*a, **k))
+    return calls
+
+
+def test_25_heads_take_the_kernel_route(monkeypatch):
+    """gpt2-1558m's geometry (25 heads of 64): the plain K1-fwd on the CPU
+    (the kernel on the card), no padding, equal to the JAX function."""
+    calls = _counting(monkeypatch, TFA, "flash_fwd_plain")
+    qkv = np.random.default_rng(10).standard_normal((1, 9, 3 * 25 * D),
+                                                    dtype=np.float32)
+    got = TA.attention(torch.from_numpy(qkv), 25, causal=True)
+    want, _ = JB.attention_dense(jnp.asarray(qkv), 25, causal=True)
+    assert calls == [25]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("kv_heads", [0, 1])
+def test_odd_head_model_forward_goes_through_plain_kernels(monkeypatch,
+                                                           kv_heads):
+    """A 3-head model (D = 64; MHA, and MQA through K3): every layer's
+    attention runs the plain version of K1-fwd or K3-fwd, where the JAX
+    package pads to 4 heads on flash; the logits equal the JAX model's."""
+    from vitrs_tpu.models import model as JM
+    from vitrs_tpu_torch.models import model as TM
+    from vitrs_tpu_torch.ops import flash_attention_gqa as TFG
+    from test_torch_helpers import both_params, small_cfgs
+    jcfg, tcfg = small_cfgs(num_heads=3, channels=3 * D,
+                            num_kv_heads=kv_heads)
+    mha = _counting(monkeypatch, TFA, "flash_fwd_plain")
+    gqa = _counting(monkeypatch, TFG, "flash_gqa_fwd_plain")
+    jp, tp = both_params(jcfg, tcfg, seed=11)
+    toks = np.random.default_rng(11).integers(0, tcfg.vocab_size, (2, 40))
+    got = TM.gpt_forward(TM.prepare_params(tp, tcfg), torch.as_tensor(toks),
+                         tcfg)
+    want = JM.gpt_forward(jp, jnp.asarray(toks), jcfg)
+    L = tcfg.num_layers
+    assert (mha, gqa) == (([3] * L, []) if kv_heads == 0 else ([], [3] * L))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_tma_rule_takes_every_view_the_port_passes():
+    """`tma_mappable`, the rule `launch_fwd` and `launch_bwd` hold every
+    tensor to before a launch: q, k and v of a packed MHA or GQA qkv, a
+    layer's kv cache and its slices along T pass (bf16 and fp32); a view
+    at an odd offset, or out of a row of odd width, does not."""
+    for dtype in (torch.bfloat16, torch.float32):
+        qkv = torch.zeros(2, 37, 3 * 25 * D, dtype=dtype)
+        assert all(TFA.tma_mappable(t) for t in qkv.split(25 * D, dim=-1))
+        gqa = torch.zeros(2, 37, (12 + 2 * 4) * D, dtype=dtype)
+        from vitrs_tpu_torch.ops.flash_attention_gqa import split_gqa
+        assert all(TFA.tma_mappable(t) for t in split_gqa(gqa, 12, 4))
+        cache = torch.zeros(3, 2, 512, 4 * D, dtype=dtype)[1]
+        assert TFA.tma_mappable(cache) and TFA.tma_mappable(cache[:, 64:300])
+        assert not TFA.tma_mappable(qkv[..., 1:1 + D])           # base
+        odd = torch.zeros(2, 37, 3 * D + 1, dtype=dtype)
+        assert not TFA.tma_mappable(odd[..., :D])                # row stride
+        flat = torch.zeros(2 * (37 * 3 * D + 1), dtype=dtype)
+        assert not TFA.tma_mappable(                             # batch stride
+            flat.as_strided((2, 37, D), (37 * 3 * D + 1, 3 * D, 1)))
+        assert not TFA.tma_mappable(qkv.view(2, 37, 3 * 25, D)[..., 0])

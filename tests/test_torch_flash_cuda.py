@@ -74,3 +74,47 @@ def test_engine_prefill_goes_through_the_kernel(cuda):
         rng = np.random.default_rng(0)
     for rid in outs["cpu"]:
         np.testing.assert_array_equal(outs["cuda"][rid], outs["cpu"][rid])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 127, 128, 129])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_ring_edges_and_repeatable(cuda, dtype, T, causal):
+    """T around the 64-row tiles and the K/V ring (the last tile partial,
+    one tile, one row past it; causal frontiers that end mid-tile), each
+    launch twice: the same bits, and within the bound of the plain
+    version."""
+    NH, C = 12, 768
+    g = torch.Generator(device=cuda).manual_seed(1000 + T)
+    qkv = torch.randn(2, T, 3 * C, generator=g, device=cuda).to(dtype)
+    q, k, v = qkv.split(C, dim=-1)
+    out, lse = FA.flash_fwd_cuda(q, k, v, NH, causal, 0.125)
+    out2, lse2 = FA.flash_fwd_cuda(q, k, v, NH, causal, 0.125)
+    ref, ref_lse = FA.flash_fwd_plain(q, k, v, NH, causal, 0.125)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    assert_out_close(out, ref)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=LSE_TOL[dtype])
+
+
+def test_25_head_model_runs_the_kernel(cuda):
+    """gpt2-1558m's head geometry (25 heads of 64) takes the kernel route
+    on the card: one K1-fwd launch a layer, and logits within 1e-4 of the
+    CPU's plain route (fp32, TF32 off)."""
+    from vitrs_tpu_torch import params as P
+    from vitrs_tpu_torch.config import get_config
+    from vitrs_tpu_torch.models import model as M
+    cfg = get_config("gpt-nano").replace(num_layers=2, num_heads=25,
+                                         channels=1600, vocab_size=97,
+                                         max_seq_len=64)
+    params = P.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, 97, (2, 50)))
+    logits = {}
+    for dev in ("cuda", "cpu"):
+        FA.flash_fwd_cuda.launches = 0
+        pp = M.prepare_params({k: t.to(dev) for k, t in params.items()}, cfg)
+        logits[dev] = M.gpt_forward(pp, toks.to(dev), cfg).cpu()
+        assert FA.flash_fwd_cuda.launches == (cfg.num_layers if dev == "cuda"
+                                              else 0)
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=1e-4,
+                               atol=1e-4)

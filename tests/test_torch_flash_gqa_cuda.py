@@ -101,6 +101,24 @@ def test_gqa_bwd_ragged_scale_deterministic(cuda, KH, T, causal, sm_scale):
                                    msg=name)
 
 
+@pytest.mark.parametrize("T", [63, 64, 65, 127, 128, 129])
+@pytest.mark.parametrize("KH", [4, 1])
+def test_gqa_fwd_ring_edges_and_repeatable(cuda, KH, T):
+    """K3-fwd at T around the 64-row tiles and the K/V ring, causal (the
+    frontier ends mid-tile) and full, launched twice: the same bits, and
+    within the bound of the plain version."""
+    qkv, _ = _gqa(cuda, torch.bfloat16, 2, T, KH, 2000 + T)
+    q, k, v = FG.split_gqa(qkv, NH, KH)
+    for causal in (True, False):
+        args = (NH, KH, causal, SCALE)
+        got, again = (FG.flash_gqa_fwd_cuda(q, k, v, *args) for _ in range(2))
+        out, lse = FG.flash_gqa_fwd_plain(q, k, v, *args)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+        assert_out_close(got[0], out)
+        torch.testing.assert_close(got[1], lse, rtol=0, atol=LSE_TOL[torch.bfloat16])
+
+
 def test_gqa_autograd_runs_k3_both_ways(cuda):
     qkv, do = _gqa(cuda, torch.bfloat16, 2, 100, 4, 0)
     qkv.requires_grad_(True)
@@ -113,7 +131,9 @@ def test_gqa_autograd_runs_k3_both_ways(cuda):
 
 
 @pytest.mark.parametrize("S,q_off,Tk", [(512, 512, 1024), (200, 133, 512),
-                                        (64, 7000, 7168), (512, 7168, 7936)])
+                                        (64, 7000, 7168), (512, 7168, 7936),
+                                        (100, 1001, 1280), (1, 517, 768),
+                                        (129, 7103, 7424)])
 @pytest.mark.parametrize("KH", [4, 12])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_prefill_matches_plain_and_never_reads_the_tail(cuda, dtype, KH, S,
@@ -126,10 +146,11 @@ def test_prefill_matches_plain_and_never_reads_the_tail(cuda, dtype, KH, S,
     v[:, q_off + S:] = float("nan")
     before = FP.flash_prefill_cuda.launches
     got = FP.flash_prefill_qkv(q, k, v, NH, KH, q_off)
+    again = FP.flash_prefill_qkv(q, k, v, NH, KH, q_off)
     want = FP.flash_prefill_plain(q, k, v, NH, KH, q_off, SCALE)
     torch.cuda.synchronize()
-    assert FP.flash_prefill_cuda.launches == before + 1
-    assert torch.isfinite(got).all()
+    assert FP.flash_prefill_cuda.launches == before + 2
+    assert torch.isfinite(got).all() and torch.equal(got, again)
     assert_out_close(got, want)
 
 

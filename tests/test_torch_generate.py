@@ -173,3 +173,32 @@ def test_not_ported_yet_raises(params):
         TM.prepare_params(tp, TCFG.replace(**kw).validate())
     with pytest.raises(ValueError, match="sliding-window"):
         TG.generate_streaming(tp, prompt, TCFG, 2)
+
+
+@pytest.mark.parametrize("use_flash", [True, False])
+def test_fresh_prefill_honours_use_flash(monkeypatch, use_flash):
+    """A fresh prompt's prefill takes the flash route (the plain K1-fwd on
+    the CPU) only with use_flash on; off, dense attention, as the JAX
+    prefill passes its switch on.  Logits and caches equal the JAX
+    package's with the same switch."""
+    from vitrs_tpu_torch.ops import basic as TB
+    from vitrs_tpu_torch.ops import flash_attention as TFA
+    calls = []
+    for module, name in ((TFA, "flash_fwd_plain"), (TB, "attention_dense")):
+        fn = getattr(module, name)
+        monkeypatch.setattr(module, name, lambda *a, fn=fn, name=name, **k:
+                            calls.append(name) or fn(*a, **k))
+    jp, tp = both_params(JCFG, TCFG, seed=0)
+    jcfg, tcfg = (c.replace(use_flash=use_flash) for c in (JCFG, TCFG))
+    toks = _toks((2, 37), 12)
+    jl, (jk, jv) = JG.forward_with_cache(jp, jnp.asarray(toks),
+                                         JG.init_kv_cache(jcfg, 2, 48), 0,
+                                         jcfg)
+    tl, (tk, tv) = TG.forward_with_cache(
+        TM.prepare_params(tp, tcfg), torch.as_tensor(toks),
+        TG.init_kv_cache(tcfg, 2, 48, device="cpu"), 0, tcfg)
+    want = "flash_fwd_plain" if use_flash else "attention_dense"
+    assert calls == [want] * tcfg.num_layers
+    _close(tl, jl)
+    _close(tk, jk)
+    _close(tv, jv)

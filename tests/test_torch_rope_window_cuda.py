@@ -100,6 +100,30 @@ def test_bwd_rope_band_ragged_scale_deterministic(cuda, KH, T, window,
                                    msg=lambda m, name=name: f"{name}: {m}")
 
 
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 127, 128, 129])
+@pytest.mark.parametrize("KH", [12, 4])
+def test_fwd_rope_band_ring_edges_and_repeatable(cuda, KH, T):
+    """The bf16 forward with rope (k rotated by the pre-pass) and the band
+    (W=65: the band's edge crosses every tile from T=65 on) at T around
+    the 64-row tiles and the K/V ring, launched twice: the same bits, and
+    within the bound of the plain version."""
+    W = 65
+    g = torch.Generator(device=cuda).manual_seed(3000 + T)
+    q, k = band_edge_qk(2, T, T, NH, KH, W, rope=True, device=cuda)
+    v = torch.randn(2, T, KH * D, generator=g, device=cuda)
+    q, k, v = (t.bfloat16() for t in (q, k, v))
+    args = (NH, KH, True, SCALE, W, True)
+    got, again = (FG.flash_gqa_fwd_cuda(q, k, v, *args) if KH < NH else
+                  FA.flash_fwd_cuda(q, k, v, NH, True, SCALE, W, True)
+                  for _ in range(2))
+    ref = FG.flash_gqa_fwd_plain(q, k, v, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    assert_out_close(got[0], ref[0])
+    lse_err = ((got[1] - ref[1]).abs() / ref[1].abs().clamp_min(1.0)).max()
+    assert lse_err <= LSE_TOL[torch.bfloat16]
+
+
 @pytest.mark.parametrize("window", [1, 65, 1024])
 @pytest.mark.parametrize("KH", [4, 12])
 def test_prefill_band_matches_plain(cuda, KH, window):

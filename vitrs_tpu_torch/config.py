@@ -5,8 +5,8 @@ tests/test_torch_config_params.py pins every preset equal to the JAX
 package's.  The copy exists because `import vitrs_tpu.config` runs
 `vitrs_tpu/__init__.py`, which imports jax; this package never does.
 
-Switches that only the JAX package acts on (use_flash, remat, scan_unroll)
-are kept so that configs and checkpoints stay interchangeable; the port's
+Switches that only the JAX package acts on (remat, scan_unroll) are kept
+so that configs and checkpoints stay interchangeable; the port's
 models raise NotImplementedError for the variants its slice does not cover
 (models/model.check_supported).
 """

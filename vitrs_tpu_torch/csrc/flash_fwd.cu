@@ -33,11 +33,10 @@
 //     all tiles up to the diagonal, and tiles the band's lower edge crosses
 //     are masked per element (the Pallas kernels' _tile_overlaps_band and
 //     _band_crosses_tile);
-//   * rope (rope_cos != nullptr): q and k arrive unrotated and are rotated
-//     as they are loaded, q at positions q_off + row with sm_scale folded
-//     into its cos and sin, k at its key index, both rounded to the input
-//     type (the Pallas order, flash_attention.py _fwd_kernel); the rotated
-//     rows never reach device memory.  The table is the compact fp32
+//   * rope (rope_cos != nullptr): q and k arrive unrotated; q is rotated at
+//     positions q_off + row with sm_scale folded into its cos and sin, k at
+//     its key index, both rounded to the input type (the Pallas order,
+//     flash_attention.py _fwd_kernel).  The table is the compact fp32
 //     (positions, 32) cos/sin of ops/rope.py; the Pallas kernels' 256-lane
 //     bf16 table and +-1 permutation matmul are TPU layout, not carried over;
 //   * out is written in the input type and lse = m + log(l) compact at
@@ -47,29 +46,55 @@
 // the split-cell grid (_q_split) and the VMEM budgets.  The GQA Pallas grid
 // shares each kv block across its query group in VMEM; here the R query
 // heads of a group are R blocks that read the same k/v rows, which the 50 MB
-// L2 serves (sharing a staged tile across the group in shared memory is
-// later work).
+// L2 serves.
 //
-// What bounds it on the H100: at the serving and training shapes (T =
-// 128..8192, D = 64) attention is compute-bound; per (q row, key) pair it
-// does 2 x 64 multiply-adds and one exp.  The bf16 instance therefore runs
-// both products on the tensor cores with mma.sync m16n8k16 (fp32
-// accumulate) in the FlashAttention-2 register layout: each warp owns 16 q
-// rows, S = Q.K^T and O += P.V stay in registers, and P goes from the S
-// accumulator straight into the A operand of P.V without touching shared
-// memory.  K and V tiles are staged in shared memory with rows padded to 72
-// elements so that the fragment reads are free of bank conflicts.  Loads
-// are plain 16-byte loads without double buffering, and the exp is the
-// accurate expf: making it fast (cp.async or TMA pipelining, wgmma, exp2
-// with a folded log2 e) is later work.  The fp32 instance (a cross-check of
-// the bf16 one against the plain PyTorch version at fp32 accuracy) does its
-// products with FMA, one thread per q row.  Times on the card are in
+// The bf16 instance, for Hopper (the Hopper pieces are in hopper.cuh):
+//   * one warpgroup (128 threads) per q tile of 64 rows.  q is loaded with
+//     16-byte loads, rotated (rope, sm_scale folded into cos and sin) and
+//     rounded in registers, and stored once into a swizzled shared tile;
+//   * K and V tiles arrive by TMA (cp.async.bulk.tensor through 4-D tensor
+//     maps over the strided views, completion on mbarriers) into a ring of
+//     kStages stages in dynamic shared memory, with the 128-byte swizzle
+//     that wgmma reads and no padding; thread 0 keeps the next tile in
+//     flight while the current tile's products run.  The maps' time extent
+//     is seq_len, the causal frontier under K4, so rows past it arrive as
+//     zeros: a NaN in a cache tail never meets P.V (0 x NaN);
+//   * S = Q.K^T and O += P.V run on wgmma m64n64k16 (fp32 accumulate): Q
+//     and K both read K-major from shared memory, P turned from the S
+//     accumulator into register A operands against V read MN-major; every
+//     product is waited for before its accumulator is touched again, so
+//     ptxas keeps the wgmma pipeline (no C7515);
+//   * p = 2^(s log2 e - m log2 e) on ex2.approx, alpha likewise; lse =
+//     m + ln l stays in natural log, as the backward reads it;
+//   * only tiles on the causal diagonal, the band's lower edge or the ragged
+//     end mask per element; causal q tiles launch heaviest first;
+//   * out leaves through the Q tile, in 16-byte stores of whole rows;
+//   * under rope, a pre-pass launch writes k rotated and rounded into
+//     (B, seq_len, kv_dim) scratch from the wrapper, so TMA copies plain
+//     tiles.
+// What bounds it on the H100: per (q row, key) pair it does 2 x 64
+// multiply-adds on the tensor cores and one exp on the special function
+// unit, which at D = 64 take about as long as each other (a 64 x 64 tile:
+// 8 wgmma of about 32 cycles against 4096 exps at 16 a cycle).  Measured
+// (utils/fwd_variants.py, PERF.md), neither is the limit: dropping the exps,
+// the P.V product or even the S product saves 3-20% each, and halving the
+// K/V traffic (two warpgroups sharing each tile) saves nothing.  Each
+// warpgroup's chain per tile (wait, S, softmax, P.V, wait) is latency, so
+// the design buys blocks an SM: a 2-deep ring and 94 registers fit five
+// (42 KB each).  Rotating each staged K tile in shared memory instead of the
+// pre-pass redoes the rotation for every q tile that reads it and ran 4-5x
+// slower at T = 8192.
+// The fp32 instance (a cross-check of the bf16 one against the plain
+// PyTorch version at fp32 accuracy) does its products with FMA, one thread
+// per q row, and rotates q and k as it stages them.  Times on the card are in
 // PERF.md.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "mma_bf16.cuh"
+#include <atomic>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -78,8 +103,7 @@ using namespace vitrs;
 constexpr int kHeadDim = 64;   // D of every GPT-2 preset; the wrapper checks it
 constexpr int kHalf = kHeadDim / 2;  // rope pairs dim c with dim c + kHalf
 constexpr int kBlockM = 64;    // q rows per thread block
-constexpr int kBlockN = 64;    // kv rows per shared-memory tile (mma path)
-constexpr int kPad = 8;        // smem row = 72 bf16 = 144 B
+constexpr int kBlockN = 64;    // kv rows per shared-memory tile (wgmma path)
 constexpr int kFmaBlockN = 32; // kv rows per tile (FMA path)
 
 struct Args {
@@ -229,123 +253,134 @@ __global__ void __launch_bounds__(kBlockM) flash_fwd_fma(Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 instance: tensor cores through mma.sync.m16n8k16, 4 warps x 16 rows
-// (fragment layouts in mma_bf16.cuh).
+// bf16 instance: wgmma on K/V tiles staged by TMA in a ring (hopper.cuh).
 // ---------------------------------------------------------------------------
 
+constexpr int kStages = 2;      // depth of the K/V ring
+constexpr int kTile = kBlockN * kHeadDim * 2;  // bytes of one bf16 tile in smem
+
+// Dynamic shared memory: per stage a K tile and a V tile, then the Q tile,
+// then one mbarrier per stage; 1 KB of slack for the 1024-byte alignment of
+// the swizzle.
+__host__ __device__ constexpr int fwd_smem() {
+  return 1024 + (2 * kStages + 1) * kTile + kStages * 8;
+}
+
+// Tensor maps of the K and V tiles (kernel parameters, as TMA needs)
+struct Maps {
+  CUtensorMap k;   // k, or the pre-pass's rotated copy under rope
+  CUtensorMap v;
+};
+
+// Under rope, the pre-pass: k rows 0..seq_len-1 rotated at their key index
+// and rounded to bf16 into contiguous (B, seq_len, kv_dim) scratch, four
+// threads a row (each 8 pairs: columns c..c+7 with c+32..c+39).
+__global__ void __launch_bounds__(256) flash_fwd_rope_k(Args a, bf16* k_rot, int batch) {
+  const int kv_heads = a.num_heads / a.group;
+  const long long r = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 2;
+  if (r >= (long long)batch * a.seq_len * kv_heads) return;
+  const int c = (threadIdx.x & 3) * 8;
+  const int h = r % kv_heads;
+  const long long bt = r / kv_heads;
+  const int t = bt % a.seq_len, b = bt / a.seq_len;
+  uint4 lo, hi;
+  rope_row8(static_cast<const bf16*>(a.k) + b * a.k_sb + (long long)t * a.k_st + h * kHeadDim + c,
+            a.rope_cos + (long long)t * kHalf + c, a.rope_sin + (long long)t * kHalf + c, lo, hi);
+  bf16* dst = k_rot + r * kHeadDim + c;
+  *reinterpret_cast<uint4*>(dst) = lo;
+  *reinterpret_cast<uint4*>(dst + kHalf) = hi;
+}
+
+// byte offset of (row, col) in a swizzled 64 x 64 bf16 tile (hopper.cuh)
+__device__ __forceinline__ int swizzled(int row, int col) {
+  return row * 128 + ((((col >> 3) ^ (row & 7)) << 4) | ((col & 7) << 1));
+}
+
 template <bool kRope, bool kBand>
-__global__ void __launch_bounds__(128) flash_fwd_mma_bf16(Args a) {
-  __shared__ __align__(16) bf16 ks[kBlockN][kHeadDim + kPad];
-  __shared__ __align__(16) bf16 vs[kBlockN][kHeadDim + kPad];
-  const int b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * kBlockM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+__global__ void __launch_bounds__(128, 5)
+    flash_fwd_wgmma(const __grid_constant__ Maps maps, Args a) {
+  extern __shared__ uint8_t smem[];
+  const uint32_t base = aligned_base(smem);   // stage st: K at + 2 st kTile, V after it
+  const uint32_t sq = base + 2 * kStages * kTile;
+  const uint32_t bars = sq + kTile;
+  uint8_t* const q_tile = smem + (sq - smem_u32(smem));
+  const int b = blockIdx.x / a.num_heads, h = blockIdx.x % a.num_heads;
+  const int hk = h / a.group;   // this query head's kv head
+  // causal: the heaviest q tiles (most kv tiles) first
+  const int m0 = (a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kBlockM;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int r0 = m0 + warp * 16 + g;  // this thread's rows: r0 and r0 + 8
   const int r1 = r0 + 8;
-  const bf16* Q = static_cast<const bf16*>(a.q) + b * a.q_sb + h * kHeadDim;
-  const int hk = h / a.group;  // this query head's kv head
-  const bf16* K = static_cast<const bf16*>(a.k) + b * a.k_sb + hk * kHeadDim;
-  const bf16* V = static_cast<const bf16*>(a.v) + b * a.v_sb + hk * kHeadDim;
 
-  // Q as A fragments, pre-scaled (under rope: rotated with the scale folded
-  // into cos and sin) and rounded to bf16.  Column c < 32 of fragment kk
-  // pairs with column c + 32 of fragment kk + 2, in the same register.
-  float qf[kHeadDim / 16][4][2];
+  const int kv_start = kv_start_of<kBand>(a, m0, kBlockN);
+  const int n_it = (kv_end_of(a, m0) - kv_start + kBlockN - 1) / kBlockN;
+  init_barriers(bars, kStages);
+  // thread 0 starts kv tile it's K and V copies into stage it % kStages
+  auto issue = [&](int it) {
+    if (it < n_it && tid == 0) {
+      const int st = it % kStages, n0 = kv_start + it * kBlockN;
+      const uint32_t s0 = base + 2 * st * kTile, bar = bars + 8 * st;
+      mbar_expect(bar, 2 * kTile);
+      tma_tile(s0, &maps.k, bar, hk, n0, b);
+      tma_tile(s0 + kTile, &maps.v, bar, hk, n0, b);
+    }
+  };
 #pragma unroll
-  for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+  for (int st = 0; st < kStages; ++st) issue(st);
+
+  // Q, pre-scaled (under rope: rotated at its positions with sm_scale folded
+  // into cos and sin) and rounded to bf16, into the swizzled Q tile that
+  // S = Q.K^T reads.  Two threads a row, each two pairs of 16-byte chunks
+  // (columns c..c+7 with c+32..c+39, the pairs rope rotates), so the loads
+  // are coalesced.  (Q as wgmma's register A operand instead read wrong
+  // values from the second kv tile on: PERF.md.)
+  {
+    const int r = tid >> 1, row = m0 + r;
+    const bf16* Q = static_cast<const bf16*>(a.q) + b * a.q_sb + (long long)row * a.q_st +
+                    h * kHeadDim;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = (i & 1) ? r1 : r0;
-      const int c = kk * 16 + 2 * t + ((i & 2) ? 8 : 0);
-      qf[kk][i][0] = qf[kk][i][1] = 0.f;
-      if (r < a.tq) {
-        const __nv_bfloat162 v2 =
-            *reinterpret_cast<const __nv_bfloat162*>(Q + (long long)r * a.q_st + c);
-        qf[kk][i][0] = __bfloat162float(v2.x);
-        qf[kk][i][1] = __bfloat162float(v2.y);
+    for (int j = 0; j < 2; ++j) {
+      const int c = ((tid & 1) * 2 + j) * 8;
+      uint4 lo = make_uint4(0u, 0u, 0u, 0u), hi = lo;
+      if (row < a.tq) {
+        if constexpr (kRope) {
+          const long long p = (long long)(row + a.q_off) * kHalf + c;
+          rope_row8<true>(Q + c, a.rope_cos + p, a.rope_sin + p, lo, hi, a.sm_scale);
+        } else {
+          lo = scale_bf16x8(*reinterpret_cast<const uint4*>(Q + c), a.sm_scale);
+          hi = scale_bf16x8(*reinterpret_cast<const uint4*>(Q + c + kHalf), a.sm_scale);
+        }
       }
+      *reinterpret_cast<uint4*>(q_tile + swizzled(r, c)) = lo;
+      *reinterpret_cast<uint4*>(q_tile + swizzled(r, c + kHalf)) = hi;
     }
   }
-  if constexpr (kRope) {
-#pragma unroll
-    for (int kk = 0; kk < kHeadDim / 32; ++kk) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = (i & 1) ? r1 : r0;
-        if (r >= a.tq) continue;
-        const int c = kk * 16 + 2 * t + ((i & 2) ? 8 : 0);
-        const long long row = (long long)(r + a.q_off) * kHalf;
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          rope_pair(qf[kk][i][e], qf[kk + 2][i][e],
-                    __fmul_rn(a.rope_cos[row + c + e], a.sm_scale),
-                    __fmul_rn(a.rope_sin[row + c + e], a.sm_scale));
-      }
-    }
-  }
-  const float sc = kRope ? 1.f : a.sm_scale;
-  uint32_t qa[kHeadDim / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) qa[kk][i] = pack_f32(qf[kk][i][0] * sc, qf[kk][i][1] * sc);
-  }
+  // the generic-proxy stores, before wgmma (the async proxy) reads them
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
 
   float o[kHeadDim / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < kHeadDim / 8; ++nt)
-    o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+  zero(o);
   float m_a = -INFINITY, m_b = -INFINITY;  // running max of rows r0, r1
   float l_a = 0.f, l_b = 0.f;              // this thread's share of the running sums
 
-  const int kv_end = kv_end_of(a, m0);
-  for (int n0 = kv_start_of<kBand>(a, m0, kBlockN); n0 < kv_end; n0 += kBlockN) {
-    __syncthreads();
-    if constexpr (kRope) {
-      // k rotated at its key index and rounded to bf16, 8 pairs a thread
-      for (int i = threadIdx.x; i < kBlockN * (kHalf / 8); i += blockDim.x) {
-        const int r = i >> 2, c = (i & 3) * 8, j = n0 + r;
-        uint4 lo = make_uint4(0u, 0u, 0u, 0u), hi = lo;
-        if (j < a.seq_len)
-          rope_row8(K + (long long)j * a.k_st + c, a.rope_cos + (long long)j * kHalf + c,
-                    a.rope_sin + (long long)j * kHalf + c, lo, hi);
-        *reinterpret_cast<uint4*>(&ks[r][c]) = lo;
-        *reinterpret_cast<uint4*>(&ks[r][c + kHalf]) = hi;
-      }
-      for (int i = threadIdx.x; i < kBlockN * (kHeadDim / 8); i += blockDim.x) {
-        const int r = i >> 3, c = (i & 7) * 8, j = n0 + r;
-        uint4 vv4 = make_uint4(0u, 0u, 0u, 0u);
-        if (j < a.seq_len) vv4 = *reinterpret_cast<const uint4*>(V + (long long)j * a.v_st + c);
-        *reinterpret_cast<uint4*>(&vs[r][c]) = vv4;
-      }
-    } else {
-      for (int i = threadIdx.x; i < kBlockN * (kHeadDim / 8); i += blockDim.x) {
-        const int r = i >> 3, c = (i & 7) * 8, j = n0 + r;
-        uint4 kv4 = make_uint4(0u, 0u, 0u, 0u), vv4 = kv4;
-        if (j < a.seq_len) {
-          kv4 = *reinterpret_cast<const uint4*>(K + (long long)j * a.k_st + c);
-          vv4 = *reinterpret_cast<const uint4*>(V + (long long)j * a.v_st + c);
-        }
-        *reinterpret_cast<uint4*>(&ks[r][c]) = kv4;
-        *reinterpret_cast<uint4*>(&vs[r][c]) = vv4;
-      }
-    }
-    __syncthreads();
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % kStages, n0 = kv_start + it * kBlockN;
+    const uint32_t sk = base + 2 * st * kTile, sv = sk + kTile;
+    mbar_wait(bars + 8 * st, (it / kStages) & 1);
 
-    // S = Q K^T for this warp's 16 rows x 64 keys
+    // S = Q K^T for 64 rows x 64 keys
     float s[kBlockN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt)
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-#pragma unroll
-      for (int nt = 0; nt < kBlockN / 8; ++nt) {
-        const bf16* kr = &ks[nt * 8 + g][kk * 16 + 2 * t];
-        mma_bf16(s[nt], qa[kk], *reinterpret_cast<const uint32_t*>(kr),
-                 *reinterpret_cast<const uint32_t*>(kr + 8));
-      }
-    }
+    wg_fence();
+    product_rows(s, sq, sk);
+    wg_commit();
+    // every warp is past tile it - 1's products: refill its stage while
+    // this tile's run
+    __syncthreads();
+    if (it > 0) issue(it + kStages - 1);
+    wg_wait<0>();
+    fence_acc(s);
 
     // mask the causal diagonal, the band's lower edge and the ragged end
     const bool edge = (n0 + kBlockN > a.seq_len) ||
@@ -363,7 +398,8 @@ __global__ void __launch_bounds__(128) flash_fwd_mma_bf16(Args a) {
       }
     }
 
-    // online softmax, rows r0 (a) and r1 (b); a quad of lanes shares a row
+    // online softmax, rows r0 (a) and r1 (b); a quad of lanes shares a row.
+    // A row that sees no key yet keeps a finite reference: ex2 gives 0.
     float mx_a = m_a, mx_b = m_b;
 #pragma unroll
     for (int nt = 0; nt < kBlockN / 8; ++nt) {
@@ -372,9 +408,10 @@ __global__ void __launch_bounds__(128) flash_fwd_mma_bf16(Args a) {
     }
     mx_a = quad_max(mx_a);
     mx_b = quad_max(mx_b);
-    const float ref_a = (mx_a == -INFINITY) ? 0.f : mx_a;
-    const float ref_b = (mx_b == -INFINITY) ? 0.f : mx_b;
-    const float alpha_a = expf(m_a - ref_a), alpha_b = expf(m_b - ref_b);
+    const float nl_a = (mx_a == -INFINITY) ? 0.f : -mx_a * kLog2e;  // -ref log2 e
+    const float nl_b = (mx_b == -INFINITY) ? 0.f : -mx_b * kLog2e;
+    const float alpha_a = ex2(fmaf(m_a, kLog2e, nl_a));
+    const float alpha_b = ex2(fmaf(m_b, kLog2e, nl_b));
     m_a = mx_a;
     m_b = mx_b;
     l_a *= alpha_a;
@@ -388,43 +425,51 @@ __global__ void __launch_bounds__(128) flash_fwd_mma_bf16(Args a) {
     }
 #pragma unroll
     for (int nt = 0; nt < kBlockN / 8; ++nt) {
-      s[nt][0] = expf(s[nt][0] - ref_a);
-      s[nt][1] = expf(s[nt][1] - ref_a);
-      s[nt][2] = expf(s[nt][2] - ref_b);
-      s[nt][3] = expf(s[nt][3] - ref_b);
+      s[nt][0] = ex2(fmaf(s[nt][0], kLog2e, nl_a));
+      s[nt][1] = ex2(fmaf(s[nt][1], kLog2e, nl_a));
+      s[nt][2] = ex2(fmaf(s[nt][2], kLog2e, nl_b));
+      s[nt][3] = ex2(fmaf(s[nt][3], kLog2e, nl_b));
       l_a += s[nt][0] + s[nt][1];
       l_b += s[nt][2] + s[nt][3];
     }
 
-    // O += P V: the S accumulators of key tiles 2kk and 2kk+1 are the A
-    // fragment of key chunk kk
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      uint32_t pa[4];
-      acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int nt = 0; nt < kHeadDim / 8; ++nt) {
-        const bf16* vc = &vs[kk * 16 + 2 * t][nt * 8 + g];
-        constexpr int R = kHeadDim + kPad;
-        mma_bf16(o[nt], pa, pack_raw(vc[0], vc[R]), pack_raw(vc[8 * R], vc[9 * R]));
-      }
-    }
+    // O += P V: P rounded to bf16 as register A operands, V read MN-major
+    uint32_t pa[kBlockN / 16][4];
+    to_a(pa, s);
+    fence_acc(o);
+    wg_fence();
+    product_cols(o, pa, sv);
+    wg_commit();
+    wg_wait<0>();
+    fence_acc(o);
   }
 
+  // out through the Q tile (every warp is past its last product), so that
+  // the stores to device memory are 16-byte chunks of whole rows
   l_a = quad_sum(l_a);
   l_b = quad_sum(l_b);
   const float inv_a = l_a > 0.f ? 1.f / l_a : 0.f;
   const float inv_b = l_b > 0.f ? 1.f / l_b : 0.f;
-  bf16* O = static_cast<bf16*>(a.out) + b * a.o_sb + h * kHeadDim;
+  __syncthreads();
 #pragma unroll
   for (int nt = 0; nt < kHeadDim / 8; ++nt) {
-    const int c = nt * 8 + 2 * t;
-    if (r0 < a.tq)
-      *reinterpret_cast<__nv_bfloat162*>(O + (long long)r0 * a.o_st + c) =
-          __floats2bfloat162_rn(o[nt][0] * inv_a, o[nt][1] * inv_a);
-    if (r1 < a.tq)
-      *reinterpret_cast<__nv_bfloat162*>(O + (long long)r1 * a.o_st + c) =
-          __floats2bfloat162_rn(o[nt][2] * inv_b, o[nt][3] * inv_b);
+    const int row = warp * 16 + g, col = nt * 8 + 2 * t;
+    *reinterpret_cast<uint32_t*>(q_tile + swizzled(row, col)) =
+        pack_f32(o[nt][0] * inv_a, o[nt][1] * inv_a);
+    *reinterpret_cast<uint32_t*>(q_tile + swizzled(row + 8, col)) =
+        pack_f32(o[nt][2] * inv_b, o[nt][3] * inv_b);
+  }
+  __syncthreads();
+  {
+    const int r = tid >> 1, row = m0 + r;
+    if (row < a.tq) {
+      bf16* O = static_cast<bf16*>(a.out) + b * a.o_sb + (long long)row * a.o_st + h * kHeadDim;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = ((tid & 1) * 4 + j) * 8;
+        *reinterpret_cast<uint4*>(O + c) = *reinterpret_cast<const uint4*>(q_tile + swizzled(r, c));
+      }
+    }
   }
   if (t == 0) {
     float* L = a.lse + ((long long)b * a.num_heads + h) * a.tq;
@@ -433,50 +478,123 @@ __global__ void __launch_bounds__(128) flash_fwd_mma_bf16(Args a) {
   }
 }
 
+// The bf16 instance: under rope the pre-pass into k_rot, then the main
+// kernel over tensor maps of k (or k_rot) and v.
 template <bool kRope, bool kBand>
-void launch(int dtype, dim3 grid, cudaStream_t s, const Args& a) {
-  if (dtype == 1)
-    flash_fwd_mma_bf16<kRope, kBand><<<grid, 128, 0, s>>>(a);
-  else
-    flash_fwd_fma<float, kRope, kBand><<<grid, kBlockM, 0, s>>>(a);
+cudaError_t launch_wgmma(const Args& a, int batch, void* k_rot, cudaStream_t s) {
+  const int kv_heads = a.num_heads / a.group;
+  const void* k = a.k;
+  long long k_sb = a.k_sb, k_st = a.k_st;
+  if (kRope) {
+    const long long threads = 4LL * batch * a.seq_len * kv_heads;
+    flash_fwd_rope_k<<<static_cast<unsigned>((threads + 255) / 256), 256, 0, s>>>(
+        a, static_cast<bf16*>(k_rot), batch);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    k = k_rot;
+    k_st = (long long)kv_heads * kHeadDim;
+    k_sb = a.seq_len * k_st;
+  }
+  Maps maps = {};
+  if (!tile_map(&maps.k, k, kv_heads, a.seq_len, batch, k_st, k_sb) ||
+      !tile_map(&maps.v, a.v, kv_heads, a.seq_len, batch, a.v_st, a.v_sb))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_fwd_wgmma<kRope, kBand>;
+  // the shared-memory limit, set once per device (a call costs host time
+  // that short launches notice)
+  static std::atomic<unsigned> configured{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (!(configured.load() & bit)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, fwd_smem());
+    if (err != cudaSuccess) return err;
+    configured.fetch_or(bit);
+  }
+  const unsigned tiles = (a.tq + kBlockM - 1) / kBlockM;
+  kernel<<<dim3(batch * a.num_heads, tiles), 128, fwd_smem(), s>>>(maps, a);
+  return cudaGetLastError();
+}
+
+template <bool kRope, bool kBand>
+cudaError_t launch(int dtype, int batch, void* k_rot, cudaStream_t s, const Args& a) {
+  if (dtype == 1) return launch_wgmma<kRope, kBand>(a, batch, k_rot, s);
+  const dim3 grid((a.tq + kBlockM - 1) / kBlockM, a.num_heads, batch);
+  flash_fwd_fma<float, kRope, kBand><<<grid, kBlockM, 0, s>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (FMA instance), 1 = bfloat16 (tensor-core instance).
+// dtype: 0 = float32 (FMA instance), 1 = bfloat16 (wgmma instance).
 // q rows 0..tq-1 sit at absolute positions q_off..q_off+tq-1 and attend keys
 // 0..seq_len-1 (causal: key j <= q_off + row, and j > q_off + row - window
 // for window > 0); kv_heads must divide num_heads.  rope_cos/rope_sin: the
 // fp32 (positions, 32) rope table covering positions up to
-// max(seq_len, q_off + tq) - 1, or both null for no rotation.  Launches on
-// `stream` without synchronising; returns cudaGetLastError().
+// max(seq_len, q_off + tq) - 1, or both null for no rotation.  k_rot: bf16
+// scratch of batch * seq_len * kv_heads * 64 elements for the rotated k
+// when dtype is 1 under rope, else null.  bf16: k and v are read by TMA, so
+// their bases and batch and time strides must be 16-byte multiples.
+// Launches on `stream` without synchronising; returns the first launch
+// error.
 extern "C" int vitrs_flash_fwd(int dtype, const void* q, const void* k, const void* v,
-                               void* out, float* lse, long long q_sb, long long q_st,
-                               long long k_sb, long long k_st, long long v_sb,
+                               void* out, float* lse, void* k_rot, long long q_sb,
+                               long long q_st, long long k_sb, long long k_st, long long v_sb,
                                long long v_st, long long o_sb, long long o_st, int batch,
                                int num_heads, int kv_heads, int tq, int seq_len, int q_off,
                                int causal, int window, float sm_scale,
                                const float* rope_cos, const float* rope_sin, void* stream) {
-  if (kv_heads <= 0 || num_heads % kv_heads != 0 || tq <= 0 || window < 0 ||
-      (window > 0 && !causal) || ((rope_cos == nullptr) != (rope_sin == nullptr)))
+  const bool rope = rope_cos != nullptr, band = window > 0;
+  if ((dtype != 0 && dtype != 1) || kv_heads <= 0 || num_heads % kv_heads != 0 || tq <= 0 ||
+      seq_len <= 0 || batch <= 0 || window < 0 || (window > 0 && !causal) ||
+      (rope != (rope_sin != nullptr)) || ((k_rot != nullptr) != (dtype == 1 && rope)))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{q,    k,    v,    out,  lse,       q_sb,
          q_st, k_sb, k_st, v_sb, v_st,      o_sb,
          o_st, num_heads, num_heads / kv_heads, tq, seq_len, q_off, causal, window,
          sm_scale, rope_cos, rope_sin};
-  const dim3 grid((tq + kBlockM - 1) / kBlockM, num_heads, batch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // rope and the band are template arguments, so the instances without
   // them carry none of their registers or branches
-  const bool rope = rope_cos != nullptr, band = window > 0;
-  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
   if (rope && band)
-    launch<true, true>(dtype, grid, s, a);
+    err = launch<true, true>(dtype, batch, k_rot, s, a);
   else if (rope)
-    launch<true, false>(dtype, grid, s, a);
+    err = launch<true, false>(dtype, batch, k_rot, s, a);
   else if (band)
-    launch<false, true>(dtype, grid, s, a);
+    err = launch<false, true>(dtype, batch, k_rot, s, a);
   else
-    launch<false, false>(dtype, grid, s, a);
-  return static_cast<int>(cudaGetLastError());
+    err = launch<false, false>(dtype, batch, k_rot, s, a);
+  return static_cast<int>(err);
+}
+
+// Resources of a bf16 kernel as compiled: kernel 0 the rope pre-pass, 1 the
+// main kernel (rope, band: its instance); out = {registers per thread,
+// local (spill) bytes per thread, static shared bytes, dynamic shared bytes
+// per block, threads per block}.
+extern "C" int vitrs_flash_fwd_attrs(int kernel, int rope, int band, int* out) {
+  const void* fn = nullptr;
+  int dyn = 0, threads = 128;
+  if (kernel == 0) {
+    fn = reinterpret_cast<const void*>(flash_fwd_rope_k);
+    threads = 256;
+  } else if (kernel == 1) {
+    fn = rope ? (band ? reinterpret_cast<const void*>(flash_fwd_wgmma<true, true>)
+                      : reinterpret_cast<const void*>(flash_fwd_wgmma<true, false>))
+              : (band ? reinterpret_cast<const void*>(flash_fwd_wgmma<false, true>)
+                      : reinterpret_cast<const void*>(flash_fwd_wgmma<false, false>));
+    dyn = fwd_smem();
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaFuncAttributes fa;
+  const cudaError_t err = cudaFuncGetAttributes(&fa, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int>(fa.localSizeBytes);
+  out[2] = static_cast<int>(fa.sharedSizeBytes);
+  out[3] = dyn;
+  out[4] = threads;
+  return 0;
 }

@@ -84,9 +84,12 @@ __device__ __forceinline__ void rope_pair(float& x1, float& x2, float c, float s
 // Eight pairs of one row of a 64-wide bf16 head: x points at column c of
 // the row (c a multiple of 8 below 32), cs and sn at column c of the table
 // row of its position.  Columns c..c+7 and c+32..c+39 rotated, rounded to
-// bf16 and packed into lo and hi.
+// bf16 and packed into lo and hi.  kScaled: the rotation by cos and sin
+// times `scale` (each product rounded on its own), which folds a softmax
+// scale into q as the kernels' plain versions do.
+template <bool kScaled = false>
 __device__ __forceinline__ void rope_row8(const bf16* x, const float* cs, const float* sn,
-                                          uint4& lo, uint4& hi) {
+                                          uint4& lo, uint4& hi, float scale = 1.f) {
   const uint4 x1 = *reinterpret_cast<const uint4*>(x);
   const uint4 x2 = *reinterpret_cast<const uint4*>(x + 32);
   const bf16* e1 = reinterpret_cast<const bf16*>(&x1);
@@ -97,11 +100,27 @@ __device__ __forceinline__ void rope_row8(const bf16* x, const float* cs, const 
   for (int e = 0; e < 8; e += 2) {
     float a0 = __bfloat162float(e1[e]), a1 = __bfloat162float(e1[e + 1]);
     float b0 = __bfloat162float(e2[e]), b1 = __bfloat162float(e2[e + 1]);
-    rope_pair(a0, b0, cs[e], sn[e]);
-    rope_pair(a1, b1, cs[e + 1], sn[e + 1]);
+    if constexpr (kScaled) {
+      rope_pair(a0, b0, __fmul_rn(cs[e], scale), __fmul_rn(sn[e], scale));
+      rope_pair(a1, b1, __fmul_rn(cs[e + 1], scale), __fmul_rn(sn[e + 1], scale));
+    } else {
+      rope_pair(a0, b0, cs[e], sn[e]);
+      rope_pair(a1, b1, cs[e + 1], sn[e + 1]);
+    }
     l32[e / 2] = pack_f32(a0, a1);
     h32[e / 2] = pack_f32(b0, b1);
   }
+}
+
+// Eight bf16 values times `scale`, rounded back to bf16
+__device__ __forceinline__ uint4 scale_bf16x8(uint4 x, float scale) {
+  const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&x);
+  uint4 y;
+  uint32_t* y32 = reinterpret_cast<uint32_t*>(&y);
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    y32[e] = pack_f32(__bfloat162float(x2[e].x) * scale, __bfloat162float(x2[e].y) * scale);
+  return y;
 }
 
 // The band of sliding-window attention: key j is visible from the query at

@@ -136,8 +136,9 @@ def _block_with_kv(x, p, cfg: ViTConfig, k_cache, v_cache, pos: int):
         # causal self-attention over the prompt: the cache holds nothing the
         # causal mask would admit beyond it, so the flash kernel reads the
         # packed qkv in place (K1-fwd, or K3-fwd at kv width), with the
-        # window's band; q and k are already rotated
-        atty = attention_gqa(qkv, NH, KH, causal=True, window=cfg.window)
+        # window's band, unless use_flash is off; q and k are already rotated
+        atty = attention_gqa(qkv, NH, KH, causal=True, window=cfg.window,
+                             use_flash=cfg.use_flash)
     elif S > 1 and cfg.use_flash and _flash_cont_ok(cfg, Tmax):
         # a continuation chunk: K4 streams the cache from the chunk's band
         # up to its causal frontier at kv width

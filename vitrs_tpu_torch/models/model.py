@@ -120,7 +120,8 @@ def _project_and_attend(ln1: torch.Tensor, p: Mapping[str, torch.Tensor],
     the GQA weight expanded to MHA and q, k rotated explicitly
     (JAX model.py:54-68), as the JAX package routes them."""
     rope = cfg.pos_emb == "rope"
-    if cfg.use_flash and flash_supports(cfg.num_heads, cfg.head_size):
+    if cfg.use_flash and flash_supports(cfg.num_heads, cfg.head_size,
+                                        cfg.kv_heads):
         return qkv_attention(ln1, p["qkvw"], p["qkvb"], cfg.num_heads, causal,
                              cfg.window, rope, kv_heads=cfg.kv_heads)
     w, b = expand_qkv_weight(p["qkvw"], p["qkvb"], cfg.num_heads,

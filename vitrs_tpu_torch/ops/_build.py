@@ -64,11 +64,16 @@ def _digest(src: str) -> str:
 
 @functools.cache
 def load(name: str) -> Library:
-    """Build (once per source version) and load `csrc/<name>.cu`.  Raises
-    RuntimeError with nvcc's output when the build fails."""
+    """Build (once per source version) and load `csrc/<name>.cu`.  nvcc's
+    output is kept beside the library (`.log`), so a reused build still
+    reports its ptxas lines.  Raises RuntimeError with nvcc's output when
+    the build fails."""
     src = os.path.join(CSRC_DIR, name + ".cu")
     path = os.path.join(BUILD_DIR, f"lib{name}_{_digest(src)}.so")
     seconds, log = 0.0, ""
+    if os.path.exists(path) and os.path.exists(path + ".log"):
+        with open(path + ".log") as f:
+            log = f.read()
     if not os.path.exists(path):
         os.makedirs(BUILD_DIR, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -81,6 +86,9 @@ def load(name: str) -> Library:
         if res.returncode != 0:
             os.unlink(tmp)
             raise RuntimeError(f"nvcc failed on {src}:\n{log}")
+        with open(tmp + ".log", "w") as f:
+            f.write(log)
+        os.replace(tmp + ".log", path + ".log")
         os.replace(tmp, path)    # atomic: concurrent builders never see half a file
     return Library(ctypes.CDLL(path), path, seconds, log)
 

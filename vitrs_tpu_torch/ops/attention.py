@@ -2,13 +2,13 @@
 `vitrs_tpu/ops/attention.py`.
 
 The JAX package sends attention to its Pallas flash kernel on a TPU and to
-dense XLA elsewhere.  Here the flash path takes every geometry the JAX
-package's kernel takes: on a CUDA tensor it is the hand-written kernels
+dense XLA elsewhere.  Here the flash path is every geometry the port's
+kernels take (`supports`): on a CUDA tensor the hand-written kernels
 (K1-fwd and K2 for MHA, ops/flash_attention.py; K3 for GQA,
 ops/flash_attention_gqa.py), on a CPU tensor their plain PyTorch versions.
-Geometries the JAX kernel does not take go to dense attention in both
-packages.  Both routes are differentiable: the flash route through its
-autograd.Functions, the dense route through plain torch autograd.
+Other geometries, and `use_flash=False`, go to dense attention.  Both
+routes are differentiable: the flash route through its autograd.Functions,
+the dense route through plain torch autograd.
 
 The GQA helpers (`expand_kv_heads`, `expand_packed`, `expand_qkv_weight`)
 are plain torch: the dense route for geometries the kernels do not tile
@@ -25,20 +25,24 @@ import numpy as np
 import torch
 
 from . import basic
-from .flash_attention import flash_attention_qkv
+from .flash_attention import HEAD_DIM, flash_attention_qkv
 from .flash_attention_gqa import flash_gqa_qkv, split_gqa
 from .rope import rope_qk
 
 
-def supports(num_heads: int, head_dim: int) -> bool:
-    """The JAX package's routing rule (vitrs_tpu/ops/flash_attention.supports),
-    kept so that both packages route every geometry the same way: a head_dim
-    that tiles 128 lanes and a head count that fills whole 128-lane groups.
-    Every GPT-2 preset (D = 64, even head count) passes; gpt-nano (D = 8)
-    does not."""
-    if head_dim >= 128:
-        return head_dim % 128 == 0
-    return 128 % head_dim == 0 and num_heads % (128 // head_dim) == 0
+def supports(num_heads: int, head_dim: int, kv_heads: int = 0) -> bool:
+    """The port's routing rule, its kernels' own: head_dim 64 (the D the
+    kernels are built for), any head count, and kv_heads (0: num_heads)
+    dividing num_heads.  At D = 64 it routes as the JAX package does, which
+    pads an odd head count with phantom heads (`padded_num_heads`): so
+    gpt2-1558m's 25 heads run on the kernels, unpadded (their grid has a
+    block row per head).  The packages part at other head dims: the JAX
+    kernel also tiles D = 32, 128 and 256, the port sends them to dense
+    attention (it has no kernel for them).  gpt-nano (D = 8) is dense in
+    both."""
+    kv_heads = kv_heads or num_heads
+    return (head_dim == HEAD_DIM and kv_heads > 0
+            and num_heads % kv_heads == 0)
 
 
 def rope_packed(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -51,14 +55,16 @@ def rope_packed(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 
 def attention(qkv: torch.Tensor, num_heads: int, causal: bool = True,
-              window: int = 0, rope: bool = False) -> torch.Tensor:
+              window: int = 0, rope: bool = False,
+              use_flash: bool = True) -> torch.Tensor:
     """Multi-head attention over packed qkv (B, T, 3C) -> (B, T, C).
     window > 0 (causal only) is sliding-window attention.  rope=True takes
     UNROTATED qkv and rotates q and k at positions 0..T-1: inside the
     kernels on the flash route, with an explicit `rope_qk` on the dense
-    route, as in the JAX function."""
+    route, as in the JAX function.  use_flash=False takes the dense route
+    for every geometry, as the JAX function's switch does."""
     head_dim = qkv.shape[-1] // (3 * num_heads)
-    if not supports(num_heads, head_dim):
+    if not (use_flash and supports(num_heads, head_dim)):
         if rope:
             qkv = rope_packed(qkv, num_heads)
         return basic.attention_dense(qkv, num_heads, causal=causal,
@@ -124,20 +130,22 @@ def expand_qkv_weight(qkvw: torch.Tensor, qkvb, num_heads: int,
 
 def attention_gqa(qkv: torch.Tensor, num_heads: int, kv_heads: int,
                   causal: bool = True, window: int = 0,
-                  rope: bool = False) -> torch.Tensor:
+                  rope: bool = False, use_flash: bool = True) -> torch.Tensor:
     """Grouped-query attention over a GQA-packed projection
     (B, T, C + 2*kv_dim) -> (B, T, C).  MHA (kv_heads == num_heads) is
     `attention`; a flash geometry goes to K3, which reads K/V at kv width
     (the JAX function expands K/V and rides K1: the same function); any
-    other geometry to dense attention over the expanded K/V.  window and
-    rope as in `attention` (the JAX function takes no rope: its callers
-    rotate first; a rotation per head commutes with the expansion)."""
+    other geometry, or use_flash=False, to dense attention over the
+    expanded K/V.  window and rope as in `attention` (the JAX function
+    takes no rope: its callers rotate first; a rotation per head commutes
+    with the expansion)."""
     if kv_heads == num_heads:
         return attention(qkv, num_heads, causal=causal, window=window,
-                         rope=rope)
+                         rope=rope, use_flash=use_flash)
     head_dim = qkv.shape[-1] // (num_heads + 2 * kv_heads)
-    if not supports(num_heads, head_dim):
+    if not (use_flash and supports(num_heads, head_dim, kv_heads)):
         return attention(expand_packed(qkv, num_heads, kv_heads), num_heads,
-                         causal=causal, window=window, rope=rope)
+                         causal=causal, window=window, rope=rope,
+                         use_flash=False)
     return flash_gqa_qkv(qkv, num_heads, kv_heads, causal=causal,
                          window=window, rope=rope)

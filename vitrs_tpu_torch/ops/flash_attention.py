@@ -24,8 +24,9 @@ Pallas backwards (`_bwd_single` and `_bwd_parts`, running
   backward returns the packed dqkv.
 * `flash_fwd_cuda.launches` and `flash_bwd_cuda.launches` count the
   wrappers' calls into the library, so that a run can show that its
-  attention went through the kernels.  A K1-fwd call launches one kernel;
-  a K2 call launches three (pre-pass, dK/dV, dQ) and counts once.
+  attention went through the kernels.  A K1-fwd call launches one kernel
+  (two in bf16 under rope: the k-rotation pre-pass and the main kernel); a
+  K2 call launches three (pre-pass, dK/dV, dQ).  Each call counts once.
 """
 
 from __future__ import annotations
@@ -144,17 +145,31 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _kernel():
     fn = _build.load("flash_fwd").lib.vitrs_flash_fwd
     P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fn.argtypes = [I, P, P, P, P, P, LL, LL, LL, LL, LL, LL, LL, LL,
-                   I, I, I, I, I, I, I, I, ctypes.c_float, P, P, P]
+    fn.argtypes = ([I] + [P] * 6 + [LL] * 8 + [I] * 8
+                   + [ctypes.c_float, P, P, P])
     fn.restype = I
     return fn
 
 
+def tma_mappable(t: torch.Tensor) -> bool:
+    """Whether a (B, T, W) tensor or view is one the kernels' tensor maps
+    (csrc/hopper.cuh `tile_map`) can describe: the last dim contiguous, and
+    the base address and the batch and time strides 16-byte multiples (the
+    same rule serves the kernels' 16-byte vector loads).  Every view the
+    port passes qualifies: q, k and v of a packed MHA or GQA qkv (offsets
+    and widths are multiples of 64 elements), the layers' kv caches and
+    slices of them along T.  A view cut at an odd offset or out of a row of
+    odd width does not."""
+    es = t.element_size()
+    return (t.dim() == 3 and t.stride(2) == 1 and t.data_ptr() % 16 == 0
+            and t.stride(1) * es % 16 == 0 and t.stride(0) * es % 16 == 0)
+
+
 def _check_layout(what: str, ts, ref: torch.Tensor):
     """The kernels' layout rules for every tensor they read or write: on
-    ref's CUDA device, in its dtype (float32 or bfloat16), (B, T, W) with
-    the inner dim contiguous and rows and base 16-byte aligned for the
-    kernels' vector loads."""
+    ref's CUDA device, in its dtype (float32 or bfloat16), (B, T, W) views
+    that `tma_mappable` takes.  Raises before any launch: there is no
+    fallback for a view the kernels cannot read."""
     for t in ts:
         if t.device.type != "cuda" or t.device != ref.device:
             raise ValueError(f"{what}: tensors must be on one CUDA device")
@@ -164,10 +179,10 @@ def _check_layout(what: str, ts, ref: torch.Tensor):
         if t.dim() != 3 or t.shape[0] != ref.shape[0]:
             raise ValueError(f"{what}: (B, T, W) tensors of one batch, got "
                              f"{[tuple(x.shape) for x in ts]}")
-        if (t.stride(2) != 1 or t.stride(1) % 8 or t.stride(0) % 8
-                or t.data_ptr() % 16):
-            raise ValueError(f"{what}: unsupported layout, strides "
-                             f"{t.stride()}")
+        if not tma_mappable(t):
+            raise ValueError(f"{what}: a view TMA cannot map (base "
+                             f"address {t.data_ptr() % 16} mod 16, strides "
+                             f"{t.stride()} of {t.element_size()} bytes)")
 
 
 def _check_heads(what: str, q, k, num_heads: int, kv_heads: int):
@@ -195,15 +210,18 @@ def launch_fwd(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch csrc/flash_fwd.cu on q's current stream: the contract of
     `flash_fwd_plain`.  Counts nothing: each kernel's public wrapper (K1
     `flash_fwd_cuda`, K3 `flash_gqa_fwd_cuda`, K4 `flash_prefill_cuda`)
-    counts its own launches.  q, k, v may be strided views (last dim
-    contiguous).  Raises on anything the kernel does not take, and if the
-    launch is refused."""
+    counts its own launches.  q, k, v may be strided views that
+    `tma_mappable` takes (the bf16 kernel reads k and v by TMA).  bf16
+    under rope: a pre-pass writes k rotated into (B, seq_len, kv_dim)
+    scratch allocated here.  Raises on anything the kernel does not take,
+    and if the launch is refused."""
     _check_layout(what, (q, k, v), q)
     _check_heads(what, q, k, num_heads, kv_heads)
     _check_window(causal, window)
     B, Tq, C = q.shape
     Tk = k.shape[1]
-    if v.shape != k.shape or q_offset < 0 or (causal and q_offset + Tq > Tk):
+    if (v.shape != k.shape or Tk == 0 or q_offset < 0
+            or (causal and q_offset + Tq > Tk)):
         raise ValueError(f"{what}: q {tuple(q.shape)} at offset {q_offset} "
                          f"does not fit k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)}")
@@ -213,12 +231,16 @@ def launch_fwd(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((B, Tq, C), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, num_heads, Tq), dtype=torch.float32,
                       device=q.device)
+    k_rot = (torch.empty((B, seq_len, k.shape[2]), dtype=q.dtype,
+                         device=q.device)
+             if rope and q.dtype == torch.bfloat16 else None)
     cos, sin = _table_ptrs(rope, max(seq_len, q_offset + Tq), q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _kernel()(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), lse.data_ptr(),
+            None if k_rot is None else k_rot.data_ptr(),
             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), out.stride(0), out.stride(1),
             B, num_heads, kv_heads, Tq, seq_len, q_offset, int(causal),

@@ -46,13 +46,12 @@ PREFILL_BLOCK = 256
 
 def supports_prefill(num_heads: int, kv_heads: int, head_dim: int) -> bool:
     """Whether K4 takes the geometry: the rule K1-fwd and K3 follow
-    (`attention.supports`), with kv_heads dividing num_heads.  The JAX
-    kernel's rule is narrower, since its kv blocks must fill whole 128-lane
-    blocks: it refuses MQA at head_dim 64, whose continuation chunks the
-    JAX package serves by dense cache attention and the port by K4 (the
-    same function)."""
-    return (kv_heads > 0 and num_heads % kv_heads == 0
-            and supports(num_heads, head_dim))
+    (`attention.supports`: head_dim 64, any head count, kv_heads dividing
+    num_heads).  The JAX kernel's rule differs both ways: its kv blocks
+    must fill whole 128-lane blocks, so it refuses MQA at head_dim 64
+    (served there by dense cache attention, here by K4: the same
+    function), and it also tiles head dims the port has no kernel for."""
+    return supports(num_heads, head_dim, kv_heads)
 
 
 def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
