@@ -9,7 +9,8 @@ on any failure.  Phases, each printed as it ends:
 
   1. device         the card's name and power limit (nvidia-smi); each
                     library's build time and ptxas resources; fails if
-                    ptxas serialised the flash kernels' wgmma (C7515).
+                    ptxas serialised the flash or K8 kernels' wgmma
+                    (C7515).
   2. kernels        K1-fwd (flash-attention forward) against its plain
                     PyTorch version on the same inputs, bf16 and fp32, at the
                     serving shapes; the bf16 forward (K1-fwd, K3-fwd) at
@@ -69,8 +70,15 @@ on any failure.  Phases, each printed as it ends:
                     must take under half the full-causal K2's time; each
                     kernel's TFLOP/s and resources.
  14. kernels-headce K8 (fused head + CE) against its plain version at
-                    R in {8192, 16384}, then times; loss and gradients
-                    through it against the two-op route (K5/K6).
+                    ragged R (1 .. 8191 around its 64-row tiles), C 64 ..
+                    1600, a ragged last vocab tile, strided views, targets
+                    on the last real column, in the pad and out of range
+                    (NaN), twice with bitwise equal results; views TMA
+                    cannot map refused before a launch; then R in {8192,
+                    16384} with times beside the bare cuBLAS product,
+                    matmul + F.cross_entropy and cuBLAS + K5, TFLOP/s and
+                    resources (a spill fails); loss and gradients through
+                    it against the two-op route (K5/K6).
  15. train-window   GPT-2 124M at T=8192 with window 1024 and rope
                     (129,944,832 parameters), B=2, 12 steps through
                     train/loop.train as in 6 (rope and the band inside K1-fwd
@@ -401,7 +409,7 @@ def phase_device():
                 print(f"[device] ptxas: {line.strip()}")
     # the wgmma kernels must keep their pipeline: ptxas serialises every
     # wgmma (warning C7515) when an accumulator is touched in flight
-    for name in ("flash_fwd", "flash_bwd"):
+    for name in ("flash_fwd", "flash_bwd", "fused_head_ce"):
         check(libs[name].log, f"{name}: no ptxas log kept beside the library")
         check("C7515" not in libs[name].log, f"{name}: ptxas serialised wgmma "
               f"(C7515)")
@@ -1525,22 +1533,138 @@ def phase_kernels_rope_window():
     return res
 
 
+def headce_resources():
+    """{kernel: registers per thread, spill bytes, shared memory per block,
+    threads (and the tile kernel's persistent grid)} of the bf16 K8
+    kernels as built (the tile kernel and the merge; csrc/fused_head_ce.cu's
+    vitrs_head_ce_attrs); fails on a spill."""
+    import ctypes
+    from vitrs_tpu_torch.ops import _build
+    fn = _build.load("fused_head_ce").lib.vitrs_head_ce_attrs
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    res = {}
+    for i, name in enumerate(("tile", "merge")):
+        out = (ctypes.c_int * 6)()
+        rc = fn(i, ctypes.cast(out, ctypes.c_void_p))
+        check(rc == 0, f"vitrs_head_ce_attrs({name}): CUDA error {rc}")
+        res[name] = dict(registers=out[0], spill_bytes=out[1],
+                         smem_bytes=out[2] + out[3], threads=out[4])
+        if i == 0:
+            res[name]["grid_blocks"] = out[5]
+        check(out[1] == 0, f"K8 {name} spills {out[1]} bytes a thread")
+    return res
+
+
+def headce_errors(tag, got, want, targets, V):
+    """Errors of a K8 result (logits, lse, picked) against the plain
+    version's, raising beyond the tolerances of `phase_kernels_headce`.
+    Rows whose target lies outside [0, V) must pick NaN; the others are
+    held to the plain pick.  Returns the largest error."""
+    (logits, lse, picked), (rl, rlse, rpick) = got, want
+    dl = (logits.float() - rl.float()).abs()
+    over = dl - (2.0 ** -7 * rl.float().abs() + 1e-5)
+    bad = (over > 0).sum().item()
+    i = int(over.argmax())
+    worst_pair = (logits.flatten()[i].item(), rl.flatten()[i].item())
+    real = (targets >= 0) & (targets < V)
+    lse_err = (lse - rlse).abs().max().item()
+    pick_err = (picked[real] - rpick[real]).abs().max().item() if real.any() else 0.0
+    check(torch.isfinite(logits).all().item() and torch.isfinite(lse).all().item(),
+          f"K8 {tag}: non-finite logits or lse")
+    check(bad == 0, f"K8 {tag}: {bad} logits beyond one bf16 ulp + 1e-5 "
+          f"(worst got/want {worst_pair})")
+    check(lse_err <= 1e-4 and pick_err <= 1e-5,
+          f"K8 {tag}: lse err {lse_err}, picked err {pick_err}")
+    check(bool(picked[~real].isnan().all()), f"K8 {tag}: a target outside "
+          f"[0, {V}) did not pick NaN")
+    return max(dl.max().item(), lse_err, pick_err)
+
+
+def headce_edge_cases(gen):
+    """K8 bf16 against its plain version around its tiles (64 rows x 256
+    vocab columns, 64-wide k steps): R in {1, 127, 129, 8191}, C in {64, 96,
+    768, 1600} (96: a half k step; 1600: gpt2-1558m), Vp in {128, 1152,
+    50304} (each leaves a ragged last vocab tile), a strided x and w
+    that TMA maps in place; targets on the last real column, in the pad
+    columns and out of range (NaN picks); each case twice, bitwise equal.
+    Then views TMA refuses (a base or row stride off 16 bytes, rows
+    broadcast) must raise ValueError before any launch.  Returns the
+    largest error."""
+    from vitrs_tpu_torch.ops import fused_head_ce as FH
+    worst = 0.0
+    cases = [(1, 768, 50304, 50257), (127, 768, 50304, 50257),
+             (129, 768, 50304, 50257), (8191, 768, 50304, 50257),
+             (256, 64, 1152, 1100), (129, 96, 1152, 1100),
+             (300, 1600, 50304, 50257), (200, 768, 128, 100),
+             (1000, 768, 1152, 1100)]
+    for R, Cx, Vp, V in cases:
+        strided = R == 1000      # x and w as column slices of wider rows
+        xb = torch.randn(R, Cx + 64 * strided, generator=gen, device="cuda")
+        wb = 0.02 * torch.randn(Vp, Cx + 64 * strided, generator=gen,
+                                device="cuda")
+        x, w = xb.bfloat16()[:, :Cx], wb.bfloat16()[:, :Cx]
+        w[V:] = 0
+        t = torch.randint(0, V, (R,), generator=gen, device="cuda")
+        special = [V - 1, V, Vp + 5, -1][:R]      # every case has V < Vp
+        t[:len(special)] = torch.tensor(special, device="cuda")
+        before = FH.head_ce_fwd_cuda.launches
+        got = FH.head_ce_fwd_cuda(x, w, t, V)
+        again = FH.head_ce_fwd_cuda(x, w, t, V)
+        want = FH.head_ce_fwd_plain(x, w, t.clamp(0, Vp - 1), V)
+        torch.cuda.synchronize()
+        check(FH.head_ce_fwd_cuda.launches == before + 2, "K8 launch count")
+        tag = f"R={R} C={Cx} Vp={Vp} V={V}" + (" strided" if strided else "")
+        err = headce_errors(tag, got, want, t, V)
+        same = all(torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16
+                               else a.view(torch.int32),
+                               b.view(torch.int16) if b.dtype == torch.bfloat16
+                               else b.view(torch.int32))
+                   for a, b in zip(got, again))
+        check(same, f"K8 {tag}: two calls differ")
+        print(f"[kernels-headce] edge {tag}: max err {err:.3e}, targets "
+              f"{special} (NaN outside [0, {V})), two calls bitwise equal")
+        worst = max(worst, err)
+    R, Cx, Vp, V = 64, 768, 1024, 1000
+    buf = torch.randn(R * Cx + 8, generator=gen, device="cuda").bfloat16()
+    w = torch.randn(Vp, Cx, generator=gen, device="cuda").bfloat16()
+    x = buf[:R * Cx].view(R, Cx)
+    t = torch.randint(0, V, (R,), generator=gen, device="cuda")
+    refused = {"x base off 16 bytes": (buf[1:1 + R * Cx].view(R, Cx), w),
+               "x row stride off 16 bytes":
+                   (torch.randn(R, Cx + 1, generator=gen, device="cuda")
+                    .bfloat16()[:, :Cx], w),
+               "w rows broadcast": (x, w[:1].expand(Vp, Cx))}
+    for what, (xv, wv) in refused.items():
+        before = FH.head_ce_fwd_cuda.launches
+        try:
+            FH.head_ce_fwd_cuda(xv, wv, t, V)
+            raised = False
+        except ValueError:
+            raised = True
+        check(raised and FH.head_ce_fwd_cuda.launches == before,
+              f"K8 took a view TMA cannot map: {what}")
+    print(f"[kernels-headce] refused before any launch: {sorted(refused)}")
+    return worst
+
+
 def phase_kernels_headce():
     """K8 against its plain version at R in {8192, 16384}, C=768, Vp=50304
-    (real vocab 50257, zero pad rows), bf16: logits within one bf16 ulp
-    plus the picked bound (2^-7 |want| + 1e-5: each side rounds an fp32 sum
-    of 768 products, summed in another order, so near 0, where the ulp is
-    smaller than that sum's error, the two roundings can differ by more
-    than one ulp), lse 1e-4 (K5's: an fp32 logsumexp over 50257 columns in
-    another order), picked 1e-5 (one fp32 dot, |picked| about 0.6).  Times
-    beside the bound (2 R C Vp operations on the tensor cores: 0.640 and
-    1.280 ms), torch.matmul + F.cross_entropy on the bf16 logits (two
-    calls: no one PyTorch call computes the same function) and the port's
-    two-op route that K8 replaces (cuBLAS, then K5).  Then the loss and both
-    gradients through `head_ce_mean` (K8, K6 and two matmuls) against the
-    two-op route (matmul, K5, K6) at R=8192: loss rtol 1e-4 (K8's lse reads
-    the fp32 product, K5's the bf16 logits), grads within 1e-2 of their
-    largest value."""
+    (real vocab 50257, zero pad rows), bf16, and at `headce_edge_cases`:
+    logits within one bf16 ulp plus the picked bound (2^-7 |want| + 1e-5:
+    each side rounds an fp32 sum of C products, summed in another order, so
+    near 0, where the ulp is smaller than that sum's error, the two
+    roundings can differ by more than one ulp), lse 1e-4 (K5's: an fp32
+    logsumexp over 50257 columns in another order), picked 1e-5 (one fp32
+    dot, |picked| about 0.6).  Times beside the bound (2 R C Vp operations
+    on the tensor cores: 0.640 and 1.280 ms), the bare product
+    torch.matmul(x, w.t()), torch.matmul + F.cross_entropy on the bf16
+    logits (two calls: no one PyTorch call computes the same function) and
+    the port's two-op route that K8 replaces (cuBLAS, then K5); K8's
+    TFLOP/s and resources.  Then the loss and both gradients through
+    `head_ce_mean` (K8, K6 and two matmuls) against the two-op route
+    (matmul, K5, K6) at R=8192: loss rtol 1e-4 (K8's lse reads the fp32
+    product, K5's the bf16 logits), grads within 1e-2 of their largest
+    value."""
     import torch.nn.functional as F
     from vitrs_tpu_torch.ops import basic
     from vitrs_tpu_torch.ops import fused_ce as CE
@@ -1548,55 +1672,56 @@ def phase_kernels_headce():
     gen = torch.Generator(device="cuda").manual_seed(9)
     V, Vp = 50257, 50304
     res = {}
-    worst = 0.0
+    worst = headce_edge_cases(gen)
+    rsc = headce_resources()
     for R in (8192, 16384):
         x = torch.randn(R, C, generator=gen, device="cuda").bfloat16()
         w = (0.02 * torch.randn(Vp, C, generator=gen, device="cuda")).bfloat16()
         w[V:] = 0
         t = torch.randint(0, V, (R,), generator=gen, device="cuda")
-        logits, lse, picked = FH.head_ce_fwd_cuda(x, w, t, V)
-        rl, rlse, rpick = FH.head_ce_fwd_plain(x, w, t, V)
+        got = FH.head_ce_fwd_cuda(x, w, t, V)
+        want = FH.head_ce_fwd_plain(x, w, t, V)
         torch.cuda.synchronize()
-        dl = (logits.float() - rl.float()).abs()
-        over = dl - (2.0 ** -7 * rl.float().abs() + 1e-5)
-        bad = (over > 0).sum().item()
-        logit_err = dl.max().item()
-        i = int(over.argmax())
-        worst_pair = (logits.flatten()[i].item(), rl.flatten()[i].item())
-        lse_err = (lse - rlse).abs().max().item()
-        pick_err = (picked - rpick).abs().max().item()
-        check(torch.isfinite(logits).all().item(), f"K8 R={R}: non-finite")
-        check(bad == 0, f"K8 R={R}: {bad} logits beyond one bf16 ulp + "
-              f"1e-5 (worst got/want {worst_pair})")
-        check(lse_err <= 1e-4 and pick_err <= 1e-5,
-              f"K8 R={R}: lse err {lse_err}, picked err {pick_err}")
-        worst = max(worst, logit_err, lse_err, pick_err)
-        del rl, dl
+        err = headce_errors(f"R={R}", got, want, t, V)
+        worst = max(worst, err)
+        del got, want
         km, pm, raw = timed_pair(lambda: FH.head_ce_fwd_cuda(x, w, t, V),
                                  lambda: FH.head_ce_fwd_plain(x, w, t, V),
                                  iters=10, warmup=2)
-        # the yardstick: the padded product (an aligned N for cuBLAS; the
-        # 50257 real rows alone take an odd N and a slower GEMM), then
-        # F.cross_entropy on the real columns of the bf16 logits, no cast
+        # the yardsticks: the bare padded product (an aligned N for cuBLAS;
+        # the 50257 real rows alone take an odd N and a slower GEMM); that
+        # product, then F.cross_entropy on the real columns of the bf16
+        # logits, no cast; the port's own route that K8 replaces: cuBLAS,
+        # then K5
+        mm = cuda_ms(lambda: torch.matmul(x, w.t()), iters=10, warmup=2)
         lib = cuda_ms(lambda: F.cross_entropy(
             torch.matmul(x, w.t())[:, :V], t, reduction="none"),
             iters=10, warmup=2)
-        # the port's own route that K8 replaces: cuBLAS, then K5
         two_op = cuda_ms(lambda: CE.ce_fwd_cuda(basic.linear(x, w), t, V),
                          iters=10, warmup=2)
         # reads x, w and the targets, writes the bf16 logits, lse, picked
-        bms, by = bound(2 * R * C * Vp, "bf16",
+        flops = 2 * R * C * Vp
+        bms, by = bound(flops, "bf16",
                         2 * R * C + 2 * Vp * C + 8 * R + 2 * R * Vp + 8 * R)
         shape = f"bf16 R={R} C=768 Vp={Vp} real_vocab={V}"
-        print(f"[kernels-headce] K8 {shape}: logits max_abs_err "
-              f"{logit_err:.3e}, lse {lse_err:.3e}, picked {pick_err:.3e}; kernel {raw[0]:.4f}/"
-              f"{raw[1]:.4f} ms, plain {raw[2]:.4f}/{raw[3]:.4f} ms, "
+        print(f"[kernels-headce] K8 {shape}: max err {err:.3e}; kernel "
+              f"{raw[0]:.4f}/{raw[1]:.4f} ms ({flops / km / 1e9:.1f} "
+              f"TFLOP/s), plain {raw[2]:.4f}/{raw[3]:.4f} ms, "
+              f"torch.matmul {mm:.4f} ms ({flops / mm / 1e9:.1f} TFLOP/s), "
               f"torch.matmul + F.cross_entropy (bf16) {lib:.4f} ms, cuBLAS "
               f"+ K5 {two_op:.4f} ms, bound {bms:.4f} ms ({by})")
         res[R] = dict(ms=km, plain_ms=pm, bound_ms=bms, bound_by=by,
-                      library_ms=lib, two_op_ms=two_op, shape=shape)
-        del x, w, t, logits, lse, picked
+                      library_ms=lib, two_op_ms=two_op, matmul_ms=mm,
+                      tflops=flops / km / 1e9, shape=shape)
+        del x, w, t
     res[8192]["max_abs_err"] = worst
+    res[8192]["resources"] = rsc
+    print("[kernels-headce] K8 " + "; ".join(
+        f"{k} {v['registers']} registers, {v['spill_bytes']} B spilled, "
+        f"{v['smem_bytes']} B shared, {v['threads']} threads"
+        + (f", persistent grid {v['grid_blocks']} blocks" if "grid_blocks" in v
+           else "")
+        for k, v in rsc.items()))
 
     R = 8192
     x = torch.randn(R, C, generator=gen, device="cuda").bfloat16()

@@ -11,8 +11,14 @@ against the JAX package's `head_ce_mean` in interpret mode on the CPU, and
   * `gpt_loss` with the port's ENABLE set against the JAX `gpt_loss` (loss
     rtol 2e-5, grads rtol 5e-4, atol 1e-6; qkvb atol 2e-4, ROADMAP.md
     Queue 3 #4) and against the port's two-op route (K5/K6), on CPU tensors;
-  * the wrapper's contract: `supports`, and a CPU tensor refused by the
-    kernel's own entry."""
+  * the wrapper's contract: `supports` (every shape it took before the
+    bf16 kernel moved to TMA and 192-column vocab tiles), `tma_mappable`
+    (the views the bf16 kernel reads in place: every one `gpt_loss`
+    passes; none with a base or row stride off 16 bytes, rows broadcast or
+    columns strided), and a CPU tensor refused by the kernel's own entry;
+  * the plain version at ragged R, targets on the last real column and in
+    the pad columns (the kernel's NaN pick for those is held on the card:
+    tests/test_torch_rope_window_cuda.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +28,7 @@ import torch
 
 from vitrs_tpu.models import model as JM
 from vitrs_tpu.ops import fused_head_ce as JH
+from vitrs_tpu_torch import config as TC
 from vitrs_tpu_torch import params as TP
 from vitrs_tpu_torch.models import model as TM
 from vitrs_tpu_torch.ops import fused_ce as TCE
@@ -133,3 +140,88 @@ def test_supports_and_the_kernel_entry_refuses_cpu():
     x, w, t = (torch.from_numpy(a) for a in _inputs(8, 64, 128, 100, 2))
     with pytest.raises(ValueError, match="CUDA"):
         TH.head_ce_fwd_cuda(x, w, t, 100)
+
+
+@pytest.mark.parametrize("R", [1, 127, 129, 8191, 16384])
+@pytest.mark.parametrize("Vp,C", [(128, 32), (128, 64), (1024, 96),
+                                  (16512, 256), (50304, 768), (50304, 1024),
+                                  (50304, 1280), (50304, 1600)])
+def test_supports_takes_every_shape_it_took(R, Vp, C):
+    """The rule before this kernel's redesign: R > 0, Vp % 128, C % 32;
+    a ragged last vocab tile (Vp not a multiple of 192) is the kernel's
+    to clip, not a shape to refuse."""
+    assert TH.supports(R, Vp, C)
+    assert not TH.supports(0, Vp, C)
+    assert not TH.supports(R, Vp + 64, C) and not TH.supports(R, Vp, C + 16)
+
+
+@pytest.mark.parametrize("name", ["gpt2-124m", "gpt2-350m", "gpt2-774m",
+                                  "gpt2-1558m"])
+def test_supports_takes_the_gpt2_presets(name):
+    cfg = TC.get_config(name)
+    assert TH.supports(8 * cfg.max_seq_len, TCE.pad_vocab(cfg.vocab_size),
+                       cfg.channels)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_tma_mappable_refuses_what_tma_cannot_map(dtype):
+    R, C, Vp = 64, 768, 1024
+    x = torch.zeros(R, C, dtype=dtype)
+    assert TH.tma_mappable(x)
+    assert TH.tma_mappable(torch.zeros(R, C + 64, dtype=dtype)[:, :C])
+    assert TH.tma_mappable(torch.zeros(2 * R, C, dtype=dtype)[R:])
+    buf = torch.zeros(R * C + 8, dtype=dtype)
+    assert TH.tma_mappable(buf[:R * C].view(R, C))
+    assert not TH.tma_mappable(buf[1:1 + R * C].view(R, C))        # base
+    assert not TH.tma_mappable(torch.zeros(R, C + 1, dtype=dtype)[:, :C])
+    assert not TH.tma_mappable(torch.zeros(1, C, dtype=dtype).expand(Vp, C))
+    assert not TH.tma_mappable(torch.zeros(C, Vp, dtype=dtype).t())
+    assert not TH.tma_mappable(torch.zeros(2, R, C, dtype=dtype))
+
+
+@pytest.mark.parametrize("kv", [0, 2])
+def test_gpt_loss_passes_views_tma_maps(kv, monkeypatch):
+    """Every x and w `gpt_loss` hands K8 (bf16 compute: lnf reshaped to
+    (R, C), the padded head) is a view the bf16 kernel reads in place."""
+    _, tcfg = small_cfgs(vocab_size=GPT_V, num_heads=4, channels=256,
+                         num_kv_heads=kv, dtype="bfloat16")
+    seen = []
+    plain = TH.head_ce_fwd_plain
+    monkeypatch.setattr(TH, "head_ce_fwd_plain", lambda x, w, t, v:
+                        seen.append((x, w)) or plain(x, w, t, v))
+    monkeypatch.setattr(TH, "ENABLE", True)
+    rng = np.random.default_rng(kv)
+    x, y = (torch.from_numpy(rng.integers(0, GPT_V, (2, 64))) for _ in "xy")
+    params = TP.from_numpy(np_params(tcfg), tcfg, "cpu")
+    loss = TM.loss_fn(params, x, y, tcfg)
+    assert torch.isfinite(loss) and len(seen) == 1
+    (lx, lw), = seen
+    assert lx.dtype == lw.dtype == torch.bfloat16
+    assert lx.shape == (128, 256) and lw.shape == (TCE.pad_vocab(GPT_V), 256)
+    assert TH.tma_mappable(lx) and TH.tma_mappable(lw)
+
+
+@pytest.mark.parametrize("R", [1, 127, 129])
+def test_fwd_plain_ragged_rows_last_and_pad_targets(R):
+    """The plain version's contract: any R; lse over the real columns;
+    picked is the target column of the fp32 product, the last real column
+    and a pad column included."""
+    C, Vp, V = 64, 384, 300
+    x, w, t = _inputs(R, C, Vp, V, seed=R, pad_zero=False)
+    t[0] = V - 1
+    if R > 1:
+        t[1] = V + 5
+    xb, wb = (torch.from_numpy(a).bfloat16() for a in (x, w))
+    logits, lse, picked = TH.head_ce_fwd_plain(xb, wb, torch.from_numpy(t), V)
+    tile = xb.double() @ wb.double().t()
+    assert logits.shape == (R, Vp) and lse.shape == picked.shape == (R,)
+    # within one bf16 ulp: the fp32 product rounds once more than fp64's
+    np.testing.assert_allclose(logits.float().numpy(),
+                               tile.bfloat16().float().numpy(),
+                               rtol=2.0 ** -7, atol=0)
+    np.testing.assert_allclose(lse.numpy(),
+                               torch.logsumexp(tile[:, :V], -1).numpy(),
+                               rtol=1e-6)
+    np.testing.assert_allclose(picked.numpy(),
+                               tile[torch.arange(R), t].numpy(), rtol=1e-6,
+                               atol=1e-7)

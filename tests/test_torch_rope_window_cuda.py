@@ -140,21 +140,76 @@ def test_prefill_band_matches_plain(cuda, KH, window):
     assert_out_close(got, want)
 
 
-@pytest.mark.parametrize("R", [100, 1024])
+# (R, C, Vp, real_vocab) around K8's tiles (bf16: 64 rows x 256 vocab
+# columns, 64-wide k steps): ragged R, C 64 .. 1600 (96: a half k step;
+# 1600: gpt2-1558m), every Vp but 1024 leaves a ragged last vocab tile
+HEAD_CE_CASES = [(100, 128, 1024, 1000), (1024, 128, 1152, 1100),
+                 (1, 768, 50304, 50257), (127, 768, 50304, 50257),
+                 (129, 768, 50304, 50257), (8191, 768, 50304, 50257),
+                 (256, 64, 1152, 1100), (129, 96, 1152, 1100),
+                 (300, 1600, 50304, 50257), (200, 768, 128, 100)]
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("R,C,Vp,V", HEAD_CE_CASES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_head_ce_matches_plain(cuda, dtype, R):
-    V, Vp = 1000, 1024
-    g = torch.Generator(device=cuda).manual_seed(R)
-    x = torch.randn(R, 128, generator=g, device=cuda).to(dtype)
-    w = (0.05 * torch.randn(Vp, 128, generator=g, device=cuda)).to(dtype)
+def test_head_ce_matches_plain(cuda, dtype, R, C, Vp, V, strided):
+    """K8 against its plain version; x and w column slices of wider rows
+    (strided: bf16 reads them in place by TMA); targets on the last real
+    column, in the pad columns and out of range pick NaN; two calls give
+    the same bits.  w is scaled by sqrt(128 / C), so that a logit keeps
+    the size (std about 0.57) the absolute picked bound was set for at
+    every C: two fp32 sums of C products in other orders differ by about
+    4e-6 of their size."""
+    g = torch.Generator(device=cuda).manual_seed(R + C)
+    pad = 64 * strided
+    x = torch.randn(R, C + pad, generator=g, device=cuda).to(dtype)[:, :C]
+    w_scale = 0.05 * math.sqrt(128 / C)
+    w = (w_scale * torch.randn(Vp, C + pad, generator=g, device=cuda)).to(dtype)
+    w = w[:, :C]
     t = torch.randint(0, V, (R,), generator=g, device=cuda)
+    special = [V - 1, V, Vp + 5, -1][:R]
+    t[:len(special)] = torch.tensor(special, device=cuda)
     before = FH.head_ce_fwd_cuda.launches
     logits, lse, picked = FH.head_ce_fwd(x, w, t, V)
-    rl, rlse, rpick = FH.head_ce_fwd_plain(x, w, t, V)
+    again = FH.head_ce_fwd(x, w, t, V)
+    rl, rlse, rpick = FH.head_ce_fwd_plain(x, w, t.clamp(0, Vp - 1), V)
     torch.cuda.synchronize()
-    assert FH.head_ce_fwd_cuda.launches == before + 1
+    assert FH.head_ce_fwd_cuda.launches == before + 2
     ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
     assert ((logits.float() - rl.float()).abs()
             <= ulp * rl.float().abs() + 1e-5).all()
     torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-4)
-    torch.testing.assert_close(picked, rpick, rtol=0, atol=1e-5)
+    real = (t >= 0) & (t < V)
+    torch.testing.assert_close(picked[real], rpick[real], rtol=0, atol=1e-5)
+    assert picked[~real].isnan().all()
+    for a, b in zip((logits, lse, picked), again):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("what", ["x base", "x row stride", "w broadcast",
+                                  "w columns strided"])
+def test_head_ce_refuses_views_tma_cannot_map(cuda, what):
+    """A bf16 x or w that TMA cannot map raises ValueError before any
+    launch: there is no fallback."""
+    R, C, Vp, V = 64, 768, 1024, 1000
+    buf = torch.randn(R * C + 8, device=cuda).bfloat16()
+    x = buf[:R * C].view(R, C)
+    w = torch.randn(Vp, C, device=cuda).bfloat16()
+    t = torch.randint(0, V, (R,), device=cuda)
+    if what == "x base":
+        x = buf[1:1 + R * C].view(R, C)
+    elif what == "x row stride":
+        x = torch.randn(R, C + 1, device=cuda).bfloat16()[:, :C]
+    elif what == "w broadcast":
+        w = w[:1].expand(Vp, C)
+    else:
+        w = torch.randn(C, Vp, device=cuda).bfloat16().t()
+    before = FH.head_ce_fwd_cuda.launches
+    with pytest.raises(ValueError, match="TMA"):
+        FH.head_ce_fwd_cuda(x, w, t, V)
+    assert FH.head_ce_fwd_cuda.launches == before

@@ -9,19 +9,22 @@ with the logsumexp and the target logit taken from the fp32 product, not
 from the rounded logits (so in bf16 this loss differs slightly from the
 two-op path's, whose K5 reads the rounded logits).  The Pallas forward
 (`_head_ce_fwd`, kernel `_kernel`) becomes `csrc/fused_head_ce.cu`; its
-grid is the port's own (2-D over row and vocab tiles, then a small merge
-launch; the source says why).  The backward is, as in the JAX package,
-outside the kernel: dlogits = (softmax - onehot) * g / R from the saved
-logits and lse (K6, ops/fused_ce.ce_bwd), then dX = dlogits . wte_p and
-dW = dlogits^T . X as matmuls.  The logits are still written once: the
-backward reads them.
+schedule is the port's own (bf16: a persistent warp-specialised wgmma GEMM
+over (row, vocab) tiles fed by TMA, the CE statistics in its epilogue,
+then a small merge launch; the source says why).  The backward is, as in
+the JAX package, outside the kernel: dlogits = (softmax - onehot) * g / R
+from the saved logits and lse (K6, ops/fused_ce.ce_bwd), then dX =
+dlogits . wte_p and dW = dlogits^T . X as matmuls.  The logits are still
+written once: the backward reads them.
 
 * `ENABLE = False` mirrors the JAX switch (fused_head_ce.py:55): with it
   set, models/model.gpt_loss routes here where `supports` takes the shape,
   as the JAX package does.  There is no CLI flag, as in the JAX package.
 * A CUDA tensor goes to the kernel (`head_ce_fwd_cuda`, which counts its
   `launches`; one launch runs the tile kernel and the merge), or the
-  wrapper raises; a CPU tensor to `head_ce_fwd_plain`.
+  wrapper raises; a CPU tensor to `head_ce_fwd_plain`.  The bf16 kernel
+  reads x and w in place by TMA, so a view `tma_mappable` refuses raises
+  before any launch; the fp32 instance takes contiguous copies.
 """
 
 from __future__ import annotations
@@ -35,18 +38,32 @@ import torch
 from . import _build, fused_ce
 
 ENABLE = False        # the JAX package's default; see the module docstring
-BLOCK_C = 32          # the kernel's k chunk: channels must be a multiple
+BLOCK_C = 32          # channels must be a multiple (the fp32 instance's k
+                      # chunk; the bf16 TMA maps zero-fill a half k step)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_VOCAB_TILE = 128     # the larger instance's vocab tile (bf16; fp32: 64)
+_VOCAB_TILE = 128     # the padded vocab must be a multiple (fp32 tiles: 64;
+                      # the bf16 tile's ragged last columns are clipped)
 
 
 def supports(n_rows: int, vocab_padded: int, channels: int) -> bool:
-    """Whether K8 takes the shape: a vocab that fills whole vocab tiles and
-    channels that fill whole k chunks.  The row count is free (the kernel
-    masks a ragged last row tile); the JAX gate's R % 2048 is its TPU
-    panel, not carried over."""
+    """Whether K8 takes the shape: a vocab padded to a multiple of 128 and
+    channels a multiple of 32.  The row count is free (the kernel masks a
+    ragged last row tile); the JAX gate's R % 2048 is its TPU panel, not
+    carried over."""
     return (n_rows > 0 and vocab_padded % _VOCAB_TILE == 0
             and channels % BLOCK_C == 0)
+
+
+def tma_mappable(t: torch.Tensor) -> bool:
+    """Whether a 2-D tensor or view is one the bf16 kernel's tensor maps
+    (csrc/fused_head_ce.cu `map_2d`) can describe: rows contiguous, the
+    base address and the row stride 16-byte multiples, and rows that do not
+    overlap.  `gpt_loss` passes contiguous tensors (lnf reshaped to (R, C),
+    the padded head), which qualify; a view cut at an odd offset, out of a
+    row of odd width, or broadcast along the rows does not."""
+    es = t.element_size()
+    return (t.dim() == 2 and t.stride(1) == 1 and t.data_ptr() % 16 == 0
+            and t.stride(0) * es % 16 == 0 and t.stride(0) >= t.shape[1])
 
 
 def head_ce_fwd_plain(x: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
@@ -70,7 +87,8 @@ def _kernel():
     lib = _build.load("fused_head_ce").lib
     fn = lib.vitrs_head_ce_fwd
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [I, P, P, P, I, I, I, I, P, P, P, P, P, P]
+    LL = ctypes.c_longlong
+    fn.argtypes = [I, P, P, P, I, I, I, I, LL, LL, P, P, P, P, P, P]
     fn.restype = I
     lib.vitrs_head_ce_tile.argtypes = [I]
     lib.vitrs_head_ce_tile.restype = I
@@ -83,7 +101,8 @@ def head_ce_fwd_cuda(x: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
     """Launch K8 on the current stream (the tile kernel and the merge; one
     count): the contract of `head_ce_fwd_plain`.  A target outside
     [0, real_vocab) gives a NaN pick.  Raises on anything the kernel does
-    not take, and if a launch is refused."""
+    not take (bf16: x or w a view `tma_mappable` refuses), before any
+    launch, and if a launch is refused."""
     if (x.device.type != "cuda" or w.device != x.device
             or targets.device != x.device):
         raise ValueError("head_ce_fwd_cuda: x, w and targets must be on one "
@@ -98,24 +117,33 @@ def head_ce_fwd_cuda(x: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
                          f"{tuple(targets.shape)}")
     R, C = x.shape
     Vp = w.shape[0]
+    if not supports(R, Vp, C) or not 0 < real_vocab <= Vp:
+        raise ValueError(f"head_ce_fwd_cuda: R={R} > 0, C={C} a multiple "
+                         f"of {BLOCK_C}, Vp={Vp} of {_VOCAB_TILE}, and "
+                         f"real_vocab {real_vocab} in (0, Vp]")
+    if x.dtype == torch.float32:
+        x, w = x.contiguous(), w.contiguous()
+        x_ld = w_ld = C        # rows back to back (a 1-row view may not say so)
+    elif tma_mappable(x) and tma_mappable(w):
+        x_ld, w_ld = x.stride(0), w.stride(0)
+    else:
+        raise ValueError(f"head_ce_fwd_cuda: TMA cannot map x (strides "
+                         f"{x.stride()}) or w (strides {w.stride()}): rows "
+                         f"contiguous, base and row stride 16-byte multiples")
     fn, tile_of = _kernel()
     tile = tile_of(_DTYPE_CODE[x.dtype])
-    if C % BLOCK_C or Vp % tile or not 0 < real_vocab <= Vp:
-        raise ValueError(f"head_ce_fwd_cuda: C={C} must be a multiple of "
-                         f"{BLOCK_C}, Vp={Vp} of {tile}, and real_vocab "
-                         f"{real_vocab} in (0, Vp]")
-    x, w = x.contiguous(), w.contiguous()
     tgt = targets.to(torch.int64).contiguous()
     logits = torch.empty((R, Vp), dtype=x.dtype, device=x.device)
-    part = torch.empty((2, R, Vp // tile), dtype=torch.float32,
+    part = torch.empty((2, R, -(-Vp // tile)), dtype=torch.float32,
                        device=x.device)
     lse = torch.empty(R, dtype=torch.float32, device=x.device)
     picked = torch.empty_like(lse)
     with torch.cuda.device(x.device):
         rc = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(),
-                tgt.data_ptr(), R, C, Vp, real_vocab, logits.data_ptr(),
-                part[0].data_ptr(), part[1].data_ptr(), lse.data_ptr(),
-                picked.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                tgt.data_ptr(), R, C, Vp, real_vocab, x_ld, w_ld,
+                logits.data_ptr(), part[0].data_ptr(),
+                part[1].data_ptr(), lse.data_ptr(), picked.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"head_ce_fwd kernel launch failed: CUDA error {rc}")
     head_ce_fwd_cuda.launches += 1
