@@ -92,6 +92,28 @@ on any failure.  Phases, each printed as it ends:
                     32 new tokens beside the dense-cache run.
  18. xdevice-window small fp32 rope + window models (kv 2 and 1): a training
                     step and a chunked generate on CUDA and on the CPU agree.
+ 19. kernels-vit    K1-fwd and K2 at causal=False (vit mode's bidirectional
+                    attention) against their plain versions at (B, T, NH) =
+                    (64, 197, 12), (256, 197, 6), (8, 17, 2), (64, 65, 3),
+                    bf16 and fp32, twice with bitwise equal results; times
+                    at the T=197 shapes by events and by device time
+                    (torch.profiler) beside the bound and SDPA's
+                    non-causal forward and backward; K7 over ViT-B/16's
+                    87,335,656 values beside AdamW(fused=True).
+ 20. infer-vit      ViT-S/16 (seeded random weights, bf16, B=256) through
+                    the infer CLI's function: 12 K1-fwd launches a forward,
+                    finite logits near the fp32 CPU forward's; images/s,
+                    latency, MFU, peak memory.
+ 21. train-vit      ViT-B/16 (87,335,656 parameters) at full width and
+                    depth, B=64, synthetic-imagenet (uint8, normalised on
+                    the device), 12 steps through train/loop.train with
+                    AdamW, wd 0.05: finite, falling loss; 12 K1-fwd, 12 K2,
+                    1 K7 a step, no K5, K6 or K8; step ms, images/s, MFU,
+                    peak memory, the loader's ms a batch.
+ 22. xdevice-vit    a small fp32 vit (T=65, 2 heads of 64, CLS pool): one
+                    training step on CUDA and on the CPU, plain, with mixup
+                    and with stochastic depth + head dropout: loss, every
+                    gradient and the updated parameters agree.
 
 `python3 chip_smoke.py --phases a,b` runs only the named phases (after the
 device phase) and prints no result lines.
@@ -698,39 +720,9 @@ def phase_kernels_train():
                          shape=shape)
     del logits, d, want_d, derr
 
-    worst = 0.0
-    for n in (1_000_003, 124_439_808):
-        p, gr, m = (torch.randn(n, generator=gen, device="cuda") for _ in range(3))
-        v = torch.rand(n, generator=gen, device="cuda")
-        want = FW.adamw_plain(p.clone(), gr, m.clone(), v.clone(), 7, 3e-4,
-                              weight_decay=0.1)
-        got = FW.adamw_cuda(p, gr, m, v, 7, 3e-4, weight_decay=0.1)
-        torch.cuda.synchronize()
-        for name, a, b in zip("pmv", got, want):
-            err = (a - b).abs()
-            bad = (err > 1e-9 + 2e-6 * b.abs()).sum().item()
-            check(bad == 0, f"K7 n={n}: {bad} {name} values beyond tolerance")
-            worst = max(worst, err.max().item())
-        print(f"[kernels-train] K7 n={n}: p/m/v within rtol 2e-6 "
-              f"(max_abs_err {worst:.3e})")
-        del want
-    km, pm, raw = timed_pair(
-        lambda: FW.adamw_cuda(p, gr, m, v, 7, 3e-4, weight_decay=0.1),
-        lambda: FW.adamw_plain(p, gr, m, v, 7, 3e-4, weight_decay=0.1))
-    leaf = p.detach().clone().requires_grad_(True)
-    leaf.grad = gr
-    lib_opt = torch.optim.AdamW([leaf], lr=3e-4, weight_decay=0.1, fused=True)
-    lib = cuda_ms(lib_opt.step)
-    del lib_opt, leaf
-    # reads p, g, m, v and writes p, m, v in fp32; about 16 operations each
-    n = p.numel()
-    bms, by = bound(16 * n, "fp32", 28 * n)
-    print(f"[kernels-train] K7 time n=124439808 fp32: kernel "
-          f"{raw[0]:.4f}/{raw[1]:.4f} ms, plain {raw[2]:.4f}/{raw[3]:.4f} ms, "
-          f"AdamW(fused=True).step {lib:.4f} ms, bound {bms:.4f} ms ({by})")
-    res["adamw"] = dict(max_abs_err=worst, ms=km, plain_ms=pm, bound_ms=bms,
-                        bound_by=by, library_ms=lib,
-                        shape="fp32 n=124439808, fp32 grads")
+    res["adamw"] = adamw_at((1_000_003, 124_439_808), gen, "kernels-train",
+                            weight_decay=0.1)
+    res["adamw"]["shape"] += ", fp32 grads"
     return res
 
 
@@ -883,9 +875,23 @@ def phase_xdevice_train(cfg=None, tag="xdevice-train"):
     want = designed(**{fwd: 2 * L, bwd: 2 * L}, ce_fwd=2, ce_bwd=2, adamw=1)
     check(out["cuda"][4] == want, f"{tag}: CUDA launches {out['cuda'][4]}")
     check(not any(out["cpu"][4].values()), f"{tag}: a kernel ran on CPU")
-    (lc, gc, pc, sc, _), (lp, gp, pp, sp, _) = out["cuda"], out["cpu"]
+    lc, lp = out["cuda"][0], out["cpu"][0]
+    gerr, perr = compare_steps(tag, out["cuda"], out["cpu"], lr)
+    print(f"[{tag}] fp32 L=2 NH={cfg.num_heads} KH={cfg.kv_heads} "
+          f"C={cfg.channels} V={cfg.vocab_size}: loss {lc:.6f} (cuda) vs "
+          f"{lp:.6f} (cpu); 16 grads max_abs_err {gerr:.3e}; params after "
+          f"one AdamW step max_abs_err {perr:.3e}")
+    return out["cuda"][4]
+
+
+def compare_steps(tag, got, want, lr):
+    """Hold a training step on CUDA (got) against the CPU's (want), each
+    (loss, grads, params after the step, step loss, launches), at phase
+    xdevice-train's tolerances; returns the largest grad and param
+    errors."""
+    (lc, gc, pc, sc, _), (lp, gp, pp, sp, _) = got, want
     check(abs(lc - lp) <= 1e-5 * abs(lp) and abs(sc - sp) <= 1e-5 * abs(sp),
-          f"{tag}: loss {lc} vs {lp}")
+          f"{tag}: loss {lc} vs {lp}, step loss {sc} vs {sp}")
     gerr = perr = 0.0
     for k in gp:
         atol = 2e-4 if k == "qkvb" else 1e-6
@@ -899,11 +905,7 @@ def phase_xdevice_train(cfg=None, tag="xdevice-train"):
         check(bool((d <= tol).all()),
               f"{tag}: param {k} max err {d.max().item()}")
         perr = max(perr, d.max().item())
-    print(f"[{tag}] fp32 L=2 NH={cfg.num_heads} KH={cfg.kv_heads} "
-          f"C={cfg.channels} V={cfg.vocab_size}: loss {lc:.6f} (cuda) vs "
-          f"{lp:.6f} (cpu); 16 grads max_abs_err {gerr:.3e}; params after "
-          f"one AdamW step max_abs_err {perr:.3e}")
-    return out["cuda"][4]
+    return gerr, perr
 
 
 def phase_kernels_gqa():
@@ -1910,6 +1912,376 @@ def phase_train_headce(smi, two_op):
     return counts, res
 
 
+# ---------------------------------------------------------------------------
+# vit mode: ViT-B/16 training, ViT-S/16 inference (non-causal flash at T=197)
+# ---------------------------------------------------------------------------
+
+VIT_SHAPES = ((64, 197, 12), (256, 197, 6), (8, 17, 2), (64, 65, 3))
+
+
+def vit_attn_bound(B, T, nh, es, passes):
+    """Bound of a non-causal flash forward (passes 2: S and P.V) or
+    backward (passes 5: S, dP, dV, dK, dQ) at (B, T, nh, D=64): 2 D flops a
+    product per (query, key) pair over T x T pairs on the tensor cores (or
+    fp32 units); the forward reads qkv and writes out and lse, the backward
+    reads q, k, v, out, do and lse and writes dq, dk, dv."""
+    Cv = nh * D
+    flops = 2 * passes * B * nh * D * T * T
+    tensors = 4 if passes == 2 else 8
+    nbytes = tensors * B * T * Cv * es + B * nh * T * 4
+    return flops, bound(flops, "bf16" if es == 2 else "fp32", nbytes)
+
+
+def sdpa_full(q, k, v, nh):
+    """One PyTorch call computing the non-causal forward (a yardstick)."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(heads(q, nh), heads(k, nh),
+                                          heads(v, nh))
+
+
+def device_ms(fn, iters=10):
+    """Device time of one call of fn (ms): the profiler's kernel time
+    (utils/profiling.op_breakdown), which the host's launch rate cannot
+    stretch, unlike the event loop's reading of a call under about
+    0.07 ms; None where the trace caught no kernel (it has missed the
+    kernels of an autograd backward, which runs on the engine's own
+    thread)."""
+    from vitrs_tpu_torch.utils import profiling
+    return profiling.op_breakdown(fn, iters)["busy_ms"] or None
+
+
+def phase_kernels_vit():
+    """K1-fwd and K2 at causal=False, vit mode's attention, against their
+    plain versions at (B, T, NH) = (64, 197, 12) (ViT-B/16 training),
+    (256, 197, 6) (ViT-S/16 inference), (8, 17, 2) (the CPU test model) and
+    (64, 65, 3) (vit-tiny-4-cifar10), bf16 and fp32: out as `out_errors`,
+    lse 1e-4 bf16 / 1e-5 fp32, dq/dk/dv 2e-2 abs + rel bf16 / 1e-4 fp32
+    (phase kernels-train's); two calls of each give the same bits.  Then,
+    at the two T=197 shapes in bf16: kernel and plain by events (plain,
+    kernel, kernel, plain), the kernel's device time by the profiler, the
+    bound and SDPA's non-causal forward and backward on the same
+    tensors.  Then K7 over ViT-B/16's 87,335,656 values (`adamw_at`)."""
+    from vitrs_tpu_torch.ops import flash_attention as FA
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for B, T, nh in VIT_SHAPES:
+        Cv = nh * D
+        for dtype, lse_tol, tol in ((torch.bfloat16, 1e-4, 2e-2),
+                                    (torch.float32, 1e-5, 1e-4)):
+            qkv = torch.randn(B, T, 3 * Cv, generator=gen, device="cuda").to(dtype)
+            do = torch.randn(B, T, Cv, generator=gen, device="cuda").to(dtype)
+            q, k, v = qkv.split(Cv, dim=-1)
+            where = f"B={B} T={T} NH={nh} {str(dtype)[6:]}"
+            (out, lse), (out2, lse2) = (FA.flash_fwd_cuda(q, k, v, nh, False,
+                                                          0.125)
+                                        for _ in range(2))
+            ref, ref_lse = FA.flash_fwd_plain(q, k, v, nh, False, 0.125)
+            got, again = (FA.flash_bwd_cuda(q, k, v, out, lse, do, nh, False,
+                                            0.125) for _ in range(2))
+            want = FA.flash_bwd_plain(q, k, v, out, lse, do, nh, False, 0.125)
+            torch.cuda.synchronize()
+            check(torch.equal(out, out2) and torch.equal(lse, lse2),
+                  f"K1-fwd {where}: two calls differ")
+            bad, err, rms = out_errors(out, ref)
+            lse_err = (lse - ref_lse).abs().max().item()
+            check(bad == 0, f"K1-fwd {where}: {bad} out values beyond "
+                  f"tolerance")
+            check(lse_err <= lse_tol, f"K1-fwd {where}: lse err {lse_err}")
+            errs = []
+            for name, a, b, c in zip(("dq", "dk", "dv"), got, again, want):
+                check(torch.equal(a, b), f"K2 {where}: {name} differs between "
+                      f"two calls")
+                d = (a.float() - c.float()).abs()
+                nbad = ((d > tol + tol * c.float().abs()).sum().item()
+                        + (~torch.isfinite(a)).sum().item())
+                check(nbad == 0, f"K2 {where}: {nbad} {name} values beyond "
+                      f"{tol}")
+                errs.append(d.max().item())
+            print(f"[kernels-vit] {where} causal=0: out max_abs_err {err:.3e} "
+                  f"(rms {rms:.3e}), lse {lse_err:.3e}; dq/dk/dv "
+                  f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}; each bitwise "
+                  f"equal over two calls")
+            if dtype == torch.bfloat16:
+                worst["fwd"] = max(worst["fwd"], err)
+                worst["bwd"] = max(worst["bwd"], *errs)
+            del qkv, do, q, k, v, out, out2, ref, got, again, want
+    res = {}
+    for B, T, nh in VIT_SHAPES[:2]:
+        Cv = nh * D
+        qkv = torch.randn(B, T, 3 * Cv, generator=gen, device="cuda").bfloat16()
+        do = torch.randn(B, T, Cv, generator=gen, device="cuda").bfloat16()
+        q, k, v = qkv.split(Cv, dim=-1)
+        out, lse = FA.flash_fwd_cuda(q, k, v, nh, False, 0.125)
+        shape = f"bf16 B={B} T={T} NH={nh} D=64 non-causal"
+        kernels = {
+            "fwd": (lambda: FA.flash_fwd_cuda(q, k, v, nh, False, 0.125),
+                    lambda: FA.flash_fwd_plain(q, k, v, nh, False, 0.125),
+                    lambda: sdpa_full(q, k, v, nh), 2),
+            "bwd": (lambda: FA.flash_bwd_cuda(q, k, v, out, lse, do, nh,
+                                              False, 0.125),
+                    lambda: FA.flash_bwd_plain(q, k, v, out, lse, do, nh,
+                                               False, 0.125),
+                    sdpa_bwd_full(q, k, v, do, nh), 5)}
+        for part, (kern, plain, lib_fn, passes) in kernels.items():
+            km, pm, raw = timed_pair(kern, plain)
+            dev = device_ms(kern)
+            lib = cuda_ms(lib_fn)
+            lib_dev = device_ms(lib_fn)
+            flops, (bms, by) = vit_attn_bound(B, T, nh, 2, passes)
+            name = "K1-fwd" if part == "fwd" else "K2"
+            check(dev is not None, f"{name}: the trace caught no kernel")
+            print(f"[kernels-vit] {name} time {shape}: kernel {raw[0]:.4f}/"
+                  f"{raw[1]:.4f} ms by events, {dev:.4f} ms device "
+                  f"({flops / dev / 1e9:.1f} TFLOP/s); plain "
+                  f"{raw[2]:.4f}/{raw[3]:.4f} ms; SDPA "
+                  f"{'forward' if part == 'fwd' else 'backward'} {lib:.4f} "
+                  f"ms by events, {lib_dev or 'not captured'} device; bound "
+                  f"{bms:.4f} ms ({by})")
+            res.setdefault(part, {})[(B, nh)] = dict(
+                ms=km, device_ms=dev, plain_ms=pm, library_ms=lib,
+                library_device_ms=lib_dev, bound_ms=bms, bound_by=by,
+                tflops_device=flops / dev / 1e9, shape=shape)
+        del qkv, do, q, k, v, out, lse
+    for part in ("fwd", "bwd"):
+        res[part] = dict(max_abs_err=worst[part], **res[part].pop((64, 12)),
+                         infer_shape=res[part].pop((256, 6)))
+    res["adamw"] = adamw_at((VIT_B16_PARAMS,), gen, "kernels-vit")
+    return res
+
+
+def adamw_at(ns, gen, tag, weight_decay=0.05):
+    """K7 against its plain version over each n of `ns` fp32 values (rtol
+    2e-6, atol 1e-9: the same fp32 operations in the same order), then at
+    the last n: kernel and plain times (plain, kernel, kernel, plain),
+    AdamW(fused=True).step on the same tensors, and the bound (reads p, g,
+    m, v and writes p, m, v: 28 bytes a value; about 16 fp32 operations
+    each)."""
+    from vitrs_tpu_torch.ops import fused_adamw as FW
+    worst = 0.0
+    for n in ns:
+        p, gr, m = (torch.randn(n, generator=gen, device="cuda")
+                    for _ in range(3))
+        v = torch.rand(n, generator=gen, device="cuda")
+        want = FW.adamw_plain(p.clone(), gr, m.clone(), v.clone(), 7, 3e-4,
+                              weight_decay=weight_decay)
+        got = FW.adamw_cuda(p, gr, m, v, 7, 3e-4, weight_decay=weight_decay)
+        torch.cuda.synchronize()
+        for name, a, b in zip("pmv", got, want):
+            err = (a - b).abs()
+            bad = (err > 1e-9 + 2e-6 * b.abs()).sum().item()
+            check(bad == 0, f"K7 n={n}: {bad} {name} values beyond tolerance")
+            worst = max(worst, err.max().item())
+        print(f"[{tag}] K7 n={n}: p/m/v within rtol 2e-6 "
+              f"(max_abs_err {worst:.3e})")
+        del want
+    km, pm, raw = timed_pair(
+        lambda: FW.adamw_cuda(p, gr, m, v, 7, 3e-4, weight_decay=weight_decay),
+        lambda: FW.adamw_plain(p, gr, m, v, 7, 3e-4,
+                               weight_decay=weight_decay))
+    leaf = p.detach().clone().requires_grad_(True)
+    leaf.grad = gr
+    lib_opt = torch.optim.AdamW([leaf], lr=3e-4, weight_decay=weight_decay,
+                                fused=True)
+    lib = cuda_ms(lib_opt.step)
+    bms, by = bound(16 * n, "fp32", 28 * n)
+    print(f"[{tag}] K7 time n={n} fp32: kernel {raw[0]:.4f}/{raw[1]:.4f} ms, "
+          f"plain {raw[2]:.4f}/{raw[3]:.4f} ms, AdamW(fused=True).step "
+          f"{lib:.4f} ms, bound {bms:.4f} ms ({by})")
+    return dict(max_abs_err=worst, ms=km, plain_ms=pm, bound_ms=bms,
+                bound_by=by, library_ms=lib, shape=f"fp32 n={n}")
+
+
+def sdpa_bwd_full(q, k, v, do, nh):
+    """A closure running the backward of `sdpa_full` (a yardstick)."""
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = sdpa_full(*leaves, nh)
+    dout = heads(do, nh)
+    return lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+
+def phase_infer_vit(smi, steps=20):
+    """vit-s-16 (22,434,664 parameters, seeded random weights) in bf16 at
+    B=256 through the infer CLI's function (cli/infer.run: one warm-up
+    forward, then `steps`): 12 K1-fwd launches a forward and no other
+    kernel, finite logits; the first 4 images' logits within 5e-2 (of
+    their largest value) of the same model's fp32 forward on the CPU (the
+    plain versions).  Prints images/s, latency, MFU on forward FLOPs, and
+    peak memory."""
+    from vitrs_tpu_torch import params as P
+    from vitrs_tpu_torch.cli import infer
+    from vitrs_tpu_torch.config import get_config
+    cfg = get_config("vit-s-16")
+    check(P.num_parameters(cfg) == 22_434_664, "vit-s-16 parameter count")
+    reset_counts()
+    rec = infer.run("vit-s-16", batch_size=256, steps=steps,
+                    dtype="bfloat16", device="cuda")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    logits = rec.pop("logits")
+    L = cfg.num_layers
+    want = designed(flash_fwd=L * (steps + 1))
+    check(counts == want, f"[infer-vit] launches {counts} != designed {want}")
+    check(tuple(logits.shape) == (256, 1000)
+          and bool(torch.isfinite(logits).all()), "[infer-vit] logits")
+    ref = infer.run("vit-s-16", batch_size=4, steps=1, dtype="float32",
+                    device="cpu")["logits"]
+    err = ((logits[:4].float().cpu() - ref).abs().max()
+           / ref.abs().max()).item()
+    check(err <= 5e-2, f"[infer-vit] bf16 logits vs fp32 CPU: {err}")
+    print(f"[infer-vit] vit-s-16 bf16 B=256: {rec['value']} images/s, "
+          f"latency {rec['latency_ms']} ms a batch, MFU {rec['mfu']} (forward "
+          f"FLOPs, 989 TFLOP/s), peak {rec['peak_mem_gib']} GiB; "
+          f"{counts['flash_fwd'] // (steps + 1)} K1-fwd launches a forward; "
+          f"logits vs fp32 CPU {err:.3e} of their largest  ({smi})")
+    return counts, rec
+
+
+VIT_B16_PARAMS = 87_335_656
+
+
+def phase_train_vit(smi, steps=12, B=64):
+    """ViT-B/16 (87,335,656 parameters) at full width and depth, fp32
+    masters and bf16 compute, B=64, on synthetic-imagenet (224x224, 1000
+    classes, uint8 normalised on the device) through train/loop.train with
+    AdamW, wd 0.05 (bench.py's), cosine lr 3e-4, warmup 2.  The dataset is
+    cut to 64 images a split, one batch an epoch, so each step trains on
+    the same images (cropped and flipped anew), as bench.py's row trains
+    on one fixed batch: with about one image a class, fresh batches give
+    12 steps nothing to learn (a first run on 1024 images at lr 1e-3 read
+    6.95 -> 7.28).  Finite, falling loss; launches 12 K1-fwd, 12 K2 and 1
+    K7 a step and no K5, K6 or K8 (the end-of-run evaluation adds 12 K1-fwd
+    a batch); step ms (median of steps 3-12), images/s, MFU, peak memory,
+    the loader's host ms a batch, and top-1 on the eval split."""
+    from vitrs_tpu_torch import params as P
+    from vitrs_tpu_torch.config import get_config
+    from vitrs_tpu_torch.train import loop
+    cfg = get_config("vit-b-16")
+    check(P.num_parameters(cfg) == VIT_B16_PARAMS, "vit-b-16 parameter count")
+    n = B
+    with tempfile.TemporaryDirectory() as work:
+        tc = loop.TrainConfig(preset="vit-b-16", dataset="synthetic-imagenet",
+                              dataset_size=n, steps=steps, batch_size=B,
+                              lr=3e-4, warmup=2, min_lr=1e-5,
+                              weight_decay=0.05, dtype="bfloat16",
+                              log_every=1, ckpt_every=0, workdir=work,
+                              device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        summary = loop.train(tc)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        with open(os.path.join(work, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+    L = cfg.num_layers
+    eval_batches = n // min(256, n)
+    want = designed(flash_fwd=L * (steps + eval_batches), flash_bwd=L * steps,
+                    adamw=steps)
+    check(counts == want, f"[train-vit] launches {counts} != designed {want}")
+    losses = [r["loss"] for r in recs]
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"[train-vit] losses {losses}")
+    check(losses[-1] < losses[0], f"[train-vit] loss did not fall: {losses}")
+    steady = recs[2:]
+    ips = float(np.median([r["imgs_per_sec"] for r in steady]))
+    mfu = float(np.median([r["mfu"] for r in steady]))
+    loader_ms = float(np.median([r["loader_ms"] for r in steady]))
+    step_ms = B / ips * 1e3
+    ev = summary["eval"]
+    print(f"[train-vit] vit-b-16 ({VIT_B16_PARAMS} params) bf16/fp32-master "
+          f"B={B} T=197 synthetic-imagenet {steps} steps: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; eval top-1 {ev['acc']:.4f} "
+          f"loss {ev['loss']:.4f} on {ev['n']}")
+    print(f"[train-vit] losses {losses}")
+    print(f"[train-vit] launches per step: flash_fwd "
+          f"{(counts['flash_fwd'] - L * eval_batches) // steps} (+{L} per eval "
+          f"batch), flash_bwd {counts['flash_bwd'] // steps} (3 kernels "
+          f"each), adamw {counts['adamw'] // steps}, every other kernel 0")
+    print(f"[train-vit] steady (steps 3-{steps}, median): {step_ms:.2f} "
+          f"ms/step incl. the loader, {ips:.1f} images/s, MFU {mfu:.4f} of "
+          f"989 TFLOP/s; loader {loader_ms:.2f} ms a batch on the host; "
+          f"max_memory_allocated {peak / 2**30:.3f} GiB; wall {wall:.1f} s "
+          f"incl. data, init, checkpoint and eval  ({smi})")
+    print(f"[train-vit] per-step images/s {[r['imgs_per_sec'] for r in recs]}")
+    return counts, dict(step_ms=step_ms, imgs_s=ips, mfu=mfu,
+                        loader_ms=loader_ms, peak_gib=peak / 2**30,
+                        losses=losses, eval=ev)
+
+
+def phase_xdevice_vit():
+    """One vit training step of a small fp32 model (img 32, patch 4, T=65,
+    2 heads of 64, CLS pool, 2 layers, 10 classes) on CUDA with the kernels
+    and on the CPU with the plain versions, from the same weights and the
+    same uint8 batch (normalised on each device): plain; with mixup
+    (lambda and the permutation drawn on the host, `mixup_draw`); with
+    stochastic depth 0.5 and head dropout 0.2 (flags from the step's CPU
+    generator, `step_generator`, so both devices drop the same branches).
+    Loss, all 21 gradients and the updated parameters agree within phase
+    xdevice-train's tolerances; each CUDA step launches 2L K1-fwd, 2L K2
+    and one K7 (the gradients' pass, then the step's)."""
+    from vitrs_tpu_torch import params as P
+    from vitrs_tpu_torch.config import get_config
+    from vitrs_tpu_torch.data import datasets as DS
+    from vitrs_tpu_torch.models import model as M
+    from vitrs_tpu_torch.parallel import data_parallel as dp
+    base = get_config("vit-tiny-4-cifar10").replace(
+        num_layers=2, num_heads=2, channels=128, dtype="float32")
+    rng = np.random.default_rng(4)
+    x = rng.integers(0, 256, (8, 32, 32, 3)).astype(np.uint8)
+    y = rng.integers(0, 10, 8)
+    stats = (DS.CIFAR10_MEAN, DS.CIFAR10_STD)
+    lr = 1e-3
+    variants = (("plain", base, 0.0),
+                ("mixup", base, 0.4),
+                ("drop-path", base.replace(drop_path=0.5, drop_rate=0.2), 0.0))
+    all_counts = {}
+    for tag, cfg, alpha in variants:
+        params = P.init_params(cfg, torch.Generator().manual_seed(5))
+        out = {}
+        for dev in ("cuda", "cpu"):
+            reset_counts()
+            leaves = {k: v.to(dev).requires_grad_(True)
+                      for k, v in params.items()}
+            xd = dp.normalize_images(torch.as_tensor(x, device=dev), *stats)
+            yd = torch.as_tensor(y, device=dev)
+            if alpha:
+                lam, perm = dp.mixup_draw(alpha, 1, 8)
+                loss = dp.mixup_loss(leaves, xd, yd, lam,
+                                     torch.as_tensor(perm, device=dev), cfg)
+            else:
+                loss = M.loss_fn(leaves, xd, yd, cfg,
+                                 generator=dp.step_generator(1))
+            loss.backward()
+            flat = P.flatten_params(params, cfg).to(dev)
+            mesh = dp.make_mesh(devices=[dev])
+            m, v = dp.init_sharded_opt_state(cfg, mesh)
+            step = dp.make_dp_train_step(cfg, mesh, clip_norm=1.0,
+                                         mixup_alpha=alpha, normalize=stats)
+            new, _, _, step_loss = step(P.unflatten_params(flat, cfg), m, v,
+                                         x, y, 1, lr, 0.05)
+            out[dev] = (loss.item(),
+                        {k: torch.zeros(t.shape) if t.grad is None
+                         else t.grad.cpu() for k, t in leaves.items()},
+                        {k: t.detach().cpu() for k, t in new.items()},
+                        step_loss.item(), read_counts())
+        L = cfg.num_layers
+        want = designed(flash_fwd=2 * L, flash_bwd=2 * L, adamw=1)
+        check(out["cuda"][4] == want, f"xdevice-vit {tag}: CUDA launches "
+              f"{out['cuda'][4]}")
+        check(not any(out["cpu"][4].values()),
+              f"xdevice-vit {tag}: a kernel ran on CPU")
+        all_counts[tag] = out["cuda"][4]
+        gerr, perr = compare_steps(f"xdevice-vit {tag}", out["cuda"],
+                                   out["cpu"], lr)
+        print(f"[xdevice-vit] {tag}: fp32 L=2 NH=2 T=65: loss "
+              f"{out['cuda'][0]:.6f} (cuda) vs {out['cpu'][0]:.6f} (cpu); "
+              f"{len(out['cpu'][1])} grads max_abs_err {gerr:.3e}; params "
+              f"after one AdamW step max_abs_err {perr:.3e}")
+    return all_counts
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch sees no CUDA device")
@@ -1940,6 +2312,10 @@ def main():
         ("train-headce", lambda: phase_train_headce(smi, R["train"][1])),
         ("serve-window", lambda: phase_serve_window(smi)),
         ("xdevice-window", phase_xdevice_window),
+        ("kernels-vit", phase_kernels_vit),
+        ("infer-vit", lambda: phase_infer_vit(smi)),
+        ("train-vit", lambda: phase_train_vit(smi)),
+        ("xdevice-vit", phase_xdevice_vit),
     )
     for name, fn in phases:
         if only is None or name in only:
@@ -1961,6 +2337,9 @@ def main():
     win_counts, win_train = R["train-window"]
     h8_counts, h8_train = R["train-headce"]
     serve_win, xwin = R["serve-window"], R["xdevice-window"]
+    kvit = R["kernels-vit"]
+    infer_counts, infer_vit = R["infer-vit"]
+    vit_counts, train_vit = R["train-vit"]
     fa = "vitrs_tpu/ops/flash_attention.py:"
     fg = "vitrs_tpu/ops/flash_attention_gqa.py:"
     kernels = [
@@ -1981,7 +2360,8 @@ def main():
              launches=counts["ce_bwd"], **ktrain["ce_bwd"]),
         dict(name="adamw", route="cuda", source=CSRC + "fused_adamw.cu",
              replaces="vitrs_tpu/ops/fused_adamw.py:28",
-             launches=counts["adamw"], **ktrain["adamw"]),
+             launches=counts["adamw"], vit_launches=vit_counts["adamw"],
+             vit=kvit["adamw"], **ktrain["adamw"]),
         dict(name="flash_gqa_fwd", route="cuda", source=CSRC + "flash_fwd.cu",
              replaces=fg + "358", also_replaces=[fg + "262"],
              launches=gqa_counts["flash_gqa_fwd"],
@@ -2026,6 +2406,16 @@ def main():
              replaces="vitrs_tpu/ops/fused_head_ce.py:68",
              launches=h8_counts["head_ce_fwd"], kernels_per_launch=2,
              **k8[8192], r16384=k8[16384], train=h8_train),
+        # vit mode: the same kernels at causal=False, T=197 (the Pallas
+        # single-tile kernels' path); launches on train-vit (its end-of-run
+        # evaluation included) and infer-vit
+        dict(name="flash_fwd_vit", route="cuda", source=CSRC + "flash_fwd.cu",
+             replaces=fa + "374", launches=vit_counts["flash_fwd"],
+             infer_launches=infer_counts["flash_fwd"], **kvit["fwd"],
+             train=train_vit, infer=infer_vit),
+        dict(name="flash_bwd_vit", route="cuda", source=CSRC + "flash_bwd.cu",
+             replaces=fa + "418", launches=vit_counts["flash_bwd"],
+             kernels_per_launch=3, **kvit["bwd"]),
     ]
     kernels[0]["train"] = train
     kernels[5]["train"] = gqa_train

@@ -324,6 +324,6 @@ def test_trainer_takes_kv_heads_and_refuses_other_overrides(tmp_path):
                                 workdir=str(tmp_path / "moe"),
                                 model_overrides={"num_experts": 2}))
     from vitrs_tpu_torch.cli import train as cli
-    for flag in (["--num-experts", "2"], ["--drop-path", "0.1"]):
+    for flag in (["--num-experts", "2"], ["--ema-decay", "0.99"]):
         with pytest.raises(SystemExit):
             cli.main(flag + ["--cpu"])

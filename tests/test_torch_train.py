@@ -39,6 +39,7 @@ from vitrs_tpu.utils import flops as JF
 from vitrs_tpu.vit import ViT as JaxViT
 from vitrs_tpu_torch import params as TP
 from vitrs_tpu_torch.cli import train as cli
+from vitrs_tpu_torch.config import get_config as torch_config
 from vitrs_tpu_torch.data import tokens as TTOK
 from vitrs_tpu_torch.models import model as TM
 from vitrs_tpu_torch.ops import fused_ce as TCE
@@ -223,9 +224,9 @@ def test_dp_step_refuses_what_the_slice_does_not_run():
     two = TDP.Mesh((torch.device("cpu"), torch.device("cpu")))
     with pytest.raises(NotImplementedError, match="item 18"):
         TDP.make_dp_train_step(tcfg, two)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        TDP.make_dp_train_step(tcfg, TDP.make_mesh(devices=["cpu"]),
-                               mixup_alpha=0.2)
+    qcfg = torch_config("vit-tiny-4-cifar10", num_layers=1, quirks=True)
+    with pytest.raises(NotImplementedError, match="item 3"):
+        TDP.make_dp_train_step(qcfg, TDP.make_mesh(devices=["cpu"]))
 
 
 def test_decay_mask_flat_matches_jax_including_its_fault():
@@ -358,9 +359,9 @@ def test_cli_needs_a_card_without_cpu(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("field,value,item", [
     ("mesh", "dp=2", "item 18"), ("optimizer", "muon", "item 13"),
-    ("ema_decay", 0.99, "item 12"), ("mixup_alpha", 0.2, "item 5"),
-    ("async_ckpt", True, "item 17"), ("preset", "vit-tiny-4-cifar10",
-                                      "item 5")])
+    ("ema_decay", 0.99, "item 12"), ("model_overrides", {"quirks": True},
+                                     "item 3"),
+    ("async_ckpt", True, "item 17"), ("preset", "gpt2-moe-8e", "item 14")])
 def test_loop_raises_for_unported_options(field, value, item, tmp_path):
     tc = TL.TrainConfig(preset="gpt-nano", steps=1, device="cpu",
                         workdir=str(tmp_path))

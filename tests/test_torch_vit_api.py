@@ -7,7 +7,6 @@ import torch
 
 from vitrs_tpu.vit import ViT as JaxViT
 from vitrs_tpu_torch.cli import generate as cli
-from vitrs_tpu_torch.config import get_config
 from vitrs_tpu_torch.models import model as M
 from vitrs_tpu_torch.vit import ViT
 
@@ -55,8 +54,12 @@ def test_port_checkpoint_loads_in_jax(tmp_path):
 def test_from_config_is_seeded_and_validates():
     a, b = (ViT.from_config(TCFG, seed=2, device="cpu") for _ in range(2))
     assert all(torch.equal(a.params[k], b.params[k]) for k in a.params)
+    vm = ViT.from_config("vit-tiny-4-cifar10", num_layers=1, device="cpu")
+    imgs = np.random.default_rng(2).standard_normal((2, 32, 32, 3))
+    assert vm.forward(imgs) == -1.0 and vm.logits.shape == (2, 10)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ViT.from_config("vit-tiny-4-cifar10", num_layers=1, device="cpu")
+        ViT.from_config("vit-tiny-4-cifar10", num_layers=1, quirks=True,
+                        device="cpu")
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(jax_model,
@@ -73,9 +76,9 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(jax_model,
 
 
 def test_training_calls_raise_until_the_training_slice():
-    """The training slice is in: the calls run in gpt mode, raise when
-    called out of order, and vit mode still raises naming its ROADMAP
-    item."""
+    """The training slice is in: the calls run in gpt mode and raise when
+    called out of order; vit mode's loss runs too (tests/test_torch_vit.py
+    holds it against JAX)."""
     m = ViT.from_config(TCFG, seed=3, device="cpu")
     toks = _toks(3)
     with pytest.raises(RuntimeError, match="forward with targets"):
@@ -87,9 +90,10 @@ def test_training_calls_raise_until_the_training_slice():
     m.backward()
     m.optimizer_step(1e-3)
     assert m.step == 1
-    vcfg = get_config("vit-tiny-4-cifar10", num_layers=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.loss_fn({}, toks, toks, vcfg)
+    vm = ViT.from_config("vit-tiny-4-cifar10", num_layers=1, device="cpu")
+    imgs = torch.randn(2, 32, 32, 3)
+    vloss = M.loss_fn(vm.params, imgs, torch.tensor([1, 7]), vm.config)
+    assert np.isfinite(vloss.item()) and vloss.item() > 0
 
 
 def test_cli_runs_at_gpt_nano(capsys):

@@ -1,12 +1,16 @@
 #!/usr/bin/env python
-"""vitrs-train-torch — train a GPT preset with the PyTorch port.
+"""vitrs-train-torch — train a GPT or ViT preset with the PyTorch port.
 
-The port of `vitrs_tpu/cli/train.py`.  This slice trains gpt mode with
-AdamW on one device, with the JAX CLI's flags for that path; the JAX CLI's
-other flags (--mesh, --optimizer, --ema-decay, --mixup-alpha, ...) are not
+The port of `vitrs_tpu/cli/train.py`.  This slice trains gpt and vit mode
+with AdamW on one device, with the JAX CLI's flags for those paths; the
+JAX CLI's other flags (--mesh, --optimizer, --ema-decay, ...) are not
 ported yet (ROADMAP.md Queue 1).
 
 Examples:
+  vitrs-train-torch --preset vit-b-16 --dataset synthetic-imagenet \
+      --batch-size 64 --steps 100
+  vitrs-train-torch --preset vit-tiny-4-cifar10 --cpu --steps 3 \
+      --batch-size 8 --dtype float32 --label-smoothing 0.1 --mixup-alpha 0.2
   vitrs-train-torch --preset gpt2-124m --steps 1000 --batch-size 8 --workdir run1
   vitrs-train-torch --preset gpt-nano --cpu --steps 3 --batch-size 4
   vitrs-train-torch --preset gpt2-124m --kv-heads 4 --steps 100 --batch-size 8
@@ -29,9 +33,15 @@ def main(argv=None):
     p.add_argument("--preset", default="gpt2-124m",
                    help="model preset (see vitrs_tpu_torch.config.PRESETS)")
     p.add_argument("--dataset", default="cifar10",
-                   help="gpt mode reads tokens; empty skips the final val loss")
+                   help="vit: cifar10 | synthetic-shapes | synthetic-imagenet;"
+                        " gpt mode reads tokens, and empty skips its final "
+                        "val loss")
     p.add_argument("--data-dir", default=None,
-                   help="llm.c uint16 token file (default: synthetic stream)")
+                   help="cifar-10-batches-py, or an llm.c uint16 token file "
+                        "(default: synthetic data)")
+    p.add_argument("--dataset-size", type=int, default=0,
+                   help="n of synthetic-shapes / synthetic-imagenet "
+                        "(0: its default)")
     p.add_argument("--steps", type=int, default=1000)
     p.add_argument("--batch-size", type=int, default=128)
     p.add_argument("--lr", type=float, default=1e-3)
@@ -54,6 +64,11 @@ def main(argv=None):
                    help="global grad-norm clip (1.0 = standard GPT recipe)")
     p.add_argument("--accum-steps", type=int, default=1,
                    help="gradient-accumulation micro-batches per step")
+    p.add_argument("--label-smoothing", type=float, default=0.0)
+    p.add_argument("--drop-path", type=float, default=0.0,
+                   help="stochastic depth rate (ViT-L recipes: 0.1-0.3)")
+    p.add_argument("--mixup-alpha", type=float, default=0.0,
+                   help="vit: mixup Beta(a, a) on each batch; 0 = off")
     p.add_argument("--kv-heads", type=int, default=0,
                    help="GQA/MQA K/V head count (0 = MHA)")
     p.add_argument("--pos-emb", default="learned", choices=["learned", "rope"])
@@ -84,19 +99,28 @@ def main(argv=None):
         np_params, cfg, extras = C.load_checkpoint(paths[-1])
         M.check_supported(cfg)
         params = P.from_numpy(np_params, cfg, resolve_device(device))
-        res = loop.evaluate_gpt(cfg, params, args.data_dir, seed=args.seed)
+        if cfg.mode == "vit":
+            tc = loop.TrainConfig(dataset=args.dataset, data_dir=args.data_dir,
+                                  dataset_size=args.dataset_size)
+            ds = loop.image_dataset(tc, cfg, train=False)
+            res = loop.evaluate(cfg, params, ds, batch=min(256, len(ds)))
+        else:
+            res = loop.evaluate_gpt(cfg, params, args.data_dir,
+                                    seed=args.seed)
         print(json.dumps({"ckpt": paths[-1], "step": extras["step"], **res}))
         return
 
     tc = loop.TrainConfig(
         preset=args.preset, dataset=args.dataset, data_dir=args.data_dir,
-        steps=args.steps, batch_size=args.batch_size, lr=args.lr,
+        dataset_size=args.dataset_size, steps=args.steps, batch_size=args.batch_size, lr=args.lr,
         warmup=args.warmup, weight_decay=args.weight_decay, seed=args.seed,
         dtype=args.dtype, workdir=args.workdir, log_every=args.log_every,
         ckpt_every=args.ckpt_every, resume=not args.no_resume,
         init_ckpt=args.init_ckpt, log_grad_norm=args.log_grad_norm,
         clip_norm=args.clip_norm, decay_2d_only=args.decay_2d_only,
-        accum_steps=args.accum_steps, kv_heads=args.kv_heads, device=device,
+        accum_steps=args.accum_steps, label_smoothing=args.label_smoothing,
+        drop_path=args.drop_path, mixup_alpha=args.mixup_alpha,
+        kv_heads=args.kv_heads, device=device,
         model_overrides={
             k: v for k, v in (("pos_emb", args.pos_emb),
                               ("window", args.window))

@@ -1,4 +1,5 @@
-"""Transformer in GPT mode — the port of `vitrs_tpu/models/model.py`.
+"""The transformer in GPT and ViT mode — the port of
+`vitrs_tpu/models/model.py`.
 
 The JAX package scans one block body over the stacked-L parameter slabs;
 PyTorch runs eagerly, so a Python loop over the layers takes the place of
@@ -19,18 +20,29 @@ weight into K3 on the flash path, and expands the weight on the dense path,
 as the JAX package does.  Rope (cfg.pos_emb == "rope") rotates q and k
 inside the flash kernels and with an explicit `rope_qk` on the dense path;
 the wpe table is then not read.  cfg.window is the sliding-window band on
-both paths.  ViT mode and MoE come in later slices (ROADMAP.md, Queue 1).
+both paths.
+
+ViT mode (cfg.mode == "vit"): `vit_encode` patchifies (B, H, W, C) images
+into one matmul, adds wpe and the CLS token; the blocks attend
+bidirectionally (the flash kernels at causal=False); `vit_forward` pools
+(CLS or mean) into the classifier head.  Training draws stochastic depth
+and head dropout from an explicit torch.Generator (`draw_masks`); the
+masks are drawn on the generator's device and moved to the activations',
+so a CPU generator gives the same masks to a run on the card and on the
+CPU.  MoE and the quirk ops come in later slices (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping
+from typing import Dict, List, Mapping, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..config import ViTConfig
 from ..ops import basic, fused_ce, fused_head_ce
+from ..ops._build import to_device
 from ..ops.attention import (expand_qkv_weight, rope_packed,
                              supports as flash_supports)
 from ..ops.fused_qkv_attention import qkv_attention
@@ -40,14 +52,13 @@ BLOCK_KEYS = ("ln1w", "ln1b", "qkvw", "qkvb", "attprojw", "attprojb",
 # the tensors that meet a matmul, cast to the compute dtype
 MATMUL_KEYS = ("qkvw", "qkvb", "attprojw", "attprojb",
                "fcw", "fcb", "fcprojw", "fcprojb")
-_VIT = "vit mode: ROADMAP.md Queue 1 item 5 (models/model.py)"
+# vit mode's patch embedding and classifier head, which meet a matmul too
+VIT_MATMUL_KEYS = ("patchw", "patchb", "headw", "headb")
 
 
 def check_supported(cfg: ViTConfig) -> None:
     """Raise NotImplementedError for a config this slice of the port does
     not run yet, naming the ROADMAP item that brings it."""
-    if cfg.mode != "gpt":
-        raise NotImplementedError(_VIT)
     if cfg.quirks:
         raise NotImplementedError(
             "quirks=True: ROADMAP.md Queue 1 item 3 (ops/basic.py quirk ops)")
@@ -60,17 +71,20 @@ def prepare_params(params: Mapping[str, torch.Tensor], cfg: ViTConfig
     """The dict every forward path reads, built once per model or engine.
 
     The tensors stay on their device and leave autograd.  The matmul
-    weights and biases are cast once to cfg.dtype, and "head" holds the
-    tied head (wte) in cfg.dtype: the JAX
-    package casts these on every call, with the same result.  LN params and
-    the embedding tables keep their own dtype, because the JAX package
-    computes LayerNorm in fp32 and adds the embeddings before its cast."""
+    weights and biases are cast once to cfg.dtype (vit mode: the patch
+    embedding and the classifier head too), and in gpt mode "head" holds
+    the tied head (wte) in cfg.dtype: the JAX package casts these on every
+    call, with the same result.  LN params, the embedding tables and the
+    CLS token keep their own dtype, because the JAX package computes
+    LayerNorm in fp32 and adds the embeddings (and cls + wpe[0]) before its
+    cast."""
     check_supported(cfg)
     dtype = getattr(torch, cfg.dtype)
     out = {k: v.detach() for k, v in params.items()}
-    for k in MATMUL_KEYS:
+    for k in MATMUL_KEYS + (VIT_MATMUL_KEYS if cfg.mode == "vit" else ()):
         out[k] = out[k].to(dtype)
-    out["head"] = out["wte"].to(dtype)
+    if cfg.mode == "gpt":
+        out["head"] = out["wte"].to(dtype)
     return out
 
 
@@ -81,7 +95,9 @@ def train_params(params: Mapping[str, torch.Tensor], cfg: ViTConfig
     weights and biases cast to cfg.dtype inside the autograd graph, once
     per step per stacked tensor.  qkvw and qkvb stay in their dtype: the
     fused qkv-attention op casts them itself and returns their gradients in
-    fp32, as the JAX op does.  No "head": `gpt_loss` builds it from wte."""
+    fp32, as the JAX op does.  No "head": `gpt_loss` builds it from wte;
+    vit mode's patch embedding and head are cast where they are used
+    (`vit_encode`, `vit_forward`), as the JAX package casts them."""
     check_supported(cfg)
     dtype = getattr(torch, cfg.dtype)
     out = dict(params)
@@ -133,13 +149,50 @@ def _project_and_attend(ln1: torch.Tensor, p: Mapping[str, torch.Tensor],
                                  window=cfg.window)[0]
 
 
-def _block(x: torch.Tensor, p: Mapping[str, torch.Tensor],
-           cfg: ViTConfig) -> torch.Tensor:
-    """The pre-LN block (rusty_vit.rs:322-331 op order), causal."""
+def _drop_path(branch: torch.Tensor, keep: torch.Tensor,
+               rate: float) -> torch.Tensor:
+    """Stochastic depth: zero the residual branch of the samples whose keep
+    flag (B,) is False and scale the rest by 1/(1 - rate), so the
+    expectation is kept.  The scale stays in the branch's dtype; the JAX
+    op's traced fp32 rate promotes a bf16 branch to fp32, which its layer
+    scan then refuses (ROADMAP.md Queue 3)."""
+    return torch.where(keep[:, None, None], branch / (1.0 - rate), 0.0)
+
+
+def drop_path_rates(cfg: ViTConfig) -> List[float]:
+    """Layer l's stochastic-depth rate: linspace(0, drop_path, L)[l]."""
+    return np.linspace(0.0, cfg.drop_path, cfg.num_layers,
+                       dtype=np.float32).tolist()
+
+
+def _block(x: torch.Tensor, p: Mapping[str, torch.Tensor], cfg: ViTConfig,
+           causal: bool = True, keep: Optional[torch.Tensor] = None,
+           rate: float = 0.0) -> torch.Tensor:
+    """The pre-LN block (rusty_vit.rs:322-331 op order).  keep (2, B):
+    stochastic depth's keep flags of the attention and MLP branches, at
+    `rate`."""
     ln1 = basic.layernorm_cv(x, p["ln1w"], p["ln1b"])
-    atty = _project_and_attend(ln1, p, cfg, causal=True)
-    x = x + basic.linear(atty, p["attprojw"], p["attprojb"])
-    return x + mlp(p, cfg, basic.layernorm_cv(x, p["ln2w"], p["ln2b"]))
+    atty = _project_and_attend(ln1, p, cfg, causal)
+    branch = basic.linear(atty, p["attprojw"], p["attprojb"])
+    if keep is not None:
+        branch = _drop_path(branch, keep[0], rate)
+    x = x + branch
+    branch = mlp(p, cfg, basic.layernorm_cv(x, p["ln2w"], p["ln2b"]))
+    if keep is not None:
+        branch = _drop_path(branch, keep[1], rate)
+    return x + branch
+
+
+def transformer(x: torch.Tensor, params: Mapping[str, torch.Tensor],
+                cfg: ViTConfig, causal: bool,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The blocks over every layer.  keep (L, 2, B): stochastic depth's
+    keep flags (`draw_masks`), layer l at rate `drop_path_rates(cfg)[l]`."""
+    rates = drop_path_rates(cfg)
+    for i, p in enumerate(layers(params)):
+        x = _block(x, p, cfg, causal, None if keep is None else keep[i],
+                   rates[i])
+    return x
 
 
 def gpt_encode(tokens: torch.Tensor, params: Mapping[str, torch.Tensor],
@@ -159,8 +212,7 @@ def gpt_trunk(params: Mapping[str, torch.Tensor], tokens: torch.Tensor,
     cfg.dtype.  params from `prepare_params` or `train_params`."""
     x = gpt_encode(tokens, params, getattr(torch, cfg.dtype),
                    rope=cfg.pos_emb == "rope")
-    for p in layers(params):
-        x = _block(x, p, cfg)
+    x = transformer(x, params, cfg, causal=True)
     return basic.layernorm_cv(x, params["lnfw"], params["lnfb"])
 
 
@@ -199,12 +251,102 @@ def gpt_loss(params: Mapping[str, torch.Tensor], tokens: torch.Tensor,
     return basic.cross_entropy_from_logits(logits, targets).mean()
 
 
+# ---------------------------------------------------------------------------
+# ViT mode
+# ---------------------------------------------------------------------------
+
+def vit_encode(images: torch.Tensor, params: Mapping[str, torch.Tensor],
+               cfg: ViTConfig,
+               keep_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, H, W, C) images -> (B, T, C) tokens in cfg.dtype: patchify, one
+    matmul with the patch embedding (its weight cast to cfg.dtype, the
+    product rounded, then the bias added, as `linear` does), wpe rows
+    n_prefix.. added in cfg.dtype, then the CLS token (cls + wpe[0], summed
+    in the parameter dtype, then cast) in front.  keep_ids (B, K) keeps a
+    subset of each example's patches (the MAE masking hook), after the
+    positions are added."""
+    dtype = getattr(torch, cfg.dtype)
+    patches = basic.patchify(images, cfg.patch_size).to(dtype)
+    x = basic.linear(patches, params["patchw"].to(dtype),
+                     params["patchb"].to(dtype))
+    n_prefix = 1 if cfg.pool == "cls" else 0
+    x = x + params["wpe"][n_prefix:n_prefix + x.shape[1]].to(dtype)
+    if keep_ids is not None:
+        x = torch.gather(x, 1, keep_ids.long()[..., None].expand(
+            -1, -1, x.shape[2]))
+    if cfg.pool == "cls":
+        cls = (params["cls"] + params["wpe"][None, :1]).to(dtype)
+        x = torch.cat([cls.expand(x.shape[0], 1, x.shape[2]), x], dim=1)
+    return x
+
+
+def draw_masks(cfg: ViTConfig, batch: int, generator: torch.Generator,
+               device) -> Dict[str, torch.Tensor]:
+    """The keep flags of one training forward, drawn from `generator` on
+    its own device in a fixed order, then moved to `device` (`to_device`,
+    which does not wait for the card): "drop_path"
+    (L, 2, B), Bernoulli(1 - rate) for each (layer, branch) where
+    cfg.drop_path > 0; then "head" (B, C), Bernoulli(1 - drop_rate), where
+    cfg.drop_rate > 0."""
+    gdev = generator.device
+    out = {}
+    if cfg.drop_path > 0.0:
+        keep_p = 1.0 - torch.tensor(drop_path_rates(cfg), device=gdev)
+        u = torch.rand((cfg.num_layers, 2, batch), generator=generator,
+                       device=gdev)
+        out["drop_path"] = u < keep_p[:, None, None]
+    if cfg.drop_rate > 0.0:
+        u = torch.rand((batch, cfg.channels), generator=generator,
+                       device=gdev)
+        out["head"] = u < 1.0 - cfg.drop_rate
+    return {k: to_device(v, device) for k, v in out.items()}
+
+
+def vit_forward(params: Mapping[str, torch.Tensor], images: torch.Tensor,
+                cfg: ViTConfig, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """(B, H, W, C) images -> class logits (B, num_classes) in fp32: the
+    encoder, the blocks (bidirectional), the final LN, the CLS token or
+    the mean over tokens, head dropout, the head in cfg.dtype.  With train
+    and a generator, stochastic depth and head dropout draw their flags
+    from it (`draw_masks`); otherwise neither runs, as in the JAX function
+    without an rng.  params from `prepare_params` or `train_params`."""
+    x = vit_encode(images, params, cfg)
+    masks = (draw_masks(cfg, x.shape[0], generator, x.device)
+             if train and generator is not None else {})
+    x = transformer(x, params, cfg, causal=False,
+                    keep=masks.get("drop_path"))
+    lnf = basic.layernorm_cv(x, params["lnfw"], params["lnfb"])
+    pooled = lnf[:, 0] if cfg.pool == "cls" else lnf.mean(dim=1)
+    if "head" in masks:
+        pooled = torch.where(masks["head"], pooled / (1.0 - cfg.drop_rate),
+                             0.0)
+    return basic.linear(pooled, params["headw"].to(pooled.dtype),
+                        params["headb"].to(pooled.dtype)).float()
+
+
+def vit_loss(params: Mapping[str, torch.Tensor], images: torch.Tensor,
+             labels: torch.Tensor, cfg: ViTConfig, train: bool = True,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Mean CE over the batch from the master parameters (cast inside the
+    graph, `train_params`); label smoothing when training with
+    cfg.label_smoothing > 0."""
+    logits = vit_forward(train_params(params, cfg), images, cfg, train=train,
+                         generator=generator)
+    if train and cfg.label_smoothing > 0.0:
+        return basic.cross_entropy_smoothed(logits, labels,
+                                            cfg.label_smoothing).mean()
+    return basic.cross_entropy_from_logits(logits, labels).mean()
+
+
 def loss_fn(params: Mapping[str, torch.Tensor], batch_inputs: torch.Tensor,
             batch_targets: torch.Tensor, cfg: ViTConfig,
-            rng=None) -> torch.Tensor:
-    """The unified loss entry; gpt mode only in this slice."""
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The unified loss entry, by cfg.mode; the generator feeds vit mode's
+    stochastic depth and head dropout."""
     if cfg.mode == "vit":
-        raise NotImplementedError(_VIT)
+        return vit_loss(params, batch_inputs, batch_targets, cfg,
+                        generator=generator)
     return gpt_loss(params, batch_inputs, batch_targets, cfg)
 
 
@@ -213,9 +355,10 @@ def forward_with_loss(params: Mapping[str, torch.Tensor],
                       cfg: ViTConfig):
     """(logits, mean loss) from one forward pass; params from
     `prepare_params`.  The loss is the plain CE on the unpadded logits, as
-    in the JAX package."""
+    in the JAX package (vit mode: no smoothing, no dropout)."""
     if cfg.mode == "vit":
-        raise NotImplementedError(_VIT)
-    logits = gpt_forward(params, batch_inputs, cfg)
+        logits = vit_forward(params, batch_inputs, cfg, train=False)
+    else:
+        logits = gpt_forward(params, batch_inputs, cfg)
     return logits, basic.cross_entropy_from_logits(logits,
                                                    batch_targets).mean()

@@ -24,6 +24,8 @@ import subprocess
 import tempfile
 import time
 
+import numpy as np
+
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
@@ -102,6 +104,20 @@ def resolve_device(name) -> "torch.device":
         raise RuntimeError("no CUDA device: pass --cpu (device='cpu') to "
                            "run on the CPU")
     return device
+
+
+def to_device(a, device) -> "torch.Tensor":
+    """A numpy array or a tensor on `device`.  Host data bound for a CUDA
+    device goes through pinned memory with a non-blocking copy, so the
+    host does not wait for the stream's queued work (a copy from pageable
+    memory synchronises the stream)."""
+    import torch
+    device = torch.device(device)
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(a))
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def on_device(device, kernel, plain, what: str):

@@ -4,6 +4,8 @@ Plain functions on tensors, with the JAX package's dtype rules: LayerNorm
 statistics in fp32, tanh-GELU in the input dtype, linear with an fp32
 accumulator and an output in the input dtype.  The matmuls are left to
 torch.matmul (cuBLAS on the card), as the JAX package left them to XLA.
+`patchify` / `unpatchify` are vit mode's layout-only patch extraction, with
+the JAX package's element order inside a patch (row, column, channel).
 
 The JAX package's custom-VJP ops (`layernorm_cv`, `gelu_cv`,
 `gelu_erf_cv`) are autograd.Functions here with the same saved tensors and
@@ -187,3 +189,24 @@ def cross_entropy_smoothed(logits: torch.Tensor, targets: torch.Tensor,
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, targets.long()[..., None])[..., 0]
     return (1.0 - smoothing) * nll + smoothing * -logp.mean(dim=-1)
+
+
+def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B, N, P*P*C), N = (H/P)(W/P) patches in row-major
+    order, each patch's values in (row, column, channel) order: a reshape
+    and a transpose, as in the JAX op, so the patch embedding that follows
+    is one matmul."""
+    B, H, W, C = images.shape
+    ph, pw = H // patch, W // patch
+    x = images.reshape(B, ph, patch, pw, patch, C).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(B, ph * pw, patch * patch * C)
+
+
+def unpatchify(patches: torch.Tensor, patch: int, img_size: int,
+               chans: int = 3) -> torch.Tensor:
+    """The inverse of `patchify` for square images: (B, N, P*P*C) ->
+    (B, img_size, img_size, chans)."""
+    B = patches.shape[0]
+    ph = img_size // patch
+    x = patches.reshape(B, ph, ph, patch, patch, chans).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(B, img_size, img_size, chans)

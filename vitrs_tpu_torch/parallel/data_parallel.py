@@ -15,24 +15,38 @@ canonical order (`params.unflatten_params`, as the trainer keeps them).
 The step updates that vector in place and writes the gradients into one
 flat buffer through the parameters' `.grad` views, so AdamW runs once over
 all 124,439,808 values with no flatten copy.
+
+ViT mode adds what the JAX step does for images:
+  * `normalize` = (mean, std): uint8 batches become (x/255 - mean)/std in
+    fp32 on the device (`normalize_images`);
+  * mixup (mixup_alpha > 0): lambda ~ Beta(alpha, alpha) and a permutation
+    for each step, drawn on the host from np.random.default_rng([0x31A5,
+    step]) (`mixup_draw`: no device sync, explicit and repeatable where the
+    JAX step draws them on the device from jax.random), and the loss
+    lambda CE(y) + (1 - lambda) CE(y[perm]) (`mixup_loss`);
+  * stochastic depth and head dropout from a CPU torch.Generator seeded for
+    each step, and for each micro-batch under accumulation
+    (`step_generator`), so a step draws the same flags on any device.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .. import params as PRM
 from ..config import ViTConfig
 from ..models import model as M
+from ..ops import basic
 from ..ops import optimizer as opt
+from ..ops._build import to_device
 
 _MULTI = ("data parallelism over more than one device: ROADMAP.md Queue 1 "
           "item 18 (torch.distributed)")
-_VIT = "vit mode (mixup, normalize): ROADMAP.md Queue 1 item 5"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,6 +91,55 @@ def init_sharded_opt_state(cfg: ViTConfig, mesh: Mesh):
     return zeros(), zeros()
 
 
+def normalize_images(x: torch.Tensor, mean, std) -> torch.Tensor:
+    """uint8 (B, H, W, C) -> (x/255 - mean) * (1/std) in fp32, the JAX
+    step's formula (1/std taken in fp32 on the host)."""
+    mean_t = torch.as_tensor(np.asarray(mean, np.float32), device=x.device)
+    inv_t = torch.as_tensor(1.0 / np.asarray(std, np.float32),
+                            device=x.device)
+    return (x.float() * (1.0 / 255.0) - mean_t) * inv_t
+
+
+def mixup_draw(alpha: float, step: int, batch: int) -> Tuple[float, np.ndarray]:
+    """(lambda, permutation) of one step's mixup, from the host generator
+    np.random.default_rng([0x31A5, step]); lambda is rounded to fp32."""
+    rng = np.random.default_rng([0x31A5, int(step)])
+    lam = float(np.float32(rng.beta(alpha, alpha)))
+    return lam, rng.permutation(batch)
+
+
+def mixup_loss(params, inputs: torch.Tensor, targets: torch.Tensor,
+               lam: float, perm: torch.Tensor, cfg: ViTConfig
+               ) -> torch.Tensor:
+    """lam CE(y) + (1 - lam) CE(y[perm]) on lam x + (1 - lam) x[perm], as
+    the JAX step composes it: fp32 arithmetic on fp32 images, a training
+    forward without stochastic depth or dropout (the JAX step passes no rng
+    here), label smoothing where set."""
+    one_minus = float(np.float32(1.0) - np.float32(lam))
+    mixed = lam * inputs + one_minus * inputs[perm]
+    logits = M.vit_forward(M.train_params(params, cfg), mixed, cfg,
+                           train=True)
+
+    def ce(y):
+        if cfg.label_smoothing > 0.0:
+            return basic.cross_entropy_smoothed(logits, y,
+                                                cfg.label_smoothing).mean()
+        return basic.cross_entropy_from_logits(logits, y).mean()
+
+    return lam * ce(targets) + one_minus * ce(targets[perm])
+
+
+def step_generator(step: int, micro: Optional[int] = None) -> torch.Generator:
+    """The CPU generator of one step's stochastic depth and head dropout,
+    seeded from (0xDA7A, step[, micro + 1]), the JAX step's fold-ins (micro
+    only under accumulation; + 1 because SeedSequence reads a trailing 0
+    as no word at all)."""
+    key = [0xDA7A, int(step)] + ([int(micro) + 1] if micro is not None
+                                 else [])
+    seed = int(np.random.SeedSequence(key).generate_state(1, np.uint64)[0])
+    return torch.Generator().manual_seed(seed)
+
+
 def make_dp_train_step(cfg: ViTConfig, mesh: Mesh, accum_steps: int = 1,
                        return_grad_norm: bool = False,
                        mixup_alpha: float = 0.0,
@@ -97,11 +160,19 @@ def make_dp_train_step(cfg: ViTConfig, mesh: Mesh, accum_steps: int = 1,
     accum_steps > 1 splits the batch into that many micro-batches whose
     gradients are averaged; clip_norm > 0 clips to that global norm
     (grad_norm is the norm before the clip); decay_2d_only decays only the
-    tensors `_decay_mask_flat` marks."""
+    tensors `_decay_mask_flat` marks.  ViT mode: normalize = (mean, std)
+    normalises uint8 images on the device; mixup_alpha > 0 mixes each
+    step's batch (not with accumulation, as in the JAX step); stochastic
+    depth and head dropout draw from `step_generator`."""
     if mesh.size != 1:
         raise NotImplementedError(_MULTI)
-    if cfg.mode == "vit" or mixup_alpha > 0.0 or normalize is not None:
-        raise NotImplementedError(_VIT)
+    M.check_supported(cfg)
+    vit = cfg.mode == "vit"
+    use_mixup = vit and mixup_alpha > 0.0
+    if use_mixup and accum_steps != 1:
+        raise ValueError("mixup with gradient accumulation is not wired, as "
+                         "in the JAX step")
+    needs_gen = vit and (cfg.drop_path > 0.0 or cfg.drop_rate > 0.0)
     device = mesh.devices[0]
     n = PRM.num_parameters(cfg)
     grad_buf = {}
@@ -117,13 +188,26 @@ def make_dp_train_step(cfg: ViTConfig, mesh: Mesh, accum_steps: int = 1,
         for name, g in PRM.unflatten_params(flat_g, cfg).items():
             params[name].requires_grad_(True)
             params[name].grad = g
-        x = torch.as_tensor(inputs, device=device).long()
-        y = torch.as_tensor(targets, device=device).long()
+        x = to_device(inputs, device)
+        y = to_device(targets, device).long()
+        if not vit:
+            x = x.long()
+        elif normalize is not None and x.dtype == torch.uint8:
+            x = normalize_images(x, *normalize)
+        elif x.is_floating_point():
+            x = x.float()
         micro = x.shape[0] // accum_steps
         loss = torch.zeros((), device=device)
         for i in range(accum_steps):
             rows = slice(i * micro, (i + 1) * micro)
-            li = M.loss_fn(params, x[rows], y[rows], cfg)
+            if use_mixup:
+                lam, perm = mixup_draw(mixup_alpha, step, x.shape[0])
+                li = mixup_loss(params, x, y, lam, to_device(perm, device),
+                                cfg)
+            else:
+                gen = (step_generator(step, i if accum_steps > 1 else None)
+                       if needs_gen else None)
+                li = M.loss_fn(params, x[rows], y[rows], cfg, generator=gen)
             li.backward()
             loss += li.detach()
         if accum_steps > 1:

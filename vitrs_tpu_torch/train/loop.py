@@ -1,17 +1,25 @@
-"""Training loop — the port of `vitrs_tpu/train/loop.py` for gpt mode,
-AdamW, one device.
+"""Training loop — the port of `vitrs_tpu/train/loop.py` for gpt and vit
+mode, AdamW, one device.
 
     init or resume -> loop { batch; cosine lr; train step; log; checkpoint }
-    -> final checkpoint -> held-out val loss
+    -> final checkpoint -> held-out val loss (gpt) or top-1 + loss (vit)
 
 * The parameters live as views into one flat fp32 vector on the device
   (`params.unflatten_params`), so the step's fused AdamW (K7) updates them
   in place with no flatten copy (parallel/data_parallel.py).
-* The log line per `log_every` steps is JSON: step, loss, lr, sequences/s
-  (`imgs_per_sec`, the JAX loop's name), tok/s and, on a CUDA device, MFU
-  against its peak (utils/flops.py; an unknown card raises; null on the
-  CPU, which has no peak to hold a run against).  Reading the
-  loss there is the loop's only synchronisation with the device.
+* The log line per `log_every` steps is JSON: step, loss, lr, examples/s
+  (`imgs_per_sec`, the JAX loop's name: images in vit mode, sequences in
+  gpt mode), tok/s, the loader's host ms a batch (`loader_ms`, timed apart
+  from the step) and, on a CUDA device, MFU against its peak
+  (utils/flops.py; an unknown card raises; null on the CPU, which has no
+  peak to hold a run against).  Reading the loss there is the loop's only
+  synchronisation with the device.
+* vit mode reads an image dataset (`data/datasets.get_dataset`: cifar10,
+  synthetic-shapes, synthetic-imagenet; `dataset_size` sets the n of the
+  last two) through `DataLoader(device_normalize=True)`: uint8 batches,
+  normalised on the device by the step, as the JAX loop does for
+  in-memory datasets.  `label_smoothing`, `mixup_alpha` and `drop_path`
+  are the JAX TrainConfig's (drop_path among its model_overrides there).
 * Checkpoints (params, flat m/v, step, seed, data cursor) every
   `ckpt_every` steps and at the end, in the format both packages read; a run
   resumes from the latest in `workdir`.  With no `workdir` a run writes to
@@ -19,15 +27,16 @@ AdamW, one device.
   and so never resumes another run's checkpoint.
 
 What the JAX loop also does and this slice does not yet raises
-NotImplementedError naming its ROADMAP.md Queue 1 item: vit presets and
-mixup (5), EMA (12), Muon and Adafactor (13), async checkpoints (17) and
-a mesh (18).  `model_overrides` is the JAX TrainConfig's dict of config
-fields (e.g. {"max_seq_len": 8192, "window": 1024, "pos_emb": "rope"}, the
-long-context rope + sliding-window model); a model variant the port does
-not run yet (MoE, vit) raises in `models/model.check_supported`.  The
-port's `kv_heads` field is kept: it sets `num_kv_heads` among the
-overrides.  The JAX loop's other options (remat, profiler traces,
-RandAugment, run_steps) are not in this TrainConfig yet.
+NotImplementedError naming its ROADMAP.md Queue 1 item: EMA (12), Muon
+and Adafactor (13), async checkpoints (17), a mesh (18) and the streaming
+ImageNet shards (11).  `model_overrides` is the JAX TrainConfig's dict of
+config fields (e.g. {"max_seq_len": 8192, "window": 1024, "pos_emb":
+"rope"}, the long-context rope + sliding-window model); a model variant
+the port does not run yet (MoE, quirks) raises in
+`models/model.check_supported`.  The port's `kv_heads` field is kept: it
+sets `num_kv_heads` among the overrides.  The JAX loop's other options
+(remat, profiler traces, RandAugment, run_steps) are not in this
+TrainConfig yet.
 """
 
 from __future__ import annotations
@@ -46,8 +55,11 @@ import torch
 from .. import checkpoint as ckpt_io
 from .. import params as PRM
 from ..config import ViTConfig, get_config
+from ..data import augment as A
+from ..data import datasets as D
 from ..data import tokens as TOK
 from ..models import model as M
+from ..ops import basic
 from ..ops import optimizer as opt
 from ..ops._build import resolve_device
 from ..parallel import data_parallel as dp
@@ -56,18 +68,21 @@ from ..utils import flops as F
 
 @dataclasses.dataclass
 class TrainConfig:
-    """The JAX TrainConfig's fields that a gpt-mode AdamW run on one device
-    reads, with its defaults except: preset (a GPT preset here) and
-    async_ckpt (off); `kv_heads` (shorthand for num_kv_heads among the
-    overrides; setting both raises) and
-    `device` are the port's own.  mesh, optimizer, ema_decay, mixup_alpha
-    and async_ckpt are kept so that asking for them raises, naming their
-    ROADMAP item."""
+    """The JAX TrainConfig's fields that an AdamW run on one device reads,
+    with its defaults except: preset (gpt2-124m here) and async_ckpt (off);
+    `kv_heads` (shorthand for num_kv_heads among the overrides; setting
+    both raises), `drop_path` (a model override in the JAX loop),
+    `dataset_size` and `device` are the port's own.  mesh, optimizer,
+    ema_decay and async_ckpt are kept so that asking for them raises,
+    naming their ROADMAP item."""
     preset: str = "gpt2-124m"
-    dataset: str = "cifar10"       # gpt mode reads tokens; a non-empty
-                                   # dataset asks for the final val loss
-    data_dir: Optional[str] = None  # an llm.c uint16 token file, else the
-                                    # synthetic stream
+    dataset: str = "cifar10"       # vit: the image dataset; gpt mode reads
+                                   # tokens, and a non-empty dataset asks
+                                   # for the final val loss
+    data_dir: Optional[str] = None  # cifar10's python batches, or an llm.c
+                                    # uint16 token file; else synthetic
+    dataset_size: int = 0          # n of synthetic-shapes/-imagenet, both
+                                   # splits (0: the dataset's default)
     steps: int = 1000
     batch_size: int = 128
     lr: float = 1e-3
@@ -86,10 +101,13 @@ class TrainConfig:
     clip_norm: float = 0.0         # 0 = off; 1.0 = the standard GPT recipe
     decay_2d_only: bool = False    # the JAX package's ">= 2 axes" decay rule
     accum_steps: int = 1           # micro-batches per step
+    label_smoothing: float = 0.0   # vit: CE label smoothing
+    drop_path: float = 0.0         # vit: stochastic depth, 0..drop_path
+                                   # over the layers
     mesh: str = ""
     optimizer: str = "adamw"
     ema_decay: float = 0.0
-    mixup_alpha: float = 0.0
+    mixup_alpha: float = 0.0       # vit: mixup Beta(alpha, alpha)
     async_ckpt: bool = False
     kv_heads: int = 0              # GQA/MQA K/V heads; 0 = MHA
     device: str = "cuda"           # "cuda" (never falls back) or "cpu"
@@ -102,7 +120,6 @@ def _check_supported(tc: TrainConfig) -> None:
         (tc.optimizer != "adamw",
          f"optimizer {tc.optimizer}: ROADMAP.md Queue 1 item 13"),
         (tc.ema_decay > 0.0, "EMA: ROADMAP.md Queue 1 item 12 (ops/ema.py)"),
-        (tc.mixup_alpha > 0.0, "mixup (vit mode): ROADMAP.md Queue 1 item 5"),
         (tc.async_ckpt,
          "async checkpoints: ROADMAP.md Queue 1 item 17 (checkpoint_async.py)"),
     )
@@ -125,6 +142,39 @@ def _loss_on(cfg: ViTConfig, params, xb, yb, device) -> float:
     with torch.no_grad():
         return float(M.loss_fn(params, torch.as_tensor(xb, device=device).long(),
                                torch.as_tensor(yb, device=device).long(), cfg))
+
+
+def evaluate(cfg: ViTConfig, params, ds: D.Dataset, batch: int = 256) -> dict:
+    """Top-1 accuracy and mean CE over an eval dataset: whole batches in
+    order, the eval transform (no crop, no flip, normalised on the host),
+    the inference forward (no dropout), as the JAX function does.  params:
+    a tensor dict (master or prepared); batches go to the device of its
+    wte."""
+    device = params["wte"].device
+    pp = M.prepare_params(params, cfg)
+    correct, total, loss_sum = 0, 0, 0.0
+    with torch.no_grad():
+        for start in range(0, len(ds) - batch + 1, batch):
+            idx = np.arange(start, start + batch)
+            x = A.augment_batch(ds.images, idx, crop_pad=0, flip=False,
+                                mean=ds.mean, std=ds.std)
+            y = torch.as_tensor(ds.labels[idx], device=device)
+            logits = M.vit_forward(pp, torch.as_tensor(x, device=device), cfg)
+            correct += int((logits.argmax(-1) == y).sum())
+            loss_sum += float(basic.cross_entropy_from_logits(logits, y).sum())
+            total += batch
+    return {"acc": correct / max(total, 1), "loss": loss_sum / max(total, 1),
+            "n": total}
+
+
+def image_dataset(tc: "TrainConfig", cfg: ViTConfig, train: bool) -> D.Dataset:
+    """The run's image dataset split; `dataset_size` sets the n of
+    synthetic-shapes and synthetic-imagenet (both splits), else each
+    dataset's default (cifar10's synthetic stand-in is always 4096 / 512)."""
+    kw = {"n": tc.dataset_size} if tc.dataset_size else {}
+    if tc.dataset == "synthetic-imagenet":
+        kw.update(img_size=cfg.img_size, num_classes=cfg.num_classes)
+    return D.get_dataset(tc.dataset, tc.data_dir, train=train, **kw)
 
 
 def evaluate_gpt(cfg: ViTConfig, params, data_dir: Optional[str] = None,
@@ -156,8 +206,18 @@ def train(tc: TrainConfig) -> dict:
             raise ValueError("kv_heads and model_overrides['num_kv_heads'] "
                              "are both set: give one")
         overrides["num_kv_heads"] = tc.kv_heads
+    if tc.label_smoothing:
+        overrides["label_smoothing"] = tc.label_smoothing
+    if tc.drop_path:
+        overrides["drop_path"] = tc.drop_path
     cfg = get_config(tc.preset, dtype=tc.dtype, **overrides)
     M.check_supported(cfg)
+    vit = cfg.mode == "vit"
+    if not vit and tc.mixup_alpha > 0.0:
+        raise ValueError("mixup is a vit-mode option")
+    if vit and tc.dataset == "imagenet":
+        raise NotImplementedError("streaming ImageNet shards: ROADMAP.md "
+                                  "Queue 1 item 11 (data/imagenet.py)")
     workdir = tc.workdir or tempfile.mkdtemp(prefix="vitrs_torch_run_")
     os.makedirs(workdir, exist_ok=True)
     print(f"[workdir] {workdir}")
@@ -191,18 +251,29 @@ def train(tc: TrainConfig) -> dict:
         return torch.as_tensor(np.asarray(flat, np.float32), device=device)
 
     m, v = state(m_full), state(v_full)
+
+    # ---- data ---------------------------------------------------------------
+    if vit:
+        # uint8 batches, normalised on the device by the step
+        ds = image_dataset(tc, cfg, train=True)
+        loader = D.DataLoader(ds, tc.batch_size, seed=tc.seed, train=True,
+                              cursor=cursor, device_normalize=True)
+        norm_stats = (ds.mean, ds.std)
+    else:
+        stream = TOK.get_tokens(tc.data_dir, cfg.vocab_size, seed=tc.seed)
+        total_w = (len(stream) - 1) // cfg.max_seq_len
+        loader = TOK.TokenLoader(stream, tc.batch_size, cfg.max_seq_len,
+                                 cursor=cursor,
+                                 holdout=TOK.default_holdout(total_w))
+        norm_stats = None
     step_fn = dp.make_dp_train_step(cfg, mesh, accum_steps=tc.accum_steps,
                                     return_grad_norm=tc.log_grad_norm,
+                                    mixup_alpha=tc.mixup_alpha,
+                                    normalize=norm_stats,
                                     clip_norm=tc.clip_norm,
                                     decay_2d_only=tc.decay_2d_only)
 
-    # ---- data ---------------------------------------------------------------
-    stream = TOK.get_tokens(tc.data_dir, cfg.vocab_size, seed=tc.seed)
-    total_w = (len(stream) - 1) // cfg.max_seq_len
-    loader = TOK.TokenLoader(stream, tc.batch_size, cfg.max_seq_len,
-                             cursor=cursor, holdout=TOK.default_holdout(total_w))
-
-    flops_per_seq = F.train_flops_per_example(cfg)
+    flops_per_ex = F.train_flops_per_example(cfg)
     peak = F.peak_flops(kind, cfg.dtype) if device.type == "cuda" else None
     summary = {"workdir": workdir}
 
@@ -216,9 +287,11 @@ def train(tc: TrainConfig) -> dict:
     stop_step = tc.steps
     loss = None
     with open(os.path.join(workdir, "metrics.jsonl"), "a") as log_f:
-        t_last, seqs_since = time.perf_counter(), 0
+        t_last, seqs_since, load_s = time.perf_counter(), 0, 0.0
         for step in range(start_step + 1, stop_step + 1):
+            t_load = time.perf_counter()
             inputs, targets = loader.next_batch()
+            load_s += time.perf_counter() - t_load
             lr = opt.cosine_lr_host(step, tc.lr, tc.warmup, tc.steps,
                                     tc.min_lr)
             outs = step_fn(params, m, v, inputs, targets, step, lr,
@@ -230,11 +303,13 @@ def train(tc: TrainConfig) -> dict:
                 loss_val = float(loss)      # waits for the device
                 now = time.perf_counter()
                 sps = seqs_since / (now - t_last)
+                batches = seqs_since // tc.batch_size
                 rec = {"step": step, "loss": round(loss_val, 5),
                        "lr": round(float(lr), 7),
                        "imgs_per_sec": round(sps, 1),
-                       "tok_per_sec": round(sps * cfg.max_seq_len, 1),
-                       "mfu": (round(sps * flops_per_seq / peak, 4)
+                       "tok_per_sec": round(sps * cfg.seq_len, 1),
+                       "loader_ms": round(load_s / batches * 1e3, 3),
+                       "mfu": (round(sps * flops_per_ex / peak, 4)
                                if peak else None),
                        "device": kind}
                 if gnorm is not None:
@@ -244,13 +319,18 @@ def train(tc: TrainConfig) -> dict:
                 log_f.flush()
                 if not np.isfinite(loss_val):
                     raise FloatingPointError(f"loss diverged at step {step}")
-                t_last, seqs_since = time.perf_counter(), 0
+                t_last, seqs_since, load_s = time.perf_counter(), 0, 0.0
             if tc.ckpt_every and step % tc.ckpt_every == 0:
                 save(step)
     if stop_step > start_step:
         save(stop_step)
         summary["final_loss"] = float(loss)
-    if tc.dataset and stop_step == tc.steps:
+    if vit and stop_step == tc.steps:
+        eval_ds = image_dataset(tc, cfg, train=False)
+        summary["eval"] = evaluate(cfg, params, eval_ds,
+                                   batch=min(256, len(eval_ds)))
+        print("[eval] " + json.dumps(summary["eval"]))
+    elif tc.dataset and stop_step == tc.steps:
         # val loss over the reserved holdout windows
         val = TOK.TokenLoader(loader.tokens, min(tc.batch_size, 16),
                               cfg.max_seq_len, holdout=loader.holdout,

@@ -16,6 +16,10 @@ reported apart).
         --max-seq-len 8192 --pos-emb rope --window 1024
     python -m vitrs_tpu_torch.utils.profiling prefill --kv-heads 4 \\
         --max-seq-len 8192 --batch 8 --prompt 7680 --chunk 512
+    python -m vitrs_tpu_torch.utils.profiling train --preset vit-b-16 \\
+        --batch 64
+    python -m vitrs_tpu_torch.utils.profiling infer --preset vit-s-16 \\
+        --batch 256
 
 prints one JSON object per run: the workload, its groups in ms per call,
 the busy, wall and profiled wall ms per call, the busy share, and the
@@ -97,37 +101,79 @@ def op_breakdown(fn: Callable[[], object], iters: int = 3) -> Dict:
             "kernels_per_call": n // iters}
 
 
+def _config(args):
+    """The preset in bf16; a gpt preset with --kv-heads, --max-seq-len,
+    --pos-emb and --window (a vit preset keeps its own geometry)."""
+    from ..config import PRESETS, get_config
+    if PRESETS[args.preset].mode == "vit":
+        return get_config(args.preset, dtype="bfloat16")
+    return get_config(args.preset, dtype="bfloat16",
+                      num_kv_heads=args.kv_heads, max_seq_len=args.max_seq_len,
+                      pos_emb=args.pos_emb, window=args.window)
+
+
+def _images(cfg, batch):
+    """A seeded uint8 image batch and its labels, as the vit loader ships
+    them."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 256, (batch, cfg.img_size, cfg.img_size,
+                              cfg.in_chans), dtype=np.uint8)
+    return x, rng.integers(0, cfg.num_classes, batch)
+
+
 def _train_step(args):
     """One training step of the trainer (fp32 masters in the flat arena,
-    bf16 compute) on the synthetic token stream, at --max-seq-len, with
-    --pos-emb and --window."""
+    bf16 compute): gpt presets on the synthetic token stream, at
+    --max-seq-len, with --pos-emb and --window; vit presets on a seeded
+    uint8 image batch normalised on the device."""
     from .. import params as P
-    from ..config import get_config
+    from ..data import datasets as D
     from ..data import tokens as TOK
     from ..parallel import data_parallel as dp
-    cfg = get_config(args.preset, dtype="bfloat16",
-                     num_kv_heads=args.kv_heads, max_seq_len=args.max_seq_len,
-                     pos_emb=args.pos_emb, window=args.window)
+    cfg = _config(args)
     mesh = dp.make_mesh(devices=["cuda"])
     params = P.unflatten_params(P.flatten_params(
         P.init_params(cfg, torch.Generator().manual_seed(0)), cfg).cuda(), cfg)
     m, v = dp.init_sharded_opt_state(cfg, mesh)
+    if cfg.mode == "vit":
+        step = dp.make_dp_train_step(
+            cfg, mesh, normalize=(D.IMAGENET_MEAN, D.IMAGENET_STD))
+        x, y = _images(cfg, args.batch)
+        return lambda: step(params, m, v, x, y, 1, 1e-3, 0.05)
     step = dp.make_dp_train_step(cfg, mesh)
     stream = TOK.get_tokens(None, cfg.vocab_size, seed=0)
     x, y = TOK.TokenLoader(stream, args.batch, cfg.max_seq_len).next_batch()
     return lambda: step(params, m, v, x, y, 1, 3e-4, 0.1)
 
 
+def _infer(args):
+    """One inference forward of a vit preset (bf16 weights prepared once)
+    on a seeded normalised image batch."""
+    from .. import params as P
+    from ..data import datasets as D
+    from ..models import model as M
+    from ..parallel import data_parallel as dp
+    cfg = _config(args)
+    pp = M.prepare_params({k: t.cuda() for k, t in P.init_params(
+        cfg, torch.Generator().manual_seed(0)).items()}, cfg)
+    x = dp.normalize_images(torch.as_tensor(_images(cfg, args.batch)[0],
+                                            device="cuda"),
+                            D.IMAGENET_MEAN, D.IMAGENET_STD)
+
+    def run():
+        with torch.inference_mode():
+            return M.vit_forward(pp, x, cfg)
+    return run
+
+
 def _prefill(args):
     """One prefill of a seeded prompt through generate (max_new=1)."""
     import numpy as np
     from .. import params as P
-    from ..config import get_config
     from ..models import generate as G
     from ..models import model as M
-    cfg = get_config(args.preset, dtype="bfloat16", num_kv_heads=args.kv_heads,
-                     max_seq_len=args.max_seq_len, pos_emb=args.pos_emb,
-                     window=args.window)
+    cfg = _config(args)
     pp = M.prepare_params({k: t.cuda() for k, t in P.init_params(
         cfg, torch.Generator().manual_seed(0)).items()}, cfg)
     prompt = torch.as_tensor(np.random.default_rng(0).integers(
@@ -140,7 +186,7 @@ def main(argv=None):
     p = argparse.ArgumentParser(
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("what", choices=["train", "prefill"])
+    p.add_argument("what", choices=["train", "prefill", "infer"])
     p.add_argument("--preset", default="gpt2-124m")
     p.add_argument("--kv-heads", type=int, default=0)
     p.add_argument("--batch", type=int, default=8)
@@ -155,7 +201,8 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    fn = (_train_step if args.what == "train" else _prefill)(args)
+    fn = {"train": _train_step, "prefill": _prefill,
+          "infer": _infer}[args.what](args)
     print(json.dumps({**vars(args), **op_breakdown(fn, args.iters),
                       "device": torch.cuda.get_device_name(0)}))
 

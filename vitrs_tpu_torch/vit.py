@@ -1,4 +1,4 @@
-"""The flat model API — the port of `vitrs_tpu/vit.py` (gpt mode).
+"""The flat model API — the port of `vitrs_tpu/vit.py` (gpt and vit mode).
 
 Keeps the reference's five-call surface:
     build_from_checkpoint / from_config
@@ -8,12 +8,16 @@ Keeps the reference's five-call surface:
     save_checkpoint / load_checkpoint
 plus `train_step`, forward + backward + AdamW in one call.
 
-Semantics kept from the reference, as in the JAX package:
+Inputs are token ids (B, T) in gpt mode, images (B, H, W, C) with integer
+labels in vit mode.  Semantics kept from the reference, as in the JAX
+package:
   * forward with no targets is inference mode and returns mean_loss = -1.0;
   * grads accumulate with += across backward() calls and are cleared with
     zero_grad() between steps;
   * optimizer state m/v mirrors the parameter dict in fp32; a checkpoint
-    holds it as the flat vectors of num_parameters floats.
+    holds it as the flat vectors of num_parameters floats;
+  * a tensor the loss does not read gets exact zero gradients (wpe under
+    rope; wte in vit mode), as under jax.grad.
 """
 
 from __future__ import annotations
@@ -103,16 +107,24 @@ class ViT:
     def _tokens(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.long, device=self.device)
 
+    def _model_inputs(self, x) -> torch.Tensor:
+        """Token ids as int64 (gpt mode), images as fp32 (vit mode)."""
+        if self.config.mode == "vit":
+            return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        return self._tokens(x)
+
     def forward(self, inputs, targets=None) -> float:
-        """Fills self.logits (B, T, V); returns the mean loss, or -1.0 in
-        inference mode (no targets), the reference's sentinel
-        (rusty_vit.rs:348-350).  Logits and loss come from one pass."""
-        self._inputs = self._tokens(inputs)
+        """Fills self.logits ((B, T, V) in gpt mode, (B, num_classes) fp32
+        in vit mode); returns the mean loss, or -1.0 in inference mode (no
+        targets), the reference's sentinel (rusty_vit.rs:348-350).  Logits
+        and loss come from one pass."""
+        self._inputs = self._model_inputs(inputs)
         self._targets = None if targets is None else self._tokens(targets)
         with torch.no_grad():
             if targets is None:
-                self.logits = M.gpt_forward(self._compute, self._inputs,
-                                            self.config)
+                fwd = (M.vit_forward if self.config.mode == "vit"
+                       else M.gpt_forward)
+                self.logits = fwd(self._compute, self._inputs, self.config)
                 self.mean_loss = -1.0
             else:
                 self.logits, loss = M.forward_with_loss(
@@ -124,7 +136,8 @@ class ViT:
         leaves = {k: p.detach().requires_grad_(True)
                   for k, p in self.params.items()}
         loss = M.loss_fn(leaves, inputs, targets, self.config)
-        # a tensor the loss does not read (wpe under rope) gets exact zeros
+        # a tensor the loss does not read (wpe under rope, wte in vit mode)
+        # gets exact zeros
         grads = torch.autograd.grad(loss, list(leaves.values()),
                                     allow_unused=True)
         return loss.detach(), {k: torch.zeros_like(p) if g is None else g
@@ -170,7 +183,7 @@ class ViT:
                    weight_decay: float = 0.0) -> float:
         """forward + backward + AdamW; returns the loss before the update."""
         self.step += 1
-        loss, grads = self._loss_and_grads(self._tokens(inputs),
+        loss, grads = self._loss_and_grads(self._model_inputs(inputs),
                                            self._tokens(targets))
         params, self.m, self.v = opt.adamw_tree(
             self.params, grads, self.m, self.v, self.step, lr,
