@@ -115,6 +115,31 @@ on any failure.  Phases, each printed as it ends:
                     and with stochastic depth + head dropout: loss, every
                     gradient and the updated parameters agree.
 
+ 23. kernels-moe    K1-fwd, K2, K5 and K6 at the MoE training shapes
+                    (gpt2-moe-8e at bench.py's B=24: attention B=24 T=1024
+                    NH=12 causal, the loss at R=24,576 x 50,304) against
+                    their plain versions, then times beside the bound, SDPA
+                    and F.cross_entropy.
+ 24. train-moe      gpt2-moe-8e (521,197,824 parameters, E=8, top-2) at full
+                    width and depth, bench.py's MoE row (B=24, T=1024,
+                    Adafactor, moe_cap_factor 1.0), 12 steps through
+                    train/loop.train: finite, falling loss; 12 K1-fwd, 12
+                    K2, 1 K5, 1 K6 a step and no K7 or K8; step ms, tok/s,
+                    sparse MFU, peak memory, the router's kept fraction, the
+                    Adafactor state beside AdamW's m + v, and a device-time
+                    breakdown of one step with the index/gather group.
+ 25. train-muon     phase 6's run with --optimizer muon (lr 0.02): finite,
+                    falling loss, and no K7.
+ 26. serve-moe      gpt2-moe-8e in bf16 through GenerationEngine (8 greedy
+                    requests; launches == 12 x prefill dispatches) and a
+                    chunked generate() whose continuation chunks run K4;
+                    prefill ms, decode tok/s, ms per new token.
+ 27. xdevice-moe    a small fp32 MoE model (E=4, top-2, cap 1.0, with drops):
+                    an Adafactor and a Muon step and a chunked generate on
+                    CUDA and on the CPU agree (the same router dst first);
+                    moe_mlp's forward and backward on the card are bitwise
+                    repeatable.
+
 `python3 chip_smoke.py --phases a,b` runs only the named phases (after the
 device phase) and prints no result lines.
 
@@ -758,12 +783,13 @@ def designed(**counts):
 
 
 def phase_train(smi, steps=12, kv_heads=0, overrides=None, B=8, tag=None,
-                n_params=None, head_ce=False):
+                n_params=None, head_ce=False, optimizer="adamw", lr=6e-4):
     """GPT-2 124M, full width and depth, through train/loop.train; with
     kv_heads, its GQA variant through K3; `overrides` are the TrainConfig's
     model_overrides (the long-context rope + window model); head_ce sets
     ops/fused_head_ce.ENABLE, so the loss runs through K8 (and K6) instead
-    of K5/K6."""
+    of K5/K6; optimizer "muon" (lr the matrix lr, AdamW's 6e-4 for the
+    rest) takes the tree-form step, which launches no K7."""
     from vitrs_tpu_torch import params as P
     from vitrs_tpu_torch.config import get_config
     from vitrs_tpu_torch.ops import fused_head_ce as FH
@@ -776,10 +802,11 @@ def phase_train(smi, steps=12, kv_heads=0, overrides=None, B=8, tag=None,
     T = cfg.max_seq_len
     with tempfile.TemporaryDirectory() as work:
         tc = loop.TrainConfig(preset="gpt2-124m", dataset="", steps=steps,
-                              batch_size=B, lr=6e-4, warmup=2, min_lr=6e-5,
+                              batch_size=B, warmup=2, min_lr=lr / 10,
                               weight_decay=0.1, dtype="bfloat16", log_every=1,
                               ckpt_every=0, workdir=work,
                               kv_heads=kv_heads, device="cuda",
+                              optimizer=optimizer, lr=lr,
                               model_overrides=overrides or None)
         torch.cuda.reset_peak_memory_stats()
         FH.ENABLE = head_ce
@@ -800,7 +827,7 @@ def phase_train(smi, steps=12, kv_heads=0, overrides=None, B=8, tag=None,
                 else ("flash_fwd", "flash_bwd"))
     loss_kernel = {"head_ce_fwd": steps} if head_ce else {"ce_fwd": steps}
     want = designed(**{fwd: L * steps, bwd: L * steps}, ce_bwd=steps,
-                    adamw=steps, **loss_kernel)
+                    adamw=steps if optimizer == "adamw" else 0, **loss_kernel)
     check(counts == want, f"{tag} launches {counts} != designed {want}")
     losses = [r["loss"] for r in recs]
     check(len(losses) == steps and all(np.isfinite(losses)),
@@ -815,10 +842,11 @@ def phase_train(smi, steps=12, kv_heads=0, overrides=None, B=8, tag=None,
           f"params) bf16/fp32-master B={B} T={T} {steps} steps: "
           f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
     print(f"{tag} losses {losses}")
-    print(f"{tag} launches per step: {fwd} {counts[fwd] // steps}, "
-          f"{bwd} {counts[bwd] // steps} (3 kernels each), "
-          f"{'head_ce_fwd' if head_ce else 'ce_fwd'}/ce_bwd/adamw 1, every "
-          f"other kernel 0")
+    print(f"{tag} {optimizer}: launches per step: {fwd} "
+          f"{counts[fwd] // steps}, {bwd} {counts[bwd] // steps} (3 kernels "
+          f"each), {'head_ce_fwd' if head_ce else 'ce_fwd'}/ce_bwd"
+          f"{'/adamw' if optimizer == 'adamw' else ''} 1, every other "
+          f"kernel 0")
     print(f"{tag} steady (steps 3-{steps}, median): {step_ms:.2f} ms/step, "
           f"{tok_s:.1f} tok/s, MFU {mfu:.4f} of 989 TFLOP/s; "
           f"max_memory_allocated {peak / 2**30:.3f} GiB; wall {wall:.1f} s "
@@ -2282,6 +2310,572 @@ def phase_xdevice_vit():
     return all_counts
 
 
+# ---------------------------------------------------------------------------
+# mixture of experts (gpt2-moe-8e) and the tree optimizers (Adafactor, Muon)
+# ---------------------------------------------------------------------------
+
+MOE_PARAMS = 521_197_824
+MOE_B = 24              # bench.py's MoE row (bench.py:155-158)
+
+
+def phase_kernels_moe():
+    """K1-fwd, K2, K5 and K6 at the MoE training shapes, gpt2-moe-8e at
+    bench.py's B=24, T=1024: attention bf16 B=24 NH=12 D=64 causal, the
+    loss over R=24,576 rows of the 50,304-column padded head; K4 at
+    serve-moe's chunked generate (bf16 B=1, 256-query chunks at q_offset
+    256 and 512 into a 1024-slot cache, 12 kv heads).  Each against
+    its plain version at phase kernels' and kernels-train's tolerances,
+    then kernel and plain times (plain, kernel, kernel, plain) beside the
+    bound and PyTorch's call (SDPA's forward and backward,
+    F.cross_entropy)."""
+    import torch.nn.functional as F
+    from vitrs_tpu_torch.ops import flash_attention as FA
+    from vitrs_tpu_torch.ops import fused_ce as CE
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    B, T = MOE_B, 1024
+    shape = f"bf16 B={B} T={T} NH=12 D=64 causal"
+    res = {}
+    qkv = torch.randn(B, T, 3 * C, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    q, k, v = qkv.split(C, dim=-1)
+    out, lse = FA.flash_fwd_cuda(q, k, v, NH, True, 0.125)
+    ref, ref_lse = FA.flash_fwd_plain(q, k, v, NH, True, 0.125)
+    torch.cuda.synchronize()
+    bad, err, rms = out_errors(out, ref)
+    lse_err = (lse - ref_lse).abs().max().item()
+    check(bad == 0 and lse_err <= 1e-4, f"K1-fwd {shape}: {bad} out values "
+          f"beyond tolerance, lse err {lse_err}")
+    del ref, ref_lse
+    km, pm, raw = timed_pair(
+        lambda: FA.flash_fwd_cuda(q, k, v, NH, True, 0.125),
+        lambda: FA.flash_fwd_plain(q, k, v, NH, True, 0.125))
+    lib = cuda_ms(lambda: sdpa_fwd(q, k, v, NH))
+    flops = fwd_flops(B, T, 0, T)
+    bms, by = attn_fwd_bound(B, T, 0, T, NH, 2)
+    res["flash_fwd"] = dict(max_abs_err=err, ms=km, plain_ms=pm, bound_ms=bms,
+                            bound_by=by, library_ms=lib,
+                            tflops=flops / km / 1e9, shape=shape)
+    print(f"[kernels-moe] K1-fwd {shape}: out max_abs_err {err:.3e} (rms "
+          f"{rms:.3e}), lse {lse_err:.3e}; kernel {raw[0]:.4f}/{raw[1]:.4f} "
+          f"ms, plain {raw[2]:.4f}/{raw[3]:.4f} ms, SDPA {lib:.4f} ms, bound "
+          f"{bms:.4f} ms ({by}), {flops / km / 1e9:.1f} TFLOP/s")
+
+    do = torch.randn(B, T, C, generator=gen, device="cuda").to(torch.bfloat16)
+    got = FA.flash_bwd_cuda(q, k, v, out, lse, do, NH, True, 0.125)
+    want = FA.flash_bwd_plain(q, k, v, out, lse, do, NH, True, 0.125)
+    torch.cuda.synchronize()
+    errs = []
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        d = (a.float() - b.float()).abs()
+        bad = (d > 2e-2 + 2e-2 * b.float().abs()).sum().item()
+        check(torch.isfinite(a).all().item() and bad == 0,
+              f"K2 {shape}: {bad} {name} values beyond 2e-2")
+        errs.append(d.max().item())
+    del got, want
+    km, pm, raw = timed_pair(
+        lambda: FA.flash_bwd_cuda(q, k, v, out, lse, do, NH, True, 0.125),
+        lambda: FA.flash_bwd_plain(q, k, v, out, lse, do, NH, True, 0.125))
+    lib = cuda_ms(sdpa_bwd(q, k, v, do, NH))
+    flops = bwd_flops(B, T)
+    bms, by = attn_bwd_bound(B, T, NH, 2)
+    res["flash_bwd"] = dict(max_abs_err=max(errs), ms=km, plain_ms=pm,
+                            bound_ms=bms, bound_by=by, library_ms=lib,
+                            tflops=flops / km / 1e9, shape=shape)
+    print(f"[kernels-moe] K2 {shape}: max_abs_err dq/dk/dv "
+          f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}; kernel "
+          f"{raw[0]:.4f}/{raw[1]:.4f} ms, plain {raw[2]:.4f}/{raw[3]:.4f} ms, "
+          f"SDPA backward {lib:.4f} ms, bound {bms:.4f} ms ({by}), "
+          f"{flops / km / 1e9:.1f} TFLOP/s")
+    del qkv, q, k, v, out, lse, do
+
+    R, V = B * T, 50257
+    Vp = CE.pad_vocab(V)
+    logits = (3 * torch.randn(R, Vp, generator=gen, device="cuda")).to(
+        torch.bfloat16)
+    targets = torch.randint(0, V, (R,), generator=gen, device="cuda")
+    g = torch.full((R,), 1.0 / R, device="cuda")
+    lse, picked = CE.ce_fwd_cuda(logits, targets, V)
+    want_lse, want_picked = CE.ce_fwd_plain(logits, targets, V)
+    d = CE.ce_bwd_cuda(logits, targets, lse, g, V)
+    want_d = CE.ce_bwd_plain(logits, targets, lse, g, V)
+    torch.cuda.synchronize()
+    lse_err = (lse - want_lse).abs().max().item()
+    pick_err = (picked - want_picked).abs().max().item()
+    derr = (d.float() - want_d.float()).abs()
+    bad = (derr > 1e-6 + 2 ** -8 * want_d.float().abs()).sum().item()
+    check(lse_err <= 1e-4 and pick_err == 0.0,
+          f"K5 R={R}: lse err {lse_err}, picked err {pick_err}")
+    check(bad == 0 and bool((d[:, V:] == 0).all()),
+          f"K6 R={R}: {bad} dlogits values beyond one bf16 ulp, or pad != 0")
+    derr = derr.max().item()
+    del want_d, want_lse, want_picked
+    shape = f"bf16 R={R} Vp={Vp} real_vocab={V}"
+    km, pm, raw = timed_pair(lambda: CE.ce_fwd_cuda(logits, targets, V),
+                             lambda: CE.ce_fwd_plain(logits, targets, V))
+    lib = cuda_ms(lambda: F.cross_entropy(logits[:, :V], targets,
+                                          reduction="none"))
+    bms, by = bound(4 * R * V, "fp32", R * V * 2 + R * 8 + 2 * R * 4)
+    res["ce_fwd"] = dict(max_abs_err=lse_err, ms=km, plain_ms=pm,
+                         bound_ms=bms, bound_by=by, library_ms=lib,
+                         shape=shape)
+    print(f"[kernels-moe] K5 {shape}: lse max_abs_err {lse_err:.3e}; kernel "
+          f"{raw[0]:.4f}/{raw[1]:.4f} ms, plain {raw[2]:.4f}/{raw[3]:.4f} ms, "
+          f"F.cross_entropy {lib:.4f} ms, bound {bms:.4f} ms ({by})")
+    km, pm, raw = timed_pair(
+        lambda: CE.ce_bwd_cuda(logits, targets, lse, g, V),
+        lambda: CE.ce_bwd_plain(logits, targets, lse, g, V))
+    bms, by = bound(5 * R * V, "fp32", R * V * 2 + R * Vp * 2 + R * 16)
+    res["ce_bwd"] = dict(max_abs_err=derr, ms=km, plain_ms=pm, bound_ms=bms,
+                         bound_by=by, library_ms=None, shape=shape)
+    print(f"[kernels-moe] K6 {shape}: dlogits max_abs_err {derr:.3e}; kernel "
+          f"{raw[0]:.4f}/{raw[1]:.4f} ms, plain {raw[2]:.4f}/{raw[3]:.4f} ms, "
+          f"bound {bms:.4f} ms ({by})")
+    del logits, targets, g, lse, picked, d
+
+    # K4 at serve-moe's chunked generate: a 768-token prompt in 256-token
+    # chunks (the 2nd and 3rd at q_offset 256 and 512) into a 1024-slot
+    # bf16 cache, every slot past the chunk NaN; tolerance `out_errors`
+    from vitrs_tpu_torch.ops import flash_prefill as FP
+    B, S, Tk, KH = 1, 256, 1024, NH
+    shape = f"bf16 B={B} S={S} q_off=512 Tk={Tk} NH=12 KH={KH} D=64"
+    worst = 0.0
+    for q_off in (256, 512):
+        q = torch.randn(B, S, C, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        k, v = (torch.randn(B, Tk, KH * D, generator=gen,
+                            device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        k[:, q_off + S:] = float("nan")
+        v[:, q_off + S:] = float("nan")
+        got = FP.flash_prefill_cuda(q, k, v, NH, KH, q_off, 0.125)
+        want = FP.flash_prefill_plain(q, k, v, NH, KH, q_off, 0.125)
+        torch.cuda.synchronize()
+        bad, err, rms = out_errors(got, want)
+        check(torch.isfinite(got).all().item() and bad == 0,
+              f"K4 B={B} S={S} q_off={q_off} Tk={Tk}: {bad} values beyond "
+              f"tolerance, or non-finite")
+        print(f"[kernels-moe] K4 bf16 B={B} S={S} q_off={q_off} Tk={Tk} "
+              f"KH={KH} (NaN tail): max_abs_err {err:.3e} (rms {rms:.3e})")
+        worst = max(worst, err)
+    front = q_off + S
+    mask = (torch.arange(front, device="cuda")[None, :]
+            <= q_off + torch.arange(S, device="cuda")[:, None])
+    km, pm, raw = timed_pair(
+        lambda: FP.flash_prefill_cuda(q, k, v, NH, KH, q_off, 0.125),
+        lambda: FP.flash_prefill_plain(q, k, v, NH, KH, q_off, 0.125))
+    lib = cuda_ms(lambda: sdpa_fwd(q, k[:, :front], v[:, :front], KH, mask))
+    bms, by = attn_fwd_bound(B, S, q_off, Tk, KH, 2)
+    flops = fwd_flops(B, S, q_off, Tk)
+    res["flash_prefill"] = dict(max_abs_err=worst, ms=km, plain_ms=pm,
+                                bound_ms=bms, bound_by=by, library_ms=lib,
+                                tflops=flops / km / 1e9, shape=shape)
+    print(f"[kernels-moe] K4 {shape}: kernel {raw[0]:.4f}/{raw[1]:.4f} ms, "
+          f"plain {raw[2]:.4f}/{raw[3]:.4f} ms, SDPA (mask) {lib:.4f} ms, "
+          f"bound {bms:.4f} ms ({by}), {flops / km / 1e9:.1f} TFLOP/s")
+    return res
+
+
+def _moe_cfg():
+    from vitrs_tpu_torch import params as P
+    from vitrs_tpu_torch.config import get_config
+    cfg = get_config("gpt2-moe-8e", moe_cap_factor=1.0, dtype="bfloat16")
+    check(P.num_parameters(cfg) == MOE_PARAMS, "gpt2-moe-8e parameter count")
+    return cfg
+
+
+def _moe_breakdown(cfg, B):
+    """utils/profiling's device-time breakdown of one Adafactor step of
+    gpt2-moe-8e at B on the synthetic token stream (seeded weights made on
+    the card), the step's Adafactor state bytes, and the Adafactor update
+    alone (ops/adafactor.step on the step's gradients, CUDA events)."""
+    from vitrs_tpu_torch import params as P
+    from vitrs_tpu_torch.data import tokens as TOK
+    from vitrs_tpu_torch.ops import adafactor as AF
+    from vitrs_tpu_torch.parallel import data_parallel as dp
+    from vitrs_tpu_torch.utils import profiling
+    params = P.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    params = P.unflatten_params(P.flatten_params(params, cfg), cfg)
+    state = AF.init_state(params)
+    step = dp.make_dp_train_step_adafactor(cfg, dp.make_mesh(devices=["cuda"]))
+    x, y = TOK.TokenLoader(TOK.get_tokens(None, cfg.vocab_size, seed=0), B,
+                           cfg.max_seq_len).next_batch()
+    prof = profiling.op_breakdown(
+        lambda: step(params, state, x, y, 1, 1e-2, 0.1), 3)
+    grads = {k: t.grad for k, t in params.items()}
+    mask = {k: t.dim() >= 2 for k, t in params.items()}
+    af_ms = cuda_ms(lambda: AF.step(params, grads, state, 1, 1e-2,
+                                    weight_decay=0.1, decay_mask=mask),
+                    iters=5, warmup=1)
+    return prof, AF.state_bytes(state), af_ms
+
+
+def phase_train_moe(smi, steps=12):
+    """gpt2-moe-8e (521,197,824 parameters: GPT-2 124M's trunk with 8
+    experts a layer, top-2) at full width and depth as bench.py's MoE row
+    runs it (bench.py:155-158: B=24, T=1024, Adafactor, moe_cap_factor 1.0,
+    so 6,144 slots an expert a layer), fp32 masters, bf16 compute, 12 steps
+    of train/loop.train with Adafactor at the relative step 1e-2 the CLI
+    documents (cosine to 1e-3, warmup 2, decay 0.1 on the >= 2-axis
+    tensors), on the synthetic token stream.  Finite loss, lower at step 12
+    than at step 1; 12 K1-fwd, 12 K2, 1 K5 and 1 K6 a step, no K7 or K8.
+    Prints step ms and tok/s (median of steps 3-12), sparse MFU
+    (utils/flops: the executed top-2 expert products), peak memory, the
+    router's kept fraction (each layer's share of assignments within
+    capacity), the Adafactor state's bytes beside AdamW's m + v, and the
+    device-time breakdown of one step (utils/profiling, with the
+    index/gather group of the MoE routing)."""
+    from vitrs_tpu_torch import params as P
+    from vitrs_tpu_torch.models import model as M
+    from vitrs_tpu_torch.train import loop
+    cfg = _moe_cfg()
+    B, T, L = MOE_B, cfg.max_seq_len, cfg.num_layers
+    kept = []
+    real = M.moe_mlp
+
+    def recording(*a, **kw):
+        out, aux = real(*a, **kw)
+        kept.append(aux.kept_fraction.detach())
+        return out, aux
+
+    with tempfile.TemporaryDirectory() as work:
+        tc = loop.TrainConfig(preset="gpt2-moe-8e", dataset="", steps=steps,
+                              batch_size=B, lr=1e-2, warmup=2, min_lr=1e-3,
+                              weight_decay=0.1, dtype="bfloat16",
+                              log_every=1, ckpt_every=0, workdir=work,
+                              optimizer="adafactor", device="cuda",
+                              model_overrides={"moe_cap_factor": 1.0})
+        torch.cuda.reset_peak_memory_stats()
+        M.moe_mlp = recording
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            loop.train(tc)
+            torch.cuda.synchronize()
+        finally:
+            M.moe_mlp = real
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        with open(os.path.join(work, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+    want = designed(flash_fwd=L * steps, flash_bwd=L * steps, ce_fwd=steps,
+                    ce_bwd=steps)
+    check(counts == want, f"[train-moe] launches {counts} != designed {want}")
+    losses = [r["loss"] for r in recs]
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"[train-moe] losses {losses}")
+    check(losses[-1] < losses[0], f"[train-moe] loss did not fall: {losses}")
+    kept = torch.stack(kept).float().cpu().reshape(steps, L)
+    steady = recs[2:]
+    tok_s = float(np.median([r["tok_per_sec"] for r in steady]))
+    mfu = float(np.median([r["mfu"] for r in steady]))
+    step_ms = B * T / tok_s * 1e3
+    print(f"[train-moe] gpt2-moe-8e ({MOE_PARAMS} params, E=8 top-2, cap "
+          f"factor 1.0: 6144 slots an expert) bf16/fp32-master B={B} T={T} "
+          f"Adafactor {steps} steps: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; lr (relative step) {[r['lr'] for r in recs]}")
+    print(f"[train-moe] losses {losses}")
+    print(f"[train-moe] launches per step: flash_fwd "
+          f"{counts['flash_fwd'] // steps}, flash_bwd "
+          f"{counts['flash_bwd'] // steps} (3 kernels each), ce_fwd/ce_bwd 1, "
+          f"adamw and every other kernel 0")
+    print(f"[train-moe] steady (steps 3-{steps}, median): {step_ms:.2f} "
+          f"ms/step, {tok_s:.1f} tok/s, sparse MFU {mfu:.4f} of 989 TFLOP/s; "
+          f"max_memory_allocated {peak / 2**30:.3f} GiB; wall {wall:.1f} s "
+          f"incl. init and final checkpoint  ({smi})")
+    print(f"[train-moe] per-step tok/s {[r['tok_per_sec'] for r in recs]}")
+    print(f"[train-moe] router kept fraction: mean {kept.mean():.4f}, min "
+          f"{kept.min():.4f}, max {kept.max():.4f}; step 12 by layer "
+          f"{[round(float(x), 4) for x in kept[-1]]}")
+    del recs
+    torch.cuda.empty_cache()
+    prof, state_bytes, af_ms = _moe_breakdown(cfg, B)
+    adamw_bytes = 8 * P.num_parameters(cfg)
+    print(f"[train-moe] Adafactor state {state_bytes} B against AdamW's m + "
+          f"v {adamw_bytes} B ({state_bytes / adamw_bytes:.5f}); the "
+          f"Adafactor update alone {af_ms:.3f} ms")
+    print(f"[train-moe] breakdown of one step (device ms): "
+          f"{json.dumps(prof)}  ({smi})")
+    return counts, dict(step_ms=step_ms, tok_s=tok_s, mfu=mfu,
+                        peak_gib=peak / 2**30, losses=losses,
+                        kept_mean=float(kept.mean()),
+                        kept_min=float(kept.min()),
+                        state_bytes=state_bytes, adamw_state_bytes=adamw_bytes,
+                        adafactor_ms=af_ms, breakdown=prof)
+
+
+def phase_serve_moe(smi):
+    """gpt2-moe-8e in bf16 (seeded random weights, cap factor 1.0): 8
+    greedy requests through GenerationEngine (phase serve's prompts, 32 new
+    tokens, decode chunk 16): K1-fwd launches == 12 x prefill dispatches,
+    every block's MLP the routed MoE layer (capacity from each call's own
+    tokens: a prefill's, a decode tick's 8 slots).  Then generate() of a
+    768-token prompt, whole and in 256-token chunks (one K1-fwd chunk, two
+    K4 chunks under MoE), 1 and 33 new tokens: finite logits, valid ids;
+    prefill ms and ms per new token."""
+    from vitrs_tpu_torch import params as P
+    from vitrs_tpu_torch.models import generate as G
+    from vitrs_tpu_torch.models import model as M
+    from vitrs_tpu_torch.serving_gen import GenerationEngine
+    cfg = _moe_cfg()
+    L = cfg.num_layers
+    params = P.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    pp = M.prepare_params(params, cfg)
+    del params
+    rng = np.random.default_rng(0)
+    lengths = (5, 37, 128, 300, 511, 700, 900, 960)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lengths]
+
+    def serve():
+        eng = GenerationEngine(pp, cfg, max_slots=8, max_len=1024,
+                               prompt_buckets=(128, 512, 1024),
+                               decode_chunk=16)
+        for p in prompts:
+            eng.submit(p, max_new=32)
+        reset_counts()
+        t0 = time.perf_counter()
+        eng._admit()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        outs = dict(eng.run())
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts = read_counts()
+        want = designed(flash_fwd=L * eng.prefill_dispatches)
+        check(counts["flash_fwd"] > 0 and counts == want,
+              f"[serve-moe] launches {counts} != {want}")
+        for i, n in enumerate(lengths):
+            gen = outs[i][n:]
+            check(len(outs[i]) == n + 32 and bool(
+                ((gen >= 0) & (gen < cfg.vocab_size)).all()),
+                f"[serve-moe] request {i}")
+        return eng, counts, (t1 - t0) * 1e3, 8 * 32 / (t2 - t1)
+
+    serve()                                    # warm-up: cuBLAS, allocator
+    eng, counts, prefill_ms, tok_s = serve()
+    print(f"[serve-moe] gpt2-moe-8e bf16, 8 requests x 32 new: "
+          f"{eng.prefill_dispatches} prefill dispatches, {counts['flash_fwd']} "
+          f"K1-fwd launches, prefill {prefill_ms:.3f} ms, decode {tok_s:.1f} "
+          f"tok/s  ({smi})")
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 768)),
+                             device="cuda")
+
+    def run(chunk, max_new):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = G.generate(pp, prompt, cfg, max_new, temperature=0.0,
+                         prefill_chunk=chunk)
+        torch.cuda.synchronize()
+        gen = out[:, 768:]
+        check(out.shape == (1, 768 + max_new) and bool(
+            ((gen >= 0) & (gen < cfg.vocab_size)).all()), "[serve-moe] ids")
+        return (time.perf_counter() - t0) * 1e3, read_counts()
+
+    run(256, 2)
+    run(0, 2)
+    gen_res = {}
+    for chunk in (256, 0):
+        ms1, c1 = run(chunk, 1)
+        msn, cn = run(chunk, 33)
+        want = designed(flash_fwd=L, flash_prefill=2 * L if chunk else 0)
+        check(c1 == want and cn == want,
+              f"[serve-moe] generate chunk {chunk}: {c1} / {cn} != {want}")
+        gen_res[chunk] = dict(prefill_ms=ms1, ms_per_new_token=(msn - ms1) / 32,
+                              launches=c1)
+        print(f"[serve-moe] generate 768-token prompt, chunk {chunk}: "
+              f"launches flash_fwd {c1['flash_fwd']}, flash_prefill "
+              f"{c1['flash_prefill']}; prefill (max_new=1) {ms1:.2f} ms; "
+              f"{(msn - ms1) / 32:.3f} ms per new token  ({smi})")
+    caches = G.init_kv_cache(cfg, 1, 1024, device=prompt.device)
+    lg, _ = G.forward_with_cache(pp, prompt, caches, 0, cfg, last_only=True)
+    check(bool(torch.isfinite(lg).all()), "[serve-moe] non-finite logits")
+    return dict(launches=counts, prefill_ms=prefill_ms, decode_tok_s=tok_s,
+                generate=gen_res)
+
+
+def _moe_step_on(dev, cfg, params, x, y, optimizer):
+    """One tree-optimizer step of `cfg` on `dev` from `params` (CPU fp32
+    tensors): (loss, grads, params after, state after, the router's dst of
+    every MoE call, launches).  Adafactor at lr 1e-2, wd 0.1; Muon at lr
+    0.02, AdamW lr 1e-3, clip 1.0, wd 0.1."""
+    from vitrs_tpu_torch import params as P
+    from vitrs_tpu_torch.ops import adafactor as AF
+    from vitrs_tpu_torch.ops import moe as MOE
+    from vitrs_tpu_torch.ops import muon as MU
+    from vitrs_tpu_torch.parallel import data_parallel as dp
+    mesh = dp.make_mesh(devices=[dev])
+    flat = P.flatten_params({k: t.to(dev) for k, t in params.items()}, cfg)
+    leaves = P.unflatten_params(flat, cfg)
+    if optimizer == "adafactor":
+        step = dp.make_dp_train_step_adafactor(cfg, mesh)
+        args = (AF.init_state(leaves), x, y, 1, 1e-2, 0.1)
+    else:
+        step = dp.make_dp_train_step_muon(cfg, mesh, clip_norm=1.0,
+                                          weight_decay=0.1)
+        args = (MU.init_state(leaves), x, y, 0, 0.02, 1e-3)
+    dsts, real = [], MOE.router
+
+    def recording(*a):
+        out = real(*a)
+        dsts.append(out[0].cpu())
+        return out
+
+    MOE.router = recording
+    reset_counts()
+    try:
+        new, state, loss = step(leaves, *args)
+        counts = read_counts()
+    finally:
+        MOE.router = real
+    cpu = lambda tree: {k: t.detach().cpu() for k, t in tree.items()}  # noqa: E731
+    return (loss.item(), {k: t.grad.cpu() for k, t in new.items()}, cpu(new),
+            {f: cpu(tree) for f, tree in state._asdict().items()}, dsts,
+            counts)
+
+
+def phase_xdevice_moe():
+    """A small fp32 MoE model (L=2, 2 heads of 64, C=128, E=4, top-2, cap
+    factor 1.0, so some assignments are dropped; V=16500: the fused CE
+    route) on CUDA with the kernels and on the CPU with the plain versions,
+    from the same weights and tokens (TF32 off):
+      * one Adafactor step and one Muon step: the same router dst in every
+        MoE call, then the loss (rtol 1e-5), every gradient (rtol 1e-4 +
+        atol 1e-6, the packed qkv bias atol 2e-4: its k third's gradient
+        is exactly 0, so both hold fp32 noise), the parameters after the
+        step and the optimizer state.  Adafactor: rtol 1e-4 + atol 5e-5
+        (the CPU parity tests'), qkvb on its q and v thirds (Adafactor
+        scales noise to a full step); state rtol 1e-4 + 1e-5 of each
+        tensor's largest value.  Muon: the bf16 Newton-Schulz products sum
+        in another order on each device, which flips bf16 roundings and
+        grows over five iterations (tests/test_torch_muon.py), so each
+        matrix's update agrees within 5% of its norm and 1e-3 elementwise
+        (the CPU parity test's; a lost aspect scale, Nesterov term or decay
+        is off by the order of the update, up to 0.02);
+        the rest rtol 2e-5 + atol 1e-6, or the AdamW lr where |g| < 1e-6;
+        momentum and AdamW moments as Adafactor's state.  Each CUDA step launches L K1-fwd, L K2, one K5
+        and one K6, and no K7;
+      * a chunked generate (48-token prompt, chunk 16, 8 new): the same
+        greedy tokens; K1-fwd and K4 on CUDA only;
+      * `moe_mlp` on the card in bf16 at (S, C, E) = (8192, 768, 8), top-2,
+        cap factor 1.0, forward and backward twice: the same bits (the
+        gather-only backward; autograd's index_add_ would use atomics)."""
+    from vitrs_tpu_torch import params as P
+    from vitrs_tpu_torch.config import get_config
+    from vitrs_tpu_torch.models import generate as G
+    from vitrs_tpu_torch.models import model as M
+    from vitrs_tpu_torch.ops import moe as MOE
+    from vitrs_tpu_torch.ops import muon as MU
+    cfg = get_config("gpt-nano").replace(
+        num_layers=2, num_heads=2, channels=128, max_seq_len=64,
+        vocab_size=16500, num_experts=4, moe_top_k=2, moe_cap_factor=1.0)
+    L, C_ = cfg.num_layers, cfg.channels
+    params = P.init_params(cfg, torch.Generator().manual_seed(7))
+    rng = np.random.default_rng(7)
+    x = rng.integers(0, cfg.vocab_size, (2, 64))
+    y = rng.integers(0, cfg.vocab_size, (2, 64))
+    out = {}
+    for optimizer in ("adafactor", "muon"):
+        got = _moe_step_on("cuda", cfg, params, x, y, optimizer)
+        want = _moe_step_on("cpu", cfg, params, x, y, optimizer)
+        tag = f"xdevice-moe {optimizer}"
+        check(got[5] == designed(flash_fwd=L, flash_bwd=L, ce_fwd=1,
+                                 ce_bwd=1), f"{tag}: CUDA launches {got[5]}")
+        check(not any(want[5].values()), f"{tag}: a kernel ran on the CPU")
+        check(len(got[4]) == len(want[4]) == L and all(
+            torch.equal(a, b) for a, b in zip(got[4], want[4])),
+            f"{tag}: router dst differs")
+        sink = cfg.num_experts * MOE.capacity(128, cfg.num_experts, 2, 1.0)
+        kept = float(np.mean([(d < sink).float().mean() for d in got[4]]))
+        check(kept < 1.0, f"{tag}: no assignment dropped")
+        check(abs(got[0] - want[0]) <= 1e-5 * abs(want[0]),
+              f"{tag}: loss {got[0]} vs {want[0]}")
+        gerr = perr = serr = murel = 0.0
+        for k, w in want[1].items():
+            d = (got[1][k] - w).abs()
+            atol = 2e-4 if k == "qkvb" else 1e-6
+            check(bool((d <= atol + 1e-4 * w.abs()).all()),
+                  f"{tag}: grad {k} max err {d.max().item()}")
+            gerr = max(gerr, d.max().item())
+        for k, w in want[2].items():
+            a = got[2][k]
+            if optimizer == "adafactor":
+                if k == "qkvb":
+                    a, w = (torch.cat([t[:, :C_], t[:, 2 * C_:]], -1)
+                            for t in (a, w))
+                tol = 5e-5 + 1e-4 * w.abs()
+            elif k in MU.MUON_KEYS:
+                p0 = params[k]
+                rel = ((a - w).norm() / (w - p0).norm()).item()
+                check(rel <= 5e-2, f"{tag}: {k} update differs by {rel} of "
+                      f"its norm")
+                murel = max(murel, rel)
+                tol = torch.full_like(w, 1e-3)
+            else:
+                tol = torch.where(want[1][k].abs() < 1e-6,
+                                  torch.full_like(w, 1e-3),
+                                  1e-6 + 2e-5 * w.abs())
+            d = (a - w).abs()
+            check(bool((d <= tol).all()),
+                  f"{tag}: param {k} max err {d.max().item()}")
+            perr = max(perr, d.max().item())
+        for f, tree in want[3].items():
+            for k, w in tree.items():
+                d = (got[3][f][k] - w).abs()
+                tol = 1e-4 * w.abs() + 1e-5 * w.abs().max()
+                check(bool((d <= tol).all()),
+                      f"{tag}: state {f}[{k}] max err {d.max().item()}")
+                serr = max(serr, (d / w.abs().max().clamp_min(1e-30)).max()
+                           .item())
+        out[optimizer] = got[5]
+        print(f"[xdevice-moe] {optimizer}: fp32 L=2 E=4 top-2 cap 1.0 (kept "
+              f"{kept:.4f}): dst equal in {L} MoE calls; loss {got[0]:.6f} "
+              f"(cuda) vs {want[0]:.6f} (cpu); {len(want[1])} grads "
+              f"max_abs_err {gerr:.3e}; params after the step max_abs_err "
+              f"{perr:.3e}" + (f" (Muon updates within {murel:.3e} of their "
+                               f"norm)" if murel else "") +
+              f"; state max err {serr:.3e} of each tensor's largest")
+
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 48)))
+    toks = {}
+    for dev in ("cuda", "cpu"):
+        pp = M.prepare_params({k: t.to(dev) for k, t in params.items()}, cfg)
+        reset_counts()
+        toks[dev] = G.generate(pp, prompt.to(dev), cfg, 8, temperature=0.0,
+                               prefill_chunk=16).cpu()
+        want = (designed(flash_fwd=L, flash_prefill=2 * L) if dev == "cuda"
+                else designed())
+        check(read_counts() == want, f"xdevice-moe generate on {dev}")
+    check(torch.equal(toks["cuda"], toks["cpu"]),
+          "xdevice-moe: chunked generate tokens differ")
+    print("[xdevice-moe] fp32 chunked generate (chunk 16, 8 new): tokens "
+          "equal on cuda and cpu")
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    S_, Cm, E = 8192, 768, 8
+    xs = torch.randn(S_, Cm, generator=gen, device="cuda").to(torch.bfloat16)
+    ws = [0.05 * torch.randn(s, generator=gen, device="cuda")
+          for s in ((E, Cm), (E, 4 * Cm, Cm), (E, 4 * Cm), (E, Cm, 4 * Cm),
+                    (E, Cm))]
+    ws = [ws[0]] + [w.to(torch.bfloat16) for w in ws[1:]]
+    dout = torch.randn(S_, Cm, generator=gen, device="cuda").to(torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        leaves = [xs.clone().requires_grad_(True)] + [
+            w.clone().requires_grad_(True) for w in ws]
+        o, aux = MOE.moe_mlp(*leaves, top_k=2, cap_factor=1.0)
+        (aux.load_balance + aux.z_loss).backward(retain_graph=True)
+        o.backward(dout)
+        runs.append([o.detach(), aux.kept_fraction] + [t.grad for t in leaves])
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    check(same, "xdevice-moe: moe_mlp on the card is not bitwise repeatable")
+    print(f"[xdevice-moe] moe_mlp bf16 S={S_} C={Cm} E={E} top-2 cap 1.0 "
+          f"(kept {runs[0][1].item():.4f}): forward and all six gradients "
+          f"bitwise equal over two calls")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch sees no CUDA device")
@@ -2316,6 +2910,12 @@ def main():
         ("infer-vit", lambda: phase_infer_vit(smi)),
         ("train-vit", lambda: phase_train_vit(smi)),
         ("xdevice-vit", phase_xdevice_vit),
+        ("kernels-moe", phase_kernels_moe),
+        ("train-moe", lambda: phase_train_moe(smi)),
+        ("train-muon", lambda: phase_train(smi, tag="[train-muon]",
+                                           optimizer="muon", lr=0.02)),
+        ("serve-moe", lambda: phase_serve_moe(smi)),
+        ("xdevice-moe", phase_xdevice_moe),
     )
     for name, fn in phases:
         if only is None or name in only:
@@ -2340,6 +2940,9 @@ def main():
     kvit = R["kernels-vit"]
     infer_counts, infer_vit = R["infer-vit"]
     vit_counts, train_vit = R["train-vit"]
+    kmoe, serve_moe = R["kernels-moe"], R["serve-moe"]
+    moe_counts, train_moe = R["train-moe"]
+    muon_counts, train_muon = R["train-muon"]
     fa = "vitrs_tpu/ops/flash_attention.py:"
     fg = "vitrs_tpu/ops/flash_attention_gqa.py:"
     kernels = [
@@ -2416,6 +3019,31 @@ def main():
         dict(name="flash_bwd_vit", route="cuda", source=CSRC + "flash_bwd.cu",
              replaces=fa + "418", launches=vit_counts["flash_bwd"],
              kernels_per_launch=3, **kvit["bwd"]),
+        # the MoE model (gpt2-moe-8e, B=24, Adafactor): the same kernels at
+        # its training shapes; launches on train-moe, serve-moe's engine
+        # and chunked generate (K4), and the Muon run of GPT-2 124M
+        dict(name="flash_fwd_moe", route="cuda", source=CSRC + "flash_fwd.cu",
+             replaces=fa + "567", launches=moe_counts["flash_fwd"],
+             serve_launches=serve_moe["launches"]["flash_fwd"],
+             muon_launches=muon_counts["flash_fwd"], **kmoe["flash_fwd"],
+             train=train_moe, serve=serve_moe, train_muon=train_muon),
+        dict(name="flash_bwd_moe", route="cuda", source=CSRC + "flash_bwd.cu",
+             replaces=fa + "844", also_replaces=[fa + "986", fa + "901"],
+             launches=moe_counts["flash_bwd"], kernels_per_launch=3,
+             muon_launches=muon_counts["flash_bwd"], **kmoe["flash_bwd"]),
+        dict(name="ce_fwd_moe", route="cuda", source=CSRC + "fused_ce.cu",
+             replaces="vitrs_tpu/ops/fused_ce.py:69",
+             launches=moe_counts["ce_fwd"],
+             muon_launches=muon_counts["ce_fwd"], **kmoe["ce_fwd"]),
+        dict(name="ce_bwd_moe", route="cuda", source=CSRC + "fused_ce.cu",
+             replaces="vitrs_tpu/ops/fused_ce.py:109",
+             launches=moe_counts["ce_bwd"],
+             muon_launches=muon_counts["ce_bwd"], **kmoe["ce_bwd"]),
+        dict(name="flash_prefill_moe", route="cuda",
+             source=CSRC + "flash_fwd.cu",
+             replaces="vitrs_tpu/ops/flash_prefill.py:123",
+             launches=serve_moe["generate"][256]["launches"]["flash_prefill"],
+             **kmoe["flash_prefill"]),
     ]
     kernels[0]["train"] = train
     kernels[5]["train"] = gqa_train

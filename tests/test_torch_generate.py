@@ -166,10 +166,9 @@ def test_not_ported_yet_raises(params):
                     kv_int8=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TG.generate_beam(tp, prompt, TCFG, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.prepare_params(tp, TCFG.replace(num_experts=2).validate())
-    # rope and the sliding window are ported; a ring cache needs a window
-    for kw in (dict(pos_emb="rope"), dict(window=4)):
+    # rope, the sliding window and MoE are ported; a ring cache needs a
+    # window
+    for kw in (dict(pos_emb="rope"), dict(window=4), dict(num_experts=2)):
         TM.prepare_params(tp, TCFG.replace(**kw).validate())
     with pytest.raises(ValueError, match="sliding-window"):
         TG.generate_streaming(tp, prompt, TCFG, 2)

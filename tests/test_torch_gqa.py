@@ -319,11 +319,11 @@ def test_trainer_takes_kv_heads_and_refuses_other_overrides(tmp_path):
         TL.train(TL.TrainConfig(preset="gpt-nano", steps=1, device="cpu",
                                 workdir=str(tmp_path / "both"), kv_heads=1,
                                 model_overrides={"num_kv_heads": 2}))
-    with pytest.raises(NotImplementedError, match="MoE"):
+    with pytest.raises(NotImplementedError, match="item 3"):
         TL.train(TL.TrainConfig(preset="gpt-nano", steps=1, device="cpu",
-                                workdir=str(tmp_path / "moe"),
-                                model_overrides={"num_experts": 2}))
+                                workdir=str(tmp_path / "quirks"),
+                                model_overrides={"quirks": True}))
     from vitrs_tpu_torch.cli import train as cli
-    for flag in (["--num-experts", "2"], ["--ema-decay", "0.99"]):
+    for flag in (["--mesh", "dp=2"], ["--ema-decay", "0.99"]):
         with pytest.raises(SystemExit):
             cli.main(flag + ["--cpu"])

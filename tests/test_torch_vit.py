@@ -563,7 +563,7 @@ def test_vit_presets_build_with_the_jax_parameter_counts():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("quirks", True, "item 3"), ("num_experts", 4, "item 14")])
+    ("quirks", True, "item 3")])
 def test_vit_variants_still_unported_raise(field, value, item):
     _, tcfg = vit_cfgs(**{field: value})
     with pytest.raises(NotImplementedError, match=item):

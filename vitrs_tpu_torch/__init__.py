@@ -15,7 +15,11 @@ parallel/data_parallel.py at world size 1, train/loop.py, cli/train.py,
 the vit.py five-call API), with five kernels: the flash-attention forward
 (csrc/flash_fwd.cu) and backward (csrc/flash_bwd.cu), the fused
 cross-entropy forward and backward (csrc/fused_ce.cu) and the fused AdamW
-(csrc/fused_adamw.cu).
+(csrc/fused_adamw.cu).  Later slices added grouped-query attention,
+chunked prefill, rope and the sliding window, the fused head + CE, vit
+mode, and the mixture-of-experts model (ops/moe.py) with the tree
+optimizers Adafactor and Muon (ops/adafactor.py, ops/muon.py), which run
+on the same kernels.
 """
 
 from .config import PRESETS, ViTConfig, get_config

@@ -1,10 +1,11 @@
 #!/usr/bin/env python
 """vitrs-train-torch — train a GPT or ViT preset with the PyTorch port.
 
-The port of `vitrs_tpu/cli/train.py`.  This slice trains gpt and vit mode
-with AdamW on one device, with the JAX CLI's flags for those paths; the
-JAX CLI's other flags (--mesh, --optimizer, --ema-decay, ...) are not
-ported yet (ROADMAP.md Queue 1).
+The port of `vitrs_tpu/cli/train.py`.  This slice trains gpt and vit mode,
+dense or MoE (--num-experts, --moe-top-k), with AdamW, Adafactor or Muon
+(--optimizer) on one device, with the JAX CLI's flags for those paths; the
+JAX CLI's other flags (--mesh, --ema-decay, ...) are not ported yet
+(ROADMAP.md Queue 1).
 
 Examples:
   vitrs-train-torch --preset vit-b-16 --dataset synthetic-imagenet \
@@ -16,6 +17,12 @@ Examples:
   vitrs-train-torch --preset gpt2-124m --kv-heads 4 --steps 100 --batch-size 8
   vitrs-train-torch --preset gpt2-124m --pos-emb rope --window 256 --steps 100
   vitrs-train-torch --preset gpt2-124m --eval-only --workdir run1
+  vitrs-train-torch --preset gpt2-moe-8e --optimizer adafactor --lr 1e-2 \
+      --batch-size 24 --steps 100
+  vitrs-train-torch --preset gpt-nano --num-experts 4 --optimizer adafactor \
+      --lr 1e-2 --cpu --steps 3 --batch-size 4 --dtype float32
+  vitrs-train-torch --preset gpt-nano --optimizer muon --lr 0.02 --cpu \
+      --steps 3 --batch-size 4
 
 Checkpoints and metrics go to --workdir, and a run resumes from the latest
 checkpoint there; without --workdir a run writes to a fresh temporary
@@ -74,6 +81,19 @@ def main(argv=None):
     p.add_argument("--pos-emb", default="learned", choices=["learned", "rope"])
     p.add_argument("--window", type=int, default=0,
                    help="sliding-window attention width (gpt mode; 0 = full)")
+    p.add_argument("--num-experts", type=int, default=0,
+                   help="MoE experts per layer (0 = dense MLP; ops/moe.py)")
+    p.add_argument("--moe-top-k", type=int, default=2,
+                   help="experts run per token under --num-experts")
+    p.add_argument("--optimizer", default="adamw",
+                   choices=["adamw", "muon", "adafactor"],
+                   help="muon = hybrid Muon/AdamW (ops/muon.py); --lr then "
+                        "sets the MATRIX lr (~0.02 scale).  adafactor = "
+                        "sublinear optimizer state (ops/adafactor.py); "
+                        "--lr is the relative step size (~1e-2 scale)")
+    p.add_argument("--muon-adamw-lr", type=float, default=6e-4,
+                   help="AdamW lr for non-matrix leaves under --optimizer "
+                        "muon")
     p.add_argument("--init-ckpt", default=None,
                    help="warm-start weights from this checkpoint")
     p.add_argument("--eval-only", action="store_true",
@@ -120,10 +140,14 @@ def main(argv=None):
         clip_norm=args.clip_norm, decay_2d_only=args.decay_2d_only,
         accum_steps=args.accum_steps, label_smoothing=args.label_smoothing,
         drop_path=args.drop_path, mixup_alpha=args.mixup_alpha,
-        kv_heads=args.kv_heads, device=device,
+        kv_heads=args.kv_heads, device=device, optimizer=args.optimizer,
+        muon_adamw_lr=args.muon_adamw_lr,
         model_overrides={
             k: v for k, v in (("pos_emb", args.pos_emb),
-                              ("window", args.window))
+                              ("window", args.window),
+                              ("num_experts", args.num_experts),
+                              ("moe_top_k",
+                               args.moe_top_k if args.num_experts else 0))
             if v not in (0, "learned")} or None)
     summary = loop.train(tc)
     print("[done]", summary)

@@ -25,6 +25,9 @@ decode attention.  A window model can also decode from a ring cache of
 window + chunk rows (`init_ring_kv`, `forward_with_ring`,
 `generate_streaming`), in plain torch as in the JAX package.
 
+A MoE model (cfg.num_experts) runs the routed expert layer in every
+block's MLP (`_mlp`).
+
 Not ported yet: the int8 KV cache, paged and beam decode — they raise
 NotImplementedError naming ROADMAP.md Queue 1 item 15.
 """
@@ -42,6 +45,7 @@ from ..ops._build import resolve_device
 from ..ops.attention import attention_gqa, split_gqa
 from ..ops.flash_prefill import (PREFILL_BLOCK, flash_prefill_qkv,
                                  supports_prefill)
+from ..ops.moe import moe_mlp
 from ..ops.rope import rope_qk
 from . import model as M
 
@@ -122,6 +126,19 @@ def _qkv_rotated(x, p, cfg: ViTConfig, positions):
     return qkv, q, k, v
 
 
+def _mlp(p, cfg: ViTConfig, ln2: torch.Tensor) -> torch.Tensor:
+    """The block's MLP half on every decode path: the dense MLP, or the
+    MoE layer (its router loss dropped).  The MoE capacity comes from the
+    call's own token count: B x chunk in a prefill, B in a decode tick,
+    the engine's idle slots included, as the JAX package routes them."""
+    if cfg.is_moe:
+        return moe_mlp(ln2, p["routerw"], p["fcw"], p["fcb"], p["fcprojw"],
+                       p["fcprojb"], top_k=cfg.moe_top_k,
+                       cap_factor=cfg.moe_cap_factor,
+                       erf=cfg.act == "gelu_erf")[0]
+    return M.mlp(p, cfg, ln2)
+
+
 def _block_with_kv(x, p, cfg: ViTConfig, k_cache, v_cache, pos: int):
     """One block over S tokens at positions pos..pos+S-1; writes their K/V
     into the (B, Tmax, kv_dim) caches in place."""
@@ -152,7 +169,7 @@ def _block_with_kv(x, p, cfg: ViTConfig, k_cache, v_cache, pos: int):
                                 _heads(v_cache, KH), mask[None], x.dtype)
         atty = atty.transpose(1, 2).reshape(B, S, C)
     x = x + basic.linear(atty, p["attprojw"], p["attprojb"])
-    return x + M.mlp(p, cfg, basic.layernorm(x, p["ln2w"], p["ln2b"])[0])
+    return x + _mlp(p, cfg, basic.layernorm(x, p["ln2w"], p["ln2b"])[0])
 
 
 def _embed(params, tokens: torch.Tensor, positions, cfg: ViTConfig):
@@ -305,7 +322,7 @@ def _block_with_kv_ring(x, p, cfg: ViTConfig, k_cache, v_cache, pos: int):
                             _heads(v_cache, KH), mask[None], x.dtype)
     atty = atty.transpose(1, 2).reshape(B, S, C)
     x = x + basic.linear(atty, p["attprojw"], p["attprojb"])
-    return x + M.mlp(p, cfg, basic.layernorm(x, p["ln2w"], p["ln2b"])[0])
+    return x + _mlp(p, cfg, basic.layernorm(x, p["ln2w"], p["ln2b"])[0])
 
 
 def forward_with_ring(params: Mapping[str, torch.Tensor],
@@ -377,7 +394,7 @@ def _block_decode_multi(x, p, cfg: ViTConfig, k_cache, v_cache,
                             _heads(v_cache, KH), mask[:, None, :], x.dtype)
     atty = atty.transpose(1, 2).reshape(B, 1, C)
     x = x + basic.linear(atty, p["attprojw"], p["attprojb"])
-    return x + M.mlp(p, cfg, basic.layernorm(x, p["ln2w"], p["ln2b"])[0])
+    return x + _mlp(p, cfg, basic.layernorm(x, p["ln2w"], p["ln2b"])[0])
 
 
 def decode_step_multi(params: Mapping[str, torch.Tensor],

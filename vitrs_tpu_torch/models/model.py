@@ -29,12 +29,20 @@ bidirectionally (the flash kernels at causal=False); `vit_forward` pools
 and head dropout from an explicit torch.Generator (`draw_masks`); the
 masks are drawn on the generator's device and moved to the activations',
 so a CPU generator gives the same masks to a run on the card and on the
-CPU.  MoE and the quirk ops come in later slices (ROADMAP.md, Queue 1).
+CPU.
+
+MoE (cfg.num_experts > 0): every block's MLP is the routed expert layer of
+ops/moe.py (`_block_moe`), reading the layer's (E, ...) expert slabs and
+its fp32 router (routerw, not a matmul key: the router runs in fp32); the
+blocks sum each layer's weighted router loss (moe_aux_weight load balance
++ moe_zloss_weight z-loss) and `transformer` returns its mean over the
+layers, which `gpt_loss` adds on every CE route and `vit_loss` adds too.
+The quirk ops come in a later slice (ROADMAP.md, Queue 1 item 3).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Optional
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +54,7 @@ from ..ops._build import to_device
 from ..ops.attention import (expand_qkv_weight, rope_packed,
                              supports as flash_supports)
 from ..ops.fused_qkv_attention import qkv_attention
+from ..ops.moe import moe_mlp
 
 BLOCK_KEYS = ("ln1w", "ln1b", "qkvw", "qkvb", "attprojw", "attprojb",
               "ln2w", "ln2b", "fcw", "fcb", "fcprojw", "fcprojb")
@@ -62,8 +71,6 @@ def check_supported(cfg: ViTConfig) -> None:
     if cfg.quirks:
         raise NotImplementedError(
             "quirks=True: ROADMAP.md Queue 1 item 3 (ops/basic.py quirk ops)")
-    if cfg.is_moe:
-        raise NotImplementedError("MoE MLP: ROADMAP.md Queue 1 item 14")
 
 
 def prepare_params(params: Mapping[str, torch.Tensor], cfg: ViTConfig
@@ -107,16 +114,22 @@ def train_params(params: Mapping[str, torch.Tensor], cfg: ViTConfig
     return out
 
 
+def block_keys(params: Mapping[str, torch.Tensor]) -> Tuple[str, ...]:
+    """The stacked per-layer keys: BLOCK_KEYS, + routerw under MoE."""
+    return BLOCK_KEYS + (("routerw",) if "routerw" in params else ())
+
+
 def layer(params: Mapping[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
     """Layer i's block params: views into the stacked tensors."""
-    return {k: params[k][i] for k in BLOCK_KEYS}
+    return {k: params[k][i] for k in block_keys(params)}
 
 
 def layers(params: Mapping[str, torch.Tensor]) -> List[Dict[str, torch.Tensor]]:
     """Every layer's block params, as `layer` gives them, from one unbind
     per stacked tensor."""
-    per = {k: params[k].unbind(0) for k in BLOCK_KEYS}
-    return [{k: per[k][i] for k in BLOCK_KEYS}
+    keys = block_keys(params)
+    per = {k: params[k].unbind(0) for k in keys}
+    return [{k: per[k][i] for k in keys}
             for i in range(len(per[BLOCK_KEYS[0]]))]
 
 
@@ -165,34 +178,72 @@ def drop_path_rates(cfg: ViTConfig) -> List[float]:
                        dtype=np.float32).tolist()
 
 
+def _attn_residual(x: torch.Tensor, p: Mapping[str, torch.Tensor],
+                   cfg: ViTConfig, causal: bool,
+                   keep: Optional[torch.Tensor], rate: float) -> torch.Tensor:
+    """x + attproj(attention(qkv(ln1(x)))), the branch dropped by keep[0]:
+    the first half of the dense and the MoE block."""
+    ln1 = basic.layernorm_cv(x, p["ln1w"], p["ln1b"])
+    atty = _project_and_attend(ln1, p, cfg, causal)
+    branch = basic.linear(atty, p["attprojw"], p["attprojb"])
+    if keep is not None:
+        branch = _drop_path(branch, keep[0], rate)
+    return x + branch
+
+
 def _block(x: torch.Tensor, p: Mapping[str, torch.Tensor], cfg: ViTConfig,
            causal: bool = True, keep: Optional[torch.Tensor] = None,
            rate: float = 0.0) -> torch.Tensor:
     """The pre-LN block (rusty_vit.rs:322-331 op order).  keep (2, B):
     stochastic depth's keep flags of the attention and MLP branches, at
     `rate`."""
-    ln1 = basic.layernorm_cv(x, p["ln1w"], p["ln1b"])
-    atty = _project_and_attend(ln1, p, cfg, causal)
-    branch = basic.linear(atty, p["attprojw"], p["attprojb"])
-    if keep is not None:
-        branch = _drop_path(branch, keep[0], rate)
-    x = x + branch
+    x = _attn_residual(x, p, cfg, causal, keep, rate)
     branch = mlp(p, cfg, basic.layernorm_cv(x, p["ln2w"], p["ln2b"]))
     if keep is not None:
         branch = _drop_path(branch, keep[1], rate)
     return x + branch
 
 
+def _block_moe(x: torch.Tensor, p: Mapping[str, torch.Tensor],
+               cfg: ViTConfig, causal: bool = True,
+               keep: Optional[torch.Tensor] = None, rate: float = 0.0):
+    """The block with the dense MLP replaced by the MoE layer.  Returns
+    (x, this layer's weighted router loss moe_aux_weight load_balance +
+    moe_zloss_weight z_loss)."""
+    x = _attn_residual(x, p, cfg, causal, keep, rate)
+    out, aux = moe_mlp(basic.layernorm_cv(x, p["ln2w"], p["ln2b"]),
+                       p["routerw"], p["fcw"], p["fcb"], p["fcprojw"],
+                       p["fcprojb"], top_k=cfg.moe_top_k,
+                       cap_factor=cfg.moe_cap_factor,
+                       erf=cfg.act == "gelu_erf")
+    if keep is not None:
+        out = _drop_path(out, keep[1], rate)
+    return x + out, (cfg.moe_aux_weight * aux.load_balance
+                     + cfg.moe_zloss_weight * aux.z_loss)
+
+
 def transformer(x: torch.Tensor, params: Mapping[str, torch.Tensor],
                 cfg: ViTConfig, causal: bool,
-                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+                keep: Optional[torch.Tensor] = None,
+                return_aux: bool = False):
     """The blocks over every layer.  keep (L, 2, B): stochastic depth's
-    keep flags (`draw_masks`), layer l at rate `drop_path_rates(cfg)[l]`."""
+    keep flags (`draw_masks`), layer l at rate `drop_path_rates(cfg)[l]`.
+    return_aux: also return the mean over the layers of the weighted MoE
+    router loss (an fp32 zero for a dense config), which the losses add."""
     rates = drop_path_rates(cfg)
+    aux = None
     for i, p in enumerate(layers(params)):
-        x = _block(x, p, cfg, causal, None if keep is None else keep[i],
-                   rates[i])
-    return x
+        k = None if keep is None else keep[i]
+        if cfg.is_moe:
+            x, a = _block_moe(x, p, cfg, causal, k, rates[i])
+            aux = a if aux is None else aux + a
+        else:
+            x = _block(x, p, cfg, causal, k, rates[i])
+    if not return_aux:
+        return x
+    if aux is None:
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux / cfg.num_layers
 
 
 def gpt_encode(tokens: torch.Tensor, params: Mapping[str, torch.Tensor],
@@ -207,12 +258,16 @@ def gpt_encode(tokens: torch.Tensor, params: Mapping[str, torch.Tensor],
 
 
 def gpt_trunk(params: Mapping[str, torch.Tensor], tokens: torch.Tensor,
-              cfg: ViTConfig) -> torch.Tensor:
+              cfg: ViTConfig, return_aux: bool = False):
     """Everything up to and including the final LayerNorm: (B, T, C) in
-    cfg.dtype.  params from `prepare_params` or `train_params`."""
+    cfg.dtype; with return_aux, (that, the mean weighted MoE router loss).
+    params from `prepare_params` or `train_params`."""
     x = gpt_encode(tokens, params, getattr(torch, cfg.dtype),
                    rope=cfg.pos_emb == "rope")
-    x = transformer(x, params, cfg, causal=True)
+    x = transformer(x, params, cfg, causal=True, return_aux=return_aux)
+    if return_aux:
+        x, aux = x
+        return basic.layernorm_cv(x, params["lnfw"], params["lnfb"]), aux
     return basic.layernorm_cv(x, params["lnfw"], params["lnfb"])
 
 
@@ -233,9 +288,10 @@ def gpt_loss(params: Mapping[str, torch.Tensor], tokens: torch.Tensor,
     model.py:253-270 of the JAX package does; else plain CE on the
     unpadded logits.  On that route, with `fused_head_ce.ENABLE` set and a
     shape K8 takes, the head matmul and the CE statistics are one op (K8),
-    as the JAX package routes them."""
+    as the JAX package routes them.  Every route adds the mean weighted
+    MoE router loss (an exact 0 for a dense config)."""
     tp = train_params(params, cfg)
-    lnf = gpt_trunk(tp, tokens, cfg)
+    lnf, aux = gpt_trunk(tp, tokens, cfg, return_aux=True)
     head = params["wte"].to(lnf.dtype)
     V = cfg.vocab_size
     Vp = fused_ce.pad_vocab(V)
@@ -244,11 +300,12 @@ def gpt_loss(params: Mapping[str, torch.Tensor], tokens: torch.Tensor,
         wte_p = F.pad(head, (0, 0, 0, Vp - V))
         if fused_head_ce.ENABLE and fused_head_ce.supports(R, Vp,
                                                            lnf.shape[-1]):
-            return fused_head_ce.head_ce_mean(lnf, wte_p, targets, V)
+            return fused_head_ce.head_ce_mean(lnf, wte_p, targets, V) + aux
         logits = basic.linear(lnf, wte_p)
-        return fused_ce.cross_entropy_mean(logits, targets, real_vocab=V)
+        return fused_ce.cross_entropy_mean(logits, targets,
+                                           real_vocab=V) + aux
     logits = basic.linear(lnf, head)
-    return basic.cross_entropy_from_logits(logits, targets).mean()
+    return basic.cross_entropy_from_logits(logits, targets).mean() + aux
 
 
 # ---------------------------------------------------------------------------
@@ -304,25 +361,31 @@ def draw_masks(cfg: ViTConfig, batch: int, generator: torch.Generator,
 
 def vit_forward(params: Mapping[str, torch.Tensor], images: torch.Tensor,
                 cfg: ViTConfig, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                return_aux: bool = False):
     """(B, H, W, C) images -> class logits (B, num_classes) in fp32: the
     encoder, the blocks (bidirectional), the final LN, the CLS token or
     the mean over tokens, head dropout, the head in cfg.dtype.  With train
     and a generator, stochastic depth and head dropout draw their flags
     from it (`draw_masks`); otherwise neither runs, as in the JAX function
-    without an rng.  params from `prepare_params` or `train_params`."""
+    without an rng.  params from `prepare_params` or `train_params`.
+    return_aux: (logits, the mean weighted MoE router loss)."""
     x = vit_encode(images, params, cfg)
     masks = (draw_masks(cfg, x.shape[0], generator, x.device)
              if train and generator is not None else {})
     x = transformer(x, params, cfg, causal=False,
-                    keep=masks.get("drop_path"))
+                    keep=masks.get("drop_path"), return_aux=return_aux)
+    aux = None
+    if return_aux:
+        x, aux = x
     lnf = basic.layernorm_cv(x, params["lnfw"], params["lnfb"])
     pooled = lnf[:, 0] if cfg.pool == "cls" else lnf.mean(dim=1)
     if "head" in masks:
         pooled = torch.where(masks["head"], pooled / (1.0 - cfg.drop_rate),
                              0.0)
-    return basic.linear(pooled, params["headw"].to(pooled.dtype),
-                        params["headb"].to(pooled.dtype)).float()
+    logits = basic.linear(pooled, params["headw"].to(pooled.dtype),
+                          params["headb"].to(pooled.dtype)).float()
+    return (logits, aux) if return_aux else logits
 
 
 def vit_loss(params: Mapping[str, torch.Tensor], images: torch.Tensor,
@@ -330,13 +393,14 @@ def vit_loss(params: Mapping[str, torch.Tensor], images: torch.Tensor,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Mean CE over the batch from the master parameters (cast inside the
     graph, `train_params`); label smoothing when training with
-    cfg.label_smoothing > 0."""
-    logits = vit_forward(train_params(params, cfg), images, cfg, train=train,
-                         generator=generator)
+    cfg.label_smoothing > 0; plus the mean weighted MoE router loss."""
+    logits, aux = vit_forward(train_params(params, cfg), images, cfg,
+                              train=train, generator=generator,
+                              return_aux=True)
     if train and cfg.label_smoothing > 0.0:
         return basic.cross_entropy_smoothed(logits, labels,
-                                            cfg.label_smoothing).mean()
-    return basic.cross_entropy_from_logits(logits, labels).mean()
+                                            cfg.label_smoothing).mean() + aux
+    return basic.cross_entropy_from_logits(logits, labels).mean() + aux
 
 
 def loss_fn(params: Mapping[str, torch.Tensor], batch_inputs: torch.Tensor,

@@ -10,6 +10,12 @@ matrix-only decay through the flat mask, and one fused AdamW (K7 on the
 card) over the flat vector.  More than one device comes with
 torch.distributed (ROADMAP.md Queue 1 item 18).
 
+The tree optimizers (`make_dp_train_step_adafactor`, `_muon`) take the
+gradients in tree form, one tensor at a time, as the JAX steps do, with the
+parameters still views into the flat arena: each step copies its new
+parameters back into them, so the loop, checkpoints and `flat_base` are the
+AdamW path's.
+
 The flat arena: the parameters must be views into one flat fp32 vector in
 canonical order (`params.unflatten_params`, as the trainer keeps them).
 The step updates that vector in place and writes the gradients into one
@@ -140,6 +146,38 @@ def step_generator(step: int, micro: Optional[int] = None) -> torch.Generator:
     return torch.Generator().manual_seed(seed)
 
 
+def _grads_into_arena(params, cfg: ViTConfig, grad_buf: dict, who: str):
+    """(flat params, flat grads): the flat vector `params` are views into
+    (else ValueError), and a zeroed flat gradient buffer of the same size,
+    kept in grad_buf across steps, whose views become each parameter's
+    .grad, so that backward accumulates into it."""
+    flat_p = PRM.flat_base(params, cfg)
+    if flat_p is None:
+        raise ValueError(f"{who}: params must be views into one flat vector "
+                         f"(params.unflatten_params)")
+    if "g" not in grad_buf:
+        grad_buf["g"] = torch.empty_like(flat_p)
+    flat_g = grad_buf["g"].zero_()
+    for name, g in PRM.unflatten_params(flat_g, cfg).items():
+        params[name].requires_grad_(True)
+        params[name].grad = g
+    return flat_p, flat_g
+
+
+def _batch_on(inputs, targets, device, cfg: ViTConfig, normalize):
+    """The batch on the device: int64 tokens and targets (gpt mode); vit
+    images in fp32, uint8 ones normalised by `normalize` = (mean, std)."""
+    x = to_device(inputs, device)
+    y = to_device(targets, device).long()
+    if cfg.mode != "vit":
+        x = x.long()
+    elif normalize is not None and x.dtype == torch.uint8:
+        x = normalize_images(x, *normalize)
+    elif x.is_floating_point():
+        x = x.float()
+    return x, y
+
+
 def make_dp_train_step(cfg: ViTConfig, mesh: Mesh, accum_steps: int = 1,
                        return_grad_norm: bool = False,
                        mixup_alpha: float = 0.0,
@@ -178,24 +216,9 @@ def make_dp_train_step(cfg: ViTConfig, mesh: Mesh, accum_steps: int = 1,
     grad_buf = {}
 
     def step_fn(params, m, v, inputs, targets, step, lr, wd):
-        flat_p = PRM.flat_base(params, cfg)
-        if flat_p is None:
-            raise ValueError("make_dp_train_step: params must be views into "
-                             "one flat vector (params.unflatten_params)")
-        if "g" not in grad_buf:
-            grad_buf["g"] = torch.empty_like(flat_p)
-        flat_g = grad_buf["g"].zero_()
-        for name, g in PRM.unflatten_params(flat_g, cfg).items():
-            params[name].requires_grad_(True)
-            params[name].grad = g
-        x = to_device(inputs, device)
-        y = to_device(targets, device).long()
-        if not vit:
-            x = x.long()
-        elif normalize is not None and x.dtype == torch.uint8:
-            x = normalize_images(x, *normalize)
-        elif x.is_floating_point():
-            x = x.float()
+        flat_p, flat_g = _grads_into_arena(params, cfg, grad_buf,
+                                           "make_dp_train_step")
+        x, y = _batch_on(inputs, targets, device, cfg, normalize)
         micro = x.shape[0] // accum_steps
         loss = torch.zeros((), device=device)
         for i in range(accum_steps):
@@ -237,6 +260,76 @@ def make_dp_train_step(cfg: ViTConfig, mesh: Mesh, accum_steps: int = 1,
         return params, m, v, loss
 
     return step_fn
+
+
+def _make_tree_step(cfg: ViTConfig, mesh: Mesh, update, who: str,
+                    normalize=None, clip_norm: float = 0.0):
+    """The training step of an optimizer over the parameter dict (tree
+    form): loss and gradients into the flat arena, the optional global-norm
+    clip, then update(params, grads, state, step, lr, extra) -> (new
+    params, new state), whose new parameters are copied into the arena in
+    place.  As in the JAX tree steps the loss takes no rng (no stochastic
+    depth or head dropout); vit images are normalised (`_batch_on`)."""
+    if mesh.size != 1:
+        raise NotImplementedError(_MULTI)
+    M.check_supported(cfg)
+    device = mesh.devices[0]
+    grad_buf = {}
+
+    def step_fn(params, state, inputs, targets, step, lr, extra):
+        _, flat_g = _grads_into_arena(params, cfg, grad_buf, who)
+        x, y = _batch_on(inputs, targets, device, cfg, normalize)
+        loss = M.loss_fn(params, x, y, cfg)
+        loss.backward()
+        if clip_norm > 0.0:
+            gnorm = flat_g.square().sum().sqrt()
+            flat_g.mul_(torch.clamp(clip_norm / (gnorm + 1e-6), max=1.0))
+        grads = {k: t.grad for k, t in params.items()}
+        new_p, state = update(params, grads, state, step, lr, extra)
+        with torch.no_grad():
+            for k, t in new_p.items():
+                params[k].copy_(t)
+        return params, state, loss.detach()
+
+    return step_fn
+
+
+def make_dp_train_step_adafactor(cfg: ViTConfig, mesh: Mesh, normalize=None):
+    """The training step with Adafactor (ops/adafactor.py), as the JAX
+    `make_dp_train_step_adafactor` at world size 1 with relative steps.
+
+    Signature: (params, state: AdafactorState, inputs, targets, step, lr,
+    wd) -> (params, state, loss).  params are views into one flat fp32
+    vector, updated in place; step is the 1-based step (the β2 schedule),
+    lr the relative step size, wd decoupled decay (as lr · wd · p) on the
+    tensors `decay_mask_2d` marks."""
+    from ..ops import adafactor as AF
+
+    def update(params, grads, state, step, lr, wd):
+        return AF.step(params, grads, state, step, lr, weight_decay=wd,
+                       decay_mask=opt.decay_mask_2d(params))
+
+    return _make_tree_step(cfg, mesh, update, "make_dp_train_step_adafactor",
+                           normalize)
+
+
+def make_dp_train_step_muon(cfg: ViTConfig, mesh: Mesh,
+                            clip_norm: float = 0.0,
+                            weight_decay: float = 0.0, normalize=None):
+    """The training step with the hybrid Muon/AdamW optimizer
+    (ops/muon.py), as the JAX `make_dp_train_step_muon` at world size 1.
+
+    Signature: (params, state: MuonState, inputs, targets, step, lr, alr)
+    -> (params, state, loss): lr the Muon lr, alr the AdamW lr of the other
+    tensors; AdamW's step is step + 1, as the JAX step passes it."""
+    from ..ops import muon as MU
+
+    def update(params, grads, state, step, lr, alr):
+        return MU.step(params, grads, state, step + 1, lr, adamw_lr=alr,
+                       weight_decay=weight_decay)
+
+    return _make_tree_step(cfg, mesh, update, "make_dp_train_step_muon",
+                           normalize, clip_norm)
 
 
 @functools.lru_cache(maxsize=2)

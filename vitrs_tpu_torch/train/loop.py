@@ -1,5 +1,5 @@
 """Training loop — the port of `vitrs_tpu/train/loop.py` for gpt and vit
-mode, AdamW, one device.
+mode, AdamW, Adafactor or Muon, one device.
 
     init or resume -> loop { batch; cosine lr; train step; log; checkpoint }
     -> final checkpoint -> held-out val loss (gpt) or top-1 + loss (vit)
@@ -25,14 +25,25 @@ mode, AdamW, one device.
   resumes from the latest in `workdir`.  With no `workdir` a run writes to
   a fresh directory under `tempfile.gettempdir()` (which honours TMPDIR)
   and so never resumes another run's checkpoint.
+* `optimizer`: "adamw" (the flat fused AdamW, K7), "adafactor" (lr is the
+  relative step size, about 1e-2; decay on the >= 2-axis tensors) or
+  "muon" (lr is the matrix lr, about 0.02; `muon_adamw_lr` drives the
+  other tensors on the same cosine shape), through the tree-form steps of
+  parallel/data_parallel.py, which take no accumulation, mixup or grad-norm
+  log (ValueError), as in the JAX loop.  Their state rides a side tree
+  beside each checkpoint (`adafactor_{step:08d}.tree`,
+  `muon_{step:08d}.tree`, checkpoint_tree.py, with the data cursor in its
+  meta; the .bin then holds no m/v), as the JAX loop writes it; an
+  Adafactor tree whose factoring layout differs from the current one is
+  refused on resume.
 
 What the JAX loop also does and this slice does not yet raises
-NotImplementedError naming its ROADMAP.md Queue 1 item: EMA (12), Muon
-and Adafactor (13), async checkpoints (17), a mesh (18) and the streaming
-ImageNet shards (11).  `model_overrides` is the JAX TrainConfig's dict of
-config fields (e.g. {"max_seq_len": 8192, "window": 1024, "pos_emb":
-"rope"}, the long-context rope + sliding-window model); a model variant
-the port does not run yet (MoE, quirks) raises in
+NotImplementedError naming its ROADMAP.md Queue 1 item: EMA (12), async
+checkpoints (17), a mesh (18) and the streaming ImageNet shards (11).
+`model_overrides` is the JAX TrainConfig's dict of config fields (e.g.
+{"max_seq_len": 8192, "window": 1024, "pos_emb": "rope"}, the
+long-context rope + sliding-window model, or {"num_experts": 8} for MoE);
+a model variant the port does not run yet (quirks) raises in
 `models/model.check_supported`.  The port's `kv_heads` field is kept: it
 sets `num_kv_heads` among the overrides.  The JAX loop's other options
 (remat, profiler traces, RandAugment, run_steps) are not in this
@@ -53,13 +64,16 @@ import numpy as np
 import torch
 
 from .. import checkpoint as ckpt_io
+from .. import checkpoint_tree as CT
 from .. import params as PRM
 from ..config import ViTConfig, get_config
 from ..data import augment as A
 from ..data import datasets as D
 from ..data import tokens as TOK
 from ..models import model as M
+from ..ops import adafactor as AF
 from ..ops import basic
+from ..ops import muon as MU
 from ..ops import optimizer as opt
 from ..ops._build import resolve_device
 from ..parallel import data_parallel as dp
@@ -72,9 +86,9 @@ class TrainConfig:
     with its defaults except: preset (gpt2-124m here) and async_ckpt (off);
     `kv_heads` (shorthand for num_kv_heads among the overrides; setting
     both raises), `drop_path` (a model override in the JAX loop),
-    `dataset_size` and `device` are the port's own.  mesh, optimizer,
-    ema_decay and async_ckpt are kept so that asking for them raises,
-    naming their ROADMAP item."""
+    `dataset_size` and `device` are the port's own.  mesh, ema_decay and
+    async_ckpt are kept so that asking for them raises, naming their
+    ROADMAP item."""
     preset: str = "gpt2-124m"
     dataset: str = "cifar10"       # vit: the image dataset; gpt mode reads
                                    # tokens, and a non-empty dataset asks
@@ -105,7 +119,10 @@ class TrainConfig:
     drop_path: float = 0.0         # vit: stochastic depth, 0..drop_path
                                    # over the layers
     mesh: str = ""
-    optimizer: str = "adamw"
+    optimizer: str = "adamw"       # "adamw" | "adafactor" (lr: the relative
+                                   # step size, ~1e-2) | "muon" (lr: the
+                                   # matrix lr, ~0.02)
+    muon_adamw_lr: float = 6e-4    # muon: AdamW lr of the other tensors
     ema_decay: float = 0.0
     mixup_alpha: float = 0.0       # vit: mixup Beta(alpha, alpha)
     async_ckpt: bool = False
@@ -117,8 +134,6 @@ class TrainConfig:
 def _check_supported(tc: TrainConfig) -> None:
     unported = (
         (tc.mesh, "--mesh: ROADMAP.md Queue 1 item 18"),
-        (tc.optimizer != "adamw",
-         f"optimizer {tc.optimizer}: ROADMAP.md Queue 1 item 13"),
         (tc.ema_decay > 0.0, "EMA: ROADMAP.md Queue 1 item 12 (ops/ema.py)"),
         (tc.async_ckpt,
          "async checkpoints: ROADMAP.md Queue 1 item 17 (checkpoint_async.py)"),
@@ -126,6 +141,55 @@ def _check_supported(tc: TrainConfig) -> None:
     for cond, what in unported:
         if cond:
             raise NotImplementedError(what)
+    if tc.optimizer not in ("adamw", "adafactor", "muon"):
+        raise ValueError(f"unknown optimizer {tc.optimizer!r}")
+    if tc.optimizer != "adamw" and (tc.accum_steps != 1 or tc.mixup_alpha
+                                    or tc.log_grad_norm):
+        raise ValueError(f"{tc.optimizer} keeps the lean step: gradient "
+                         f"accumulation, mixup and the grad-norm log are "
+                         f"AdamW's, as in the JAX loop")
+
+
+def _load_tree_state(path: str, params, optimizer: str, device):
+    """(state, meta) from a side tree written by `_tree_state_numpy`.  An
+    Adafactor state must have the layout `AF.init_state` gives these params
+    now (the factored/full split follows MIN_FACTOR): a state written under
+    another gate would not fail on its own (a 0-d vf placeholder broadcasts
+    in the full branch and silently resets that tensor's EMA), so every
+    leaf's shape is checked."""
+    host, meta = CT.load_tree(path)
+
+    def tensors(tree):
+        return {k: torch.as_tensor(v, device=device) for k, v in tree.items()}
+
+    if optimizer == "muon":
+        return MU.MuonState(**{f: tensors(host[f])
+                               for f in MU.MuonState._fields}), meta
+    # the m dict is empty at beta1=0 and an empty dict does not survive the
+    # tree writer: default it back
+    state = AF.AdafactorState(**{f: tensors(host.get(f, {}))
+                                 for f in AF.AdafactorState._fields})
+    expect = AF.init_state(params)
+    bad = [f"{f}[{k}]: {tuple(got[k].shape) if k in got else None} != "
+           f"{tuple(v.shape)}"
+           for f in ("vr", "vc", "vf")
+           for got in (getattr(state, f),)
+           for k, v in getattr(expect, f).items()
+           if k not in got or got[k].shape != v.shape]
+    if bad:
+        raise ValueError(
+            f"adafactor state in {path} does not match the current "
+            f"factoring layout (MIN_FACTOR={AF.MIN_FACTOR}); mismatched "
+            f"leaves: {bad[:4]}{'...' if len(bad) > 4 else ''}; delete the "
+            f".tree to re-init (resets the optimizer EMA) or resume with the "
+            f"build that wrote it")
+    return state, meta
+
+
+def _tree_state_numpy(state) -> dict:
+    """A tree optimizer's state as nested dicts of numpy arrays."""
+    return {f: {k: t.detach().cpu().numpy() for k, t in tree.items()}
+            for f, tree in state._asdict().items()}
 
 
 def device_kind(device: torch.device) -> str:
@@ -197,6 +261,45 @@ def evaluate_gpt(cfg: ViTConfig, params, data_dir: Optional[str] = None,
             "windows": n * batch}
 
 
+def _make_step(tc: TrainConfig, cfg: ViTConfig, mesh, normalize):
+    """The run's step, one signature for the three optimizers:
+    (params, state, inputs, targets, step, lr) -> (params, state, loss,
+    grad norm or None); state is the flat (m, v) for AdamW, the tree state
+    otherwise."""
+    if tc.optimizer == "adafactor":
+        fn = dp.make_dp_train_step_adafactor(cfg, mesh, normalize=normalize)
+
+        def step_fn(params, state, inputs, targets, step, lr):
+            return (*fn(params, state, inputs, targets, step, lr,
+                        tc.weight_decay), None)
+    elif tc.optimizer == "muon":
+        fn = dp.make_dp_train_step_muon(cfg, mesh, clip_norm=tc.clip_norm,
+                                        weight_decay=tc.weight_decay,
+                                        normalize=normalize)
+
+        def step_fn(params, state, inputs, targets, step, lr):
+            # the same cosine shape for the AdamW half, its min_lr scaled in
+            # proportion
+            alr = opt.cosine_lr_host(
+                step, tc.muon_adamw_lr, tc.warmup, tc.steps,
+                tc.min_lr * tc.muon_adamw_lr / max(tc.lr, 1e-12))
+            return (*fn(params, state, inputs, targets, step, lr, alr), None)
+    else:
+        fn = dp.make_dp_train_step(cfg, mesh, accum_steps=tc.accum_steps,
+                                   return_grad_norm=tc.log_grad_norm,
+                                   mixup_alpha=tc.mixup_alpha,
+                                   normalize=normalize,
+                                   clip_norm=tc.clip_norm,
+                                   decay_2d_only=tc.decay_2d_only)
+
+        def step_fn(params, state, inputs, targets, step, lr):
+            outs = fn(params, *state, inputs, targets, step, lr,
+                      tc.weight_decay)
+            gnorm = outs[4] if tc.log_grad_norm else None
+            return outs[0], outs[1:3], outs[3], gnorm
+    return step_fn
+
+
 def train(tc: TrainConfig) -> dict:
     _check_supported(tc)
     device = resolve_device(tc.device)
@@ -245,12 +348,42 @@ def train(tc: TrainConfig) -> dict:
     params = PRM.unflatten_params(
         PRM.flatten_params(params, cfg).to(device), cfg)
 
-    def state(flat):
-        if flat is None:
-            return torch.zeros(n, dtype=torch.float32, device=device)
-        return torch.as_tensor(np.asarray(flat, np.float32), device=device)
+    # ---- the optimizer's state and its checkpoint, chosen once -----------
+    if tc.optimizer == "adamw":
+        def as_flat(flat):
+            if flat is None:
+                return torch.zeros(n, dtype=torch.float32, device=device)
+            return torch.as_tensor(np.asarray(flat, np.float32),
+                                   device=device)
 
-    m, v = state(m_full), state(v_full)
+        opt_state = (as_flat(m_full), as_flat(v_full))
+
+        def save_state(path, step, consumed, state):
+            m, v = state
+            ckpt_io.save_checkpoint(path, params, cfg, m=m[:n], v=v[:n],
+                                    step=step, seed=tc.seed, cursor=consumed)
+    else:
+        # the state rides a side tree; the data cursor rides its meta
+        def side_tree(step):
+            return os.path.join(workdir, f"{tc.optimizer}_{step:08d}.tree")
+
+        if latest and os.path.exists(side_tree(start_step)):
+            opt_state, meta = _load_tree_state(side_tree(start_step), params,
+                                               tc.optimizer, device)
+            cursor = int(meta.get("cursor", cursor))
+            print(f"[resume] {tc.optimizer} state from "
+                  f"{side_tree(start_step)}, cursor {cursor}")
+        elif tc.optimizer == "muon":
+            opt_state = MU.init_state(params)
+        else:
+            opt_state = AF.init_state(params)
+
+        def save_state(path, step, consumed, state):
+            # flat m/v is the AdamW layout; this state rides a side tree
+            ckpt_io.save_checkpoint(path, params, cfg, step=step,
+                                    seed=tc.seed, cursor=consumed)
+            CT.save_tree(side_tree(step), _tree_state_numpy(state),
+                         meta={"step": step, "cursor": consumed})
 
     # ---- data ---------------------------------------------------------------
     if vit:
@@ -266,12 +399,7 @@ def train(tc: TrainConfig) -> dict:
                                  cursor=cursor,
                                  holdout=TOK.default_holdout(total_w))
         norm_stats = None
-    step_fn = dp.make_dp_train_step(cfg, mesh, accum_steps=tc.accum_steps,
-                                    return_grad_norm=tc.log_grad_norm,
-                                    mixup_alpha=tc.mixup_alpha,
-                                    normalize=norm_stats,
-                                    clip_norm=tc.clip_norm,
-                                    decay_2d_only=tc.decay_2d_only)
+    step_fn = _make_step(tc, cfg, mesh, norm_stats)
 
     flops_per_ex = F.train_flops_per_example(cfg)
     peak = F.peak_flops(kind, cfg.dtype) if device.type == "cuda" else None
@@ -280,9 +408,8 @@ def train(tc: TrainConfig) -> dict:
     def save(step):
         # cursor = sequences consumed by completed steps
         consumed = cursor + (step - start_step) * tc.batch_size
-        ckpt_io.save_checkpoint(
-            os.path.join(workdir, f"ckpt_{step:08d}.bin"), params, cfg,
-            m=m[:n], v=v[:n], step=step, seed=tc.seed, cursor=consumed)
+        path = os.path.join(workdir, f"ckpt_{step:08d}.bin")
+        save_state(path, step, consumed, opt_state)
 
     stop_step = tc.steps
     loss = None
@@ -294,10 +421,8 @@ def train(tc: TrainConfig) -> dict:
             load_s += time.perf_counter() - t_load
             lr = opt.cosine_lr_host(step, tc.lr, tc.warmup, tc.steps,
                                     tc.min_lr)
-            outs = step_fn(params, m, v, inputs, targets, step, lr,
-                           tc.weight_decay)
-            params, m, v, loss = outs[:4]
-            gnorm = outs[4] if tc.log_grad_norm else None
+            params, opt_state, loss, gnorm = step_fn(
+                params, opt_state, inputs, targets, step, lr)
             seqs_since += tc.batch_size
             if step % tc.log_every == 0 or step == tc.steps:
                 loss_val = float(loss)      # waits for the device

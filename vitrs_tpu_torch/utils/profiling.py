@@ -48,10 +48,20 @@ GROUPS = (
     ("fused CE (K5/K6)", r"ce_fwd|ce_bwd"),
     ("fused AdamW (K7)", r"adamw"),
     ("cuBLAS matmul", r"nvjet|gemm|cutlass|xmma|cublas"),
+    # indexing kernels of any model: the MoE layer's routing, dispatch and
+    # combine (ops/moe.py: row gathers, the slot map's scatter, the k-major
+    # cumsum, the top-k sort), the embedding lookup's gather and backward
+    ("index/gather/scatter/scan/sort",
+     r"index|Index|gather|Gather|scatter|Scatter|scan|Scan|cumsum|sort|Sort"
+     r"|topk|TopK"),
     ("eager reductions", r"reduce|Reduce"),
     ("eager elementwise, copies, casts",
      r"elementwise|Elementwise|vectorized|unrolled|Copy|copy|Functor|fill"),
 )
+
+
+# the kernels op_breakdown names one by one, the most device time first
+TOP_KERNELS = 12
 
 
 def _group(name: str) -> str:
@@ -73,11 +83,13 @@ def _wall(fn: Callable[[], object], iters: int) -> float:
 
 
 def op_breakdown(fn: Callable[[], object], iters: int = 3) -> Dict:
-    """{"groups": {group: device ms per call}, "busy_ms", "wall_ms",
-    "profiled_wall_ms", "busy_share", "kernels_per_call"}: the groups and
-    busy_ms over `iters` profiled calls of fn; wall_ms over `iters`
-    unprofiled calls just before them, in the same process, so busy_share
-    = busy_ms / wall_ms compares the two within one run."""
+    """{"groups": {group: device ms per call}, "top_kernels", "busy_ms",
+    "wall_ms", "profiled_wall_ms", "busy_share", "kernels_per_call"}: the
+    groups and busy_ms over `iters` profiled calls of fn; wall_ms over
+    `iters` unprofiled calls just before them, in the same process, so
+    busy_share = busy_ms / wall_ms compares the two within one run;
+    top_kernels: the TOP_KERNELS kernel names (cut to 100 characters) with
+    the most device time, ms per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -86,14 +98,19 @@ def op_breakdown(fn: Callable[[], object], iters: int = 3) -> Dict:
                              ProfilerActivity.CUDA]) as prof:
         profiled_wall = _wall(fn, iters)
     groups: collections.Counter = collections.Counter()
+    names: collections.Counter = collections.Counter()
     n = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            groups[_group(e.name)] += e.time_range.elapsed_us()
+            us = e.time_range.elapsed_us()
+            groups[_group(e.name)] += us
+            names[e.name[:100]] += us
             n += 1
     busy_ms = sum(groups.values()) / iters / 1e3
     return {"groups": {g: round(us / iters / 1e3, 4)
                        for g, us in groups.most_common()},
+            "top_kernels": {k: round(us / iters / 1e3, 4)
+                            for k, us in names.most_common(TOP_KERNELS)},
             "busy_ms": round(busy_ms, 4),
             "wall_ms": round(wall * 1e3, 4),
             "profiled_wall_ms": round(profiled_wall * 1e3, 4),
