@@ -359,10 +359,8 @@ def test_cli_needs_a_card_without_cpu(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("field,value,item", [
     ("mesh", "dp=2", "item 18"),
-    ("ema_decay", 0.99, "item 12"),
     pytest.param("model_overrides", {"quirks": True}, "item 3",
-                 id="model_overrides-value3-item 3"),
-    ("async_ckpt", True, "item 17")])
+                 id="model_overrides-value3-item 3")])
 def test_loop_raises_for_unported_options(field, value, item, tmp_path):
     tc = TL.TrainConfig(preset="gpt-nano", steps=1, device="cpu",
                         workdir=str(tmp_path))

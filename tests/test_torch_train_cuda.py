@@ -11,7 +11,11 @@ same step on the CPU.
   K7  csrc/fused_adamw.cu  AdamW               n not a multiple of 4
 
 and the fused qkv op's weight gradient (an fp32 cuBLAS product of bf16
-operands) against the CPU's.
+operands) against the CPU's; the prefetcher's stream and event order
+(data/prefetch.py: every batch lands whole before the step that reads it,
+however busy the step's stream is, and its pinned buffers are reused only
+after their copies); the async checkpoint's snapshot under an in-place K7
+(checkpoint_async.py: the file holds the values of save() time).
 
 These need an NVIDIA GPU with sm_90a and nvcc: each test skips without a
 CUDA device (decided inside the `cuda` fixture, never at import).  Run them
@@ -258,3 +262,72 @@ def test_train_step_on_cuda_matches_cpu(cuda):
         tol = torch.where(leaves[k].grad.abs() < 1e-6,
                           torch.full_like(want, 1e-3), 1e-6 + 2e-5 * want.abs())
         assert bool(((out["cuda"][1][k] - want).abs() <= tol).all()), k
+
+
+class _Slow:
+    """A loader of large numbered batches (each value its batch number)."""
+
+    def __init__(self, shape=(64, 224, 224, 3)):
+        self.i, self.shape = 0, shape
+
+    def next_batch(self):
+        x = np.full(self.shape, self.i % 251, np.uint8)
+        y = np.full((self.shape[0],), self.i, np.int64)
+        self.i += 1
+        return x, y
+
+
+def test_prefetcher_batches_land_before_the_step_reads_them(cuda):
+    """Keep the step's stream busy (a long matmul chain) while the
+    prefetcher copies on its side stream: every batch the step reads is
+    whole, in order, and the pinned buffers are reused only after their
+    copies (6 slots' worth of batches come through intact)."""
+    from vitrs_tpu_torch.data.prefetch import DevicePrefetcher
+    pf = DevicePrefetcher(_Slow(), cuda, depth=2)
+    a = torch.randn(4096, 4096, device=cuda)
+    try:
+        for i in range(12):
+            x, y = next(pf)
+            assert x.device.type == "cuda" and x.dtype == torch.uint8
+            for _ in range(4):          # the step's stream stays busy
+                a = (a @ a).clamp_(-1, 1)
+            # reads on the current stream, ordered after the copy's event
+            assert int(x.min()) == int(x.max()) == i % 251
+            assert int(y[0]) == i and int(y[-1]) == i
+            del x, y                     # record_stream keeps them alive
+    finally:
+        pf.close()
+
+
+def test_async_snapshot_holds_under_an_in_place_adamw(cuda, tmp_path):
+    """save() then K7 updating the masters, m and v in place at once, many
+    times: the file holds the values of save() time (the device copy is
+    queued before the next K7 on the same stream)."""
+    from vitrs_tpu_torch import checkpoint as C
+    from vitrs_tpu_torch import params as P
+    from vitrs_tpu_torch.checkpoint_async import AsyncCheckpointer
+    from vitrs_tpu_torch.config import get_config
+    cfg = get_config("gpt2-124m")
+    n = P.num_parameters(cfg)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    flat = torch.randn(n, generator=g, device=cuda) * 0.02
+    m = torch.randn(n, generator=g, device=cuda) * 1e-3
+    v = torch.rand(n, generator=g, device=cuda) * 1e-6
+    grad = torch.randn(n, generator=g, device=cuda)
+    params = P.unflatten_params(flat, cfg)
+    want = flat.cpu(), m.cpu(), v.cpu()
+    ck = AsyncCheckpointer()
+    path = str(tmp_path / "snap.bin")
+    ck.save(path, params, cfg, m=m, v=v, step=3, n_valid=n)
+    before = FW.adamw_cuda.launches
+    for step in range(4, 24):
+        FW.adamw_cuda(flat, grad, m, v, step, 1e-2)
+    assert FW.adamw_cuda.launches - before == 20
+    ck.close()
+    got, _, extras = C.load_checkpoint(path)
+    np.testing.assert_array_equal(
+        P.flatten_params(P.from_numpy(got, cfg, "cpu"), cfg).numpy(),
+        want[0].numpy())
+    np.testing.assert_array_equal(extras["m"], want[1].numpy())
+    np.testing.assert_array_equal(extras["v"], want[2].numpy())
+    assert not torch.equal(flat.cpu(), want[0])

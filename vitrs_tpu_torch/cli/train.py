@@ -1,11 +1,12 @@
 #!/usr/bin/env python
 """vitrs-train-torch — train a GPT or ViT preset with the PyTorch port.
 
-The port of `vitrs_tpu/cli/train.py`.  This slice trains gpt and vit mode,
-dense or MoE (--num-experts, --moe-top-k), with AdamW, Adafactor or Muon
-(--optimizer) on one device, with the JAX CLI's flags for those paths; the
-JAX CLI's other flags (--mesh, --ema-decay, ...) are not ported yet
-(ROADMAP.md Queue 1).
+The port of `vitrs_tpu/cli/train.py`: gpt and vit mode, dense or MoE
+(--num-experts, --moe-top-k), with AdamW, Adafactor or Muon (--optimizer)
+on one device, with the JAX CLI's flags: selective or full remat
+(--remat), a profiler trace (--profile-at), EMA weights (--ema-decay),
+streaming ImageNet shards with RandAugment (--dataset imagenet --data-dir,
+--ra-ops, --ra-mag).  --mesh raises (ROADMAP.md Queue 1 item 18).
 
 Examples:
   vitrs-train-torch --preset vit-b-16 --dataset synthetic-imagenet \
@@ -23,6 +24,10 @@ Examples:
       --lr 1e-2 --cpu --steps 3 --batch-size 4 --dtype float32
   vitrs-train-torch --preset gpt-nano --optimizer muon --lr 0.02 --cpu \
       --steps 3 --batch-size 4
+  vitrs-train-torch --preset gpt2-124m-4k --batch-size 4 --steps 100  # remat
+  vitrs-train-torch --preset gpt-nano --remat full --cpu --steps 3
+  vitrs-train-torch --preset vit-b-16 --dataset imagenet --data-dir SHARDS \
+      --ra-ops 2 --ra-mag 0.5 --ema-decay 0.9999 --batch-size 64
 
 Checkpoints and metrics go to --workdir, and a run resumes from the latest
 checkpoint there; without --workdir a run writes to a fresh temporary
@@ -40,12 +45,14 @@ def main(argv=None):
     p.add_argument("--preset", default="gpt2-124m",
                    help="model preset (see vitrs_tpu_torch.config.PRESETS)")
     p.add_argument("--dataset", default="cifar10",
-                   help="vit: cifar10 | synthetic-shapes | synthetic-imagenet;"
-                        " gpt mode reads tokens, and empty skips its final "
-                        "val loss")
+                   help="vit: cifar10 | synthetic-shapes | synthetic-imagenet"
+                        " | imagenet (.vshard shards in --data-dir); gpt "
+                        "mode reads tokens, and empty skips its final val "
+                        "loss")
     p.add_argument("--data-dir", default=None,
-                   help="cifar-10-batches-py, or an llm.c uint16 token file "
-                        "(default: synthetic data)")
+                   help="cifar-10-batches-py, imagenet's .vshard directory, "
+                        "or an llm.c uint16 token file (default: synthetic "
+                        "data)")
     p.add_argument("--dataset-size", type=int, default=0,
                    help="n of synthetic-shapes / synthetic-imagenet "
                         "(0: its default)")
@@ -64,6 +71,23 @@ def main(argv=None):
     p.add_argument("--log-every", type=int, default=20)
     p.add_argument("--ckpt-every", type=int, default=500)
     p.add_argument("--no-resume", action="store_true")
+    p.add_argument("--remat", nargs="?", const="selective", default=None,
+                   choices=["selective", "full", "off"],
+                   help="activation checkpointing over blocks: bare or "
+                        "'selective' keeps the flash out + lse and the LN "
+                        "statistics, 'full' recomputes the whole block, "
+                        "'off' none (default: the preset's own)")
+    p.add_argument("--profile-at", type=int, default=0,
+                   help="a Chrome trace of this step in WORKDIR/profile")
+    p.add_argument("--ema-decay", type=float, default=0.0,
+                   help="e.g. 0.9999; 0 disables EMA")
+    p.add_argument("--ra-ops", type=int, default=0,
+                   help="RandAugment ops per image (imagenet loader)")
+    p.add_argument("--ra-mag", type=float, default=0.0,
+                   help="RandAugment magnitude in [0, 1]")
+    p.add_argument("--mesh", default="",
+                   help="a device mesh: not ported yet (ROADMAP.md Queue 1 "
+                        "item 18)")
     p.add_argument("--log-grad-norm", action="store_true")
     p.add_argument("--decay-2d-only", action="store_true",
                    help="weight-decay tensors with >= 2 axes only")
@@ -141,7 +165,11 @@ def main(argv=None):
         accum_steps=args.accum_steps, label_smoothing=args.label_smoothing,
         drop_path=args.drop_path, mixup_alpha=args.mixup_alpha,
         kv_heads=args.kv_heads, device=device, optimizer=args.optimizer,
-        muon_adamw_lr=args.muon_adamw_lr,
+        muon_adamw_lr=args.muon_adamw_lr, profile_at=args.profile_at,
+        remat={None: None, "selective": True, "full": "full",
+               "off": False}[args.remat],
+        ema_decay=args.ema_decay, ra_ops=args.ra_ops, ra_mag=args.ra_mag,
+        mesh=args.mesh,
         model_overrides={
             k: v for k, v in (("pos_emb", args.pos_emb),
                               ("window", args.window),

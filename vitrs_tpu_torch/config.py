@@ -5,10 +5,11 @@ tests/test_torch_config_params.py pins every preset equal to the JAX
 package's.  The copy exists because `import vitrs_tpu.config` runs
 `vitrs_tpu/__init__.py`, which imports jax; this package never does.
 
-Switches that only the JAX package acts on (remat, scan_unroll) are kept
-so that configs and checkpoints stay interchangeable; the port's
-models raise NotImplementedError for the variants its slice does not cover
-(models/model.check_supported).
+`remat` picks the block body as in the JAX package (models/model.block_body:
+False, True = selective, "full"); `scan_unroll`, which only the JAX
+package's layer scan reads, is kept so that configs stay interchangeable.
+The port's models raise NotImplementedError for the variants it does not
+cover yet (models/model.check_supported).
 """
 
 from __future__ import annotations

@@ -1,10 +1,15 @@
-"""Batch fetch + augment: the NumPy paths of `vitrs_tpu/data/augment.py`.
+"""Batch fetch + augment: a copy of `vitrs_tpu/data/augment.py`, the
+ctypes binding over the native pipeline (native/imagepipe.cpp, threaded)
+with the NumPy paths beside it.
 
 A copy, because importing the original runs `vitrs_tpu/__init__.py`, which
-imports jax; the port's tests pin the two equal.  The original's ctypes
-branch over the native `imagepipe` library is left out: that library and
-its build script wait for the ImageNet slice, so `augment_batch` always
-takes the NumPy path here, which computes what the native one does.
+imports jax; the port's tests pin the two equal, and the native path equal
+to the NumPy one bit for bit.  As in the JAX package, `augment_batch` takes
+the native library when it builds and the NumPy path when it does not
+(`native_available()` says which).  The port's copy of imagepipe.cpp also
+serves `out_uint8=True` (crop and flip only, the train step normalising
+on the device), which the JAX package computes in NumPy: so the vit
+loader's crop and flip run native in the port's training loop.
 
 Randomness contract (as imagepipe.cpp's): each sample's augmentation
 derives from splitmix64(seed, epoch, dataset_index) only, so it does not
@@ -12,11 +17,18 @@ depend on thread schedules and a resumed run repeats it."""
 
 from __future__ import annotations
 
+import ctypes
+import os
 from typing import Optional
 
 import numpy as np
 
+from ..native import build
+
 _MASK = (1 << 64) - 1
+_U8 = ctypes.POINTER(ctypes.c_uint8)
+_I64 = ctypes.POINTER(ctypes.c_int64)
+_F32 = ctypes.POINTER(ctypes.c_float)
 
 
 def _splitmix64(x: int) -> int:
@@ -24,6 +36,21 @@ def _splitmix64(x: int) -> int:
     x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK
     x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK
     return x ^ (x >> 31)
+
+
+def _lib():
+    lib = build.load("imagepipe")
+    if lib is not None:
+        try:
+            if lib.vitrs_imagepipe_abi() != 2:
+                return None
+        except Exception:
+            return None
+    return lib
+
+
+def native_available() -> bool:
+    return _lib() is not None
 
 
 def _reflect(i: np.ndarray, n: int) -> np.ndarray:
@@ -82,18 +109,47 @@ def augment_batch(images: np.ndarray, indices: np.ndarray,
                   seed: int = 0, epoch: int = 0,
                   mean: Optional[np.ndarray] = None,
                   std: Optional[np.ndarray] = None,
-                  out_uint8: bool = False) -> np.ndarray:
+                  nthreads: int = 0, out_uint8: bool = False) -> np.ndarray:
     """(num_total, H, W, C) uint8 + indices -> (n, H, W, C) float32,
     normalised with mean/std.  out_uint8=True skips the normalisation and
     returns uint8 (4x fewer bytes to the device, which normalises)."""
     assert images.dtype == np.uint8 and images.ndim == 4
     indices = np.ascontiguousarray(indices, np.int64)
     images = np.ascontiguousarray(images)
+    H, W, C = images.shape[1:]
+    lib = _lib()
+    n = len(indices)
+    if nthreads <= 0:
+        nthreads = min(os.cpu_count() or 1, 16)
     if out_uint8:
-        return _augment_numpy_u8(images, indices, crop_pad, int(flip), seed,
-                                 epoch)
-    C = images.shape[3]
+        if lib is None:
+            return _augment_numpy_u8(images, indices, crop_pad, int(flip),
+                                     seed, epoch)
+        out = np.empty((n, H, W, C), np.uint8)
+        rc = lib.vitrs_augment_batch_u8(
+            images.ctypes.data_as(_U8), indices.ctypes.data_as(_I64),
+            ctypes.c_int(n), ctypes.c_int(H), ctypes.c_int(W),
+            ctypes.c_int(C), out.ctypes.data_as(_U8),
+            ctypes.c_int(crop_pad), ctypes.c_int(int(flip)),
+            ctypes.c_uint64(seed & _MASK), ctypes.c_uint64(epoch & _MASK),
+            ctypes.c_int(nthreads))
+        if rc != 0:
+            raise RuntimeError(f"vitrs_augment_batch_u8 failed rc={rc}")
+        return out
     mean = np.asarray(mean if mean is not None else np.zeros(C), np.float32)
     std = np.asarray(std if std is not None else np.ones(C), np.float32)
-    return _augment_numpy(images, indices, crop_pad, int(flip), seed, epoch,
-                          mean, std)
+    if lib is None:
+        return _augment_numpy(images, indices, crop_pad, int(flip), seed,
+                              epoch, mean, std)
+    out = np.empty((n, H, W, C), np.float32)
+    rc = lib.vitrs_augment_batch(
+        images.ctypes.data_as(_U8), indices.ctypes.data_as(_I64),
+        ctypes.c_int(n), ctypes.c_int(H), ctypes.c_int(W), ctypes.c_int(C),
+        out.ctypes.data_as(_F32),
+        ctypes.c_int(crop_pad), ctypes.c_int(int(flip)),
+        ctypes.c_uint64(seed & _MASK), ctypes.c_uint64(epoch & _MASK),
+        mean.ctypes.data_as(_F32), std.ctypes.data_as(_F32),
+        ctypes.c_int(nthreads))
+    if rc != 0:
+        raise RuntimeError(f"vitrs_augment_batch failed rc={rc}")
+    return out

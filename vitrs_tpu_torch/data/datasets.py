@@ -3,9 +3,7 @@
 
 The original needs no JAX but cannot be imported without
 `vitrs_tpu/__init__.py` importing it; the port's tests pin the two equal.
-Left out: the native pipeline's thread count (`augment.py` here has only
-the NumPy path) and ImageNet's streaming shards (`data/imagenet.py`, a
-later slice).
+ImageNet's streaming shards are `data/imagenet.py`.
 
 Design:
   * datasets are in-memory uint8 (N, H, W, C) + int64 labels;
@@ -169,7 +167,8 @@ class DataLoader:
     def __init__(self, ds: Dataset, batch_size: int, seed: int = 0,
                  train: bool = True, crop_pad: int = 4,
                  host_id: int = 0, num_hosts: int = 1,
-                 cursor: int = 0, device_normalize: bool = False):
+                 cursor: int = 0, nthreads: int = 0,
+                 device_normalize: bool = False):
         assert batch_size % num_hosts == 0
         self.ds = ds
         self.global_batch = batch_size
@@ -181,6 +180,7 @@ class DataLoader:
         self.host_id = host_id
         self.num_hosts = num_hosts
         self.cursor = cursor
+        self.nthreads = nthreads
         # device_normalize: ship uint8 batches (4x less H2D traffic) and let
         # the train step fold (x/255 - mean)/std on device; same per-sample
         # augment RNG, so runs are bitwise-reproducible either way
@@ -205,6 +205,7 @@ class DataLoader:
         images = A.augment_batch(self.ds.images, sel, crop_pad=self.crop_pad,
                                  flip=self.flip, seed=self.seed, epoch=epoch,
                                  mean=self.ds.mean, std=self.ds.std,
+                                 nthreads=self.nthreads,
                                  out_uint8=self.device_normalize)
         labels = self.ds.labels[sel]
         self.cursor += self.global_batch

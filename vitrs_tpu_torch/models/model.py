@@ -38,6 +38,10 @@ blocks sum each layer's weighted router loss (moe_aux_weight load balance
 + moe_zloss_weight z-loss) and `transformer` returns its mean over the
 layers, which `gpt_loss` adds on every CE route and `vit_loss` adds too.
 The quirk ops come in a later slice (ROADMAP.md, Queue 1 item 3).
+
+cfg.remat picks the block body (`block_body`): the plain block, the
+selective blocks of models/selective.py (True), or the plain block under
+`torch.utils.checkpoint` ("full"), as the JAX package's layer scan does.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ from typing import Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..config import ViTConfig
 from ..ops import basic, fused_ce, fused_head_ce
@@ -178,14 +183,20 @@ def drop_path_rates(cfg: ViTConfig) -> List[float]:
                        dtype=np.float32).tolist()
 
 
+def _attn_branch(x: torch.Tensor, p: Mapping[str, torch.Tensor],
+                 cfg: ViTConfig, causal: bool) -> torch.Tensor:
+    """attproj(attention(qkv(ln1(x)))): the attention residual branch."""
+    ln1 = basic.layernorm_cv(x, p["ln1w"], p["ln1b"])
+    atty = _project_and_attend(ln1, p, cfg, causal)
+    return basic.linear(atty, p["attprojw"], p["attprojb"])
+
+
 def _attn_residual(x: torch.Tensor, p: Mapping[str, torch.Tensor],
                    cfg: ViTConfig, causal: bool,
                    keep: Optional[torch.Tensor], rate: float) -> torch.Tensor:
-    """x + attproj(attention(qkv(ln1(x)))), the branch dropped by keep[0]:
-    the first half of the dense and the MoE block."""
-    ln1 = basic.layernorm_cv(x, p["ln1w"], p["ln1b"])
-    atty = _project_and_attend(ln1, p, cfg, causal)
-    branch = basic.linear(atty, p["attprojw"], p["attprojb"])
+    """x + the attention branch, dropped by keep[0]: the first half of the
+    dense and the MoE block."""
+    branch = _attn_branch(x, p, cfg, causal)
     if keep is not None:
         branch = _drop_path(branch, keep[0], rate)
     return x + branch
@@ -204,41 +215,72 @@ def _block(x: torch.Tensor, p: Mapping[str, torch.Tensor], cfg: ViTConfig,
     return x + branch
 
 
-def _block_moe(x: torch.Tensor, p: Mapping[str, torch.Tensor],
-               cfg: ViTConfig, causal: bool = True,
-               keep: Optional[torch.Tensor] = None, rate: float = 0.0):
-    """The block with the dense MLP replaced by the MoE layer.  Returns
-    (x, this layer's weighted router loss moe_aux_weight load_balance +
-    moe_zloss_weight z_loss)."""
-    x = _attn_residual(x, p, cfg, causal, keep, rate)
+def _moe_half(x: torch.Tensor, p: Mapping[str, torch.Tensor],
+              cfg: ViTConfig):
+    """ln2, then the MoE layer: (its output, this layer's weighted router
+    loss moe_aux_weight load_balance + moe_zloss_weight z_loss)."""
     out, aux = moe_mlp(basic.layernorm_cv(x, p["ln2w"], p["ln2b"]),
                        p["routerw"], p["fcw"], p["fcb"], p["fcprojw"],
                        p["fcprojb"], top_k=cfg.moe_top_k,
                        cap_factor=cfg.moe_cap_factor,
                        erf=cfg.act == "gelu_erf")
+    return out, (cfg.moe_aux_weight * aux.load_balance
+                 + cfg.moe_zloss_weight * aux.z_loss)
+
+
+def _block_moe(x: torch.Tensor, p: Mapping[str, torch.Tensor],
+               cfg: ViTConfig, causal: bool = True,
+               keep: Optional[torch.Tensor] = None, rate: float = 0.0):
+    """The block with the dense MLP replaced by the MoE layer.  Returns
+    (x, this layer's weighted router loss)."""
+    x = _attn_residual(x, p, cfg, causal, keep, rate)
+    out, aux = _moe_half(x, p, cfg)
     if keep is not None:
         out = _drop_path(out, keep[1], rate)
-    return x + out, (cfg.moe_aux_weight * aux.load_balance
-                     + cfg.moe_zloss_weight * aux.z_loss)
+    return x + out, aux
+
+
+def block_body(cfg: ViTConfig):
+    """The block function of one layer under cfg.remat, with `_block`'s
+    signature (x, p, cfg, causal, keep, rate): False, the plain block;
+    True, the selective blocks (models/selective.py: the flash out + lse
+    and the LN statistics kept, the qkv projection and the MLP recomputed);
+    "full", the plain block under `torch.utils.checkpoint`, which runs its
+    forward again in the backward (K1-fwd twice a layer).  The stochastic
+    depth flags are inputs, drawn before the forward, so a recomputed block
+    sees the same ones.  A forward without autograd takes the plain
+    block."""
+    plain = _block_moe if cfg.is_moe else _block
+    if not cfg.remat or not torch.is_grad_enabled():
+        return plain
+    if cfg.remat == "full":
+        def full(x, p, cfg, causal, keep, rate):
+            return checkpoint(plain, x, p, cfg, causal, keep, rate,
+                              use_reentrant=False, preserve_rng_state=False)
+        return full
+    from .selective import block_moe_selective, block_selective
+    return block_moe_selective if cfg.is_moe else block_selective
 
 
 def transformer(x: torch.Tensor, params: Mapping[str, torch.Tensor],
                 cfg: ViTConfig, causal: bool,
                 keep: Optional[torch.Tensor] = None,
                 return_aux: bool = False):
-    """The blocks over every layer.  keep (L, 2, B): stochastic depth's
-    keep flags (`draw_masks`), layer l at rate `drop_path_rates(cfg)[l]`.
-    return_aux: also return the mean over the layers of the weighted MoE
-    router loss (an fp32 zero for a dense config), which the losses add."""
+    """The blocks over every layer, each under cfg.remat (`block_body`).
+    keep (L, 2, B): stochastic depth's keep flags (`draw_masks`), layer l
+    at rate `drop_path_rates(cfg)[l]`.  return_aux: also return the mean
+    over the layers of the weighted MoE router loss (an fp32 zero for a
+    dense config), which the losses add."""
     rates = drop_path_rates(cfg)
+    body = block_body(cfg)
     aux = None
     for i, p in enumerate(layers(params)):
         k = None if keep is None else keep[i]
         if cfg.is_moe:
-            x, a = _block_moe(x, p, cfg, causal, k, rates[i])
+            x, a = body(x, p, cfg, causal, k, rates[i])
             aux = a if aux is None else aux + a
         else:
-            x = _block(x, p, cfg, causal, k, rates[i])
+            x = body(x, p, cfg, causal, k, rates[i])
     if not return_aux:
         return x
     if aux is None:

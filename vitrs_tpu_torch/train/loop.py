@@ -37,17 +37,39 @@ mode, AdamW, Adafactor or Muon, one device.
   Adafactor tree whose factoring layout differs from the current one is
   refused on resume.
 
-What the JAX loop also does and this slice does not yet raises
-NotImplementedError naming its ROADMAP.md Queue 1 item: EMA (12), async
-checkpoints (17), a mesh (18) and the streaming ImageNet shards (11).
+* Every loader runs behind `data/prefetch.DevicePrefetcher` (depth
+  `prefetch`, 2 as in the JAX loop; 0 calls the loader in the step's
+  thread): a thread fills pinned buffers and copies them to the card on a
+  side stream.  `loader_ms` stays the host time to produce a batch;
+  `wait_ms` is the time the step waited for one.
+* `dataset="imagenet"` streams `.vshard` JPEG shards from `data_dir`
+  (data/imagenet.py: native decode, RandomResizedCrop, flip and
+  RandAugment `ra_ops`/`ra_mag`; fp32 batches normalised on the host), the
+  decoder that ran in the log (`decoder`); the final evaluation
+  (`evaluate_streaming`) reads the val split, else the train split.
+* `remat`: None keeps the preset's own setting (gpt2-124m-4k sets True),
+  else False, True (selective, models/selective.py) or "full" (the JAX
+  loop passes its TrainConfig's False over the preset).
+* `ema_decay` > 0: an fp32 EMA of the flat parameters, one `lerp_` after
+  each step (ops/ema.py), `ema_{step:08d}.tree` beside each checkpoint,
+  resumed from there; the final evaluation reads the EMA weights.
+* `async_ckpt` (the default, as in the JAX loop): AdamW checkpoints are
+  snapshotted on the device and written by a thread
+  (checkpoint_async.AsyncCheckpointer); the run drains it before it
+  returns.  The checkpoint's cursor counts the examples the completed
+  steps consumed, not the loader's, which runs ahead by the prefetch.
+* `profile_at`: that step under torch.profiler, a Chrome trace in
+  workdir/profile/ (utils/profiling.trace).  `run_steps` stops a run after
+  that many steps, its schedule still spanning `steps`: the
+  kill-and-resume knob.
+
+`mesh` raises NotImplementedError naming ROADMAP.md Queue 1 item 18.
 `model_overrides` is the JAX TrainConfig's dict of config fields (e.g.
 {"max_seq_len": 8192, "window": 1024, "pos_emb": "rope"}, the
 long-context rope + sliding-window model, or {"num_experts": 8} for MoE);
 a model variant the port does not run yet (quirks) raises in
 `models/model.check_supported`.  The port's `kv_heads` field is kept: it
-sets `num_kv_heads` among the overrides.  The JAX loop's other options
-(remat, profiler traces, RandAugment, run_steps) are not in this
-TrainConfig yet.
+sets `num_kv_heads` among the overrides.
 """
 
 from __future__ import annotations
@@ -64,31 +86,35 @@ import numpy as np
 import torch
 
 from .. import checkpoint as ckpt_io
+from .. import checkpoint_async as ckpt_async_io
 from .. import checkpoint_tree as CT
 from .. import params as PRM
 from ..config import ViTConfig, get_config
 from ..data import augment as A
 from ..data import datasets as D
+from ..data import imagenet as IN
 from ..data import tokens as TOK
+from ..data.prefetch import DevicePrefetcher
 from ..models import model as M
 from ..ops import adafactor as AF
 from ..ops import basic
+from ..ops import ema as EMA
 from ..ops import muon as MU
 from ..ops import optimizer as opt
 from ..ops._build import resolve_device
 from ..parallel import data_parallel as dp
 from ..utils import flops as F
+from ..utils import profiling
 
 
 @dataclasses.dataclass
 class TrainConfig:
-    """The JAX TrainConfig's fields that an AdamW run on one device reads,
-    with its defaults except: preset (gpt2-124m here) and async_ckpt (off);
-    `kv_heads` (shorthand for num_kv_heads among the overrides; setting
-    both raises), `drop_path` (a model override in the JAX loop),
-    `dataset_size` and `device` are the port's own.  mesh, ema_decay and
-    async_ckpt are kept so that asking for them raises, naming their
-    ROADMAP item."""
+    """The JAX TrainConfig's fields that a run on one device reads, with
+    its defaults except: preset (gpt2-124m here) and remat (None: the
+    preset's own); `kv_heads` (shorthand for num_kv_heads among the
+    overrides; setting both raises), `drop_path` (a model override in the
+    JAX loop), `dataset_size`, `prefetch` and `device` are the port's own.
+    mesh is kept so that asking for it raises, naming its ROADMAP item."""
     preset: str = "gpt2-124m"
     dataset: str = "cifar10"       # vit: the image dataset; gpt mode reads
                                    # tokens, and a non-empty dataset asks
@@ -98,6 +124,9 @@ class TrainConfig:
     dataset_size: int = 0          # n of synthetic-shapes/-imagenet, both
                                    # splits (0: the dataset's default)
     steps: int = 1000
+    run_steps: int = 0             # stop after this many steps this run
+                                   # (0: run to `steps`); the schedule
+                                   # still spans `steps`
     batch_size: int = 128
     lr: float = 1e-3
     warmup: int = 100
@@ -111,6 +140,9 @@ class TrainConfig:
     resume: bool = True
     init_ckpt: Optional[str] = None  # warm-start weights; step/cursor not
                                      # loaded — fresh schedule
+    profile_at: int = 0            # a Chrome trace of this step (0: none)
+    remat: object = None           # None: the preset's; False | True
+                                   # (selective) | "full"
     log_grad_norm: bool = False
     clip_norm: float = 0.0         # 0 = off; 1.0 = the standard GPT recipe
     decay_2d_only: bool = False    # the JAX package's ">= 2 axes" decay rule
@@ -123,24 +155,20 @@ class TrainConfig:
                                    # step size, ~1e-2) | "muon" (lr: the
                                    # matrix lr, ~0.02)
     muon_adamw_lr: float = 6e-4    # muon: AdamW lr of the other tensors
-    ema_decay: float = 0.0
+    ra_ops: int = 0                # RandAugment ops an image (imagenet)
+    ra_mag: float = 0.0            # RandAugment magnitude in [0, 1]
+    ema_decay: float = 0.0         # 0 = off; e.g. 0.9999 for ViT recipes
     mixup_alpha: float = 0.0       # vit: mixup Beta(alpha, alpha)
-    async_ckpt: bool = False
+    async_ckpt: bool = True        # device snapshot, written by a thread
+    prefetch: int = 2              # prefetch depth; 0: no prefetch thread
     kv_heads: int = 0              # GQA/MQA K/V heads; 0 = MHA
     device: str = "cuda"           # "cuda" (never falls back) or "cpu"
     model_overrides: Optional[dict] = None   # config fields over the preset
 
 
 def _check_supported(tc: TrainConfig) -> None:
-    unported = (
-        (tc.mesh, "--mesh: ROADMAP.md Queue 1 item 18"),
-        (tc.ema_decay > 0.0, "EMA: ROADMAP.md Queue 1 item 12 (ops/ema.py)"),
-        (tc.async_ckpt,
-         "async checkpoints: ROADMAP.md Queue 1 item 17 (checkpoint_async.py)"),
-    )
-    for cond, what in unported:
-        if cond:
-            raise NotImplementedError(what)
+    if tc.mesh:
+        raise NotImplementedError("--mesh: ROADMAP.md Queue 1 item 18")
     if tc.optimizer not in ("adamw", "adafactor", "muon"):
         raise ValueError(f"unknown optimizer {tc.optimizer!r}")
     if tc.optimizer != "adamw" and (tc.accum_steps != 1 or tc.mixup_alpha
@@ -261,6 +289,41 @@ def evaluate_gpt(cfg: ViTConfig, params, data_dir: Optional[str] = None,
             "windows": n * batch}
 
 
+def evaluate_streaming(cfg: ViTConfig, params, loader,
+                       max_batches: int = 0) -> dict:
+    """Top-1 accuracy and mean CE over a StreamingLoader(train=False): the
+    imagenet evaluation (resize the shorter side, centre crop, one pass in
+    order), as the JAX function computes it.  params: a tensor dict;
+    batches go to the device of its wte."""
+    device = params["wte"].device
+    pp = M.prepare_params(params, cfg)
+    steps = loader.steps_per_epoch
+    if max_batches:
+        steps = min(steps, max_batches)
+    correct, total, loss_sum = 0, 0, 0.0
+    with torch.no_grad():
+        for _ in range(steps):
+            x, y = loader.next_batch()
+            y = torch.as_tensor(y, device=device)
+            logits = M.vit_forward(pp, torch.as_tensor(x, device=device), cfg)
+            correct += int((logits.argmax(-1) == y).sum())
+            loss_sum += float(basic.cross_entropy_from_logits(logits, y).sum())
+            total += len(y)
+    return {"acc": correct / max(total, 1), "loss": loss_sum / max(total, 1),
+            "n": total}
+
+
+def _streaming_val(tc: "TrainConfig", cfg: ViTConfig):
+    """The imagenet evaluation's loader: the val split, else the train
+    split, in order."""
+    try:
+        ds = IN.ShardedImageNet(tc.data_dir, split="val")
+    except FileNotFoundError:
+        ds = IN.ShardedImageNet(tc.data_dir, split="train")
+    return IN.StreamingLoader(ds, min(tc.batch_size, 256), cfg.img_size,
+                              train=False)
+
+
 def _make_step(tc: TrainConfig, cfg: ViTConfig, mesh, normalize):
     """The run's step, one signature for the three optimizers:
     (params, state, inputs, targets, step, lr) -> (params, state, loss,
@@ -313,14 +376,14 @@ def train(tc: TrainConfig) -> dict:
         overrides["label_smoothing"] = tc.label_smoothing
     if tc.drop_path:
         overrides["drop_path"] = tc.drop_path
+    if tc.remat is not None:
+        overrides["remat"] = tc.remat
     cfg = get_config(tc.preset, dtype=tc.dtype, **overrides)
     M.check_supported(cfg)
     vit = cfg.mode == "vit"
+    imagenet = vit and tc.dataset == "imagenet"
     if not vit and tc.mixup_alpha > 0.0:
         raise ValueError("mixup is a vit-mode option")
-    if vit and tc.dataset == "imagenet":
-        raise NotImplementedError("streaming ImageNet shards: ROADMAP.md "
-                                  "Queue 1 item 11 (data/imagenet.py)")
     workdir = tc.workdir or tempfile.mkdtemp(prefix="vitrs_torch_run_")
     os.makedirs(workdir, exist_ok=True)
     print(f"[workdir] {workdir}")
@@ -345,10 +408,12 @@ def train(tc: TrainConfig) -> dict:
     else:
         params = PRM.init_params(cfg, torch.Generator().manual_seed(tc.seed))
     # the flat arena: params are views into one fp32 vector on the device
-    params = PRM.unflatten_params(
-        PRM.flatten_params(params, cfg).to(device), cfg)
+    flat = PRM.flatten_params(params, cfg).to(device)
+    params = PRM.unflatten_params(flat, cfg)
 
     # ---- the optimizer's state and its checkpoint, chosen once -----------
+    writer = (ckpt_async_io.AsyncCheckpointer()
+              if tc.async_ckpt and tc.optimizer == "adamw" else None)
     if tc.optimizer == "adamw":
         def as_flat(flat):
             if flat is None:
@@ -360,8 +425,14 @@ def train(tc: TrainConfig) -> dict:
 
         def save_state(path, step, consumed, state):
             m, v = state
-            ckpt_io.save_checkpoint(path, params, cfg, m=m[:n], v=v[:n],
-                                    step=step, seed=tc.seed, cursor=consumed)
+            if writer is not None:
+                # a device-side snapshot; the write overlaps the next steps
+                writer.save(path, params, cfg, m=m, v=v, step=step,
+                            seed=tc.seed, cursor=consumed, n_valid=n)
+            else:
+                ckpt_io.save_checkpoint(path, params, cfg, m=m[:n], v=v[:n],
+                                        step=step, seed=tc.seed,
+                                        cursor=consumed)
     else:
         # the state rides a side tree; the data cursor rides its meta
         def side_tree(step):
@@ -385,8 +456,27 @@ def train(tc: TrainConfig) -> dict:
             CT.save_tree(side_tree(step), _tree_state_numpy(state),
                          meta={"step": step, "cursor": consumed})
 
+    # ---- EMA: one fp32 vector beside the flat parameters ----------------
+    ema = None
+    if tc.ema_decay > 0.0:
+        ema_path = os.path.join(workdir, f"ema_{start_step:08d}.tree")
+        if latest and os.path.exists(ema_path):
+            host_ema, _ = CT.load_tree(ema_path)
+            ema = PRM.flatten_params(PRM.from_numpy(host_ema, cfg, device),
+                                     cfg)
+            print(f"[resume] EMA from {ema_path}")
+        else:
+            ema = EMA.init_ema(flat)
+
     # ---- data ---------------------------------------------------------------
-    if vit:
+    if imagenet:
+        # fp32 batches normalised on the host by the decode pipeline
+        ds = IN.ShardedImageNet(tc.data_dir, split="train")
+        loader = IN.StreamingLoader(ds, tc.batch_size, cfg.img_size,
+                                    train=True, seed=tc.seed, cursor=cursor,
+                                    ra_ops=tc.ra_ops, ra_mag=tc.ra_mag)
+        norm_stats = None
+    elif vit:
         # uint8 batches, normalised on the device by the step
         ds = image_dataset(tc, cfg, train=True)
         loader = D.DataLoader(ds, tc.batch_size, seed=tc.seed, train=True,
@@ -399,6 +489,8 @@ def train(tc: TrainConfig) -> dict:
                                  cursor=cursor,
                                  holdout=TOK.default_holdout(total_w))
         norm_stats = None
+    prefetcher = (DevicePrefetcher(loader, device, depth=tc.prefetch)
+                  if tc.prefetch else None)
     step_fn = _make_step(tc, cfg, mesh, norm_stats)
 
     flops_per_ex = F.train_flops_per_example(cfg)
@@ -406,61 +498,109 @@ def train(tc: TrainConfig) -> dict:
     summary = {"workdir": workdir}
 
     def save(step):
-        # cursor = sequences consumed by completed steps
+        # cursor = examples consumed by completed steps (not loader.cursor,
+        # which runs ahead by the prefetch depth)
         consumed = cursor + (step - start_step) * tc.batch_size
         path = os.path.join(workdir, f"ckpt_{step:08d}.bin")
         save_state(path, step, consumed, opt_state)
+        if ema is not None:
+            tree = os.path.join(workdir, f"ema_{step:08d}.tree")
+            meta = {"decay": tc.ema_decay, "step": step}
+            if writer is not None:
+                writer.save_tree(tree, PRM.unflatten_params(ema, cfg), meta)
+            else:
+                CT.save_tree(tree, PRM.to_numpy(PRM.unflatten_params(ema, cfg),
+                                                cfg), meta=meta)
 
-    stop_step = tc.steps
-    loss = None
-    with open(os.path.join(workdir, "metrics.jsonl"), "a") as log_f:
-        t_last, seqs_since, load_s = time.perf_counter(), 0, 0.0
-        for step in range(start_step + 1, stop_step + 1):
-            t_load = time.perf_counter()
+    def next_batch():
+        """(inputs, targets, host seconds the loader took for them)."""
+        if prefetcher is None:
+            t0 = time.perf_counter()
             inputs, targets = loader.next_batch()
-            load_s += time.perf_counter() - t_load
-            lr = opt.cosine_lr_host(step, tc.lr, tc.warmup, tc.steps,
-                                    tc.min_lr)
-            params, opt_state, loss, gnorm = step_fn(
-                params, opt_state, inputs, targets, step, lr)
-            seqs_since += tc.batch_size
-            if step % tc.log_every == 0 or step == tc.steps:
-                loss_val = float(loss)      # waits for the device
-                now = time.perf_counter()
-                sps = seqs_since / (now - t_last)
-                batches = seqs_since // tc.batch_size
-                rec = {"step": step, "loss": round(loss_val, 5),
-                       "lr": round(float(lr), 7),
-                       "imgs_per_sec": round(sps, 1),
-                       "tok_per_sec": round(sps * cfg.seq_len, 1),
-                       "loader_ms": round(load_s / batches * 1e3, 3),
-                       "mfu": (round(sps * flops_per_ex / peak, 4)
-                               if peak else None),
-                       "device": kind}
-                if gnorm is not None:
-                    rec["grad_norm"] = round(float(gnorm), 5)
-                print("[train] " + json.dumps(rec))
-                log_f.write(json.dumps(rec) + "\n")
-                log_f.flush()
-                if not np.isfinite(loss_val):
-                    raise FloatingPointError(f"loss diverged at step {step}")
-                t_last, seqs_since, load_s = time.perf_counter(), 0, 0.0
-            if tc.ckpt_every and step % tc.ckpt_every == 0:
-                save(step)
-    if stop_step > start_step:
-        save(stop_step)
-        summary["final_loss"] = float(loss)
-    if vit and stop_step == tc.steps:
-        eval_ds = image_dataset(tc, cfg, train=False)
-        summary["eval"] = evaluate(cfg, params, eval_ds,
-                                   batch=min(256, len(eval_ds)))
-        print("[eval] " + json.dumps(summary["eval"]))
-    elif tc.dataset and stop_step == tc.steps:
-        # val loss over the reserved holdout windows
-        val = TOK.TokenLoader(loader.tokens, min(tc.batch_size, 16),
-                              cfg.max_seq_len, holdout=loader.holdout,
-                              val=True)
-        summary["eval"] = {"val_loss": _loss_on(cfg, params,
-                                                *val.next_batch(), device)}
-        print("[eval] " + json.dumps(summary["eval"]))
+            return inputs, targets, time.perf_counter() - t0
+        inputs, targets = next(prefetcher)
+        return inputs, targets, prefetcher.last_load_s
+
+    stop_step = (min(tc.steps, start_step + tc.run_steps) if tc.run_steps
+                 else tc.steps)
+    loss = None
+    try:
+        with open(os.path.join(workdir, "metrics.jsonl"), "a") as log_f:
+            t_last, seqs_since, load_s, wait_s = time.perf_counter(), 0, 0.0, 0.0
+            for step in range(start_step + 1, stop_step + 1):
+                t_wait = time.perf_counter()
+                inputs, targets, load = next_batch()
+                wait_s += time.perf_counter() - t_wait
+                load_s += load
+                lr = opt.cosine_lr_host(step, tc.lr, tc.warmup, tc.steps,
+                                        tc.min_lr)
+
+                args = (params, opt_state, inputs, targets, step, lr)
+                if step == tc.profile_at:
+                    res, summary["profile"] = profiling.trace(
+                        lambda: step_fn(*args),
+                        os.path.join(workdir, "profile"),
+                        f"trace_step{step:08d}")
+                    print("[profile] " + json.dumps(summary["profile"]))
+                else:
+                    res = step_fn(*args)
+                params, opt_state, loss, gnorm = res
+                if ema is not None:
+                    EMA.update_ema(ema, flat, tc.ema_decay)
+                seqs_since += tc.batch_size
+                if step % tc.log_every == 0 or step == stop_step:
+                    loss_val = float(loss)      # waits for the device
+                    now = time.perf_counter()
+                    sps = seqs_since / (now - t_last)
+                    batches = seqs_since // tc.batch_size
+                    rec = {"step": step, "loss": round(loss_val, 5),
+                           "lr": round(float(lr), 7),
+                           "imgs_per_sec": round(sps, 1),
+                           "tok_per_sec": round(sps * cfg.seq_len, 1),
+                           "loader_ms": round(load_s / batches * 1e3, 3),
+                           "wait_ms": round(wait_s / batches * 1e3, 3),
+                           "mfu": (round(sps * flops_per_ex / peak, 4)
+                                   if peak else None),
+                           "device": kind}
+                    if imagenet:
+                        rec["decoder"] = loader.decoder
+                    if gnorm is not None:
+                        rec["grad_norm"] = round(float(gnorm), 5)
+                    print("[train] " + json.dumps(rec))
+                    log_f.write(json.dumps(rec) + "\n")
+                    log_f.flush()
+                    if not np.isfinite(loss_val):
+                        raise FloatingPointError(
+                            f"loss diverged at step {step}")
+                    t_last, seqs_since = time.perf_counter(), 0
+                    load_s = wait_s = 0.0
+                if tc.ckpt_every and step % tc.ckpt_every == 0:
+                    save(step)
+        if stop_step > start_step:
+            if not (tc.ckpt_every and stop_step % tc.ckpt_every == 0):
+                save(stop_step)
+            summary["final_loss"] = float(loss)
+        if stop_step == tc.steps and (vit or tc.dataset):
+            eval_params = (PRM.unflatten_params(ema, cfg) if ema is not None
+                           else params)    # eval with the EMA weights
+            if imagenet:
+                summary["eval"] = evaluate_streaming(
+                    cfg, eval_params, _streaming_val(tc, cfg))
+            elif vit:
+                eval_ds = image_dataset(tc, cfg, train=False)
+                summary["eval"] = evaluate(cfg, eval_params, eval_ds,
+                                           batch=min(256, len(eval_ds)))
+            else:
+                # val loss over the reserved holdout windows
+                val = TOK.TokenLoader(loader.tokens, min(tc.batch_size, 16),
+                                      cfg.max_seq_len,
+                                      holdout=loader.holdout, val=True)
+                summary["eval"] = {"val_loss": _loss_on(
+                    cfg, eval_params, *val.next_batch(), device)}
+            print("[eval] " + json.dumps(summary["eval"]))
+    finally:
+        if prefetcher is not None:
+            prefetcher.close()
+        if writer is not None:
+            writer.close()      # drains the pending writes; raises theirs
     return summary

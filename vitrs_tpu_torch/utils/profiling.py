@@ -20,10 +20,17 @@ reported apart).
         --batch 64
     python -m vitrs_tpu_torch.utils.profiling infer --preset vit-s-16 \\
         --batch 256
+    python -m vitrs_tpu_torch.utils.profiling train --preset gpt2-124m-4k \\
+        --batch 4 --max-seq-len 4096 --remat selective
 
 prints one JSON object per run: the workload, its groups in ms per call,
 the busy, wall and profiled wall ms per call, the busy share, and the
 card's name.  It needs a CUDA device.
+
+`trace(fn, out_dir, name)` is the training loop's `profile_at`: one call of
+fn under the profiler, exported as a Chrome trace (chrome://tracing,
+Perfetto) into out_dir, as the JAX loop's `jax.profiler` trace goes to
+workdir/profile/; it returns fn's result with the trace's summary.
 """
 
 from __future__ import annotations
@@ -118,15 +125,57 @@ def op_breakdown(fn: Callable[[], object], iters: int = 3) -> Dict:
             "kernels_per_call": n // iters}
 
 
+def trace(fn: Callable[[], object], out_dir: str, name: str):
+    """Run fn once under torch.profiler (the CPU, and CUDA on a card; the
+    device drained before and after) and export a Chrome trace to
+    out_dir/<name>.json.  Returns (fn's result, {"path",
+    "profiled_wall_ms", "busy_ms" (the summed device time of its CUDA
+    kernels; None on the CPU), "groups" (that device time by `GROUPS`,
+    ms), "kernels"})."""
+    import os
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cuda = torch.cuda.is_available() and torch.cuda.is_initialized()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                           if cuda else [])
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    os.makedirs(out_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        sync()
+        t0 = time.perf_counter()
+        result = fn()
+        sync()
+        wall = time.perf_counter() - t0
+    path = os.path.join(out_dir, name + ".json")
+    prof.export_chrome_trace(path)
+    groups: collections.Counter = collections.Counter()
+    n = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            groups[_group(e.name)] += e.time_range.elapsed_us()
+            n += 1
+    return result, {
+        "path": path, "profiled_wall_ms": round(wall * 1e3, 4),
+        "busy_ms": round(sum(groups.values()) / 1e3, 4) if cuda else None,
+        "groups": {g: round(us / 1e3, 4) for g, us in groups.most_common()},
+        "kernels": n}
+
+
+REMAT = {"preset": None, "off": False, "selective": True, "full": "full"}
+
+
 def _config(args):
-    """The preset in bf16; a gpt preset with --kv-heads, --max-seq-len,
-    --pos-emb and --window (a vit preset keeps its own geometry)."""
+    """The preset in bf16 under --remat; a gpt preset with --kv-heads,
+    --max-seq-len, --pos-emb and --window (a vit preset keeps its own
+    geometry)."""
     from ..config import PRESETS, get_config
+    remat = REMAT[getattr(args, "remat", "preset")]
+    kw = {} if remat is None else {"remat": remat}
     if PRESETS[args.preset].mode == "vit":
-        return get_config(args.preset, dtype="bfloat16")
+        return get_config(args.preset, dtype="bfloat16", **kw)
     return get_config(args.preset, dtype="bfloat16",
                       num_kv_heads=args.kv_heads, max_seq_len=args.max_seq_len,
-                      pos_emb=args.pos_emb, window=args.window)
+                      pos_emb=args.pos_emb, window=args.window, **kw)
 
 
 def _images(cfg, batch):
@@ -214,6 +263,8 @@ def main(argv=None):
     p.add_argument("--prompt", type=int, default=1024)
     p.add_argument("--chunk", type=int, default=0)
     p.add_argument("--iters", type=int, default=3)
+    p.add_argument("--remat", default="preset", choices=list(REMAT),
+                   help="the block body (default: the preset's own)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
