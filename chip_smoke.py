@@ -13,11 +13,13 @@ on any failure.  Phases, each printed as it ends:
                     (C7515).
   2. kernels        K1-fwd (flash-attention forward) against its plain
                     PyTorch version on the same inputs, bf16 and fp32, at the
-                    serving shapes; the bf16 forward (K1-fwd, K3-fwd) at
-                    ragged T (1 .. 1000 around its 64-row tiles and K/V
-                    ring), KH 12/4/1, twice with bitwise equal results; then
-                    kernel and plain times, TFLOP/s, and the forward's
-                    registers, spills (a spill fails) and shared memory.
+                    serving shapes and at gpt2-350m's NH=16 (its
+                    speculative prefill, B=1, T=128); the bf16 forward
+                    (K1-fwd, K3-fwd) at ragged T (1 .. 1000 around its
+                    64-row tiles and K/V ring), KH 12/4/1, twice with
+                    bitwise equal results; then kernel and plain times,
+                    TFLOP/s, and the forward's registers, spills (a spill
+                    fails) and shared memory.
   3. serve          GPT-2 124M (full width, seeded random weights, bf16)
                     through GenerationEngine: 8 greedy requests, chunked and
                     per-tick decode, launches == 12 x prefill dispatches;
@@ -94,12 +96,14 @@ on any failure.  Phases, each printed as it ends:
                     step and a chunked generate on CUDA and on the CPU agree.
  19. kernels-vit    K1-fwd and K2 at causal=False (vit mode's bidirectional
                     attention) against their plain versions at (B, T, NH) =
-                    (64, 197, 12), (256, 197, 6), (8, 17, 2), (64, 65, 3),
-                    bf16 and fp32, twice with bitwise equal results; times
-                    at the T=197 shapes by events and by device time
-                    (torch.profiler) beside the bound and SDPA's
-                    non-causal forward and backward; K7 over ViT-B/16's
-                    87,335,656 values beside AdamW(fused=True).
+                    (64, 197, 12), (256, 197, 6), (256, 197, 12),
+                    (8, 17, 2), (64, 65, 3), bf16 and fp32, twice with
+                    bitwise equal results; times at the T=197 shapes by
+                    events and by device time (torch.profiler; the
+                    captures taken, and a census of 100 at the training
+                    shape) beside the bound and SDPA's non-causal forward
+                    and backward; K7 over ViT-B/16's 87,335,656 values
+                    beside AdamW(fused=True).
  20. infer-vit      ViT-S/16 (seeded random weights, bf16, B=256) through
                     the infer CLI's function: 12 K1-fwd launches a forward,
                     finite logits near the fp32 CPU forward's; images/s,
@@ -157,15 +161,42 @@ on any failure.  Phases, each printed as it ends:
                     against plain (rtol 5e-4, qkvb atol 2e-4) and the
                     selective peak below the plain one.
  30. train-vit-stream  ViT-B/16 at B=64 on 4 synthetic JPEG shards of 128
-                    images made in the phase, RandAugment 2 @ 0.5, the
-                    native decoder, 12 steps, then evaluate_streaming over
-                    a val shard; left out, with the reason printed after the
-                    device phase, where the native jpegpipe does not build
-                    (no libjpeg).
+                    images made in the phase, RandAugment 2 @ 0.5, 12
+                    steps, then evaluate_streaming over a val shard; the
+                    native decoder where jpegpipe builds, else the loader's
+                    PIL fallback (its ms labelled PIL's); left out only
+                    where PIL does not import either (the decoder, or both
+                    reasons, printed after the device phase).
  31. resume         GPT-2 124M, B=8, T=1024, prefetcher and async
                     checkpoints on: 12 steps straight against 6 (run_steps)
                     and a resume for 6 more; the losses, the final loss and
                     the step-12 checkpoint equal bit for bit.
+ 32. serve-paged    GPT-2 124M through the paged engine (257 pages: half
+                    the dense-equivalent 513), phase serve's 8 prompts and a
+                    second wave of 8, decode chunk 1 and 16: K1-fwd launches
+                    == 12 x page-group prefills, every non-sink page back in
+                    the pool, streams equal to the dense engine's with the
+                    same prefill groups; tok/s, pool bytes, peak beside the
+                    dense engine's.
+ 33. serve-int8     serve-gqa's model with the int8 KV cache, chunked (12
+                    K3-fwd, 168 K4 over the dequantized cache) and whole,
+                    beside the bf16 cache: prefill ms, ms per new token,
+                    logits within 5e-2 (the chunked prefill's last
+                    position, 4 decode steps after each prefill), cache
+                    bytes under 0.6; then GPT-2
+                    124M with w8 weights through the engine (tok/s, the
+                    share of tokens equal to bf16's).
+ 34. serve-beam     GPT-2 124M beam search, B=4, T0=128, 32 new, 4 beams:
+                    12 K1-fwd a call, beams=1 == greedy, the best beam's
+                    fp32 log-prob at least greedy's.
+ 35. serve-spec     speculative decoding, gpt2-350m with a gpt2-124m draft
+                    and with itself, B=1, T0=128, 128 new, K=4: stats, ms
+                    per token beside generate, the first token unlike
+                    target-only greedy and its logit gap.
+ 36. infer-vit-quant  ViT-S/16 and ViT-B/16 at B=256 through the infer
+                    CLI's function with quant none, w8, w8a8: 12 K1-fwd a
+                    forward, logits within 0.04 / 0.08 mean relative of
+                    bf16's; images/s, latency, peak.
 
 `python3 chip_smoke.py --phases a,b` runs only the named phases (after the
 device phase) and prints no result lines.
@@ -179,6 +210,7 @@ is {"ok": true, "device": {...}}.  Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 """
 
+import collections
 import json
 import math
 import os
@@ -492,7 +524,9 @@ def phase_device():
 
 def phase_kernels():
     """K1-fwd vs plain at NH=12, D=64, C=768, B=4, T in {37 .. 1024}:
-    one q tile, several, and ragged ends.  Tolerances: out as
+    one q tile, several, and ragged ends; then at gpt2-350m's NH=16
+    (C=1024), causal: serve-spec's prefill (B=1, T=128) and ragged T
+    beside it, each call twice and the same bits.  Tolerances: out as
     `out_errors`; lse 1e-4 bf16, 1e-5 fp32 (both sum the same fp32 p, in
     another order)."""
     from vitrs_tpu_torch.ops.flash_attention import flash_fwd_cuda, flash_fwd_plain
@@ -514,6 +548,27 @@ def phase_kernels():
                   f"tolerance")
             check(lse_err <= lse_tol, f"{dtype} T={T}: lse err {lse_err}")
             worst[dtype] = max(worst.get(dtype, 0.0), err)
+        nh16 = 16
+        for B, T in ((1, 128), (2, 37), (2, 1000)):
+            qkv = torch.randn(B, T, 3 * nh16 * D, generator=gen,
+                              device="cuda").to(dtype)
+            q, k, v = qkv.split(nh16 * D, dim=-1)
+            (out, lse), (out2, lse2) = (flash_fwd_cuda(q, k, v, nh16, True,
+                                                       0.125)
+                                        for _ in range(2))
+            ref, ref_lse = flash_fwd_plain(q, k, v, nh16, True, 0.125)
+            torch.cuda.synchronize()
+            where = f"{dtype} NH=16 B={B} T={T}"
+            check(torch.equal(out, out2) and torch.equal(lse, lse2),
+                  f"{where}: two calls differ")
+            bad, err, rms = out_errors(out, ref)
+            lse_err = (lse - ref_lse).abs().max().item()
+            print(f"[kernels] {str(dtype)[6:]:8s} NH=16 B={B} T={T:4d} out "
+                  f"max_abs_err {err:.3e} (rms {rms:.3e}) lse max_abs_err "
+                  f"{lse_err:.3e}; bitwise equal over two calls")
+            check(bad == 0, f"{where}: {bad} out elements beyond tolerance")
+            check(lse_err <= lse_tol, f"{where}: lse err {lse_err}")
+            worst[dtype] = max(worst[dtype], err)
     worst[torch.bfloat16] = max(worst[torch.bfloat16], fwd_edge_cases("kernels", gen))
     times = {}
     for T in (128, 512, 1024):
@@ -1971,7 +2026,10 @@ def phase_train_headce(smi, two_op):
 # vit mode: ViT-B/16 training, ViT-S/16 inference (non-causal flash at T=197)
 # ---------------------------------------------------------------------------
 
-VIT_SHAPES = ((64, 197, 12), (256, 197, 6), (8, 17, 2), (64, 65, 3))
+# the first three are timed: ViT-B/16 training, ViT-S/16 and ViT-B/16
+# inference (infer-vit, infer-vit-quant)
+VIT_SHAPES = ((64, 197, 12), (256, 197, 6), (256, 197, 12), (8, 17, 2),
+              (64, 65, 3))
 
 
 def vit_attn_bound(B, T, nh, es, passes):
@@ -1994,28 +2052,55 @@ def sdpa_full(q, k, v, nh):
                                           heads(v, nh))
 
 
-def device_ms(fn, iters=10):
-    """Device time of one call of fn (ms): the profiler's kernel time
-    (utils/profiling.op_breakdown), which the host's launch rate cannot
-    stretch, unlike the event loop's reading of a call under about
-    0.07 ms; None where the trace caught no kernel (it has missed the
-    kernels of an autograd backward, which runs on the engine's own
-    thread)."""
+# profiler captures that one device_ms reading may take: a capture has
+# come back without the kernels it traced (once a direct K2 launch's, once
+# an autograd backward's), and the cause is not known; the number taken
+# goes into the kernels line, so a capture that missed stays visible
+PROFILE_CAPTURES = 3
+
+
+def device_ms(fn, kernels=None, iters=10):
+    """(device ms of one call of fn, captures taken): the profiler's kernel
+    time (utils/profiling.op_breakdown), which the host's launch rate
+    cannot stretch, unlike the event loop's reading of a call under about
+    0.07 ms.  A capture counts only if it caught exactly `kernels` kernels
+    a call over its `iters` calls (any kernel at all where kernels is
+    None, for a library call); (None, PROFILE_CAPTURES) where none did."""
     from vitrs_tpu_torch.utils import profiling
-    return profiling.op_breakdown(fn, iters)["busy_ms"] or None
+    for n in range(1, PROFILE_CAPTURES + 1):
+        r = profiling.op_breakdown(fn, iters)
+        if r["busy_ms"] and (kernels is None
+                             or r["kernels"] == kernels * iters):
+            return r["busy_ms"], n
+    return None, PROFILE_CAPTURES
+
+
+def capture_census(fn, kernels, rounds=100, iters=10):
+    """{kernels caught: captures} over `rounds` profiler captures of
+    `iters` calls of fn, each call `kernels` kernels: how often a capture
+    misses some (`device_ms` then takes another)."""
+    from vitrs_tpu_torch.utils import profiling
+    hist = collections.Counter(profiling.op_breakdown(fn, iters)["kernels"]
+                               for _ in range(rounds))
+    print(f"[kernels-vit] profiler census: {dict(sorted(hist.items()))} of "
+          f"{rounds} captures of {iters} calls x {kernels} kernels")
+    return {str(k): n for k, n in sorted(hist.items())}
 
 
 def phase_kernels_vit():
     """K1-fwd and K2 at causal=False, vit mode's attention, against their
     plain versions at (B, T, NH) = (64, 197, 12) (ViT-B/16 training),
-    (256, 197, 6) (ViT-S/16 inference), (8, 17, 2) (the CPU test model) and
-    (64, 65, 3) (vit-tiny-4-cifar10), bf16 and fp32: out as `out_errors`,
+    (256, 197, 6) and (256, 197, 12) (ViT-S/16 and ViT-B/16 inference),
+    (8, 17, 2) (the CPU test model) and (64, 65, 3) (vit-tiny-4-cifar10),
+    bf16 and fp32: out as `out_errors`,
     lse 1e-4 bf16 / 1e-5 fp32, dq/dk/dv 2e-2 abs + rel bf16 / 1e-4 fp32
     (phase kernels-train's); two calls of each give the same bits.  Then,
-    at the two T=197 shapes in bf16: kernel and plain by events (plain,
-    kernel, kernel, plain), the kernel's device time by the profiler, the
-    bound and SDPA's non-causal forward and backward on the same
-    tensors.  Then K7 over ViT-B/16's 87,335,656 values (`adamw_at`)."""
+    at the three T=197 shapes in bf16 (ViT-B/16 inference: the forward
+    only): kernel and plain by events (plain, kernel, kernel, plain), the
+    kernel's device time by the profiler (`device_ms`), the bound and
+    SDPA's non-causal forward and backward on the same tensors, and at
+    the training shape a census of 100 captures (`capture_census`).  Then
+    K7 over ViT-B/16's 87,335,656 values (`adamw_at`)."""
     from vitrs_tpu_torch.ops import flash_attention as FA
     gen = torch.Generator(device="cuda").manual_seed(11)
     worst = {"fwd": 0.0, "bwd": 0.0}
@@ -2061,7 +2146,7 @@ def phase_kernels_vit():
                 worst["bwd"] = max(worst["bwd"], *errs)
             del qkv, do, q, k, v, out, out2, ref, got, again, want
     res = {}
-    for B, T, nh in VIT_SHAPES[:2]:
+    for B, T, nh in VIT_SHAPES[:3]:
         Cv = nh * D
         qkv = torch.randn(B, T, 3 * Cv, generator=gen, device="cuda").bfloat16()
         do = torch.randn(B, T, Cv, generator=gen, device="cuda").bfloat16()
@@ -2077,29 +2162,39 @@ def phase_kernels_vit():
                     lambda: FA.flash_bwd_plain(q, k, v, out, lse, do, nh,
                                                False, 0.125),
                     sdpa_bwd_full(q, k, v, do, nh), 5)}
+        if (B, nh) == (256, 12):
+            del kernels["bwd"]          # no path trains at this shape
         for part, (kern, plain, lib_fn, passes) in kernels.items():
             km, pm, raw = timed_pair(kern, plain)
-            dev = device_ms(kern)
+            # K1-fwd is one kernel a launch, K2 three
+            dev, caps = device_ms(kern, 1 if part == "fwd" else 3)
             lib = cuda_ms(lib_fn)
-            lib_dev = device_ms(lib_fn)
+            lib_dev, lib_caps = device_ms(lib_fn)
             flops, (bms, by) = vit_attn_bound(B, T, nh, 2, passes)
             name = "K1-fwd" if part == "fwd" else "K2"
-            check(dev is not None, f"{name}: the trace caught no kernel")
+            check(dev is not None, f"{name} {shape}: none of "
+                  f"{PROFILE_CAPTURES} traces caught its kernels")
             print(f"[kernels-vit] {name} time {shape}: kernel {raw[0]:.4f}/"
                   f"{raw[1]:.4f} ms by events, {dev:.4f} ms device "
-                  f"({flops / dev / 1e9:.1f} TFLOP/s); plain "
+                  f"({flops / dev / 1e9:.1f} TFLOP/s; capture {caps}); plain "
                   f"{raw[2]:.4f}/{raw[3]:.4f} ms; SDPA "
                   f"{'forward' if part == 'fwd' else 'backward'} {lib:.4f} "
-                  f"ms by events, {lib_dev or 'not captured'} device; bound "
-                  f"{bms:.4f} ms ({by})")
+                  f"ms by events, {lib_dev or 'not captured'} device (captures "
+                  f"{lib_caps}); bound {bms:.4f} ms ({by})")
             res.setdefault(part, {})[(B, nh)] = dict(
-                ms=km, device_ms=dev, plain_ms=pm, library_ms=lib,
-                library_device_ms=lib_dev, bound_ms=bms, bound_by=by,
+                ms=km, device_ms=dev, device_captures=caps, plain_ms=pm,
+                library_ms=lib, library_device_ms=lib_dev,
+                library_device_captures=lib_caps, bound_ms=bms, bound_by=by,
                 tflops_device=flops / dev / 1e9, shape=shape)
+            if (B, nh) == (64, 12):
+                res[part][(B, nh)]["capture_census"] = capture_census(
+                    kern, 1 if part == "fwd" else 3)
         del qkv, do, q, k, v, out, lse
+    b16 = res["fwd"].pop((256, 12))
     for part in ("fwd", "bwd"):
         res[part] = dict(max_abs_err=worst[part], **res[part].pop((64, 12)),
                          infer_shape=res[part].pop((256, 6)))
+    res["fwd"]["infer_vit_b16_shape"] = b16
     res["adamw"] = adamw_at((VIT_B16_PARAMS,), gen, "kernels-vit")
     return res
 
@@ -3135,14 +3230,31 @@ def jpeg_ready():
     return IN.native_available(), build.ERRORS.get("jpegpipe", "")
 
 
-def phase_train_vit_stream(smi, steps=12, B=64):
+def stream_decoder():
+    """(the decoder train-vit-stream runs with, why not the native one):
+    "native" where jpegpipe built, else "pil" (the loader's fallback)
+    where PIL imports, else None, with both reasons (the synthetic shards
+    need PIL to encode, too)."""
+    jpeg, why = jpeg_ready()
+    if jpeg:
+        return "native", ""
+    why = "native jpegpipe did not build: " + " | ".join(why.splitlines()[:3])
+    try:
+        import PIL  # noqa: F401
+    except ImportError as e:
+        return None, f"{why}; PIL does not import: {e}"
+    return "pil", why
+
+
+def phase_train_vit_stream(smi, decoder, steps=12, B=64):
     """ViT-B/16 at B=64 on streaming ImageNet shards: 4 synthetic JPEG
     shards of 128 images (256x256, 1000 classes, data/imagenet.py's
     build_synthetic_shards) and a val shard, made here; dataset="imagenet"
     through train/loop.train with RandAugment (ra_ops 2, ra_mag 0.5), the
-    native decoder (which must have built), 12 steps; then
-    evaluate_streaming over the val split.  Finite loss; launches as
-    train-vit; the decoder, its host ms a batch, the wait."""
+    `decoder` the loader must report (native where jpegpipe built, else
+    PIL's), 12 steps; then evaluate_streaming over the val split.  Finite
+    loss; launches as train-vit; the decoder, its host ms a batch, the
+    wait."""
     from vitrs_tpu_torch.data import imagenet as IN
     from vitrs_tpu_torch.train import loop
     with tempfile.TemporaryDirectory() as work:
@@ -3176,12 +3288,13 @@ def phase_train_vit_stream(smi, steps=12, B=64):
     losses = [r["loss"] for r in recs]
     check(len(losses) == steps and all(np.isfinite(losses)),
           f"[train-vit-stream] losses {losses}")
-    check({r["decoder"] for r in recs} == {"native"},
-          f"[train-vit-stream] decoders {[r['decoder'] for r in recs]}")
+    check({r["decoder"] for r in recs} == {decoder},
+          f"[train-vit-stream] decoders {[r['decoder'] for r in recs]}, "
+          f"expected {decoder}")
     ev = summary["eval"]
     check(ev["n"] == evb * B, f"[train-vit-stream] eval {ev}")
     steady = recs[2:]
-    res = dict(decoder="native",
+    res = dict(decoder=decoder,
                loader_ms=float(np.median([r["loader_ms"] for r in steady])),
                wait_ms=float(np.median([r["wait_ms"] for r in steady])),
                step_ms=B / float(np.median([r["imgs_per_sec"]
@@ -3189,8 +3302,9 @@ def phase_train_vit_stream(smi, steps=12, B=64):
                losses=losses, eval=ev, shards_s=made)
     print(f"[train-vit-stream] vit-b-16 B={B} on {VSHARD_N} x {VSHARD_PER} "
           f"synthetic JPEG shards (made in {made:.1f} s), RandAugment 2 @ "
-          f"0.5, decoder native: loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
-          f"decode {res['loader_ms']:.3f} ms a batch, wait "
+          f"0.5, decoder {decoder}: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; {decoder} decode {res['loader_ms']:.3f} ms a "
+          f"batch, wait "
           f"{res['wait_ms']:.3f} ms, {res['step_ms']:.2f} ms/step; "
           f"evaluate_streaming top-1 {ev['acc']:.4f} on {ev['n']}  ({smi})")
     return counts, res
@@ -3245,6 +3359,446 @@ def phase_resume(smi, steps=12, B=8):
                 ckpt_bytes=len(ckpts["straight"]))
 
 
+# --------------------------------------------------------------------------
+# The rest of serving: the paged engine, the int8 KV cache and int8
+# weights, beam search, speculative decoding, the int8 ViT forwards
+# --------------------------------------------------------------------------
+
+SERVE_LENGTHS = (5, 37, 128, 300, 511, 700, 900, 960)     # phase serve's
+WAVE2_LENGTHS = (16, 64, 200, 333, 450, 600, 800, 990)
+
+
+def _gpt2_124m(seed=0):
+    """gpt2-124m in bf16 from seeded random weights: (cfg, prepared
+    params on the card)."""
+    from vitrs_tpu_torch import params as P
+    from vitrs_tpu_torch.config import get_config
+    from vitrs_tpu_torch.models import model as M
+    cfg = get_config("gpt2-124m", dtype="bfloat16")
+    params = P.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed))
+    return cfg, M.prepare_params(params, cfg)
+
+
+def _engine_run(params, cfg, prompts, max_new=32, **kw):
+    """A GenerationEngine (8 slots, max_len 1024, buckets 128/512/1024)
+    over `prompts`: (engine, streams {rid: tokens}, wall s, peak bytes,
+    launch counts, the prefill groups as (K_pad, rids))."""
+    from vitrs_tpu_torch.models import generate as G
+    from vitrs_tpu_torch.serving_gen import GenerationEngine
+    eng = GenerationEngine(params, cfg, max_slots=8, max_len=1024,
+                           prompt_buckets=(128, 512, 1024), **kw)
+    rids = {}
+    for p in prompts:
+        rids[eng.submit(p, max_new=max_new)] = p
+    groups = []
+    plain = {n: getattr(G, n) for n in ("prefill_into_slots",
+                                         "prefill_into_pages_multi")}
+
+    def recorder(fn):
+        def recording(prm, prompts_, *a, **k):
+            rows = prompts_.cpu().numpy()
+            groups.append((rows.shape[0], sorted(
+                {r for r, p in rids.items()
+                 for row in rows if np.array_equal(row[:len(p)], p)
+                 and not row[len(p):].any()})))
+            return fn(prm, prompts_, *a, **k)
+        return recording
+
+    for name, fn in plain.items():
+        setattr(G, name, recorder(fn))
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        outs = dict(eng.run())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for name, fn in plain.items():
+            setattr(G, name, fn)
+    return (eng, outs, wall, torch.cuda.max_memory_allocated(), read_counts(),
+            groups)
+
+
+def phase_serve_paged(smi):
+    """gpt2-124m (bf16, seeded random weights) through the paged engine:
+    8 slots, max_len 1024, buckets 128/512/1024, a pool of 257 pages (the
+    sink + 256: half the dense-equivalent 513), so admission waits for
+    pages and pages are reused; phase serve's 8 prompts, then a second
+    wave of 8, 32 greedy tokens each, at decode_chunk 1 and 16.
+    K1-fwd launches == 12 x prefill groups; every non-sink page returns to
+    the pool.  The streams equal the dense engine's: a request's stream
+    depends on the row count of the prefill it shared (cuBLAS picks its
+    GEMM by the rows) and on nothing else, since decode runs all 8 slots
+    over 1024 positions in both engines, so each paged prefill group is
+    served again by the dense engine as a group of the same size, and the
+    streams must match token for token.  The dense engine's run of all 16
+    requests is timed beside (its groups differ: slots, not pages, bound
+    them), with its share of equal streams.  Prints tok/s, the pool's bytes
+    against the dense cache's and the peak memory of both."""
+    cfg, pp = _gpt2_124m()
+    L = cfg.num_layers
+    rng = np.random.default_rng(0)
+    prompts = ([rng.integers(0, cfg.vocab_size, n) for n in SERVE_LENGTHS]
+               + [rng.integers(0, cfg.vocab_size, n) for n in WAVE2_LENGTHS])
+    n_pages = 257
+    _engine_run(pp, cfg, prompts[:4], decode_chunk=16, paged=True,
+                n_pages=n_pages)                  # warm-up
+    dense_eng, dense, dense_wall, dense_peak, _, _ = _engine_run(
+        pp, cfg, prompts, decode_chunk=16)
+    res = dict(dense_tok_s=16 * 32 / dense_wall,
+               dense_peak_gib=dense_peak / 2**30,
+               dense_cache_bytes=sum(c.numel() * c.element_size()
+                                     for c in dense_eng.caches))
+    ref = {}                    # (K_pad, rids) -> the dense engine's streams
+    for chunk in (1, 16):
+        eng, outs, wall, peak, counts, groups = _engine_run(
+            pp, cfg, prompts, decode_chunk=chunk, paged=True, n_pages=n_pages)
+        check(counts == designed(flash_fwd=L * eng.prefill_dispatches)
+              and len(groups) == eng.prefill_dispatches,
+              f"[serve-paged] chunk {chunk}: launches {counts}, "
+              f"{eng.prefill_dispatches} prefill groups")
+        check(sorted(eng.free_pages) == list(range(1, n_pages)),
+              f"[serve-paged] chunk {chunk}: pages not returned")
+        check(sorted(r for _, rs in groups for r in rs) == list(range(16)),
+              f"[serve-paged] groups {groups}")
+        for k_pad, rs in groups:
+            if (k_pad, tuple(rs)) not in ref:
+                _, got, *_ = _engine_run(pp, cfg, [prompts[r] for r in rs],
+                                         decode_chunk=16)
+                ref[(k_pad, tuple(rs))] = {r: got[i] for i, r in
+                                           enumerate(rs)}
+            for r in rs:
+                check(np.array_equal(outs[r], ref[(k_pad, tuple(rs))][r]),
+                      f"[serve-paged] chunk {chunk} request {r}: the paged "
+                      f"stream differs from the dense engine's")
+        for r, p in enumerate(prompts):
+            gen = outs[r][len(p):]
+            check(len(outs[r]) == len(p) + 32 and bool(
+                ((gen >= 0) & (gen < cfg.vocab_size)).all()),
+                f"[serve-paged] request {r}")
+        same = sum(np.array_equal(outs[r], dense[r]) for r in range(16))
+        pool = sum(c.numel() * c.element_size() for c in eng.caches)
+        res[chunk] = dict(tok_s=16 * 32 / wall, peak_gib=peak / 2**30,
+                          pool_bytes=pool, groups=[k for k, _ in groups],
+                          launches=counts, equal_to_dense_run=same)
+        print(f"[serve-paged] chunk {chunk}: {len(groups)} prefill groups "
+              f"(padded sizes {[k for k, _ in groups]}), "
+              f"{counts['flash_fwd']} K1-fwd launches; {16 * 32 / wall:.1f} "
+              f"tok/s (dense engine {res['dense_tok_s']:.1f}); pool "
+              f"{pool / 2**20:.1f} MiB = {pool / res['dense_cache_bytes']:.4f}"
+              f" of the dense cache's {res['dense_cache_bytes'] / 2**20:.1f}; "
+              f"peak {peak / 2**30:.3f} GiB (dense {dense_peak / 2**30:.3f}); "
+              f"streams equal the group-matched dense engine's, {same} of 16 "
+              f"equal the all-at-once dense run's  ({smi})")
+    return res
+
+
+def phase_serve_int8(smi):
+    """(a) serve-gqa's model (gpt2-124m, 4 kv heads, max_seq_len 8192,
+    bf16), B=8, a 7680-token prompt, greedy, with the int8 KV cache:
+    chunked (512: one K3-fwd chunk, then K4 over the cache dequantized to
+    the flat layout, 12 + 168 launches) and whole (12 K3-fwd), 1 and 33
+    new tokens, beside the bf16 cache; logits within 5e-2 of their largest
+    value from the bf16 cache's, at the chunked prefill's last position
+    and at 4 decode steps after each prefill; the int8 cache's bytes under
+    0.6 of bf16's.  (b) gpt2-124m with weight-only int8 params
+    (ops/quant.quantize_params) through the dense engine: phase serve's 8
+    requests, finite streams, the share of tokens equal to the bf16
+    engine's, tok/s of both."""
+    from vitrs_tpu_torch import params as P
+    from vitrs_tpu_torch.config import get_config
+    from vitrs_tpu_torch.models import generate as G
+    from vitrs_tpu_torch.models import model as M
+    from vitrs_tpu_torch.ops import quant as QT
+    cfg = get_config("gpt2-124m", num_kv_heads=4, max_seq_len=8192,
+                     dtype="bfloat16")
+    pp = M.prepare_params(P.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0)), cfg)
+    B, T0, L = 8, 7680, cfg.num_layers
+    prompt = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, T0)), device="cuda")
+
+    def run(chunk, max_new, int8):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = G.generate(pp, prompt, cfg, max_new, temperature=0.0,
+                         prefill_chunk=chunk, kv_int8=int8)
+        torch.cuda.synchronize()
+        gen = out[:, T0:]
+        check(out.shape == (B, T0 + max_new) and bool(
+            ((gen >= 0) & (gen < cfg.vocab_size)).all()), "[serve-int8] ids")
+        return (time.perf_counter() - t0) * 1e3, read_counts()
+
+    run(512, 2, True)                          # warm-up
+    res = {}
+    for int8 in (True, False):
+        for chunk in (512, 0):
+            ms1, c1 = run(chunk, 1, int8)
+            msn, cn = run(chunk, 33, int8)
+            want = designed(flash_gqa_fwd=L,
+                            flash_prefill=L * (T0 // chunk - 1) if chunk else 0)
+            check(c1 == want and cn == want, f"[serve-int8] int8 {int8} "
+                  f"chunk {chunk}: launches {c1} / {cn} != {want}")
+            key = f"{'int8' if int8 else 'bf16'}_{chunk}"
+            res[key] = dict(prefill_ms=ms1, ms_per_new_token=(msn - ms1) / 32,
+                            launches=c1)
+            print(f"[serve-int8] {key.replace('_', ' cache, chunk ')}: "
+                  f"launches flash_gqa_fwd {c1['flash_gqa_fwd']}, "
+                  f"flash_prefill {c1['flash_prefill']}; prefill "
+                  f"{ms1:.2f} ms; {(msn - ms1) / 32:.3f} ms per new token  "
+                  f"({smi})")
+    # logits over the int8 cache against the bf16 cache's on the same
+    # tokens: the chunked prefill's last position (K4 over the dequantized
+    # cache), then DECODE steps of fixed tokens after the chunked and after
+    # the whole prefill (one token each, dense over the dequantized
+    # cache).  The whole prefill's own logits are left out: its prompt
+    # attends the exact k/v, so there both caches compute the same thing.
+    DECODE = 4
+    steps = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (B, DECODE)), device="cuda")
+    errs = {}
+    for chunk in (512, 0):
+        lg = {}
+        for int8 in (True, False):
+            caches = G.init_kv_cache(cfg, B, 7936, int8=int8, device="cuda")
+            step = chunk or T0
+            for off in range(0, T0, step):
+                logits, caches = G.forward_with_cache(
+                    pp, prompt[:, off:off + step], caches, off, cfg,
+                    last_only=True)
+            got = [logits[:, -1].float()]
+            for j in range(DECODE):
+                logits, caches = G.forward_with_cache(
+                    pp, steps[:, j:j + 1], caches, T0 + j, cfg)
+                got.append(logits[:, -1].float())
+            lg[int8] = torch.stack(got, dim=1)         # (B, 1 + DECODE, V)
+        check(bool(torch.isfinite(lg[True]).all()), "[serve-int8] logits")
+        rel = ((lg[True] - lg[False]).abs().amax(dim=(0, 2))
+               / lg[False].abs().amax(dim=(0, 2))).tolist()
+        if chunk:
+            errs["chunked_prefill"] = rel[0]
+        errs[f"decode_after_{'chunked' if chunk else 'whole'}"] = max(rel[1:])
+    qbytes = sum(t.numel() * t.element_size() for pair in
+                 G.init_kv_cache(cfg, B, 7936, int8=True, device="cuda")
+                 for t in pair)
+    fbytes = sum(t.numel() * t.element_size() for t in
+                 G.init_kv_cache(cfg, B, 7936, device="cuda"))
+    print(f"[serve-int8] logits, int8 vs bf16 cache, of their largest: "
+          f"chunked prefill's last position {errs['chunked_prefill']:.4e}; "
+          f"worst of {DECODE} decode steps after the chunked prefill "
+          f"{errs['decode_after_chunked']:.4e}, after the whole prefill "
+          f"{errs['decode_after_whole']:.4e}; cache bytes {qbytes} vs "
+          f"{fbytes} = {qbytes / fbytes:.4f}")
+    check(max(errs.values()) <= 5e-2,
+          f"[serve-int8] int8 cache logits off by {errs}")
+    check(qbytes < 0.6 * fbytes, f"[serve-int8] cache bytes {qbytes / fbytes}")
+    res.update(logits_err=errs, cache_bytes_ratio=qbytes / fbytes)
+    del pp, prompt
+
+    cfg, pp = _gpt2_124m()
+    qp = M.prepare_params(QT.quantize_params(
+        P.init_params(cfg, torch.Generator(device="cuda").manual_seed(0)),
+        mode="gpt"), cfg)
+    check("head" not in qp and qp["fcw"].dtype == torch.int8, "int8 params")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in SERVE_LENGTHS]
+    _engine_run(qp, cfg, prompts[:2], decode_chunk=16)      # warm-up
+    runs = {}
+    for name, prm in (("w8", qp), ("bf16", pp)):
+        eng, outs, wall, peak, counts, _ = _engine_run(prm, cfg, prompts,
+                                                       decode_chunk=16)
+        check(counts == designed(flash_fwd=L * eng.prefill_dispatches),
+              f"[serve-int8] {name} engine launches {counts}")
+        runs[name] = (outs, 8 * 32 / wall, peak, counts)
+    gen = {k: np.stack([v[0][i][n:] for i, n in enumerate(SERVE_LENGTHS)])
+           for k, v in runs.items()}
+    check(bool(((gen["w8"] >= 0) & (gen["w8"] < cfg.vocab_size)).all()),
+          "[serve-int8] w8 ids")
+    share = float((gen["w8"] == gen["bf16"]).mean())
+    res["w8_engine"] = dict(tok_s=runs["w8"][1], bf16_tok_s=runs["bf16"][1],
+                            equal_share=share,
+                            peak_gib=runs["w8"][2] / 2**30,
+                            bf16_peak_gib=runs["bf16"][2] / 2**30,
+                            launches=runs["w8"][3])
+    print(f"[serve-int8] gpt2-124m w8 engine, 8 requests x 32: "
+          f"{runs['w8'][1]:.1f} tok/s (bf16 {runs['bf16'][1]:.1f}); "
+          f"{share:.4f} of the tokens equal the bf16 engine's; peak "
+          f"{runs['w8'][2] / 2**30:.3f} GiB (bf16 {runs['bf16'][2] / 2**30:.3f})"
+          f"  ({smi})")
+    return res
+
+
+def _logprob(p32, cfg32, seqs, T0):
+    """fp32 teacher-forced log-prob of seqs[:, T0:] given their prefix."""
+    from vitrs_tpu_torch.models import model as M
+    lg = M.gpt_forward(p32, seqs[:, :-1], cfg32).float()
+    lp = torch.log_softmax(lg, dim=-1).gather(-1, seqs[:, 1:, None])[..., 0]
+    return lp[:, T0 - 1:].sum(-1)
+
+
+def phase_serve_beam(smi):
+    """gpt2-124m (bf16, seeded random weights), B=4, a 128-token prompt,
+    32 new tokens: `generate_beam` at beams 4 and 1 (one prefill: 12 K1-fwd
+    launches a call); beams=1 equals greedy `generate`; each row's best
+    beam scores at least greedy's fp32 teacher-forced log-prob (the fp32
+    model on the same weights); ms a call beside greedy."""
+    from vitrs_tpu_torch import params as P
+    from vitrs_tpu_torch.models import generate as G
+    from vitrs_tpu_torch.models import model as M
+    cfg, pp = _gpt2_124m()
+    L = cfg.num_layers
+    B, T0, N = 4, 128, 32
+    prompt = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (B, T0)), device="cuda")
+
+    def timed(fn):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3, read_counts()
+
+    G.generate_beam(pp, prompt, cfg, 2, beams=4)          # warm-up
+    greedy, g_ms, gc = timed(lambda: G.generate(pp, prompt, cfg, N,
+                                                temperature=0.0))
+    one, one_ms, oc = timed(lambda: G.generate_beam(pp, prompt, cfg, N,
+                                                    beams=1))
+    beam, b_ms, bc = timed(lambda: G.generate_beam(pp, prompt, cfg, N,
+                                                   beams=4))
+    for c in (gc, oc, bc):
+        check(c == designed(flash_fwd=L), f"[serve-beam] launches {c}")
+    check(torch.equal(one, greedy), "[serve-beam] beams=1 != greedy")
+    check(beam.shape == (B, T0 + N) and torch.equal(beam[:, :T0], prompt),
+          "[serve-beam] shape")
+    cfg32 = cfg.replace(dtype="float32")
+    p32 = M.prepare_params(P.init_params(
+        cfg32, torch.Generator(device="cuda").manual_seed(0)), cfg32)
+    lp_b, lp_g = (_logprob(p32, cfg32, s, T0) for s in (beam, greedy))
+    print(f"[serve-beam] gpt2-124m B={B} T0={T0} +{N}: beams 4 {b_ms:.1f} ms, "
+          f"beams 1 {one_ms:.1f} ms (== greedy, {g_ms:.1f} ms); {L} K1-fwd "
+          f"launches a call; fp32 log-prob best beam {lp_b.tolist()} vs "
+          f"greedy {lp_g.tolist()}  ({smi})")
+    check(bool((lp_b >= lp_g).all()),
+          "[serve-beam] a best beam scores below greedy")
+    return dict(beam_ms=b_ms, greedy_ms=g_ms, beam1_ms=one_ms,
+                launches=bc, logprob_beam=lp_b.tolist(),
+                logprob_greedy=lp_g.tolist())
+
+
+def phase_serve_spec(smi):
+    """Speculative decoding (models/speculative.py): target gpt2-350m,
+    draft gpt2-124m (bf16, seeded random weights), B=1, a 128-token
+    prompt, 128 new tokens, K=4; then a self-draft (the target drafts for
+    itself).  Launches: the two prefills' K1-fwd (24 + 12, or 24 + 24);
+    the verify chunks run dense (the cache, 128 + 128 + 5, is no multiple
+    of 256).  Prints target_calls, drafted, accepted and ms per token
+    beside target-only greedy `generate`, and the first token that differs
+    from it with the target's logit gap there (bf16 near-ties flip between
+    the batched verify and stepwise decode: reported, not required
+    equal)."""
+    from vitrs_tpu_torch import params as P
+    from vitrs_tpu_torch.config import get_config
+    from vitrs_tpu_torch.models import generate as G
+    from vitrs_tpu_torch.models import model as M
+    from vitrs_tpu_torch.models import speculative as S
+    tcfg = get_config("gpt2-350m", dtype="bfloat16")
+    tp = M.prepare_params(P.init_params(
+        tcfg, torch.Generator(device="cuda").manual_seed(0)), tcfg)
+    dcfg, dp = _gpt2_124m(seed=1)
+    T0, N, K = 128, 128, 4
+    prompt = torch.as_tensor(np.random.default_rng(3).integers(
+        0, tcfg.vocab_size, (1, T0)), device="cuda")
+    S.generate_speculative(tp, dp, prompt, tcfg, dcfg, 8, K)    # warm-up
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = G.generate(tp, prompt, tcfg, N, temperature=0.0)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(read_counts() == designed(flash_fwd=tcfg.num_layers),
+          "[serve-spec] generate launches")
+    res = dict(plain_ms_per_token=plain_ms / N)
+    for name, d, dc in (("draft", dp, dcfg), ("self", tp, tcfg)):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, stats = S.generate_speculative(tp, d, prompt, tcfg, dc, N, K)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+        check(counts == designed(flash_fwd=tcfg.num_layers + dc.num_layers),
+              f"[serve-spec] {name}: launches {counts}")
+        check(out.shape == (1, T0 + N) and torch.equal(out[:, :T0], prompt)
+              and bool(((out >= 0) & (out < tcfg.vocab_size)).all()),
+              f"[serve-spec] {name}: output")
+        check(stats["drafted"] == K * stats["target_calls"]
+              and 0 <= stats["accepted"] <= stats["drafted"],
+              f"[serve-spec] {name}: stats {stats}")
+        diff = (out[0] != want[0]).nonzero()
+        first, gap = None, None
+        if len(diff):
+            first = int(diff[0])
+            lg = M.gpt_forward(tp, out[:, :first], tcfg)[0, -1].float()
+            gap = (lg[want[0, first]] - lg[out[0, first]]).item()
+        res[name] = dict(ms_per_token=ms / N, launches=counts,
+                         first_diff=first, logit_gap=gap, **stats)
+        print(f"[serve-spec] gpt2-350m with {name} draft, K={K}, B=1, "
+              f"T0={T0} +{N}: target_calls {stats['target_calls']}, drafted "
+              f"{stats['drafted']}, accepted {stats['accepted']}; "
+              f"{ms / N:.3f} ms per token (target-only generate "
+              f"{plain_ms / N:.3f}); first token unlike target-only greedy: "
+              f"{'none' if first is None else first - T0} (target logit gap "
+              f"{gap})  ({smi})")
+    return res
+
+
+def phase_infer_vit_quant(smi, steps=10):
+    """vit-s-16 and vit-b-16 (bf16, seeded random weights) at B=256
+    through the infer CLI's function with quant none, w8 and w8a8 (w8a8's
+    products on the int8 tensor cores, `torch._int_mm`): 12 K1-fwd
+    launches a forward and no other kernel; the int8 logits track the bf16
+    forward's within the JAX package's bounds (tests/test_quant.py: mean
+    relative 0.04 w8, 0.08 w8a8); images/s, latency, peak memory."""
+    from vitrs_tpu_torch.cli import infer
+    from vitrs_tpu_torch.config import get_config
+    res = {}
+    for preset in ("vit-s-16", "vit-b-16"):
+        ref = None
+        for quant in ("none", "w8", "w8a8"):
+            reset_counts()
+            rec = infer.run(preset, batch_size=256, steps=steps,
+                            dtype="bfloat16", device="cuda", quant=quant)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            logits = rec.pop("logits").float()
+            L = get_config(preset).num_layers
+            check(counts == designed(flash_fwd=L * (steps + 1)),
+                  f"[infer-vit-quant] {preset} {quant}: launches {counts}")
+            check(tuple(logits.shape) == (256, 1000)
+                  and bool(torch.isfinite(logits).all()),
+                  f"[infer-vit-quant] {preset} {quant}: logits")
+            if ref is None:
+                ref, rel = logits, 0.0
+            else:
+                rel = ((logits - ref).abs().mean() / ref.abs().mean()).item()
+            bound = {"none": 0.0, "w8": 0.04, "w8a8": 0.08}[quant]
+            check(rel <= bound, f"[infer-vit-quant] {preset} {quant}: mean "
+                  f"relative {rel} vs bf16")
+            res[f"{preset} {quant}"] = dict(
+                images_s=rec["value"], latency_ms=rec["latency_ms"],
+                peak_gib=rec["peak_mem_gib"], rel_err=rel, launches=counts)
+            print(f"[infer-vit-quant] {preset} {quant} B=256: "
+                  f"{rec['value']} images/s, latency {rec['latency_ms']} ms, "
+                  f"peak {rec['peak_mem_gib']} GiB; logits vs bf16 mean "
+                  f"relative {rel:.4e}; {counts['flash_fwd'] // (steps + 1)} "
+                  f"K1-fwd launches a forward  ({smi})")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch sees no CUDA device")
@@ -3287,17 +3841,23 @@ def main():
         ("xdevice-moe", phase_xdevice_moe),
         ("kernels-remat", phase_kernels_remat),
         ("train-remat", lambda: phase_train_remat(smi)),
-        ("train-vit-stream", lambda: phase_train_vit_stream(smi)),
+        ("train-vit-stream", lambda: phase_train_vit_stream(smi, decoder)),
         ("resume", lambda: phase_resume(smi)),
+        ("serve-paged", lambda: phase_serve_paged(smi)),
+        ("serve-int8", lambda: phase_serve_int8(smi)),
+        ("serve-beam", lambda: phase_serve_beam(smi)),
+        ("serve-spec", lambda: phase_serve_spec(smi)),
+        ("infer-vit-quant", lambda: phase_infer_vit_quant(smi)),
     )
-    # the streaming phase decodes with the native libjpeg pipeline; where it
-    # does not build (no libjpeg headers) the phase is left out, said here
-    jpeg, why = jpeg_ready()
-    print(f"[device] native jpegpipe: " + ("built" if jpeg else
-          "did not build, so phase train-vit-stream is left out: "
-          + " | ".join(why.splitlines()[:3])))
+    # the streaming phase decodes with the native libjpeg pipeline, else
+    # with the loader's PIL fallback; where neither is there it is left out
+    decoder, why = stream_decoder()
+    print("[device] train-vit-stream decoder: " + {
+        "native": "native jpegpipe (built)",
+        "pil": f"PIL, the loader's fallback ({why})",
+        None: f"none, so the phase is left out ({why})"}[decoder])
     for name, fn in phases:
-        if name == "train-vit-stream" and not jpeg:
+        if name == "train-vit-stream" and decoder is None:
             continue
         if only is None or name in only:
             t0 = time.perf_counter()
@@ -3327,6 +3887,8 @@ def main():
     kremat, remat = R["kernels-remat"], R["train-remat"]
     sel, full = remat["True"]["counts"], remat["full"]["counts"]
     stream = R.get("train-vit-stream")
+    paged, int8, beam = R["serve-paged"], R["serve-int8"], R["serve-beam"]
+    spec, vq = R["serve-spec"], R["infer-vit-quant"]
     fa = "vitrs_tpu/ops/flash_attention.py:"
     fg = "vitrs_tpu/ops/flash_attention_gqa.py:"
     kernels = [
@@ -3455,6 +4017,24 @@ def main():
     kernels[0]["train"] = train
     kernels[5]["train"] = gqa_train
     kernels[8]["train"] = win_train
+    # the rest of serving: K1-fwd in the paged engine's page-group
+    # prefills, the w8 engine, beam search, the speculative prefills and
+    # the int8 ViT forwards; K3-fwd and K4 in the int8-cache 8K prefill
+    kernels[0].update(
+        serve_paged_launches=paged[16]["launches"]["flash_fwd"],
+        serve_paged_chunk1_launches=paged[1]["launches"]["flash_fwd"],
+        serve_w8_launches=int8["w8_engine"]["launches"]["flash_fwd"],
+        serve_beam_launches=beam["launches"]["flash_fwd"],
+        serve_spec_launches=spec["draft"]["launches"]["flash_fwd"],
+        infer_quant_launches={k: v["launches"]["flash_fwd"]
+                              for k, v in vq.items()},
+        serve_paged=paged, serve_beam=beam, serve_spec=spec,
+        infer_quant=vq)
+    kernels[5].update(
+        serve_int8_launches=int8["int8_512"]["launches"]["flash_gqa_fwd"],
+        serve_int8=int8)
+    kernels[7]["serve_int8_launches"] = (
+        int8["int8_512"]["launches"]["flash_prefill"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

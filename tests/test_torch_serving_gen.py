@@ -34,7 +34,21 @@ SCENARIOS = {
     # more requests than slots: admission as slots retire
     "admission": (dict(max_slots=2, max_len=32, prompt_buckets=(8,)),
                   _prompts(1, (4, 7, 5, 8, 3)), (3, 5, 2, 4, 6)),
+    # the paged cache (JAX tests/test_serving_gen.py:84-117): a pool for
+    # about two requests, so that a second wave recycles the first's pages
+    "paged-recycle": (dict(max_slots=2, max_len=32, prompt_buckets=(16,),
+                           paged=True, n_pages=5),
+                      _prompts(6, (5, 9, 4, 7)), (4, 4, 4, 4)),
+    # a pool smaller than the slots: admission waits for pages
+    "paged-small-pool": (dict(max_slots=4, max_len=32, prompt_buckets=(16,),
+                              paged=True, n_pages=4),
+                         _prompts(7, (6, 6, 6, 6)), (3, 3, 3, 3)),
+    # two buckets, slots growing across pages while they decode
+    "paged-grow": (dict(max_slots=3, max_len=48, prompt_buckets=(16, 32),
+                        paged=True, n_pages=9),
+                   _prompts(8, (5, 20, 9, 30, 3)), (12, 6, 9, 4, 14)),
 }
+PAGED = sorted(n for n in SCENARIOS if n.startswith("paged"))
 
 
 def _run(engine):
@@ -88,9 +102,47 @@ def test_greedy_streams_equal_jax_engine(params, jax_streams, name, chunk):
         np.testing.assert_array_equal(got[rid], toks, err_msg=f"request {rid}")
     assert eng.prefill_dispatches >= 1
     assert sorted(eng.free) == list(range(kw["max_slots"]))
+    if kw.get("paged"):     # every page but the sink came back
+        assert sorted(eng.free_pages) == list(range(1, kw["n_pages"]))
     if name == "eos":       # some request stopped early at the eos id
         full = [len(p) + n for p, n in zip(*SCENARIOS["mixed"][1:])]
         assert any(len(got[r]) < full[r] for r in got)
+
+
+@pytest.mark.parametrize("name", PAGED)
+def test_paged_streams_equal_dense_engine(params, jax_streams, name):
+    """The paged engine's streams are the dense engine's on the same
+    requests (the JAX package's own check, test_serving_gen.py:84-117)."""
+    _, tp = params
+    kw = {k: v for k, v in SCENARIOS[name][0].items()
+          if k not in ("paged", "n_pages")}
+    eng = GenerationEngine(tp, TCFG, decode_chunk=4, **kw)
+    _submit_all(eng, name)
+    got = _run(eng)
+    for rid, toks in jax_streams[name].items():
+        np.testing.assert_array_equal(got[rid], toks, err_msg=f"request {rid}")
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_int8_weight_engine_equals_jax(params, paged):
+    """Weight-only int8 params (the JAX package's quantize_params) through
+    both engines, dense and paged, chunked: the JAX engine's streams."""
+    from vitrs_tpu.ops import quant as JQT
+    from vitrs_tpu_torch import params as TP
+    jp, _ = params
+    jq = JQT.quantize_params(jp, mode="gpt")
+    tq = TP.from_numpy({k: np.asarray(v) for k, v in jq.items()}, TCFG,
+                       "cpu")
+    kw = dict(max_slots=2, max_len=32, prompt_buckets=(16,), paged=paged)
+    jeng = JaxEngine(jq, JCFG, **kw)
+    eng = GenerationEngine(tq, TCFG, decode_chunk=3, **kw)
+    for e in (jeng, eng):
+        for p in _prompts(9, (6, 11, 3)):
+            e.submit(p, max_new=5)
+    want, got = _run(jeng), _run(eng)
+    assert "head" not in eng.params and eng.params["wte"].dtype == torch.int8
+    for rid, toks in want.items():
+        np.testing.assert_array_equal(got[rid], toks, err_msg=f"request {rid}")
 
 
 def test_eos_stops_and_frees_slot(params, jax_streams):
@@ -166,9 +218,21 @@ def test_tokenizer_ids_equal_jax_after_train(text, tmp_path):
 
 
 def test_engine_refuses_what_it_does_not_run(params):
+    """The paged engine runs now (held against JAX above); it refuses a
+    geometry off the page size and a pool too small for a bucket."""
     _, tp = params
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GenerationEngine(tp, TCFG, max_slots=2, max_len=32, paged=True)
+    with pytest.raises(ValueError, match="multiples"):
+        GenerationEngine(tp, TCFG, max_slots=2, max_len=40, paged=True,
+                         prompt_buckets=(16,))
+    with pytest.raises(ValueError, match="multiples"):
+        GenerationEngine(tp, TCFG, max_slots=2, max_len=32, paged=True,
+                         prompt_buckets=(8,))
+    with pytest.raises(ValueError, match="cannot hold"):
+        GenerationEngine(tp, TCFG, max_slots=2, max_len=32, paged=True,
+                         prompt_buckets=(32,), n_pages=2)
+    eng = GenerationEngine(tp, TCFG, max_slots=2, max_len=32, paged=True,
+                           prompt_buckets=(16,))
+    assert len(eng.free_pages) == 2 * 2 and eng.caches[0].shape[1] == 5
     eng = GenerationEngine(tp, TCFG, max_slots=2, max_len=32,
                            prompt_buckets=(8,))
     with pytest.raises(ValueError, match="empty"):

@@ -655,9 +655,32 @@ def test_infer_cli_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("quant", ["w8", "w8a8"])
-def test_infer_cli_quant_raises_item_15(quant):
-    with pytest.raises(NotImplementedError, match="item 15"):
-        infer_cli.main(["--cpu", "--quant", quant])
+def test_infer_cli_quant_raises_item_15(quant, capsys):
+    """--quant, refused until ROADMAP.md item 15 was ported, runs on the
+    CPU: the JSON line names the mode, and the logits are the int8
+    forward's (models/quantized.vit_forward_q, held against JAX in
+    tests/test_torch_quant.py) of the same weights, within the JAX
+    package's bounds of the float forward (tests/test_quant.py: mean
+    relative 0.04 for w8, 0.08 for w8a8)."""
+    from vitrs_tpu_torch.models import quantized as TQ
+    from vitrs_tpu_torch.ops import quant as TQT
+    infer_cli.main(["--preset", "vit-tiny-4-cifar10", "--cpu", "--batch-size",
+                    "2", "--steps", "1", "--dtype", "float32", "--quant",
+                    quant])
+    rec = __import__("json").loads(capsys.readouterr().out)
+    assert rec["quant"] == quant and rec["metric"].endswith(f"({quant})")
+    kw = dict(batch_size=3, steps=1, dtype="float32", device="cpu")
+    got = infer_cli.run("vit-tiny-4-cifar10", quant=quant, **kw)["logits"]
+    ref = infer_cli.run("vit-tiny-4-cifar10", **kw)["logits"]
+    model = ViT.from_config("vit-tiny-4-cifar10", device="cpu")
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (3, 32, 32, 3), dtype=np.float32))
+    want = TQ.vit_forward_q(TQT.quantize_params(model.params, "vit"), x,
+                            model.config, w8a8=quant == "w8a8")
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-6)
+    rel = ((got - ref).abs().mean() / ref.abs().mean()).item()
+    assert rel < (0.08 if quant == "w8a8" else 0.04), rel
 
 
 def test_infer_from_a_checkpoint_matches_jax_logits(jax_vit_ckpt):

@@ -7,20 +7,22 @@ Examples:
   vitrs-infer-torch --preset vit-s-16 --batch-size 256 --steps 20
   vitrs-infer-torch --ckpt run1/ckpt_00001000.bin --batch-size 128
   vitrs-infer-torch --preset vit-tiny-4-cifar10 --cpu --batch-size 8 --steps 2
+  vitrs-infer-torch --preset vit-b-16 --quant w8a8 --batch-size 256
 
 Random weights from seed 0 unless --ckpt; the batch is standard-normal
 images from np.random.default_rng(0).  The forward runs under
-torch.inference_mode with the compute-dtype weights prepared once.  Prints
-one JSON line: images/s, latency, MFU (forward FLOPs, on a CUDA device;
-null on the CPU), peak device memory and the device's kind.  Without --cpu
-it needs a CUDA device.  --quant (int8 weights) is not ported yet.
+torch.inference_mode with the compute-dtype weights prepared once.
+--quant w8 (int8 weights) or w8a8 (int8 weights and activations, int8
+tensor cores) quantizes the weights once (ops/quant.quantize_params) and
+runs models/quantized.vit_forward_q.  Prints one JSON line: images/s,
+latency, MFU (forward FLOPs over the bf16 peak whatever --quant, on a CUDA
+device; null on the CPU), peak device memory, the device's kind and the
+quant mode.  Without --cpu it needs a CUDA device.
 """
 
 import argparse
 import json
 import time
-
-_QUANT = "int8 quantization (--quant w8|w8a8): ROADMAP.md Queue 1 item 15"
 
 
 def run(preset: str = "vit-s-16", ckpt=None, batch_size: int = 256,
@@ -33,12 +35,14 @@ def run(preset: str = "vit-s-16", ckpt=None, batch_size: int = 256,
     import torch
     from vitrs_tpu_torch.config import get_config
     from vitrs_tpu_torch.models import model as M
+    from vitrs_tpu_torch.models import quantized as Q
+    from vitrs_tpu_torch.ops import quant as QT
     from vitrs_tpu_torch.train.loop import device_kind
     from vitrs_tpu_torch.utils import flops as F
     from vitrs_tpu_torch.vit import ViT
 
-    if quant != "none":
-        raise NotImplementedError(_QUANT)
+    if quant not in ("none", "w8", "w8a8"):
+        raise ValueError(f"quant {quant!r}: none, w8 or w8a8")
     if ckpt:
         model = ViT.build_from_checkpoint(ckpt, device=device, dtype=dtype)
     else:
@@ -51,27 +55,38 @@ def run(preset: str = "vit-s-16", ckpt=None, batch_size: int = 256,
     x = torch.as_tensor(np.random.default_rng(0).standard_normal(
         (batch_size, cfg.img_size, cfg.img_size, cfg.in_chans),
         dtype=np.float32), device=dev)
-    params = model._compute         # cast to cfg.dtype once, at build
+    if quant == "none":
+        params = model._compute     # cast to cfg.dtype once, at build
+
+        def fwd(p, x):
+            return M.vit_forward(p, x, cfg)
+    else:
+        params = M.prepare_params(QT.quantize_params(model.params,
+                                                     mode=cfg.mode), cfg)
+
+        def fwd(p, x):
+            return Q.vit_forward_q(p, x, cfg, w8a8=quant == "w8a8")
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
     with torch.inference_mode():
-        logits = M.vit_forward(params, x, cfg)      # warm-up
+        logits = fwd(params, x)                     # warm-up
         sync()
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         for _ in range(steps):
-            logits = M.vit_forward(params, x, cfg)
+            logits = fwd(params, x)
         sync()
         dt = (time.perf_counter() - t0) / steps
     ips = batch_size / dt
     kind = device_kind(dev)
     return {
         "metric": f"{preset if not ckpt else cfg.mode} inference "
-                  f"images/sec/chip ({cfg.dtype})",
+                  f"images/sec/chip "
+                  f"({cfg.dtype if quant == 'none' else quant})",
         "quant": quant,
         "value": round(ips, 1),
         "unit": "images/sec/chip",
@@ -97,7 +112,8 @@ def main(argv=None):
     p.add_argument("--dtype", default="bfloat16",
                    choices=["float32", "bfloat16"])
     p.add_argument("--quant", default="none", choices=["none", "w8", "w8a8"],
-                   help="int8 post-training quantization (not ported yet)")
+                   help="int8 post-training quantization: w8 = weight-only, "
+                        "w8a8 = int8 weights and activations")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU (the kernels' plain versions)")
     args = p.parse_args(argv)

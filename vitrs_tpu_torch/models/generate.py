@@ -28,8 +28,26 @@ window + chunk rows (`init_ring_kv`, `forward_with_ring`,
 A MoE model (cfg.num_experts) runs the routed expert layer in every
 block's MLP (`_mlp`).
 
-Not ported yet: the int8 KV cache, paged and beam decode — they raise
-NotImplementedError naming ROADMAP.md Queue 1 item 15.
+int8 weights (ops/quant.quantize_params, through model.prepare_params):
+every decode path reads them where they are stored, as the JAX package
+does: `model.plin` for the projections, the embedding rows and the tied head
+dequantized from the int8 wte with its scales (`_embed`, `_head`).
+
+The int8 KV cache (`init_kv_cache(int8=True)`, `generate(kv_int8=True)`):
+K and V stored per token and kv head as int8 with an fp32 absmax scale
+(`quantize_kv`), as (L, B, Tmax, KH, D) int8 beside (L, B, Tmax, KH, 1)
+fp32.  A fresh prompt attends with its exact k and v (K1-fwd, K3-fwd under
+GQA); a continuation chunk dequantizes the cache to the flat
+(B, Tmax, kv_dim) layout in cfg.dtype and goes through K4 where
+`_flash_cont_ok` sends it; decode attends the dequantized cache densely.
+The per-slot and paged paths keep raw caches, as in the JAX package.
+
+`generate_beam` is beam search over the dense cache (prefill once, tile
+the caches over the beams, gather the parents' rows each step);
+`init_paged_kv` .. `decode_ticks_paged` are the paged cache of
+serving_gen's paged engine: a pool of PAGE-token pages shared by all
+slots, a page table per slot, page groups prefilled through
+`forward_with_cache` (K1-fwd / K3-fwd).
 """
 
 from __future__ import annotations
@@ -40,7 +58,7 @@ from typing import Mapping, Optional
 import torch
 
 from ..config import ViTConfig
-from ..ops import basic
+from ..ops import basic, quant
 from ..ops._build import resolve_device
 from ..ops.attention import attention_gqa, split_gqa
 from ..ops.flash_prefill import (PREFILL_BLOCK, flash_prefill_qkv,
@@ -49,21 +67,54 @@ from ..ops.moe import moe_mlp
 from ..ops.rope import rope_qk
 from . import model as M
 
-_ITEM15 = "ROADMAP.md Queue 1 item 15 (generation and serving)"
-
 
 def init_kv_cache(cfg: ViTConfig, B: int, Tmax: int, int8: bool = False,
                   device="cuda"):
     """Zeroed (K, V) caches, each (L, B, Tmax, kv_dim) in cfg.dtype, on
     `device`: the card unless the caller asks for the CPU (raises when
-    torch sees no CUDA device)."""
-    if int8:
-        raise NotImplementedError(f"int8 KV cache: {_ITEM15}")
+    torch sees no CUDA device).  int8: each of K and V is the pair
+    ((L, B, Tmax, KH, D) int8 zeros, (L, B, Tmax, KH, 1) fp32 ones)."""
     device = resolve_device(device)
+    if int8:
+        KH, D = cfg.kv_heads, cfg.head_size
+        q = (cfg.num_layers, B, Tmax, KH, D)
+        s = (cfg.num_layers, B, Tmax, KH, 1)
+        return tuple((torch.zeros(q, dtype=torch.int8, device=device),
+                      torch.ones(s, dtype=torch.float32, device=device))
+                     for _ in range(2))
     shape = (cfg.num_layers, B, Tmax, cfg.kv_dim)
     dtype = getattr(torch, cfg.dtype)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
+
+
+def quantize_kv(x: torch.Tensor, num_heads: int):
+    """(B, S, C) -> (int8 (B, S, NH, D), fp32 absmax scale (B, S, NH, 1)):
+    symmetric per token and head, q = round(x / scale * 127)."""
+    B, S, C = x.shape
+    xh = x.reshape(B, S, num_heads, C // num_heads).float()
+    scale = xh.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8)
+    q = torch.clamp(torch.round(xh / scale * 127.0), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _dequant_rows(q: torch.Tensor, scale: torch.Tensor, dtype):
+    """(B, T, NH, D) int8 and its (B, T, NH, 1) scale -> (B, T, NH, D) in
+    dtype."""
+    return (q.float() * (scale * (1.0 / 127.0))).to(dtype)
+
+
+def _dequant(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    """The int8 cache as (B, NH, T, D) in dtype."""
+    return _dequant_rows(q, scale, dtype).transpose(1, 2)
+
+
+def _layer_cache(caches, i: int):
+    """Layer i of a (L, ...) cache tensor, or of each tensor of an int8
+    (values, scales) pair."""
+    if isinstance(caches, tuple):
+        return tuple(c[i] for c in caches)
+    return caches[i]
 
 
 def _cache_attention(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
@@ -116,7 +167,7 @@ def _qkv_rotated(x, p, cfg: ViTConfig, positions):
     `positions` under rope (then qkv is rebuilt from the rotated parts)."""
     NH, KH = cfg.num_heads, cfg.kv_heads
     ln1 = basic.layernorm(x, p["ln1w"], p["ln1b"])[0]
-    qkv = basic.linear(ln1, p["qkvw"], p["qkvb"])
+    qkv = M.plin(p, "qkvw", "qkvb", ln1)
     q, k, v = split_gqa(qkv, NH, KH)
     if cfg.pos_emb == "rope":
         # absolute positions: the cache stores rotated K, so attention
@@ -139,46 +190,82 @@ def _mlp(p, cfg: ViTConfig, ln2: torch.Tensor) -> torch.Tensor:
     return M.mlp(p, cfg, ln2)
 
 
+def _residuals(x, p, cfg: ViTConfig, atty):
+    """x + attproj(atty), then + the MLP half: the rest of every block."""
+    x = x + M.plin(p, "attprojw", "attprojb", atty)
+    return x + _mlp(p, cfg, basic.layernorm(x, p["ln2w"], p["ln2b"])[0])
+
+
 def _block_with_kv(x, p, cfg: ViTConfig, k_cache, v_cache, pos: int):
     """One block over S tokens at positions pos..pos+S-1; writes their K/V
-    into the (B, Tmax, kv_dim) caches in place."""
+    into the caches in place: (B, Tmax, kv_dim) tensors, or int8
+    ((B, Tmax, KH, D), (B, Tmax, KH, 1)) pairs."""
     B, S, C = x.shape
     NH, KH = cfg.num_heads, cfg.kv_heads
     qkv, q, k, v = _qkv_rotated(x, p, cfg,
                                 pos + torch.arange(S, device=x.device))
-    k_cache[:, pos:pos + S] = k
-    v_cache[:, pos:pos + S] = v
-    Tmax = k_cache.shape[1]
+    int8_cache = isinstance(k_cache, tuple)
+    if int8_cache:
+        for cache, t in ((k_cache, k), (v_cache, v)):
+            tq, ts = quantize_kv(t, KH)
+            cache[0][:, pos:pos + S] = tq
+            cache[1][:, pos:pos + S] = ts
+        Tmax = k_cache[0].shape[1]
+    else:
+        k_cache[:, pos:pos + S] = k
+        v_cache[:, pos:pos + S] = v
+        Tmax = k_cache.shape[1]
     if pos == 0 and S > 1:
         # causal self-attention over the prompt: the cache holds nothing the
         # causal mask would admit beyond it, so the flash kernel reads the
         # packed qkv in place (K1-fwd, or K3-fwd at kv width), with the
-        # window's band, unless use_flash is off; q and k are already rotated
+        # window's band, unless use_flash is off; q and k are already
+        # rotated.  An int8 cache's prompt attends with the exact k and v.
         atty = attention_gqa(qkv, NH, KH, causal=True, window=cfg.window,
                              use_flash=cfg.use_flash)
     elif S > 1 and cfg.use_flash and _flash_cont_ok(cfg, Tmax):
         # a continuation chunk: K4 streams the cache from the chunk's band
-        # up to its causal frontier at kv width
-        atty = flash_prefill_qkv(q, k_cache, v_cache, NH, KH, pos,
-                                 window=cfg.window)
+        # up to its causal frontier at kv width; an int8 cache first
+        # dequantizes to the flat layout, the values decode attends
+        if int8_cache:
+            kf = _dequant_rows(*k_cache, x.dtype).reshape(B, Tmax, -1)
+            vf = _dequant_rows(*v_cache, x.dtype).reshape(B, Tmax, -1)
+        else:
+            kf, vf = k_cache, v_cache
+        atty = flash_prefill_qkv(q, kf, vf, NH, KH, pos, window=cfg.window)
     else:
+        if int8_cache:
+            kh = _dequant(*k_cache, x.dtype)
+            vh = _dequant(*v_cache, x.dtype)
+        else:
+            kh, vh = _heads(k_cache, KH), _heads(v_cache, KH)
         q_pos = pos + torch.arange(S, device=x.device)[:, None]
         mask = _window_mask(torch.arange(Tmax, device=x.device)[None, :],
                             q_pos, cfg.window)
-        atty = _cache_attention(_heads(q, NH), _heads(k_cache, KH),
-                                _heads(v_cache, KH), mask[None], x.dtype)
+        atty = _cache_attention(_heads(q, NH), kh, vh, mask[None], x.dtype)
         atty = atty.transpose(1, 2).reshape(B, S, C)
-    x = x + basic.linear(atty, p["attprojw"], p["attprojb"])
-    return x + _mlp(p, cfg, basic.layernorm(x, p["ln2w"], p["ln2b"])[0])
+    return _residuals(x, p, cfg, atty)
 
 
 def _embed(params, tokens: torch.Tensor, positions, cfg: ViTConfig):
-    """wte rows (+ wpe rows at `positions` unless rope) in cfg.dtype."""
+    """wte rows (dequantized with their scales where wte is int8), + wpe
+    rows at `positions` unless rope, in cfg.dtype."""
     dtype = getattr(torch, cfg.dtype)
     x = params["wte"][tokens].to(dtype)
+    if "wte_scale" in params:
+        x = x * params["wte_scale"][tokens][..., None].to(dtype)
     if cfg.pos_emb == "rope":
         return x
     return x + params["wpe"][positions].to(dtype)
+
+
+def _head(params, x: torch.Tensor) -> torch.Tensor:
+    """Final LayerNorm and the tied head -> fp32 logits; an int8 wte is
+    read with its scales (weight-only)."""
+    lnf = basic.layernorm(x, params["lnfw"], params["lnfb"])[0]
+    if "wte_scale" in params:
+        return quant.linear_w8(lnf, params["wte"], params["wte_scale"]).float()
+    return basic.linear(lnf, params["head"]).float()
 
 
 def forward_with_cache(params: Mapping[str, torch.Tensor],
@@ -186,17 +273,18 @@ def forward_with_cache(params: Mapping[str, torch.Tensor],
                        cfg: ViTConfig, last_only: bool = False):
     """Run tokens (B, S) from position `pos` through the stack, writing the
     caches in place.  Returns (logits (B, S, V) fp32, caches), or (B, 1, V)
-    logits when last_only.  params from `model.prepare_params`."""
+    logits when last_only.  params from `model.prepare_params`; caches from
+    `init_kv_cache` (raw or int8)."""
     k_caches, v_caches = caches
     S = tokens.shape[-1]
     x = _embed(params, tokens, slice(pos, pos + S), cfg)
     for i in range(cfg.num_layers):
-        x = _block_with_kv(x, M.layer(params, i), cfg, k_caches[i],
-                           v_caches[i], pos)
+        x = _block_with_kv(x, M.layer(params, i), cfg,
+                           _layer_cache(k_caches, i),
+                           _layer_cache(v_caches, i), pos)
     if last_only:
         x = x[:, -1:]
-    lnf = basic.layernorm(x, params["lnfw"], params["lnfb"])[0]
-    return basic.linear(lnf, params["head"]).float(), caches
+    return _head(params, x), caches
 
 
 def _filter_logits(logits: torch.Tensor, top_k: int, top_p: float):
@@ -274,8 +362,53 @@ def generate(params: Mapping[str, torch.Tensor], prompt: torch.Tensor,
     return torch.cat([prompt, torch.stack(out, dim=1).to(prompt.dtype)], dim=1)
 
 
-def generate_beam(*args, **kwargs):
-    raise NotImplementedError(f"beam search: {_ITEM15}")
+def _top(x: torch.Tensor, k: int):
+    """(values, indices) of the k largest along the last axis, the lower
+    index first among equal values, as `jax.lax.top_k` orders them (a
+    stable descending sort; `torch.topk` promises no order for ties)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def generate_beam(params: Mapping[str, torch.Tensor], prompt: torch.Tensor,
+                  cfg: ViTConfig, max_new: int, beams: int = 4
+                  ) -> torch.Tensor:
+    """Beam search: prompt (B, T0) -> (B, T0 + max_new), each example's
+    beam of highest cumulative log-prob.  The prompt prefills once at beam
+    width 1 (K1-fwd / K3-fwd), the caches are tiled to B * beams rows
+    (example-major), and every step takes the top `beams` of the
+    beams * V continuations and gathers the winners' parent rows of the
+    caches and histories.  Every beam runs max_new steps (no EOS), so the
+    score is the plain cumulative log-prob; beams=1 is greedy decoding."""
+    B, T0 = prompt.shape
+    if T0 + max_new > cfg.max_seq_len and cfg.pos_emb != "rope":
+        raise ValueError(f"{T0} + {max_new} tokens exceed max_seq_len "
+                         f"{cfg.max_seq_len}")
+    V = cfg.vocab_size
+    dev = prompt.device
+    caches = init_kv_cache(cfg, B, T0 + max_new, device=dev)
+    logits, caches = forward_with_cache(params, prompt, caches, 0, cfg,
+                                        last_only=True)
+    cum, tok = _top(torch.log_softmax(logits[:, -1], dim=-1), beams)
+    caches = tuple(c.repeat_interleave(beams, dim=1) for c in caches)
+    cum, tok = cum.reshape(-1), tok.reshape(-1)
+    gen = torch.zeros(B * beams, max_new, dtype=torch.long, device=dev)
+    gen[:, 0] = tok
+    base = torch.arange(B, device=dev)[:, None] * beams
+    for pos in range(T0, T0 + max_new - 1):
+        lg, caches = forward_with_cache(params, tok[:, None], caches, pos,
+                                        cfg)
+        cand = cum[:, None] + torch.log_softmax(lg[:, 0], dim=-1)
+        cum, flat = _top(cand.reshape(B, beams * V), beams)
+        rows = (base + flat // V).reshape(-1)
+        caches = tuple(c[:, rows] for c in caches)
+        gen = gen[rows]
+        tok = (flat % V).reshape(-1)
+        gen[:, pos - T0 + 1] = tok
+        cum = cum.reshape(-1)
+    best = torch.argmax(cum.reshape(B, beams), dim=-1)
+    gen = gen.reshape(B, beams, max_new)[torch.arange(B, device=dev), best]
+    return torch.cat([prompt, gen.to(prompt.dtype)], dim=1)
 
 
 # --------------------------------------------------------------------------
@@ -320,9 +453,7 @@ def _block_with_kv_ring(x, p, cfg: ViTConfig, k_cache, v_cache, pos: int):
     mask &= stored[None, :] >= 0
     atty = _cache_attention(_heads(q, NH), _heads(k_cache, KH),
                             _heads(v_cache, KH), mask[None], x.dtype)
-    atty = atty.transpose(1, 2).reshape(B, S, C)
-    x = x + basic.linear(atty, p["attprojw"], p["attprojb"])
-    return x + _mlp(p, cfg, basic.layernorm(x, p["ln2w"], p["ln2b"])[0])
+    return _residuals(x, p, cfg, atty.transpose(1, 2).reshape(B, S, C))
 
 
 def forward_with_ring(params: Mapping[str, torch.Tensor],
@@ -337,8 +468,7 @@ def forward_with_ring(params: Mapping[str, torch.Tensor],
     for i in range(cfg.num_layers):
         x = _block_with_kv_ring(x, M.layer(params, i), cfg, k_caches[i],
                                 v_caches[i], pos)
-    lnf = basic.layernorm(x, params["lnfw"], params["lnfb"])[0]
-    return basic.linear(lnf, params["head"]).float(), caches
+    return _head(params, x), caches
 
 
 def generate_streaming(params: Mapping[str, torch.Tensor],
@@ -392,9 +522,7 @@ def _block_decode_multi(x, p, cfg: ViTConfig, k_cache, v_cache,
                         pos[:, None], cfg.window)
     atty = _cache_attention(_heads(q, NH), _heads(k_cache, KH),
                             _heads(v_cache, KH), mask[:, None, :], x.dtype)
-    atty = atty.transpose(1, 2).reshape(B, 1, C)
-    x = x + basic.linear(atty, p["attprojw"], p["attprojb"])
-    return x + _mlp(p, cfg, basic.layernorm(x, p["ln2w"], p["ln2b"])[0])
+    return _residuals(x, p, cfg, atty.transpose(1, 2).reshape(B, 1, C))
 
 
 def decode_step_multi(params: Mapping[str, torch.Tensor],
@@ -407,8 +535,7 @@ def decode_step_multi(params: Mapping[str, torch.Tensor],
     for i in range(cfg.num_layers):
         x = _block_decode_multi(x, M.layer(params, i), cfg, k_caches[i],
                                 v_caches[i], pos)
-    lnf = basic.layernorm(x, params["lnfw"], params["lnfb"])[0]
-    return basic.linear(lnf, params["head"])[:, 0].float(), caches
+    return _head(params, x)[:, 0], caches
 
 
 def prefill_into_slots(params: Mapping[str, torch.Tensor],
@@ -428,6 +555,24 @@ def prefill_into_slots(params: Mapping[str, torch.Tensor],
     return logits[:, -1], caches
 
 
+def _decode_ticks(step, tokens, pos, n: int, temps, top_k: int,
+                  top_p: float, generator):
+    """n ticks of `step(tokens, pos) -> logits (B, V)` with per-slot
+    sampling on the device.  Returns (tokens (n, B), final pos)."""
+    sampled = bool((temps > 0).any())
+    toks = []
+    for _ in range(n):
+        logits = step(tokens, pos)
+        nxt = torch.argmax(logits, dim=-1)
+        if sampled:
+            lg = _filter_logits(logits / temps.clamp_min(1e-6)[:, None],
+                                top_k, top_p)
+            nxt = torch.where(temps == 0.0, nxt, _categorical(lg, generator))
+        toks.append(nxt)
+        tokens, pos = nxt, pos + 1
+    return torch.stack(toks), pos
+
+
 def decode_ticks_multi(params: Mapping[str, torch.Tensor],
                        tokens: torch.Tensor, caches, pos: torch.Tensor,
                        n: int, temps: torch.Tensor, cfg: ViTConfig,
@@ -437,15 +582,108 @@ def decode_ticks_multi(params: Mapping[str, torch.Tensor],
     host reads the tokens once per chunk.  temps (B,) per-slot temperature,
     0 = greedy; top_k/top_p engine-wide.  Returns (tokens (n, B), caches,
     final pos)."""
-    sampled = bool((temps > 0).any())
-    toks = []
-    for _ in range(n):
-        logits, caches = decode_step_multi(params, tokens, caches, pos, cfg)
-        nxt = torch.argmax(logits, dim=-1)
-        if sampled:
-            lg = _filter_logits(logits / temps.clamp_min(1e-6)[:, None],
-                                top_k, top_p)
-            nxt = torch.where(temps == 0.0, nxt, _categorical(lg, generator))
-        toks.append(nxt)
-        tokens, pos = nxt, pos + 1
-    return torch.stack(toks), caches, pos
+    toks, pos = _decode_ticks(
+        lambda t, p: decode_step_multi(params, t, caches, p, cfg)[0],
+        tokens, pos, n, temps, top_k, top_p, generator)
+    return toks, caches, pos
+
+
+# --------------------------------------------------------------------------
+# Paged KV cache (the JAX package's l.683-846): a pool of PAGE-token pages
+# shared by all slots and a host-managed page table (slot, page index) ->
+# pool page, so that memory follows the live tokens, not max_slots x
+# max_len.  Decode gathers each slot's pages (B, MAX_PP, PAGE, kv_dim) and
+# masks by position.  Page 0 is the engine's write sink.
+# --------------------------------------------------------------------------
+
+PAGE = 16                   # tokens per page
+
+
+def init_paged_kv(cfg: ViTConfig, n_pages: int, device="cuda"):
+    """Zeroed page pools (L, n_pages, PAGE, kv_dim) in cfg.dtype for K and
+    V, on the card unless the caller asks for the CPU."""
+    device = resolve_device(device)
+    shape = (cfg.num_layers, n_pages, PAGE, cfg.kv_dim)
+    dtype = getattr(torch, cfg.dtype)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+
+
+def _block_decode_paged(x, p, cfg: ViTConfig, kp, vp, table: torch.Tensor,
+                        pos: torch.Tensor):
+    """One block for one new token per slot: kp/vp (n_pages, PAGE,
+    kv_dim) written in place at each slot's page and offset; table
+    (B, MAX_PP) page ids; pos (B,)."""
+    B, _, C = x.shape
+    NH, KH = cfg.num_heads, cfg.kv_heads
+    Tv = table.shape[1] * PAGE                  # the virtual max length
+    _, q, k, v = _qkv_rotated(x, p, cfg, pos[:, None])
+    page = table[torch.arange(B, device=x.device), pos // PAGE]
+    kp[page, pos % PAGE] = k[:, 0]
+    vp[page, pos % PAGE] = v[:, 0]
+    kh = _heads(kp[table].reshape(B, Tv, -1), KH)
+    vh = _heads(vp[table].reshape(B, Tv, -1), KH)
+    mask = _window_mask(torch.arange(Tv, device=x.device)[None, :],
+                        pos[:, None], cfg.window)
+    atty = _cache_attention(_heads(q, NH), kh, vh, mask[:, None, :], x.dtype)
+    return _residuals(x, p, cfg, atty.transpose(1, 2).reshape(B, 1, C))
+
+
+def decode_step_paged(params: Mapping[str, torch.Tensor],
+                      tokens: torch.Tensor, caches, table: torch.Tensor,
+                      pos: torch.Tensor, cfg: ViTConfig):
+    """The paged twin of `decode_step_multi`: table (B, MAX_PP), pos (B,)
+    -> (logits (B, V) fp32, caches)."""
+    kps, vps = caches
+    x = _embed(params, tokens, pos, cfg)[:, None, :]
+    for i in range(cfg.num_layers):
+        x = _block_decode_paged(x, M.layer(params, i), cfg, kps[i], vps[i],
+                                table, pos)
+    return _head(params, x)[:, 0], caches
+
+
+def prefill_into_pages(params: Mapping[str, torch.Tensor],
+                       prompt: torch.Tensor, caches, page_ids: torch.Tensor,
+                       cfg: ViTConfig):
+    """A (T0,) prompt (T0 a multiple of PAGE) through the stack, its K/V
+    rows scattered into pool pages `page_ids` (T0 // PAGE,), in sequence
+    order.  Returns (last-token logits (V,), caches)."""
+    logits, caches = prefill_into_pages_multi(params, prompt[None], caches,
+                                              page_ids[None], cfg)
+    return logits[0], caches
+
+
+def prefill_into_pages_multi(params: Mapping[str, torch.Tensor],
+                             prompts: torch.Tensor, caches,
+                             page_ids: torch.Tensor, cfg: ViTConfig):
+    """Coalesced paged prefill: K same-bucket prompts (K, T0), T0 a
+    multiple of PAGE, in one pass through `forward_with_cache` at position
+    0 (K1-fwd, or K3-fwd under GQA); page_ids (K, T0 // PAGE).  Duplicate
+    page-id rows (group padding) write identical content.  Returns
+    (last-row logits (K, V), caches)."""
+    kps, vps = caches
+    K, T0 = prompts.shape
+    if T0 % PAGE:
+        raise ValueError(f"prompt length {T0} is not a multiple of {PAGE}")
+    tmp = init_kv_cache(cfg, K, T0, device=prompts.device)
+    logits, (kc, vc) = forward_with_cache(params, prompts, tmp, 0, cfg,
+                                          last_only=True)
+    flat = page_ids.reshape(-1)
+    L = cfg.num_layers
+    kps[:, flat] = kc.reshape(L, -1, PAGE, kc.shape[-1])
+    vps[:, flat] = vc.reshape(L, -1, PAGE, vc.shape[-1])
+    return logits[:, -1], caches
+
+
+def decode_ticks_paged(params: Mapping[str, torch.Tensor],
+                       tokens: torch.Tensor, caches, table: torch.Tensor,
+                       pos: torch.Tensor, n: int, temps: torch.Tensor,
+                       cfg: ViTConfig, top_k: int, top_p: float = 0.0,
+                       generator: Optional[torch.Generator] = None):
+    """The paged twin of `decode_ticks_multi`: every page the n ticks
+    write must already be in `table` (the engine allocates before the
+    call).  Returns (tokens (n, B), caches, final pos)."""
+    toks, pos = _decode_ticks(
+        lambda t, p: decode_step_paged(params, t, caches, table, p, cfg)[0],
+        tokens, pos, n, temps, top_k, top_p, generator)
+    return toks, caches, pos

@@ -54,7 +54,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..config import ViTConfig
-from ..ops import basic, fused_ce, fused_head_ce
+from ..ops import basic, fused_ce, fused_head_ce, quant
 from ..ops._build import to_device
 from ..ops.attention import (expand_qkv_weight, rope_packed,
                              supports as flash_supports)
@@ -89,13 +89,29 @@ def prepare_params(params: Mapping[str, torch.Tensor], cfg: ViTConfig
     call, with the same result.  LN params, the embedding tables and the
     CLS token keep their own dtype, because the JAX package computes
     LayerNorm in fp32 and adds the embeddings (and cls + wpe[0]) before its
-    cast."""
+    cast.
+
+    A dict of int8 weights (`ops/quant.quantize_params`) keeps them in int8
+    beside their fp32 `_scale` companions, each padded once with zero
+    output channels to a multiple of 8 (`quant.pad_out_channels`, so that
+    no int8 product copies a weight to pad it), and gets no float head: the
+    forwards read the int8 wte with its scales (models/generate.py,
+    models/quantized.py).  A MoE config with int8 weights raises
+    ValueError: the JAX package does not wire int8 expert slabs either."""
     check_supported(cfg)
     dtype = getattr(torch, cfg.dtype)
     out = {k: v.detach() for k, v in params.items()}
+    quantized = any(k.endswith("_scale") for k in out)
+    if quantized and cfg.is_moe:
+        raise ValueError("int8 weights with a MoE config: the expert slabs "
+                         "have no int8 path (as in the JAX package)")
     for k in MATMUL_KEYS + (VIT_MATMUL_KEYS if cfg.mode == "vit" else ()):
-        out[k] = out[k].to(dtype)
-    if cfg.mode == "gpt":
+        if out[k].dtype != torch.int8:
+            out[k] = out[k].to(dtype)
+    for k in out:
+        if k + "_scale" in out:
+            out[k] = quant.pad_out_channels(out[k])
+    if cfg.mode == "gpt" and not quantized:
         out["head"] = out["wte"].to(dtype)
     return out
 
@@ -120,8 +136,11 @@ def train_params(params: Mapping[str, torch.Tensor], cfg: ViTConfig
 
 
 def block_keys(params: Mapping[str, torch.Tensor]) -> Tuple[str, ...]:
-    """The stacked per-layer keys: BLOCK_KEYS, + routerw under MoE."""
-    return BLOCK_KEYS + (("routerw",) if "routerw" in params else ())
+    """The stacked per-layer keys: BLOCK_KEYS, + routerw under MoE, + the
+    `_scale` companions of int8 weights (the JAX `_block_keys`)."""
+    return (BLOCK_KEYS + (("routerw",) if "routerw" in params else ())
+            + tuple(k + "_scale" for k in BLOCK_KEYS
+                    if k + "_scale" in params))
 
 
 def layer(params: Mapping[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
@@ -138,12 +157,25 @@ def layers(params: Mapping[str, torch.Tensor]) -> List[Dict[str, torch.Tensor]]:
             for i in range(len(per[BLOCK_KEYS[0]]))]
 
 
+def plin(p: Mapping[str, torch.Tensor], wkey: str, bkey: Optional[str],
+         x: torch.Tensor, w8a8: bool = False) -> torch.Tensor:
+    """x @ p[wkey].T (+ p[bkey]); an int8 weight, the one with a
+    `wkey + '_scale'` companion, goes through `quant.linear_w8`
+    (weight-only, as the JAX package's `_plin`), or `quant.linear_w8a8`
+    when w8a8 (models/quantized.py)."""
+    b = p[bkey] if bkey is not None else None
+    if wkey + "_scale" in p:
+        f = quant.linear_w8a8 if w8a8 else quant.linear_w8
+        return f(x, p[wkey], p[wkey + "_scale"], b)
+    return basic.linear(x, p[wkey], b)
+
+
 def mlp(p: Mapping[str, torch.Tensor], cfg: ViTConfig,
         x: torch.Tensor) -> torch.Tensor:
-    """ln2 output -> fc, GELU, fcproj."""
-    h = basic.linear(x, p["fcw"], p["fcb"])
+    """ln2 output -> fc, GELU, fcproj (int8 weights through `plin`)."""
+    h = plin(p, "fcw", "fcb", x)
     h = basic.gelu_erf_cv(h) if cfg.act == "gelu_erf" else basic.gelu_cv(h)
-    return basic.linear(h, p["fcprojw"], p["fcprojb"])
+    return plin(p, "fcprojw", "fcprojb", h)
 
 
 def _project_and_attend(ln1: torch.Tensor, p: Mapping[str, torch.Tensor],

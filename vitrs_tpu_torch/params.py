@@ -119,7 +119,12 @@ def from_numpy(np_params: Mapping[str, np.ndarray], cfg: ViTConfig,
     pytree, or `checkpoint.load_checkpoint`), as a tensor dict on `device`:
     the card unless the caller asks for the CPU (raises when torch sees no
     CUDA device).  dtype defaults to cfg.param_dtype.  Shapes are checked
-    against the canonical ones."""
+    against the canonical ones.
+
+    The JAX package's `ops/quant.quantize_params` output is taken too: a
+    tensor with a `<name>_scale` companion must be int8 and stays
+    torch.int8, its scale (the tensor's shape without the last axis) fp32,
+    which is the dict `vitrs_tpu_torch.ops.quant.quantize_params` makes."""
     device = resolve_device(device)
     dtype = dtype or getattr(torch, cfg.param_dtype)
     shapes = param_shapes(cfg)
@@ -129,9 +134,21 @@ def from_numpy(np_params: Mapping[str, np.ndarray], cfg: ViTConfig,
         if tuple(arr.shape) != shapes[name]:
             raise ValueError(f"{name}: shape {arr.shape}, expected "
                              f"{shapes[name]}")
-        # np.array copies: the source may be a read-only view (jax arrays)
-        out[name] = torch.from_numpy(np.array(arr, dtype=np.float32)).to(
-            device=device, dtype=dtype)
+        scale = np_params.get(name + "_scale")
+        if scale is None:
+            # np.array copies: the source may be a read-only view (jax
+            # arrays)
+            out[name] = torch.from_numpy(np.array(arr, dtype=np.float32)).to(
+                device=device, dtype=dtype)
+            continue
+        scale = np.asarray(scale)
+        if arr.dtype != np.int8 or scale.shape != shapes[name][:-1]:
+            raise ValueError(f"{name}: a quantized weight is int8 with a "
+                             f"scale of shape {shapes[name][:-1]}, got "
+                             f"{arr.dtype} and {scale.shape}")
+        out[name] = torch.from_numpy(np.array(arr)).to(device)
+        out[name + "_scale"] = torch.from_numpy(
+            np.array(scale, dtype=np.float32)).to(device)
     return out
 
 

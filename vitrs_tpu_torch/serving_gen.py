@@ -1,5 +1,5 @@
 """Continuous-batching generation engine — the port of
-`vitrs_tpu/serving_gen.py` (dense slot cache).
+`vitrs_tpu/serving_gen.py`, with the dense slot cache and the paged one.
 
 A fixed pool of decode slots shares one KV cache (L, slots, max_len,
 kv_dim) on the device.  Requests are admitted into free slots as others
@@ -13,10 +13,23 @@ serves the same way: prefill rotates q and k at absolute positions and
 runs the kernels with the band, and decode rotates at each slot's own
 position and masks to its window.
 
+`paged=True` replaces the slot cache by a pool of `n_pages` pages of
+`generate.PAGE` tokens shared by all slots, with a host page table per
+slot: memory follows the live tokens instead of max_slots x max_len.
+Page 0 is a reserved write sink (a retired slot's decode writes land
+there); admission waits until the head request's bucket has pages, and a
+slot grows by a page when its next write crosses its allocation (before
+a chunk of decode ticks, for every tick of the chunk).  Page groups
+prefill through `generate.prefill_into_pages_multi` (K1-fwd / K3-fwd).
+
+int8 weights (`ops/quant.quantize_params(params, "gpt")`) serve as they
+are: every decode path reads the `_scale` leaves.
+
 Differences from the JAX engine: there is no jit, so nothing compiles per
 bucket; the cache is updated in place where JAX donated it; the weights are
 cast to the compute dtype once, here; sampling draws from torch.Generators
-seeded with `seed`.  The paged cache is not ported yet.
+seeded with `seed`; a pool too small for the largest bucket raises
+ValueError (the JAX engine would wait for pages forever).
 """
 
 from __future__ import annotations
@@ -53,18 +66,17 @@ class GenerationEngine:
     >>> eng.submit(prompt_tokens, max_new=64)
     >>> finished = eng.run()            # list of (rid, np.ndarray tokens)
 
-    params: the canonical tensor dict, on the device to serve from; the
-    engine keeps its own copy with the matmul weights in cfg.dtype.
-    `prefill_dispatches` counts prefill passes."""
+    params: the canonical tensor dict (or its int8 form), on the device to
+    serve from; the engine keeps its own copy with the float matmul weights
+    in cfg.dtype.  `prefill_dispatches` counts prefill passes.  paged:
+    n_pages <= 0 sizes the pool to the dense equivalent, max_slots x
+    max_len / PAGE pages + the sink."""
 
     def __init__(self, params: Mapping[str, torch.Tensor], cfg: ViTConfig,
                  max_slots: int, max_len: int, seed: int = 0,
                  prompt_buckets: tuple = (32, 64, 128),
-                 paged: bool = False, decode_chunk: int = 1, top_k: int = 0,
-                 top_p: float = 0.0):
-        if paged:
-            raise NotImplementedError(
-                "paged KV cache: ROADMAP.md Queue 1 item 15")
+                 paged: bool = False, n_pages: int = 0,
+                 decode_chunk: int = 1, top_k: int = 0, top_p: float = 0.0):
         if max_len > cfg.max_seq_len:
             raise ValueError(f"max_len {max_len} > max_seq_len "
                              f"{cfg.max_seq_len}")
@@ -92,8 +104,26 @@ class GenerationEngine:
         self.decode_chunk = decode_chunk
         self.top_k = top_k
         self.top_p = top_p
-        self.caches = G.init_kv_cache(cfg, max_slots, max_len,
-                                      device=self.device)
+        self.paged = paged
+        if paged:
+            if max_len % G.PAGE or any(b % G.PAGE for b in self.buckets):
+                raise ValueError(f"paged: max_len and the prompt buckets "
+                                 f"must be multiples of {G.PAGE}")
+            self.max_pp = max_len // G.PAGE
+            if n_pages <= 0:
+                n_pages = max_slots * self.max_pp + 1
+            if n_pages - 1 < max(self.buckets) // G.PAGE:
+                raise ValueError(f"paged: {n_pages} pages (one the sink) "
+                                 f"cannot hold a {max(self.buckets)}-token "
+                                 f"prompt")
+            self.caches = G.init_paged_kv(cfg, n_pages, device=self.device)
+            self.free_pages: List[int] = list(range(1, n_pages))
+            # host page table and each slot's allocated-token high-water mark
+            self._table = np.zeros((max_slots, self.max_pp), np.int64)
+            self._alloc = np.zeros(max_slots, np.int64)
+        else:
+            self.caches = G.init_kv_cache(cfg, max_slots, max_len,
+                                          device=self.device)
         self.prefill_dispatches = 0
 
     # ------------------------------------------------------------- intake
@@ -128,15 +158,46 @@ class GenerationEngine:
                 return b
         raise ValueError(n)
 
+    def _release_pages(self, slot: int):
+        n = int(self._alloc[slot]) // G.PAGE
+        self.free_pages.extend(int(p) for p in self._table[slot, :n])
+        self._table[slot] = 0              # retired writes land in page 0
+        self._pos[slot] = 0
+        self._alloc[slot] = 0
+
+    def _grow(self, slot: int, upto: int):
+        """Give `slot` pages until its allocation covers `upto` tokens."""
+        while self._alloc[slot] < upto:
+            if not self.free_pages:
+                raise RuntimeError("page pool exhausted; size n_pages for "
+                                   "the expected live-token total")
+            self._table[slot, int(self._alloc[slot]) // G.PAGE] = \
+                self.free_pages.pop()
+            self._alloc[slot] += G.PAGE
+
+    def _retire(self, slot: int):
+        del self.active[slot]
+        self.free.append(slot)
+        if self.paged:
+            self._release_pages(slot)
+
     def _admit(self):
         """Admit pending requests, coalescing same-bucket prompts into one
         prefill pass (group size padded to a power of two, as in the JAX
-        engine, where it bounds the set of compiled programs)."""
+        engine, where it bounds the set of compiled programs).  Paged: the
+        head request waits until its bucket's pages are free, and a group
+        takes no more requests than the free pages hold."""
         while self.pending and self.free:
             head_bucket = self._bucket(len(self.pending[0].prompt))
+            n_pg = head_bucket // G.PAGE
+            limit = len(self.free)
+            if self.paged:
+                if len(self.free_pages) < n_pg:
+                    return                         # wait for pages to free
+                limit = min(limit, len(self.free_pages) // n_pg)
             group, rest = [], []
             for req in self.pending:
-                if (len(group) < len(self.free)
+                if (len(group) < limit
                         and self._bucket(len(req.prompt)) == head_bucket):
                     group.append(req)
                 else:
@@ -147,6 +208,7 @@ class GenerationEngine:
             K_pad = 1 << (K - 1).bit_length()
             prompts = np.zeros((K_pad, head_bucket), np.int64)
             slots = np.zeros(K_pad, np.int64)
+            pids = np.zeros((K_pad, n_pg), np.int64)
             for j, req in enumerate(group):
                 T0 = len(req.prompt)
                 slot = self.free.pop()
@@ -155,6 +217,9 @@ class GenerationEngine:
                 # mask (t <= pos) never reads before overwriting them
                 prompts[j, :T0] = req.prompt
                 slots[j] = slot
+                if self.paged:
+                    self._grow(slot, head_bucket)
+                    pids[j] = self._table[slot, :n_pg]
                 # seed decode with the last prompt token at pos T0-1: the
                 # first decode tick produces the first new token
                 self._tokens[slot] = req.prompt[-1]
@@ -163,8 +228,14 @@ class GenerationEngine:
             # group padding duplicates the last row: identical content
             prompts[K:] = prompts[K - 1]
             slots[K:] = slots[K - 1]
-            G.prefill_into_slots(self.params, self._dev(prompts), self.caches,
-                                 self._dev(slots), self.cfg)
+            pids[K:] = pids[K - 1]
+            if self.paged:
+                G.prefill_into_pages_multi(self.params, self._dev(prompts),
+                                           self.caches, self._dev(pids),
+                                           self.cfg)
+            else:
+                G.prefill_into_slots(self.params, self._dev(prompts),
+                                     self.caches, self._dev(slots), self.cfg)
             self.prefill_dispatches += 1
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
@@ -184,9 +255,17 @@ class GenerationEngine:
         self._admit()
         if not self.active:
             return []
-        logits, self.caches = G.decode_step_multi(
-            self.params, self._dev(self._tokens), self.caches,
-            self._dev(self._pos), self.cfg)
+        if self.paged:
+            # a slot whose next write crosses its allocation gets a page
+            for slot in self.active:
+                self._grow(slot, int(self._pos[slot]) + 1)
+            logits, self.caches = G.decode_step_paged(
+                self.params, self._dev(self._tokens), self.caches,
+                self._dev(self._table), self._dev(self._pos), self.cfg)
+        else:
+            logits, self.caches = G.decode_step_multi(
+                self.params, self._dev(self._tokens), self.caches,
+                self._dev(self._pos), self.cfg)
         logits = logits.cpu().numpy()
         done: List[_Request] = []
         for slot, req in list(self.active.items()):
@@ -197,27 +276,42 @@ class GenerationEngine:
             hit_eos = req.eos_id is not None and nxt == req.eos_id
             if len(req.out) >= req.max_new or hit_eos:
                 done.append(req)
-                del self.active[slot]
-                self.free.append(slot)
+                self._retire(slot)
         self.finished.extend(done)
         return done
 
     def step_chunk(self) -> List[_Request]:
         """Chunked tick: n tokens for every active slot per host read.
         Slots that finish mid-chunk decode on to the chunk's end and the
-        host discards those tokens."""
+        host discards those tokens.  Paged: every page the chunk writes is
+        allocated first; where the pool is short of them, one tick runs
+        instead (`step`)."""
         self._admit()
         if not self.active:
             return []
         room = min(self.max_len - int(self._pos[s]) for s in self.active)
         n = max(1, min(self.decode_chunk, room))
+        if self.paged:
+            need = sum(max(0, -(-(int(self._pos[s]) + n) // G.PAGE)
+                           - int(self._alloc[s]) // G.PAGE)
+                       for s in self.active)
+            if need > len(self.free_pages):
+                return self.step()
+            for slot in self.active:
+                self._grow(slot, int(self._pos[slot]) + n)
         temps = np.zeros(self.max_slots, np.float32)
         for slot, req in self.active.items():
             temps[slot] = req.temperature
-        toks, self.caches, _ = G.decode_ticks_multi(
-            self.params, self._dev(self._tokens), self.caches,
-            self._dev(self._pos), n, self._dev(temps), self.cfg,
-            self.top_k, self.top_p, self._dev_gen)
+        args = (self.params, self._dev(self._tokens), self.caches)
+        if self.paged:
+            toks, self.caches, _ = G.decode_ticks_paged(
+                *args, self._dev(self._table), self._dev(self._pos), n,
+                self._dev(temps), self.cfg, self.top_k, self.top_p,
+                self._dev_gen)
+        else:
+            toks, self.caches, _ = G.decode_ticks_multi(
+                *args, self._dev(self._pos), n, self._dev(temps), self.cfg,
+                self.top_k, self.top_p, self._dev_gen)
         toks = toks.cpu().numpy()                  # (n, B): one host read
         done: List[_Request] = []
         live = dict(self.active)
@@ -229,8 +323,7 @@ class GenerationEngine:
                 if len(req.out) >= req.max_new or hit_eos:
                     done.append(req)
                     del live[slot]
-                    del self.active[slot]
-                    self.free.append(slot)
+                    self._retire(slot)
         for slot in live:
             self._tokens[slot] = int(toks[n - 1, slot])
             self._pos[slot] += n

@@ -19,7 +19,9 @@ reported apart).
     python -m vitrs_tpu_torch.utils.profiling train --preset vit-b-16 \\
         --batch 64
     python -m vitrs_tpu_torch.utils.profiling infer --preset vit-s-16 \\
-        --batch 256
+        --batch 256                         # --quant w8 | w8a8: int8 weights
+    python -m vitrs_tpu_torch.utils.profiling prefill --kv-heads 4 \\
+        --max-seq-len 8192 --batch 8 --prompt 7680 --chunk 512 --kv-int8
     python -m vitrs_tpu_torch.utils.profiling train --preset gpt2-124m-4k \\
         --batch 4 --max-seq-len 4096 --remat selective
 
@@ -91,10 +93,12 @@ def _wall(fn: Callable[[], object], iters: int) -> float:
 
 def op_breakdown(fn: Callable[[], object], iters: int = 3) -> Dict:
     """{"groups": {group: device ms per call}, "top_kernels", "busy_ms",
-    "wall_ms", "profiled_wall_ms", "busy_share", "kernels_per_call"}: the
-    groups and busy_ms over `iters` profiled calls of fn; wall_ms over
-    `iters` unprofiled calls just before them, in the same process, so
+    "wall_ms", "profiled_wall_ms", "busy_share", "kernels",
+    "kernels_per_call"}: the groups and busy_ms over `iters` profiled calls
+    of fn; wall_ms over `iters` unprofiled calls just before them, in the
+    same process, so
     busy_share = busy_ms / wall_ms compares the two within one run;
+    kernels: the device events the capture caught over its `iters` calls;
     top_kernels: the TOP_KERNELS kernel names (cut to 100 characters) with
     the most device time, ms per call."""
     from torch.autograd import DeviceType
@@ -122,6 +126,7 @@ def op_breakdown(fn: Callable[[], object], iters: int = 3) -> Dict:
             "wall_ms": round(wall * 1e3, 4),
             "profiled_wall_ms": round(profiled_wall * 1e3, 4),
             "busy_share": round(busy_ms / (wall * 1e3), 4),
+            "kernels": n,
             "kernels_per_call": n // iters}
 
 
@@ -214,22 +219,30 @@ def _train_step(args):
 
 
 def _infer(args):
-    """One inference forward of a vit preset (bf16 weights prepared once)
-    on a seeded normalised image batch."""
+    """One inference forward of a vit preset (bf16 weights prepared once;
+    int8 under --quant, through models/quantized.vit_forward_q) on a seeded
+    normalised image batch."""
     from .. import params as P
     from ..data import datasets as D
     from ..models import model as M
+    from ..models import quantized as Q
+    from ..ops import quant
     from ..parallel import data_parallel as dp
     cfg = _config(args)
-    pp = M.prepare_params({k: t.cuda() for k, t in P.init_params(
-        cfg, torch.Generator().manual_seed(0)).items()}, cfg)
+    params = {k: t.cuda() for k, t in P.init_params(
+        cfg, torch.Generator().manual_seed(0)).items()}
+    if args.quant != "none":
+        params = quant.quantize_params(params, mode=cfg.mode)
+    pp = M.prepare_params(params, cfg)
     x = dp.normalize_images(torch.as_tensor(_images(cfg, args.batch)[0],
                                             device="cuda"),
                             D.IMAGENET_MEAN, D.IMAGENET_STD)
 
     def run():
         with torch.inference_mode():
-            return M.vit_forward(pp, x, cfg)
+            if args.quant == "none":
+                return M.vit_forward(pp, x, cfg)
+            return Q.vit_forward_q(pp, x, cfg, w8a8=args.quant == "w8a8")
     return run
 
 
@@ -245,7 +258,7 @@ def _prefill(args):
     prompt = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (args.batch, args.prompt)), device="cuda")
     return lambda: G.generate(pp, prompt, cfg, 1, temperature=0.0,
-                              prefill_chunk=args.chunk)
+                              prefill_chunk=args.chunk, kv_int8=args.kv_int8)
 
 
 def main(argv=None):
@@ -265,6 +278,10 @@ def main(argv=None):
     p.add_argument("--iters", type=int, default=3)
     p.add_argument("--remat", default="preset", choices=list(REMAT),
                    help="the block body (default: the preset's own)")
+    p.add_argument("--quant", default="none", choices=["none", "w8", "w8a8"],
+                   help="infer: int8 weights (w8) and activations (w8a8)")
+    p.add_argument("--kv-int8", action="store_true",
+                   help="prefill: the int8 KV cache")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
