@@ -198,6 +198,38 @@ on any failure.  Phases, each printed as it ends:
                     forward, logits within 0.04 / 0.08 mean relative of
                     bf16's; images/s, latency, peak.
 
+ 37. kernels-families  K1-fwd and K2 at causal=False at the model families'
+                    shapes: (B, T, NH) = (64, 50, 12) (the MAE encoder on
+                    ViT-B/16), (64, 197, 8) (its 512-wide decoder) and
+                    (64, 257, 16) (CLIP-L/14), against their plain versions
+                    in bf16 and fp32, twice with bitwise equal results;
+                    times by events and by device time beside SDPA and the
+                    bound.
+ 38. pretrain-mae   vitrs-pretrain-mae-torch's loop on ViT-B/16 (encoder
+                    768 x 12, decoder 512 x 4), B=64, 12 steps: finite,
+                    falling loss, 16 K1-fwd + 16 K2 a step; step ms,
+                    images/s, busy share, peak; then 4 steps of the trainer
+                    warm-started from its encoder_final.bin.
+ 39. finetune-lora  vitrs-finetune-torch on a GPT-2 124M base written by
+                    the port, rank 8, B=8, T=1024, 12 steps: 1,179,648
+                    adapter parameters, the base unchanged and without
+                    .grad, the adapter file, the merged checkpoint's logits
+                    equal to apply_lora's; step ms and peak beside phase
+                    train's.
+ 40. train-clip     clip-l-14 (24 x 1024, 16 heads, T=257), B=64, 8 steps of
+                    clip_loss with adamw_tree: finite, falling loss, 24
+                    K1-fwd + 24 K2 a step; ms, busy share, peak.
+ 41. quirks         quirks=True: a GPT-2 124M fp32 step (B=2, T=1024)
+                    through dense attention, no flash or CE kernel; the
+                    gpt-nano quirk loss and 16 gradients on the card
+                    against the numpy oracle; a quirk generate with no
+                    K1-fwd or K4 launch.
+ 42. bitexact       the bit-exact mode on the card: the loss and all 16
+                    gradients == the scalar oracle (B=2, T=4, C=16, L=2).
+ 43. import-hf      the HF export -> convert round trip at GPT-2 124M and
+                    ViT-B/16 geometry: the same arrays, and logits equal on
+                    the card.
+
 `python3 chip_smoke.py --phases a,b` runs only the named phases (after the
 device phase) and prints no result lines.
 
@@ -2059,20 +2091,21 @@ def sdpa_full(q, k, v, nh):
 PROFILE_CAPTURES = 3
 
 
-def device_ms(fn, kernels=None, iters=10):
+def device_ms(fn, kernels=None, iters=10, captures=PROFILE_CAPTURES):
     """(device ms of one call of fn, captures taken): the profiler's kernel
     time (utils/profiling.op_breakdown), which the host's launch rate
     cannot stretch, unlike the event loop's reading of a call under about
     0.07 ms.  A capture counts only if it caught exactly `kernels` kernels
     a call over its `iters` calls (any kernel at all where kernels is
-    None, for a library call); (None, PROFILE_CAPTURES) where none did."""
+    None, for a library call); (None, captures) where none of `captures`
+    did."""
     from vitrs_tpu_torch.utils import profiling
-    for n in range(1, PROFILE_CAPTURES + 1):
+    for n in range(1, captures + 1):
         r = profiling.op_breakdown(fn, iters)
         if r["busy_ms"] and (kernels is None
                              or r["kernels"] == kernels * iters):
             return r["busy_ms"], n
-    return None, PROFILE_CAPTURES
+    return None, captures
 
 
 def capture_census(fn, kernels, rounds=100, iters=10):
@@ -3799,6 +3832,564 @@ def phase_infer_vit_quant(smi, steps=10):
     return res
 
 
+# ---------------------------------------------------------------------------
+# the reference-exact path and the model families
+# ---------------------------------------------------------------------------
+
+# (B, T, NH) of the families' attention: the MAE encoder on ViT-B/16 (1 + 49
+# kept patches), its decoder (512 wide, 8 heads, 196 + 1 tokens) at
+# pretrain-mae's B=64, and the CLIP-L/14 tower (256 + 1 tokens, 16 heads)
+# at train-clip's B=64
+FAMILY_SHAPES = {"mae_enc": (64, 50, 12), "mae_dec": (64, 197, 8),
+                 "clip": (64, 257, 16)}
+CLIP_L14_PARAMS = 304_752_384
+FAMILY_CAPTURES = 10
+LORA_PARAMS = 1_179_648          # rank 8 on qkv/attproj/fc/fcproj, 12 layers
+
+
+def phase_kernels_families():
+    """K1-fwd and K2 at causal=False at FAMILY_SHAPES against their plain
+    versions, bf16 and fp32, to kernels-vit's tolerances (out as
+    `out_errors`, lse 1e-4 / 1e-5, dq/dk/dv 2e-2 / 1e-4 abs + rel); two
+    calls of each give the same bits.  Then in bf16: kernel and plain by
+    events (plain, kernel, kernel, plain), the kernel's device time by the
+    profiler (`device_ms`, up to FAMILY_CAPTURES captures: at T=50 the
+    kernels take a few microseconds, and a whole smoke run has seen three
+    captures in a row miss K2's), SDPA's non-causal forward and backward
+    on the same tensors (by events, and the largest of three device
+    readings), and the bound (`vit_attn_bound`)."""
+    from vitrs_tpu_torch.ops import flash_attention as FA
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    res = {}
+    for tag, (B, T, nh) in FAMILY_SHAPES.items():
+        Cv = nh * D
+        worst = {"fwd": 0.0, "bwd": 0.0}
+        for dtype, lse_tol, tol in ((torch.bfloat16, 1e-4, 2e-2),
+                                    (torch.float32, 1e-5, 1e-4)):
+            qkv = torch.randn(B, T, 3 * Cv, generator=gen,
+                              device="cuda").to(dtype)
+            do = torch.randn(B, T, Cv, generator=gen, device="cuda").to(dtype)
+            q, k, v = qkv.split(Cv, dim=-1)
+            where = f"{tag} B={B} T={T} NH={nh} {str(dtype)[6:]}"
+            (out, lse), (out2, lse2) = (FA.flash_fwd_cuda(q, k, v, nh, False,
+                                                          0.125)
+                                        for _ in range(2))
+            ref, ref_lse = FA.flash_fwd_plain(q, k, v, nh, False, 0.125)
+            got, again = (FA.flash_bwd_cuda(q, k, v, out, lse, do, nh, False,
+                                            0.125) for _ in range(2))
+            want = FA.flash_bwd_plain(q, k, v, out, lse, do, nh, False, 0.125)
+            torch.cuda.synchronize()
+            check(torch.equal(out, out2) and torch.equal(lse, lse2),
+                  f"K1-fwd {where}: two calls differ")
+            bad, err, rms = out_errors(out, ref)
+            lse_err = (lse - ref_lse).abs().max().item()
+            check(bad == 0, f"K1-fwd {where}: {bad} out values beyond "
+                  f"tolerance")
+            check(lse_err <= lse_tol, f"K1-fwd {where}: lse err {lse_err}")
+            errs = []
+            for name, a, b, c in zip(("dq", "dk", "dv"), got, again, want):
+                check(torch.equal(a, b), f"K2 {where}: {name} differs between "
+                      f"two calls")
+                d = (a.float() - c.float()).abs()
+                nbad = ((d > tol + tol * c.float().abs()).sum().item()
+                        + (~torch.isfinite(a)).sum().item())
+                check(nbad == 0, f"K2 {where}: {nbad} {name} values beyond "
+                      f"{tol}")
+                errs.append(d.max().item())
+            print(f"[kernels-families] {where} causal=0: out max_abs_err "
+                  f"{err:.3e} (rms {rms:.3e}), lse {lse_err:.3e}; dq/dk/dv "
+                  f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}; each bitwise "
+                  f"equal over two calls")
+            if dtype == torch.bfloat16:
+                worst = {"fwd": err, "bwd": max(errs)}
+            del qkv, do, q, k, v, out, out2, ref, got, again, want
+        qkv = torch.randn(B, T, 3 * Cv, generator=gen, device="cuda").bfloat16()
+        do = torch.randn(B, T, Cv, generator=gen, device="cuda").bfloat16()
+        q, k, v = qkv.split(Cv, dim=-1)
+        out, lse = FA.flash_fwd_cuda(q, k, v, nh, False, 0.125)
+        shape = f"bf16 B={B} T={T} NH={nh} D=64 non-causal"
+        parts = {
+            "fwd": (lambda: FA.flash_fwd_cuda(q, k, v, nh, False, 0.125),
+                    lambda: FA.flash_fwd_plain(q, k, v, nh, False, 0.125),
+                    lambda: sdpa_full(q, k, v, nh), 2, 1),
+            "bwd": (lambda: FA.flash_bwd_cuda(q, k, v, out, lse, do, nh,
+                                              False, 0.125),
+                    lambda: FA.flash_bwd_plain(q, k, v, out, lse, do, nh,
+                                               False, 0.125),
+                    sdpa_bwd_full(q, k, v, do, nh), 5, 3)}
+        for part, (kern, plain, lib_fn, passes, n_kern) in parts.items():
+            km, pm, raw = timed_pair(kern, plain)
+            dev, caps = device_ms(kern, n_kern, captures=FAMILY_CAPTURES)
+            # SDPA's kernel count is its own: a capture that drops some of
+            # them reads low, so the largest of three readings is kept
+            lib_reads = [device_ms(lib_fn) for _ in range(3)]
+            lib_dev = max((d for d, _ in lib_reads if d), default=None)
+            lib_caps = sum(c for _, c in lib_reads)
+            lib = cuda_ms(lib_fn)
+            flops, (bms, by) = vit_attn_bound(B, T, nh, 2, passes)
+            name = "K1-fwd" if part == "fwd" else "K2"
+            check(dev is not None, f"{name} {shape}: none of "
+                  f"{FAMILY_CAPTURES} traces caught its kernels")
+            print(f"[kernels-families] {name} time {tag} {shape}: kernel "
+                  f"{raw[0]:.4f}/{raw[1]:.4f} ms by events, {dev:.4f} ms "
+                  f"device ({flops / dev / 1e9:.1f} TFLOP/s, {bms / dev:.3f} "
+                  f"of the bound; capture {caps}); plain {raw[2]:.4f}/"
+                  f"{raw[3]:.4f} ms; SDPA {lib:.4f} ms by events, "
+                  f"{lib_dev or 'not captured'} device (capture {lib_caps}); "
+                  f"bound {bms:.4f} ms ({by})")
+            res.setdefault(part, {})[tag] = dict(
+                max_abs_err=worst[part], ms=km, device_ms=dev,
+                device_captures=caps, plain_ms=pm, library_ms=lib,
+                library_device_ms=lib_dev, library_device_captures=lib_caps,
+                bound_ms=bms, bound_by=by,
+                share_of_bound=bms / dev, tflops_device=flops / dev / 1e9,
+                shape=shape)
+        del qkv, do, q, k, v, out, lse
+    return res
+
+
+def _busy_share(profile, step_ms):
+    return profile["busy_ms"] / step_ms if profile.get("busy_ms") else None
+
+
+def phase_pretrain_mae(smi, steps=12, B=64):
+    """vitrs-pretrain-mae-torch's loop (cli/pretrain_mae.run) on vit-b-16 at
+    full width (encoder 768 x 12, decoder 512 x 4, 75% masked: the encoder
+    sees 1 + 49 tokens, the decoder 197), B=64, synthetic-imagenet
+    224 x 224 (64 images, one batch an epoch), AdamW over the {"encoder",
+    "decoder"} tree, lr 1.5e-4, warmup 2, a trace of step 8: finite,
+    falling loss; 16 K1-fwd and 16 K2 a step (12 encoder + 4 decoder
+    layers) and no K5, K6 or K7; step ms (median of steps 3-12 but 8),
+    images/s, the traced step's busy share, peak memory.  Then 4 steps of
+    train/loop.train warm-started from its encoder_final.bin (--init-ckpt):
+    the loaded weights are the encoder's, the loss finite."""
+    import argparse
+    from vitrs_tpu_torch import checkpoint as C
+    from vitrs_tpu_torch.cli import pretrain_mae
+    from vitrs_tpu_torch.train import loop
+    with tempfile.TemporaryDirectory() as work:
+        args = argparse.Namespace(
+            preset="vit-b-16", dataset="synthetic-imagenet", data_dir=None,
+            dataset_size=B, steps=steps, batch_size=B, lr=1.5e-4, warmup=2,
+            weight_decay=0.05, mask_ratio=0.75, seed=0, dtype="bfloat16",
+            workdir=os.path.join(work, "mae"), log_every=1, profile_at=8,
+            cpu=False)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        summary = pretrain_mae.run(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        with open(os.path.join(args.workdir, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        want = designed(flash_fwd=16 * steps, flash_bwd=16 * steps)
+        check(counts == want, f"[pretrain-mae] launches {counts} != "
+              f"designed {want}")
+        losses = summary["losses"]
+        check(len(losses) == steps and all(np.isfinite(losses))
+              and losses[-1] < losses[0], f"[pretrain-mae] losses {losses}")
+        steady = [r for r in recs[2:] if r["step"] != 8]
+        ips = float(np.median([r["imgs_per_sec"] for r in steady]))
+        step_ms = B / ips * 1e3
+        prof = summary["profile"]
+        busy = _busy_share(prof, step_ms)
+        enc = summary["params"]["encoder"]
+        del summary
+        print(f"[pretrain-mae] vit-b-16 MAE (decoder 512 x 4) bf16/fp32-"
+              f"master B={B} mask 0.75: loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}; losses {losses}")
+        print(f"[pretrain-mae] launches per step: flash_fwd "
+              f"{counts['flash_fwd'] // steps}, flash_bwd "
+              f"{counts['flash_bwd'] // steps}, every other kernel 0; steady "
+              f"(median of steps 3-{steps} but 8): {step_ms:.2f} ms/step, "
+              f"{ips:.1f} images/s; traced step busy "
+              f"{busy if busy is None else round(busy, 4)} of the step; "
+              f"max_memory_allocated {peak / 2**30:.3f} GiB; wall {wall:.1f} "
+              f"s  ({smi})")
+        arrs, cfg, _ = C.load_checkpoint(os.path.join(args.workdir,
+                                                      "encoder_final.bin"))
+        check(all(np.array_equal(arrs[k], enc[k].float().cpu().numpy())
+                  for k in arrs), "[pretrain-mae] encoder_final.bin is not "
+              "the trained encoder")
+        del enc
+        tc = loop.TrainConfig(preset="vit-b-16", dataset="synthetic-imagenet",
+                              dataset_size=B, steps=4, batch_size=B, lr=3e-4,
+                              warmup=1, dtype="bfloat16", log_every=1,
+                              ckpt_every=0, workdir=os.path.join(work, "ft"),
+                              device="cuda",
+                              init_ckpt=os.path.join(args.workdir,
+                                                     "encoder_final.bin"))
+        reset_counts()
+        ft = loop.train(tc)
+        ft_counts = read_counts()
+        check(np.isfinite(ft["final_loss"]), f"[pretrain-mae] warm-started "
+              f"run's loss {ft['final_loss']}")
+        check(ft_counts["adamw"] == 4 and ft_counts["flash_bwd"] == 48,
+              f"[pretrain-mae] warm-started run's launches {ft_counts}")
+    print(f"[pretrain-mae] 4 steps of vitrs-train-torch --init-ckpt "
+          f"encoder_final.bin: final loss {ft['final_loss']:.4f}, eval "
+          f"{ft['eval']}")
+    return counts, dict(step_ms=step_ms, imgs_s=ips, busy_share=busy,
+                        busy_ms=prof["busy_ms"], groups=prof["groups"],
+                        peak_gib=peak / 2**30, losses=losses, wall_s=wall,
+                        warm_start=dict(final_loss=ft["final_loss"],
+                                        eval=ft["eval"]))
+
+
+def phase_finetune_lora(smi, full_train, steps=12, B=8):
+    """vitrs-finetune-torch (cli/finetune.run) on a GPT-2 124M base
+    checkpoint of seeded random weights written by the port: rank 8, alpha
+    16, B=8, T=1024, bf16 compute, 12 steps, --merge.  1,179,648 adapter
+    parameters; a finite loss; 12 K1-fwd, 12 K2, 1 K5, 1 K6 a step and no
+    K7 (the held-out evaluation adds K1-fwd and K5 launches); the base
+    tensors bit for bit as loaded and without .grad; the adapter file; the
+    merged checkpoint reloading to the same logits as apply_lora's.  Step
+    ms and peak memory beside the full finetune's (phase train); then one
+    more `lora_train_step` under the profiler for its device time and
+    busy share."""
+    import argparse
+    from vitrs_tpu_torch import checkpoint as C
+    from vitrs_tpu_torch import checkpoint_tree as CT
+    from vitrs_tpu_torch import params as P
+    from vitrs_tpu_torch.cli import finetune
+    from vitrs_tpu_torch.config import get_config
+    from vitrs_tpu_torch.models import lora as LO
+    from vitrs_tpu_torch.models import model as M
+    from vitrs_tpu_torch.utils import profiling
+    cfg = get_config("gpt2-124m")
+    with tempfile.TemporaryDirectory() as work:
+        base = os.path.join(work, "base.bin")
+        params = P.init_params(cfg, torch.Generator(device="cuda").manual_seed(3))
+        C.save_checkpoint(base, params, cfg)
+        del params
+        args = argparse.Namespace(
+            ckpt=base, data_dir=None, steps=steps, batch_size=B, lr=1e-4,
+            warmup=2, rank=8, alpha=16.0, weight_decay=0.0, seed=0,
+            log_every=1, dtype="bfloat16", out=os.path.join(work, "a.tree"),
+            resume=None, merge=os.path.join(work, "merged.bin"), cpu=False)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        s = finetune.run(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        L = cfg.num_layers
+        check(s["adapter_params"] == LORA_PARAMS, f"[finetune-lora] "
+              f"{s['adapter_params']} adapter parameters")
+        check(counts["flash_bwd"] == L * steps and counts["ce_bwd"] == steps
+              and counts["adamw"] == 0 and counts["flash_fwd"] >= L * steps
+              and (counts["flash_fwd"] - L * steps) % L == 0
+              and counts["ce_fwd"] - steps == (counts["flash_fwd"]
+                                                - L * steps) // L,
+              f"[finetune-lora] launches {counts}")
+        losses = s["losses"]
+        check(len(losses) == steps and all(np.isfinite(losses)),
+              f"[finetune-lora] losses {losses}")
+        arrs, _, _ = C.load_checkpoint(base)
+        check(all(torch.equal(t, torch.as_tensor(arrs[k], device="cuda"))
+                  and not t.requires_grad and t.grad is None
+                  for k, t in s["base"].items()),
+              "[finetune-lora] a base tensor changed or holds a gradient")
+        tree, meta = CT.load_tree(args.out)
+        check(set(tree) == set(s["lora"]) and meta["rank"] == 8,
+              f"[finetune-lora] adapter file {sorted(tree)} {meta}")
+        bcfg = cfg.replace(dtype="bfloat16")
+        x = torch.randint(0, cfg.vocab_size, (2, 128), device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(4))
+        with torch.no_grad():
+            want = M.gpt_forward(M.prepare_params(
+                LO.apply_lora(s["base"], s["lora"]), bcfg), x, bcfg)
+            marrs, _, _ = C.load_checkpoint(args.merge)
+            got = M.gpt_forward(M.prepare_params(
+                P.from_numpy(marrs, cfg, "cuda"), bcfg), x, bcfg)
+        check(torch.equal(got, want), "[finetune-lora] the merged checkpoint's "
+              f"logits differ: {(got.float() - want.float()).abs().max()}")
+        step_ms = float(np.median([r["wall_s"] for r in s["log"][2:]])) * 1e3
+        adapter_mb = os.path.getsize(args.out) / 1e6
+        m, v = LO.init_lora_opt(s["lora"])
+        y = torch.randint(0, cfg.vocab_size, (B, 1024), device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(5))
+        _, prof = profiling.trace(
+            lambda: LO.lora_train_step(s["lora"], m, v, steps, s["base"],
+                                       y, y.roll(-1, 1), bcfg, lr=1e-4),
+            work, "lora_step")
+        busy = _busy_share(prof, step_ms)
+        del s, m, v
+    print(f"[finetune-lora] gpt2-124m LoRA rank 8 ({LORA_PARAMS} adapter "
+          f"params) bf16 B={B} T=1024 {steps} steps: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; launches {counts} (K1-fwd/K5 beyond 12/1 a "
+          f"step: the held-out evaluation); adapters {adapter_mb:.2f} MB; "
+          f"base unchanged, no base .grad; merged checkpoint's logits equal")
+    print(f"[finetune-lora] steady (median of steps 3-{steps}): "
+          f"{step_ms:.2f} ms/step vs full finetune {full_train['step_ms']:.2f};"
+          f" max_memory_allocated {peak / 2**30:.3f} GiB vs full finetune "
+          f"{full_train['peak_gib']:.3f} GiB (ratio "
+          f"{peak / 2**30 / full_train['peak_gib']:.3f}); a traced step's "
+          f"device busy {prof['busy_ms']} ms = {busy:.4f} of the step; wall "
+          f"{wall:.1f} s  ({smi})")
+    return counts, dict(step_ms=step_ms, peak_gib=peak / 2**30,
+                        busy_ms=prof["busy_ms"], busy_share=busy,
+                        groups=prof["groups"],
+                        full_step_ms=full_train["step_ms"],
+                        full_peak_gib=full_train["peak_gib"],
+                        memory_ratio=peak / 2**30 / full_train["peak_gib"],
+                        losses=losses, adapter_mb=adapter_mb, wall_s=wall)
+
+
+def phase_train_clip(smi, steps=8, B=64):
+    """The CLIP image tower clip-l-14 at full width and depth (24 x 1024,
+    16 heads, T=257, 768-dim embeddings), B=64, fp32 masters and bf16
+    compute: 8 steps of `clip_loss` against seeded random unit text
+    embeddings, AdamW per tensor (`adamw_tree`, lr 1e-4, no decay) on one
+    seeded batch: finite, falling loss; 24 K1-fwd and 24 K2 a step and no
+    other kernel; step ms (median of steps 3-8 by events), the busy share
+    of a traced step, peak memory."""
+    from vitrs_tpu_torch import params as P
+    from vitrs_tpu_torch.config import get_config
+    from vitrs_tpu_torch.models import clip as CLIP
+    from vitrs_tpu_torch.ops import optimizer as opt
+    from vitrs_tpu_torch.utils import profiling
+    cfg = get_config("clip-l-14", dtype="bfloat16")
+    check(P.num_parameters(cfg) == CLIP_L14_PARAMS,
+          f"clip-l-14 parameter count {P.num_parameters(cfg)}")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = CLIP.init_clip_params(cfg, gen)
+    m = {k: torch.zeros_like(t) for k, t in params.items()}
+    v = {k: torch.zeros_like(t) for k, t in params.items()}
+    imgs = torch.randn(B, 224, 224, 3, generator=gen, device="cuda")
+    txt = torch.randn(B, 768, generator=gen, device="cuda")
+    txt = txt / txt.norm(dim=-1, keepdim=True)
+    state = {"p": params, "m": m, "v": v}
+
+    def step(i):
+        leaves = {k: t.detach().requires_grad_(True)
+                  for k, t in state["p"].items()}
+        loss = CLIP.clip_loss(leaves, imgs, txt, cfg)
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True)
+        g = {k: torch.zeros_like(t) if d is None else d
+             for (k, t), d in zip(leaves.items(), grads)}
+        state["p"], state["m"], state["v"] = opt.adamw_tree(
+            state["p"], g, state["m"], state["v"], i, 1e-4)
+        return loss.detach()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, times = [], []
+    for i in range(1, steps + 1):
+        t0 = time.perf_counter()
+        losses.append(float(step(i)))               # waits for the device
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.num_layers
+    check(counts == designed(flash_fwd=L * steps, flash_bwd=L * steps),
+          f"[train-clip] launches {counts}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"[train-clip] losses {losses}")
+    step_ms = float(np.median(times[2:]))
+    with tempfile.TemporaryDirectory() as work:
+        _, prof = profiling.trace(lambda: step(steps + 1), work, "clip_step")
+    busy = _busy_share(prof, step_ms)
+    print(f"[train-clip] clip-l-14 ({CLIP_L14_PARAMS} params) bf16/fp32-"
+          f"master B={B} T=257: loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"losses {losses}")
+    print(f"[train-clip] launches per step: flash_fwd "
+          f"{counts['flash_fwd'] // steps}, flash_bwd "
+          f"{counts['flash_bwd'] // steps}, every other kernel 0; steady "
+          f"(median of steps 3-{steps}): {step_ms:.2f} ms/step, "
+          f"{B / step_ms * 1e3:.1f} images/s; traced step busy "
+          f"{prof['busy_ms']} ms = {busy:.4f} of the step; "
+          f"max_memory_allocated {peak / 2**30:.3f} GiB  ({smi})")
+    del state, params, m, v
+    return counts, dict(step_ms=step_ms, imgs_s=B / step_ms * 1e3,
+                        busy_share=busy, busy_ms=prof["busy_ms"],
+                        groups=prof["groups"], peak_gib=peak / 2**30,
+                        losses=losses)
+
+
+def phase_quirks(smi):
+    """quirks=True on the card.  (1) A GPT-2 124M quirk train step through
+    dense attention, fp32, B=2, T=1024, through train/loop.train (2
+    steps): finite, the loss (-p) in [-1, 0], no flash or CE kernel
+    launched (K7 runs the update).  (2) gpt-nano's quirk loss and all 16
+    gradients on the card against the port's numpy oracle
+    (`model_forward(quirks=True)`, `model_backward_quirks`): loss rtol
+    2e-5, gradients rtol 5e-4 with atol 2e-5 of the tensor's largest
+    value, zero-gradient rows within 2e-4 of it.  (3) A quirk generate
+    (GPT-2 124M, bf16, B=2, a 256-token prompt prefilled in chunks of 128,
+    8 new tokens): no K1-fwd, K3-fwd or K4 launch."""
+    from vitrs_tpu_torch import params as P
+    from vitrs_tpu_torch.config import get_config
+    from vitrs_tpu_torch.models import generate as G
+    from vitrs_tpu_torch.models import model as M
+    from vitrs_tpu_torch.oracle import numpy_ref as ORACLE
+    from vitrs_tpu_torch.train import loop
+    with tempfile.TemporaryDirectory() as work:
+        tc = loop.TrainConfig(preset="gpt2-124m", dataset="", steps=2,
+                              batch_size=2, lr=1e-4, warmup=1,
+                              dtype="float32", log_every=1, ckpt_every=0,
+                              workdir=work, device="cuda",
+                              model_overrides={"quirks": True})
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        summary = loop.train(tc)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    check(counts == designed(adamw=2), f"[quirks] launches {counts}")
+    check(-1.0 <= summary["final_loss"] <= 0.0,
+          f"[quirks] loss {summary['final_loss']}")
+    print(f"[quirks] gpt2-124m quirks=True fp32 B=2 T=1024, 2 steps through "
+          f"dense attention: final loss {summary['final_loss']:.6f}; "
+          f"launches {counts}; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; wall "
+          f"{wall:.1f} s  ({smi})")
+
+    cfg = get_config("gpt-nano", quirks=True, use_flash=False)
+    rng = np.random.default_rng(7)
+    arrs = {k: (a + 0.05 * rng.standard_normal(a.shape)).astype(np.float32)
+            for k, a in ORACLE.init_parameters(P.param_shapes(cfg),
+                                               seed=7).items()}
+    toks = rng.integers(0, cfg.vocab_size, (2, 16))
+    tgts = rng.integers(0, cfg.vocab_size, (2, 16))
+    leaves = {k: t.requires_grad_(True)
+              for k, t in P.from_numpy(arrs, cfg, "cuda").items()}
+    loss = M.gpt_loss(leaves, torch.as_tensor(toks, device="cuda"),
+                      torch.as_tensor(tgts, device="cuda"), cfg)
+    loss.backward()
+    want, acts = ORACLE.model_forward(arrs, toks, tgts, cfg.num_heads,
+                                      quirks=True)
+    grads = ORACLE.model_backward_quirks(arrs, acts, toks, tgts,
+                                         cfg.num_heads)
+    lerr = abs(loss.item() - want) / abs(want)
+    check(lerr <= 2e-5, f"[quirks] gpt-nano loss {loss.item()} vs oracle "
+          f"{want}")
+    worst = 0.0
+    for k, w in grads.items():
+        g = leaves[k].grad.double().cpu().numpy()
+        scale = max(np.abs(w).max(), 1e-12)
+        d = np.abs(g - w)
+        lim = 5e-4 * np.abs(w) + 2e-5 * scale
+        check((d <= lim).all(), f"[quirks] d{k}: {(d > lim).sum()} values "
+              f"beyond tolerance (max {d.max():.3e})")
+        zero = w == 0.0
+        if zero.any():
+            check(d[zero].max() <= 2e-4 * scale, f"[quirks] d{k}: a "
+                  f"zero-gradient row off by {d[zero].max():.3e}")
+        worst = max(worst, float((d / lim).max()))
+    print(f"[quirks] gpt-nano on the card vs the numpy oracle: loss rel err "
+          f"{lerr:.2e}; 16 gradients within tolerance (worst {worst:.3f} of "
+          f"it)")
+
+    gcfg = get_config("gpt2-124m", quirks=True, dtype="bfloat16")
+    pp = M.prepare_params(P.init_params(
+        gcfg, torch.Generator(device="cuda").manual_seed(8)), gcfg)
+    prompt = torch.randint(0, gcfg.vocab_size, (2, 256), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(9))
+    reset_counts()
+    out = G.generate(pp, prompt, gcfg, max_new=8, temperature=0.0,
+                     prefill_chunk=128)
+    gen_counts = read_counts()
+    check(tuple(out.shape) == (2, 264) and gen_counts == designed(),
+          f"[quirks] generate shape {tuple(out.shape)}, launches {gen_counts}")
+    print(f"[quirks] gpt2-124m quirk generate (B=2, 256-token prompt in "
+          f"chunks of 128, 8 new): no kernel launched {gen_counts}")
+    del pp
+    return dict(final_loss=summary["final_loss"], counts=counts,
+                nano_loss_rel_err=lerr, nano_grad_worst_of_tol=worst,
+                generate_counts=gen_counts, wall_s=wall)
+
+
+def phase_bitexact():
+    """The bit-exact mode (ops/bitexact.py) on the card at the JAX test's
+    size (B=2, T=4, C=16, NH=2, V=11, L=2), seeds 0 and 7: the loss and
+    all 16 gradients == the port's scalar oracle (oracle/bitexact_ref.py)."""
+    from vitrs_tpu_torch import params as P
+    from vitrs_tpu_torch.config import get_config
+    from vitrs_tpu_torch.ops import bitexact as BX
+    from vitrs_tpu_torch.oracle import bitexact_ref as REF
+    from vitrs_tpu_torch.oracle import numpy_ref as ORACLE
+    cfg = get_config("gpt-nano").replace(max_seq_len=4, vocab_size=11,
+                                         num_layers=2, num_heads=2,
+                                         channels=16)
+
+    def bits(a):
+        if isinstance(a, torch.Tensor):
+            a = a.cpu().numpy()
+        return np.asarray(a, np.float32).view(np.uint32)
+
+    out = {}
+    for seed in (0, 7):
+        params = ORACLE.init_parameters(P.param_shapes(cfg), seed=seed)
+        rng = np.random.default_rng(seed + 1)
+        inputs = rng.integers(0, 11, (2, 4)).astype(np.int32)
+        targets = rng.integers(0, 11, (2, 4)).astype(np.int32)
+        loss_ref, acts = REF.model_forward(params, inputs, targets, 2)
+        g_ref = REF.model_backward(params, acts, inputs, targets, 2)
+        t0 = time.perf_counter()
+        loss, g = BX.loss_and_grads(params, inputs, targets, 2, device="cuda")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        check(loss.is_cuda and bits(loss) == bits(loss_ref),
+              f"[bitexact] seed {seed}: loss {loss.item()!r} != {loss_ref!r}")
+        for k in g_ref:
+            n = int((bits(g[k]) != bits(g_ref[k])).sum())
+            check(n == 0, f"[bitexact] seed {seed}: d{k} differs in {n} "
+                  f"values")
+        out[seed] = dict(loss=float(loss_ref), ms=ms)
+        print(f"[bitexact] seed {seed}: the loss {float(loss_ref)!r} and all "
+              f"16 gradients on the card == the scalar oracle, bit for bit "
+              f"({ms:.0f} ms of eager launches)")
+    return out
+
+
+def phase_import_hf():
+    """The HF converters at GPT-2 124M and ViT-B/16 geometry, in numpy on
+    the port's seeded random weights: export_*_state_dict then
+    convert_*_state_dict gives back the same arrays, and the model built
+    from them gives the same logits on the card (bf16, bit for bit).  No
+    `transformers` is needed."""
+    from vitrs_tpu_torch import params as P
+    from vitrs_tpu_torch.config import get_config
+    from vitrs_tpu_torch.models import import_hf as IH
+    from vitrs_tpu_torch.models import model as M
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    out = {}
+    for family, preset in (("gpt2", "gpt2-124m"), ("vit", "vit-b-16")):
+        cfg = get_config(preset, dtype="bfloat16")
+        params = P.init_params(cfg, gen)
+        arrs = P.to_numpy(params, cfg)
+        sd = getattr(IH, f"export_{family}_state_dict")(arrs, cfg)
+        back = getattr(IH, f"convert_{family}_state_dict")(sd, cfg)
+        same = [k for k in arrs if k != "wte" or family == "gpt2"]
+        check(all(np.array_equal(back[k], arrs[k]) for k in same),
+              f"[import-hf] {family}: the round trip changed a tensor")
+        if family == "gpt2":
+            x = torch.randint(0, cfg.vocab_size, (4, 256), device="cuda",
+                              generator=gen)
+            fwd = M.gpt_forward
+        else:
+            x = torch.randn(8, 224, 224, 3, device="cuda", generator=gen)
+            fwd = M.vit_forward
+        with torch.no_grad():
+            want = fwd(M.prepare_params(params, cfg), x, cfg)
+            got = fwd(M.prepare_params(P.from_numpy(back, cfg, "cuda"), cfg),
+                      x, cfg)
+        check(torch.equal(got, want), f"[import-hf] {family}: logits differ")
+        out[family] = dict(tensors=len(sd), logits=list(got.shape))
+        print(f"[import-hf] {preset}: export -> {len(sd)} HF tensors -> "
+              f"convert: the same arrays, logits {tuple(got.shape)} equal "
+              f"bit for bit on the card")
+        del params, arrs, sd, back
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch sees no CUDA device")
@@ -3830,6 +4421,7 @@ def main():
         ("serve-window", lambda: phase_serve_window(smi)),
         ("xdevice-window", phase_xdevice_window),
         ("kernels-vit", phase_kernels_vit),
+        ("kernels-families", phase_kernels_families),
         ("infer-vit", lambda: phase_infer_vit(smi)),
         ("train-vit", lambda: phase_train_vit(smi)),
         ("xdevice-vit", phase_xdevice_vit),
@@ -3848,6 +4440,12 @@ def main():
         ("serve-beam", lambda: phase_serve_beam(smi)),
         ("serve-spec", lambda: phase_serve_spec(smi)),
         ("infer-vit-quant", lambda: phase_infer_vit_quant(smi)),
+        ("pretrain-mae", lambda: phase_pretrain_mae(smi)),
+        ("finetune-lora", lambda: phase_finetune_lora(smi, R["train"][1])),
+        ("train-clip", lambda: phase_train_clip(smi)),
+        ("quirks", lambda: phase_quirks(smi)),
+        ("bitexact", phase_bitexact),
+        ("import-hf", phase_import_hf),
     )
     # the streaming phase decodes with the native libjpeg pipeline, else
     # with the loader's PIL fallback; where neither is there it is left out
@@ -3889,6 +4487,10 @@ def main():
     stream = R.get("train-vit-stream")
     paged, int8, beam = R["serve-paged"], R["serve-int8"], R["serve-beam"]
     spec, vq = R["serve-spec"], R["infer-vit-quant"]
+    kfam = R["kernels-families"]
+    mae_counts, mae = R["pretrain-mae"]
+    lora_counts, lora = R["finetune-lora"]
+    clip_counts, clip = R["train-clip"]
     fa = "vitrs_tpu/ops/flash_attention.py:"
     fg = "vitrs_tpu/ops/flash_attention_gqa.py:"
     kernels = [
@@ -4011,6 +4613,25 @@ def main():
              replaces="vitrs_tpu/ops/fused_ce.py:109",
              launches=sel["ce_bwd"], **kremat["ce_bwd"]),
     ]
+    # the model families: K1-fwd and K2 at the MAE encoder's shape (its
+    # decoder's beside it) with pretrain-mae's launches, at CLIP-L/14's
+    # with train-clip's; LoRA runs the MHA training shapes (rows 0-3)
+    for part, kname in (("fwd", "flash_fwd"), ("bwd", "flash_bwd")):
+        bwd = {} if part == "fwd" else {"kernels_per_launch": 3}
+        kernels.append(dict(
+            name=f"{kname}_mae", route="cuda", source=CSRC + f"{kname}.cu",
+            replaces=fa + ("374" if part == "fwd" else "418"),
+            launches=mae_counts[kname], **bwd, **kfam[part]["mae_enc"],
+            decoder_shape=kfam[part]["mae_dec"],
+            **({"pretrain": mae} if part == "fwd" else {})))
+        kernels.append(dict(
+            name=f"{kname}_clip", route="cuda", source=CSRC + f"{kname}.cu",
+            replaces=fa + ("374" if part == "fwd" else "418"),
+            launches=clip_counts[kname], **bwd, **kfam[part]["clip"],
+            **({"train": clip} if part == "fwd" else {})))
+    for i, kname in enumerate(("flash_fwd", "flash_bwd", "ce_fwd", "ce_bwd")):
+        kernels[i]["lora_launches"] = lora_counts[kname]
+    kernels[0]["lora"] = lora
     if stream is not None:
         kernels[14]["stream_launches"] = stream[0]["flash_fwd"]
         kernels[14]["stream"] = stream[1]
@@ -4035,6 +4656,9 @@ def main():
         serve_int8=int8)
     kernels[7]["serve_int8_launches"] = (
         int8["int8_512"]["launches"]["flash_prefill"])
+    print("[smoke] reference-exact path: " + json.dumps(
+        {"quirks": R["quirks"], "bitexact": R["bitexact"],
+         "import_hf": R["import-hf"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,6 +3,7 @@ numpy-seeded parameters handed to both packages, and a small GPT config
 whose head_dim is 64, so that its attention takes the flash path."""
 
 import numpy as np
+import pytest
 import torch
 
 from vitrs_tpu.config import get_config as jax_config
@@ -42,6 +43,19 @@ def both_params(jcfg, tcfg, seed=0):
     arrs = np_params(tcfg, seed)
     return ({k: jnp.asarray(v) for k, v in arrs.items()},
             TP.from_numpy(arrs, tcfg, "cpu", torch.float32))
+
+
+@pytest.fixture
+def one_torch_thread():
+    """Run a test with one intra-op thread, then restore the count.  A test
+    whose code runs torch ops in two threads at once (the prefetcher's and
+    the step's) starts two OpenMP teams; with the suite's six workers on
+    eight cores their spin-waits made one such test 231 s instead of 2.3 s
+    (six copies at once)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_np_params_cover_the_canonical_layout():

@@ -377,7 +377,6 @@ def test_moe_preset_has_the_jax_parameter_count():
     cfg = torch_config("gpt2-moe-8e")
     assert TP.num_parameters(cfg) == 521_197_824
     assert TP.param_shapes(cfg)["fcw"] == (12, 8, 3072, 768)
-    TM.check_supported(cfg)
 
 
 @pytest.mark.parametrize("name,group", [

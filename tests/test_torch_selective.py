@@ -281,10 +281,10 @@ def test_gpt2_124m_4k_preset_reads_remat_true_and_the_loop_keeps_it(
     class Built(Exception):
         pass
 
-    def record(cfg):
+    def record(cfg, core_only=False):
         raise Built(cfg.remat, cfg.max_seq_len)
 
-    monkeypatch.setattr(TL.M, "check_supported", record)
+    monkeypatch.setattr(TL.PRM, "num_parameters", record)
     for remat, want in ((None, True), (False, False), ("full", "full")):
         with pytest.raises(Built) as e:
             TL.train(TL.TrainConfig(preset="gpt2-124m-4k", device="cpu",

@@ -565,14 +565,6 @@ def test_vit_presets_build_with_the_jax_parameter_counts():
     assert m.config.seq_len == 65
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("quirks", True, "item 3")])
-def test_vit_variants_still_unported_raise(field, value, item):
-    _, tcfg = vit_cfgs(**{field: value})
-    with pytest.raises(NotImplementedError, match=item):
-        TM.check_supported(tcfg)
-
-
 def test_vit_flops_copy_matches_the_original():
     for name in ("vit-s-16", "vit-b-16", "vit-tiny-4-cifar10"):
         tc, jc = torch_config(name), jax_config(name)

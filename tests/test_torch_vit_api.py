@@ -57,9 +57,9 @@ def test_from_config_is_seeded_and_validates():
     vm = ViT.from_config("vit-tiny-4-cifar10", num_layers=1, device="cpu")
     imgs = np.random.default_rng(2).standard_normal((2, 32, 32, 3))
     assert vm.forward(imgs) == -1.0 and vm.logits.shape == (2, 10)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ViT.from_config("vit-tiny-4-cifar10", num_layers=1, quirks=True,
-                        device="cpu")
+    qm = ViT.from_config("vit-tiny-4-cifar10", num_layers=1, quirks=True,
+                         device="cpu")          # the quirk path is ported
+    assert qm.forward(imgs) == -1.0 and qm.logits.shape == (2, 10)
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(jax_model,

@@ -19,7 +19,11 @@ cross-entropy forward and backward (csrc/fused_ce.cu) and the fused AdamW
 chunked prefill, rope and the sliding window, the fused head + CE, vit
 mode, and the mixture-of-experts model (ops/moe.py) with the tree
 optimizers Adafactor and Muon (ops/adafactor.py, ops/muon.py), which run
-on the same kernels.
+on the same kernels; the rest of the training loop and of serving; the
+reference-exact path (quirks=True, the bit-exact mode ops/bitexact.py, the
+numpy oracles in oracle/) and the model families (models/mae.py,
+models/lora.py, models/clip.py, models/import_hf.py, cli/pretrain_mae.py,
+cli/finetune.py).
 """
 
 from .config import PRESETS, ViTConfig, get_config

@@ -135,13 +135,11 @@ def main(argv=None):
         import glob
         from vitrs_tpu_torch import checkpoint as C
         from vitrs_tpu_torch import params as P
-        from vitrs_tpu_torch.models import model as M
         from vitrs_tpu_torch.ops._build import resolve_device
         paths = sorted(glob.glob(f"{args.workdir}/ckpt_*.bin"))
         if not paths:
             raise SystemExit(f"no checkpoints in {args.workdir}")
         np_params, cfg, extras = C.load_checkpoint(paths[-1])
-        M.check_supported(cfg)
         params = P.from_numpy(np_params, cfg, resolve_device(device))
         if cfg.mode == "vit":
             tc = loop.TrainConfig(dataset=args.dataset, data_dir=args.data_dir,

@@ -8,8 +8,6 @@ package's.  The copy exists because `import vitrs_tpu.config` runs
 `remat` picks the block body as in the JAX package (models/model.block_body:
 False, True = selective, "full"); `scan_unroll`, which only the JAX
 package's layer scan reads, is kept so that configs stay interchangeable.
-The port's models raise NotImplementedError for the variants it does not
-cover yet (models/model.check_supported).
 """
 
 from __future__ import annotations

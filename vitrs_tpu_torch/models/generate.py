@@ -215,7 +215,7 @@ def _block_with_kv(x, p, cfg: ViTConfig, k_cache, v_cache, pos: int):
         k_cache[:, pos:pos + S] = k
         v_cache[:, pos:pos + S] = v
         Tmax = k_cache.shape[1]
-    if pos == 0 and S > 1:
+    if pos == 0 and S > 1 and not cfg.quirks:
         # causal self-attention over the prompt: the cache holds nothing the
         # causal mask would admit beyond it, so the flash kernel reads the
         # packed qkv in place (K1-fwd, or K3-fwd at kv width), with the
@@ -223,7 +223,8 @@ def _block_with_kv(x, p, cfg: ViTConfig, k_cache, v_cache, pos: int):
         # rotated.  An int8 cache's prompt attends with the exact k and v.
         atty = attention_gqa(qkv, NH, KH, causal=True, window=cfg.window,
                              use_flash=cfg.use_flash)
-    elif S > 1 and cfg.use_flash and _flash_cont_ok(cfg, Tmax):
+    elif (S > 1 and cfg.use_flash and not cfg.quirks
+          and _flash_cont_ok(cfg, Tmax)):
         # a continuation chunk: K4 streams the cache from the chunk's band
         # up to its causal frontier at kv width; an int8 cache first
         # dequantizes to the flat layout, the values decode attends

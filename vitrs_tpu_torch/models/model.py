@@ -37,7 +37,12 @@ its fp32 router (routerw, not a matmul key: the router runs in fp32); the
 blocks sum each layer's weighted router loss (moe_aux_weight load balance
 + moe_zloss_weight z-loss) and `transformer` returns its mean over the
 layers, which `gpt_loss` adds on every CE route and `vit_loss` adds too.
-The quirk ops come in a later slice (ROADMAP.md, Queue 1 item 3).
+
+quirks=True is the reference's math as written (G5, G6, G11): attention
+always takes the dense route with the quirk softmax (no kernel computes
+it), the GPT loss is the negated target probability of the quirk softmax,
+and under any remat the block is checkpointed whole, as in the JAX
+package.
 
 cfg.remat picks the block body (`block_body`): the plain block, the
 selective blocks of models/selective.py (True), or the plain block under
@@ -70,14 +75,6 @@ MATMUL_KEYS = ("qkvw", "qkvb", "attprojw", "attprojb",
 VIT_MATMUL_KEYS = ("patchw", "patchb", "headw", "headb")
 
 
-def check_supported(cfg: ViTConfig) -> None:
-    """Raise NotImplementedError for a config this slice of the port does
-    not run yet, naming the ROADMAP item that brings it."""
-    if cfg.quirks:
-        raise NotImplementedError(
-            "quirks=True: ROADMAP.md Queue 1 item 3 (ops/basic.py quirk ops)")
-
-
 def prepare_params(params: Mapping[str, torch.Tensor], cfg: ViTConfig
                    ) -> Dict[str, torch.Tensor]:
     """The dict every forward path reads, built once per model or engine.
@@ -98,7 +95,6 @@ def prepare_params(params: Mapping[str, torch.Tensor], cfg: ViTConfig
     forwards read the int8 wte with its scales (models/generate.py,
     models/quantized.py).  A MoE config with int8 weights raises
     ValueError: the JAX package does not wire int8 expert slabs either."""
-    check_supported(cfg)
     dtype = getattr(torch, cfg.dtype)
     out = {k: v.detach() for k, v in params.items()}
     quantized = any(k.endswith("_scale") for k in out)
@@ -126,7 +122,6 @@ def train_params(params: Mapping[str, torch.Tensor], cfg: ViTConfig
     fp32, as the JAX op does.  No "head": `gpt_loss` builds it from wte;
     vit mode's patch embedding and head are cast where they are used
     (`vit_encode`, `vit_forward`), as the JAX package casts them."""
-    check_supported(cfg)
     dtype = getattr(torch, cfg.dtype)
     out = dict(params)
     for k in MATMUL_KEYS:
@@ -184,10 +179,11 @@ def _project_and_attend(ln1: torch.Tensor, p: Mapping[str, torch.Tensor],
     backward never builds the packed dqkv; K3 under GQA; rope and the band
     inside the kernels), else the plain composition with dense attention,
     the GQA weight expanded to MHA and q, k rotated explicitly
-    (JAX model.py:54-68), as the JAX package routes them."""
+    (JAX model.py:54-68), as the JAX package routes them.  A quirk config
+    takes the plain composition with the quirk softmax."""
     rope = cfg.pos_emb == "rope"
-    if cfg.use_flash and flash_supports(cfg.num_heads, cfg.head_size,
-                                        cfg.kv_heads):
+    if (cfg.use_flash and not cfg.quirks
+            and flash_supports(cfg.num_heads, cfg.head_size, cfg.kv_heads)):
         return qkv_attention(ln1, p["qkvw"], p["qkvb"], cfg.num_heads, causal,
                              cfg.window, rope, kv_heads=cfg.kv_heads)
     w, b = expand_qkv_weight(p["qkvw"], p["qkvb"], cfg.num_heads,
@@ -196,7 +192,7 @@ def _project_and_attend(ln1: torch.Tensor, p: Mapping[str, torch.Tensor],
     if rope:
         qkv = rope_packed(qkv, cfg.num_heads)
     return basic.attention_dense(qkv, cfg.num_heads, causal=causal,
-                                 window=cfg.window)[0]
+                                 window=cfg.window, quirks=cfg.quirks)[0]
 
 
 def _drop_path(branch: torch.Tensor, keep: torch.Tensor,
@@ -278,14 +274,15 @@ def block_body(cfg: ViTConfig):
     True, the selective blocks (models/selective.py: the flash out + lse
     and the LN statistics kept, the qkv projection and the MLP recomputed);
     "full", the plain block under `torch.utils.checkpoint`, which runs its
-    forward again in the backward (K1-fwd twice a layer).  The stochastic
+    forward again in the backward (K1-fwd twice a layer); a quirk config
+    under any remat takes "full", as in the JAX package.  The stochastic
     depth flags are inputs, drawn before the forward, so a recomputed block
     sees the same ones.  A forward without autograd takes the plain
     block."""
     plain = _block_moe if cfg.is_moe else _block
     if not cfg.remat or not torch.is_grad_enabled():
         return plain
-    if cfg.remat == "full":
+    if cfg.remat == "full" or cfg.quirks:
         def full(x, p, cfg, causal, keep, rate):
             return checkpoint(plain, x, p, cfg, causal, keep, rate,
                               use_reentrant=False, preserve_rng_state=False)
@@ -363,10 +360,14 @@ def gpt_loss(params: Mapping[str, torch.Tensor], tokens: torch.Tensor,
     unpadded logits.  On that route, with `fused_head_ce.ENABLE` set and a
     shape K8 takes, the head matmul and the CE statistics are one op (K8),
     as the JAX package routes them.  Every route adds the mean weighted
-    MoE router loss (an exact 0 for a dense config)."""
+    MoE router loss (an exact 0 for a dense config).  quirks=True: the
+    reference's loss as written, -mean p_target of the quirk softmax of the
+    fp32 logits (G6, G11)."""
     tp = train_params(params, cfg)
     lnf, aux = gpt_trunk(tp, tokens, cfg, return_aux=True)
     head = params["wte"].to(lnf.dtype)
+    if cfg.quirks:
+        return quirk_loss(basic.linear(lnf, head), targets)
     V = cfg.vocab_size
     Vp = fused_ce.pad_vocab(V)
     R = lnf.shape[0] * lnf.shape[1]
@@ -380,6 +381,13 @@ def gpt_loss(params: Mapping[str, torch.Tensor], tokens: torch.Tensor,
                                            real_vocab=V) + aux
     logits = basic.linear(lnf, head)
     return basic.cross_entropy_from_logits(logits, targets).mean() + aux
+
+
+def quirk_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """The reference's mean loss as written: -p_target of the G11 softmax
+    of the fp32 logits (G6)."""
+    probs = basic.softmax(logits.float(), quirks=True)
+    return basic.cross_entropy_quirk(probs, targets).mean()
 
 
 # ---------------------------------------------------------------------------
@@ -493,10 +501,13 @@ def forward_with_loss(params: Mapping[str, torch.Tensor],
                       cfg: ViTConfig):
     """(logits, mean loss) from one forward pass; params from
     `prepare_params`.  The loss is the plain CE on the unpadded logits, as
-    in the JAX package (vit mode: no smoothing, no dropout)."""
+    in the JAX package (vit mode: no smoothing, no dropout); a quirk gpt
+    config's is `quirk_loss`."""
     if cfg.mode == "vit":
         logits = vit_forward(params, batch_inputs, cfg, train=False)
     else:
         logits = gpt_forward(params, batch_inputs, cfg)
+        if cfg.quirks:
+            return logits, quirk_loss(logits, batch_targets)
     return logits, basic.cross_entropy_from_logits(logits,
                                                    batch_targets).mean()

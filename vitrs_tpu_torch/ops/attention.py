@@ -56,19 +56,21 @@ def rope_packed(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 def attention(qkv: torch.Tensor, num_heads: int, causal: bool = True,
               window: int = 0, rope: bool = False,
-              use_flash: bool = True) -> torch.Tensor:
+              use_flash: bool = True, quirks: bool = False) -> torch.Tensor:
     """Multi-head attention over packed qkv (B, T, 3C) -> (B, T, C).
     window > 0 (causal only) is sliding-window attention.  rope=True takes
     UNROTATED qkv and rotates q and k at positions 0..T-1: inside the
     kernels on the flash route, with an explicit `rope_qk` on the dense
     route, as in the JAX function.  use_flash=False takes the dense route
-    for every geometry, as the JAX function's switch does."""
+    for every geometry, as the JAX function's switch does; so does
+    quirks=True, the reference's softmax as written (G5, G11), which no
+    kernel computes."""
     head_dim = qkv.shape[-1] // (3 * num_heads)
-    if not (use_flash and supports(num_heads, head_dim)):
+    if quirks or not (use_flash and supports(num_heads, head_dim)):
         if rope:
             qkv = rope_packed(qkv, num_heads)
         return basic.attention_dense(qkv, num_heads, causal=causal,
-                                     window=window)[0]
+                                     window=window, quirks=quirks)[0]
     return flash_attention_qkv(qkv, num_heads, causal=causal, window=window,
                                rope=rope)
 

@@ -10,9 +10,12 @@ the JAX package's element order inside a patch (row, column, channel).
 The JAX package's custom-VJP ops (`layernorm_cv`, `gelu_cv`,
 `gelu_erf_cv`) are autograd.Functions here with the same saved tensors and
 the same hand-written backward; everything else differentiates through
-PyTorch's autograd, as it does through jax.grad there.  The quirk ops
-(G5/G6/G11) are not ported yet: models/model.check_supported refuses
-quirks=True.
+PyTorch's autograd, as it does through jax.grad there.
+
+The quirk ops reproduce the reference's math as written (quirks=True):
+G5, the causal softmax leaves a token's own weight unnormalised; G11, the
+row max starts at -1e4 (`QUIRK_MAX_INIT`), not -inf; G6, the loss is the
+negated probability, no log (`cross_entropy_quirk`).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ LN_EPS = 1e-5
 GELU_COEF = 0.044715
 INV_SQRT2 = 0.7071067811865476
 INV_SQRT_2PI = 0.3989422804014327
+QUIRK_MAX_INIT = -10000.0    # rusty_vit.rs:524,640 (gap G11)
 
 
 def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
@@ -147,13 +151,18 @@ def linear(x: torch.Tensor, w: torch.Tensor,
 
 
 def attention_dense(qkv: torch.Tensor, num_heads: int, causal: bool = True,
-                    window: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+                    window: int = 0, quirks: bool = False
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Materialised multi-head attention over packed qkv (B, T, 3C).
 
-    Returns (out (B, T, C), att (B, NH, T, T) fp32) like the JAX op without
-    its quirk option.  window > 0 (causal only) is sliding-window attention:
-    query t sees keys in (t - window, t].  Scores and the softmax in fp32;
-    the probabilities round to v's dtype before the product with V."""
+    Returns (out (B, T, C), att (B, NH, T, T) fp32) like the JAX op.
+    window > 0 (causal only) is sliding-window attention: query t sees keys
+    in (t - window, t].  Scores and the softmax in fp32; the probabilities
+    round to v's dtype before the product with V.  quirks=True is the
+    reference's softmax as written, step by step as in the JAX op: the row
+    max floored at -1e4 (G11), the expsum == 0 guard, and under causal the
+    diagonal's weight left unnormalised (G5); gradients reach the row max
+    through the diagonal, as under jax.grad."""
     if window and not causal:
         raise ValueError("sliding-window attention is causal-only")
     B, T, C3 = qkv.shape
@@ -170,9 +179,31 @@ def attention_dense(qkv: torch.Tensor, num_heads: int, causal: bool = True,
         if window:
             mask = mask & ~mask.tril(-window)
         scores = scores.masked_fill(~mask, -math.inf)
-    att = torch.softmax(scores, dim=-1)
+    if quirks:
+        m = torch.maximum(scores.amax(dim=-1, keepdim=True),
+                          scores.new_tensor(QUIRK_MAX_INIT))
+        e = torch.exp(scores - m)
+        if causal:
+            e = torch.where(mask, e, 0.0)
+        s = e.sum(dim=-1, keepdim=True)
+        att = e * torch.where(s == 0.0, 0.0, 1.0 / s)
+        if causal:
+            eye = torch.eye(T, dtype=torch.bool, device=qkv.device)
+            att = torch.where(eye, e, att)
+    else:
+        att = torch.softmax(scores, dim=-1)
     out = torch.matmul(att.to(qkv.dtype).float(), v).to(qkv.dtype)
     return out.transpose(1, 2).reshape(B, T, C), att
+
+
+def softmax(logits: torch.Tensor, quirks: bool = False) -> torch.Tensor:
+    """Row softmax with max subtraction (rusty_vit.rs:634-658); quirks
+    floors the max at -1e4 (G11)."""
+    m = logits.amax(dim=-1, keepdim=True)
+    if quirks:
+        m = torch.maximum(m, m.new_tensor(QUIRK_MAX_INIT))
+    e = torch.exp(logits - m)
+    return e / e.sum(dim=-1, keepdim=True)
 
 
 def cross_entropy_from_logits(logits: torch.Tensor,
@@ -189,6 +220,13 @@ def cross_entropy_smoothed(logits: torch.Tensor, targets: torch.Tensor,
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, targets.long()[..., None])[..., 0]
     return (1.0 - smoothing) * nll + smoothing * -logp.mean(dim=-1)
+
+
+def cross_entropy_quirk(probs: torch.Tensor,
+                        targets: torch.Tensor) -> torch.Tensor:
+    """G6: the reference negates the raw probability of the target (no
+    log)."""
+    return -probs.gather(-1, targets.long()[..., None])[..., 0]
 
 
 def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:

@@ -63,11 +63,18 @@ def adamw_tree(params: Mapping[str, torch.Tensor],
     """AdamW per tensor of a dict: returns new (params, m, v) dicts.  The
     state keeps its dtype (fp32 is exact AdamW; bf16 state computes in fp32
     and rounds back); the update itself runs in fp32.  decay_mask: tensors
-    marked False get weight_decay 0."""
+    marked False get weight_decay 0.  A nested dict (the MAE tree
+    {"encoder", "decoder"}) is walked as the JAX function walks a pytree:
+    grads, m, v and decay_mask nest alike."""
     f32 = dict(dtype=torch.float32)
     new_p, new_m, new_v = {}, {}, {}
     with torch.no_grad():
         for k, p in params.items():
+            if isinstance(p, Mapping):
+                new_p[k], new_m[k], new_v[k] = adamw_tree(
+                    p, grads[k], m[k], v[k], step, lr, beta1, beta2, eps,
+                    weight_decay, None if decay_mask is None else decay_mask[k])
+                continue
             t = torch.tensor(float(step), device=p.device, **f32)
             bc1 = 1.0 - torch.pow(torch.tensor(beta1, device=p.device, **f32), t)
             bc2 = 1.0 - torch.pow(torch.tensor(beta2, device=p.device, **f32), t)

@@ -204,7 +204,6 @@ def make_dp_train_step(cfg: ViTConfig, mesh: Mesh, accum_steps: int = 1,
     depth and head dropout draw from `step_generator`."""
     if mesh.size != 1:
         raise NotImplementedError(_MULTI)
-    M.check_supported(cfg)
     vit = cfg.mode == "vit"
     use_mixup = vit and mixup_alpha > 0.0
     if use_mixup and accum_steps != 1:
@@ -272,7 +271,6 @@ def _make_tree_step(cfg: ViTConfig, mesh: Mesh, update, who: str,
     depth or head dropout); vit images are normalised (`_batch_on`)."""
     if mesh.size != 1:
         raise NotImplementedError(_MULTI)
-    M.check_supported(cfg)
     device = mesh.devices[0]
     grad_buf = {}
 

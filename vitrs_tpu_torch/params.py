@@ -112,6 +112,21 @@ def init_params(cfg: ViTConfig, generator: torch.Generator,
     return params
 
 
+def _tensor(arr, name, shape, device, dtype):
+    arr = np.asarray(arr)
+    if tuple(arr.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {arr.shape}, expected {shape}")
+    # np.array copies: the source may be a read-only view (jax arrays)
+    return torch.from_numpy(np.array(arr, dtype=np.float32)).to(
+        device=device, dtype=dtype)
+
+
+def _is_lora(tree: Mapping) -> bool:
+    from .models.lora import LORA_TARGETS
+    return bool(tree) and all(k[:-2] in LORA_TARGETS and k[-2:] in ("_a", "_b")
+                              for k in tree)
+
+
 def from_numpy(np_params: Mapping[str, np.ndarray], cfg: ViTConfig,
                device="cuda", dtype: Optional[torch.dtype] = None
                ) -> Dict[str, torch.Tensor]:
@@ -121,26 +136,46 @@ def from_numpy(np_params: Mapping[str, np.ndarray], cfg: ViTConfig,
     CUDA device).  dtype defaults to cfg.param_dtype.  Shapes are checked
     against the canonical ones.
 
+    Besides the canonical dict (and CLIP's fp32 `logit_scale` beside it),
+    it carries the JAX package's other trees: the MAE tree {"encoder",
+    "decoder"} (the decoder's shapes from its own width and depth,
+    models/mae.py) and a LoRA adapter tree ({target + "_a", target + "_b"},
+    fp32, models/lora.py).
+
     The JAX package's `ops/quant.quantize_params` output is taken too: a
     tensor with a `<name>_scale` companion must be int8 and stays
     torch.int8, its scale (the tensor's shape without the last axis) fp32,
     which is the dict `vitrs_tpu_torch.ops.quant.quantize_params` makes."""
     device = resolve_device(device)
     dtype = dtype or getattr(torch, cfg.param_dtype)
+    if "encoder" in np_params and "decoder" in np_params:
+        from .models import mae
+        dec = np_params["decoder"]
+        shapes = mae.decoder_shapes(cfg, mae._infer_decoder_config(cfg, dec))
+        return {"encoder": from_numpy(np_params["encoder"], cfg, device,
+                                      dtype),
+                "decoder": {k: _tensor(dec[k], k, shp, device, dtype)
+                            for k, shp in shapes.items()}}
+    if _is_lora(np_params):
+        shapes = param_shapes(cfg)
+        out = {}
+        for k in sorted(np_params):
+            L, OC, IC = shapes[k[:-2]]
+            r = np.shape(np_params[k])[1 if k.endswith("_a") else 2]
+            shp = (L, r, IC) if k.endswith("_a") else (L, OC, r)
+            out[k] = _tensor(np_params[k], k, shp, device, torch.float32)
+        return out
     shapes = param_shapes(cfg)
     out = {}
     for name in tensor_order(cfg):
         arr = np.asarray(np_params[name])
+        scale = np_params.get(name + "_scale")
+        if scale is None:
+            out[name] = _tensor(arr, name, shapes[name], device, dtype)
+            continue
         if tuple(arr.shape) != shapes[name]:
             raise ValueError(f"{name}: shape {arr.shape}, expected "
                              f"{shapes[name]}")
-        scale = np_params.get(name + "_scale")
-        if scale is None:
-            # np.array copies: the source may be a read-only view (jax
-            # arrays)
-            out[name] = torch.from_numpy(np.array(arr, dtype=np.float32)).to(
-                device=device, dtype=dtype)
-            continue
         scale = np.asarray(scale)
         if arr.dtype != np.int8 or scale.shape != shapes[name][:-1]:
             raise ValueError(f"{name}: a quantized weight is int8 with a "
@@ -149,14 +184,28 @@ def from_numpy(np_params: Mapping[str, np.ndarray], cfg: ViTConfig,
         out[name] = torch.from_numpy(np.array(arr)).to(device)
         out[name + "_scale"] = torch.from_numpy(
             np.array(scale, dtype=np.float32)).to(device)
+    if "logit_scale" in np_params:
+        out["logit_scale"] = _tensor(np_params["logit_scale"], "logit_scale",
+                                     (), device, torch.float32)
     return out
 
 
 def to_numpy(params: Mapping[str, torch.Tensor], cfg: ViTConfig
              ) -> Dict[str, np.ndarray]:
-    """Inverse of `from_numpy`: f32 numpy arrays in canonical order."""
-    return {name: params[name].detach().to("cpu", torch.float32).numpy()
-            for name in tensor_order(cfg)}
+    """Inverse of `from_numpy`: f32 numpy arrays, in canonical order for a
+    parameter dict (+ logit_scale), the MAE tree nested, a LoRA tree by
+    name."""
+    def host(t):
+        return t.detach().to("cpu", torch.float32).numpy()
+
+    if "encoder" in params and "decoder" in params:
+        return {"encoder": to_numpy(params["encoder"], cfg),
+                "decoder": {k: host(t) for k, t in params["decoder"].items()}}
+    if _is_lora(params):
+        return {k: host(t) for k, t in params.items()}
+    names = tensor_order(cfg) + (("logit_scale",) if "logit_scale" in params
+                                 else ())
+    return {name: host(params[name]) for name in names}
 
 
 def flatten_params(params: Mapping[str, torch.Tensor], cfg: ViTConfig

@@ -66,9 +66,8 @@ mode, AdamW, Adafactor or Muon, one device.
 `mesh` raises NotImplementedError naming ROADMAP.md Queue 1 item 18.
 `model_overrides` is the JAX TrainConfig's dict of config fields (e.g.
 {"max_seq_len": 8192, "window": 1024, "pos_emb": "rope"}, the
-long-context rope + sliding-window model, or {"num_experts": 8} for MoE);
-a model variant the port does not run yet (quirks) raises in
-`models/model.check_supported`.  The port's `kv_heads` field is kept: it
+long-context rope + sliding-window model, {"num_experts": 8} for MoE, or
+{"quirks": True}, the reference's math as written).  The port's `kv_heads` field is kept: it
 sets `num_kv_heads` among the overrides.
 """
 
@@ -379,7 +378,6 @@ def train(tc: TrainConfig) -> dict:
     if tc.remat is not None:
         overrides["remat"] = tc.remat
     cfg = get_config(tc.preset, dtype=tc.dtype, **overrides)
-    M.check_supported(cfg)
     vit = cfg.mode == "vit"
     imagenet = vit and tc.dataset == "imagenet"
     if not vit and tc.mixup_alpha > 0.0:

@@ -41,7 +41,6 @@ class ViT:
                  m: Optional[np.ndarray] = None,
                  v: Optional[np.ndarray] = None):
         self.config = cfg.validate()
-        M.check_supported(self.config)
         self.device = params["wte"].device
         self._set_params({k: p.detach() for k, p in params.items()})
         self.num_parameters = P.num_parameters(cfg)
