@@ -230,6 +230,35 @@ on any failure.  Phases, each printed as it ends:
                     ViT-B/16 geometry: the same arrays, and logits equal on
                     the card.
 
+ 44. ops            torch.library.opcheck (schema, fake tensor) of the nine
+                    `vitrs::` ops on CUDA inputs at serving shapes; K1-fwd
+                    at B=64 T=50 through its wrapper and through the op, by
+                    events and by the host clock (the dispatcher's cost).
+ 45. serve-export   GPT-2 124M (bf16, B=4, T=1024) and ViT-B/16 (B=64)
+                    through serving.export_forward (torch.export) and
+                    ServedModel: logits equal to the eager forward's bit
+                    for bit, 12 K1-fwd launches a call; artifact bytes,
+                    export and load seconds, ms a call beside eager.
+ 46. serve-batching BatchingServer over the ViT-B/16 artifact (batch 64,
+                    max_wait 5 ms): 512 requests from 8 threads, each result
+                    equal to its row of the direct forward; images/s,
+                    p50/p99 latency, batches.
+ 47. debug          utils/debug.checked passes a clean GPT-2 124M forward
+                    and names the wte lookup when a row it reads is NaN;
+                    debug_mode restores its flags.
+ 48. meshes         dp=2, fsdp=2 (2 ranks) and dp=2,fsdp=2 (4 ranks)
+                    sharing cuda:0 over gloo (staged through host memory):
+                    a small fp32 step against one process stepping the
+                    whole batch (xdevice-dp), then GPT-2 124M, B=8, T=1024,
+                    6 steps through train/loop.train (train-dp, -fsdp,
+                    -hybrid): falling loss, each rank's launches a step
+                    (K7 over 62,219,904 values on the ZeRO-1 path), state
+                    bytes as the shards predict, peaks, step ms (ranks
+                    time-sliced on one card: not a scaling number).
+ 49. comm-nccl      a one-rank NCCL group on cuda:0 runs each collective of
+                    parallel/collectives.py once; NCCL between cards stays
+                    unverified on a one-card machine.
+
 `python3 chip_smoke.py --phases a,b` runs only the named phases (after the
 device phase) and prints no result lines.
 
@@ -246,6 +275,7 @@ import collections
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -4390,6 +4420,593 @@ def phase_import_hf():
     return out
 
 
+# --------------------------------------------------------------- PR 13 phases
+# the kernels as torch.library ops, torch.export serving, the NaN guards,
+# and the data-parallel families on ranks that share the card over gloo
+
+OP_CHECKS = ("test_schema", "test_faketensor")
+
+
+def phase_ops():
+    """`torch.library.opcheck` (schema and fake tensor) of every `vitrs::`
+    op on CUDA inputs at serving shapes, then the host cost of the
+    dispatcher: K1-fwd at B=64 T=50 NH=12 (the host-bound shape) called
+    through its wrapper and through the op, by events and by the host
+    clock, in turns (wrapper, op, op, wrapper)."""
+    from vitrs_tpu_torch.ops import flash_attention as FA
+    from vitrs_tpu_torch.ops import flash_attention_gqa as FG
+    from vitrs_tpu_torch.ops import flash_prefill as FP
+    from vitrs_tpu_torch.ops import fused_adamw as FW
+    from vitrs_tpu_torch.ops import fused_ce as CE
+    from vitrs_tpu_torch.ops import fused_head_ce as FH
+    gen = torch.Generator(device="cuda").manual_seed(13)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    B, T, KH = 4, 1024, 4
+    qkv = rnd(B, T, 3 * C)
+    q, k, v = qkv.split(C, dim=-1)
+    out, lse = FA.flash_fwd_cuda(q, k, v, NH, True, 0.125)
+    do = rnd(B, T, C)
+    g = rnd(B, T, C + 2 * KH * D)
+    gq, gk, gv = FG.split_gqa(g, NH, KH)
+    gout, glse = FG.flash_gqa_fwd_cuda(gq, gk, gv, NH, KH, True, 0.125)
+    cache = rnd(1, 1024, 2 * KH * D)
+    R, V, Vp = 4096, 50257, 50304
+    logits = rnd(R, Vp)
+    tgt = torch.randint(0, V, (R,), generator=gen, device="cuda")
+    clse, _ = CE.ce_fwd_cuda(logits, tgt, V)
+    n = 1 << 20
+    cases = {
+        "flash_fwd": (FA.flash_fwd_op, (q, k, v, NH, True, 0.125, 0, False)),
+        "flash_bwd": (FA.flash_bwd_op, (q, k, v, out, lse, do, NH, True,
+                                        0.125, 0, False)),
+        "flash_gqa_fwd": (FG.flash_gqa_fwd_op,
+                          (gq, gk, gv, NH, KH, True, 0.125, 0, False)),
+        "flash_gqa_bwd": (FG.flash_gqa_bwd_op,
+                          (gq, gk, gv, gout, glse, do, NH, KH, True, 0.125,
+                           0, False)),
+        "flash_prefill": (FP.flash_prefill_op,
+                          (rnd(1, 256, C), cache[..., :KH * D],
+                           cache[..., KH * D:], NH, KH, 256, 0.125, 0)),
+        "ce_fwd": (CE.ce_fwd, (logits, tgt, V)),
+        "ce_bwd": (CE.ce_bwd, (logits, tgt, clse,
+                               torch.full((R,), 1.0 / R, device="cuda"), V)),
+        "head_ce_fwd": (FH.head_ce_fwd, (rnd(1024, C), rnd(Vp, C),
+                                         tgt[:1024], V)),
+        "adamw_": (FW.adamw_op, (rnd(n, dtype=torch.float32),
+                                 rnd(n, dtype=torch.float32),
+                                 rnd(n, dtype=torch.float32),
+                                 rnd(n, dtype=torch.float32).abs(), 3.0,
+                                 1e-3, 0.9, 0.999, 1e-8, 0.1)),
+    }
+    res = {}
+    for name, (op, args) in cases.items():
+        got = torch.library.opcheck(op, args, test_utils=OP_CHECKS)
+        check(all(v == "SUCCESS" for v in got.values()),
+              f"[ops] opcheck {name}: {got}")
+        res[name] = got
+    torch.cuda.synchronize()
+    print(f"[ops] opcheck {OP_CHECKS} on CUDA inputs: SUCCESS for "
+          f"{len(res)} ops ({', '.join('vitrs::' + k for k in res)})")
+    # the dispatcher's cost at the host-bound shape
+    Bs, Ts = 64, 50
+    qkv = rnd(Bs, Ts, 3 * C)
+    q, k, v = qkv.split(C, dim=-1)
+    direct = lambda: FA.flash_fwd_cuda(q, k, v, NH, False, 0.125)  # noqa: E731
+    via_op = lambda: FA.flash_fwd_op(q, k, v, NH, False, 0.125, 0,  # noqa: E731
+                                     False)
+
+    def host_us(fn, iters=2000):
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        t = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return t / iters * 1e6
+
+    ev = [cuda_ms(f, iters=200) for f in (direct, via_op, via_op, direct)]
+    hu = [host_us(f) for f in (direct, via_op, via_op, direct)]
+    timing = dict(direct_ms=(ev[0] + ev[3]) / 2, op_ms=(ev[1] + ev[2]) / 2,
+                  direct_host_us=(hu[0] + hu[3]) / 2,
+                  op_host_us=(hu[1] + hu[2]) / 2, events=ev, host_us=hu)
+    print(f"[ops] K1-fwd B={Bs} T={Ts} NH={NH} bf16 non-causal: by events "
+          f"{timing['direct_ms']:.4f} ms a call through the wrapper, "
+          f"{timing['op_ms']:.4f} through vitrs::flash_fwd; host "
+          f"{timing['direct_host_us']:.2f} us vs {timing['op_host_us']:.2f} "
+          f"us a call (the dispatcher adds "
+          f"{timing['op_host_us'] - timing['direct_host_us']:.2f} us); runs "
+          f"{[round(x, 4) for x in ev]} ms, {[round(x, 2) for x in hu]} us")
+    return dict(opcheck=res, dispatch=timing)
+
+
+def _export_case(tag, cfg, params, x, eager, smi, work):
+    """Export, load and call one model: the artifact's bytes, export and
+    load seconds, ms a call beside the eager forward's, logits equal bit for
+    bit and K1-fwd's launches a call."""
+    from vitrs_tpu_torch import serving as S
+    path = os.path.join(work, f"{tag}.vitrs")
+    t0 = time.perf_counter()
+    S.export_forward(params, cfg, x.shape[0], path)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    served = S.ServedModel(path)
+    load_s = time.perf_counter() - t0
+    with torch.no_grad():
+        want = eager(x)
+        reset_counts()
+        got = served(x)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    check(counts == designed(flash_fwd=cfg.num_layers),
+          f"[serve-export] {tag}: launches a call {counts}")
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"[serve-export] {tag}: {got.dtype} {tuple(got.shape)}")
+    diff = (got.float() - want.float()).abs().max().item()
+    check(torch.equal(got, want), f"[serve-export] {tag}: exported logits "
+          f"differ from the eager forward's (max {diff:.3e})")
+    with torch.no_grad():
+        ms = [cuda_ms(f, iters=10) for f in (lambda: eager(x),
+                                             lambda: served(x),
+                                             lambda: served(x),
+                                             lambda: eager(x))]
+    row = dict(bytes=os.path.getsize(path), export_s=export_s, load_s=load_s,
+               ms=(ms[1] + ms[2]) / 2, eager_ms=(ms[0] + ms[3]) / 2,
+               launches=counts["flash_fwd"], runs=ms)
+    print(f"[serve-export] {tag} {tuple(x.shape)}: artifact "
+          f"{row['bytes']} bytes, export {export_s:.2f} s, load "
+          f"{load_s:.2f} s; logits {tuple(got.shape)} {str(got.dtype)[6:]} "
+          f"equal to the eager forward bit for bit; K1-fwd "
+          f"{row['launches']} launches a call; {row['ms']:.3f} ms a call "
+          f"exported vs {row['eager_ms']:.3f} eager  ({smi})")
+    return path, row
+
+
+def phase_serve_export(smi, work):
+    """GPT-2 124M (bf16, seeded weights, B=4, T=1024) and ViT-B/16 (B=64)
+    through `serving.export_forward` and `ServedModel` on the card."""
+    from vitrs_tpu_torch import params as P
+    from vitrs_tpu_torch.config import get_config
+    from vitrs_tpu_torch.models import model as M
+    res = {}
+    cfg = get_config("gpt2-124m", dtype="bfloat16")
+    params = P.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    pp = M.prepare_params(params, cfg)
+    tok = torch.randint(0, cfg.vocab_size, (4, cfg.max_seq_len),
+                        device="cuda", dtype=torch.int32)
+    _, res["gpt2-124m"] = _export_case(
+        "gpt2-124m", cfg, params, tok,
+        lambda t: M.gpt_forward(pp, t.long(), cfg), smi, work)
+    del params, pp
+    cfg = get_config("vit-b-16", dtype="bfloat16")
+    params = P.init_params(cfg, torch.Generator(device="cuda").manual_seed(1))
+    pp = M.prepare_params(params, cfg)
+    img = torch.randn(64, cfg.img_size, cfg.img_size, cfg.in_chans,
+                      device="cuda")
+    path, res["vit-b-16"] = _export_case(
+        "vit-b-16", cfg, params, img,
+        lambda t: M.vit_forward(pp, t, cfg, train=False), smi, work)
+    res["vit_path"] = path
+    return res
+
+
+def phase_serve_batching(smi, vit_path, n=512, threads=8, B=64):
+    """`BatchingServer` over the exported ViT-B/16 (batch 64, max_wait_ms
+    5): 512 single-image requests from 8 threads, each submitting its 64 at
+    once and then waiting; every result equals its row of the direct
+    forward of the same images in batches of 64 (bit for bit: one batch
+    shape, and no op mixes rows); images/s, p50 / p99 latency, batches."""
+    import threading
+    from vitrs_tpu_torch import serving as S
+    served = S.ServedModel(vit_path)
+    rng = np.random.default_rng(13)
+    imgs = rng.standard_normal((n, 224, 224, 3), dtype=np.float32)
+    with torch.no_grad():
+        direct = torch.cat([served(imgs[i:i + B]).float().cpu()
+                            for i in range(0, n, B)]).numpy()
+    srv = S.BatchingServer(served, batch_size=B, max_wait_ms=5.0)
+    lat = np.zeros(n)
+    got = [None] * n
+
+    def client(t):
+        mine = range(t, n, threads)
+        sent = {i: (time.perf_counter(), srv.submit(imgs[i])) for i in mine}
+        for i, (t0, fut) in sent.items():
+            got[i] = fut.result(timeout=300)
+            lat[i] = time.perf_counter() - t0
+
+    try:
+        t0 = time.perf_counter()
+        ts = [threading.Thread(target=client, args=(t,))
+              for t in range(threads)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in ts), "[serve-batching] hung")
+    finally:
+        srv.close()
+    got = np.stack(got)
+    bad = int((got != direct).any(axis=1).sum())
+    check(bad == 0, f"[serve-batching] {bad} of {n} results differ from the "
+          f"direct forward (max {np.abs(got - direct).max():.3e})")
+    row = dict(images_s=n / wall, p50_ms=float(np.percentile(lat, 50) * 1e3),
+               p99_ms=float(np.percentile(lat, 99) * 1e3),
+               batches=srv.batches, requests=n, threads=threads)
+    print(f"[serve-batching] ViT-B/16 artifact, batch {B}, max_wait 5 ms: "
+          f"{n} requests from {threads} threads in {srv.batches} batches, "
+          f"{row['images_s']:.1f} images/s, latency p50 {row['p50_ms']:.2f} "
+          f"ms p99 {row['p99_ms']:.2f} ms; every result equal to its row of "
+          f"the direct batch-64 forward bit for bit  ({smi})")
+    return row
+
+
+def phase_debug():
+    """utils/debug.py on the card: `checked` passes a clean GPT-2 124M
+    forward (bf16, B=1, T=1024) and raises at the wte lookup when the row
+    of a token it reads is NaN; `debug_mode` restores anomaly detection and
+    takes its check away on exit."""
+    from vitrs_tpu_torch.utils import debug as DBG
+    cfg, pp = _gpt2_124m(seed=2)
+    from vitrs_tpu_torch.models import model as M
+    tok = torch.randint(0, cfg.vocab_size, (1, cfg.max_seq_len),
+                        device="cuda")
+    fwd = DBG.checked(lambda p, t: M.gpt_forward(p, t, cfg))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits = fwd(pp, tok)
+    clean_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(logits).all()), "[debug] clean forward")
+    bad = dict(pp, wte=pp["wte"].clone())
+    bad["wte"][int(tok[0, 5])] = float("nan")
+    try:
+        with torch.no_grad():
+            fwd(bad, tok)
+        raise RuntimeError("[debug] a NaN wte row passed the check")
+    except DBG.CheckError as e:
+        check((e.op, e.kind) == ("__getitem__", "nan"), f"[debug] {e}")
+        named = str(e)
+    prev = torch.is_anomaly_enabled()
+    with DBG.debug_mode():
+        check(torch.is_anomaly_enabled(), "[debug] anomaly mode not on")
+    x = torch.zeros(2, device="cuda")
+    check(torch.is_anomaly_enabled() == prev and
+          bool(torch.isnan(x / x).all()), "[debug] debug_mode left a flag")
+    print(f"[debug] checked GPT-2 124M forward (B=1 T=1024 bf16): clean in "
+          f"{clean_s:.2f} s (a host read after every op); NaN wte row -> "
+          f"CheckError: {named}; debug_mode restored anomaly={prev} and its "
+          f"check")
+    return dict(clean_s=clean_s, error=named)
+
+
+# ---- ranks sharing the card over gloo ---------------------------------------
+
+XDP_OVR = dict(num_layers=2, num_heads=2, channels=128, max_seq_len=64,
+               vocab_size=16500)
+MESH_RUNS = (("dp=2", 2), ("fsdp=2", 2), ("dp=2,fsdp=2", 4))
+TRAIN_STEPS = 6
+
+
+def _xdp_cfg():
+    from vitrs_tpu_torch.config import get_config
+    return get_config("gpt-nano").replace(dtype="float32", **XDP_OVR)
+
+
+def _xdp_data():
+    from vitrs_tpu_torch import params as P
+    cfg = _xdp_cfg()
+    params = P.to_numpy(P.init_params(cfg, torch.Generator().manual_seed(3)),
+                        cfg)
+    rng = np.random.default_rng(3)
+    x = rng.integers(0, cfg.vocab_size, (4, 64))
+    y = rng.integers(0, cfg.vocab_size, (4, 64))
+    return cfg, params, x, y
+
+
+def _xdp_step(spec, device):
+    """One step of the small fp32 model under `spec` on this rank (the
+    whole batch at world size 1): (loss, canonical params, m or the rank's
+    m shard, grads of the whole batch's loss at world size 1)."""
+    from vitrs_tpu_torch import params as P
+    from vitrs_tpu_torch.parallel import data_parallel as dp
+    from vitrs_tpu_torch.parallel import multihost
+    from vitrs_tpu_torch.train import mesh as MS
+    cfg, host, x, y = _xdp_data()
+    world, rank = multihost.world_size(), multihost.rank()
+    b = x.shape[0] // world
+    xs, ys = x[rank * b:(rank + 1) * b], y[rank * b:(rank + 1) * b]
+    if not MS.parse_mesh(spec).fsdp:
+        mesh = dp.make_mesh(devices=[device])
+        flat = P.flatten_params(P.from_numpy(host, cfg, device), cfg)
+        params = P.unflatten_params(flat, cfg)
+        m, v = dp.init_sharded_opt_state(cfg, mesh)
+        params, m, v, loss = dp.make_dp_train_step(cfg, mesh)(
+            params, m, v, xs, ys, 1, 1e-3, 0.1)
+        grads = {k: t.grad.cpu().numpy() for k, t in params.items()}
+        return (loss.item(), P.to_numpy(params, cfg), m.cpu().numpy(), grads)
+    plan = MS.make_plan(cfg, MS.parse_mesh(spec), "adamw", device)
+    placed = plan.place(host)
+    params, (m, _), loss = plan.step(placed, plan.init_opt(placed), xs, ys,
+                                     1, 1e-3, 0.1)
+    return (loss.item(), plan.to_canonical(params), plan.to_canonical(m),
+            None)
+
+
+def _rank_state_bytes(cfg, spec, device):
+    """(bytes of this rank's parameters + optimizer state as the run holds
+    them, the bytes spec_for / the ZeRO-1 slice predict)."""
+    from vitrs_tpu_torch import params as P
+    from vitrs_tpu_torch.parallel import data_parallel as dp
+    from vitrs_tpu_torch.parallel import fsdp as FS
+    from vitrs_tpu_torch.parallel import multihost
+    from vitrs_tpu_torch.train import mesh as MS
+    n = P.num_parameters(cfg)
+    world = multihost.world_size()
+    ms = MS.parse_mesh(spec)
+    if not ms.fsdp:
+        mesh = dp.make_mesh(devices=[device])
+        m, v = dp.init_sharded_opt_state(cfg, mesh)
+        held = 4 * n + 4 * (m.numel() + v.numel())
+        return held, 4 * n + 8 * (-(-n // world))
+    plan = MS.make_plan(cfg, ms, "adamw", device)
+    shapes = P.param_shapes(cfg)
+    placed = plan.place({k: np.zeros(s, np.float32)
+                         for k, s in shapes.items()})
+    m, v = plan.init_opt(placed)
+    held = 4 * sum(t.numel() for tree in (placed, m, v)
+                   for t in tree.values())
+    want = 12 * sum(int(np.prod(s)) // (1 if FS.spec_for(s, ms.fsdp) is None
+                                        else ms.fsdp)
+                    for s in shapes.values())
+    return held, want
+
+
+def _rank_main(rank, world, spec, rdv, work, out_path, dev="cuda:0",
+               preset="gpt2-124m"):
+    """One rank of a mesh run on `dev` (cuda:0, shared) over gloo: the
+    small model's step (xdevice-dp), then `preset` through train/loop.train
+    (train-*).  dev "cpu" and a small preset rehearse it without a card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from vitrs_tpu_torch.config import get_config
+    from vitrs_tpu_torch.ops import fused_adamw as FW
+    from vitrs_tpu_torch.parallel import collectives as CL
+    from vitrs_tpu_torch.parallel import multihost
+    from vitrs_tpu_torch.train import loop
+    device = torch.device(dev)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(device)
+    multihost.initialize("file://" + rdv, world, rank, backend="gloo",
+                         device=dev, timeout=900)
+    res = {"route": CL.route(None, device)}
+    reset_counts()
+    res["xdp"] = _xdp_step(spec, device)
+    res["xdp_counts"] = read_counts()
+    cfg = get_config(preset, dtype="bfloat16")
+    res["state_bytes"] = _rank_state_bytes(cfg, spec, device)
+    if cuda:
+        torch.cuda.empty_cache()
+    sizes, orig = [], FW.adamw_cuda
+
+    def recording(p, *a, **k):
+        sizes.append(p.numel())
+        return orig(p, *a, **k)
+
+    recording.launches = 0
+    FW.adamw_cuda = recording
+    reset_counts()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        summary = loop.train(loop.TrainConfig(
+            preset=preset, dataset="", steps=TRAIN_STEPS, batch_size=8,
+            lr=6e-4, warmup=2, min_lr=6e-5, weight_decay=0.1,
+            dtype="bfloat16", log_every=1, ckpt_every=0, workdir=work,
+            mesh=spec, device=dev))
+        if cuda:
+            torch.cuda.synchronize()
+        counts = read_counts()      # the recording wrapper holds K7's
+    finally:
+        FW.adamw_cuda = orig
+    res.update(counts=counts, adamw_sizes=sorted(set(sizes)),
+               peak=torch.cuda.max_memory_allocated() if cuda else 0,
+               wall=time.perf_counter() - t0,
+               final_loss=summary["final_loss"])
+    torch.save(res, out_path)
+    torch.distributed.destroy_process_group()
+
+
+def _mesh_run(spec, world, **kw):
+    """Spawn `world` ranks of `spec` on cuda:0 (kw: `_rank_main`'s dev and
+    preset); returns their results."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as d:
+        work = os.path.join(d, "work")
+        outs = [os.path.join(d, f"rank{r}.pt") for r in range(world)]
+        procs = [ctx.Process(target=_rank_main,
+                             args=(r, world, spec, os.path.join(d, "rdv"),
+                                   work, outs[r]), kwargs=kw)
+                 for r in range(world)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        # a rank that fails leaves the others waiting in a collective: stop
+        # them all at the first failure
+        deadline = time.perf_counter() + 900
+        while (any(p.is_alive() for p in procs)
+               and not any(p.exitcode not in (None, 0) for p in procs)
+               and time.perf_counter() < deadline):
+            time.sleep(0.5)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+        codes = [p.exitcode for p in procs]
+        check(codes == [0] * world, f"[mesh {spec}] rank exit codes {codes}")
+        res = [torch.load(o, weights_only=False) for o in outs]
+        with open(os.path.join(work, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+    return res, recs, time.perf_counter() - t0
+
+
+def _hold(tag, got, want, rtol, atol, grads=None, lr=0.0):
+    """Hold canonical arrays to a reference: rtol, atol; where |grad| <
+    1e-6 (fp32 noise) within lr (AdamW from zero moments moves such a value
+    by lr g / (|g| + eps)); qkvb's k third (an exactly-zero gradient) left
+    out.  Returns the largest error."""
+    worst = 0.0
+    for k, w in want.items():
+        g, w = np.asarray(got[k], np.float32), np.asarray(w, np.float32)
+        tol = np.full(w.shape, atol, np.float32)
+        if grads is not None:
+            tol[np.abs(grads[k]) < 1e-6] = lr
+        if k == "qkvb":
+            Cq = w.shape[-1] // 3
+            g, w, tol = (np.concatenate([a[..., :Cq], a[..., 2 * Cq:]], -1)
+                         for a in (g, w, tol))
+        err = np.abs(g - w)
+        check(bool((err <= tol + rtol * np.abs(w)).all()),
+              f"{tag}: {k} max err {err.max():.3e}")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def phase_meshes(smi, dev="cuda:0", preset="gpt2-124m"):
+    """xdevice-dp and train-dp / train-fsdp / train-hybrid: for each of
+    dp=2, fsdp=2 (2 ranks) and dp=2,fsdp=2 (4 ranks), ranks that share
+    cuda:0 over gloo run (a) one step of a small fp32 model (D=64, so that
+    it takes the kernels), held against one process stepping the whole
+    batch: ZeRO-1 at tests/test_data_parallel.py's tolerances (loss rtol
+    1e-5, params rtol 2e-4 atol 5e-5, m rtol 2e-4 atol 1e-7), FSDP and the
+    hybrid at tests/test_fsdp.py's (loss rtol 1e-6, params rtol 2e-6 atol
+    1e-7), values whose gradient is fp32 noise within lr; (b) GPT-2 124M at
+    full width and depth through train/loop.train, global B=8, T=1024, 6
+    steps: finite, falling loss, each rank's launches a step (K1-fwd 12,
+    K2 12, K5 1, K6 1, K7 1 over its 62,219,904 values on the ZeRO-1
+    path), its parameter + state bytes equal to what the shards predict,
+    its peak; step ms (ranks time-sliced on one card: not a scaling
+    number).  dev "cpu" and a small preset rehearse it without a card."""
+    from vitrs_tpu_torch import params as P
+    from vitrs_tpu_torch.config import get_config
+    device = torch.device(dev)
+    res = {}
+    refs = {kind: _xdp_step(kind, device) for kind in ("dp=1", "fsdp=1")}
+    n124 = P.num_parameters(get_config(preset))
+    for spec, world in MESH_RUNS:
+        ranks, recs, wall = _mesh_run(spec, world, dev=dev, preset=preset)
+        tag = f"[mesh {spec}]"
+        zero1 = "fsdp" not in spec
+        lref, pref, mref, gref = refs["dp=1" if zero1 else "fsdp=1"]
+        gref = gref if gref is not None else refs["dp=1"][3]
+        rtol, atol, ltol = ((2e-4, 5e-5, 1e-5) if zero1
+                            else (2e-6, 1e-7, 1e-6))
+        perr = merr = 0.0
+        for r, out in enumerate(ranks):
+            loss, params, m, _ = out["xdp"]
+            check(abs(loss - lref) <= ltol * abs(lref),
+                  f"{tag} xdevice loss {loss} vs one process {lref}")
+            perr = max(perr, _hold(f"{tag} xdevice rank {r}", params, pref,
+                                   rtol, atol, gref, 1e-3))
+            if zero1:
+                k = -(-_xdp_n() // world)
+                want = np.asarray(mref)[r * k:(r + 1) * k]
+                got = np.asarray(m)[:want.shape[0]]
+                err = np.abs(got - want)
+                check(bool((err <= 1e-7 + 2e-4 * np.abs(want)).all()),
+                      f"{tag} xdevice m shard {r} max err {err.max():.3e}")
+                merr = max(merr, float(err.max()))
+            else:
+                merr = max(merr, _hold(f"{tag} xdevice m", m, mref, 2e-6,
+                                       1e-7))
+        L, S = 12, TRAIN_STEPS
+        want = designed(flash_fwd=L * S, flash_bwd=L * S, ce_fwd=S, ce_bwd=S,
+                        adamw=S if zero1 else 0)
+        for r, out in enumerate(ranks):
+            check(out["counts"] == want,
+                  f"{tag} rank {r} launches {out['counts']} != {want}")
+            held, pred = out["state_bytes"]
+            check(held == pred, f"{tag} rank {r} state bytes {held} != "
+                  f"predicted {pred}")
+            if zero1:
+                check(out["adamw_sizes"] == [n124 // world],
+                      f"{tag} rank {r} K7 sizes {out['adamw_sizes']}")
+        losses = [rec["loss"] for rec in recs]
+        check(len(losses) == S and all(np.isfinite(losses))
+              and losses[-1] < losses[0], f"{tag} losses {losses}")
+        ips = float(np.median([rec["imgs_per_sec"] for rec in recs[2:]]))
+        step_ms = 8 / ips * 1e3
+        row = dict(world=world, route=ranks[0]["route"], xdevice_loss=lref,
+                   xdevice_param_err=perr, xdevice_m_err=merr,
+                   losses=losses, step_ms=step_ms,
+                   launches_per_step={k: v // S for k, v in
+                                      ranks[0]["counts"].items() if v},
+                   adamw_values=ranks[0]["adamw_sizes"],
+                   state_bytes=[o["state_bytes"][0] for o in ranks],
+                   peak_gib=[o["peak"] / 2**30 for o in ranks],
+                   wall_s=wall)
+        res[spec] = row
+        print(f"{tag} {world} ranks on {dev} over {row['route']}: "
+              f"xdevice step vs one process: loss {lref:.6f}, params max err "
+              f"{perr:.3e}, m max err {merr:.3e}")
+        print(f"{tag} {preset} B=8 T=1024 {S} steps: loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}; launches a step per "
+              f"rank {row['launches_per_step']}"
+              + (f", K7 over {row['adamw_values']} values" if zero1 else "")
+              + f"; parameter + state bytes a rank {row['state_bytes']} "
+              f"(as predicted); peak a rank "
+              f"{[round(x, 3) for x in row['peak_gib']]} GiB; {step_ms:.1f} "
+              f"ms a step (ranks time-sliced on one card, not a scaling "
+              f"number); wall {wall:.1f} s  ({smi})")
+    return res
+
+
+def _xdp_n():
+    from vitrs_tpu_torch import params as P
+    return P.num_parameters(_xdp_cfg())
+
+
+def phase_comm_nccl():
+    """A one-rank NCCL group on cuda:0: each collective the port uses
+    (parallel/collectives.py) once on CUDA tensors.  NCCL between cards is
+    not verified here: the machine has one."""
+    import torch.distributed as dist
+    from vitrs_tpu_torch.parallel import collectives as CL
+    from vitrs_tpu_torch.parallel import multihost
+    with tempfile.TemporaryDirectory() as d:
+        check(multihost.initialize(f"file://{d}/rdv", 1, 0, device="cuda:0",
+                                   timeout=120), "[comm-nccl] no group")
+        try:
+            backend = dist.get_backend()
+            check(backend == "nccl", f"[comm-nccl] backend {backend}")
+            x = torch.arange(1024, dtype=torch.float32, device="cuda")
+            out = torch.empty_like(x)
+            CL.all_reduce(x.clone())
+            CL.reduce_scatter(out, x)
+            check(torch.equal(out, x), "[comm-nccl] reduce_scatter")
+            CL.all_gather(out, x * 2)
+            check(torch.equal(out, x * 2), "[comm-nccl] all_gather")
+            y = x.clone()
+            CL.broadcast(y, 0)
+            CL.barrier()
+            torch.cuda.synchronize()
+            check(torch.equal(y, x), "[comm-nccl] broadcast")
+            route = CL.route(None, "cuda:0")
+        finally:
+            dist.destroy_process_group()
+    print(f"[comm-nccl] one-rank {route} group on cuda:0: all_reduce, "
+          f"reduce_scatter, all_gather, broadcast, barrier ran on CUDA "
+          f"tensors; NCCL between cards is not verified (one card)")
+    return dict(backend=route, collectives=5)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch sees no CUDA device")
@@ -4446,7 +5063,16 @@ def main():
         ("quirks", lambda: phase_quirks(smi)),
         ("bitexact", phase_bitexact),
         ("import-hf", phase_import_hf),
+        ("ops", phase_ops),
+        ("serve-export", lambda: phase_serve_export(smi, export_dir)),
+        ("serve-batching", lambda: phase_serve_batching(
+            smi, R["serve-export"]["vit_path"])),
+        ("debug", phase_debug),
+        ("meshes", lambda: phase_meshes(smi)),
+        ("comm-nccl", phase_comm_nccl),
     )
+    # the serving artifacts of serve-export, read again by serve-batching
+    export_dir = tempfile.mkdtemp(prefix="vitrs_smoke_export_")
     # the streaming phase decodes with the native libjpeg pipeline, else
     # with the loader's PIL fallback; where neither is there it is left out
     decoder, why = stream_decoder()
@@ -4454,14 +5080,17 @@ def main():
         "native": "native jpegpipe (built)",
         "pil": f"PIL, the loader's fallback ({why})",
         None: f"none, so the phase is left out ({why})"}[decoder])
-    for name, fn in phases:
-        if name == "train-vit-stream" and decoder is None:
-            continue
-        if only is None or name in only:
-            t0 = time.perf_counter()
-            R[name] = fn()
-            print(f"[smoke] phase {name} done in "
-                  f"{time.perf_counter() - t0:.1f} s")
+    try:
+        for name, fn in phases:
+            if name == "train-vit-stream" and decoder is None:
+                continue
+            if only is None or name in only:
+                t0 = time.perf_counter()
+                R[name] = fn()
+                print(f"[smoke] phase {name} done in "
+                      f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(export_dir, ignore_errors=True)
     if only is not None:
         print(f"[smoke] ran {sorted(R)}")
         return
@@ -4656,6 +5285,25 @@ def main():
         serve_int8=int8)
     kernels[7]["serve_int8_launches"] = (
         int8["int8_512"]["launches"]["flash_prefill"])
+    # this slice: every kernel a torch.library op; K1-fwd's launches a call
+    # of the exported GPT-2 124M and ViT-B/16; each rank's launches on the
+    # dp=2 / fsdp=2 / dp=2,fsdp=2 runs (K7: the ZeRO-1 slice's values)
+    exp, meshes, ops = R["serve-export"], R["meshes"], R["ops"]
+    by_kernel = {"flash_fwd": 0, "flash_bwd": 1, "ce_fwd": 2, "ce_bwd": 3,
+                 "adamw": 4}
+    for kname, i in by_kernel.items():
+        kernels[i]["mesh_launches"] = {
+            spec: meshes[spec]["launches_per_step"].get(kname, 0)
+            * TRAIN_STEPS for spec in meshes}
+    kernels[4]["dp_values_a_rank"] = meshes["dp=2"]["adamw_values"]
+    kernels[0].update(
+        export_launches={k: exp[k]["launches"]
+                         for k in ("gpt2-124m", "vit-b-16")},
+        serve_export=exp, serve_batching=R["serve-batching"],
+        dispatch=ops["dispatch"])
+    print("[smoke] data-parallel families: " + json.dumps(
+        {"meshes": meshes, "comm_nccl": R["comm-nccl"],
+         "debug": R["debug"], "opcheck": sorted(ops["opcheck"])}))
     print("[smoke] reference-exact path: " + json.dumps(
         {"quirks": R["quirks"], "bitexact": R["bitexact"],
          "import_hf": R["import-hf"]}))

@@ -172,8 +172,8 @@ def test_supports_gqa_and_split_pinned_to_jax():
 
 def test_cuda_wrappers_refuse_cpu_tensors():
     """On a CPU tensor the kernel wrappers raise instead of running the
-    plain version: the dispatch (`_build.on_device`) is the only place that
-    chooses."""
+    plain version: the op's dispatch (`_build.kernel_op`) is the only place
+    that chooses."""
     q = torch.zeros(1, 8, 4 * D)
     k = torch.zeros(1, 8, 2 * D)
     with pytest.raises(ValueError, match="CUDA"):

@@ -2,6 +2,11 @@
 numpy-seeded parameters handed to both packages, and a small GPT config
 whose head_dim is 64, so that its attention takes the flash path."""
 
+import json
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -63,3 +68,58 @@ def test_np_params_cover_the_canonical_layout():
     arrs = np_params(tcfg)
     assert tuple(arrs) == TP.tensor_order(tcfg)
     assert all(arrs[k].shape == s for k, s in TP.param_shapes(tcfg).items())
+
+
+def spawn_ranks(name, world, d, job, inputs=None, timeout=300):
+    """Run `tests/torch_dist_worker.py name` as `world` gloo CPU ranks in
+    directory d (job: the worker's job.json; inputs: arrays for its
+    inputs.npz); returns each rank's outputs.  Each rank runs torch on one
+    thread: the suite's workers share the machine's cores."""
+    d = str(d)
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "job.json"), "w") as f:
+        json.dump(job, f)
+    if inputs is not None:
+        np.savez(os.path.join(d, "inputs.npz"), **inputs)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   [os.path.dirname(here), os.environ.get("PYTHONPATH", "")]))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(here, "torch_dist_worker.py"), name,
+         str(r), str(world), d], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=env) for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r} of {name}:\n{log[-4000:]}"
+    return [dict(np.load(os.path.join(d, f"out_{name}_{r}.npz")))
+            for r in range(world)]
+
+
+def assert_params_close(got, want, cfg, rtol, atol, grads=None, lr=0.0):
+    """got, want: canonical name -> array.  The k third of qkvb has an
+    exactly-zero gradient in exact arithmetic (softmax ignores a shift of
+    every key's score), so both packages step on fp32 noise there, which
+    AdamW's g / |g| and Adafactor's g rsqrt(v) scale to a full step: it is
+    left out, as tests/test_torch_adafactor.py does.  grads, lr: the step's
+    gradients and AdamW lr; where |g| < 1e-6 (fp32 noise) a first AdamW
+    step moves a value by up to lr, so those values are held within lr
+    (tests/test_torch_muon.py's rule)."""
+    C = cfg.channels
+    for k, w in want.items():
+        g, w = np.asarray(got[k], np.float32), np.asarray(w, np.float32)
+        tol = np.full(w.shape, atol, np.float32)
+        if grads is not None:
+            tol[np.abs(np.asarray(grads[k])) < 1e-6] = lr
+        if k == "qkvb":
+            g, w, tol = (np.concatenate([a[..., :C], a[..., 2 * C:]], -1)
+                         for a in (g, w, tol))
+        bad = np.abs(g - w) > tol + rtol * np.abs(w)
+        assert not bad.any(), (f"{k}: {bad.sum()} of {w.size} values differ,"
+                               f" max {np.abs(g - w)[bad].max():.3e}")

@@ -221,9 +221,12 @@ def test_bf16_grads_match_jax_and_dqkvw_is_an_fp32_product(monkeypatch):
 
 def test_dp_step_refuses_what_the_slice_does_not_run():
     _, tcfg = small_cfgs()
-    two = TDP.Mesh((torch.device("cpu"), torch.device("cpu")))
-    with pytest.raises(NotImplementedError, match="item 18"):
-        TDP.make_dp_train_step(tcfg, two)
+    # two devices in one process: ranks come from torch.distributed
+    with pytest.raises(RuntimeError, match="multihost.initialize"):
+        TDP.make_dp_train_step(
+            tcfg, TDP.Mesh((torch.device("cpu"), torch.device("cpu"))))
+    with pytest.raises(RuntimeError, match="multihost.initialize"):
+        TDP.make_mesh(2, devices=["cpu"])
     # quirks=True is ported: its step builds on one device
     qcfg = torch_config("vit-tiny-4-cifar10", num_layers=1, quirks=True)
     assert callable(TDP.make_dp_train_step(qcfg,
@@ -359,7 +362,7 @@ def test_cli_needs_a_card_without_cpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("mesh", "dp=2", "item 18")])
+    ("mesh", "tp=2", "item 18")])
 def test_loop_raises_for_unported_options(field, value, item, tmp_path):
     tc = TL.TrainConfig(preset="gpt-nano", steps=1, device="cpu",
                         workdir=str(tmp_path))

@@ -1,0 +1,151 @@
+"""One rank of the port's multi-process CPU tests.
+
+    python tests/torch_dist_worker.py JOB RANK WORLD DIR
+
+Reads DIR/job.json (the config and the job's settings) and DIR/inputs.npz
+(numpy parameters `p/<name>` and a global batch `x`, `y`, made by the
+test), joins a gloo group through a `file://` rendezvous in DIR, runs JOB
+and writes its results to DIR/out_RANK.npz.  It imports the port only (no
+JAX): the test holds the results against the JAX package.
+"""
+
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+torch.set_num_threads(1)
+
+from vitrs_tpu_torch import params as PRM  # noqa: E402
+from vitrs_tpu_torch.config import get_config  # noqa: E402
+from vitrs_tpu_torch.parallel import multihost  # noqa: E402
+
+
+def _arena(arrs, cfg):
+    """Parameters as views into one flat fp32 vector (the trainer's)."""
+    t = PRM.from_numpy(arrs, cfg, "cpu", torch.float32)
+    return PRM.unflatten_params(PRM.flatten_params(t, cfg), cfg)
+
+
+def _flat(params, cfg):
+    return PRM.flatten_params(params, cfg).detach().numpy()
+
+
+def job_dp(cfg, job, inp):
+    """ZeRO-1 and the tree steps at world size N, one step each."""
+    from vitrs_tpu_torch.ops import adafactor as AF
+    from vitrs_tpu_torch.ops import muon as MU
+    from vitrs_tpu_torch.parallel import data_parallel as dp
+    mesh = dp.make_mesh(devices=["cpu"])
+    arrs = {k[2:]: v for k, v in inp.items() if k.startswith("p/")}
+    x, y = (dp.shard_batch(inp[k], mesh) for k in ("x", "y"))
+    out = {"shard": np.int64(dp.opt_state_shard_size(cfg, mesh))}
+    for name, kw, lr, wd in (
+            ("plain", dict(return_grad_norm=True), 1e-3, 0.01),
+            ("clip", dict(return_grad_norm=True, clip_norm=0.05,
+                          decay_2d_only=True), 1e-3, 0.1),
+            ("accum", dict(accum_steps=2), 1e-3, 0.01)):
+        params = _arena(arrs, cfg)
+        m, v = dp.init_sharded_opt_state(cfg, mesh)
+        res = dp.make_dp_train_step(cfg, mesh, **kw)(
+            params, m, v, x, y, 1, lr, wd)
+        out[f"{name}/p"] = _flat(res[0], cfg)
+        out[f"{name}/m"] = res[1].numpy()
+        out[f"{name}/v"] = res[2].numpy()
+        out[f"{name}/loss"] = res[3].numpy()
+        if len(res) > 4:
+            out[f"{name}/gnorm"] = res[4].numpy()
+    params = _arena(arrs, cfg)
+    p, _, loss = dp.make_dp_train_step_adafactor(cfg, mesh)(
+        params, AF.init_state(params), x, y, 1, 0.01, 0.1)
+    out["adafactor/p"], out["adafactor/loss"] = _flat(p, cfg), loss.numpy()
+    params = _arena(arrs, cfg)
+    p, _, loss = dp.make_dp_train_step_muon(cfg, mesh, clip_norm=1.0)(
+        params, MU.init_state(params), x, y, 0, 0.02, 3e-3)
+    out["muon/p"], out["muon/loss"] = _flat(p, cfg), loss.numpy()
+    return out
+
+
+def job_fsdp(cfg, job, inp):
+    """fsdp=N or dp=M,fsdp=N: one AdamW, Adafactor and Muon step each from
+    the same parameters; the canonical results, the slices' shapes and the
+    global grad norm over the sharded gradients."""
+    from vitrs_tpu_torch.parallel import fsdp as FS
+    from vitrs_tpu_torch.parallel import gradops
+    from vitrs_tpu_torch.train import mesh as MS
+    spec = MS.parse_mesh(job["mesh"])
+    arrs = {k[2:]: v for k, v in inp.items() if k.startswith("p/")}
+    shapes = PRM.param_shapes(cfg)
+    out = {}
+    b = inp["x"].shape[0] // spec.n_devices
+    rank = multihost.rank()
+    x, y = (inp[k][rank * b:(rank + 1) * b] for k in ("x", "y"))
+    for opt in ("adamw", "adafactor", "muon"):
+        plan = MS.make_plan(cfg, spec, opt, "cpu", weight_decay=0.0)
+        params = plan.place(arrs)
+        state = plan.init_opt(params)
+        if opt == "adamw":
+            mesh = plan.mesh
+            specs = FS.param_specs(shapes, mesh)
+            out["m_numel"] = np.int64(sum(t.numel()
+                                          for t in state[0].values()))
+            _, _, grads = FS._loss_and_full_grads(params, specs, mesh, cfg,
+                                                  x, y)
+            red = {k: FS.reduce_grad(g, specs[k], mesh)
+                   for k, g in grads.items()}
+            out["gnorm"] = gradops.global_grad_norm(
+                red, specs, mesh.fsdp_group).numpy()
+            out["gnorm_whole"] = torch.sqrt(sum(
+                FS.gather(g, specs[k], mesh).square().sum()
+                for k, g in red.items())).numpy()
+        seventh = {"adamw": 0.1, "adafactor": 0.1, "muon": 3e-3}[opt]
+        step = 0 if opt == "muon" else 1
+        lr = {"adamw": 1e-3, "adafactor": 0.01, "muon": 0.02}[opt]
+        params, state, loss = plan.step(params, state, x, y, step, lr,
+                                        seventh)
+        for k, t in plan.to_canonical(params).items():
+            out[f"{opt}/p/{k}"] = t
+        out[f"{opt}/loss"] = loss.numpy()
+    return out
+
+
+def job_ckpt(cfg, job, inp):
+    """save_checkpoint_sharded, each rank its byte range of one file."""
+    from vitrs_tpu_torch import checkpoint_async as CA
+    arrs = {k[2:]: v for k, v in inp.items() if k.startswith("p/")}
+    CA.save_checkpoint_sharded(job["path"], cfg, multihost.rank(),
+                               multihost.world_size(), arrs, m=inp["m"],
+                               v=inp["v"], step=7, seed=3, cursor=96)
+    return {}
+
+
+def job_train(cfg, job, inp):
+    """train/loop.train under a mesh spec."""
+    from vitrs_tpu_torch.train import loop
+    tc = loop.TrainConfig(**job["tc"])
+    summary = loop.train(tc)
+    return {"final_loss": np.float64(summary.get("final_loss", np.nan))}
+
+
+JOBS = {"dp": job_dp, "fsdp": job_fsdp, "ckpt": job_ckpt, "train": job_train}
+
+
+def main():
+    name, rank, world, d = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), \
+        sys.argv[4]
+    with open(os.path.join(d, "job.json")) as f:
+        job = json.load(f)
+    multihost.initialize("file://" + os.path.join(d, f"rdv_{name}"), world,
+                         rank, device="cpu", timeout=120)
+    cfg = get_config(job["preset"]).replace(**job.get("overrides", {}))
+    inp_path = os.path.join(d, "inputs.npz")
+    inp = dict(np.load(inp_path)) if os.path.exists(inp_path) else {}
+    out = JOBS[name](cfg, job, inp)
+    np.savez(os.path.join(d, f"out_{name}_{rank}.npz"), **out)
+    torch.distributed.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

@@ -23,11 +23,22 @@ on the same kernels; the rest of the training loop and of serving; the
 reference-exact path (quirks=True, the bit-exact mode ops/bitexact.py, the
 numpy oracles in oracle/) and the model families (models/mae.py,
 models/lora.py, models/clip.py, models/import_hf.py, cli/pretrain_mae.py,
-cli/finetune.py).
+cli/finetune.py); then the kernels as `torch.library` ops (`vitrs::*`),
+export serving on `torch.export` (serving.py), the NaN guards
+(utils/debug.py), and ZeRO-1, FSDP and hybrid FSDP on torch.distributed
+(parallel/, train/mesh.py, `--mesh`).
 """
 
 from .config import PRESETS, ViTConfig, get_config
-from .vit import ViT
 from . import checkpoint, params
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # ViT on first use: importing a submodule (serving.ServedModel, say)
+    # then loads no model code
+    if name == "ViT":
+        from .vit import ViT
+        return ViT
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -21,9 +21,11 @@
   native/ckptio.cpp), host 0 also the header and the cursor.  The file is
   identical to a single `checkpoint.save_checkpoint` and loads with
   `checkpoint.load_checkpoint`.  Without the native library the ranges go
-  through plain file writes, as in the JAX package.  The cross-host
-  barrier of the JAX function waits for item 18 (torch.distributed); with
-  one process the calls run in order, host 0 first.
+  through plain file writes, as in the JAX package.  Under a
+  torch.distributed process group the writers meet at two barriers, as the
+  JAX function's hosts do: none writes its range before host 0 has sized
+  the file, and none returns before every range is written.  With one
+  process the calls run in order, host 0 first, and the barriers are none.
 """
 
 from __future__ import annotations
@@ -163,6 +165,16 @@ class AsyncCheckpointer:
 # range-sharded writes
 # ---------------------------------------------------------------------------
 
+def _barrier() -> None:
+    """Every rank waits here when a process group is up; a no-op in one
+    process (`torch.distributed.barrier`: the writes to the shared file need
+    order, its allocation before every range, every range before any
+    reader)."""
+    import torch.distributed as dist
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
 def _native():
     from .native import build
     lib = build.load("ckptio")
@@ -233,12 +245,14 @@ def save_checkpoint_sharded(path: str, cfg: ViTConfig, host_id: int,
         if has_opt:
             _write_range(path, ckpt_io.HEADER_BYTES + n * 12,
                          np.int64([cursor]))
+    _barrier()      # nobody writes a range before host 0 sized the file
 
     # the host's contiguous f32 range of [params | m | v]
     total_f32 = n * (3 if has_opt else 1)
     per = (total_f32 + num_hosts - 1) // num_hosts
     lo, hi = host_id * per, min(host_id * per + per, total_f32)
     if lo >= hi:
+        _barrier()  # the one exit: meet the writers' barrier
         return
     out = np.empty(hi - lo, np.float32)
 
@@ -257,3 +271,4 @@ def save_checkpoint_sharded(path: str, cfg: ViTConfig, host_id: int,
         emit(n, n, lambda: _f32_flat(m)[:n])
         emit(2 * n, n, lambda: _f32_flat(v)[:n])
     _write_range(path, ckpt_io.HEADER_BYTES + lo * 4, out)
+    _barrier()      # returning means the file is whole, for every rank

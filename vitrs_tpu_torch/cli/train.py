@@ -6,7 +6,9 @@ The port of `vitrs_tpu/cli/train.py`: gpt and vit mode, dense or MoE
 on one device, with the JAX CLI's flags: selective or full remat
 (--remat), a profiler trace (--profile-at), EMA weights (--ema-decay),
 streaming ImageNet shards with RandAugment (--dataset imagenet --data-dir,
---ra-ops, --ra-mag).  --mesh raises (ROADMAP.md Queue 1 item 18).
+--ra-ops, --ra-mag), on one device or as ranks under torchrun: --mesh
+dp=N (ZeRO-1), fsdp=N, dp=M,fsdp=N (hybrid FSDP); the other families raise
+(ROADMAP.md Queue 1 item 18).
 
 Examples:
   vitrs-train-torch --preset vit-b-16 --dataset synthetic-imagenet \
@@ -28,6 +30,13 @@ Examples:
   vitrs-train-torch --preset gpt-nano --remat full --cpu --steps 3
   vitrs-train-torch --preset vit-b-16 --dataset imagenet --data-dir SHARDS \
       --ra-ops 2 --ra-mag 0.5 --ema-decay 0.9999 --batch-size 64
+  # one rank a card, NCCL (gloo with --cpu); the batch is global
+  torchrun --nproc-per-node 2 -m vitrs_tpu_torch.cli.train \
+      --preset gpt2-124m --mesh dp=2 --batch-size 16 --steps 100
+  torchrun --nproc-per-node 4 -m vitrs_tpu_torch.cli.train \
+      --preset gpt2-124m --mesh dp=2,fsdp=2 --batch-size 16 --steps 100
+  torchrun --nproc-per-node 2 -m vitrs_tpu_torch.cli.train \
+      --preset gpt-nano --mesh fsdp=2 --cpu --steps 3 --batch-size 4
 
 Checkpoints and metrics go to --workdir, and a run resumes from the latest
 checkpoint there; without --workdir a run writes to a fresh temporary
@@ -86,7 +95,8 @@ def main(argv=None):
     p.add_argument("--ra-mag", type=float, default=0.0,
                    help="RandAugment magnitude in [0, 1]")
     p.add_argument("--mesh", default="",
-                   help="a device mesh: not ported yet (ROADMAP.md Queue 1 "
+                   help="dp=N | fsdp=N | dp=M,fsdp=N, one rank a device "
+                        "under torchrun (tp/pp/ep/cp: ROADMAP.md Queue 1 "
                         "item 18)")
     p.add_argument("--log-grad-norm", action="store_true")
     p.add_argument("--decay-2d-only", action="store_true",
@@ -127,6 +137,7 @@ def main(argv=None):
     args = p.parse_args(argv)
     device = "cpu" if args.cpu else "cuda"
 
+    from vitrs_tpu_torch.parallel import multihost
     from vitrs_tpu_torch.train import loop
 
     if args.eval_only:
@@ -175,6 +186,8 @@ def main(argv=None):
                               ("moe_top_k",
                                args.moe_top_k if args.num_experts else 0))
             if v not in (0, "learned")} or None)
+    # a process group from torchrun's environment (nothing without one)
+    multihost.initialize(device=device)
     summary = loop.train(tc)
     print("[done]", summary)
 

@@ -6,8 +6,12 @@ then loaded with ctypes.  No PyTorch header is included, so a build takes
 seconds; the library is named by a hash of the sources and flags, so an
 edited source builds anew and an unchanged one is reused.  Nothing here runs
 at import time: the CPU tests import every module without a CUDA toolkit.
-`on_device` is the one rule every kernel's caller follows: the kernel for a
-CUDA tensor, its plain PyTorch version for a CPU tensor, nothing else.
+
+`kernel_op` registers each kernel as a `torch.library` custom op in the
+`vitrs` namespace, the one rule every kernel's caller follows: the kernel
+for a CUDA tensor, its plain PyTorch version for a CPU tensor, a fake
+(shape-only) version for tracing (`torch.export`, FakeTensor), and no
+implementation for any other device, where the dispatcher raises.
 """
 
 from __future__ import annotations
@@ -120,15 +124,24 @@ def to_device(a, device) -> "torch.Tensor":
     return t.to(device)
 
 
-def on_device(device, kernel, plain, what: str):
-    """The kernel's wrapper for a CUDA device, its plain PyTorch version for
-    the CPU; any other device raises.  There is no fallback from one to the
-    other: the wrapper itself raises on what its kernel does not take."""
-    if device.type == "cuda":
-        return kernel
-    if device.type == "cpu":
-        return plain
-    raise ValueError(f"{what}: no path for device {device}")
+def kernel_op(name: str, schema: str, cpu, cuda, fake,
+              mutates_args=()):
+    """Register `vitrs::<name>` with `schema`: `cuda` (the kernel's
+    wrapper, which validates, launches and counts) for CUDA tensors, `cpu`
+    (its plain PyTorch version) for CPU tensors, `fake` for tracing.
+    Callers pass `lambda *a: wrapper(*a)`, so that the module attribute is
+    read at each call (a test may stand a recording function in for it).  There
+    is no fallback from one to the other: the wrapper itself raises on what
+    its kernel does not take, and a tensor on any other device finds no
+    implementation.  Returns the op's overload, the cheapest handle to call
+    (the dispatcher's host cost a call is in PERF.md)."""
+    import torch
+    op = torch.library.custom_op(f"vitrs::{name}", cpu,
+                                 mutates_args=mutates_args,
+                                 device_types="cpu", schema=schema)
+    op.register_kernel("cuda")(cuda)
+    op.register_fake(fake)
+    return getattr(torch.ops.vitrs, name).default
 
 
 def load_all(names) -> dict:

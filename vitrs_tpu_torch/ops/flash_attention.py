@@ -8,10 +8,14 @@ Pallas backwards (`_bwd_single` and `_bwd_parts`, running
 `_bwd_single_kernel`, `_bwd_combined_kernel`, `_bwd_dkv_kernel` and
 `_bwd_dq_kernel`) become `csrc/flash_bwd.cu` (K2).  Each source says how.
 
-* A CUDA tensor goes to the kernel, or the wrapper raises: there is no
-  fallback.  A CPU tensor goes to `flash_fwd_plain` / `flash_bwd_plain`,
-  the same functions in plain PyTorch, which the CPU tests hold against the
-  JAX kernels and the card's checks hold the kernels against.
+* Each kernel is a `torch.library` custom op (`vitrs::flash_fwd`,
+  `vitrs::flash_bwd`, `_build.kernel_op`), so that `torch.export` traces
+  through it.  A CUDA tensor goes to the kernel, or the wrapper raises:
+  there is no fallback.  A CPU tensor goes to `flash_fwd_plain` /
+  `flash_bwd_plain`, the same functions in plain PyTorch, which the CPU
+  tests hold against the JAX kernels and the card's checks hold the kernels
+  against.  The layout checks, the rope table's pointers and the launch
+  counts sit in the CUDA implementation, never on a traced path.
 * lse comes back compact at (B, NH, T) fp32, and the backward reads it so.
 * The two CUDA libraries also serve the GQA forward and backward (K3,
   ops/flash_attention_gqa.py) and the continuation-prefill forward (K4,
@@ -271,6 +275,24 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_fwd_cuda.launches = 0
 
 
+def _fwd_fake(q, k, v, num_heads, *args):
+    """The forward's outputs as shapes only: out like q, compact lse."""
+    B, Tq, C = q.shape
+    return (q.new_empty((B, Tq, C)),
+            q.new_empty((B, num_heads, Tq), dtype=torch.float32))
+
+
+def _flash_fwd_plain_op(q, k, v, num_heads, causal, sm_scale, window, rope):
+    return flash_fwd_plain(q, k, v, num_heads, causal, sm_scale,
+                           window=window, rope=rope)
+
+
+flash_fwd_op = _build.kernel_op(
+    "flash_fwd", "(Tensor q, Tensor k, Tensor v, int num_heads, bool causal, "
+    "float sm_scale, int window, bool rope) -> (Tensor, Tensor)",
+    _flash_fwd_plain_op, lambda *a: flash_fwd_cuda(*a), _fwd_fake)
+
+
 def flash_attention_fwd(qkv: torch.Tensor, num_heads: int,
                         causal: bool = True, sm_scale: Optional[float] = None,
                         window: int = 0, rope: bool = False
@@ -284,9 +306,7 @@ def flash_attention_fwd(qkv: torch.Tensor, num_heads: int,
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(C // num_heads)
     q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
-    fn = _build.on_device(qkv.device, flash_fwd_cuda, flash_fwd_plain,
-                          "flash attention")
-    return fn(q, k, v, num_heads, causal, sm_scale, window=window, rope=rope)
+    return flash_fwd_op(q, k, v, num_heads, causal, sm_scale, window, rope)
 
 
 def scale_in_fp32(sm_scale: float) -> bool:
@@ -444,6 +464,24 @@ def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_bwd_cuda.launches = 0
 
 
+def _bwd_fake(q, k, v, *args):
+    """The backward's outputs as shapes only: dq like q, dk and dv like k."""
+    return (q.new_empty(q.shape), q.new_empty(k.shape), q.new_empty(k.shape))
+
+
+def _flash_bwd_plain_op(q, k, v, out, lse, do, num_heads, causal, sm_scale,
+                        window, rope):
+    return flash_bwd_plain(q, k, v, out, lse, do, num_heads, causal,
+                           sm_scale, window=window, rope=rope)
+
+
+flash_bwd_op = _build.kernel_op(
+    "flash_bwd", "(Tensor q, Tensor k, Tensor v, Tensor out, Tensor lse, "
+    "Tensor dout, int num_heads, bool causal, float sm_scale, int window, "
+    "bool rope) -> (Tensor, Tensor, Tensor)",
+    _flash_bwd_plain_op, lambda *a: flash_bwd_cuda(*a), _bwd_fake)
+
+
 def flash_attention_bwd(qkv: torch.Tensor, out: torch.Tensor,
                         lse: torch.Tensor, do: torch.Tensor, num_heads: int,
                         causal: bool = True, sm_scale: Optional[float] = None,
@@ -456,10 +494,8 @@ def flash_attention_bwd(qkv: torch.Tensor, out: torch.Tensor,
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(C // num_heads)
     q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
-    fn = _build.on_device(qkv.device, flash_bwd_cuda, flash_bwd_plain,
-                          "flash attention backward")
-    return fn(q, k, v, out, lse, do, num_heads, causal, sm_scale,
-              window=window, rope=rope)
+    return flash_bwd_op(q, k, v, out, lse, do, num_heads, causal, sm_scale,
+                        window, rope)
 
 
 class _FlashPacked(torch.autograd.Function):

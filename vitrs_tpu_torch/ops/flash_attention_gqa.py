@@ -21,9 +21,11 @@ to 128 lanes (`pad_gqa_weight`, `kvd_padded`), the split-cell grid
 tile to the JAX package's expanded-weight MHA route.  The port's kernels
 take any kv_heads dividing num_heads at head_dim 64, MQA included.
 
-* A CUDA tensor goes to the kernels (`flash_gqa_fwd_cuda`,
-  `flash_gqa_bwd_cuda`), or the wrapper raises; a CPU tensor to their plain
-  PyTorch versions, which the CPU tests hold against the JAX kernels.
+* The kernels are the custom ops `vitrs::flash_gqa_fwd` and
+  `vitrs::flash_gqa_bwd` (`_build.kernel_op`).  A CUDA tensor goes to the
+  kernels (`flash_gqa_fwd_cuda`, `flash_gqa_bwd_cuda`), or the wrapper
+  raises; a CPU tensor to their plain PyTorch versions, which the CPU tests
+  hold against the JAX kernels.
 * `flash_gqa_fwd_cuda.launches` and `flash_gqa_bwd_cuda.launches` count
   the wrappers' calls, apart from K1's and K2's counts, so that a run shows
   which kernel served it.  A backward call runs three kernels (pre-pass,
@@ -44,8 +46,8 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .flash_attention import (flash_bwd_plain, flash_fwd_plain, launch_bwd,
-                              launch_fwd)
+from .flash_attention import (_bwd_fake, _fwd_fake, flash_bwd_plain,
+                              flash_fwd_plain, launch_bwd, launch_fwd)
 
 def split_gqa(qkv: torch.Tensor, num_heads: int, kv_heads: int):
     """Split a GQA-packed projection (B, T, C + 2*kv_dim) into q/k/v views.
@@ -86,6 +88,12 @@ def flash_gqa_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_gqa_fwd_cuda.launches = 0
 
+flash_gqa_fwd_op = _build.kernel_op(
+    "flash_gqa_fwd", "(Tensor q, Tensor k, Tensor v, int num_heads, "
+    "int kv_heads, bool causal, float sm_scale, int window, bool rope) -> "
+    "(Tensor, Tensor)", lambda *a: flash_gqa_fwd_plain(*a),
+    lambda *a: flash_gqa_fwd_cuda(*a), _fwd_fake)
+
 
 def flash_gqa_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
@@ -118,6 +126,13 @@ def flash_gqa_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_gqa_bwd_cuda.launches = 0
 
+flash_gqa_bwd_op = _build.kernel_op(
+    "flash_gqa_bwd", "(Tensor q, Tensor k, Tensor v, Tensor out, Tensor lse, "
+    "Tensor dout, int num_heads, int kv_heads, bool causal, float sm_scale, "
+    "int window, bool rope) -> (Tensor, Tensor, Tensor)",
+    lambda *a: flash_gqa_bwd_plain(*a), lambda *a: flash_gqa_bwd_cuda(*a),
+    _bwd_fake)
+
 
 def _scale(qkv, num_heads, kv_heads, sm_scale):
     if sm_scale is not None:
@@ -135,9 +150,8 @@ def flash_gqa_attention_fwd(qkv: torch.Tensor, num_heads: int, kv_heads: int,
     them in place (and rotates q and k under rope)."""
     sm_scale = _scale(qkv, num_heads, kv_heads, sm_scale)
     q, k, v = split_gqa(qkv, num_heads, kv_heads)
-    fn = _build.on_device(qkv.device, flash_gqa_fwd_cuda, flash_gqa_fwd_plain,
-                          "GQA flash attention")
-    return fn(q, k, v, num_heads, kv_heads, causal, sm_scale, window, rope)
+    return flash_gqa_fwd_op(q, k, v, num_heads, kv_heads, causal, sm_scale,
+                            window, rope)
 
 
 def flash_gqa_attention_bwd(qkv: torch.Tensor, out: torch.Tensor,
@@ -152,10 +166,8 @@ def flash_gqa_attention_bwd(qkv: torch.Tensor, out: torch.Tensor,
     `_bwd_parts` returns (without its phantom lanes)."""
     sm_scale = _scale(qkv, num_heads, kv_heads, sm_scale)
     q, k, v = split_gqa(qkv, num_heads, kv_heads)
-    fn = _build.on_device(qkv.device, flash_gqa_bwd_cuda, flash_gqa_bwd_plain,
-                          "GQA flash attention backward")
-    return fn(q, k, v, out, lse, do, num_heads, kv_heads, causal, sm_scale,
-              window, rope)
+    return flash_gqa_bwd_op(q, k, v, out, lse, do, num_heads, kv_heads,
+                            causal, sm_scale, window, rope)
 
 
 class _FlashGQAPacked(torch.autograd.Function):

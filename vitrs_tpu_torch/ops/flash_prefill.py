@@ -12,7 +12,8 @@ kv_heads, reading the cache at kv width (MHA is kv_heads == num_heads).
 Its kv loop stops at each block's causal frontier, so cache slots at or
 beyond q_offset+S are never read and may hold anything.
 
-* A CUDA tensor goes to the kernel (`flash_prefill_cuda`, which counts its
+* The kernel is the custom op `vitrs::flash_prefill` (`_build.kernel_op`).
+  A CUDA tensor goes to the kernel (`flash_prefill_cuda`, which counts its
   own `launches`), or the wrapper raises; a CPU tensor to the plain PyTorch
   version, which cuts the cache at the frontier before any arithmetic, so
   a NaN in the unfilled tail cannot leak in as 0 * NaN.
@@ -80,6 +81,12 @@ def flash_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_prefill_cuda.launches = 0
 
+flash_prefill_op = _build.kernel_op(
+    "flash_prefill", "(Tensor q, Tensor k, Tensor v, int num_heads, "
+    "int kv_heads, int q_offset, float sm_scale, int window) -> Tensor",
+    lambda *a: flash_prefill_plain(*a), lambda *a: flash_prefill_cuda(*a),
+    lambda q, *args: q.new_empty(q.shape))
+
 
 def flash_prefill_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       num_heads: int, kv_heads: int, q_offset: int,
@@ -119,6 +126,5 @@ def flash_prefill_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f" does not fit a cache of {Tk}")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
-    fn = _build.on_device(q.device, flash_prefill_cuda, flash_prefill_plain,
-                          "continuation prefill")
-    return fn(q, k, v, num_heads, kv_heads, q_offset, sm_scale, window)
+    return flash_prefill_op(q, k, v, num_heads, kv_heads, q_offset,
+                            sm_scale, window)

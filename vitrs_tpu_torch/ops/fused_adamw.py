@@ -7,8 +7,9 @@ The port of `vitrs_tpu/ops/fused_adamw.py`: its Pallas kernel
 alias its inputs; the port updates p, m and v in place, which is what the
 aliasing achieves there.
 
-* A CUDA tensor goes to the kernel, or the wrapper raises; a CPU tensor
-  goes to `adamw_plain`, the same update in plain PyTorch, operation by
+* The kernel is the custom op `vitrs::adamw_` (`_build.kernel_op`), which
+  mutates p, m and v and returns nothing.  A CUDA tensor goes to the
+  kernel, or the wrapper raises; a CPU tensor goes to `adamw_plain`, the same update in plain PyTorch, operation by
   operation in the kernel's order.
 * The bias corrections are formed as the Pallas body forms them,
   1 - exp(t * log(beta)) in fp32 (`adamw_step_jnp` uses beta ** t; both
@@ -99,3 +100,18 @@ def adamw_cuda(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
 
 
 adamw_cuda.launches = 0
+
+
+def _adamw_op_plain(p, g, m, v, step, lr, beta1, beta2, eps, weight_decay):
+    adamw_plain(p, g, m, v, step, lr, beta1, beta2, eps, weight_decay)
+
+
+def _adamw_op_cuda(p, g, m, v, step, lr, beta1, beta2, eps, weight_decay):
+    adamw_cuda(p, g, m, v, step, lr, beta1, beta2, eps, weight_decay)
+
+
+adamw_op = _build.kernel_op(
+    "adamw_", "(Tensor(a!) p, Tensor g, Tensor(b!) m, Tensor(c!) v, "
+    "float step, float lr, float beta1, float beta2, float eps, "
+    "float weight_decay) -> ()", _adamw_op_plain, _adamw_op_cuda,
+    lambda *args: None, mutates_args=("p", "m", "v"))

@@ -157,18 +157,21 @@ ce_bwd_cuda.launches = 0
 
 # ---------------------------------------------------------------- public
 
-def ce_fwd(logits, targets, real_vocab):
-    """(lse, picked): K5 on a CUDA tensor, its plain version on a CPU one."""
-    fn = _build.on_device(logits.device, ce_fwd_cuda, ce_fwd_plain,
-                          "fused CE")
-    return fn(logits, targets, real_vocab)
+# (lse, picked): K5 on a CUDA tensor, its plain version on a CPU one
+ce_fwd = _build.kernel_op(
+    "ce_fwd", "(Tensor logits, Tensor targets, int real_vocab) -> "
+    "(Tensor, Tensor)", lambda *a: ce_fwd_plain(*a),
+    lambda *a: ce_fwd_cuda(*a),
+    lambda logits, targets, real_vocab: tuple(
+        logits.new_empty(logits.shape[:1], dtype=torch.float32)
+        for _ in range(2)))
 
-
-def ce_bwd(logits, targets, lse, g, real_vocab):
-    """dlogits: K6 on a CUDA tensor, its plain version on a CPU one."""
-    fn = _build.on_device(logits.device, ce_bwd_cuda, ce_bwd_plain,
-                          "fused CE backward")
-    return fn(logits, targets, lse, g, real_vocab)
+# dlogits: K6 on a CUDA tensor, its plain version on a CPU one
+ce_bwd = _build.kernel_op(
+    "ce_bwd", "(Tensor logits, Tensor targets, Tensor lse, Tensor g, "
+    "int real_vocab) -> Tensor", lambda *a: ce_bwd_plain(*a),
+    lambda *a: ce_bwd_cuda(*a),
+    lambda logits, *args: logits.new_empty(logits.shape))
 
 
 class _CrossEntropyRows(torch.autograd.Function):

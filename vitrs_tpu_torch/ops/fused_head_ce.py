@@ -153,12 +153,18 @@ def head_ce_fwd_cuda(x: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
 head_ce_fwd_cuda.launches = 0
 
 
-def head_ce_fwd(x, w, targets, real_vocab):
-    """(logits, lse, picked): K8 on a CUDA tensor, its plain version on a
-    CPU one."""
-    fn = _build.on_device(x.device, head_ce_fwd_cuda, head_ce_fwd_plain,
-                          "fused head + CE")
-    return fn(x, w, targets, real_vocab)
+def _head_ce_fake(x, w, targets, real_vocab):
+    R = x.shape[0]
+    return (x.new_empty((R, w.shape[0])),
+            *(x.new_empty((R,), dtype=torch.float32) for _ in range(2)))
+
+
+# (logits, lse, picked): K8 on a CUDA tensor, its plain version on a CPU one
+head_ce_fwd = _build.kernel_op(
+    "head_ce_fwd", "(Tensor x, Tensor w, Tensor targets, int real_vocab) -> "
+    "(Tensor, Tensor, Tensor)", lambda *a: head_ce_fwd_plain(*a),
+    lambda *a: head_ce_fwd_cuda(*a),
+    _head_ce_fake)
 
 
 class _HeadCE(torch.autograd.Function):

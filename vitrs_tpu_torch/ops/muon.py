@@ -79,13 +79,24 @@ def init_state(params: Mapping[str, torch.Tensor]) -> MuonState:
     return MuonState(momentum=z(muon), m=z(rest), v=z(rest))
 
 
+def orthogonalize(key: str, eff: torch.Tensor):
+    """(Newton-Schulz of eff in fp32, the aspect scale max(1, rows/cols)
+    ** 0.5 over the last two dims): Muon's update direction for one
+    matrix."""
+    scale = max(1.0, eff.shape[-2] / eff.shape[-1]) ** 0.5
+    return newton_schulz5(eff).float(), scale
+
+
 def step(params: Mapping[str, torch.Tensor],
          grads: Mapping[str, torch.Tensor], state: MuonState, step_i,
-         lr: float, adamw_lr: float, weight_decay: float = 0.0):
+         lr: float, adamw_lr: float, weight_decay: float = 0.0,
+         ortho=orthogonalize):
     """One hybrid Muon/AdamW step: returns (new params, new state).  lr is
     the Muon learning rate, adamw_lr AdamW's; weight_decay is decoupled on
     the Muon matrices and AdamW's own elsewhere.  step_i is AdamW's 1-based
-    step."""
+    step.  `ortho(key, eff)` gives the update direction and its scale
+    (`orthogonalize`; the FSDP step's gathers the sharded matrix first and
+    keeps the rank's slice)."""
     lr = float(lr)
     muon_p, rest_p = split_muon(params)
     new_mom, new_p = {}, {}
@@ -94,9 +105,7 @@ def step(params: Mapping[str, torch.Tensor],
             gf = grads[k].float()
             buf = MOMENTUM * state.momentum[k] + gf
             eff = gf + MOMENTUM * buf       # Nesterov
-            o = newton_schulz5(eff).float()
-            # aspect compensation over the last two dims
-            scale = max(1.0, eff.shape[-2] / eff.shape[-1]) ** 0.5
+            o, scale = ortho(k, eff)
             pf = p.float()
             if weight_decay:
                 pf = pf * (1.0 - lr * weight_decay)

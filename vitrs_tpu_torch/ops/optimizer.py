@@ -23,7 +23,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from . import _build, fused_adamw
+from . import fused_adamw
 
 
 def sgd_step(flat_params: torch.Tensor, flat_grads: torch.Tensor,
@@ -40,10 +40,10 @@ def adamw_step(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused AdamW on the flat vector, in place: K7 on CUDA, its plain
     version on the CPU, and no other path."""
-    fn = _build.on_device(p.device, fused_adamw.adamw_cuda,
-                          fused_adamw.adamw_plain, "adamw_step")
-    return fn(p, g, m, v, step, lr, beta1=beta1, beta2=beta2, eps=eps,
-              weight_decay=weight_decay)
+    with torch.no_grad():
+        fused_adamw.adamw_op(p, g, m, v, float(step), float(lr), beta1, beta2,
+                             eps, float(weight_decay))
+    return p, m, v
 
 
 def decay_mask_2d(params: Mapping[str, torch.Tensor]) -> Dict[str, bool]:

@@ -1,5 +1,5 @@
 """Training loop — the port of `vitrs_tpu/train/loop.py` for gpt and vit
-mode, AdamW, Adafactor or Muon, one device.
+mode, AdamW, Adafactor or Muon, on one device or one rank of many.
 
     init or resume -> loop { batch; cosine lr; train step; log; checkpoint }
     -> final checkpoint -> held-out val loss (gpt) or top-1 + loss (vit)
@@ -63,7 +63,19 @@ mode, AdamW, Adafactor or Muon, one device.
   that many steps, its schedule still spanning `steps`: the
   kill-and-resume knob.
 
-`mesh` raises NotImplementedError naming ROADMAP.md Queue 1 item 18.
+* Ranks: when a torch.distributed process group is up (torchrun, or
+  `parallel/multihost.initialize`), every rank runs this function on its
+  own device (`TrainConfig.device`: "cuda" is cuda:LOCAL_RANK and must
+  exist; "cuda:0" names a card on purpose; "cpu"), each loader takes its
+  `(rank, world)` stride of the global batch, the step is ZeRO-1 at that
+  world size (parallel/data_parallel.py), and rank 0 alone writes the
+  checkpoints, side trees, metrics and log lines (the AdamW m and v are
+  gathered from the shards first).  `mesh`: "dp=N" asks for exactly that
+  world; "fsdp=N[,dp=M]" runs `_train_mesh` through a train/mesh.py Plan
+  (checkpoints in the canonical layout, optimizer state in
+  `meshopt_{step:08d}.tree`, so a run resumes under another mesh); the
+  other families raise NotImplementedError naming ROADMAP.md Queue 1 item
+  18.
 `model_overrides` is the JAX TrainConfig's dict of config fields (e.g.
 {"max_seq_len": 8192, "window": 1024, "pos_emb": "rope"}, the
 long-context rope + sliding-window model, {"num_experts": 8} for MoE, or
@@ -73,6 +85,7 @@ sets `num_kv_heads` among the overrides.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import glob
 import json
@@ -102,8 +115,10 @@ from ..ops import muon as MU
 from ..ops import optimizer as opt
 from ..ops._build import resolve_device
 from ..parallel import data_parallel as dp
+from ..parallel import multihost
 from ..utils import flops as F
 from ..utils import profiling
+from . import mesh as MS
 
 
 @dataclasses.dataclass
@@ -113,7 +128,7 @@ class TrainConfig:
     preset's own); `kv_heads` (shorthand for num_kv_heads among the
     overrides; setting both raises), `drop_path` (a model override in the
     JAX loop), `dataset_size`, `prefetch` and `device` are the port's own.
-    mesh is kept so that asking for it raises, naming its ROADMAP item."""
+    `mesh` is a train/mesh.py spec ("dp=2", "fsdp=2", "dp=2,fsdp=2")."""
     preset: str = "gpt2-124m"
     dataset: str = "cifar10"       # vit: the image dataset; gpt mode reads
                                    # tokens, and a non-empty dataset asks
@@ -161,13 +176,13 @@ class TrainConfig:
     async_ckpt: bool = True        # device snapshot, written by a thread
     prefetch: int = 2              # prefetch depth; 0: no prefetch thread
     kv_heads: int = 0              # GQA/MQA K/V heads; 0 = MHA
-    device: str = "cuda"           # "cuda" (never falls back) or "cpu"
+    device: str = "cuda"           # "cuda" (cuda:LOCAL_RANK under a
+                                   # launcher; never falls back), "cuda:N"
+                                   # or "cpu"
     model_overrides: Optional[dict] = None   # config fields over the preset
 
 
 def _check_supported(tc: TrainConfig) -> None:
-    if tc.mesh:
-        raise NotImplementedError("--mesh: ROADMAP.md Queue 1 item 18")
     if tc.optimizer not in ("adamw", "adafactor", "muon"):
         raise ValueError(f"unknown optimizer {tc.optimizer!r}")
     if tc.optimizer != "adamw" and (tc.accum_steps != 1 or tc.mixup_alpha
@@ -323,6 +338,64 @@ def _streaming_val(tc: "TrainConfig", cfg: ViTConfig):
                               train=False)
 
 
+def rank_device(name: str) -> torch.device:
+    """The device this rank trains on: `resolve_device`, and under a
+    process group a CUDA device of the rank's own
+    (`multihost.local_cuda_device`), made current."""
+    device = resolve_device(name)
+    if device.type == "cuda" and multihost.world_size() > 1:
+        device = multihost.local_cuda_device(name)
+    if device.index is not None:
+        torch.cuda.set_device(device)
+    return device
+
+
+def _shared_workdir(tc: TrainConfig) -> str:
+    """tc.workdir, else a fresh temporary directory made by rank 0 and
+    sent to the others."""
+    workdir = tc.workdir
+    if not workdir:
+        workdir = (tempfile.mkdtemp(prefix="vitrs_torch_run_")
+                   if multihost.is_primary() else "")
+        if multihost.world_size() > 1:
+            box = [workdir]
+            torch.distributed.broadcast_object_list(box, 0)
+            workdir = box[0]
+    os.makedirs(workdir, exist_ok=True)
+    if multihost.is_primary():
+        print(f"[workdir] {workdir}")
+    return workdir
+
+
+def _loader(tc: TrainConfig, cfg: ViTConfig, cursor: int,
+            device_normalize: bool = True):
+    """(the training loader, the (mean, std) the step normalises uint8
+    images with, or None); each rank reads its (rank, world) stride of
+    every global batch."""
+    shard = dict(host_id=multihost.rank(), num_hosts=multihost.world_size())
+    if cfg.mode == "vit" and tc.dataset == "imagenet":
+        # fp32 batches normalised on the host by the decode pipeline
+        ds = IN.ShardedImageNet(tc.data_dir, split="train")
+        return IN.StreamingLoader(ds, tc.batch_size, cfg.img_size,
+                                  train=True, seed=tc.seed, cursor=cursor,
+                                  ra_ops=tc.ra_ops, ra_mag=tc.ra_mag,
+                                  **shard), None
+    if cfg.mode == "vit":
+        # uint8 batches normalised on the device by the step (or fp32 ones
+        # normalised on the host)
+        ds = image_dataset(tc, cfg, train=True)
+        loader = D.DataLoader(ds, tc.batch_size, seed=tc.seed, train=True,
+                              cursor=cursor,
+                              device_normalize=device_normalize, **shard)
+        return loader, (ds.mean, ds.std) if device_normalize else None
+    stream = TOK.get_tokens(tc.data_dir, cfg.vocab_size, seed=tc.seed)
+    total_w = (len(stream) - 1) // cfg.max_seq_len
+    return TOK.TokenLoader(stream, tc.batch_size, cfg.max_seq_len,
+                           cursor=cursor,
+                           holdout=TOK.default_holdout(total_w),
+                           **shard), None
+
+
 def _make_step(tc: TrainConfig, cfg: ViTConfig, mesh, normalize):
     """The run's step, one signature for the three optimizers:
     (params, state, inputs, targets, step, lr) -> (params, state, loss,
@@ -364,7 +437,7 @@ def _make_step(tc: TrainConfig, cfg: ViTConfig, mesh, normalize):
 
 def train(tc: TrainConfig) -> dict:
     _check_supported(tc)
-    device = resolve_device(tc.device)
+    device = rank_device(tc.device)
     overrides = dict(tc.model_overrides or {})
     if tc.kv_heads:
         if "num_kv_heads" in overrides:
@@ -382,10 +455,22 @@ def train(tc: TrainConfig) -> dict:
     imagenet = vit and tc.dataset == "imagenet"
     if not vit and tc.mixup_alpha > 0.0:
         raise ValueError("mixup is a vit-mode option")
-    workdir = tc.workdir or tempfile.mkdtemp(prefix="vitrs_torch_run_")
-    os.makedirs(workdir, exist_ok=True)
-    print(f"[workdir] {workdir}")
+    spec = MS.parse_mesh(tc.mesh) if tc.mesh else None
+    if spec is not None:
+        plan = MS.make_plan(cfg, spec, tc.optimizer, device, MS.TrainKnobs(
+            tc.accum_steps, tc.clip_norm, tc.log_grad_norm),
+            weight_decay=tc.weight_decay)
+        if plan is not None:
+            return _train_mesh(tc, cfg, plan, device)
+        if spec.n_devices != multihost.world_size():
+            raise ValueError(f"--mesh {tc.mesh} needs {spec.n_devices} "
+                             f"ranks, the world has "
+                             f"{multihost.world_size()}: launch with "
+                             f"torchrun --nproc-per-node {spec.n_devices}")
+    workdir = _shared_workdir(tc)
     mesh = dp.make_mesh(devices=[device])
+    primary = mesh.rank == 0
+    log = print if primary else (lambda *a, **k: None)
     kind = device_kind(device)
     n = PRM.num_parameters(cfg)
 
@@ -398,11 +483,11 @@ def train(tc: TrainConfig) -> dict:
         params = PRM.from_numpy(np_params, cfg, device)
         start_step, cursor = extras["step"], extras["cursor"]
         m_full, v_full = extras["m"], extras["v"]
-        print(f"[resume] {latest} at step {start_step}, cursor {cursor}")
+        log(f"[resume] {latest} at step {start_step}, cursor {cursor}")
     elif tc.init_ckpt:
         np_params, _, _ = ckpt_io.load_checkpoint(tc.init_ckpt, cfg)
         params = PRM.from_numpy(np_params, cfg, device)
-        print(f"[init] warm start from {tc.init_ckpt}")
+        log(f"[init] warm start from {tc.init_ckpt}")
     else:
         params = PRM.init_params(cfg, torch.Generator().manual_seed(tc.seed))
     # the flat arena: params are views into one fp32 vector on the device
@@ -411,18 +496,19 @@ def train(tc: TrainConfig) -> dict:
 
     # ---- the optimizer's state and its checkpoint, chosen once -----------
     writer = (ckpt_async_io.AsyncCheckpointer()
-              if tc.async_ckpt and tc.optimizer == "adamw" else None)
+              if tc.async_ckpt and tc.optimizer == "adamw" and primary
+              else None)
     if tc.optimizer == "adamw":
-        def as_flat(flat):
-            if flat is None:
-                return torch.zeros(n, dtype=torch.float32, device=device)
-            return torch.as_tensor(np.asarray(flat, np.float32),
-                                   device=device)
-
-        opt_state = (as_flat(m_full), as_flat(v_full))
+        # the rank's ZeRO-1 shards of m and v (the whole vectors at world
+        # size 1)
+        opt_state = (dp.init_sharded_opt_state(cfg, mesh) if m_full is None
+                     else tuple(dp.shard_flat(f, cfg, mesh)
+                                for f in (m_full, v_full)))
 
         def save_state(path, step, consumed, state):
-            m, v = state
+            m, v = (dp.gather_flat(t, cfg, mesh) for t in state)
+            if not primary:
+                return
             if writer is not None:
                 # a device-side snapshot; the write overlaps the next steps
                 writer.save(path, params, cfg, m=m, v=v, step=step,
@@ -440,8 +526,8 @@ def train(tc: TrainConfig) -> dict:
             opt_state, meta = _load_tree_state(side_tree(start_step), params,
                                                tc.optimizer, device)
             cursor = int(meta.get("cursor", cursor))
-            print(f"[resume] {tc.optimizer} state from "
-                  f"{side_tree(start_step)}, cursor {cursor}")
+            log(f"[resume] {tc.optimizer} state from "
+                f"{side_tree(start_step)}, cursor {cursor}")
         elif tc.optimizer == "muon":
             opt_state = MU.init_state(params)
         else:
@@ -449,6 +535,8 @@ def train(tc: TrainConfig) -> dict:
 
         def save_state(path, step, consumed, state):
             # flat m/v is the AdamW layout; this state rides a side tree
+            if not primary:
+                return
             ckpt_io.save_checkpoint(path, params, cfg, step=step,
                                     seed=tc.seed, cursor=consumed)
             CT.save_tree(side_tree(step), _tree_state_numpy(state),
@@ -462,31 +550,12 @@ def train(tc: TrainConfig) -> dict:
             host_ema, _ = CT.load_tree(ema_path)
             ema = PRM.flatten_params(PRM.from_numpy(host_ema, cfg, device),
                                      cfg)
-            print(f"[resume] EMA from {ema_path}")
+            log(f"[resume] EMA from {ema_path}")
         else:
             ema = EMA.init_ema(flat)
 
     # ---- data ---------------------------------------------------------------
-    if imagenet:
-        # fp32 batches normalised on the host by the decode pipeline
-        ds = IN.ShardedImageNet(tc.data_dir, split="train")
-        loader = IN.StreamingLoader(ds, tc.batch_size, cfg.img_size,
-                                    train=True, seed=tc.seed, cursor=cursor,
-                                    ra_ops=tc.ra_ops, ra_mag=tc.ra_mag)
-        norm_stats = None
-    elif vit:
-        # uint8 batches, normalised on the device by the step
-        ds = image_dataset(tc, cfg, train=True)
-        loader = D.DataLoader(ds, tc.batch_size, seed=tc.seed, train=True,
-                              cursor=cursor, device_normalize=True)
-        norm_stats = (ds.mean, ds.std)
-    else:
-        stream = TOK.get_tokens(tc.data_dir, cfg.vocab_size, seed=tc.seed)
-        total_w = (len(stream) - 1) // cfg.max_seq_len
-        loader = TOK.TokenLoader(stream, tc.batch_size, cfg.max_seq_len,
-                                 cursor=cursor,
-                                 holdout=TOK.default_holdout(total_w))
-        norm_stats = None
+    loader, norm_stats = _loader(tc, cfg, cursor)
     prefetcher = (DevicePrefetcher(loader, device, depth=tc.prefetch)
                   if tc.prefetch else None)
     step_fn = _make_step(tc, cfg, mesh, norm_stats)
@@ -501,7 +570,7 @@ def train(tc: TrainConfig) -> dict:
         consumed = cursor + (step - start_step) * tc.batch_size
         path = os.path.join(workdir, f"ckpt_{step:08d}.bin")
         save_state(path, step, consumed, opt_state)
-        if ema is not None:
+        if ema is not None and primary:
             tree = os.path.join(workdir, f"ema_{step:08d}.tree")
             meta = {"decay": tc.ema_decay, "step": step}
             if writer is not None:
@@ -523,7 +592,8 @@ def train(tc: TrainConfig) -> dict:
                  else tc.steps)
     loss = None
     try:
-        with open(os.path.join(workdir, "metrics.jsonl"), "a") as log_f:
+        with (open(os.path.join(workdir, "metrics.jsonl"), "a") if primary
+              else contextlib.nullcontext()) as log_f:
             t_last, seqs_since, load_s, wait_s = time.perf_counter(), 0, 0.0, 0.0
             for step in range(start_step + 1, stop_step + 1):
                 t_wait = time.perf_counter()
@@ -534,12 +604,12 @@ def train(tc: TrainConfig) -> dict:
                                         tc.min_lr)
 
                 args = (params, opt_state, inputs, targets, step, lr)
-                if step == tc.profile_at:
+                if step == tc.profile_at and primary:
                     res, summary["profile"] = profiling.trace(
                         lambda: step_fn(*args),
                         os.path.join(workdir, "profile"),
                         f"trace_step{step:08d}")
-                    print("[profile] " + json.dumps(summary["profile"]))
+                    log("[profile] " + json.dumps(summary["profile"]))
                 else:
                     res = step_fn(*args)
                 params, opt_state, loss, gnorm = res
@@ -564,9 +634,10 @@ def train(tc: TrainConfig) -> dict:
                         rec["decoder"] = loader.decoder
                     if gnorm is not None:
                         rec["grad_norm"] = round(float(gnorm), 5)
-                    print("[train] " + json.dumps(rec))
-                    log_f.write(json.dumps(rec) + "\n")
-                    log_f.flush()
+                    if primary:
+                        print("[train] " + json.dumps(rec))
+                        log_f.write(json.dumps(rec) + "\n")
+                        log_f.flush()
                     if not np.isfinite(loss_val):
                         raise FloatingPointError(
                             f"loss diverged at step {step}")
@@ -578,7 +649,7 @@ def train(tc: TrainConfig) -> dict:
             if not (tc.ckpt_every and stop_step % tc.ckpt_every == 0):
                 save(stop_step)
             summary["final_loss"] = float(loss)
-        if stop_step == tc.steps and (vit or tc.dataset):
+        if stop_step == tc.steps and (vit or tc.dataset) and primary:
             eval_params = (PRM.unflatten_params(ema, cfg) if ema is not None
                            else params)    # eval with the EMA weights
             if imagenet:
@@ -601,4 +672,160 @@ def train(tc: TrainConfig) -> dict:
             prefetcher.close()
         if writer is not None:
             writer.close()      # drains the pending writes; raises theirs
+    return summary
+
+
+def _train_mesh(tc: TrainConfig, cfg: ViTConfig, plan,
+                device: torch.device) -> dict:
+    """The mesh-spec path (the JAX loop's `_train_mesh`): one train/mesh.py
+    Plan behind place / init_opt / step / to_canonical.  Checkpoints are
+    the canonical .bin (parameters only) plus `meshopt_{step:08d}.tree`,
+    the optimizer state keyed by canonical names, so a run resumes under
+    another mesh: a tree another optimizer or family wrote re-initialises
+    the state, as in JAX; without a tree, AdamW takes the m and v a dp-path
+    checkpoint carries.  Every rank computes the canonical tensors (a
+    collective); rank 0 writes them, the metrics and the log lines."""
+    if tc.mixup_alpha or (cfg.mode == "vit" and tc.dataset == "imagenet"):
+        raise ValueError("mixup and the streaming imagenet loader ride the "
+                         "dp path, as in the JAX loop")
+    plan.validate_batch(tc.batch_size)
+    workdir = _shared_workdir(tc)
+    primary = multihost.is_primary()
+    log = print if primary else (lambda *a, **k: None)
+    mesh_name = plan.spec.describe()
+
+    # ---- init or resume (canonical layout) ------------------------------
+    start_step, cursor, opt_state = 0, 0, None
+    latest = _latest_ckpt(workdir) if tc.resume else None
+    if latest:
+        host, _, extras = ckpt_io.load_checkpoint(latest, cfg)
+        start_step, cursor = extras["step"], extras["cursor"]
+        opt_path = os.path.join(workdir, f"meshopt_{start_step:08d}.tree")
+        if os.path.exists(opt_path):
+            tree, meta = CT.load_tree(opt_path)
+            cursor = int(meta.get("cursor", cursor))
+            if meta.get("optimizer", plan.optimizer) == plan.optimizer:
+                try:
+                    opt_state = plan.opt_load(tree)
+                except (KeyError, TypeError, ValueError, RuntimeError) as e:
+                    log(f"[resume] optimizer state of mesh "
+                        f"{meta.get('mesh', '?')} does not fit {mesh_name} "
+                        f"({type(e).__name__}: {e}); re-initialising")
+        elif plan.optimizer == "adamw" and extras["m"] is not None:
+            # a checkpoint of the dp path carries AdamW's flat m and v
+            opt_state = plan.opt_load({
+                k: PRM.to_numpy(PRM.unflatten_params(
+                    torch.as_tensor(np.asarray(extras[k], np.float32)), cfg),
+                    cfg) for k in ("m", "v")})
+        log(f"[resume] {latest} at step {start_step}, cursor {cursor} "
+            f"(mesh {mesh_name})")
+    elif tc.init_ckpt:
+        host, _, _ = ckpt_io.load_checkpoint(tc.init_ckpt, cfg)
+        log(f"[init] warm start from {tc.init_ckpt}")
+    else:
+        host = PRM.to_numpy(PRM.init_params(
+            cfg, torch.Generator().manual_seed(tc.seed)), cfg)
+    params = plan.place(host)
+    if opt_state is None:
+        opt_state = plan.init_opt(params)
+    ema = None
+    if tc.ema_decay > 0.0:
+        ema_path = os.path.join(workdir, f"ema_{start_step:08d}.tree")
+        if latest and os.path.exists(ema_path):
+            ema = plan.place(CT.load_tree(ema_path)[0])
+        else:
+            ema = {k: EMA.init_ema(t) for k, t in params.items()}
+
+    loader, _ = _loader(tc, cfg, cursor, device_normalize=False)
+    prefetcher = (DevicePrefetcher(loader, device, depth=tc.prefetch)
+                  if tc.prefetch else None)
+    kind = device_kind(device)
+    peak = F.peak_flops(kind, cfg.dtype) if device.type == "cuda" else None
+    flops_per_ex = F.train_flops_per_example(cfg)
+    summary = {"workdir": workdir, "mesh": mesh_name}
+
+    def save(step):
+        consumed = cursor + (step - start_step) * tc.batch_size
+        host_p, host_opt = plan.to_canonical(params), plan.opt_save(opt_state)
+        host_ema = plan.to_canonical(ema) if ema is not None else None
+        if not primary:
+            return
+        ckpt_io.save_checkpoint(os.path.join(workdir, f"ckpt_{step:08d}.bin"),
+                                host_p, cfg, step=step, seed=tc.seed,
+                                cursor=consumed)
+        CT.save_tree(os.path.join(workdir, f"meshopt_{step:08d}.tree"),
+                     host_opt, meta={"step": step, "cursor": consumed,
+                                     "mesh": mesh_name,
+                                     "optimizer": plan.optimizer})
+        if host_ema is not None:
+            CT.save_tree(os.path.join(workdir, f"ema_{step:08d}.tree"),
+                         host_ema, meta={"decay": tc.ema_decay, "step": step})
+
+    stop_step = (min(tc.steps, start_step + tc.run_steps) if tc.run_steps
+                 else tc.steps)
+    loss = None
+    try:
+        with (open(os.path.join(workdir, "metrics.jsonl"), "a") if primary
+              else contextlib.nullcontext()) as log_f:
+            t_last, seqs_since = time.perf_counter(), 0
+            for step in range(start_step + 1, stop_step + 1):
+                inputs, targets = (next(prefetcher) if prefetcher is not None
+                                   else loader.next_batch())
+                lr = opt.cosine_lr_host(step, tc.lr, tc.warmup, tc.steps,
+                                        tc.min_lr)
+                # the seventh slot: Muon's AdamW lr (on the same cosine
+                # shape, as the dp path), else the weight decay
+                seventh = (opt.cosine_lr_host(
+                    step, tc.muon_adamw_lr, tc.warmup, tc.steps,
+                    tc.min_lr * tc.muon_adamw_lr / max(tc.lr, 1e-12))
+                    if plan.optimizer == "muon" else tc.weight_decay)
+                params, opt_state, loss = plan.step(
+                    params, opt_state, inputs, targets, step, lr, seventh)
+                if ema is not None:
+                    for k, t in params.items():
+                        EMA.update_ema(ema[k], t, tc.ema_decay)
+                seqs_since += tc.batch_size
+                if step % tc.log_every == 0 or step == stop_step:
+                    loss_val = float(loss)      # waits for the device
+                    sps = seqs_since / (time.perf_counter() - t_last)
+                    rec = {"step": step, "loss": round(loss_val, 5),
+                           "lr": round(float(lr), 7),
+                           "imgs_per_sec": round(sps, 1),
+                           "tok_per_sec": round(sps * cfg.seq_len, 1),
+                           "mfu": (round(sps * flops_per_ex / peak, 4)
+                                   if peak else None),
+                           "device": kind, "mesh": mesh_name}
+                    if primary:
+                        print("[train] " + json.dumps(rec))
+                        log_f.write(json.dumps(rec) + "\n")
+                        log_f.flush()
+                    if not np.isfinite(loss_val):
+                        raise FloatingPointError(
+                            f"loss diverged at step {step}")
+                    t_last, seqs_since = time.perf_counter(), 0
+                if tc.ckpt_every and step % tc.ckpt_every == 0:
+                    save(step)
+        if stop_step > start_step:
+            if not (tc.ckpt_every and stop_step % tc.ckpt_every == 0):
+                save(stop_step)
+            summary["final_loss"] = float(loss)
+        if stop_step == tc.steps and (cfg.mode == "vit" or tc.dataset):
+            host_p = plan.to_canonical(ema if ema is not None else params)
+            if primary:
+                eval_params = PRM.from_numpy(host_p, cfg, device)
+                if cfg.mode == "vit":
+                    eval_ds = image_dataset(tc, cfg, train=False)
+                    summary["eval"] = evaluate(cfg, eval_params, eval_ds,
+                                               batch=min(256, len(eval_ds)))
+                else:
+                    val = TOK.TokenLoader(loader.tokens,
+                                          min(tc.batch_size, 16),
+                                          cfg.max_seq_len,
+                                          holdout=loader.holdout, val=True)
+                    summary["eval"] = {"val_loss": _loss_on(
+                        cfg, eval_params, *val.next_batch(), device)}
+                print("[eval] " + json.dumps(summary["eval"]))
+    finally:
+        if prefetcher is not None:
+            prefetcher.close()
     return summary
