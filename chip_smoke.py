@@ -258,6 +258,22 @@ on any failure.  Phases, each printed as it ends:
  49. comm-nccl      a one-rank NCCL group on cuda:0 runs each collective of
                     parallel/collectives.py once; NCCL between cards stays
                     unverified on a one-card machine.
+ 50. kernels-tp-pp  K1-fwd and K2 (bf16) at the new per-rank shapes: B=8
+                    T=1024 NH=6 causal (GPT-2 124M under tp=2), B=2 T=1024
+                    NH=12 causal (a pipeline microbatch), B=64 T=197 NH=6
+                    non-causal (ViT-B/16 under tp=2), against their plain
+                    versions; times by events and device, SDPA, the bound.
+ 51. meshes-tp-pp   ranks sharing cuda:0 over gloo: the small fp32 model's
+                    step under tp=2 (AdamW, Adafactor, Muon),
+                    dp=2,tp=2,sp,vp, pp=2 (GPipe, 1F1B, interleaved v=2;
+                    1F1B with Adafactor) and tp=2,pp=2 (AdamW, Adafactor)
+                    against one process stepping the whole batch; then
+                    GPT-2 124M (B=8, T=1024) under tp=2, dp=2,tp=2,sp,vp,
+                    pp=2 1F1B mb=4, pp=2 interleaved v=2 mb=4 and tp=2,pp=2,
+                    and ViT-B/16 (B=64) under tp=2, 6 steps each through
+                    train/loop.train: falling loss, each rank's launches as
+                    designed, state bytes as its slices predict, peaks, step
+                    ms (time-sliced on one card: not a scaling number).
 
 `python3 chip_smoke.py --phases a,b` runs only the named phases (after the
 device phase) and prints no result lines.
@@ -4823,15 +4839,16 @@ def _rank_main(rank, world, spec, rdv, work, out_path, dev="cuda:0",
     torch.distributed.destroy_process_group()
 
 
-def _mesh_run(spec, world, **kw):
-    """Spawn `world` ranks of `spec` on cuda:0 (kw: `_rank_main`'s dev and
-    preset); returns their results."""
+def _mesh_run(spec, world, target=None, **kw):
+    """Spawn `world` ranks of `spec` on cuda:0 running `target` (default
+    `_rank_main`; kw: its keyword arguments); returns their results, the
+    run's metrics records and the wall seconds."""
     import multiprocessing as mp
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory() as d:
         work = os.path.join(d, "work")
         outs = [os.path.join(d, f"rank{r}.pt") for r in range(world)]
-        procs = [ctx.Process(target=_rank_main,
+        procs = [ctx.Process(target=target or _rank_main,
                              args=(r, world, spec, os.path.join(d, "rdv"),
                                    work, outs[r]), kwargs=kw)
                  for r in range(world)]
@@ -4852,8 +4869,10 @@ def _mesh_run(spec, world, **kw):
         codes = [p.exitcode for p in procs]
         check(codes == [0] * world, f"[mesh {spec}] rank exit codes {codes}")
         res = [torch.load(o, weights_only=False) for o in outs]
-        with open(os.path.join(work, "metrics.jsonl")) as f:
-            recs = [json.loads(line) for line in f]
+        recs = None
+        if os.path.exists(os.path.join(work, "metrics.jsonl")):
+            with open(os.path.join(work, "metrics.jsonl")) as f:
+                recs = [json.loads(line) for line in f]
     return res, recs, time.perf_counter() - t0
 
 
@@ -5007,6 +5026,396 @@ def phase_comm_nccl():
     return dict(backend=route, collectives=5)
 
 
+# ---- tensor, sequence, vocab and pipeline parallelism, the 3-D mesh ---------
+
+# (B, T, NH, causal) of K1-fwd / K2 on these families' paths: GPT-2 124M
+# under tp=2 (6 heads a rank), a pipeline microbatch (B=8 over mb=4), and
+# ViT-B/16 under tp=2
+TP_PP_SHAPES = ((8, 1024, 6, True), (2, 1024, 12, True), (64, 197, 6, False))
+
+
+def attn_bound_nh(B, T, nh, passes, causal):
+    """(operations, (bound_ms, bound_by)) of a bf16 flash forward (passes
+    2) or backward (passes 5) at (B, T, nh, D=64): 2 D flops a product per
+    (query, key) pair, the causal triangle or T x T; the forward reads q,
+    k, v and writes out and lse, the backward reads q, k, v, out, do and
+    lse and writes dq, dk, dv."""
+    pairs = attn_pairs(T, 0, T, causal)
+    flops = 2 * passes * B * nh * D * pairs
+    tensors = 4 if passes == 2 else 8
+    nbytes = tensors * B * T * nh * D * 2 + B * nh * T * 4
+    return flops, bound(flops, "bf16", nbytes)
+
+
+def phase_kernels_tp_pp():
+    """K1-fwd and K2 (bf16) at TP_PP_SHAPES against their plain versions
+    (K1-fwd to `out_errors`, values beyond it held to the fp64 softmax
+    where causal; lse 1e-4; dq/dk/dv 2e-2 abs + rel, kernels-train's),
+    then kernel and plain by events (plain, kernel, kernel, plain), the
+    kernel's device time by the profiler, SDPA's forward and backward on
+    the same tensors, and the bound (`attn_bound_nh`)."""
+    from vitrs_tpu_torch.ops import flash_attention as FA
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    res = {}
+    for B, T, nh, causal in TP_PP_SHAPES:
+        Cv = nh * D
+        qkv = torch.randn(B, T, 3 * Cv, generator=gen,
+                          device="cuda").bfloat16()
+        do = torch.randn(B, T, Cv, generator=gen, device="cuda").bfloat16()
+        q, k, v = qkv.split(Cv, dim=-1)
+        shape = (f"bf16 B={B} T={T} NH={nh} D=64 "
+                 f"{'causal' if causal else 'non-causal'}")
+        out, lse = FA.flash_fwd_cuda(q, k, v, nh, causal, 0.125)
+        ref, ref_lse = FA.flash_fwd_plain(q, k, v, nh, causal, 0.125)
+        torch.cuda.synchronize()
+        bad, err, rms = out_errors(out, ref)
+        if causal:
+            judged = exact_check(f"K1-fwd {shape}", q, k, v, out, ref, 0.125)
+        else:
+            check(bad == 0, f"K1-fwd {shape}: {bad} out values beyond "
+                  f"tolerance")
+            judged = "0 held"
+        lse_err = (lse - ref_lse).abs().max().item()
+        check(lse_err <= 1e-4, f"K1-fwd {shape}: lse err {lse_err}")
+        got = FA.flash_bwd_cuda(q, k, v, out, lse, do, nh, causal, 0.125)
+        want = FA.flash_bwd_plain(q, k, v, out, lse, do, nh, causal, 0.125)
+        torch.cuda.synchronize()
+        errs = []
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            d = (a.float() - b.float()).abs()
+            nbad = ((d > 2e-2 + 2e-2 * b.float().abs()).sum().item()
+                    + (~torch.isfinite(a)).sum().item())
+            check(nbad == 0, f"K2 {shape}: {nbad} {name} values beyond 2e-2")
+            errs.append(d.max().item())
+        del ref, ref_lse, got, want
+        if causal:
+            lib_f = (lambda: F_sdpa(q, k, v, nh, True))
+            lib_b = sdpa_bwd_nh(q, k, v, do, nh, True)
+        else:
+            lib_f = (lambda: sdpa_full(q, k, v, nh))
+            lib_b = sdpa_bwd_full(q, k, v, do, nh)
+        parts = {
+            "flash_fwd": (lambda: FA.flash_fwd_cuda(q, k, v, nh, causal,
+                                                    0.125),
+                          lambda: FA.flash_fwd_plain(q, k, v, nh, causal,
+                                                     0.125), lib_f, 2, 1,
+                          err),
+            "flash_bwd": (lambda: FA.flash_bwd_cuda(q, k, v, out, lse, do, nh,
+                                                    causal, 0.125),
+                          lambda: FA.flash_bwd_plain(q, k, v, out, lse, do,
+                                                     nh, causal, 0.125),
+                          lib_b, 5, 3, max(errs))}
+        for kname, (kern, plain, lib_fn, passes, nk, e) in parts.items():
+            km, pm, raw = timed_pair(kern, plain)
+            dev, caps = device_ms(kern, nk)
+            lib = cuda_ms(lib_fn)
+            flops, (bms, by) = attn_bound_nh(B, T, nh, passes, causal)
+            name = "K1-fwd" if kname == "flash_fwd" else "K2"
+            print(f"[kernels-tp-pp] {name} {shape}: max_abs_err {e:.3e}"
+                  + (f" (out rms {rms:.3e}, {judged}, lse {lse_err:.3e})"
+                     if kname == "flash_fwd" else
+                     f" (dq/dk/dv {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e})")
+                  + f"; kernel {raw[0]:.4f}/{raw[1]:.4f} ms by events, "
+                  f"{dev if dev is None else round(dev, 4)} ms device "
+                  f"(capture {caps}); plain {raw[2]:.4f}/{raw[3]:.4f} ms; "
+                  f"SDPA {lib:.4f} ms; bound {bms:.4f} ms ({by}), "
+                  f"{flops / km / 1e9:.1f} TFLOP/s")
+            res.setdefault(kname, {})[f"B={B} T={T} NH={nh}"] = dict(
+                max_abs_err=e, ms=km, device_ms=dev, device_captures=caps,
+                plain_ms=pm, library_ms=lib, bound_ms=bms, bound_by=by,
+                tflops=flops / km / 1e9, shape=shape)
+        del qkv, do, q, k, v, out, lse
+    return res
+
+
+def F_sdpa(q, k, v, nh, causal):
+    """PyTorch's SDPA at nh heads (a yardstick only)."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(heads(q, nh), heads(k, nh),
+                                          heads(v, nh), is_causal=causal)
+
+
+def sdpa_bwd_nh(q, k, v, do, nh, causal):
+    """A closure running the backward of `F_sdpa` (a yardstick only)."""
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = F_sdpa(*leaves, nh, causal)
+    dout = heads(do, nh)
+    return lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+
+XTP_OVR = dict(XDP_OVR, num_layers=4)     # interleaved v=2 needs L % 4 == 0
+# one spawn a row: (ranks, the small model's steps (spec, optimizer), the
+# full-width runs (preset, spec, global B) through train/loop.train)
+TP_PP_RUNS = (
+    (2, (("tp=2", "adamw"), ("tp=2", "adafactor"), ("tp=2", "muon")),
+     (("gpt2-124m", "tp=2", 8), ("vit-b-16", "tp=2", 64))),
+    (4, (("dp=2,tp=2,sp,vp", "adamw"),),
+     (("gpt2-124m", "dp=2,tp=2,sp,vp", 8),)),
+    (2, (("pp=2", "adamw"), ("pp=2,schedule=1f1b,mb=4", "adamw"),
+         ("pp=2,schedule=1f1b-interleaved,v=2,mb=4", "adamw"),
+         ("pp=2,schedule=1f1b,mb=4", "adafactor")),
+     (("gpt2-124m", "pp=2,schedule=1f1b,mb=4", 8),
+      ("gpt2-124m", "pp=2,schedule=1f1b-interleaved,v=2,mb=4", 8))),
+    (4, (("tp=2,pp=2", "adamw"), ("tp=2,pp=2", "adafactor")),
+     (("gpt2-124m", "tp=2,pp=2", 8),)),
+)
+# the small steps' lr, and the seventh slot (wd; Muon: its AdamW lr)
+SMALL_LR = {"adamw": (1e-3, 0.1), "adafactor": (1e-2, 0.1),
+            "muon": (0.02, 3e-3)}
+
+
+def _xtp_cfg():
+    from vitrs_tpu_torch.config import get_config
+    return get_config("gpt-nano").replace(dtype="float32", **XTP_OVR)
+
+
+def _xtp_data():
+    from vitrs_tpu_torch import params as P
+    cfg = _xtp_cfg()
+    params = P.to_numpy(P.init_params(cfg, torch.Generator().manual_seed(4)),
+                        cfg)
+    rng = np.random.default_rng(4)
+    x = rng.integers(0, cfg.vocab_size, (4, 64))
+    y = rng.integers(0, cfg.vocab_size, (4, 64))
+    return cfg, params, x, y
+
+
+def _xtp_reference(device):
+    """One process stepping the whole batch of the small model: (loss,
+    grads, {(family kind, optimizer): canonical params after one step}).
+    The steps are the one-device counterparts of the mesh steps: AdamW on
+    every leaf; Muon (`ops/muon.step`); Adafactor in each family's layout
+    (TP: the TP leaves, factored on their whole shapes; pipeline: the
+    canonical leaves with the (L, C) stacks full-v; 3-D: both)."""
+    from vitrs_tpu_torch.models import model as M
+    from vitrs_tpu_torch.ops import adafactor as AF
+    from vitrs_tpu_torch.ops import muon as MU
+    from vitrs_tpu_torch.ops import optimizer as opt
+    from vitrs_tpu_torch.parallel import pipeline as PPm
+    from vitrs_tpu_torch.parallel import tensor_parallel as TPm
+    from vitrs_tpu_torch.parallel import threed as TD
+    cfg, host, x, y = _xtp_data()
+    p = {k: torch.tensor(v, device=device, requires_grad=True)
+         for k, v in host.items()}
+    loss = M.loss_fn(p, torch.as_tensor(x, device=device),
+                     torch.as_tensor(y, device=device), cfg)
+    loss.backward()
+    g = {k: t.grad for k, t in p.items()}
+    p = {k: t.detach() for k, t in p.items()}
+    out = {}
+    lr, wd = SMALL_LR["adamw"]
+    z = {k: torch.zeros_like(t) for k, t in p.items()}
+    out["adamw"] = opt.adamw_tree(p, g, z, dict(z), 1, lr, weight_decay=wd)[0]
+    lr, alr = SMALL_LR["muon"]
+    out["muon"] = MU.step(p, g, MU.init_state(p), 1, lr, alr)[0]
+    lr, wd = SMALL_LR["adafactor"]
+    for kind, (fac, gshapes), tp in (
+            ("tp", TPm.tp_af_factored(cfg), True),
+            ("pp", PPm.pp_af_factored(cfg), False),
+            ("3d", TD.threed_af_factored(cfg), True)):
+        pl, gl = ((TPm.to_tp_params(t, cfg) for t in (p, g)) if tp
+                  else (p, g))
+        shapes = AF.state_shapes(gshapes, fac)
+        st = AF.AdafactorState(*({k: torch.zeros(s, device=device)
+                                  for k, s in getattr(shapes, f).items()}
+                                 for f in ("vr", "vc", "vf")), {})
+        new = AF.step(pl, gl, st, 1, lr, weight_decay=wd,
+                      decay_mask=opt.decay_mask_2d(pl), factored=fac)[0]
+        out[f"adafactor/{kind}"] = TPm.from_tp_params(new, cfg) if tp else new
+    to_np = lambda t: {k: v.cpu().numpy() for k, v in t.items()}  # noqa: E731
+    return loss.item(), to_np(g), {k: to_np(v) for k, v in out.items()}
+
+
+def _tp_pp_state_bytes(cfg, plan):
+    """(bytes of this rank's parameters + AdamW m, v as placed, the bytes
+    the specs predict: 12 per value of each leaf's slice)."""
+    from vitrs_tpu_torch import params as P
+    from vitrs_tpu_torch.parallel import pipeline as PPm
+    from vitrs_tpu_torch.parallel import tensor_parallel as TPm
+    from vitrs_tpu_torch.parallel import threed as TD
+    vp = plan.spec.vp
+    if plan.kind == "tp":
+        specs, shapes = (TPm.tp_param_specs(cfg, vp),
+                         TPm.tp_global_shapes(cfg, vp))
+    elif plan.kind == "pp":
+        specs = PPm.pp_param_specs(cfg)
+        shapes = {k: tuple(s) for k, s in P.param_shapes(cfg).items()}
+    else:
+        specs, shapes = (TD.param_specs_3d(cfg, vp),
+                         TPm.tp_global_shapes(cfg, vp))
+    placed = plan.place({k: np.zeros(s, np.float32)
+                         for k, s in P.param_shapes(cfg).items()})
+    m, v = plan.init_opt(placed)
+    held = 4 * sum(t.numel() for tree in (placed, m, v)
+                   for t in tree.values())
+    want = 12 * sum(int(np.prod(TPm.local_shape(s, specs[k], plan.mesh)))
+                    for k, s in shapes.items())
+    return held, want
+
+
+def _tp_pp_rank(rank, world, spec, rdv, work, out_path, dev="cuda:0",
+                small=(), runs=()):
+    """One rank of a meshes-tp-pp spawn on `dev` (cuda:0, shared) over
+    gloo: each small step of `small` (spec, optimizer), then each run of
+    `runs` (preset, spec, global B) through train/loop.train, 6 steps (vit:
+    of a 7-step schedule, so that rank 0's end-of-run evaluation adds no
+    launches), each in its own workdir.  dev "cpu" and a small preset
+    rehearse it without a card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from vitrs_tpu_torch.config import get_config
+    from vitrs_tpu_torch.parallel import collectives as CL
+    from vitrs_tpu_torch.parallel import multihost
+    from vitrs_tpu_torch.train import loop
+    from vitrs_tpu_torch.train import mesh as MS
+    device = torch.device(dev)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(device)
+    multihost.initialize("file://" + rdv, world, rank, backend="gloo",
+                         device=dev, timeout=900)
+    res = {"route": CL.route(None, device), "small": {}, "runs": []}
+    cfg, host, x, y = _xtp_data()
+    for sspec, optimizer in small:
+        plan = MS.make_plan(cfg, MS.parse_mesh(sspec), optimizer, device)
+        b = x.shape[0] // plan.data_ways
+        rows = slice(plan.data_rank * b, (plan.data_rank + 1) * b)
+        placed = plan.place(host)
+        lr, seventh = SMALL_LR[optimizer]
+        out = plan.step(placed, plan.init_opt(placed), x[rows], y[rows], 1,
+                        lr, seventh)
+        res["small"][(sspec, optimizer)] = dict(
+            kind=plan.kind, loss=float(out[2]),
+            params=plan.to_canonical(out[0]))
+    for i, (preset, rspec, batch) in enumerate(runs):
+        cfg = get_config(preset, dtype="bfloat16")
+        plan = MS.make_plan(cfg, MS.parse_mesh(rspec), "adamw", device)
+        row = {"state_bytes": _tp_pp_state_bytes(cfg, plan),
+               "kind": plan.kind}
+        del plan
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        vit = cfg.mode == "vit"
+        wd = os.path.join(work, str(i))
+        reset_counts()
+        t0 = time.perf_counter()
+        summary = loop.train(loop.TrainConfig(
+            preset=preset, dataset="synthetic-imagenet" if vit else "",
+            dataset_size=batch if vit else 0,
+            steps=TRAIN_STEPS + (1 if vit else 0), run_steps=TRAIN_STEPS,
+            batch_size=batch, lr=3e-4 if vit else 6e-4, warmup=2,
+            min_lr=1e-5 if vit else 6e-5, weight_decay=0.05 if vit else 0.1,
+            dtype="bfloat16", log_every=1, ckpt_every=0, workdir=wd,
+            mesh=rspec, device=dev, prefetch=0))
+        if cuda:
+            torch.cuda.synchronize()
+        row.update(counts=read_counts(),
+                   peak=torch.cuda.max_memory_allocated() if cuda else 0,
+                   wall=time.perf_counter() - t0,
+                   final_loss=summary["final_loss"])
+        if rank == 0:
+            with open(os.path.join(wd, "metrics.jsonl")) as f:
+                row["recs"] = [json.loads(line) for line in f]
+        res["runs"].append(row)
+    torch.save(res, out_path)
+    torch.distributed.destroy_process_group()
+
+
+def _designed_tp_pp(kind, spec, rank, data, S=TRAIN_STEPS):
+    """The launches a rank makes over S steps of GPT-2 124M / ViT-B/16
+    (12 layers) under `spec`: K1-fwd and K2 once a local layer a
+    microbatch (the port keeps each microbatch's graph: no recompute);
+    K5 and K6 once a microbatch on the last stage of a non-VP gpt head; no
+    K7 (`adamw_tree`, as in JAX)."""
+    from vitrs_tpu_torch.train import mesh as MS
+    ms = MS.parse_mesh(spec)
+    mb = (ms.microbatches or ms.pp) if ms.pp > 1 else 1
+    layers = 12 // ms.pp
+    last = ms.pp == 1 or rank % ms.pp == ms.pp - 1
+    ce = mb if (last and not ms.vp and data == "gpt") else 0
+    return designed(flash_fwd=layers * mb * S, flash_bwd=layers * mb * S,
+                    ce_fwd=ce * S, ce_bwd=ce * S)
+
+
+def phase_meshes_tp_pp(smi, dev="cuda:0"):
+    """TP_PP_RUNS: ranks that share cuda:0 over gloo (every collective and
+    pipeline hop staged through host memory) run (a) one step of the small
+    fp32 model (XTP_OVR: D=64, so the kernels; 4 layers) under each family
+    and optimizer, held against one process stepping the whole batch
+    (`_xtp_reference`) at the CPU tests' tolerances: loss rtol 2e-5;
+    params AdamW rtol 2e-4 atol 5e-5, Adafactor rtol 1e-4 atol 2e-4, Muon
+    rtol 5e-3 atol 2e-3, a value whose gradient is fp32 noise within lr;
+    (b) GPT-2 124M (B=8, T=1024) or ViT-B/16 (B=64) at full width and
+    depth through train/loop.train, 6 steps: finite, falling loss, each
+    rank's launches equal to `_designed_tp_pp`, its parameter + state
+    bytes equal to what its slices predict, its peak; step ms (ranks
+    time-sliced on one card: not a scaling number)."""
+    device = torch.device(dev)
+    lref, gref, pref = _xtp_reference(device)
+    res = {}
+    for world, small, runs in TP_PP_RUNS:
+        ranks, _, wall = _mesh_run(runs[0][1], world, target=_tp_pp_rank,
+                                   dev=dev, small=small, runs=runs)
+        for sspec, optimizer in small:
+            tag = f"[meshes-tp-pp {sspec}]"
+            worst = 0.0
+            for r, out in enumerate(ranks):
+                got = out["small"][(sspec, optimizer)]
+                key = (optimizer if optimizer != "adafactor"
+                       else f"adafactor/{got['kind']}")
+                check(abs(got["loss"] - lref) <= 2e-5 * abs(lref),
+                      f"{tag} small {optimizer} rank {r} loss {got['loss']} "
+                      f"vs one process {lref}")
+                rtol, atol = {"adamw": (2e-4, 5e-5), "adafactor": (1e-4, 2e-4),
+                              "muon": (5e-3, 2e-3)}[optimizer]
+                lr = SMALL_LR[optimizer][1 if optimizer == "muon" else 0]
+                worst = max(worst, _hold(f"{tag} small {optimizer} rank {r}",
+                                         got["params"], pref[key], rtol, atol,
+                                         gref, lr))
+            res[f"small {sspec} {optimizer}"] = dict(
+                world=world, loss=lref, param_err=worst)
+            print(f"{tag} small fp32 step, {optimizer}: loss {lref:.6f} as "
+                  f"one process on every rank; params max err {worst:.3e}")
+        for i, (preset, spec, batch) in enumerate(runs):
+            tag = f"[meshes-tp-pp {preset} {spec}]"
+            outs = [o["runs"][i] for o in ranks]
+            data = "vit" if preset.startswith("vit") else "gpt"
+            for r, out in enumerate(outs):
+                want = _designed_tp_pp(out["kind"], spec, r, data)
+                check(out["counts"] == want,
+                      f"{tag} rank {r} launches {out['counts']} != {want}")
+                h, pred = out["state_bytes"]
+                check(h == pred, f"{tag} rank {r} state bytes {h} != "
+                      f"predicted {pred}")
+            recs = outs[0]["recs"]
+            losses = [rec["loss"] for rec in recs]
+            check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses))
+                  and losses[-1] < losses[0], f"{tag} losses {losses}")
+            ips = float(np.median([rec["imgs_per_sec"] for rec in recs[2:]]))
+            step_ms = batch / ips * 1e3
+            row = dict(world=world, kind=outs[0]["kind"],
+                       route=ranks[0]["route"], losses=losses,
+                       step_ms=step_ms,
+                       launches_per_step=[{k: v // TRAIN_STEPS for k, v in
+                                           o["counts"].items() if v}
+                                          for o in outs],
+                       state_bytes=[o["state_bytes"][0] for o in outs],
+                       peak_gib=[o["peak"] / 2**30 for o in outs],
+                       run_wall_s=[o["wall"] for o in outs], spawn_wall_s=wall)
+            res[f"{preset} {spec}"] = row
+            print(f"{tag} B={batch} {TRAIN_STEPS} steps, {world} ranks on "
+                  f"{dev} over {row['route']}: loss {losses[0]:.4f} -> "
+                  f"{losses[-1]:.4f}; launches a step per rank "
+                  f"{row['launches_per_step']} (as designed); parameter + "
+                  f"state bytes a rank {row['state_bytes']} (as predicted); "
+                  f"peak a rank {[round(x, 3) for x in row['peak_gib']]} "
+                  f"GiB; {step_ms:.1f} ms a step (ranks time-sliced on one "
+                  f"card, not a scaling number); the spawn's wall {wall:.1f} "
+                  f"s  ({smi})")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch sees no CUDA device")
@@ -5070,6 +5479,8 @@ def main():
         ("debug", phase_debug),
         ("meshes", lambda: phase_meshes(smi)),
         ("comm-nccl", phase_comm_nccl),
+        ("kernels-tp-pp", phase_kernels_tp_pp),
+        ("meshes-tp-pp", lambda: phase_meshes_tp_pp(smi)),
     )
     # the serving artifacts of serve-export, read again by serve-batching
     export_dir = tempfile.mkdtemp(prefix="vitrs_smoke_export_")
@@ -5301,6 +5712,18 @@ def main():
                          for k in ("gpt2-124m", "vit-b-16")},
         serve_export=exp, serve_batching=R["serve-batching"],
         dispatch=ops["dispatch"])
+    # this slice: K1-fwd and K2 at the tensor-parallel, pipeline and ViT
+    # tp=2 shapes; each rank's launches over the meshes-tp-pp runs
+    ktp, tppp = R["kernels-tp-pp"], R["meshes-tp-pp"]
+    for kname, i in by_kernel.items():
+        kernels[i]["tp_pp_launches"] = {
+            run: [per.get(kname, 0) * TRAIN_STEPS
+                  for per in row["launches_per_step"]]
+            for run, row in tppp.items() if "launches_per_step" in row}
+        if kname in ktp:
+            kernels[i]["tp_pp_shapes"] = ktp[kname]
+    print("[smoke] tensor, sequence, vocab, pipeline and 3-D parallelism: "
+          + json.dumps(tppp))
     print("[smoke] data-parallel families: " + json.dumps(
         {"meshes": meshes, "comm_nccl": R["comm-nccl"],
          "debug": R["debug"], "opcheck": sorted(ops["opcheck"])}))

@@ -326,4 +326,4 @@ def test_trainer_takes_kv_heads_and_refuses_other_overrides(tmp_path):
     assert -1.0 <= q["final_loss"] <= 0.0
     from vitrs_tpu_torch.cli import train as cli
     with pytest.raises(NotImplementedError, match="item 18"):
-        cli.main(["--mesh", "tp=2", "--cpu"])
+        cli.main(["--mesh", "ep=2", "--cpu"])

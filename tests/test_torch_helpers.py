@@ -75,6 +75,13 @@ def spawn_ranks(name, world, d, job, inputs=None, timeout=300):
     directory d (job: the worker's job.json; inputs: arrays for its
     inputs.npz); returns each rank's outputs.  Each rank runs torch on one
     thread: the suite's workers share the machine's cores."""
+    return start_ranks(name, world, d, job, inputs, timeout)()
+
+
+def start_ranks(name, world, d, job, inputs=None, timeout=300):
+    """`spawn_ranks` without waiting: starts the ranks and returns a
+    function that waits for them and returns their outputs, so that a test
+    computes its JAX references while the ranks run."""
     d = str(d)
     os.makedirs(d, exist_ok=True)
     with open(os.path.join(d, "job.json"), "w") as f:
@@ -89,17 +96,20 @@ def spawn_ranks(name, world, d, job, inputs=None, timeout=300):
         [sys.executable, os.path.join(here, "torch_dist_worker.py"), name,
          str(r), str(world), d], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True, env=env) for r in range(world)]
-    try:
-        logs = [p.communicate(timeout=timeout)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {r} of {name}:\n{log[-4000:]}"
-    return [dict(np.load(os.path.join(d, f"out_{name}_{r}.npz")))
-            for r in range(world)]
+
+    def finish():
+        try:
+            logs = [p.communicate(timeout=timeout)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            assert p.returncode == 0, f"rank {r} of {name}:\n{log[-4000:]}"
+        return [dict(np.load(os.path.join(d, f"out_{name}_{r}.npz")))
+                for r in range(world)]
+    return finish
 
 
 def assert_params_close(got, want, cfg, rtol, atol, grads=None, lr=0.0):

@@ -1,6 +1,6 @@
 """The port's mesh launcher (train/mesh.py and `train(mesh=...)`):
 `parse_mesh` against the JAX function, the families not ported yet
-raising, and `--mesh dp=2`, `fsdp=2` and a dp=2 -> fsdp=2 resume end to end
+(expert and context parallelism) raising, and `--mesh dp=2`, `fsdp=2` and a dp=2 -> fsdp=2 resume end to end
 through `train/loop.train` on gloo CPU ranks (tests/torch_dist_worker.py)."""
 
 import dataclasses
@@ -49,8 +49,8 @@ def test_pure_dp_spec_returns_none():
     assert TMS.make_plan(cfg, TMS.parse_mesh("dp=4"), device="cpu") is None
 
 
-@pytest.mark.parametrize("spec", ["tp=2", "pp=2", "ep=2", "cp=2",
-                                  "dp=2,tp=2,sp"])
+@pytest.mark.parametrize("spec", ["ep=2", "cp=2", "ep=2,tp=2",
+                                  "dp=2,cp=2", "dp=2,ep=2"])
 def test_unported_families_raise_naming_item_18(spec, tmp_path):
     tc = TL.TrainConfig(preset="gpt-nano", steps=1, device="cpu",
                         workdir=str(tmp_path), mesh=spec)

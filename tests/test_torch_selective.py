@@ -309,4 +309,4 @@ def test_cli_takes_the_loop_flags(argv, field, value, monkeypatch):
 def test_cli_mesh_still_raises_item_18(tmp_path):
     with pytest.raises(NotImplementedError, match="item 18"):
         cli.main(["--preset", "gpt-nano", "--cpu", "--steps", "1",
-                  "--mesh", "tp=2", "--workdir", str(tmp_path)])
+                  "--mesh", "cp=2", "--workdir", str(tmp_path)])

@@ -362,7 +362,7 @@ def test_cli_needs_a_card_without_cpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("mesh", "tp=2", "item 18")])
+    ("mesh", "ep=2,tp=2", "item 18")])
 def test_loop_raises_for_unported_options(field, value, item, tmp_path):
     tc = TL.TrainConfig(preset="gpt-nano", steps=1, device="cpu",
                         workdir=str(tmp_path))

@@ -129,7 +129,85 @@ def job_train(cfg, job, inp):
     return {"final_loss": np.float64(summary.get("final_loss", np.nan))}
 
 
-JOBS = {"dp": job_dp, "fsdp": job_fsdp, "ckpt": job_ckpt, "train": job_train}
+def job_mesh_step(cfg, job, inp):
+    """For each variant of job["variants"] (a config, a mesh spec, an
+    optimizer and the knobs): the plan's mean gradient on the canonical
+    layout, then one step; the loss, the grad norm, the canonical params
+    after the step and how often each rank ran the encoder."""
+    from vitrs_tpu_torch.models import model as M
+    from vitrs_tpu_torch.train import mesh as MS
+    encodes = [0]
+
+    def counting(fn):
+        def wrapped(*a, **k):
+            encodes[0] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    M.gpt_encode, M.vit_encode = counting(M.gpt_encode), \
+        counting(M.vit_encode)
+    out = {}
+    for var in job["variants"]:
+        vcfg = get_config(var["preset"]).replace(**var["overrides"])
+        ds = var["data"]
+        arrs = {k[len(ds) + 3:]: v for k, v in inp.items()
+                if k.startswith(f"p/{ds}/")}
+        knobs = MS.TrainKnobs(**var.get("knobs", {}))
+        plan = MS.make_plan(vcfg, MS.parse_mesh(var["mesh"]), var["opt"],
+                            "cpu", knobs, weight_decay=var.get("muon_wd", 0))
+        b = inp[f"x/{ds}"].shape[0] // plan.data_ways
+        rows = slice(plan.data_rank * b, (plan.data_rank + 1) * b)
+        x, y = inp[f"x/{ds}"][rows], inp[f"y/{ds}"][rows]
+        params = plan.place(arrs)
+        name = var["name"]
+        if plan.grads is not None and not knobs.any:
+            _, grads = plan.grads(params, x, y)
+            for k, t in plan.to_canonical(grads).items():
+                out[f"{name}/g/{k}"] = t
+        encodes[0] = 0
+        res = plan.step(params, plan.init_opt(params), x, y, var["step"],
+                        var["lr"], var["seventh"])
+        if var["opt"] == "muon":
+            for k, t in plan.opt_save(res[1])["momentum"].items():
+                out[f"{name}/mom/{k}"] = t
+        out[f"{name}/encodes"] = np.int64(encodes[0])
+        out[f"{name}/kind"] = np.array(plan.kind)
+        out[f"{name}/loss"] = res[2].numpy()
+        if plan.returns_gnorm:
+            out[f"{name}/gnorm"] = res[3].numpy()
+        for k, t in plan.to_canonical(res[0]).items():
+            out[f"{name}/p/{k}"] = t
+    return out
+
+
+def job_p2p(cfg, job, inp):
+    """collectives.send / recv around the ring (even ranks send first),
+    then one `exchange` with both neighbours; and `mesh_groups`'s
+    coordinates of a (data, model, pipe) mesh."""
+    from vitrs_tpu_torch.parallel import collectives as C
+    r, w = multihost.rank(), multihost.world_size()
+    nxt, prv = (r + 1) % w, (r - 1) % w
+    got = torch.empty(4)
+    if r % 2 == 0:
+        C.send(torch.arange(4.0) + r, nxt, tag=1)
+        C.recv(got, prv, tag=1)
+    else:
+        C.recv(got, prv, tag=1)
+        C.send(torch.arange(4.0) + r, nxt, tag=1)
+    a, b = torch.empty(2), torch.empty(2)
+    C.exchange([(torch.full((2,), 10.0 * r), nxt, 2),
+                (torch.full((2,), -10.0 * r), prv, 3)],
+               [(a, prv, 2), (b, nxt, 3)])
+    shape = {"data": 1, "model": 2, "pipe": w // 2}
+    m = C.mesh_groups(shape, "cpu")
+    return {"ring": got.numpy(), "from_prev": a.numpy(),
+            "from_next": b.numpy(),
+            "coords": np.array([m.coords[k] for k in shape]),
+            "peer": np.array([m.peer("pipe", i) for i in range(w // 2)])}
+
+
+JOBS = {"dp": job_dp, "fsdp": job_fsdp, "ckpt": job_ckpt, "train": job_train,
+        "mesh_step": job_mesh_step, "p2p": job_p2p}
 
 
 def main():

@@ -7,8 +7,10 @@ on one device, with the JAX CLI's flags: selective or full remat
 (--remat), a profiler trace (--profile-at), EMA weights (--ema-decay),
 streaming ImageNet shards with RandAugment (--dataset imagenet --data-dir,
 --ra-ops, --ra-mag), on one device or as ranks under torchrun: --mesh
-dp=N (ZeRO-1), fsdp=N, dp=M,fsdp=N (hybrid FSDP); the other families raise
-(ROADMAP.md Queue 1 item 18).
+dp=N (ZeRO-1), fsdp=N, dp=M,fsdp=N (hybrid FSDP), tp=N[,dp=M][,sp][,vp]
+(tensor, sequence and vocab parallelism), pp=N[,dp=M][,schedule=gpipe|1f1b|
+1f1b-interleaved][,v=V][,mb=M] (pipelines) and tp=N,pp=K[,dp=M][,sp][,vp]
+(3-D); ep and cp raise (ROADMAP.md Queue 1 item 18).
 
 Examples:
   vitrs-train-torch --preset vit-b-16 --dataset synthetic-imagenet \
@@ -37,6 +39,12 @@ Examples:
       --preset gpt2-124m --mesh dp=2,fsdp=2 --batch-size 16 --steps 100
   torchrun --nproc-per-node 2 -m vitrs_tpu_torch.cli.train \
       --preset gpt-nano --mesh fsdp=2 --cpu --steps 3 --batch-size 4
+  torchrun --nproc-per-node 2 -m vitrs_tpu_torch.cli.train \
+      --preset gpt2-124m --mesh tp=2 --batch-size 8 --steps 100
+  torchrun --nproc-per-node 2 -m vitrs_tpu_torch.cli.train \
+      --preset gpt2-124m --mesh pp=2,schedule=1f1b,mb=4 --batch-size 8
+  torchrun --nproc-per-node 4 -m vitrs_tpu_torch.cli.train \
+      --preset gpt2-124m --mesh tp=2,pp=2 --batch-size 8 --clip-norm 1.0
 
 Checkpoints and metrics go to --workdir, and a run resumes from the latest
 checkpoint there; without --workdir a run writes to a fresh temporary
@@ -95,9 +103,10 @@ def main(argv=None):
     p.add_argument("--ra-mag", type=float, default=0.0,
                    help="RandAugment magnitude in [0, 1]")
     p.add_argument("--mesh", default="",
-                   help="dp=N | fsdp=N | dp=M,fsdp=N, one rank a device "
-                        "under torchrun (tp/pp/ep/cp: ROADMAP.md Queue 1 "
-                        "item 18)")
+                   help="dp=N | fsdp=N[,dp=M] | tp=N[,dp=M][,sp][,vp] | "
+                        "pp=N[,dp=M][,schedule=..][,v=..][,mb=..] | "
+                        "tp=N,pp=K[,dp=M][,sp][,vp], one rank a device "
+                        "under torchrun (ep/cp: ROADMAP.md Queue 1 item 18)")
     p.add_argument("--log-grad-norm", action="store_true")
     p.add_argument("--decay-2d-only", action="store_true",
                    help="weight-decay tensors with >= 2 axes only")

@@ -365,9 +365,20 @@ def gpt_loss(params: Mapping[str, torch.Tensor], tokens: torch.Tensor,
     fp32 logits (G6, G11)."""
     tp = train_params(params, cfg)
     lnf, aux = gpt_trunk(tp, tokens, cfg, return_aux=True)
-    head = params["wte"].to(lnf.dtype)
     if cfg.quirks:
-        return quirk_loss(basic.linear(lnf, head), targets)
+        return quirk_loss(basic.linear(lnf, params["wte"].to(lnf.dtype)),
+                          targets)
+    return gpt_head_loss(lnf, params["wte"], targets, cfg) + aux
+
+
+def gpt_head_loss(lnf: torch.Tensor, wte: torch.Tensor,
+                  targets: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
+    """Mean CE of the tied head over the final LN's output (B, T, C): the
+    fused CE (K5/K6) on the head padded to 50304 rows, or K8 with
+    `fused_head_ce.ENABLE`, where they take the shape, else plain CE on the
+    unpadded logits (`gpt_loss`'s routes; the mesh families' replicated
+    heads take it too)."""
+    head = wte.to(lnf.dtype)
     V = cfg.vocab_size
     Vp = fused_ce.pad_vocab(V)
     R = lnf.shape[0] * lnf.shape[1]
@@ -375,12 +386,11 @@ def gpt_loss(params: Mapping[str, torch.Tensor], tokens: torch.Tensor,
         wte_p = F.pad(head, (0, 0, 0, Vp - V))
         if fused_head_ce.ENABLE and fused_head_ce.supports(R, Vp,
                                                            lnf.shape[-1]):
-            return fused_head_ce.head_ce_mean(lnf, wte_p, targets, V) + aux
+            return fused_head_ce.head_ce_mean(lnf, wte_p, targets, V)
         logits = basic.linear(lnf, wte_p)
-        return fused_ce.cross_entropy_mean(logits, targets,
-                                           real_vocab=V) + aux
+        return fused_ce.cross_entropy_mean(logits, targets, real_vocab=V)
     logits = basic.linear(lnf, head)
-    return basic.cross_entropy_from_logits(logits, targets).mean() + aux
+    return basic.cross_entropy_from_logits(logits, targets).mean()
 
 
 def quirk_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

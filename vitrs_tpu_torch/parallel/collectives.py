@@ -1,6 +1,7 @@
-"""The collectives of the data-parallel families (ZeRO-1, FSDP, hybrid):
-reduce-scatter, all-gather, all-reduce, broadcast, barrier, over a
-`torch.distributed` process group (None: the whole world).
+"""The collectives of the mesh families: reduce-scatter, all-gather,
+all-reduce, broadcast, barrier over a `torch.distributed` process group
+(None: the whole world); point-to-point `send`, `recv` and `exchange` (the
+pipeline's hops); and `mesh_groups`, the process groups of an N-D mesh.
 
 The JAX package's steps name these as `lax.psum_scatter`, `all_gather`,
 `psum`/`pmean` inside `shard_map`, or leave them to GSPMD; here each is one
@@ -13,11 +14,17 @@ call on a flat tensor.
 * The all-gather is `all_gather_single` where the installed torch has it,
   else `all_gather_into_tensor` (its earlier name), and the reduce-scatter
   `reduce_scatter_single`, else `reduce_scatter_tensor`, chosen once below.
-* Sums only: the callers divide by the world size where the JAX code
-  takes a mean.
+* Sums only (and the max `all_reduce(op="max")`): the callers divide by
+  the group size where the JAX code takes a mean.
+* `mesh_groups` lays ranks out as the JAX meshes lay out devices: row-major
+  over the named axes, so (data, model, pipe) puts rank (d*tp + m)*pp + p
+  at coordinates (d, m, p), as `make_mesh_3d` reshapes jax.devices().
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -40,14 +47,17 @@ def route(group, device) -> str:
     return f"{backend} (staged through host memory)" if staged else backend
 
 
-def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
-    """Sum `t` over the group, in place."""
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def all_reduce(t: torch.Tensor, group=None, op: str = "sum") -> torch.Tensor:
+    """Sum (or max) `t` over the group, in place."""
     if _staged(t, group):
         h = t.cpu()
-        dist.all_reduce(h, group=group)
+        dist.all_reduce(h, op=_OPS[op], group=group)
         t.copy_(h)
     else:
-        dist.all_reduce(t, group=group)
+        dist.all_reduce(t, op=_OPS[op], group=group)
     return t
 
 
@@ -90,3 +100,115 @@ def broadcast(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
 
 def barrier(group=None) -> None:
     dist.barrier(group=group)
+
+
+# --- point to point ---------------------------------------------------------
+
+def _p2p_staged(t: torch.Tensor) -> bool:
+    return t.is_cuda and dist.get_backend() == "gloo"
+
+
+def send(t: torch.Tensor, dst: int, tag: int = 0) -> None:
+    """Send `t` to global rank `dst` (blocking)."""
+    dist.send(t.cpu() if _p2p_staged(t) else t.contiguous(), dst, tag=tag)
+
+
+def recv(t: torch.Tensor, src: int, tag: int = 0) -> torch.Tensor:
+    """Receive into `t` from global rank `src` (blocking)."""
+    if _p2p_staged(t):
+        h = torch.empty(t.shape, dtype=t.dtype)
+        dist.recv(h, src, tag=tag)
+        t.copy_(h)
+    else:
+        dist.recv(t, src, tag=tag)
+    return t
+
+
+def exchange(sends: Sequence[Tuple[torch.Tensor, int, int]],
+             recvs: Sequence[Tuple[torch.Tensor, int, int]]) -> None:
+    """Post every send (tensor, dst, tag) and receive (buffer, src, tag) at
+    once (isend / irecv) and wait for all of them: a step of a schedule in
+    which neighbours send to each other in the same step cannot deadlock."""
+    staged = [(h, t) for t, _, _ in recvs
+              for h in [torch.empty(t.shape, dtype=t.dtype)
+                        if _p2p_staged(t) else t]]
+    work = [dist.isend(t.cpu() if _p2p_staged(t) else t.contiguous(), dst,
+                       tag=tag) for t, dst, tag in sends]
+    work += [dist.irecv(h, src, tag=tag)
+             for (h, _), (_, src, tag) in zip(staged, recvs)]
+    for w in work:
+        w.wait()
+    for h, t in staged:
+        if h is not t:
+            t.copy_(h)
+
+
+# --- the groups of an N-D mesh ----------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MeshGroups:
+    """One rank's view of an N-D mesh: its device and global rank, the
+    axes' sizes in layout order, its coordinate on each, and each axis's
+    process group (None for an axis of size 1: nothing to exchange)."""
+    device: torch.device
+    rank: int
+    shape: Dict[str, int]
+    coords: Dict[str, int]
+    groups: Dict[str, object]
+
+    def size(self, axis: str) -> int:
+        return self.shape.get(axis, 1)
+
+    def index(self, axis: str) -> int:
+        return self.coords.get(axis, 0)
+
+    def group(self, axis: str):
+        return self.groups.get(axis)
+
+    def peer(self, axis: str, index: int) -> int:
+        """The global rank at `index` on `axis`, the other coordinates
+        this rank's."""
+        return _rank_of(self.shape, dict(self.coords, **{axis: index}))
+
+
+def _rank_of(shape: Dict[str, int], coords: Dict[str, int]) -> int:
+    r = 0
+    for a, n in shape.items():
+        r = r * n + coords[a]
+    return r
+
+
+def mesh_groups(shape: Dict[str, int], device,
+                rank: Optional[int] = None) -> MeshGroups:
+    """The groups of a mesh of `shape` ({axis: size} in layout order, e.g.
+    {"data": 2, "model": 2, "pipe": 2}) over the whole world.  Every rank
+    creates every group, in one order (new_group's contract)."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    n = 1
+    for v in shape.values():
+        n *= v
+    if n != world:
+        raise RuntimeError(f"a mesh {dict(shape)} of {n} ranks in a world of "
+                           f"{world}: one process a rank (parallel/multihost."
+                           f"initialize, or torchrun)")
+    rank = (dist.get_rank() if world > 1 else 0) if rank is None else rank
+    coords, r = {}, rank
+    for a in reversed(list(shape)):
+        coords[a] = r % shape[a]
+        r //= shape[a]
+    coords = {a: coords[a] for a in shape}
+    groups = {}
+    for axis, size in shape.items():
+        if size == 1:
+            continue
+        others = [a for a in shape if a != axis]
+        grid = [{}]
+        for a in others:
+            grid = [dict(c, **{a: i}) for c in grid for i in range(shape[a])]
+        for c in grid:
+            ranks = [_rank_of(shape, dict(c, **{axis: i}))
+                     for i in range(size)]
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                groups[axis] = g
+    return MeshGroups(torch.device(device), rank, dict(shape), coords, groups)

@@ -4,8 +4,11 @@
 rendezvous in a temporary directory), and each builds the ZeRO-1 step on
 tiny vit shapes and runs one step of it: batch split over the ranks,
 reduce-scatter of the flat gradient, AdamW over the rank's shard of m and
-v, all-gather of the parameters.  It checks that the loss is finite and the
-same on every rank, and returns it.
+v, all-gather of the parameters.  Then, on tiny gpt shapes, one step of
+each mesh plan that n ranks hold (train/mesh.py): at n = 2, tp=2,sp and
+pp=2 under 1F1B; at n = 4, dp=2,tp=2,sp,vp, dp=2,pp=2 interleaved and
+tp=2,pp=2.  It checks that every loss is finite and the same on every
+rank, and returns the ZeRO-1 one.
 
     python -m vitrs_tpu_torch.parallel.dryrun 4
 """
@@ -16,6 +19,8 @@ import multiprocessing as mp
 import os
 import sys
 import tempfile
+
+import numpy as np
 
 
 def _rank(rank: int, n: int, rdv: str, out) -> None:
@@ -42,8 +47,28 @@ def _rank(rank: int, n: int, rdv: str, out) -> None:
     params, m, v, loss = dp.make_dp_train_step(cfg, mesh)(
         params, m, v, dp.shard_batch(images, mesh),
         dp.shard_batch(labels, mesh), 1, 1e-3, 0.0)
-    out.put((rank, float(loss), m.shape[0]))
+    mesh_losses = []
+    from ..train import mesh as MS
+    gcfg = get_config("gpt-nano").replace(num_layers=4, dtype="float32")
+    host = PRM.to_numpy(PRM.init_params(gcfg, torch.Generator().manual_seed(0)),
+                        gcfg)
+    x = rng.integers(0, gcfg.vocab_size, (8, gcfg.max_seq_len))
+    for spec in MESH_SPECS.get(n, ()):
+        plan = MS.make_plan(gcfg, MS.parse_mesh(spec), "adamw", "cpu")
+        b = 8 // plan.data_ways
+        rows = slice(plan.data_rank * b, (plan.data_rank + 1) * b)
+        placed = plan.place(host)
+        _, _, mloss = plan.step(placed, plan.init_opt(placed), x[rows],
+                                np.roll(x, -1, 1)[rows], 1, 1e-3, 0.0)
+        mesh_losses.append(float(mloss))
+    out.put((rank, float(loss), m.shape[0], tuple(mesh_losses)))
     torch.distributed.destroy_process_group()
+
+
+# the mesh plans a dry run of n ranks steps once each, after ZeRO-1
+MESH_SPECS = {2: ("tp=2,sp", "pp=2,schedule=1f1b,mb=4"),
+              4: ("dp=2,tp=2,sp,vp", "dp=2,pp=2,schedule=1f1b-interleaved,v=2",
+                  "tp=2,pp=2")}
 
 
 def dryrun_multichip(n_devices: int) -> float:
@@ -62,13 +87,16 @@ def dryrun_multichip(n_devices: int) -> float:
     if any(p.exitcode != 0 for p in procs):
         raise RuntimeError(f"dryrun_multichip: exit codes "
                            f"{[p.exitcode for p in procs]}")
-    losses = {loss for _, loss, _ in got}
-    if len(losses) != 1 or not all(map(float.__eq__, losses, losses)):
+    losses = {(loss, mesh) for _, loss, _, mesh in got}
+    if len(losses) != 1 or not all(np.isfinite(
+            [v for pair in losses for v in (pair[0],) + pair[1]])):
         raise RuntimeError(f"dryrun_multichip: ranks disagree or diverged: "
                            f"{sorted(got)}")
-    loss = losses.pop()
+    loss, mesh = losses.pop()
     print(f"dryrun_multichip({n_devices}): dp ok, loss={loss:.4f}, "
-          f"m/v shard {got[0][2]} values a rank")
+          f"m/v shard {got[0][2]} values a rank; "
+          + ", ".join(f"{s} loss={v:.4f}"
+                      for s, v in zip(MESH_SPECS.get(n_devices, ()), mesh)))
     return loss
 
 

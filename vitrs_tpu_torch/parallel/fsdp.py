@@ -187,7 +187,9 @@ def init_opt_state(params: Dict[str, torch.Tensor], mesh: FsdpMesh):
                  for _ in range(2))
 
 
-def _batch(x, y, cfg: ViTConfig, device):
+def batch_tensors(x, y, cfg: ViTConfig, device):
+    """A rank's rows (numpy or tensors) on its device: tokens as int64 or
+    images as fp32, and int64 targets."""
     x = to_device(x, device)
     y = to_device(y, device).long()
     return (x.long() if cfg.mode != "vit" else x.float()), y
@@ -198,7 +200,7 @@ def _loss_and_full_grads(params, specs, mesh, cfg, inputs, targets):
     (loss on this rank, whole params, whole gradients)."""
     full = {k: gather(t, specs[k], mesh).detach().requires_grad_(True)
             for k, t in params.items()}
-    x, y = _batch(inputs, targets, cfg, mesh.device)
+    x, y = batch_tensors(inputs, targets, cfg, mesh.device)
     loss = M.loss_fn(full, x, y, cfg)
     loss.backward()
     return loss.detach(), full, {k: t.grad for k, t in full.items()}

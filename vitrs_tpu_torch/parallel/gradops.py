@@ -8,7 +8,10 @@ leaf, which every rank holds whole and which counts once.
 
 * `global_grad_norm`: the global L2 norm; the sharded leaves' sum of
   squares is all-reduced over `group` once.  Equal to the one-device
-  sqrt(sum(g**2)) up to the order of the sums.
+  sqrt(sum(g**2)) up to the order of the sums.  `mesh_grad_norm` is the
+  same on an N-D mesh (tensor_parallel's layouts): a leaf's squares are
+  summed over exactly the axes its spec names, once an axis set, as the
+  JAX function psums over a PartitionSpec's axes.
 * `clip_by_global_norm`: the DP step's clip, scale min(1, clip/(norm +
   1e-6)); the returned norm is the one before the clip.
 * `accumulate_microbatches`: the mean loss and mean fp32 gradients over
@@ -41,6 +44,25 @@ def global_grad_norm(grads: Dict[str, torch.Tensor], specs: Dict,
     if dist.is_initialized() and dist.get_world_size(group) > 1:
         C.all_reduce(sharded, group)
     return (sharded + replicated).sqrt()
+
+
+def mesh_grad_norm(grads: Dict[str, torch.Tensor], specs: Dict,
+                   mesh) -> torch.Tensor:
+    """The global L2 norm of a tree whose leaf k is sliced by the spec
+    specs[k] (a tuple of mesh axis names or None per dim) over `mesh`
+    (collectives.MeshGroups)."""
+    by_axes: Dict[tuple, torch.Tensor] = {}
+    for k, g in grads.items():
+        axes = tuple(sorted({a for a in specs[k]
+                             if a is not None and mesh.size(a) > 1}))
+        sq = g.float().square().sum()
+        by_axes[axes] = by_axes[axes] + sq if axes in by_axes else sq
+    total = None
+    for axes, sq in by_axes.items():
+        for a in axes:
+            C.all_reduce(sq, mesh.group(a))
+        total = sq if total is None else total + sq
+    return total.sqrt()
 
 
 def clip_by_global_norm(grads: Dict[str, torch.Tensor], specs: Dict,

@@ -71,11 +71,14 @@ mode, AdamW, Adafactor or Muon, on one device or one rank of many.
   world size (parallel/data_parallel.py), and rank 0 alone writes the
   checkpoints, side trees, metrics and log lines (the AdamW m and v are
   gathered from the shards first).  `mesh`: "dp=N" asks for exactly that
-  world; "fsdp=N[,dp=M]" runs `_train_mesh` through a train/mesh.py Plan
-  (checkpoints in the canonical layout, optimizer state in
-  `meshopt_{step:08d}.tree`, so a run resumes under another mesh); the
-  other families raise NotImplementedError naming ROADMAP.md Queue 1 item
-  18.
+  world; "fsdp=N[,dp=M]", "tp=N[,dp=M][,sp][,vp]", "pp=N[,dp=M]
+  [,schedule=..,v=..,mb=..]" and "tp=N,pp=K[,dp=M][,sp][,vp]" run
+  `_train_mesh` through a train/mesh.py Plan (each rank reads its data
+  block's rows; checkpoints in the canonical layout, optimizer state in
+  `meshopt_{step:08d}.tree`, so a run resumes under another mesh; clip,
+  accumulation and the grad-norm log reach the tp, pp and 3-D AdamW
+  steps); ep and cp raise NotImplementedError naming ROADMAP.md Queue 1
+  item 18.
 `model_overrides` is the JAX TrainConfig's dict of config fields (e.g.
 {"max_seq_len": 8192, "window": 1024, "pos_emb": "rope"}, the
 long-context rope + sliding-window model, {"num_experts": 8} for MoE, or
@@ -128,7 +131,7 @@ class TrainConfig:
     preset's own); `kv_heads` (shorthand for num_kv_heads among the
     overrides; setting both raises), `drop_path` (a model override in the
     JAX loop), `dataset_size`, `prefetch` and `device` are the port's own.
-    `mesh` is a train/mesh.py spec ("dp=2", "fsdp=2", "dp=2,fsdp=2")."""
+    `mesh` is a train/mesh.py spec ("dp=2", "fsdp=2", "tp=2,pp=2", ...)."""
     preset: str = "gpt2-124m"
     dataset: str = "cifar10"       # vit: the image dataset; gpt mode reads
                                    # tokens, and a non-empty dataset asks
@@ -368,11 +371,14 @@ def _shared_workdir(tc: TrainConfig) -> str:
 
 
 def _loader(tc: TrainConfig, cfg: ViTConfig, cursor: int,
-            device_normalize: bool = True):
+            device_normalize: bool = True, shard=None):
     """(the training loader, the (mean, std) the step normalises uint8
     images with, or None); each rank reads its (rank, world) stride of
-    every global batch."""
-    shard = dict(host_id=multihost.rank(), num_hosts=multihost.world_size())
+    every global batch, or shard = (block, blocks): a mesh plan's data
+    rank and ways, so that the ranks of a model or pipe group read the
+    same rows."""
+    block, blocks = shard or (multihost.rank(), multihost.world_size())
+    shard = dict(host_id=block, num_hosts=blocks)
     if cfg.mode == "vit" and tc.dataset == "imagenet":
         # fp32 batches normalised on the host by the decode pipeline
         ds = IN.ShardedImageNet(tc.data_dir, split="train")
@@ -736,7 +742,8 @@ def _train_mesh(tc: TrainConfig, cfg: ViTConfig, plan,
         else:
             ema = {k: EMA.init_ema(t) for k, t in params.items()}
 
-    loader, _ = _loader(tc, cfg, cursor, device_normalize=False)
+    loader, _ = _loader(tc, cfg, cursor, device_normalize=False,
+                        shard=(plan.data_rank, plan.data_ways))
     prefetcher = (DevicePrefetcher(loader, device, depth=tc.prefetch)
                   if tc.prefetch else None)
     kind = device_kind(device)
@@ -779,8 +786,10 @@ def _train_mesh(tc: TrainConfig, cfg: ViTConfig, plan,
                     step, tc.muon_adamw_lr, tc.warmup, tc.steps,
                     tc.min_lr * tc.muon_adamw_lr / max(tc.lr, 1e-12))
                     if plan.optimizer == "muon" else tc.weight_decay)
-                params, opt_state, loss = plan.step(
-                    params, opt_state, inputs, targets, step, lr, seventh)
+                out = plan.step(params, opt_state, inputs, targets, step,
+                                lr, seventh)
+                params, opt_state, loss = out[:3]
+                gnorm = out[3] if plan.returns_gnorm else None
                 if ema is not None:
                     for k, t in params.items():
                         EMA.update_ema(ema[k], t, tc.ema_decay)
@@ -795,6 +804,8 @@ def _train_mesh(tc: TrainConfig, cfg: ViTConfig, plan,
                            "mfu": (round(sps * flops_per_ex / peak, 4)
                                    if peak else None),
                            "device": kind, "mesh": mesh_name}
+                    if gnorm is not None:
+                        rec["grad_norm"] = round(float(gnorm), 5)
                     if primary:
                         print("[train] " + json.dumps(rec))
                         log_f.write(json.dumps(rec) + "\n")

@@ -1,32 +1,46 @@
-"""The mesh-spec launcher, `--mesh dp=2` / `fsdp=2` / `dp=2,fsdp=2`: the
-port of `vitrs_tpu/train/mesh.py` on `torch.distributed`.
+"""The mesh-spec launcher, `--mesh dp=2,tp=2,pp=2` and the rest: the port
+of `vitrs_tpu/train/mesh.py` on `torch.distributed`.
 
 A spec string routes to a step factory, and every family sits behind one
 interface, as in the JAX package:
 
-    plan = make_plan(cfg, parse_mesh("fsdp=2"), optimizer="adamw")
+    plan = make_plan(cfg, parse_mesh("tp=2,pp=2"), optimizer="adamw")
     params = plan.place(canonical_params)          # host -> rank's layout
     opt    = plan.init_opt(params)
     params, opt, loss = plan.step(params, opt, x, y, step, lr, wd)
     host   = plan.to_canonical(params)             # -> canonical checkpoint
-    tree   = plan.opt_save(opt)                    # -> canonical side tree
-    opt    = plan.opt_load(tree)                   # <- from any mesh's save
+    tree   = plan.opt_save(opt)                    # -> side tree
+    opt    = plan.opt_load(tree)                   # <- from a save
 
-Checkpoints are written in the canonical one-device layout (params.py's
-tensor order; optimizer state keyed by canonical names), so a run saved
-under one mesh resumes under another.  `parse_mesh` parses every spec the
-JAX function parses.  The port runs:
+x, y are the rank's rows: rows `plan.data_rank` of `plan.data_ways` equal
+blocks of the global batch (ranks of one model or pipe group take the same
+rows).  Checkpoints are written in the canonical one-device layout
+(params.py's tensor order); AdamW's m and v and Muon's state are canonical
+too, so a run saved under one mesh resumes under another (tp=2 -> pp=2 ->
+dp=2); an Adafactor state is keyed by its family's leaves, as in JAX, and a
+family that cannot read another's re-initialises it.  `parse_mesh` parses
+every spec the JAX function parses.  The port runs:
 
-  dp=N             ZeRO-1 data parallelism: make_plan returns None and the
-                   loop's own path (parallel/data_parallel.py) runs it
-  fsdp=N[,dp=M]    ZeRO-3 sharding; dp > 1 is the hybrid (FSDP inside
-                   groups of N ranks x DP across M) - parallel/fsdp.py,
-                   with AdamW, Adafactor or Muon
+  dp=N                 ZeRO-1 data parallelism: make_plan returns None and
+                       the loop's own path (parallel/data_parallel.py)
+  dp,tp[,sp][,vp]      Megatron TP (+ sequence parallelism, + the
+                       vocab-parallel head and CE) with AdamW, Adafactor or
+                       Muon (no vp) - parallel/tensor_parallel.py,
+                       muon_parallel.py
+  dp,pp[,schedule,v,mb] GPipe / 1F1B / interleaved 1F1B with AdamW or
+                       Adafactor - parallel/pipeline.py
+  dp,tp,pp[,sp][,vp]   3-D, the TP block inside GPipe, with AdamW or
+                       Adafactor - parallel/threed.py
+  fsdp=N[,dp=M]        ZeRO-3 sharding; dp > 1 is the hybrid (FSDP inside
+                       groups of N ranks x DP across M) - parallel/fsdp.py,
+                       with AdamW, Adafactor or Muon
 
-Tensor, sequence and vocab parallelism, pipelines, the 3-D mesh, expert and
-context parallelism raise NotImplementedError naming ROADMAP.md Queue 1
-item 18.  A mesh of N ranks runs as N processes (torchrun, or
-`multihost.initialize`), one device each.
+clip_norm, accum_steps and the grad-norm log reach the dp, tp, pp and 3-D
+AdamW steps, as in JAX.  Expert parallelism (ep) and context parallelism
+(cp) raise NotImplementedError naming ROADMAP.md Queue 1 item 18.  A mesh
+of N ranks runs as N processes (torchrun, or `multihost.initialize`), one
+device each; ranks that share one card (gloo) stage every collective
+through host memory (parallel/collectives.py).
 """
 
 from __future__ import annotations
@@ -40,7 +54,8 @@ import torch
 from ..config import ViTConfig
 
 _UNPORTED = ("ROADMAP.md Queue 1 item 18: the {} families are not ported "
-             "yet (dp and fsdp[,dp] are)")
+             "yet (expert and context parallelism; dp, tp, sp, vp, pp, the "
+             "3-D mesh and fsdp are)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,27 +133,48 @@ class Plan:
     # placed params -> optimizer state
     init_opt: Callable
     # (params, opt, x, y, step, lr, wd or Muon's AdamW lr)
-    #   -> (params, opt, loss)
+    #   -> (params, opt, loss[, grad_norm])
     step: Callable
     # placed params -> host canonical dict (numpy); a collective
     to_canonical: Callable
-    # optimizer state -> canonical host tree for checkpoint_tree.save_tree
+    # optimizer state -> host tree for checkpoint_tree.save_tree
     opt_save: Callable
-    # canonical host tree -> placed optimizer state
+    # host tree -> placed optimizer state
     opt_load: Callable
+    # the rank's block of the global batch, of data_ways equal blocks
+    data_rank: int = 0
+    data_ways: int = 1
+    # the step returns the grad norm before the clip as well
+    returns_gnorm: bool = False
+    # micro-batch accumulation baked into the step
+    accum_steps: int = 1
+    # (params, x, y) -> (loss, the rank's slices of the mean gradient), the
+    # step's own (tp, pp, 3-D)
+    grads: Optional[Callable] = None
 
     def validate_batch(self, batch: int):
-        ways = self.spec.n_devices
+        """The global batch must split into data_ways blocks, each into
+        accum_steps slices and (pp, 3-D) each slice into microbatches."""
+        s, ways = self.spec, self.data_ways
         if batch % ways:
             raise ValueError(f"batch {batch} must divide over the {ways} "
-                             f"data-sharding ways of mesh "
-                             f"{self.spec.describe()}")
+                             f"data-sharding ways of mesh {s.describe()}")
+        local = batch // ways
+        if local % self.accum_steps:
+            raise ValueError(f"per-data-shard batch {local} must divide "
+                             f"into accum_steps {self.accum_steps}")
+        if self.kind in ("pp", "3d"):
+            mb = s.microbatches or s.pp
+            if (local // self.accum_steps) % mb:
+                raise ValueError(f"per-data-shard micro-slice "
+                                 f"{local // self.accum_steps} must divide "
+                                 f"into microbatches {mb}")
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainKnobs:
-    """Features the DP path's AdamW step takes (clip, accumulation, the
-    grad-norm log); the FSDP steps keep the lean step, as in JAX."""
+    """Features the AdamW steps take (clip, accumulation, the grad-norm
+    log), as in JAX; fsdp and the other optimizers keep the lean step."""
     accum_steps: int = 1
     clip_norm: float = 0.0
     log_grad_norm: bool = False
@@ -153,27 +189,201 @@ def make_plan(cfg: ViTConfig, spec: MeshSpec, optimizer: str = "adamw",
               device="cuda", knobs: TrainKnobs = TrainKnobs(),
               weight_decay: float = 0.0) -> Optional[Plan]:
     """The Plan of a mesh spec on this rank's `device`; None for a pure dp
-    spec (the loop's ZeRO-1 path).  Raises NotImplementedError for the
-    families not ported yet, ValueError for combinations no factory
-    covers.  weight_decay is bound into Muon plans only (their seventh
-    step slot carries the AdamW lr)."""
+    spec (the loop's ZeRO-1 path).  Raises NotImplementedError for ep and
+    cp, ValueError for combinations no factory covers.  weight_decay is
+    bound into Muon plans only (their seventh step slot carries the AdamW
+    lr)."""
     on = [k for k in ("tp", "pp", "ep", "cp") if getattr(spec, k) > 1]
-    if on or spec.sp or spec.vp:
-        raise NotImplementedError(_UNPORTED.format(
-            "/".join(on + [k for k in ("sp", "vp") if getattr(spec, k)])))
-    if not spec.fsdp:
-        return None                      # pure DP: the loop's own path
-    if knobs.any:
-        raise ValueError("fsdp keeps the lean step: clip_norm, accum_steps "
-                         "and log_grad_norm ride the dp path, as in JAX")
+    unported = [k for k in ("ep", "cp") if k in on]
+    if unported:
+        raise NotImplementedError(_UNPORTED.format("/".join(unported)))
     if optimizer not in ("adamw", "adafactor", "muon"):
         raise ValueError(f"unknown optimizer {optimizer!r}")
-    return _fsdp_plan(cfg, spec, optimizer, device, weight_decay)
+    if knobs.any and optimizer != "adamw":
+        raise ValueError("clip_norm, accum_steps and log_grad_norm on the "
+                         "mesh path ride the AdamW steps (the dp path's "
+                         f"contract); --optimizer {optimizer} keeps the lean "
+                         "step")
+    if spec.fsdp:
+        if on or spec.sp or spec.vp:
+            raise ValueError("fsdp composes with dp only (the hybrid replica "
+                             "axis); tp/pp/ep/cp have their own plans")
+        if knobs.any:
+            raise ValueError("fsdp keeps the lean step: clip_norm, "
+                             "accum_steps and log_grad_norm ride the dp, tp, "
+                             "pp and 3-D paths, as in JAX")
+        return _fsdp_plan(cfg, spec, optimizer, device, weight_decay)
+    if (spec.sp or spec.vp) and spec.tp == 1:
+        raise ValueError(f"sp and vp are options of tensor parallelism: "
+                         f"mesh {spec.describe()} has no tp")
+    if not on:
+        return None                      # pure DP: the loop's own path
+    if optimizer == "muon" and spec.vp:
+        raise ValueError("muon under TP has no vocab-parallel head variant "
+                         "(parallel/muon_parallel.py) - drop vp or use adamw")
+    if "pp" in on and optimizer == "muon":
+        raise ValueError("muon rides tp and fsdp meshes (pp and 3-D: "
+                         "adamw/adafactor)")
+    if "tp" in on and "pp" in on:
+        return _3d_plan(cfg, spec, device, optimizer, knobs)
+    if "pp" in on:
+        return _pp_plan(cfg, spec, device, optimizer, knobs)
+    return _tp_plan(cfg, spec, device, optimizer, knobs, weight_decay)
 
 
 def _tensors(tree, device):
     return {k: torch.as_tensor(np.asarray(v), device=device)
             for k, v in tree.items()}
+
+
+def _adamw_tuple(raw):
+    """(p, m, v, ...) -> (p, m, v, loss[, gnorm]) adapted to the uniform
+    (p, (m, v), ...) -> (p, (m, v), loss[, gnorm])."""
+    def step(p, opt_, x, y, t, lr, wd):
+        out = raw(p, *opt_, x, y, t, lr, wd)
+        return (out[0], (out[1], out[2])) + tuple(out[3:])
+    return step
+
+
+def _af_saveload(mesh, gshapes, specs, fac, permute=None):
+    """(opt_save, opt_load) of an Adafactor state keyed by a family's
+    leaves: saved whole (a collective), placed back as the rank's slices;
+    `permute(tree, inverse)` maps the interleaved layer order."""
+    from ..ops import adafactor as AF
+    from ..parallel import tensor_parallel as TP
+    sspecs = AF.state_specs(gshapes, specs, fac)
+    fields = ("vr", "vc", "vf")
+
+    def opt_save(o):
+        out = {f: TP.gather_tree(getattr(o, f), getattr(sspecs, f), mesh)
+               for f in fields}
+        return ({f: permute(t, True) for f, t in out.items()} if permute
+                else out)
+
+    def opt_load(tree):
+        return AF.AdafactorState(*(TP.place_tree(
+            permute(tree[f], False) if permute else tree[f],
+            getattr(sspecs, f), mesh) for f in fields), {})
+
+    return opt_save, opt_load
+
+
+def _common(kind, mesh, spec, optimizer, knobs):
+    return dict(kind=kind, mesh=mesh, spec=spec, optimizer=optimizer,
+                data_rank=mesh.index("data"), data_ways=mesh.size("data"),
+                returns_gnorm=knobs.log_grad_norm,
+                accum_steps=knobs.accum_steps)
+
+
+def _tp_plan(cfg, spec, device, optimizer="adamw", knobs=TrainKnobs(),
+             weight_decay=0.0):
+    from ..parallel import tensor_parallel as TP
+    mesh = TP.make_mesh_2d(spec.dp, spec.tp, device)
+    vp = spec.vp
+    specs = TP.tp_param_specs(cfg, vp)
+    common = dict(_common("tp", mesh, spec, optimizer, knobs),
+                  grads=TP.make_tp_grads(cfg, mesh, spec.sp, vp),
+                  place=lambda p: TP.place_tp_params(p, cfg, mesh, vp),
+                  to_canonical=lambda p: TP.from_tp_params(
+                      TP.gather_tree(p, specs, mesh), cfg, vp))
+    if optimizer == "muon":
+        from ..ops import muon as MU
+        from ..parallel import muon_parallel as MP
+        raw = MP.make_tp_muon_train_step(cfg, mesh, spec.sp,
+                                         weight_decay=weight_decay)
+
+        def step(p, opt_, x, y, t, lr, alr):
+            # the seventh slot carries the AdamW lr; the decay is bound
+            p, mom, m, v, loss = raw(p, *opt_, x, y, t, lr, alr)
+            return p, (mom, m, v), loss
+
+        return Plan(
+            init_opt=lambda p: MP.init_tp_muon_state(p, cfg), step=step,
+            opt_save=lambda o: MP.gather_tp_muon_state(*o, cfg, mesh)._asdict(),
+            opt_load=lambda tree: MP.place_tp_muon_state(
+                MU.MuonState(**{f: tree[f] for f in MU.MuonState._fields}),
+                cfg, mesh), **common)
+    if optimizer == "adafactor":
+        fac, gshapes = TP.tp_af_factored(cfg, vp)
+        opt_save, opt_load = _af_saveload(mesh, gshapes, specs, fac)
+        return Plan(
+            init_opt=lambda p: TP.init_tp_af_state(mesh, cfg, vp),
+            step=TP.make_tp_train_step_adafactor(cfg, mesh, spec.sp, vp),
+            opt_save=opt_save, opt_load=opt_load, **common)
+    step = _adamw_tuple(TP.make_tp_train_step(
+        cfg, mesh, spec.sp, vp, knobs.accum_steps, knobs.clip_norm,
+        knobs.log_grad_norm))
+    return Plan(
+        init_opt=TP.init_tp_opt_state, step=step,
+        opt_save=lambda o: {"m": common["to_canonical"](o[0]),
+                            "v": common["to_canonical"](o[1])},
+        opt_load=lambda tree: tuple(common["place"](tree[k])
+                                    for k in ("m", "v")), **common)
+
+
+def _pp_plan(cfg, spec, device, optimizer="adamw", knobs=TrainKnobs()):
+    from ..parallel import pipeline as PP
+    mesh = PP.make_mesh_dp_pp(spec.dp, spec.pp, device)
+    mb = spec.microbatches or spec.pp
+    V = spec.virtual if spec.schedule == "1f1b-interleaved" else 1
+    common = dict(_common("pp", mesh, spec, optimizer, knobs),
+                  grads=PP.make_pp_grads(cfg, mesh, mb, spec.schedule, V),
+                  place=lambda p: PP.place_pp_params(p, cfg, mesh, V),
+                  to_canonical=lambda p: PP.pp_to_canonical(p, cfg, mesh, V))
+    if optimizer == "adafactor":
+        fac, gshapes = PP.pp_af_factored(cfg)
+
+        def permute(tree, inverse):
+            return (PP.permute_af_tree(tree, cfg, spec.pp, V, inverse)
+                    if V > 1 else tree)
+
+        opt_save, opt_load = _af_saveload(mesh, gshapes,
+                                          PP.pp_param_specs(cfg), fac,
+                                          permute)
+        return Plan(
+            init_opt=lambda p: PP.init_pp_af_state(mesh, cfg),
+            step=PP.make_pp_train_step_adafactor(cfg, mesh, mb, spec.schedule,
+                                                 V),
+            opt_save=opt_save, opt_load=opt_load, **common)
+    step = _adamw_tuple(PP.make_pp_train_step(
+        cfg, mesh, mb, spec.schedule, V, knobs.accum_steps, knobs.clip_norm,
+        knobs.log_grad_norm))
+    return Plan(
+        init_opt=PP.init_pp_opt_state, step=step,
+        opt_save=lambda o: {"m": common["to_canonical"](o[0]),
+                            "v": common["to_canonical"](o[1])},
+        opt_load=lambda tree: tuple(common["place"](tree[k])
+                                    for k in ("m", "v")), **common)
+
+
+def _3d_plan(cfg, spec, device, optimizer="adamw", knobs=TrainKnobs()):
+    from ..parallel import tensor_parallel as TP
+    from ..parallel import threed as TD
+    mesh = TD.make_mesh_3d(spec.dp, spec.tp, spec.pp, device)
+    mb = spec.microbatches or spec.pp
+    vp = spec.vp
+    specs = TD.param_specs_3d(cfg, vp)
+    common = dict(_common("3d", mesh, spec, optimizer, knobs),
+                  grads=TD.make_3d_grads(cfg, mesh, mb, spec.sp, vp),
+                  place=lambda p: TD.place_params_3d(p, cfg, mesh, vp),
+                  to_canonical=lambda p: TP.from_tp_params(
+                      TP.gather_tree(p, specs, mesh), cfg, vp))
+    if optimizer == "adafactor":
+        fac, gshapes = TD.threed_af_factored(cfg, vp)
+        opt_save, opt_load = _af_saveload(mesh, gshapes, specs, fac)
+        return Plan(
+            init_opt=lambda p: TD.init_af_state_3d(mesh, cfg, vp),
+            step=TD.make_3d_train_step_adafactor(cfg, mesh, mb, spec.sp, vp),
+            opt_save=opt_save, opt_load=opt_load, **common)
+    step = _adamw_tuple(TD.make_3d_train_step(
+        cfg, mesh, mb, spec.sp, vp, knobs.accum_steps, knobs.clip_norm,
+        knobs.log_grad_norm))
+    return Plan(
+        init_opt=TD.init_opt_state_3d, step=step,
+        opt_save=lambda o: {"m": common["to_canonical"](o[0]),
+                            "v": common["to_canonical"](o[1])},
+        opt_load=lambda tree: tuple(common["place"](tree[k])
+                                    for k in ("m", "v")), **common)
 
 
 def _fsdp_plan(cfg, spec, optimizer, device, weight_decay=0.0):
@@ -193,7 +403,8 @@ def _fsdp_plan(cfg, spec, optimizer, device, weight_decay=0.0):
         return FS.to_canonical(tree, specs, mesh)
 
     common = dict(kind="fsdp", mesh=mesh, spec=spec, optimizer=optimizer,
-                  place=place, to_canonical=canonical)
+                  place=place, to_canonical=canonical, data_rank=mesh.rank,
+                  data_ways=mesh.size)
     if optimizer == "muon":
         from ..ops import muon as MU
         step = FS.make_fsdp_muon_train_step(cfg, mesh, shapes,
