@@ -274,6 +274,26 @@ on any failure.  Phases, each printed as it ends:
                     train/loop.train: falling loss, each rank's launches as
                     designed, state bytes as its slices predict, peaks, step
                     ms (time-sliced on one card: not a scaling number).
+ 52. kernels-cp     the ring attention's per-hop routes at the cp shapes
+                    (bf16, B=4 T/cp=2048 NH=12 MHA and KH=4; B=2 T/cp=4096
+                    KH=4 W=1024): K1-fwd / K3-fwd and K2 / K3-bwd on the
+                    diagonal (causal) and past (non-causal) hops against
+                    their plain versions, the lse merge and the summed hop
+                    gradients against the plain whole sequence, the plain
+                    banded hop's ms; times, SDPA, the bound.
+ 53. meshes-cp-ep   ranks sharing cuda:0 over gloo: the small fp32 model's
+                    step under cp=2 (dense and banded AdamW, Adafactor),
+                    ep=2 and ep=2,tp=2 (AdamW, Adafactor) against one
+                    process; then gpt2-124m-4k (B=4, AdamW) and the
+                    train-window model (T=8192, B=2, Adafactor: the banded
+                    ring) under cp=2, gpt2-moe-8e (B=8) under ep=2 (AdamW,
+                    clip) and ep=2,tp=2 (Adafactor): the first batch's
+                    fp32 gradient against one process (every leaf within
+                    1e-4 of its L2 norm under cp, 2e-2 under ep), then 6
+                    steps each: every rank's loss
+                    equal and step 1's as one process's (rtol 1e-3),
+                    launches and plain banded hops as designed, state bytes
+                    as sliced, peaks, step ms.
 
 `python3 chip_smoke.py --phases a,b` runs only the named phases (after the
 device phase) and prints no result lines.
@@ -5416,6 +5436,695 @@ def phase_meshes_tp_pp(smi, dev="cuda:0"):
     return res
 
 
+# ---- context and expert parallelism -------------------------------------------
+
+# (name, B, T/cp, kv_heads, window) of the ring's per-hop kernel routes at
+# the smoke's cp shapes: GPT-2 124M-4k under cp=2 (B=4, T=4096: 2048 a
+# rank), its GQA form (4 kv heads) and the train-window model under cp=2
+# (rope + W=1024, 4 kv heads, B=2, T=8192: 4096 a rank)
+CP_ROUTES = (("mha", 4, 2048, NH, 0), ("gqa", 4, 2048, 4, 0),
+             ("band", 2, 4096, 4, 1024))
+
+
+def sdpa_kv(q, k, v, kh, causal, mask=None):
+    """PyTorch's SDPA at kv width kh, causal, full or under a mask (a
+    yardstick only)."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(
+        heads(q, NH), heads(k, kh), heads(v, kh), attn_mask=mask,
+        is_causal=causal and mask is None, enable_gqa=kh != NH)
+
+
+def sdpa_kv_bwd(q, k, v, do, kh, causal, mask=None):
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = sdpa_kv(*leaves, kh, causal, mask)
+    dout = heads(do, NH)
+    return lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+
+def cp_bound(B, tq, keys, kh, passes, causal, window=0):
+    """(operations, (bound_ms, bound_by)) of a bf16 ring hop at NH=12 D=64:
+    2 D flops a product per (query, key) pair (the diagonal's causal
+    triangle or band, a past block's tq x keys), passes 2 forward (reads
+    q, k, v, writes out, lse) or 5 backward (reads q, k, v, out, do, lse,
+    writes dq, dk, dv)."""
+    pairs = attn_pairs(tq, 0, keys, causal, window)
+    flops = 2 * passes * B * NH * D * pairs
+    n = 2 if passes == 2 else 4
+    nbytes = (n * B * tq * C * 2 + n * B * keys * kh * D * 2
+              + B * NH * tq * 4)
+    return flops, bound(flops, "bf16", nbytes)
+
+
+def grad_errors(got, want, parts=None, rows=True):
+    """(elements beyond tolerance, max_abs_err, rms of want) of a ring
+    hop's bf16 gradient (dq, dk or dv, (B, T, width)) against its plain
+    version, or of the hops' fp32 sum against the plain gradient of the
+    whole sequence (`parts`: the sum of the hops' magnitudes,
+    elementwise):
+      |d| <= 2^-7 (max(|got|, |want|) + parts) + 2^-6 max(rms, row rms),
+    rms that of want, row rms that of want's row (one position, every
+    channel).  Each side rounds one fp32 result to bf16, and ulp(x) <=
+    2^-7 |x|; a sum of bf16 hops rounds each hop once, by at most half an
+    ulp of that hop.  Before that the kernel and the plain version round p
+    and ds to bf16 from fp32 values that differ in their last bits, and
+    where they round apart one term of the row's sum moves by 2^-8 of
+    itself: the rms term, which follows the size of the row's terms.  The
+    first causal rows put weights near 1 on a few keys, so their terms
+    are several times the tensor's rms, and there a value near 0 can move
+    by 1e-3 (rows=False drops the row rms, to count what the tensor's rms
+    alone would reject).  The bound follows the
+    tensor's and the row's size, not the largest value: these gradients
+    are heavy-tailed (the first keys' dk and dv are a hundred times the
+    typical value), so a bound on the largest value would pass a hop
+    dropped or halved almost everywhere, where this one fails it."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    rms = w.square().mean().sqrt().item()
+    row = (w.square().mean(-1, keepdim=True).sqrt().clamp(min=rms) if rows
+           else rms)
+    size = torch.maximum(g.abs(), w.abs())
+    if parts is not None:
+        size = size + parts
+    lim = 2.0 ** -7 * size + 2.0 ** -6 * row
+    bad = (d > lim).sum().item() + (~torch.isfinite(g)).sum().item()
+    return bad, d.max().item(), rms
+
+
+def _grad_errs(tag, got, want, parts=(None,) * 3):
+    """Largest |got - want| of each (dq, dk, dv) pair, every value within
+    `grad_errors`' bound."""
+    errs = []
+    for name, a, b, s in zip(("dq", "dk", "dv"), got, want, parts):
+        bad, err, rms = grad_errors(a, b, s)
+        check(bad == 0, f"{tag}: {bad} {name} values beyond the bound "
+              f"(max_abs_err {err:.3e}, rms {rms:.3e})")
+        errs.append(err)
+    return errs
+
+
+def summed_hops(g0, g1, gp):
+    """The ring's (dq, dk, dv) of two blocks in fp32 from rank 0's diagonal
+    hop g0, rank 1's diagonal hop g1 and its past hop gp (rank 1's queries
+    against block 0's keys: dq to block 1, dk and dv to block 0), and the
+    sum of the summed hops' magnitudes (0 where one hop alone gives the
+    value), for `grad_errors`."""
+    f = [[t.float() for t in g] for g in (g0, g1, gp)]
+    (q0, k0, v0), (q1, k1, v1), (qp, kp, vp) = f
+    got = (torch.cat([q0, q1 + qp], 1), torch.cat([k0 + kp, k1], 1),
+           torch.cat([v0 + vp, v1], 1))
+    z = torch.zeros_like
+    parts = (torch.cat([z(q0), q1.abs() + qp.abs()], 1),
+             torch.cat([k0.abs() + kp.abs(), z(k1)], 1),
+             torch.cat([v0.abs() + vp.abs(), z(v1)], 1))
+    return got, parts
+
+
+def phase_kernels_cp(device="cuda"):
+    """The ring's per-hop routes at CP_ROUTES (bf16), on two ring blocks of
+    one process: the diagonal hop (K1-fwd / K3-fwd causal, with the window;
+    K2 / K3-bwd) and the past hop (non-causal kernels, or the plain banded
+    block where the band cuts it), each kernel held against its plain
+    version (out `out_errors`, the MHA diagonal's values beyond it held to
+    the fp64 softmax; lse 1e-4; dq/dk/dv `grad_errors`), then the fp32
+    lse merge of rank 1's hops against the plain forward of its queries
+    over the whole sequence (out `out_errors`, lse 2e-4), and the hops'
+    summed gradients against the plain backward of the whole sequence from
+    the merged out and lse (`grad_errors`, which must also fail the sum
+    with rank 1's past hop dropped or halved).  Times by events (plain,
+    kernel, kernel, plain) and device, SDPA on the same tensors, the bound
+    (`cp_bound`), and the plain banded hop's ms."""
+    from vitrs_tpu_torch.ops import flash_attention as FA
+    from vitrs_tpu_torch.parallel import ring_attention as RA
+    gen = torch.Generator(device=device).manual_seed(15)
+    res = {"merge": {}}
+    for name, B, T, kh, W in CP_ROUTES:
+        kv = kh * D
+        rnd = lambda w: torch.randn(B, 2 * T, w, generator=gen,  # noqa: E731
+                                    device=device).bfloat16()
+        q2, k2, v2, do2 = rnd(C), rnd(kv), rnd(kv), rnd(C)
+        blk = lambda t, r: t[:, r * T:(r + 1) * T].contiguous()  # noqa: E731
+        q0, q1, k0, k1, v0, v1, do0, do1 = (blk(t, r) for t in
+                                            (q2, k2, v2, do2) for r in (0, 1))
+        fk, fp, bk, bp = _attn_fns(kh)
+        ring1 = RA.Ring(1, 2, (0, 1))
+        past_route = RA._route(ring1, 0, T, True, W)
+        shape = (f"bf16 B={B} T/cp={T} NH={NH} KH={kh} D=64"
+                 + (f" W={W}" if W else ""))
+        kname = ("flash_fwd", "flash_bwd") if kh == NH else (
+            "flash_gqa_fwd", "flash_gqa_bwd")
+        # the forward hops of both ranks and their merge
+        o0, l0 = fk(q0, k0, v0, True, W, False)
+        od, ld = fk(q1, k1, v1, True, W, False)
+        if past_route == "past":
+            op, lp = fk(q1, k0, v0, False, 0, False)
+        else:
+            op, lp = RA.band_fwd_plain(q1, k0, v0, NH, kh, 0.125, T, 0, W)
+        acc, lse1 = RA._merge(*RA._merge(None, None, od, ld), op, lp)
+        out1 = acc.to(torch.bfloat16)
+        ref, ref_lse = FA.flash_fwd_plain(q1, k2, v2, NH, True, 0.125,
+                                          kv_heads=kh, q_offset=T, window=W)
+        torch.cuda.synchronize()
+        bad, merr, rms = out_errors(out1, ref)
+        check(bad == 0, f"[kernels-cp {name}] merged rank-1 out: {bad} "
+              f"values beyond tolerance")
+        mlse = (lse1 - ref_lse).abs().max().item()
+        check(mlse <= 2e-4, f"[kernels-cp {name}] merged lse err {mlse}")
+        # the backward hops from the global out and lse, summed as the ring
+        # sums them, against the plain backward of the whole sequence
+        g0 = bk(q0, k0, v0, o0, l0, do0, True, W, False)
+        g1 = bk(q1, k1, v1, out1, lse1, do1, True, W, False)
+        if past_route == "past":
+            gp = bk(q1, k0, v0, out1, lse1, do1, False, 0, False)
+        else:
+            gp = RA.band_bwd_plain(q1, k0, v0, out1, lse1, do1, NH, kh, 0.125,
+                                   T, 0, W)
+        got, parts = summed_hops(g0, g1, gp)
+        want = FA.flash_bwd_plain(q2, k2, v2, torch.cat([o0, out1], 1),
+                                  torch.cat([l0, lse1], 2), do2, NH, True,
+                                  0.125, kv_heads=kh, window=W)
+        berr = _grad_errs(f"[kernels-cp {name}] summed ring gradients",
+                          got, want, parts)
+        flat = [grad_errors(a, b, c, rows=False)[0]
+                for a, b, c in zip(got, want, parts)]
+        # the same bound must fail the sum with rank 1's past hop dropped
+        # or halved, in each of dq, dk and dv
+        caught = {}
+        for fault, s in (("dropped", 0.0), ("halved", 0.5)):
+            bad_got, bad_parts = summed_hops(g0, g1, [s * t for t in gp])
+            caught[fault] = [grad_errors(a, b, c)[0] for a, b, c in
+                             zip(bad_got, want, bad_parts)]
+            check(min(caught[fault]) > 0, f"[kernels-cp {name}] the bound "
+                  f"misses the past hop {fault}: dq/dk/dv values beyond "
+                  f"it {caught[fault]}")
+        res["merge"][name] = dict(out_err=merr, out_rms=rms, lse_err=mlse,
+                                  grad_errs=berr, faults_caught=caught,
+                                  beyond_tensor_rms_floor=flat,
+                                  grad_rms=[grad_errors(w, w)[2]
+                                            for w in want],
+                                  past_route=past_route, shape=shape)
+        print(f"[kernels-cp] {name} {shape}: rank 1's merged hops vs the "
+              f"plain forward over the whole sequence: out max_abs_err "
+              f"{merr:.3e} (rms {rms:.3e}), lse {mlse:.3e}; summed ring "
+              f"gradients vs the plain backward dq/dk/dv {berr[0]:.3e}/"
+              f"{berr[1]:.3e}/{berr[2]:.3e} (rms "
+              f"{'/'.join(f'{x:.3e}' for x in res['merge'][name]['grad_rms'])}"
+              f"; dq/dk/dv values past the bound with the past hop dropped "
+              f"{caught['dropped']}, halved {caught['halved']}; past it "
+              f"without the row rms {flat}) "
+              f"(past hop: {past_route})")
+        del ref, ref_lse, want, got
+        # each kernel hop against its plain version, and its times
+        hops = [("diag", q1, k1, v1, True, W)]
+        if past_route == "past":
+            hops.append(("past", q1, k0, v0, False, 0))
+        for route, q, k, v, causal, w in hops:
+            out, lse = fk(q, k, v, causal, w, False)
+            pref, plse = fp(q, k, v, causal, w, False)
+            torch.cuda.synchronize()
+            if causal and not w and kh == NH:
+                judged = exact_check(f"K1-fwd cp {name} {route}", q, k, v,
+                                     out, pref, 0.125)
+            else:
+                b_, _, _ = out_errors(out, pref)
+                check(b_ == 0, f"[kernels-cp {name} {route}] fwd: {b_} out "
+                      f"values beyond tolerance")
+                judged = "0 held"
+            ferr = (out.float() - pref.float()).abs().max().item()
+            lerr = (lse - plse).abs().max().item()
+            check(lerr <= 1e-4, f"[kernels-cp {name} {route}] lse err {lerr}")
+            gk = bk(q, k, v, out1, lse1, do1, causal, w, False)
+            gpl = bp(q, k, v, out1, lse1, do1, causal, w, False)
+            errs = _grad_errs(f"[kernels-cp {name} {route}] bwd", gk, gpl)
+            del pref, plse, gk, gpl
+            mask = band_mask(T, 0, T, w, device) if w else None
+            parts = {
+                kname[0]: (lambda: fk(q, k, v, causal, w, False),
+                           lambda: fp(q, k, v, causal, w, False),
+                           lambda: sdpa_kv(q, k, v, kh, causal, mask), 2, 1,
+                           ferr),
+                kname[1]: (lambda: bk(q, k, v, out1, lse1, do1, causal, w,
+                                      False),
+                           lambda: bp(q, k, v, out1, lse1, do1, causal, w,
+                                      False),
+                           sdpa_kv_bwd(q, k, v, do1, kh, causal, mask), 5, 3,
+                           max(errs))}
+            for kn, (kern, plain, lib_fn, passes, nk, e) in parts.items():
+                km, pm, raw = timed_pair(kern, plain, iters=10)
+                dev, caps = device_ms(kern, nk)
+                lib = cuda_ms(lib_fn, iters=10)
+                flops, (bms, by) = cp_bound(B, T, T, kh, passes, causal, w)
+                label = ("K1-fwd" if kn == "flash_fwd" else "K2"
+                         if kn == "flash_bwd" else "K3-fwd"
+                         if kn == "flash_gqa_fwd" else "K3-bwd")
+                print(f"[kernels-cp] {label} {route} hop {shape}"
+                      f"{' causal' if causal else ' non-causal'}: max_abs_err "
+                      f"{e:.3e}" + (f" ({judged}, lse {lerr:.3e})"
+                                    if passes == 2 else
+                                    f" (dq/dk/dv {errs[0]:.3e}/{errs[1]:.3e}/"
+                                    f"{errs[2]:.3e}, from the merged out and "
+                                    f"lse)")
+                      + f"; kernel {raw[0]:.4f}/{raw[1]:.4f} ms by events, "
+                      f"{dev if dev is None else round(dev, 4)} ms device "
+                      f"(capture {caps}); plain {raw[2]:.4f}/{raw[3]:.4f} ms; "
+                      f"SDPA {lib:.4f} ms; bound {bms:.4f} ms ({by}), "
+                      f"{flops / km / 1e9:.1f} TFLOP/s")
+                res.setdefault(kn, {})[f"{name} {route}"] = dict(
+                    max_abs_err=e, ms=km, device_ms=dev, device_captures=caps,
+                    plain_ms=pm, library_ms=lib, bound_ms=bms, bound_by=by,
+                    tflops=flops / km / 1e9, shape=shape + (
+                        " causal" if causal else " non-causal"))
+            del out, lse
+        if past_route == "band":
+            fwd_ms = cuda_ms(lambda: RA.band_fwd_plain(
+                q1, k0, v0, NH, kh, 0.125, T, 0, W), iters=5, warmup=1)
+            bwd_ms = cuda_ms(lambda: RA.band_bwd_plain(
+                q1, k0, v0, out1, lse1, do1, NH, kh, 0.125, T, 0, W),
+                iters=5, warmup=1)
+            rows, first = RA._band_window(T, T, T, 0, W)
+            res["band_plain"] = dict(fwd_ms=fwd_ms, bwd_ms=bwd_ms,
+                                     rectangle=[rows, T - first], shape=shape)
+            print(f"[kernels-cp] the plain banded hop (rank 1's past block, "
+                  f"a {rows} x {T - first} rectangle a head) {shape}: "
+                  f"forward {fwd_ms:.4f} ms, backward {bwd_ms:.4f} ms by "
+                  f"events")
+        del q2, k2, v2, do2, out1, lse1
+        torch.cuda.empty_cache()
+    return res
+
+
+# the small fp32 model (D=64: the kernels) of the meshes-cp-ep steps: dense,
+# banded (rope, W=24 and one kv head: every past hop of cp=2's T/cp=32 is
+# cut by the band), and MoE without drops (4 experts, cap factor 8, no
+# load-balance loss: the one-process step is the same function)
+CP_EP_SMALL = {"dense": {}, "banded": dict(pos_emb="rope", window=24,
+                                           num_kv_heads=1),
+               "moe": dict(num_experts=4, moe_top_k=2, moe_cap_factor=8.0,
+                           moe_aux_weight=0.0)}
+# one spawn a row: (ranks, the small steps (spec, optimizer, variant), the
+# full-width runs (name, preset, spec, global B, optimizer, TrainConfig
+# fields) through train/loop.train)
+CP_EP_RUNS = (
+    (2, (("cp=2", "adamw", "dense"), ("cp=2", "adamw", "banded"),
+         ("cp=2", "adafactor", "dense"), ("ep=2", "adamw", "moe"),
+         ("ep=2", "adafactor", "moe")),
+     (("cp-4k", "gpt2-124m-4k", "cp=2", 4, "adamw", dict(lr=6e-4)),
+      ("cp-window", "gpt2-124m", "cp=2", 2, "adafactor",
+       dict(lr=1e-2, kv_heads=4, model_overrides=WINDOW)),
+      ("ep", "gpt2-moe-8e", "ep=2", 8, "adamw",
+       dict(lr=6e-4, clip_norm=1.0)))),
+    (4, (("ep=2,tp=2", "adamw", "moe"), ("ep=2,tp=2", "adafactor", "moe")),
+     (("ep-tp", "gpt2-moe-8e", "ep=2,tp=2", 8, "adafactor",
+       dict(lr=1e-2)),)),
+)
+
+
+def _small_cfg(variant):
+    from vitrs_tpu_torch.config import get_config
+    return get_config("gpt-nano").replace(dtype="float32", **XDP_OVR,
+                                          **CP_EP_SMALL[variant])
+
+
+def _cp_ep_reference(device):
+    """One process stepping the whole batch of each small variant: {variant:
+    (loss, grads, {(optimizer, layout): canonical params after one step})}.
+    AdamW: K7's flat update without a decay mask (cp) and `adamw_tree`
+    with the 2-D mask (ep); Adafactor on the canonical leaves (cp, dp x
+    ep) or the TP layout (ep x tp, factored on the whole shapes)."""
+    from vitrs_tpu_torch.models import model as M
+    from vitrs_tpu_torch.ops import adafactor as AF
+    from vitrs_tpu_torch.ops import optimizer as opt
+    from vitrs_tpu_torch.parallel import tensor_parallel as TPm
+    _, _, x, y = _xdp_data()
+    out = {}
+    for variant in CP_EP_SMALL:
+        cfg = _small_cfg(variant)
+        from vitrs_tpu_torch import params as P
+        host = P.to_numpy(P.init_params(cfg, torch.Generator().manual_seed(3)),
+                          cfg)
+        p = {k: torch.tensor(v, device=device, requires_grad=True)
+             for k, v in host.items()}
+        loss = M.loss_fn(p, torch.as_tensor(x, device=device),
+                         torch.as_tensor(y, device=device), cfg)
+        loss.backward()
+        g = {k: (t.grad if t.grad is not None else torch.zeros_like(t))
+             for k, t in p.items()}
+        p = {k: t.detach() for k, t in p.items()}
+        steps = {}
+        lr, wd = SMALL_LR["adamw"]
+        z = {k: torch.zeros_like(t) for k, t in p.items()}
+        for layout, mask in (("cp", None), ("ep", opt.decay_mask_2d(p))):
+            steps[("adamw", layout)] = opt.adamw_tree(
+                p, g, z, dict(z), 1, lr, weight_decay=wd, decay_mask=mask)[0]
+        lr, wd = SMALL_LR["adafactor"]
+        steps[("adafactor", "cp")] = AF.step(
+            p, g, AF.init_state(p), 1, lr, weight_decay=wd,
+            decay_mask=opt.decay_mask_2d(p))[0]
+        steps[("adafactor", "ep")] = steps[("adafactor", "cp")]
+        if variant == "moe":
+            fac, gshapes = TPm.tp_af_factored(cfg)
+            pl, gl = (TPm.to_tp_params(t, cfg) for t in (p, g))
+            shapes = AF.state_shapes(gshapes, fac)
+            st = AF.AdafactorState(*({k: torch.zeros(s, device=device)
+                                      for k, s in getattr(shapes, f).items()}
+                                     for f in ("vr", "vc", "vf")), {})
+            steps[("adafactor", "eptp")] = TPm.from_tp_params(AF.step(
+                pl, gl, st, 1, lr, weight_decay=wd,
+                decay_mask=opt.decay_mask_2d(pl), factored=fac)[0], cfg)
+        to_np = lambda t: {k: v.cpu().numpy() for k, v in t.items()}  # noqa
+        out[variant] = (loss.item(), to_np(g),
+                        {k: to_np(v) for k, v in steps.items()})
+    return out
+
+
+def _cp_ep_state_bytes(cfg, plan):
+    """(bytes of this rank's parameters + optimizer state as placed, the
+    bytes its slicing predicts: cp whole parameters and a 1/(dp*cp) ZeRO-1
+    m and v, or a whole Adafactor state; ep each leaf's slice, AdamW's m
+    and v alike, Adafactor's state sliced as `state_specs` says)."""
+    from vitrs_tpu_torch import params as P
+    from vitrs_tpu_torch.ops import adafactor as AF
+    from vitrs_tpu_torch.parallel import expert_parallel as EPm
+    from vitrs_tpu_torch.parallel import tensor_parallel as TPm
+    placed = plan.place({k: np.zeros(s, np.float32)
+                         for k, s in P.param_shapes(cfg).items()})
+    st = plan.init_opt(placed)
+    trees = [placed] + (list(st[:3]) if isinstance(st, AF.AdafactorState)
+                        else [{"m": st[0], "v": st[1]}] if plan.kind == "cp"
+                        else list(st))
+    held = 4 * sum(t.numel() for tree in trees for t in tree.values())
+    mesh = plan.mesh
+    if plan.kind == "cp":
+        shapes = {k: tuple(s) for k, s in P.param_shapes(cfg).items()}
+        specs = {k: () for k in shapes}
+    elif plan.spec.tp > 1:
+        shapes = TPm.tp_global_shapes(cfg, plan.spec.vp)
+        specs = EPm.ep_tp_param_specs(cfg, plan.spec.vp)
+    else:
+        shapes = {k: tuple(s) for k, s in P.param_shapes(cfg).items()}
+        specs = EPm.ep_param_specs(cfg)
+    local = lambda s, sp: int(np.prod(TPm.local_shape(s, sp, mesh)))  # noqa
+    n_p = sum(local(s, specs[k]) for k, s in shapes.items())
+    if plan.optimizer == "adamw":
+        n_st = (2 * st[0].numel() if plan.kind == "cp" else 2 * n_p)
+        if plan.kind == "cp":
+            n = P.num_parameters(cfg)
+            world = mesh.size("data") * mesh.size("ctx")
+            check(st[0].numel() == -(-n // world), "cp m shard size")
+    else:
+        fac = ({k: AF.factored_shape(s) for k, s in shapes.items()}
+               if plan.kind == "cp" or plan.spec.tp > 1 else
+               EPm.ep_af_factored(cfg, mesh)[0])
+        sh, sp = AF.state_shapes(shapes, fac), AF.state_specs(shapes, specs,
+                                                              fac)
+        n_st = sum(local(s, getattr(sp, f)[k]) for f in ("vr", "vc", "vf")
+                   for k, s in getattr(sh, f).items())
+    return held, 4 * (n_p + n_st)
+
+
+def _full_width_grads(cfg, rspec, optimizer, preset, batch, rank, device):
+    """The mesh's fp32 loss and gradient on a full-width run's first global
+    batch from its initial parameters (the loop's seed and loader; each
+    rank's rows r::data_ways and its sequence block, as the loop feeds
+    it; `cfg` in fp32, so that one process and the mesh differ only in
+    summation order), gathered to canonical names, against one process's
+    on the same batch: `model.loss_fn` in rank 0's process, no collective,
+    its loss the mean over the data_ways row groups (each routing at its
+    own capacity, as an ep rank does; the whole batch under cp).  Rank 0
+    returns (mesh loss, one-process loss, {leaf: |g - g1| / |g1|, L2}, the
+    one-process loss in the run's bf16: what the loop's step 1 logs); the
+    other ranks None."""
+    from vitrs_tpu_torch import params as P
+    from vitrs_tpu_torch.models import model as M
+    from vitrs_tpu_torch.train import loop
+    from vitrs_tpu_torch.train import mesh as MS
+    cfg32 = cfg.replace(dtype="float32")
+    plan = MS.make_plan(cfg32, MS.parse_mesh(rspec), optimizer, device)
+    tc = loop.TrainConfig(preset=preset, dataset="", batch_size=batch)
+    loader, _ = loop._loader(tc, cfg, 0, device_normalize=False,
+                             shard=(0, 1))
+    x, y = loader.next_batch()
+    host = P.to_numpy(P.init_params(
+        cfg, torch.Generator().manual_seed(tc.seed)), cfg)
+    n, t = plan.data_ways, x.shape[1] // plan.seq_ways
+    blk = (slice(plan.data_rank, None, n),
+           slice(plan.seq_rank * t, (plan.seq_rank + 1) * t))
+    loss, g = plan.grads(plan.place(host), np.ascontiguousarray(x[blk]),
+                         np.ascontiguousarray(y[blk]))
+    got = plan.to_canonical(g)
+    loss = float(loss)
+    del g, plan
+    if rank:
+        return None
+    p = {k: torch.tensor(v, device=device, requires_grad=True)
+         for k, v in host.items()}
+    xs, ys = (torch.as_tensor(a, device=device).long() for a in (x, y))
+
+    def one(c):
+        return sum(M.loss_fn(p, xs[r::n], ys[r::n], c)
+                   for r in range(n)) / n
+    with torch.no_grad():
+        bf16 = one(cfg).item()
+    ref = one(cfg32)
+    ref.backward()
+    errs = {}
+    for k, leaf in p.items():
+        want = (leaf.grad if leaf.grad is not None
+                else torch.zeros_like(leaf))
+        d = (torch.as_tensor(got[k], device=device) - want).norm().item()
+        w = want.norm().item()
+        errs[k] = d / w if w > 0 else d
+    return loss, ref.item(), errs, bf16
+
+
+def _cp_ep_rank(rank, world, spec, rdv, work, out_path, dev="cuda:0",
+                small=(), runs=()):
+    """One rank of a meshes-cp-ep spawn on `dev` (cuda:0, shared) over
+    gloo: each small step of `small` (spec, optimizer, variant), then each
+    run of `runs`: its gradient on the first batch against one process
+    (`_full_width_grads`), then 6 steps through train/loop.train, each in
+    its own workdir; dev "cpu" and small presets rehearse it without a
+    card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from vitrs_tpu_torch import params as P
+    from vitrs_tpu_torch.parallel import collectives as CL
+    from vitrs_tpu_torch.parallel import multihost
+    from vitrs_tpu_torch.parallel import ring_attention as RA
+    from vitrs_tpu_torch.train import loop
+    from vitrs_tpu_torch.train import mesh as MS
+    device = torch.device(dev)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(device)
+    multihost.initialize("file://" + rdv, world, rank, backend="gloo",
+                         device=dev, timeout=900)
+    res = {"route": CL.route(None, device), "small": {}, "runs": []}
+    _, _, x, y = _xdp_data()
+    for sspec, optimizer, variant in small:
+        cfg = _small_cfg(variant)
+        host = P.to_numpy(P.init_params(cfg, torch.Generator().manual_seed(3)),
+                          cfg)
+        plan = MS.make_plan(cfg, MS.parse_mesh(sspec), optimizer, device)
+        b = x.shape[0] // plan.data_ways
+        t = x.shape[1] // plan.seq_ways
+        rows = slice(plan.data_rank * b, (plan.data_rank + 1) * b)
+        cols = slice(plan.seq_rank * t, (plan.seq_rank + 1) * t)
+        placed = plan.place(host)
+        lr, seventh = SMALL_LR[optimizer]
+        out = plan.step(placed, plan.init_opt(placed), x[rows][:, cols],
+                        y[rows][:, cols], 1, lr, seventh)
+        res["small"][(sspec, optimizer, variant)] = dict(
+            kind=plan.kind, loss=float(out[2]),
+            params=plan.to_canonical(out[0]))
+    for i, (name, preset, rspec, batch, optimizer, fields) in enumerate(runs):
+        fields = dict(fields)
+        cfg = _run_cfg(preset, fields)
+        plan = MS.make_plan(cfg, MS.parse_mesh(rspec), optimizer, device)
+        row = {"state_bytes": _cp_ep_state_bytes(cfg, plan), "kind": plan.kind,
+               "grads": _full_width_grads(cfg, rspec, optimizer, preset,
+                                          batch, rank, device)}
+        del plan
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        wd = os.path.join(work, str(i))
+        reset_counts()
+        band = RA.band_plain_hops
+        for k in band:
+            band[k] = 0
+        lr = fields.pop("lr")
+        t0 = time.perf_counter()
+        summary = loop.train(loop.TrainConfig(
+            preset=preset, dataset="", steps=TRAIN_STEPS, batch_size=batch,
+            lr=lr, warmup=2, min_lr=lr / 10, weight_decay=0.1,
+            dtype="bfloat16", log_every=1, ckpt_every=0, workdir=wd,
+            mesh=rspec, device=dev, prefetch=0, optimizer=optimizer,
+            **fields))
+        if cuda:
+            torch.cuda.synchronize()
+        row.update(counts=read_counts(), band_hops=dict(band),
+                   peak=torch.cuda.max_memory_allocated() if cuda else 0,
+                   wall=time.perf_counter() - t0,
+                   final_loss=summary["final_loss"])
+        if rank == 0:
+            with open(os.path.join(wd, "metrics.jsonl")) as f:
+                row["recs"] = [json.loads(line) for line in f]
+        res["runs"].append(row)
+    torch.save(res, out_path)
+    torch.distributed.destroy_process_group()
+
+
+def _run_cfg(preset, fields):
+    from vitrs_tpu_torch.config import get_config
+    return get_config(preset, dtype="bfloat16",
+                      num_kv_heads=fields.get("kv_heads", 0),
+                      **fields.get("model_overrides", {}))
+
+
+def _designed_cp_ep(name, rank, S=TRAIN_STEPS):
+    """(launches, plain banded hops (fwd, bwd)) a rank makes over S steps of
+    a full-width run (12 layers): under cp every rank runs its diagonal
+    hop, rank 1 its past hop too (K1-fwd / K2 at cp-4k; the band cuts it
+    at cp-window, so the plain block: 12 forward and 12 backward hops a
+    step); K5 and K6 once a step; K7 once a step on cp's ZeRO-1 shard; ep
+    and ep x tp K1-fwd and K2 once a layer (NH=12 and 6), no K7."""
+    L = 12
+    ce = dict(ce_fwd=S, ce_bwd=S)
+    if name == "cp-4k":
+        return designed(flash_fwd=L * S * (1 + rank),
+                        flash_bwd=L * S * (1 + rank), adamw=S, **ce), [0, 0]
+    if name == "cp-window":
+        return (designed(flash_gqa_fwd=L * S, flash_gqa_bwd=L * S, **ce),
+                [L * S * rank] * 2)
+    return designed(flash_fwd=L * S, flash_bwd=L * S, **ce), [0, 0]
+
+
+def phase_meshes_cp_ep(smi, dev="cuda:0"):
+    """CP_EP_RUNS: ranks that share cuda:0 over gloo (every collective, ring
+    hop and all-to-all staged through host memory) run (a) one step of the
+    small fp32 model (D=64, so the kernels) under cp=2 (AdamW dense and
+    banded, Adafactor), ep=2 and ep=2,tp=2 (AdamW, Adafactor), held
+    against one process stepping the whole batch (`_cp_ep_reference`) at
+    the CPU tests' tolerances: loss rtol 2e-5; params AdamW rtol 2e-4 atol
+    5e-5, Adafactor rtol 1e-4 atol 2e-4, a value whose gradient is fp32
+    noise within lr; (b) at full width and depth through train/loop.train,
+    6 steps: gpt2-124m-4k (B=4, AdamW) and the train-window model (rope +
+    W=1024, 4 kv heads, T=8192, B=2, Adafactor: the banded ring) under
+    cp=2, gpt2-moe-8e (B=8) under ep=2 (AdamW, clip 1.0) and ep=2,tp=2
+    (Adafactor): first the mesh's fp32 gradient of the first batch against
+    one process's (`_full_width_grads`; at initialisation the loss is
+    about ln V whatever the attention or the routing computes, the
+    gradient is not): loss rtol 1e-5; every leaf's gradient within 1e-4 of
+    its L2 norm under cp (summation order alone: about 1e-6) and 2e-2
+    under ep (a token whose top-2 sits on an fp32 tie may route elsewhere
+    in one of the two, which would move its experts' and the router's
+    gradients by a few 1e-3; in bf16 many do, hence fp32), where a ring
+    hop or an expert block gone wrong (even a past hop's dk scaled by 0.9)
+    lands well past the bound; then each rank's loss equal, step 1's the
+    one-process bf16 loss (rtol 1e-3), falling; each rank's launches and
+    plain banded hops as designed (`_designed_cp_ep`); its parameter +
+    state bytes as its slicing predicts; its peak; step ms (time-sliced on
+    one card: not a scaling number)."""
+    device = torch.device(dev)
+    ref = _cp_ep_reference(device)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    res = {}
+    for world, small, runs in CP_EP_RUNS:
+        ranks, _, wall = _mesh_run(runs[0][2], world, target=_cp_ep_rank,
+                                   dev=dev, small=small, runs=runs)
+        for sspec, optimizer, variant in small:
+            tag = f"[meshes-cp-ep {sspec}]"
+            lref, gref, steps = ref[variant]
+            layout = ("cp" if sspec.startswith("cp") else "eptp"
+                      if "tp" in sspec and optimizer == "adafactor" else "ep")
+            worst = 0.0
+            for r, out in enumerate(ranks):
+                got = out["small"][(sspec, optimizer, variant)]
+                check(abs(got["loss"] - lref) <= 2e-5 * abs(lref),
+                      f"{tag} small {variant} {optimizer} rank {r} loss "
+                      f"{got['loss']} vs one process {lref}")
+                rtol, atol = {"adamw": (2e-4, 5e-5),
+                              "adafactor": (1e-4, 2e-4)}[optimizer]
+                worst = max(worst, _hold(
+                    f"{tag} small {variant} {optimizer} rank {r}",
+                    got["params"], steps[(optimizer, layout)], rtol, atol,
+                    gref, SMALL_LR[optimizer][0]))
+            res[f"small {sspec} {optimizer} {variant}"] = dict(
+                world=world, loss=lref, param_err=worst)
+            print(f"{tag} small fp32 step, {variant}, {optimizer}: loss "
+                  f"{lref:.6f} as one process on every rank; params max err "
+                  f"{worst:.3e}")
+        for i, (name, preset, spec, batch, optimizer, fields) in enumerate(
+                runs):
+            tag = f"[meshes-cp-ep {name} {spec}]"
+            outs = [o["runs"][i] for o in ranks]
+            for r, out in enumerate(outs):
+                want, band = _designed_cp_ep(name, r)
+                check(out["counts"] == want,
+                      f"{tag} rank {r} launches {out['counts']} != {want}")
+                hops = [out["band_hops"]["fwd"], out["band_hops"]["bwd"]]
+                check(hops == band, f"{tag} rank {r} plain banded hops "
+                      f"{hops} != {band}")
+                h, pred = out["state_bytes"]
+                check(h == pred, f"{tag} rank {r} state bytes {h} != "
+                      f"predicted {pred}")
+            finals = {o["final_loss"] for o in outs}
+            check(len(finals) == 1, f"{tag} ranks' losses differ: {finals}")
+            recs = outs[0]["recs"]
+            losses = [rec["loss"] for rec in recs]
+            check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses))
+                  and losses[-1] < losses[0], f"{tag} losses {losses}")
+            mloss, one32, gerr, one = outs[0]["grads"]
+            worst = max(gerr, key=gerr.get)
+            gtol = 2e-2 if name.startswith("ep") else 1e-4
+            check(abs(mloss - one32) <= 1e-5 * abs(one32),
+                  f"{tag} first-batch fp32 loss {mloss} vs one process "
+                  f"{one32}")
+            check(gerr[worst] <= gtol, f"{tag} first-batch fp32 gradient "
+                  f"of {worst}: relative L2 error {gerr[worst]:.3e} "
+                  f"against one process (bound {gtol}); every leaf {gerr}")
+            check(abs(losses[0] - one) <= 1e-3 * abs(one),
+                  f"{tag} step-1 loss {losses[0]} vs one process {one}")
+            # from tok/s: the log rounds images/s to 0.1, too coarse here
+            T = _run_cfg(preset, fields).seq_len
+            tok_s = float(np.median([rec["tok_per_sec"] for rec in recs[2:]]))
+            step_ms = batch * T / tok_s * 1e3
+            row = dict(world=world, kind=outs[0]["kind"],
+                       route=ranks[0]["route"], losses=losses,
+                       one_process_step1_loss=one,
+                       first_batch_fp32_loss=[mloss, one32],
+                       grad_rel_err=gerr, grad_bound=gtol, step_ms=step_ms,
+                       launches_per_step=[{k: v // TRAIN_STEPS for k, v in
+                                           o["counts"].items() if v}
+                                          for o in outs],
+                       band_plain_hops=[[o["band_hops"]["fwd"],
+                                         o["band_hops"]["bwd"]]
+                                        for o in outs],
+                       state_bytes=[o["state_bytes"][0] for o in outs],
+                       peak_gib=[o["peak"] / 2**30 for o in outs],
+                       run_wall_s=[o["wall"] for o in outs],
+                       spawn_wall_s=wall)
+            res[name] = row
+            print(f"{tag} {preset} B={batch} {optimizer} {TRAIN_STEPS} "
+                  f"steps, {world} ranks on {dev} over {row['route']}: loss "
+                  f"{losses[0]:.4f} -> {losses[-1]:.4f} (every rank; step 1 "
+                  f"in one process {one:.4f}); first-batch fp32 gradient "
+                  f"vs one process: worst leaf {worst} {gerr[worst]:.3e} "
+                  f"(L2, relative, bound {gtol}; median leaf "
+                  f"{float(np.median(list(gerr.values()))):.3e}); "
+                  f"launches a step per rank "
+                  f"{row['launches_per_step']} (as designed), plain banded "
+                  f"hops per rank {row['band_plain_hops']}; parameter + "
+                  f"state bytes a rank {row['state_bytes']} (as predicted); "
+                  f"peak a rank {[round(x, 3) for x in row['peak_gib']]} "
+                  f"GiB; {step_ms:.1f} ms a step (ranks time-sliced on one "
+                  f"card, not a scaling number); the spawn's wall "
+                  f"{wall:.1f} s  ({smi})")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch sees no CUDA device")
@@ -5481,6 +6190,8 @@ def main():
         ("comm-nccl", phase_comm_nccl),
         ("kernels-tp-pp", phase_kernels_tp_pp),
         ("meshes-tp-pp", lambda: phase_meshes_tp_pp(smi)),
+        ("kernels-cp", phase_kernels_cp),
+        ("meshes-cp-ep", lambda: phase_meshes_cp_ep(smi)),
     )
     # the serving artifacts of serve-export, read again by serve-batching
     export_dir = tempfile.mkdtemp(prefix="vitrs_smoke_export_")
@@ -5722,6 +6433,25 @@ def main():
             for run, row in tppp.items() if "launches_per_step" in row}
         if kname in ktp:
             kernels[i]["tp_pp_shapes"] = ktp[kname]
+    # this slice: the ring's per-hop routes at the cp shapes (K1-fwd / K2,
+    # K3 at 4 kv heads, the banded diagonal) and each rank's launches over
+    # the meshes-cp-ep runs; the hops the plain banded route took
+    kcp, cpep = R["kernels-cp"], R["meshes-cp-ep"]
+    by_kernel.update(flash_gqa_fwd=5, flash_gqa_bwd=6)
+    for kname, i in by_kernel.items():
+        kernels[i]["cp_ep_launches"] = {
+            run: [per.get(kname, 0) * TRAIN_STEPS
+                  for per in row["launches_per_step"]]
+            for run, row in cpep.items() if "launches_per_step" in row}
+        if kname in kcp:
+            kernels[i]["cp_ep_shapes"] = kcp[kname]
+    for i in (5, 6):
+        kernels[i]["cp_band_plain_hops"] = {
+            run: row["band_plain_hops"] for run, row in cpep.items()
+            if "band_plain_hops" in row}
+        kernels[i]["cp_band_plain_ms"] = kcp.get("band_plain")
+    kernels[0]["cp_merge"] = kcp["merge"]
+    print("[smoke] context and expert parallelism: " + json.dumps(cpep))
     print("[smoke] tensor, sequence, vocab, pipeline and 3-D parallelism: "
           + json.dumps(tppp))
     print("[smoke] data-parallel families: " + json.dumps(

@@ -1,7 +1,8 @@
 """The bound that holds a flash forward's output (K1-fwd, K3-fwd, K4: one
 CUDA kernel) to its plain PyTorch version: `chip_smoke.out_errors`, loaded
 from the checkout's root, so that the smoke and the tests share one rule
-(its docstring gives the reasoning).  Imports no JAX: the card-only tests
+(its docstring gives the reasoning); and the ring hops' gradient bound,
+`chip_smoke.grad_errors`, with `summed_hops`.  Imports no JAX: the card-only tests
 use it on a machine without JAX."""
 
 import importlib.util
@@ -13,6 +14,8 @@ chip_smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(chip_smoke)
 out_errors = chip_smoke.out_errors
 band_edge_qk = chip_smoke.band_edge_qk
+grad_errors = chip_smoke.grad_errors
+summed_hops = chip_smoke.summed_hops
 
 
 def assert_out_close(got, want):

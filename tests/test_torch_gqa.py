@@ -304,8 +304,8 @@ def test_gqa_helpers_match_jax():
 def test_trainer_takes_kv_heads_and_refuses_other_overrides(tmp_path):
     """`kv_heads` is the trainer's own field for num_kv_heads: an MQA
     gpt-nano trains; `model_overrides` (the JAX config's dict) naming a
-    model variant the port does not run, and the JAX CLI's --mesh, are
-    refused."""
+    model variant the port does not run is refused, and --mesh ep=2 on a
+    dense preset raises the JAX plan's refusal."""
     tc = TL.TrainConfig(preset="gpt-nano", steps=2, batch_size=2,
                         device="cpu", dtype="float32", dataset="",
                         log_every=1, ckpt_every=0, warmup=1,
@@ -325,5 +325,5 @@ def test_trainer_takes_kv_heads_and_refuses_other_overrides(tmp_path):
                                 batch_size=4, model_overrides={"quirks": True}))
     assert -1.0 <= q["final_loss"] <= 0.0
     from vitrs_tpu_torch.cli import train as cli
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(ValueError, match="needs a MoE config"):
         cli.main(["--mesh", "ep=2", "--cpu"])

@@ -1,7 +1,8 @@
 """The port's mesh launcher (train/mesh.py and `train(mesh=...)`):
-`parse_mesh` against the JAX function, the families not ported yet
-(expert and context parallelism) raising, and `--mesh dp=2`, `fsdp=2` and a dp=2 -> fsdp=2 resume end to end
-through `train/loop.train` on gloo CPU ranks (tests/torch_dist_worker.py)."""
+`parse_mesh` against the JAX function, the refusals of the expert- and
+context-parallel specs, and `--mesh dp=2`, `fsdp=2` and a dp=2 -> fsdp=2
+resume end to end through `train/loop.train` on gloo CPU ranks
+(tests/torch_dist_worker.py)."""
 
 import dataclasses
 import glob
@@ -49,12 +50,30 @@ def test_pure_dp_spec_returns_none():
     assert TMS.make_plan(cfg, TMS.parse_mesh("dp=4"), device="cpu") is None
 
 
+MOE_OVR = {"num_experts": 4}
+# the TrainConfig fields, the error and its words of each spec's refusal:
+# the JAX plan's own (ep on a dense config, ep x tp with the knobs, cp with
+# Muon) or a one-process run of a multi-rank spec
+REFUSALS = {
+    "ep=2": ({}, ValueError, "needs a MoE config"),
+    "cp=2": ({}, RuntimeError, "one process a rank"),
+    "ep=2,tp=2": (dict(clip_norm=1.0, model_overrides=MOE_OVR), ValueError,
+                  "wired for dp x ep"),
+    "dp=2,cp=2": (dict(optimizer="muon"), ValueError, "AdamW"),
+    "dp=2,ep=2": (dict(model_overrides=MOE_OVR), RuntimeError,
+                  "one process a rank"),
+}
+
+
 @pytest.mark.parametrize("spec", ["ep=2", "cp=2", "ep=2,tp=2",
                                   "dp=2,cp=2", "dp=2,ep=2"])
 def test_unported_families_raise_naming_item_18(spec, tmp_path):
+    """Expert and context parallelism are ported: each spec pins one of
+    their refusals through `train` (REFUSALS)."""
+    fields, err, words = REFUSALS[spec]
     tc = TL.TrainConfig(preset="gpt-nano", steps=1, device="cpu",
-                        workdir=str(tmp_path), mesh=spec)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 18"):
+                        workdir=str(tmp_path), mesh=spec, **fields)
+    with pytest.raises(err, match=words):
         TL.train(tc)
 
 

@@ -307,6 +307,8 @@ def test_cli_takes_the_loop_flags(argv, field, value, monkeypatch):
 
 
 def test_cli_mesh_still_raises_item_18(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 18"):
+    """--mesh cp=2 is ported: in one process (no torchrun) the CLI raises
+    the two-rank mesh's error."""
+    with pytest.raises(RuntimeError, match="one process a rank"):
         cli.main(["--preset", "gpt-nano", "--cpu", "--steps", "1",
                   "--mesh", "cp=2", "--workdir", str(tmp_path)])

@@ -17,14 +17,21 @@ under the bf16 bound, so the bound alone cannot see it.  The smoke's
 band-edge inputs (`band_edge_qk`) make every query's scores peak at the
 band's last key and the first key outside it, and there a band moved by one
 key fails the same bound, with and without rope; at W=1 the output is v
-exactly."""
+exactly.
+
+The ring hops' gradient bound (`grad_errors`, the kernels-cp phase), on
+the CPU at two ring blocks of 1024 (MHA) and 2048 (one kv head): the hops'
+summed bf16 gradients pass against the plain gradient of the whole
+sequence, and the sum with rank 1's past hop dropped, halved or scaled by
+0.95 fails in dq, dk and dv alike."""
 
 import numpy as np
 import pytest
 import torch
 
-from flash_tolerance import band_edge_qk, out_errors
-from vitrs_tpu_torch.ops.flash_attention import flash_fwd_plain
+from flash_tolerance import band_edge_qk, grad_errors, out_errors, summed_hops
+from vitrs_tpu_torch.ops.flash_attention import flash_bwd_plain, flash_fwd_plain
+from vitrs_tpu_torch.parallel import ring_attention as RA
 
 B, S, N, D = 2, 64, 7680, 64
 
@@ -111,3 +118,46 @@ def test_random_inputs_see_a_band_moved_by_one_key_only_faintly():
     want = _band_out(q, k, v, 1, 1024, False)
     bad, err, rms = out_errors(_band_out(q, k, v, 1, 1025, False), want)
     assert bad > 0.5 * (2048 - 1024) * 64, (bad, err, rms)
+
+
+def _ring_grads(T, kh, nh=2):
+    """Two ring blocks of T (bf16, causal): each hop's plain backward from
+    the merged out and lse, and the plain backward of the whole sequence."""
+    torch.manual_seed(0)
+    rnd = lambda w: torch.randn(1, 2 * T, w).bfloat16()  # noqa: E731
+    q2, k2, v2, do2 = rnd(nh * 64), rnd(kh * 64), rnd(kh * 64), rnd(nh * 64)
+    q0, q1, k0, k1, v0, v1, do0, do1 = (t[:, r * T:(r + 1) * T].contiguous()
+                                        for t in (q2, k2, v2, do2)
+                                        for r in (0, 1))
+
+    def fwd(q, k, v, causal):
+        return flash_fwd_plain(q, k, v, nh, causal, 0.125, kv_heads=kh)
+
+    def bwd(q, k, v, o, lse, do, causal):
+        return flash_bwd_plain(q, k, v, o, lse, do, nh, causal, 0.125,
+                               kv_heads=kh)
+    o0, l0 = fwd(q0, k0, v0, True)
+    acc, lse1 = RA._merge(*RA._merge(None, None, *fwd(q1, k1, v1, True)),
+                          *fwd(q1, k0, v0, False))
+    out1 = acc.to(torch.bfloat16)
+    hops = (bwd(q0, k0, v0, o0, l0, do0, True),
+            bwd(q1, k1, v1, out1, lse1, do1, True),
+            bwd(q1, k0, v0, out1, lse1, do1, False))
+    want = flash_bwd_plain(q2, k2, v2, torch.cat([o0, out1], 1),
+                           torch.cat([l0, lse1], 2), do2, nh, True, 0.125,
+                           kv_heads=kh)
+    return hops, want
+
+
+@pytest.mark.parametrize("scale", [1.0, 0.0, 0.5, 0.95])
+@pytest.mark.parametrize("T,kh", [(1024, 2), (2048, 1)])
+def test_ring_grad_bound_passes_the_summed_hops_and_fails_a_past_hop_fault(
+        T, kh, scale):
+    (g0, g1, gp), want = _ring_grads(T, kh)
+    got, parts = summed_hops(g0, g1, [scale * t for t in gp])
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, want, parts):
+        bad, err, rms = grad_errors(a, b, c)
+        if scale == 1.0:
+            assert bad == 0, (name, bad, err, rms)
+        else:       # thousands of values of the past hop's block move
+            assert bad > 1000, (name, scale, bad, err, rms)

@@ -362,12 +362,14 @@ def test_cli_needs_a_card_without_cpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("mesh", "ep=2,tp=2", "item 18")])
+    ("mesh", "cp=2,tp=2", "composes with dp only")])
 def test_loop_raises_for_unported_options(field, value, item, tmp_path):
+    """Every mesh family is ported; a combination the JAX plan refuses
+    (cp with tp) raises its ValueError through the loop."""
     tc = TL.TrainConfig(preset="gpt-nano", steps=1, device="cpu",
                         workdir=str(tmp_path))
     setattr(tc, field, value)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=item):
         TL.train(tc)
 
 

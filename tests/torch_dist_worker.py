@@ -158,6 +158,10 @@ def job_mesh_step(cfg, job, inp):
         b = inp[f"x/{ds}"].shape[0] // plan.data_ways
         rows = slice(plan.data_rank * b, (plan.data_rank + 1) * b)
         x, y = inp[f"x/{ds}"][rows], inp[f"y/{ds}"][rows]
+        if plan.seq_ways > 1:
+            t = x.shape[1] // plan.seq_ways
+            cols = slice(plan.seq_rank * t, (plan.seq_rank + 1) * t)
+            x, y = x[:, cols], y[:, cols]
         params = plan.place(arrs)
         name = var["name"]
         if plan.grads is not None and not knobs.any:
@@ -170,6 +174,10 @@ def job_mesh_step(cfg, job, inp):
         if var["opt"] == "muon":
             for k, t in plan.opt_save(res[1])["momentum"].items():
                 out[f"{name}/mom/{k}"] = t
+        if var.get("save_opt"):
+            for f, tree in plan.opt_save(res[1]).items():
+                for k, t in tree.items():
+                    out[f"{name}/state/{f}/{k}"] = t
         out[f"{name}/encodes"] = np.int64(encodes[0])
         out[f"{name}/kind"] = np.array(plan.kind)
         out[f"{name}/loss"] = res[2].numpy()
@@ -206,8 +214,54 @@ def job_p2p(cfg, job, inp):
             "peer": np.array([m.peer("pipe", i) for i in range(w // 2)])}
 
 
+def job_ring(cfg, job, inp):
+    """parallel/ring_attention.ring_attention_local over every rank, for
+    each case of job["cases"] (num_heads, causal, window; inputs q, k, v,
+    do (B, T, width) of the global sequence): the rank's out and its dq,
+    dk, dv, and the hops the plain banded route took; then job_mesh_step's
+    variants, if any."""
+    from vitrs_tpu_torch.parallel import ring_attention as RA
+    r, w = multihost.rank(), multihost.world_size()
+    out = {}
+    for case in job["cases"]:
+        name = case["name"]
+        T = inp[f"{name}/q"].shape[1] // w
+        q, k, v = (torch.tensor(inp[f"{name}/{t}"][:, r * T:(r + 1) * T],
+                                requires_grad=True) for t in "qkv")
+        before = dict(RA.band_plain_hops)
+        o = RA.ring_attention_local(q, k, v, None, w, case["causal"],
+                                    case["window"],
+                                    num_heads=case["num_heads"])
+        o.backward(torch.tensor(inp[f"{name}/do"][:, r * T:(r + 1) * T]))
+        out[f"{name}/out"] = o.detach().numpy()
+        for t, leaf in zip("qkv", (q, k, v)):
+            out[f"{name}/d{t}"] = leaf.grad.numpy()
+        out[f"{name}/band"] = np.array(
+            [RA.band_plain_hops[d] - before[d] for d in ("fwd", "bwd")])
+    if job.get("variants"):
+        out.update(job_mesh_step(cfg, job, inp))
+    return out
+
+
+def job_ep(cfg, job, inp):
+    """collectives.all_to_all on the rank's block of inputs["a2a/t"]
+    (split 0, concat 1), the backward of sum(out * a2a/w), and the inverse
+    hop; then job_mesh_step's variants."""
+    from vitrs_tpu_torch.parallel import collectives as CL
+    r = multihost.rank()
+    t = torch.tensor(inp["a2a/t"][r], requires_grad=True)
+    y = CL.all_to_all(t, 0, 1)
+    (y * torch.tensor(inp["a2a/w"][r])).sum().backward()
+    back = CL.all_to_all(y.detach(), 1, 0)
+    out = {"a2a/y": y.detach().numpy(), "a2a/dt": t.grad.numpy(),
+           "a2a/back": back.numpy()}
+    out.update(job_mesh_step(cfg, job, inp))
+    return out
+
+
 JOBS = {"dp": job_dp, "fsdp": job_fsdp, "ckpt": job_ckpt, "train": job_train,
-        "mesh_step": job_mesh_step, "p2p": job_p2p}
+        "mesh_step": job_mesh_step, "p2p": job_p2p,
+        "ring": job_ring, "ep": job_ep}
 
 
 def main():

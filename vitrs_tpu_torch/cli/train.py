@@ -9,8 +9,10 @@ streaming ImageNet shards with RandAugment (--dataset imagenet --data-dir,
 --ra-ops, --ra-mag), on one device or as ranks under torchrun: --mesh
 dp=N (ZeRO-1), fsdp=N, dp=M,fsdp=N (hybrid FSDP), tp=N[,dp=M][,sp][,vp]
 (tensor, sequence and vocab parallelism), pp=N[,dp=M][,schedule=gpipe|1f1b|
-1f1b-interleaved][,v=V][,mb=M] (pipelines) and tp=N,pp=K[,dp=M][,sp][,vp]
-(3-D); ep and cp raise (ROADMAP.md Queue 1 item 18).
+1f1b-interleaved][,v=V][,mb=M] (pipelines), tp=N,pp=K[,dp=M][,sp][,vp]
+(3-D), ep=N[,dp=M][,tp=K[,vp]] (expert parallelism for MoE configs, and
+EP x TP) and cp=N[,dp=M] (context parallelism: ring attention, banded under
+--window).
 
 Examples:
   vitrs-train-torch --preset vit-b-16 --dataset synthetic-imagenet \
@@ -45,6 +47,11 @@ Examples:
       --preset gpt2-124m --mesh pp=2,schedule=1f1b,mb=4 --batch-size 8
   torchrun --nproc-per-node 4 -m vitrs_tpu_torch.cli.train \
       --preset gpt2-124m --mesh tp=2,pp=2 --batch-size 8 --clip-norm 1.0
+  torchrun --nproc-per-node 2 -m vitrs_tpu_torch.cli.train \
+      --preset gpt2-124m-4k --mesh cp=2 --batch-size 4 --steps 100
+  torchrun --nproc-per-node 4 -m vitrs_tpu_torch.cli.train \
+      --preset gpt2-moe-8e --mesh ep=2,tp=2 --optimizer adafactor --lr 1e-2 \
+      --batch-size 8 --steps 100
 
 Checkpoints and metrics go to --workdir, and a run resumes from the latest
 checkpoint there; without --workdir a run writes to a fresh temporary
@@ -105,8 +112,9 @@ def main(argv=None):
     p.add_argument("--mesh", default="",
                    help="dp=N | fsdp=N[,dp=M] | tp=N[,dp=M][,sp][,vp] | "
                         "pp=N[,dp=M][,schedule=..][,v=..][,mb=..] | "
-                        "tp=N,pp=K[,dp=M][,sp][,vp], one rank a device "
-                        "under torchrun (ep/cp: ROADMAP.md Queue 1 item 18)")
+                        "tp=N,pp=K[,dp=M][,sp][,vp] | ep=N[,dp=M][,tp=K"
+                        "[,vp]] | cp=N[,dp=M], one rank a device under "
+                        "torchrun")
     p.add_argument("--log-grad-norm", action="store_true")
     p.add_argument("--decay-2d-only", action="store_true",
                    help="weight-decay tensors with >= 2 axes only")

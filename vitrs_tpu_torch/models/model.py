@@ -37,6 +37,9 @@ its fp32 router (routerw, not a matmul key: the router runs in fp32); the
 blocks sum each layer's weighted router loss (moe_aux_weight load balance
 + moe_zloss_weight z-loss) and `transformer` returns its mean over the
 layers, which `gpt_loss` adds on every CE route and `vit_loss` adds too.
+Under expert parallelism `gpt_loss(ep_group=)` threads the expert
+group down to `moe_mlp`, whose expert leaves are then the rank's
+(L, E/ep, ...) shards (parallel/expert_parallel.py).
 
 quirks=True is the reference's math as written (G5, G6, G11): attention
 always takes the dense route with the quirk softmax (no kernel computes
@@ -244,25 +247,28 @@ def _block(x: torch.Tensor, p: Mapping[str, torch.Tensor], cfg: ViTConfig,
 
 
 def _moe_half(x: torch.Tensor, p: Mapping[str, torch.Tensor],
-              cfg: ViTConfig):
+              cfg: ViTConfig, ep_group=None):
     """ln2, then the MoE layer: (its output, this layer's weighted router
-    loss moe_aux_weight load_balance + moe_zloss_weight z_loss)."""
+    loss moe_aux_weight load_balance + moe_zloss_weight z_loss).  ep_group:
+    expert parallelism (the expert leaves the rank's (E/ep, ...) shards;
+    ops/moe.py)."""
     out, aux = moe_mlp(basic.layernorm_cv(x, p["ln2w"], p["ln2b"]),
                        p["routerw"], p["fcw"], p["fcb"], p["fcprojw"],
                        p["fcprojb"], top_k=cfg.moe_top_k,
                        cap_factor=cfg.moe_cap_factor,
-                       erf=cfg.act == "gelu_erf")
+                       erf=cfg.act == "gelu_erf", ep_group=ep_group)
     return out, (cfg.moe_aux_weight * aux.load_balance
                  + cfg.moe_zloss_weight * aux.z_loss)
 
 
 def _block_moe(x: torch.Tensor, p: Mapping[str, torch.Tensor],
                cfg: ViTConfig, causal: bool = True,
-               keep: Optional[torch.Tensor] = None, rate: float = 0.0):
+               keep: Optional[torch.Tensor] = None, rate: float = 0.0,
+               ep_group=None):
     """The block with the dense MLP replaced by the MoE layer.  Returns
     (x, this layer's weighted router loss)."""
     x = _attn_residual(x, p, cfg, causal, keep, rate)
-    out, aux = _moe_half(x, p, cfg)
+    out, aux = _moe_half(x, p, cfg, ep_group)
     if keep is not None:
         out = _drop_path(out, keep[1], rate)
     return x + out, aux
@@ -283,8 +289,8 @@ def block_body(cfg: ViTConfig):
     if not cfg.remat or not torch.is_grad_enabled():
         return plain
     if cfg.remat == "full" or cfg.quirks:
-        def full(x, p, cfg, causal, keep, rate):
-            return checkpoint(plain, x, p, cfg, causal, keep, rate,
+        def full(x, p, cfg, causal, keep, rate, **ep):
+            return checkpoint(plain, x, p, cfg, causal, keep, rate, **ep,
                               use_reentrant=False, preserve_rng_state=False)
         return full
     from .selective import block_moe_selective, block_selective
@@ -294,19 +300,21 @@ def block_body(cfg: ViTConfig):
 def transformer(x: torch.Tensor, params: Mapping[str, torch.Tensor],
                 cfg: ViTConfig, causal: bool,
                 keep: Optional[torch.Tensor] = None,
-                return_aux: bool = False):
+                return_aux: bool = False, ep_group=None):
     """The blocks over every layer, each under cfg.remat (`block_body`).
     keep (L, 2, B): stochastic depth's keep flags (`draw_masks`), layer l
     at rate `drop_path_rates(cfg)[l]`.  return_aux: also return the mean
     over the layers of the weighted MoE router loss (an fp32 zero for a
-    dense config), which the losses add."""
+    dense config), which the losses add.  ep_group: expert parallelism for
+    the MoE blocks (`_moe_half`)."""
     rates = drop_path_rates(cfg)
     body = block_body(cfg)
+    ep_kw = {} if ep_group is None else dict(ep_group=ep_group)
     aux = None
     for i, p in enumerate(layers(params)):
         k = None if keep is None else keep[i]
         if cfg.is_moe:
-            x, a = body(x, p, cfg, causal, k, rates[i])
+            x, a = body(x, p, cfg, causal, k, rates[i], **ep_kw)
             aux = a if aux is None else aux + a
         else:
             x = body(x, p, cfg, causal, k, rates[i])
@@ -329,13 +337,14 @@ def gpt_encode(tokens: torch.Tensor, params: Mapping[str, torch.Tensor],
 
 
 def gpt_trunk(params: Mapping[str, torch.Tensor], tokens: torch.Tensor,
-              cfg: ViTConfig, return_aux: bool = False):
+              cfg: ViTConfig, return_aux: bool = False, ep_group=None):
     """Everything up to and including the final LayerNorm: (B, T, C) in
     cfg.dtype; with return_aux, (that, the mean weighted MoE router loss).
     params from `prepare_params` or `train_params`."""
     x = gpt_encode(tokens, params, getattr(torch, cfg.dtype),
                    rope=cfg.pos_emb == "rope")
-    x = transformer(x, params, cfg, causal=True, return_aux=return_aux)
+    x = transformer(x, params, cfg, causal=True, return_aux=return_aux,
+                    ep_group=ep_group)
     if return_aux:
         x, aux = x
         return basic.layernorm_cv(x, params["lnfw"], params["lnfb"]), aux
@@ -350,7 +359,8 @@ def gpt_forward(params: Mapping[str, torch.Tensor], tokens: torch.Tensor,
 
 
 def gpt_loss(params: Mapping[str, torch.Tensor], tokens: torch.Tensor,
-             targets: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
+             targets: torch.Tensor, cfg: ViTConfig,
+             ep_group=None) -> torch.Tensor:
     """Mean CE over B*T from the master parameters; differentiable in them.
 
     Where the fused CE takes the shape (`fused_ce.supports`, the JAX rule),
@@ -362,9 +372,11 @@ def gpt_loss(params: Mapping[str, torch.Tensor], tokens: torch.Tensor,
     as the JAX package routes them.  Every route adds the mean weighted
     MoE router loss (an exact 0 for a dense config).  quirks=True: the
     reference's loss as written, -mean p_target of the quirk softmax of the
-    fp32 logits (G6, G11)."""
+    fp32 logits (G6, G11).  ep_group: expert parallelism, the expert
+    leaves the rank's (L, E/ep, ...) shards (parallel/expert_parallel.py);
+    the loss is then the rank's own mean."""
     tp = train_params(params, cfg)
-    lnf, aux = gpt_trunk(tp, tokens, cfg, return_aux=True)
+    lnf, aux = gpt_trunk(tp, tokens, cfg, return_aux=True, ep_group=ep_group)
     if cfg.quirks:
         return quirk_loss(basic.linear(lnf, params["wte"].to(lnf.dtype)),
                           targets)

@@ -198,17 +198,18 @@ def block_selective(x: torch.Tensor, p: Mapping[str, torch.Tensor],
 def block_moe_selective(x: torch.Tensor, p: Mapping[str, torch.Tensor],
                         cfg: ViTConfig, causal: bool,
                         keep: Optional[torch.Tensor] = None,
-                        rate: float = 0.0):
+                        rate: float = 0.0, ep_group=None):
     """`model._block_moe` under the selective policy: the lean attention
     branch, then the MoE half (ln2, router, experts, the weighted router
-    loss) under `torch.utils.checkpoint`.  Returns (x, weighted aux)."""
+    loss; its all-to-all hops under expert parallelism) under
+    `torch.utils.checkpoint`.  Returns (x, weighted aux)."""
     from .model import _drop_path, _moe_half
     a = attn_branch(x, p, cfg, causal)
     if keep is not None:
         a = _drop_path(a, keep[0], rate)
     x = x + a
-    out, aux = checkpoint(_moe_half, x, p, cfg, use_reentrant=False,
-                          preserve_rng_state=False)
+    out, aux = checkpoint(_moe_half, x, p, cfg, ep_group,
+                          use_reentrant=False, preserve_rng_state=False)
     if keep is not None:
         out = _drop_path(out, keep[1], rate)
     return x + out, aux

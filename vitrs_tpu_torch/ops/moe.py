@@ -31,8 +31,18 @@ The auxiliary losses returned to the caller (weighted in models/model.py):
 load balance E · Σ_e f_e · P_e (1.0 at uniform routing) and the router
 z-loss mean(logsumexp(logits)²).
 
-Not ported: the JAX module's timing switches (MOE_DIAG, BATCHED_GATHER) and
-its expert- and tensor-parallel arguments (ROADMAP.md Queue 1 item 18).
+Expert parallelism (`moe_mlp(ep_group=)`, parallel/expert_parallel.py):
+the expert leaves arrive as the rank's (E/ep, ...) shard; routing,
+capacity (from the rank's own S) and dispatch stay local, then one tiled
+all-to-all over the expert group sends each rank's slots for the peers'
+experts out ((E, cap, C) -> (E/ep, ep*cap, C)), the expert FFN runs on the
+rank's experts, and the inverse all-to-all brings the slots home before the
+combine (`parallel/collectives.all_to_all`, whose backward is the reverse
+hop).  With `tp_group` each expert's FFN is also split over a model group
+(fcw/fcb column-sharded on 4C, fcprojw row-sharded): the conjugate
+copy-in / reduce-out of parallel/tensor_parallel.py wrap it.
+
+Not ported: the JAX module's timing switches (MOE_DIAG, BATCHED_GATHER).
 """
 
 from __future__ import annotations
@@ -199,39 +209,66 @@ combine = _Combine.apply       # (ys, weight, inv, dst) -> out, fp32
 
 def _expert_ffn(xe: torch.Tensor, fcw: torch.Tensor, fcb: torch.Tensor,
                 fcprojw: torch.Tensor, fcprojb: torch.Tensor,
-                erf: bool) -> torch.Tensor:
+                erf: bool, tp_group=None) -> torch.Tensor:
     """Batched expert MLP (E, cap, C) -> (E, cap, C) in two batched
     matmuls.  Each product accumulates in fp32 and rounds to the compute
     dtype before its bias adds in that dtype (the JAX op's order, which
-    `basic.linear` shares only for one matrix)."""
+    `basic.linear` shares only for one matrix).  tp_group: fcw/fcb arrive
+    column-sharded on 4C, fcprojw row-sharded; copy-in before the first
+    product and reduce-out after the second make the activation gradients
+    exact (the JAX `tp_axis`)."""
     dt = xe.dtype
+    if tp_group is not None:
+        from ..parallel.tensor_parallel import copy_in_group
+        xe = copy_in_group(xe, tp_group)
     h = torch.matmul(xe, fcw.to(dt).transpose(1, 2))         # (E, cap, 4C)
     h = h + fcb.to(dt)[:, None, :]
     hg = basic.gelu_erf_cv(h) if erf else basic.gelu_cv(h)
     y = torch.matmul(hg, fcprojw.to(dt).transpose(1, 2))     # (E, cap, C)
+    if tp_group is not None:
+        from ..parallel.tensor_parallel import reduce_out_group
+        y = reduce_out_group(y, tp_group)
     return y + fcprojb.to(dt)[:, None, :]
 
 
 def moe_mlp(x: torch.Tensor, routerw: torch.Tensor, fcw: torch.Tensor,
             fcb: torch.Tensor, fcprojw: torch.Tensor, fcprojb: torch.Tensor,
-            *, top_k: int, cap_factor: float, erf: bool = False
+            *, top_k: int, cap_factor: float, erf: bool = False,
+            ep_group=None, tp_group=None
             ) -> Tuple[torch.Tensor, MoEAux]:
     """The MoE replacement for the dense MLP branch.
 
     x (B, T, C) or (S, C); expert-stacked weights routerw (E, C), fcw
     (E, 4C, C), fcb (E, 4C), fcprojw (E, C, 4C), fcprojb (E, C).  The
     capacity comes from this call's own token count S.  Returns (out, aux),
-    out shaped and typed like x."""
+    out shaped and typed like x.  ep_group: expert parallelism over that
+    group's ep ranks, the expert leaves the rank's (E/ep, ...) shard,
+    routerw whole; tp_group: each expert's FFN split over that model group
+    (module docstring)."""
     orig_shape = x.shape
     C = orig_shape[-1]
     xs = x.reshape(-1, C)
     S = xs.shape[0]
     E = routerw.shape[0]
+    ep = 1 if ep_group is None else torch.distributed.get_world_size(
+        ep_group)
+    if ep > 1 and (E % ep or fcw.shape[0] != E // ep):
+        raise ValueError(f"expert parallelism over {ep} ranks needs E ({E}) "
+                         f"divisible by ep and fcw's E/ep shard, got "
+                         f"{tuple(fcw.shape)}")
     cap = capacity(S, E, top_k, cap_factor)
     dst, weight, _, aux = router(xs, routerw, top_k, cap)
     inv = build_inverse(dst, E, cap)
-    buf = dispatch(xs, inv, dst)
-    y = _expert_ffn(buf.reshape(E, cap, C), fcw, fcb, fcprojw, fcprojb, erf)
+    buf = dispatch(xs, inv, dst).reshape(E, cap, C)
+    if ep > 1:
+        from ..parallel.collectives import all_to_all
+        # (E, cap, C) -> (E/ep, ep*cap, C): every peer's slots for this
+        # rank's experts, stacked on the slot axis; then the way home
+        y = _expert_ffn(all_to_all(buf, 0, 1, ep_group), fcw, fcb, fcprojw,
+                        fcprojb, erf, tp_group)
+        y = all_to_all(y, 1, 0, ep_group)
+    else:
+        y = _expert_ffn(buf, fcw, fcb, fcprojw, fcprojb, erf, tp_group)
     out = combine(y.reshape(E * cap, C), weight, inv, dst)
     return out.to(x.dtype).reshape(orig_shape), aux
 

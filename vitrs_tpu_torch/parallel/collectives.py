@@ -1,7 +1,9 @@
 """The collectives of the mesh families: reduce-scatter, all-gather,
 all-reduce, broadcast, barrier over a `torch.distributed` process group
-(None: the whole world); point-to-point `send`, `recv` and `exchange` (the
-pipeline's hops); and `mesh_groups`, the process groups of an N-D mesh.
+(None: the whole world); the differentiable tiled `all_to_all` (the MoE
+dispatch of expert parallelism); point-to-point `send`, `recv` and
+`exchange` (the pipeline's and the ring's hops); and `mesh_groups`, the
+process groups of an N-D mesh.
 
 The JAX package's steps name these as `lax.psum_scatter`, `all_gather`,
 `psum`/`pmean` inside `shard_map`, or leave them to GSPMD; here each is one
@@ -100,6 +102,45 @@ def broadcast(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
 
 def barrier(group=None) -> None:
     dist.barrier(group=group)
+
+
+def _all_to_all(t: torch.Tensor, split_dim: int, concat_dim: int,
+                group) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    parts = torch.stack(t.chunk(n, split_dim))     # (n, ...) contiguous
+    if _staged(t, group):
+        h = parts.cpu()
+        got = torch.empty_like(h)
+        dist.all_to_all_single(got, h, group=group)
+        got = got.to(t.device)
+    else:
+        got = torch.empty_like(parts)
+        dist.all_to_all_single(got, parts, group=group)
+    return torch.cat(got.unbind(0), dim=concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, split_dim, concat_dim, group):
+        ctx.args = (concat_dim, split_dim, group)
+        return _all_to_all(t, split_dim, concat_dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g.contiguous(), *ctx.args), None, None, None
+
+
+def all_to_all(t: torch.Tensor, split_dim: int, concat_dim: int,
+               group=None) -> torch.Tensor:
+    """`jax.lax.all_to_all(t, axis, split_dim, concat_dim, tiled=True)`:
+    `t` cut into N equal blocks along split_dim, block i sent to the
+    group's rank i, the N blocks received concatenated along concat_dim in
+    rank order.  Differentiable: the backward is the reverse all-to-all
+    (split concat_dim, concat split_dim).  One `all_to_all_single` of the
+    stacked blocks (gloo and NCCL both take it)."""
+    if (dist.get_world_size(group) if dist.is_initialized() else 1) == 1:
+        return t
+    return _AllToAll.apply(t, split_dim, concat_dim, group)
 
 
 # --- point to point ---------------------------------------------------------

@@ -16,6 +16,9 @@ leaf, which every rank holds whole and which counts once.
   1e-6)); the returned norm is the one before the clip.
 * `accumulate_microbatches`: the mean loss and mean fp32 gradients over
   `accum_steps` slices of the rank's batch.
+* `sum_tree`: a set of tensors summed over one or more groups in one
+  all-reduce a group (one flat fp32 buffer), scaled: the gradient
+  completion of the expert- and context-parallel steps.
 """
 
 from __future__ import annotations
@@ -95,3 +98,25 @@ def accumulate_microbatches(loss_and_grads: Callable, params, inputs,
             g_sum = {k: g_sum[k] + t.float() for k, t in g.items()}
     inv = 1.0 / accum_steps
     return loss_sum * inv, {k: t * inv for k, t in g_sum.items()}
+
+
+def sum_tree(tensors: Dict[str, torch.Tensor], groups, scale: float = 1.0
+             ) -> Dict[str, torch.Tensor]:
+    """Each tensor summed over every group of `groups` (None entries
+    skipped: an axis of size 1), times `scale`, as new fp32 tensors: the
+    tensors travel as one flat buffer, one all-reduce a group."""
+    groups = [g for g in groups if g is not None]
+    if not tensors:
+        return {}
+    keys = list(tensors)
+    flat = torch.cat([tensors[k].detach().float().reshape(-1) for k in keys])
+    for g in groups:
+        C.all_reduce(flat, g)
+    if scale != 1.0:
+        flat.mul_(scale)
+    out, off = {}, 0
+    for k in keys:
+        n = tensors[k].numel()
+        out[k] = flat[off:off + n].view(tensors[k].shape)
+        off += n
+    return out

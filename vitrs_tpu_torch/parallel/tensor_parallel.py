@@ -171,30 +171,29 @@ def _slice_own(x: torch.Tensor, mesh: C.MeshGroups, axis: str):
     return x[:, mesh.index(axis) * ts:(mesh.index(axis) + 1) * ts]
 
 
-def _all_reduce_copy(x: torch.Tensor, mesh: C.MeshGroups, axis: str):
-    return C.all_reduce(x.clone(memory_format=torch.contiguous_format),
-                        mesh.group(axis))
+def _all_reduce_copy(x: torch.Tensor, group):
+    return C.all_reduce(x.clone(memory_format=torch.contiguous_format), group)
 
 
 class _CopyIn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axis):
-        ctx.mesh, ctx.axis = mesh, axis
+    def forward(ctx, x, group):
+        ctx.group = group
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce_copy(g, ctx.mesh, ctx.axis), None, None
+        return _all_reduce_copy(g, ctx.group), None
 
 
 class _ReduceOut(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axis):
-        return _all_reduce_copy(x, mesh, axis)
+    def forward(ctx, x, group):
+        return _all_reduce_copy(x, group)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None, None
+        return g, None
 
 
 class _GatherSeq(torch.autograd.Function):
@@ -248,8 +247,18 @@ def _conjugate(fn):
     return apply
 
 
-copy_in = _conjugate(_CopyIn)             # identity fwd, all-reduce bwd
-reduce_out = _conjugate(_ReduceOut)       # all-reduce fwd, identity bwd
+def _over_group(fn):
+    def apply(x, mesh: C.MeshGroups, axis: str = "model"):
+        return x if mesh.size(axis) == 1 else fn.apply(x, mesh.group(axis))
+    return apply
+
+
+copy_in = _over_group(_CopyIn)            # identity fwd, all-reduce bwd
+reduce_out = _over_group(_ReduceOut)      # all-reduce fwd, identity bwd
+# the same two over a bare process group (the expert FFN's model group,
+# ops/moe.py)
+copy_in_group = _CopyIn.apply
+reduce_out_group = _ReduceOut.apply
 gather_seq = _conjugate(_GatherSeq)       # all-gather fwd, reduce-scatter bwd
 gather_seq_rep = _conjugate(_GatherSeqRep)  # all-gather fwd, slice-own bwd
 scatter_seq_sum = _conjugate(_ScatterSeqSum)  # reduce-scatter fwd, gather bwd
@@ -625,10 +634,11 @@ def make_tp_train_step(cfg: ViTConfig, mesh: C.MeshGroups,
 
 
 def adamw_step(grads_fn, specs, mesh: C.MeshGroups, clip_norm: float = 0.0,
-               return_grad_norm: bool = False):
-    """The AdamW step of every TP / PP / 3-D family around its grads
+               return_grad_norm: bool = False, decay_2d_only: bool = False):
+    """The AdamW step of every TP / PP / 3-D / EP family around its grads
     function: the global norm (each leaf's squares summed over its spec's
-    axes), the clip, `optimizer.adamw_tree` over the slices."""
+    axes), the clip, `optimizer.adamw_tree` over the slices (decay_2d_only:
+    `optimizer.decay_mask_2d`, the EP steps' rule)."""
     def step_fn(p, m, v, inputs, targets, step, lr, wd):
         loss, grads = grads_fn(p, inputs, targets)
         gnorm = None
@@ -638,7 +648,9 @@ def adamw_step(grads_fn, specs, mesh: C.MeshGroups, clip_norm: float = 0.0,
             scale = torch.clamp(clip_norm / (gnorm + 1e-6), max=1.0)
             grads = {k: g * scale for k, g in grads.items()}
         p, m, v = opt.adamw_tree(p, grads, m, v, step, float(lr),
-                                 weight_decay=float(wd))
+                                 weight_decay=float(wd),
+                                 decay_mask=(opt.decay_mask_2d(p)
+                                             if decay_2d_only else None))
         return (p, m, v, loss, gnorm) if return_grad_norm else (p, m, v, loss)
     return step_fn
 

@@ -72,13 +72,13 @@ mode, AdamW, Adafactor or Muon, on one device or one rank of many.
   checkpoints, side trees, metrics and log lines (the AdamW m and v are
   gathered from the shards first).  `mesh`: "dp=N" asks for exactly that
   world; "fsdp=N[,dp=M]", "tp=N[,dp=M][,sp][,vp]", "pp=N[,dp=M]
-  [,schedule=..,v=..,mb=..]" and "tp=N,pp=K[,dp=M][,sp][,vp]" run
+  [,schedule=..,v=..,mb=..]", "tp=N,pp=K[,dp=M][,sp][,vp]",
+  "ep=N[,dp=M][,tp=K[,vp]]" (MoE configs) and "cp=N[,dp=M]" (gpt) run
   `_train_mesh` through a train/mesh.py Plan (each rank reads its data
-  block's rows; checkpoints in the canonical layout, optimizer state in
-  `meshopt_{step:08d}.tree`, so a run resumes under another mesh; clip,
-  accumulation and the grad-norm log reach the tp, pp and 3-D AdamW
-  steps); ep and cp raise NotImplementedError naming ROADMAP.md Queue 1
-  item 18.
+  block's rows, under cp only its ctx block's columns of them; checkpoints
+  in the canonical layout, optimizer state in `meshopt_{step:08d}.tree`,
+  so a run resumes under another mesh; clip, accumulation and the
+  grad-norm log reach the tp, pp, 3-D and dp x ep AdamW steps).
 `model_overrides` is the JAX TrainConfig's dict of config fields (e.g.
 {"max_seq_len": 8192, "window": 1024, "pos_emb": "rope"}, the
 long-context rope + sliding-window model, {"num_experts": 8} for MoE, or
@@ -400,6 +400,24 @@ def _loader(tc: TrainConfig, cfg: ViTConfig, cursor: int,
                            cursor=cursor,
                            holdout=TOK.default_holdout(total_w),
                            **shard), None
+
+
+class _SeqBlock:
+    """A token loader's batches cut to one block of the sequence: the
+    columns [block*T/blocks, (block+1)*T/blocks) of inputs and targets (a
+    cp plan's ctx block); every other attribute is the loader's."""
+
+    def __init__(self, loader, block: int, blocks: int):
+        self.loader, self.block, self.blocks = loader, block, blocks
+
+    def next_batch(self):
+        x, y = self.loader.next_batch()
+        t = x.shape[1] // self.blocks
+        cols = slice(self.block * t, (self.block + 1) * t)
+        return x[:, cols], y[:, cols]
+
+    def __getattr__(self, name):
+        return getattr(self.loader, name)
 
 
 def _make_step(tc: TrainConfig, cfg: ViTConfig, mesh, normalize):
@@ -744,6 +762,8 @@ def _train_mesh(tc: TrainConfig, cfg: ViTConfig, plan,
 
     loader, _ = _loader(tc, cfg, cursor, device_normalize=False,
                         shard=(plan.data_rank, plan.data_ways))
+    if plan.seq_ways > 1:
+        loader = _SeqBlock(loader, plan.seq_rank, plan.seq_ways)
     prefetcher = (DevicePrefetcher(loader, device, depth=tc.prefetch)
                   if tc.prefetch else None)
     kind = device_kind(device)

@@ -34,13 +34,20 @@ every spec the JAX function parses.  The port runs:
   fsdp=N[,dp=M]        ZeRO-3 sharding; dp > 1 is the hybrid (FSDP inside
                        groups of N ranks x DP across M) - parallel/fsdp.py,
                        with AdamW, Adafactor or Muon
+  dp,ep[,tp[,vp]]      expert parallelism for MoE configs, and EP x TP,
+                       with AdamW or Adafactor - parallel/expert_parallel.py
+  dp,cp                context parallelism (ring attention, banded under a
+                       window) for gpt configs, ZeRO-1 AdamW or replicated
+                       Adafactor - parallel/ring_attention.py
 
-clip_norm, accum_steps and the grad-norm log reach the dp, tp, pp and 3-D
-AdamW steps, as in JAX.  Expert parallelism (ep) and context parallelism
-(cp) raise NotImplementedError naming ROADMAP.md Queue 1 item 18.  A mesh
-of N ranks runs as N processes (torchrun, or `multihost.initialize`), one
-device each; ranks that share one card (gloo) stage every collective
-through host memory (parallel/collectives.py).
+clip_norm, accum_steps and the grad-norm log reach the dp, tp, pp, 3-D and
+dp x ep AdamW steps, as in JAX.  Under cp each rank also reads its ctx
+block's columns of the inputs and targets (`Plan.seq_rank` of
+`Plan.seq_ways`).  cp's AdamW m and v are carved to canonical names from
+the ranks' shards in rank order, as the JAX plan carves its sharded
+vector.  A mesh of N ranks runs as N processes (torchrun, or
+`multihost.initialize`), one device each; ranks that share one card (gloo)
+stage every collective through host memory (parallel/collectives.py).
 """
 
 from __future__ import annotations
@@ -52,10 +59,6 @@ import numpy as np
 import torch
 
 from ..config import ViTConfig
-
-_UNPORTED = ("ROADMAP.md Queue 1 item 18: the {} families are not ported "
-             "yet (expert and context parallelism; dp, tp, sp, vp, pp, the "
-             "3-D mesh and fsdp are)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,8 +151,12 @@ class Plan:
     returns_gnorm: bool = False
     # micro-batch accumulation baked into the step
     accum_steps: int = 1
+    # cp: the rank's block of seq_ways equal blocks of the sequence (the
+    # columns of its rows)
+    seq_rank: int = 0
+    seq_ways: int = 1
     # (params, x, y) -> (loss, the rank's slices of the mean gradient), the
-    # step's own (tp, pp, 3-D)
+    # step's own (tp, pp, 3-D, ep, cp)
     grads: Optional[Callable] = None
 
     def validate_batch(self, batch: int):
@@ -189,14 +196,10 @@ def make_plan(cfg: ViTConfig, spec: MeshSpec, optimizer: str = "adamw",
               device="cuda", knobs: TrainKnobs = TrainKnobs(),
               weight_decay: float = 0.0) -> Optional[Plan]:
     """The Plan of a mesh spec on this rank's `device`; None for a pure dp
-    spec (the loop's ZeRO-1 path).  Raises NotImplementedError for ep and
-    cp, ValueError for combinations no factory covers.  weight_decay is
-    bound into Muon plans only (their seventh step slot carries the AdamW
-    lr)."""
+    spec (the loop's ZeRO-1 path).  Raises ValueError for combinations no
+    factory covers, with the JAX function's causes.  weight_decay is bound
+    into Muon plans only (their seventh step slot carries the AdamW lr)."""
     on = [k for k in ("tp", "pp", "ep", "cp") if getattr(spec, k) > 1]
-    unported = [k for k in ("ep", "cp") if k in on]
-    if unported:
-        raise NotImplementedError(_UNPORTED.format("/".join(unported)))
     if optimizer not in ("adamw", "adafactor", "muon"):
         raise ValueError(f"unknown optimizer {optimizer!r}")
     if knobs.any and optimizer != "adamw":
@@ -218,6 +221,32 @@ def make_plan(cfg: ViTConfig, spec: MeshSpec, optimizer: str = "adamw",
                          f"mesh {spec.describe()} has no tp")
     if not on:
         return None                      # pure DP: the loop's own path
+    if "cp" in on:
+        if on != ["cp"] or spec.sp or spec.vp:
+            raise ValueError(f"cp composes with dp only (got {on})")
+        if optimizer not in ("adamw", "adafactor"):
+            raise ValueError("cp ships AdamW (ZeRO-1) and Adafactor "
+                             "(replicated-state) steps")
+        if knobs.any:
+            raise ValueError("cp keeps the lean ring step (clip/accum: "
+                             "tp/pp/3d/ep)")
+        return _cp_plan(cfg, spec, device, optimizer)
+    if "ep" in on:
+        if not cfg.is_moe:
+            raise ValueError("--mesh ep=N needs a MoE config "
+                             "(--num-experts)")
+        if not all(k in ("ep", "tp") for k in on) or spec.sp:
+            raise ValueError(f"ep composes with dp and tp (got {on}"
+                             f"{', sp' if spec.sp else ''})")
+        if knobs.any and spec.tp > 1:
+            raise ValueError("clip/accum are wired for dp x ep (the ep x tp "
+                             "step is lean)")
+        if optimizer not in ("adamw", "adafactor"):
+            raise ValueError(f"ep{' x tp' if spec.tp > 1 else ''} ships "
+                             f"AdamW and Adafactor steps")
+        if spec.tp > 1:
+            return _ep_tp_plan(cfg, spec, device, optimizer)
+        return _ep_plan(cfg, spec, device, optimizer, knobs)
     if optimizer == "muon" and spec.vp:
         raise ValueError("muon under TP has no vocab-parallel head variant "
                          "(parallel/muon_parallel.py) - drop vp or use adamw")
@@ -383,6 +412,102 @@ def _3d_plan(cfg, spec, device, optimizer="adamw", knobs=TrainKnobs()):
         opt_save=lambda o: {"m": common["to_canonical"](o[0]),
                             "v": common["to_canonical"](o[1])},
         opt_load=lambda tree: tuple(common["place"](tree[k])
+                                    for k in ("m", "v")), **common)
+
+
+def _ep_plan(cfg, spec, device, optimizer="adamw", knobs=TrainKnobs()):
+    from ..parallel import expert_parallel as EP
+    from ..parallel import tensor_parallel as TP
+    EP.check_ep(cfg, spec.ep)
+    mesh = EP.make_mesh_dp_ep(spec.dp, spec.ep, device)
+    specs = EP.ep_param_specs(cfg)
+    common = dict(_common("ep", mesh, spec, optimizer, knobs),
+                  data_rank=EP.data_block(mesh),
+                  data_ways=spec.dp * spec.ep,
+                  grads=EP.make_ep_grads(cfg, mesh),
+                  place=lambda p: EP.place_ep_params(p, cfg, mesh),
+                  to_canonical=lambda p: TP.gather_tree(p, specs, mesh))
+    if optimizer == "adafactor":
+        fac, shapes = EP.ep_af_factored(cfg, mesh)
+        opt_save, opt_load = _af_saveload(mesh, shapes, specs, fac)
+        return Plan(
+            init_opt=lambda p: EP.init_ep_af_state(mesh, cfg),
+            step=EP.make_ep_train_step_adafactor(cfg, mesh),
+            opt_save=opt_save, opt_load=opt_load, **common)
+    step = _adamw_tuple(EP.make_ep_train_step(
+        cfg, mesh, accum_steps=knobs.accum_steps, clip_norm=knobs.clip_norm,
+        return_grad_norm=knobs.log_grad_norm))
+    return Plan(
+        init_opt=EP.init_ep_opt_state, step=step,
+        opt_save=lambda o: {"m": common["to_canonical"](o[0]),
+                            "v": common["to_canonical"](o[1])},
+        opt_load=lambda tree: tuple(common["place"](tree[k])
+                                    for k in ("m", "v")), **common)
+
+
+def _ep_tp_plan(cfg, spec, device, optimizer="adamw"):
+    from ..parallel import expert_parallel as EP
+    from ..parallel import tensor_parallel as TP
+    EP.check_ep(cfg, spec.ep, spec.tp, spec.vp)
+    mesh = EP.make_mesh_dp_ep_tp(spec.dp, spec.ep, spec.tp, device)
+    vp = spec.vp
+    specs = EP.ep_tp_param_specs(cfg, vp)
+    common = dict(_common("ep", mesh, spec, optimizer, TrainKnobs()),
+                  data_rank=EP.data_block(mesh),
+                  data_ways=spec.dp * spec.ep,
+                  grads=EP.make_ep_tp_grads(cfg, mesh, vp),
+                  place=lambda p: EP.place_ep_tp_params(p, cfg, mesh, vp),
+                  to_canonical=lambda p: EP.from_ep_tp_params(
+                      TP.gather_tree(p, specs, mesh), cfg, vp))
+    if optimizer == "adafactor":
+        fac, gshapes = TP.tp_af_factored(cfg, vp)
+        opt_save, opt_load = _af_saveload(mesh, gshapes, specs, fac)
+        return Plan(
+            init_opt=lambda p: EP.init_ep_tp_af_state(mesh, cfg, vp),
+            step=EP.make_ep_tp_train_step_adafactor(cfg, mesh,
+                                                    vocab_parallel=vp),
+            opt_save=opt_save, opt_load=opt_load, **common)
+    step = _adamw_tuple(EP.make_ep_tp_train_step(cfg, mesh,
+                                                 vocab_parallel=vp))
+    return Plan(
+        init_opt=TP.init_tp_opt_state, step=step,
+        opt_save=lambda o: {"m": common["to_canonical"](o[0]),
+                            "v": common["to_canonical"](o[1])},
+        opt_load=lambda tree: tuple(common["place"](tree[k])
+                                    for k in ("m", "v")), **common)
+
+
+def _cp_plan(cfg, spec, device, optimizer="adamw"):
+    from .. import params as PRM
+    from ..parallel import ring_attention as RA
+    from ..parallel import tensor_parallel as TP
+    RA.check_cp(cfg, spec.cp)
+    mesh = RA.make_mesh_dp_cp(spec.dp, spec.cp, device)
+    common = dict(_common("cp", mesh, spec, optimizer, TrainKnobs()),
+                  seq_rank=mesh.index("ctx"), seq_ways=spec.cp,
+                  grads=RA.make_cp_grads(cfg, mesh),
+                  to_canonical=lambda p: PRM.to_numpy(p, cfg))
+    if optimizer == "adafactor":
+        from ..ops import adafactor as AF
+        fields = ("vr", "vc", "vf")
+        specs = {k: () for k in PRM.tensor_order(cfg)}
+        return Plan(
+            place=lambda p: TP.place_tree(p, specs, mesh),
+            init_opt=AF.init_state,
+            step=RA.make_cp_train_step_adafactor(cfg, mesh),
+            opt_save=lambda o: {f: {k: t.detach().cpu().numpy()
+                                    for k, t in getattr(o, f).items()}
+                                for f in fields},
+            opt_load=lambda tree: AF.AdafactorState(
+                *(_tensors(tree[f], mesh.device) for f in fields), {}),
+            **common)
+    return Plan(
+        place=lambda p: RA.place_cp_params(p, cfg, mesh),
+        init_opt=lambda p: RA.init_cp_opt_state(cfg, mesh),
+        step=_adamw_tuple(RA.make_cp_train_step(cfg, mesh)),
+        opt_save=lambda o: {k: RA.cp_opt_to_named(t, cfg, mesh)
+                            for k, t in zip(("m", "v"), o)},
+        opt_load=lambda tree: tuple(RA.cp_opt_from_named(tree[k], cfg, mesh)
                                     for k in ("m", "v")), **common)
 
 
