@@ -261,8 +261,10 @@ on any failure.  Phases, each printed as it ends:
  50. kernels-tp-pp  K1-fwd and K2 (bf16) at the new per-rank shapes: B=8
                     T=1024 NH=6 causal (GPT-2 124M under tp=2), B=2 T=1024
                     NH=12 causal (a pipeline microbatch), B=64 T=197 NH=6
-                    non-causal (ViT-B/16 under tp=2), against their plain
-                    versions; times by events and device, SDPA, the bound.
+                    non-causal (ViT-B/16 under tp=2), B=4 T=1024 NH=12 and
+                    NH=6 causal (gpt2-moe-8e's rows a rank under ep=2 and
+                    ep=2,tp=2), against their plain versions;
+                    times by events and device, SDPA, the bound.
  51. meshes-tp-pp   ranks sharing cuda:0 over gloo: the small fp32 model's
                     step under tp=2 (AdamW, Adafactor, Muon),
                     dp=2,tp=2,sp,vp, pp=2 (GPipe, 1F1B, interleaved v=2;
@@ -276,11 +278,15 @@ on any failure.  Phases, each printed as it ends:
                     ms (time-sliced on one card: not a scaling number).
  52. kernels-cp     the ring attention's per-hop routes at the cp shapes
                     (bf16, B=4 T/cp=2048 NH=12 MHA and KH=4; B=2 T/cp=4096
-                    KH=4 W=1024): K1-fwd / K3-fwd and K2 / K3-bwd on the
-                    diagonal (causal) and past (non-causal) hops against
-                    their plain versions, the lse merge and the summed hop
-                    gradients against the plain whole sequence, the plain
-                    banded hop's ms; times, SDPA, the bound.
+                    W=1024 KH=4 and 12): K1-fwd / K3-fwd and K2 / K3-bwd on
+                    the diagonal (causal), past (non-causal) and cut
+                    (causal with the window on the rectangle the band
+                    reaches, a query offset past the keys' end) hops
+                    against their plain versions, the lse merge and the
+                    summed hop gradients against the plain whole sequence;
+                    times, SDPA, the bound; then rectangles at edge
+                    geometries (rows and offsets off the 64 grid, KH 1 / 4 /
+                    12, rows that see no key, bf16 and fp32).
  53. meshes-cp-ep   ranks sharing cuda:0 over gloo: the small fp32 model's
                     step under cp=2 (dense and banded AdamW, Adafactor),
                     ep=2 and ep=2,tp=2 (AdamW, Adafactor) against one
@@ -292,8 +298,9 @@ on any failure.  Phases, each printed as it ends:
                     1e-4 of its L2 norm under cp, 2e-2 under ep), then 6
                     steps each: every rank's loss
                     equal and step 1's as one process's (rtol 1e-3),
-                    launches and plain banded hops as designed, state bytes
-                    as sliced, peaks, step ms.
+                    launches and cut hops as designed (cp-window: 24 K3-fwd
+                    and 24 K3-bwd a step on rank 1), no flash plain version
+                    on the card, state bytes as sliced, peaks, step ms.
 
 `python3 chip_smoke.py --phases a,b` runs only the named phases (after the
 device phase) and prints no result lines.
@@ -358,11 +365,14 @@ def bound(flops, kind, nbytes):
 
 def attn_pairs(tq, q_off, keys, causal, window=0):
     """(query, key) pairs attention computes: each of tq rows at positions
-    p = q_off.. sees its causal prefix, min(p + 1, window) keys under a
-    sliding window, or all `keys`."""
+    p = q_off.. sees the keys j <= p of the `keys` there are, and under a
+    sliding window only those with j > p - window (so a row past the keys'
+    end sees the keys its band still reaches); all `keys` non-causal."""
     if not causal:
         return tq * keys
-    return sum(min(q_off + i + 1, keys, window or keys) for i in range(tq))
+    return sum(max(0, min(p, keys - 1) - max(p - window + 1 if window else 0,
+                                             0) + 1)
+               for p in range(q_off, q_off + tq))
 
 
 def fwd_flops(B, tq, q_off, keys, causal=True, window=0):
@@ -1477,25 +1487,28 @@ def band_mask(tq, q_off, keys, window, device="cuda"):
 
 def _attn_fns(kh):
     """(fwd kernel, fwd plain, bwd kernel, bwd plain) at kv width kh, each
-    called as f(q, k, v, [out, lse, do,] causal, window, rope)."""
+    called as f(q, k, v, [out, lse, do,] causal, window, rope[, q_offset])
+    (q_offset: the rectangle of the ring's cut hop)."""
     from vitrs_tpu_torch.ops import flash_attention as FA
     from vitrs_tpu_torch.ops import flash_attention_gqa as FG
     if kh == NH:
-        return (lambda q, k, v, c, w, r: FA.flash_fwd_cuda(q, k, v, NH, c, 0.125, w, r),
-                lambda q, k, v, c, w, r: FA.flash_fwd_plain(q, k, v, NH, c, 0.125,
-                                                            window=w, rope=r),
-                lambda q, k, v, o, l, d, c, w, r: FA.flash_bwd_cuda(
-                    q, k, v, o, l, d, NH, c, 0.125, w, r),
-                lambda q, k, v, o, l, d, c, w, r: FA.flash_bwd_plain(
-                    q, k, v, o, l, d, NH, c, 0.125, window=w, rope=r))
-    return (lambda q, k, v, c, w, r: FG.flash_gqa_fwd_cuda(q, k, v, NH, kh, c, 0.125,
-                                                           w, r),
-            lambda q, k, v, c, w, r: FG.flash_gqa_fwd_plain(q, k, v, NH, kh, c, 0.125,
-                                                            w, r),
-            lambda q, k, v, o, l, d, c, w, r: FG.flash_gqa_bwd_cuda(
-                q, k, v, o, l, d, NH, kh, c, 0.125, w, r),
-            lambda q, k, v, o, l, d, c, w, r: FG.flash_gqa_bwd_plain(
-                q, k, v, o, l, d, NH, kh, c, 0.125, w, r))
+        return (lambda q, k, v, c, w, r, o=0: FA.flash_fwd_cuda(
+                    q, k, v, NH, c, 0.125, w, r, o),
+                lambda q, k, v, c, w, r, o=0: FA.flash_fwd_plain(
+                    q, k, v, NH, c, 0.125, q_offset=o, window=w, rope=r),
+                lambda q, k, v, o, l, d, c, w, r, off=0: FA.flash_bwd_cuda(
+                    q, k, v, o, l, d, NH, c, 0.125, w, r, off),
+                lambda q, k, v, o, l, d, c, w, r, off=0: FA.flash_bwd_plain(
+                    q, k, v, o, l, d, NH, c, 0.125, window=w, rope=r,
+                    q_offset=off))
+    return (lambda q, k, v, c, w, r, o=0: FG.flash_gqa_fwd_cuda(
+                q, k, v, NH, kh, c, 0.125, w, r, o),
+            lambda q, k, v, c, w, r, o=0: FG.flash_gqa_fwd_plain(
+                q, k, v, NH, kh, c, 0.125, w, r, o),
+            lambda q, k, v, o, l, d, c, w, r, off=0: FG.flash_gqa_bwd_cuda(
+                q, k, v, o, l, d, NH, kh, c, 0.125, w, r, off),
+            lambda q, k, v, o, l, d, c, w, r, off=0: FG.flash_gqa_bwd_plain(
+                q, k, v, o, l, d, NH, kh, c, 0.125, w, r, off))
 
 
 def _check_band_fwd(where, W, out, lse, ref, ref_lse, v, kh, lse_tol):
@@ -5051,7 +5064,10 @@ def phase_comm_nccl():
 # (B, T, NH, causal) of K1-fwd / K2 on these families' paths: GPT-2 124M
 # under tp=2 (6 heads a rank), a pipeline microbatch (B=8 over mb=4), and
 # ViT-B/16 under tp=2
-TP_PP_SHAPES = ((8, 1024, 6, True), (2, 1024, 12, True), (64, 197, 6, False))
+# (B, T, NH, causal): tp=2, a pipeline microbatch, ViT-B/16 under tp=2;
+# gpt2-moe-8e's rows a rank under ep=2 (NH=12) and ep=2,tp=2 (NH=6)
+TP_PP_SHAPES = ((8, 1024, 6, True), (2, 1024, 12, True), (64, 197, 6, False),
+                (4, 1024, 12, True), (4, 1024, 6, True))
 
 
 def attn_bound_nh(B, T, nh, passes, causal):
@@ -5441,9 +5457,20 @@ def phase_meshes_tp_pp(smi, dev="cuda:0"):
 # (name, B, T/cp, kv_heads, window) of the ring's per-hop kernel routes at
 # the smoke's cp shapes: GPT-2 124M-4k under cp=2 (B=4, T=4096: 2048 a
 # rank), its GQA form (4 kv heads) and the train-window model under cp=2
-# (rope + W=1024, 4 kv heads, B=2, T=8192: 4096 a rank)
+# (rope + W=1024, 4 kv heads, B=2, T=8192: 4096 a rank), and that window
+# at MHA (12 kv heads)
 CP_ROUTES = (("mha", 4, 2048, NH, 0), ("gqa", 4, 2048, 4, 0),
-             ("band", 2, 4096, 4, 1024))
+             ("band", 2, 4096, 4, 1024), ("band-mha", 2, 4096, NH, 1024))
+# (kv_heads, dtype, Tq, Tk, q_offset, window) of the direct rectangle
+# checks, B=2: the 8K window's cut hop at MQA; W above T/cp (T/cp=100,
+# W=250: the hop 3 blocks back); a frontier inside the rows without a
+# window; rows 139..199 that see no key; on the FMA instances the small
+# fp32 banded mesh run's cut hop (T/cp=32, W=24), the frontier without a
+# window and the no-key rows
+CP_RECTS = ((1, "bf16", 1023, 1023, 1023, 1024), (4, "bf16", 49, 49, 249, 250),
+            (4, "bf16", 77, 301, 250, 0), (NH, "bf16", 200, 150, 100, 90),
+            (1, "fp32", 23, 23, 23, 24), (4, "fp32", 77, 301, 250, 0),
+            (NH, "fp32", 200, 150, 100, 90))
 
 
 def sdpa_kv(q, k, v, kh, causal, mask=None):
@@ -5462,13 +5489,14 @@ def sdpa_kv_bwd(q, k, v, do, kh, causal, mask=None):
     return lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
 
 
-def cp_bound(B, tq, keys, kh, passes, causal, window=0):
+def cp_bound(B, tq, keys, kh, passes, causal, window=0, q_off=0):
     """(operations, (bound_ms, bound_by)) of a bf16 ring hop at NH=12 D=64:
     2 D flops a product per (query, key) pair (the diagonal's causal
-    triangle or band, a past block's tq x keys), passes 2 forward (reads
+    triangle or band, a past block's tq x keys, a cut hop's visible pairs
+    at q_off: about tq^2/2 on the 8K window), passes 2 forward (reads
     q, k, v, writes out, lse) or 5 backward (reads q, k, v, out, do, lse,
     writes dq, dk, dv)."""
-    pairs = attn_pairs(tq, 0, keys, causal, window)
+    pairs = attn_pairs(tq, q_off, keys, causal, window)
     flops = 2 * passes * B * NH * D * pairs
     n = 2 if passes == 2 else 4
     nbytes = (n * B * tq * C * 2 + n * B * keys * kh * D * 2
@@ -5540,20 +5568,108 @@ def summed_hops(g0, g1, gp):
     return got, parts
 
 
+def cut_hop_grads(g, T, rows, first):
+    """A cut hop's (dq, dk, dv) on its rectangle placed in the whole blocks
+    in fp32, as the ring adds them: dq in the first `rows` queries, dk and
+    dv in the keys from `first` on, zeros elsewhere."""
+    out = []
+    for t, at in zip(g, (slice(0, rows), slice(first, T), slice(first, T))):
+        full = t.new_zeros((t.shape[0], T, t.shape[2]), dtype=torch.float32)
+        full[:, at] = t.float()
+        out.append(full)
+    return out
+
+
+def _rect_checks(gen, device):
+    """The kernels on CP_RECTS' rectangles (a query offset past the keys'
+    end) against their plain versions, from the kernel forward's out and
+    lse: out `out_errors`; lse 1e-4 where a row sees a key, -inf in both
+    where it sees none, and there out 0 and dq 0; bf16 dq/dk/dv
+    `grad_errors`, fp32 1e-4 abs + rel (kernels-train's K2 fp32)."""
+    res = {}
+    for kh, dt, Tq, Tk, off, W in CP_RECTS:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        rnd = lambda n, w: torch.randn(2, n, w, generator=gen,  # noqa: E731
+                                       device=device).to(dtype)
+        q, k, v, do = rnd(Tq, C), rnd(Tk, kh * D), rnd(Tk, kh * D), rnd(Tq, C)
+        fk, fp, bk, bp = _attn_fns(kh)
+        where = (f"[kernels-cp rect] {dt} KH={kh} {Tq} rows at q_offset {off}"
+                 f" against {Tk} keys W={W}")
+        out, lse = fk(q, k, v, True, W, False, off)
+        ref, ref_lse = fp(q, k, v, True, W, False, off)
+        torch.cuda.synchronize()
+        bad, err, rms = out_errors(out, ref)
+        check(bad == 0, f"{where}: {bad} out values beyond tolerance "
+              f"(max_abs_err {err:.3e})")
+        blind = torch.isneginf(ref_lse)
+        check(torch.equal(blind, torch.isneginf(lse)), f"{where}: the rows "
+              f"that see no key differ")
+        lerr = (lse - ref_lse)[~blind].abs().max().item()
+        check(lerr <= 1e-4, f"{where}: lse err {lerr}")
+        n_blind = int(blind[0, 0].sum().item())
+        rows_blind = blind[:, 0, :, None]     # (B, Tq, 1): alike in every head
+        gk = bk(q, k, v, out, lse, do, True, W, False, off)
+        gp = bp(q, k, v, out, lse, do, True, W, False, off)
+        torch.cuda.synchronize()
+        if n_blind:
+            check(bool((out * rows_blind == 0).all() and (gk[0] * rows_blind
+                                                           == 0).all()),
+                  f"{where}: a row that sees no key has a non-zero out or dq")
+        if dtype == torch.bfloat16:
+            errs = _grad_errs(f"{where} bwd", gk, gp)
+        else:
+            errs = []
+            for name, a, b in zip(("dq", "dk", "dv"), gk, gp):
+                d = (a.float() - b.float()).abs()
+                nbad = ((d > 1e-4 + 1e-4 * b.float().abs()).sum().item()
+                        + (~torch.isfinite(a)).sum().item())
+                check(nbad == 0, f"{where} bwd: {nbad} {name} values beyond "
+                      f"1e-4")
+                errs.append(d.max().item())
+        print(f"{where}: out max_abs_err {err:.3e} (rms {rms:.3e}), lse "
+              f"{lerr:.3e}, {n_blind} rows see no key (out, lse, dq as "
+              f"the plain version); dq/dk/dv {errs[0]:.3e}/{errs[1]:.3e}/"
+              f"{errs[2]:.3e}")
+        res[f"{dt} KH={kh} {Tq}x{Tk} q_offset={off} W={W}"] = dict(
+            out_err=err, lse_err=lerr, grad_errs=errs, rows_see_no_key=n_blind)
+    # under rope the wrappers refuse queries past the keys' end (the ring
+    # rotates q and k before it): forward and backward raise ValueError
+    fk, _, bk, _ = _attn_fns(4)
+    q, k = (torch.zeros(1, 8, w, dtype=torch.bfloat16, device=device)
+            for w in (C, 4 * D))
+    lse = torch.zeros(1, NH, 8, device=device)
+    refused = []
+    for part, call in (("fwd", lambda: fk(q, k, k, True, 0, True, 4)),
+                       ("bwd", lambda: bk(q, k, k, q, lse, q, True, 0, True,
+                                          4))):
+        try:
+            call()
+        except ValueError:
+            refused.append(part)
+    check(refused == ["fwd", "bwd"], f"[kernels-cp rect] rope past the "
+          f"keys' end: only {refused} refused")
+    print("[kernels-cp rect] rope with the queries past the keys' end: "
+          "refused forward and backward (ValueError)")
+    return res
+
+
 def phase_kernels_cp(device="cuda"):
     """The ring's per-hop routes at CP_ROUTES (bf16), on two ring blocks of
     one process: the diagonal hop (K1-fwd / K3-fwd causal, with the window;
-    K2 / K3-bwd) and the past hop (non-causal kernels, or the plain banded
-    block where the band cuts it), each kernel held against its plain
-    version (out `out_errors`, the MHA diagonal's values beyond it held to
-    the fp64 softmax; lse 1e-4; dq/dk/dv `grad_errors`), then the fp32
-    lse merge of rank 1's hops against the plain forward of its queries
-    over the whole sequence (out `out_errors`, lse 2e-4), and the hops'
-    summed gradients against the plain backward of the whole sequence from
-    the merged out and lse (`grad_errors`, which must also fail the sum
-    with rank 1's past hop dropped or halved).  Times by events (plain,
-    kernel, kernel, plain) and device, SDPA on the same tensors, the bound
-    (`cp_bound`), and the plain banded hop's ms."""
+    K2 / K3-bwd) and the past hop (non-causal kernels, or, where the band
+    cuts it, the causal banded kernels on the rectangle the band reaches:
+    1023 rows at q_offset 1023 against 1023 keys), each kernel held
+    against its plain version (out `out_errors`, the MHA diagonal's values
+    beyond it held to the fp64 softmax; lse 1e-4; dq/dk/dv `grad_errors`),
+    then the fp32 lse merge of rank 1's hops against the plain forward of
+    its queries over the whole sequence (out `out_errors`, lse 2e-4), and
+    the hops' summed gradients against the plain backward of the whole
+    sequence from the merged out and lse (`grad_errors`, which must also
+    fail the sum with rank 1's past hop dropped or halved).  Times by
+    events (plain, kernel, kernel, plain) and device, SDPA on the same
+    tensors (under a band mask on the rectangle), the bound (`cp_bound`:
+    a cut hop's visible pairs).  Then the direct rectangle checks
+    (`_rect_checks`)."""
     from vitrs_tpu_torch.ops import flash_attention as FA
     from vitrs_tpu_torch.parallel import ring_attention as RA
     gen = torch.Generator(device=device).manual_seed(15)
@@ -5569,18 +5685,24 @@ def phase_kernels_cp(device="cuda"):
         fk, fp, bk, bp = _attn_fns(kh)
         ring1 = RA.Ring(1, 2, (0, 1))
         past_route = RA._route(ring1, 0, T, True, W)
+        # the cut hop's rectangle (as the ring forms it)
+        rows, first = RA._band_window(T, T, T, 0, W)
+        off = T - first
         shape = (f"bf16 B={B} T/cp={T} NH={NH} KH={kh} D=64"
                  + (f" W={W}" if W else ""))
         kname = ("flash_fwd", "flash_bwd") if kh == NH else (
             "flash_gqa_fwd", "flash_gqa_bwd")
-        # the forward hops of both ranks and their merge
+        # the forward hops of both ranks and their merge, as the ring merges
         o0, l0 = fk(q0, k0, v0, True, W, False)
         od, ld = fk(q1, k1, v1, True, W, False)
+        acc, lse1 = RA._merge(None, None, od, ld)
         if past_route == "past":
-            op, lp = fk(q1, k0, v0, False, 0, False)
+            acc, lse1 = RA._merge(acc, lse1, *fk(q1, k0, v0, False, 0, False))
         else:
-            op, lp = RA.band_fwd_plain(q1, k0, v0, NH, kh, 0.125, T, 0, W)
-        acc, lse1 = RA._merge(*RA._merge(None, None, od, ld), op, lp)
+            op, lp = fk(q1[:, :rows], k0[:, first:], v0[:, first:], True, W,
+                        False, off)
+            acc[:, :rows], lse1[..., :rows] = RA._merge(
+                acc[:, :rows], lse1[..., :rows], op, lp)
         out1 = acc.to(torch.bfloat16)
         ref, ref_lse = FA.flash_fwd_plain(q1, k2, v2, NH, True, 0.125,
                                           kv_heads=kh, q_offset=T, window=W)
@@ -5597,8 +5719,10 @@ def phase_kernels_cp(device="cuda"):
         if past_route == "past":
             gp = bk(q1, k0, v0, out1, lse1, do1, False, 0, False)
         else:
-            gp = RA.band_bwd_plain(q1, k0, v0, out1, lse1, do1, NH, kh, 0.125,
-                                   T, 0, W)
+            gp = cut_hop_grads(bk(
+                q1[:, :rows], k0[:, first:], v0[:, first:], out1[:, :rows],
+                lse1[..., :rows].contiguous(), do1[:, :rows], True, W, False,
+                off), T, rows, first)
         got, parts = summed_hops(g0, g1, gp)
         want = FA.flash_bwd_plain(q2, k2, v2, torch.cat([o0, out1], 1),
                                   torch.cat([l0, lse1], 2), do2, NH, True,
@@ -5634,13 +5758,19 @@ def phase_kernels_cp(device="cuda"):
               f"without the row rms {flat}) "
               f"(past hop: {past_route})")
         del ref, ref_lse, want, got
-        # each kernel hop against its plain version, and its times
-        hops = [("diag", q1, k1, v1, True, W)]
+        # each kernel hop against its plain version, and its times: (route,
+        # q, k, v, causal, window, q_offset, out, lse, do)
+        hops = [("diag", q1, k1, v1, True, W, 0, out1, lse1, do1)]
         if past_route == "past":
-            hops.append(("past", q1, k0, v0, False, 0))
-        for route, q, k, v, causal, w in hops:
-            out, lse = fk(q, k, v, causal, w, False)
-            pref, plse = fp(q, k, v, causal, w, False)
+            hops.append(("past", q1, k0, v0, False, 0, 0, out1, lse1, do1))
+        else:
+            hops.append(("cut", q1[:, :rows], k0[:, first:], v0[:, first:],
+                         True, W, off, out1[:, :rows],
+                         lse1[..., :rows].contiguous(), do1[:, :rows]))
+        for route, q, k, v, causal, w, o_, out_, lse_, do_ in hops:
+            tq, keys = q.shape[1], k.shape[1]
+            out, lse = fk(q, k, v, causal, w, False, o_)
+            pref, plse = fp(q, k, v, causal, w, False, o_)
             torch.cuda.synchronize()
             if causal and not w and kh == NH:
                 judged = exact_check(f"K1-fwd cp {name} {route}", q, k, v,
@@ -5653,63 +5783,54 @@ def phase_kernels_cp(device="cuda"):
             ferr = (out.float() - pref.float()).abs().max().item()
             lerr = (lse - plse).abs().max().item()
             check(lerr <= 1e-4, f"[kernels-cp {name} {route}] lse err {lerr}")
-            gk = bk(q, k, v, out1, lse1, do1, causal, w, False)
-            gpl = bp(q, k, v, out1, lse1, do1, causal, w, False)
+            gk = bk(q, k, v, out_, lse_, do_, causal, w, False, o_)
+            gpl = bp(q, k, v, out_, lse_, do_, causal, w, False, o_)
             errs = _grad_errs(f"[kernels-cp {name} {route}] bwd", gk, gpl)
             del pref, plse, gk, gpl
-            mask = band_mask(T, 0, T, w, device) if w else None
+            mask = band_mask(tq, o_, keys, w, device) if w else None
+            hshape = shape + (" causal" if causal else " non-causal") + (
+                f" cut: {tq} rows at q_offset {o_} against {keys} keys"
+                if route == "cut" else "")
             parts = {
-                kname[0]: (lambda: fk(q, k, v, causal, w, False),
-                           lambda: fp(q, k, v, causal, w, False),
+                kname[0]: (lambda: fk(q, k, v, causal, w, False, o_),
+                           lambda: fp(q, k, v, causal, w, False, o_),
                            lambda: sdpa_kv(q, k, v, kh, causal, mask), 2, 1,
                            ferr),
-                kname[1]: (lambda: bk(q, k, v, out1, lse1, do1, causal, w,
-                                      False),
-                           lambda: bp(q, k, v, out1, lse1, do1, causal, w,
-                                      False),
-                           sdpa_kv_bwd(q, k, v, do1, kh, causal, mask), 5, 3,
+                kname[1]: (lambda: bk(q, k, v, out_, lse_, do_, causal, w,
+                                      False, o_),
+                           lambda: bp(q, k, v, out_, lse_, do_, causal, w,
+                                      False, o_),
+                           sdpa_kv_bwd(q, k, v, do_, kh, causal, mask), 5, 3,
                            max(errs))}
             for kn, (kern, plain, lib_fn, passes, nk, e) in parts.items():
                 km, pm, raw = timed_pair(kern, plain, iters=10)
                 dev, caps = device_ms(kern, nk)
                 lib = cuda_ms(lib_fn, iters=10)
-                flops, (bms, by) = cp_bound(B, T, T, kh, passes, causal, w)
+                flops, (bms, by) = cp_bound(B, tq, keys, kh, passes, causal,
+                                            w, o_)
                 label = ("K1-fwd" if kn == "flash_fwd" else "K2"
                          if kn == "flash_bwd" else "K3-fwd"
                          if kn == "flash_gqa_fwd" else "K3-bwd")
-                print(f"[kernels-cp] {label} {route} hop {shape}"
-                      f"{' causal' if causal else ' non-causal'}: max_abs_err "
-                      f"{e:.3e}" + (f" ({judged}, lse {lerr:.3e})"
-                                    if passes == 2 else
-                                    f" (dq/dk/dv {errs[0]:.3e}/{errs[1]:.3e}/"
-                                    f"{errs[2]:.3e}, from the merged out and "
-                                    f"lse)")
+                print(f"[kernels-cp] {label} {route} hop {hshape}: "
+                      f"max_abs_err {e:.3e}"
+                      + (f" ({judged}, lse {lerr:.3e})"
+                         if passes == 2 else
+                         f" (dq/dk/dv {errs[0]:.3e}/{errs[1]:.3e}/"
+                         f"{errs[2]:.3e}, from the merged out and lse)")
                       + f"; kernel {raw[0]:.4f}/{raw[1]:.4f} ms by events, "
                       f"{dev if dev is None else round(dev, 4)} ms device "
                       f"(capture {caps}); plain {raw[2]:.4f}/{raw[3]:.4f} ms; "
-                      f"SDPA {lib:.4f} ms; bound {bms:.4f} ms ({by}), "
-                      f"{flops / km / 1e9:.1f} TFLOP/s")
+                      f"SDPA{' + band mask' if w else ''} {lib:.4f} ms; bound "
+                      f"{bms:.4f} ms ({by}), {flops / km / 1e9:.1f} TFLOP/s "
+                      f"by events")
                 res.setdefault(kn, {})[f"{name} {route}"] = dict(
                     max_abs_err=e, ms=km, device_ms=dev, device_captures=caps,
                     plain_ms=pm, library_ms=lib, bound_ms=bms, bound_by=by,
-                    tflops=flops / km / 1e9, shape=shape + (
-                        " causal" if causal else " non-causal"))
+                    tflops=flops / km / 1e9, shape=hshape)
             del out, lse
-        if past_route == "band":
-            fwd_ms = cuda_ms(lambda: RA.band_fwd_plain(
-                q1, k0, v0, NH, kh, 0.125, T, 0, W), iters=5, warmup=1)
-            bwd_ms = cuda_ms(lambda: RA.band_bwd_plain(
-                q1, k0, v0, out1, lse1, do1, NH, kh, 0.125, T, 0, W),
-                iters=5, warmup=1)
-            rows, first = RA._band_window(T, T, T, 0, W)
-            res["band_plain"] = dict(fwd_ms=fwd_ms, bwd_ms=bwd_ms,
-                                     rectangle=[rows, T - first], shape=shape)
-            print(f"[kernels-cp] the plain banded hop (rank 1's past block, "
-                  f"a {rows} x {T - first} rectangle a head) {shape}: "
-                  f"forward {fwd_ms:.4f} ms, backward {bwd_ms:.4f} ms by "
-                  f"events")
-        del q2, k2, v2, do2, out1, lse1
+        del q2, k2, v2, do2, out1, lse1, acc
         torch.cuda.empty_cache()
+    res["rect"] = _rect_checks(gen, device)
     return res
 
 
@@ -5897,6 +6018,36 @@ def _full_width_grads(cfg, rspec, optimizer, preset, batch, rank, device):
     return loss, ref.item(), errs, bf16
 
 
+# the flash kernels' plain versions called on CUDA tensors in this process
+# (`_watch_plain`): none may be, the ring's cut hop included
+PLAIN_ON_CARD = {"fwd": 0, "bwd": 0}
+
+
+def _watch_plain():
+    """Stand counting wrappers in for the flash plain versions in every
+    module that binds them (ops/flash_attention.py, flash_attention_gqa.py,
+    flash_prefill.py), once a process: a call on CUDA tensors adds one to
+    PLAIN_ON_CARD."""
+    from vitrs_tpu_torch.ops import flash_attention as FA
+    from vitrs_tpu_torch.ops import flash_attention_gqa as FG
+    from vitrs_tpu_torch.ops import flash_prefill as FP
+    if getattr(FA.flash_fwd_plain, "watched", False):
+        return
+
+    def watched(fn, d):
+        def f(q, *a, **kw):
+            PLAIN_ON_CARD[d] += q.is_cuda
+            return fn(q, *a, **kw)
+        f.watched = True
+        return f
+
+    for name, d in (("flash_fwd_plain", "fwd"), ("flash_bwd_plain", "bwd")):
+        fn = watched(getattr(FA, name), d)
+        for mod in (FA, FG, FP):
+            if hasattr(mod, name):
+                setattr(mod, name, fn)
+
+
 def _cp_ep_rank(rank, world, spec, rdv, work, out_path, dev="cuda:0",
                 small=(), runs=()):
     """One rank of a meshes-cp-ep spawn on `dev` (cuda:0, shared) over
@@ -5950,9 +6101,10 @@ def _cp_ep_rank(rank, world, spec, rdv, work, out_path, dev="cuda:0",
             torch.cuda.reset_peak_memory_stats()
         wd = os.path.join(work, str(i))
         reset_counts()
-        band = RA.band_plain_hops
-        for k in band:
-            band[k] = 0
+        _watch_plain()
+        band = RA.band_hops
+        for d in ("fwd", "bwd"):
+            band[d] = PLAIN_ON_CARD[d] = 0
         lr = fields.pop("lr")
         t0 = time.perf_counter()
         summary = loop.train(loop.TrainConfig(
@@ -5964,6 +6116,7 @@ def _cp_ep_rank(rank, world, spec, rdv, work, out_path, dev="cuda:0",
         if cuda:
             torch.cuda.synchronize()
         row.update(counts=read_counts(), band_hops=dict(band),
+                   plain_on_card=[PLAIN_ON_CARD["fwd"], PLAIN_ON_CARD["bwd"]],
                    peak=torch.cuda.max_memory_allocated() if cuda else 0,
                    wall=time.perf_counter() - t0,
                    final_loss=summary["final_loss"])
@@ -5983,19 +6136,22 @@ def _run_cfg(preset, fields):
 
 
 def _designed_cp_ep(name, rank, S=TRAIN_STEPS):
-    """(launches, plain banded hops (fwd, bwd)) a rank makes over S steps of
-    a full-width run (12 layers): under cp every rank runs its diagonal
-    hop, rank 1 its past hop too (K1-fwd / K2 at cp-4k; the band cuts it
-    at cp-window, so the plain block: 12 forward and 12 backward hops a
-    step); K5 and K6 once a step; K7 once a step on cp's ZeRO-1 shard; ep
-    and ep x tp K1-fwd and K2 once a layer (NH=12 and 6), no K7."""
+    """(launches, cut hops (fwd, bwd)) a rank makes over S steps of a
+    full-width run (12 layers): under cp every rank runs its diagonal hop,
+    rank 1 its past hop too (K1-fwd / K2 at cp-4k; at cp-window the band
+    cuts it, so K3-fwd / K3-bwd on the rectangle the band reaches: 12
+    forward and 12 backward cut hops a step, 24 K3 launches each way on
+    rank 1, 12 on rank 0); K5 and K6 once a step; K7 once a step on cp's
+    ZeRO-1 shard; ep and ep x tp K1-fwd and K2 once a layer (NH=12 and 6),
+    no K7."""
     L = 12
     ce = dict(ce_fwd=S, ce_bwd=S)
     if name == "cp-4k":
         return designed(flash_fwd=L * S * (1 + rank),
                         flash_bwd=L * S * (1 + rank), adamw=S, **ce), [0, 0]
     if name == "cp-window":
-        return (designed(flash_gqa_fwd=L * S, flash_gqa_bwd=L * S, **ce),
+        return (designed(flash_gqa_fwd=L * S * (1 + rank),
+                         flash_gqa_bwd=L * S * (1 + rank), **ce),
                 [L * S * rank] * 2)
     return designed(flash_fwd=L * S, flash_bwd=L * S, **ce), [0, 0]
 
@@ -6023,7 +6179,8 @@ def phase_meshes_cp_ep(smi, dev="cuda:0"):
     hop or an expert block gone wrong (even a past hop's dk scaled by 0.9)
     lands well past the bound; then each rank's loss equal, step 1's the
     one-process bf16 loss (rtol 1e-3), falling; each rank's launches and
-    plain banded hops as designed (`_designed_cp_ep`); its parameter +
+    cut hops as designed (`_designed_cp_ep`), no flash plain version
+    called on CUDA tensors (`_watch_plain`); its parameter +
     state bytes as its slicing predicts; its peak; step ms (time-sliced on
     one card: not a scaling number)."""
     device = torch.device(dev)
@@ -6065,8 +6222,11 @@ def phase_meshes_cp_ep(smi, dev="cuda:0"):
                 check(out["counts"] == want,
                       f"{tag} rank {r} launches {out['counts']} != {want}")
                 hops = [out["band_hops"]["fwd"], out["band_hops"]["bwd"]]
-                check(hops == band, f"{tag} rank {r} plain banded hops "
-                      f"{hops} != {band}")
+                check(hops == band, f"{tag} rank {r} cut hops (on the "
+                      f"kernels' rectangle) {hops} != {band}")
+                check(out["plain_on_card"] == [0, 0], f"{tag} rank {r} ran "
+                      f"a flash plain version on the card (fwd, bwd) "
+                      f"{out['plain_on_card']} times")
                 h, pred = out["state_bytes"]
                 check(h == pred, f"{tag} rank {r} state bytes {h} != "
                       f"predicted {pred}")
@@ -6099,9 +6259,9 @@ def phase_meshes_cp_ep(smi, dev="cuda:0"):
                        launches_per_step=[{k: v // TRAIN_STEPS for k, v in
                                            o["counts"].items() if v}
                                           for o in outs],
-                       band_plain_hops=[[o["band_hops"]["fwd"],
-                                         o["band_hops"]["bwd"]]
-                                        for o in outs],
+                       cut_hops=[[o["band_hops"]["fwd"],
+                                  o["band_hops"]["bwd"]] for o in outs],
+                       plain_on_card=[o["plain_on_card"] for o in outs],
                        state_bytes=[o["state_bytes"][0] for o in outs],
                        peak_gib=[o["peak"] / 2**30 for o in outs],
                        run_wall_s=[o["wall"] for o in outs],
@@ -6115,8 +6275,9 @@ def phase_meshes_cp_ep(smi, dev="cuda:0"):
                   f"(L2, relative, bound {gtol}; median leaf "
                   f"{float(np.median(list(gerr.values()))):.3e}); "
                   f"launches a step per rank "
-                  f"{row['launches_per_step']} (as designed), plain banded "
-                  f"hops per rank {row['band_plain_hops']}; parameter + "
+                  f"{row['launches_per_step']} (as designed), cut hops on "
+                  f"the kernels per rank {row['cut_hops']}, plain versions "
+                  f"on the card per rank {row['plain_on_card']}; parameter + "
                   f"state bytes a rank {row['state_bytes']} (as predicted); "
                   f"peak a rank {[round(x, 3) for x in row['peak_gib']]} "
                   f"GiB; {step_ms:.1f} ms a step (ranks time-sliced on one "
@@ -6433,9 +6594,10 @@ def main():
             for run, row in tppp.items() if "launches_per_step" in row}
         if kname in ktp:
             kernels[i]["tp_pp_shapes"] = ktp[kname]
-    # this slice: the ring's per-hop routes at the cp shapes (K1-fwd / K2,
-    # K3 at 4 kv heads, the banded diagonal) and each rank's launches over
-    # the meshes-cp-ep runs; the hops the plain banded route took
+    # the ring's per-hop routes at the cp shapes (K1-fwd / K2, K3 at 4 kv
+    # heads, the banded diagonal, the cut hop's rectangle at 4 and 12 kv
+    # heads) and each rank's launches over the meshes-cp-ep runs; the cut
+    # hops each rank counted, the plain versions it ran on the card (none)
     kcp, cpep = R["kernels-cp"], R["meshes-cp-ep"]
     by_kernel.update(flash_gqa_fwd=5, flash_gqa_bwd=6)
     for kname, i in by_kernel.items():
@@ -6446,10 +6608,10 @@ def main():
         if kname in kcp:
             kernels[i]["cp_ep_shapes"] = kcp[kname]
     for i in (5, 6):
-        kernels[i]["cp_band_plain_hops"] = {
-            run: row["band_plain_hops"] for run, row in cpep.items()
-            if "band_plain_hops" in row}
-        kernels[i]["cp_band_plain_ms"] = kcp.get("band_plain")
+        for key in ("cut_hops", "plain_on_card"):
+            kernels[i][f"cp_{key}"] = {run: row[key] for run, row in
+                                       cpep.items() if key in row}
+    kernels[0]["cp_rectangles"] = kcp["rect"]
     kernels[0]["cp_merge"] = kcp["merge"]
     print("[smoke] context and expert parallelism: " + json.dumps(cpep))
     print("[smoke] tensor, sequence, vocab, pipeline and 3-D parallelism: "

@@ -1,6 +1,8 @@
 """The port's kernels as `torch.library` custom ops (`vitrs::*`): each op's
 schema and fake (shape-only) version checked by `torch.library.opcheck`
-against its CPU implementation, the plain version, at small shapes; and an
+against its CPU implementation, the plain version, at small shapes (the
+flash ops also on the ring's rectangle, a query offset past the keys'
+end: dq like q, dk and dv like k); and an
 op traced by `torch.export` stays one node of the graph."""
 
 import math
@@ -35,6 +37,14 @@ def _cases():
     gq = _t(rng, B, T, C + 2 * KV)
     gq_q, gq_k, gq_v = FG.split_gqa(gq, NH, KH)
     gout, glse = FG.flash_gqa_fwd_plain(gq_q, gq_k, gq_v, NH, KH, True, s)
+    # the rectangle of the ring's cut hop: 5 queries at offset 4 against 6
+    # keys, under a window of 3
+    rq, rk, rv = q[:, :5], k[:, 2:], v[:, 2:]
+    rout, rlse = FA.flash_fwd_plain(rq, rk, rv, NH, True, s, q_offset=4,
+                                    window=3)
+    grq, grk, grv = gq_q[:, :5], gq_k[:, 2:], gq_v[:, 2:]
+    grout, grlse = FG.flash_gqa_fwd_plain(grq, grk, grv, NH, KH, True, s, 3,
+                                          False, 4)
     cache = _t(rng, B, 256, KV)
     R, V = 6, 64
     logits = _t(rng, R, V)
@@ -52,6 +62,17 @@ def _cases():
         "flash_gqa_bwd": (FG.flash_gqa_bwd_op,
                           (gq_q, gq_k, gq_v, gout, glse, do, NH, KH, True, s,
                            0, False)),
+        "flash_fwd_rect": (FA.flash_fwd_op,
+                           (rq, rk, rv, NH, True, s, 3, False, 4)),
+        "flash_bwd_rect": (FA.flash_bwd_op,
+                           (rq, rk, rv, rout, rlse, do[:, :5], NH, True, s,
+                            3, False, 4)),
+        "flash_gqa_fwd_rect": (FG.flash_gqa_fwd_op,
+                               (grq, grk, grv, NH, KH, True, s, 3, False,
+                                4)),
+        "flash_gqa_bwd_rect": (FG.flash_gqa_bwd_op,
+                               (grq, grk, grv, grout, grlse, do[:, :5], NH,
+                                KH, True, s, 3, False, 4)),
         "flash_prefill": (FP.flash_prefill_op,
                           (q[:, :4], cache[..., :KV], cache, NH, KH, 3, s, 0)),
         "ce_fwd": (CE.ce_fwd, (logits, tgt, 50)),

@@ -6,7 +6,8 @@ against the JAX package on the same numpy inputs:
   window below, at and above T/n: out and dq, dk, dv against JAX's
   `ring_attention_local` under shard_map and a float64 dense reference
   (tests/test_ring_attention.py's tolerances: out rtol 2e-5 atol 2e-5,
-  gradients rtol 3e-4 atol 3e-5), and the hops of the plain banded route;
+  gradients rtol 3e-4 atol 3e-5), and the cut hops, each a flash op call on
+  the rectangle at a query offset, with no plain banded block left;
 * the dp x cp step: loss and every gradient against one-device jax.grad
   (loss rtol 2e-5, gradients rtol 5e-4 atol 2e-5 of the leaf's largest),
   one step against the JAX one-device step from those gradients, and on
@@ -255,9 +256,13 @@ def test_ring_matches_jax_and_dense(run, world, name):
 
 @pytest.mark.parametrize("world", WORLDS)
 def test_band_route_takes_the_cut_blocks(run, world):
-    """Each hop whose past block the band cuts takes the plain banded
-    block, forward and backward, and no other does: rank idx's past hops
-    d = 1 .. h-1 with (d + 1) * T/n - 1 >= W (rank 0 has none)."""
+    """Each hop whose past block the band cuts takes the flash ops on the
+    rectangle the band reaches (a query offset past the keys' end),
+    forward and backward, and no other does: rank idx's past hops d = 1
+    .. h-1 with (d + 1) * T/n - 1 >= W (rank 0 has none).  No plain banded
+    block is left in the ring."""
+    for gone in ("band_fwd_plain", "band_bwd_plain", "band_plain_hops"):
+        assert not hasattr(TRA, gone), gone
     outs = run[4][world]
     blk = T // world
     for name, _, _, causal, W in _cases(world):
@@ -266,6 +271,7 @@ def test_band_route_takes_the_cut_blocks(run, world):
             cut = sum(1 for d in range(1, h) if d <= r and W
                       and (d + 1) * blk - 1 >= W)
             assert list(out[f"{name}/band"]) == [cut, cut], (name, r)
+            assert list(out[f"{name}/rect"]) == [cut, cut], (name, r)
 
 
 @pytest.mark.parametrize("world,name", VAR_CASES)

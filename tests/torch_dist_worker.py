@@ -214,21 +214,44 @@ def job_p2p(cfg, job, inp):
             "peer": np.array([m.peer("pipe", i) for i in range(w // 2)])}
 
 
+def _counting_flash_ops(calls):
+    """Stand recording wrappers in for the flash ops the ring calls
+    (ops/flash_attention.py, ops/flash_attention_gqa.py): each call with a
+    query offset (its last argument) > 0, the rectangle of a cut hop, adds
+    one to calls["fwd"] or calls["bwd"]; every call goes on to the op."""
+    from vitrs_tpu_torch.ops import flash_attention as FA
+    from vitrs_tpu_torch.ops import flash_attention_gqa as FG
+
+    def counted(op, d):
+        def f(*a):
+            calls[d] += a[-1] > 0
+            return op(*a)
+        return f
+
+    for mod, fwd, bwd in ((FA, "flash_fwd_op", "flash_bwd_op"),
+                          (FG, "flash_gqa_fwd_op", "flash_gqa_bwd_op")):
+        setattr(mod, fwd, counted(getattr(mod, fwd), "fwd"))
+        setattr(mod, bwd, counted(getattr(mod, bwd), "bwd"))
+
+
 def job_ring(cfg, job, inp):
     """parallel/ring_attention.ring_attention_local over every rank, for
     each case of job["cases"] (num_heads, causal, window; inputs q, k, v,
     do (B, T, width) of the global sequence): the rank's out and its dq,
-    dk, dv, and the hops the plain banded route took; then job_mesh_step's
+    dk, dv, the cut hops the ring counted (`band_hops`) and the flash op
+    calls it made on a rectangle at a query offset; then job_mesh_step's
     variants, if any."""
     from vitrs_tpu_torch.parallel import ring_attention as RA
     r, w = multihost.rank(), multihost.world_size()
+    rect = {"fwd": 0, "bwd": 0}
+    _counting_flash_ops(rect)
     out = {}
     for case in job["cases"]:
         name = case["name"]
         T = inp[f"{name}/q"].shape[1] // w
         q, k, v = (torch.tensor(inp[f"{name}/{t}"][:, r * T:(r + 1) * T],
                                 requires_grad=True) for t in "qkv")
-        before = dict(RA.band_plain_hops)
+        before, before_rect = dict(RA.band_hops), dict(rect)
         o = RA.ring_attention_local(q, k, v, None, w, case["causal"],
                                     case["window"],
                                     num_heads=case["num_heads"])
@@ -237,7 +260,9 @@ def job_ring(cfg, job, inp):
         for t, leaf in zip("qkv", (q, k, v)):
             out[f"{name}/d{t}"] = leaf.grad.numpy()
         out[f"{name}/band"] = np.array(
-            [RA.band_plain_hops[d] - before[d] for d in ("fwd", "bwd")])
+            [RA.band_hops[d] - before[d] for d in ("fwd", "bwd")])
+        out[f"{name}/rect"] = np.array(
+            [rect[d] - before_rect[d] for d in ("fwd", "bwd")])
     if job.get("variants"):
         out.update(job_mesh_step(cfg, job, inp))
     return out

@@ -30,6 +30,19 @@
 // stored, as the Pallas epilogues do (flash_attention.py l.892-893,
 // 968-980); under GQA the dK/dV block sums its group's query heads first
 // and rotates the sum once (the rotation is linear, so that is exact).
+// The block may be a rectangle: tq query rows at positions q_off .. q_off +
+// tq - 1 against tk keys at 0 .. tk - 1, with q_off past the keys' end
+// allowed (the ring's past block that the band cuts,
+// parallel/ring_attention.py: 1023 rows at q_off 1023 against 1023 keys on
+// the 8K window), neither length nor q_off a multiple of 64.  q, o, dout,
+// lse, di and dq live in the query-row space, k, v, dk and dv in the
+// key-row space; visibility compares key j with position q_off + i.  The
+// dK/dV kernel's q loop starts at the q tile holding the first row whose
+// position reaches its kv tile (max(0, n0 - q_off) floored to 64), the dQ
+// kernel's kv loop ends at min(tk, q_off + m0 + 64); every bound is formed
+// once a block, so at q_off = 0, tq = tk the loops are those of the square
+// block.  A row that sees no key gets zero gradients; keys past the causal
+// frontier get zero dk and dv.  Rope takes the square block only.
 // TPU-shaped choices are not carried over: no 128-lane head groups, no
 // (B, H, T, 128) lane-broadcast lse, no padded T, no VMEM admission estimate
 // choosing between a combined and a split kernel, no phantom kv lanes.
@@ -56,8 +69,8 @@
 //                 one block an SM against four, and the L2 serves the
 //                 re-reads.)
 // Splitting dq from dk/dv recomputes S and dP (7 tile products per pair
-// against 5) but needs no atomics.  The ragged end is masked against seq_len
-// (tiles past it are zero-filled as they are copied).
+// against 5) but needs no atomics.  The ragged ends are masked against tq
+// and tk (tiles past them are zero-filled as they are copied).
 //
 // The Hopper building blocks (TMA tiles, mbarriers, wgmma descriptors and
 // products, ex2) are in hopper.cuh, shared with the forward.
@@ -75,7 +88,7 @@
 //   * stages tiles in rings in dynamic shared memory (3 deep in dK/dV, 2 in
 //     dQ, whose smaller footprint then fits four blocks an SM): one thread
 //     starts each tile's copy with TMA (cp.async.bulk.tensor through a 4-D
-//     tensor map, completion on the stage's mbarrier, rows past seq_len
+//     tensor map, completion on the stage's mbarrier, rows past tq or tk
 //     read as zeros), so the next tiles are in flight while tile m's
 //     products run and no other thread spends instructions on the copies;
 //     lse and di rows take 4-byte cp.async.  Tiles use the 128-byte swizzle
@@ -136,7 +149,9 @@ struct Args {
   long long dkv_sb, dkv_st;  // strides of dk and dv
   int num_heads;
   int group;          // query heads per kv head: num_heads / kv_heads
-  int seq_len;
+  int tq;             // query rows (q, o, dout, lse, di, dq)
+  int tk;             // key rows (k, v, dk, dv)
+  int q_off;          // query row i sits at position q_off + i against key 0
   int causal;
   int window;         // > 0: the causal band (i - window, i]; 0: none
   float sm_scale;
@@ -145,26 +160,42 @@ struct Args {
 };
 
 __device__ __forceinline__ long long row_of(const Args& a, int b, int h) {
-  return ((long long)b * a.num_heads + h) * a.seq_len;
+  return ((long long)b * a.num_heads + h) * a.tq;
 }
 
 __device__ __forceinline__ bool visible(const Args& a, int q_row, int kv_row) {
-  return q_row < a.seq_len && kv_row < a.seq_len &&
-         (!a.causal || in_band(kv_row, q_row, a.window));
+  return q_row < a.tq && kv_row < a.tk &&
+         (!a.causal || in_band(kv_row, q_row + a.q_off, a.window));
 }
 
 // whether every (q row, kv row) pair of the q tile at m0 and the kv tile at
 // n0 (kBlock rows each) is visible: such a tile needs no per-element mask
 __device__ __forceinline__ bool tile_full(const Args& a, int m0, int n0) {
-  if (m0 + kBlock > a.seq_len || n0 + kBlock > a.seq_len) return false;
+  if (m0 + kBlock > a.tq || n0 + kBlock > a.tk) return false;
+  const int p0 = m0 + a.q_off;   // the tile's first query position
   return !a.causal ||
-         (m0 >= n0 + kBlock - 1 && (a.window == 0 || m0 + kBlock - 1 - n0 < a.window));
+         (p0 >= n0 + kBlock - 1 && (a.window == 0 || p0 + kBlock - 1 - n0 < a.window));
 }
 
-// exclusive end of the q rows whose band reaches kv rows [n0, n0 + kBlock)
+// the q rows whose band reaches kv rows [n0, n0 + kBlock): from the q tile
+// holding the first row at or past n0 (causal), to the exclusive end of the
+// rows whose window still reaches the tile's last key; an empty range when
+// no row does (q_end_of <= q_start_of)
+__device__ __forceinline__ int q_start_of(const Args& a, int n0) {
+  return a.causal ? max(0, n0 - a.q_off) / kBlock * kBlock : 0;
+}
 __device__ __forceinline__ int q_end_of(const Args& a, int n0) {
-  if (!a.causal || a.window == 0) return a.seq_len;
-  return min(a.seq_len, n0 + kBlock + a.window - 1);
+  if (!a.causal || a.window == 0) return a.tq;
+  return min(a.tq, n0 + kBlock + a.window - 1 - a.q_off);
+}
+
+// the kv rows the q rows [m0, m0 + kBlock) see: from the first tile (of
+// `tile` rows) their band reaches to the causal frontier of the last row
+__device__ __forceinline__ int kv_start_of(const Args& a, int m0, int tile) {
+  return a.causal ? band_start(m0 + a.q_off, a.window, tile) : 0;
+}
+__device__ __forceinline__ int kv_end_of(const Args& a, int m0) {
+  return a.causal ? min(a.tk, m0 + a.q_off + kBlock) : a.tk;
 }
 
 // ---------------------------------------------------------------------------
@@ -183,7 +214,7 @@ __global__ void __launch_bounds__(256) flash_bwd_prep(Args a, Prep p) {
   constexpr int kVec = 16 / sizeof(T);        // elements per 16-byte load
   constexpr int kLanes = kHeadDim / kVec;     // threads per row: 8 bf16, 16 fp32
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const int T_ = a.seq_len;
+  const int T_ = blockIdx.y == 2 ? a.tk : a.tq;   // job 2 runs over the k rows
   if (blockIdx.y == 0) {
     const long long rows = (long long)p.batch * T_ * a.num_heads;
     const long long r = i / kLanes;
@@ -273,7 +304,7 @@ __global__ void __launch_bounds__(2 * kBlock) flash_bwd_dkv_fma(Args a) {
   const int b = blockIdx.z, hk = blockIdx.y, n0 = blockIdx.x * kBlock;
   const int j = n0 + (threadIdx.x >> 1), half = threadIdx.x & 1;
   const int c0 = half * kHalf;
-  const bool live = j < a.seq_len;
+  const bool live = j < a.tk;
   const T* K = static_cast<const T*>(a.k) + b * a.k_sb + (long long)j * a.k_st + hk * kHeadDim;
   const T* V = static_cast<const T*>(a.v) + b * a.v_sb + (long long)j * a.v_st + hk * kHeadDim;
 
@@ -289,7 +320,7 @@ __global__ void __launch_bounds__(2 * kBlock) flash_bwd_dkv_fma(Args a) {
 #pragma unroll
     for (int d = 0; d < kHalf; ++d) kr[d] = to_f(from_f<T>(kr[d]));
   }
-  const int m_start = a.causal ? n0 : 0, m_end = q_end_of(a, n0);
+  const int m_start = q_start_of(a, n0), m_end = q_end_of(a, n0);
   // the query heads of this kv head; dk and dv sum over all of them
   for (int h = hk * a.group; h < (hk + 1) * a.group; ++h) {
     const T* Q = static_cast<const T*>(a.q) + b * a.q_sb + h * kHeadDim;
@@ -300,7 +331,7 @@ __global__ void __launch_bounds__(2 * kBlock) flash_bwd_dkv_fma(Args a) {
       for (int i = threadIdx.x; i < kFmaTile * kHalf; i += blockDim.x) {
         const int r = i / kHalf, c = i % kHalf, row = m0 + r;
         float x1 = 0.f, x2 = 0.f;
-        if (row < a.seq_len) {
+        if (row < a.tq) {
           x1 = to_f(Q[(long long)row * a.q_st + c]);
           x2 = to_f(Q[(long long)row * a.q_st + c + kHalf]);
           if constexpr (kRope)
@@ -316,12 +347,12 @@ __global__ void __launch_bounds__(2 * kBlock) flash_bwd_dkv_fma(Args a) {
       }
       for (int i = threadIdx.x; i < kFmaTile * kHeadDim; i += blockDim.x) {
         const int r = i / kHeadDim, c = i % kHeadDim, row = m0 + r;
-        ds_[r][c] = row < a.seq_len ? to_f(DO[(long long)row * a.do_st + c]) : 0.f;
+        ds_[r][c] = row < a.tq ? to_f(DO[(long long)row * a.do_st + c]) : 0.f;
       }
       if (threadIdx.x < kFmaTile) {
         const int row = m0 + threadIdx.x;
-        lse_s[threadIdx.x] = row < a.seq_len ? a.lse[L + row] : 0.f;
-        di_s[threadIdx.x] = row < a.seq_len ? a.di[L + row] : 0.f;
+        lse_s[threadIdx.x] = row < a.tq ? a.lse[L + row] : 0.f;
+        di_s[threadIdx.x] = row < a.tq ? a.di[L + row] : 0.f;
       }
       __syncthreads();
       for (int ii = 0; ii < kFmaTile; ++ii) {
@@ -362,7 +393,7 @@ __global__ void __launch_bounds__(2 * kBlock) flash_bwd_dq_fma(Args a) {
   const int b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * kBlock;
   const int i = m0 + (threadIdx.x >> 1), half = threadIdx.x & 1;
   const int c0 = half * kHalf;
-  const bool live = i < a.seq_len;
+  const bool live = i < a.tq;
   const T* Q = static_cast<const T*>(a.q) + b * a.q_sb + (long long)i * a.q_st + h * kHeadDim;
   const T* DO = static_cast<const T*>(a.dout) + b * a.do_sb + (long long)i * a.do_st + h * kHeadDim;
   const int hk = h / a.group;  // this query head's kv head
@@ -386,14 +417,13 @@ __global__ void __launch_bounds__(2 * kBlock) flash_bwd_dq_fma(Args a) {
   for (int d = 0; d < kHalf; ++d) qr[d] = to_f(from_f<T>(qr[d] * a.sm_scale));
   const float lse = live ? a.lse[L + i] : 0.f;
   const float di = live ? a.di[L + i] : 0.f;
-  const int kv_end = a.causal ? min(a.seq_len, m0 + kBlock) : a.seq_len;
-  const int kv_start = a.causal ? band_start(m0, a.window, kFmaTile) : 0;
-  for (int n0 = kv_start; n0 < kv_end; n0 += kFmaTile) {
+  const int kv_end = kv_end_of(a, m0);
+  for (int n0 = kv_start_of(a, m0, kFmaTile); n0 < kv_end; n0 += kFmaTile) {
     __syncthreads();
     for (int e = threadIdx.x; e < kFmaTile * kHalf; e += blockDim.x) {
       const int r = e / kHalf, c = e % kHalf, row = n0 + r;
       float x1 = 0.f, x2 = 0.f;
-      if (row < a.seq_len) {
+      if (row < a.tk) {
         x1 = to_f(K[(long long)row * a.k_st + c]);
         x2 = to_f(K[(long long)row * a.k_st + c + kHalf]);
         if constexpr (kRope)
@@ -405,7 +435,7 @@ __global__ void __launch_bounds__(2 * kBlock) flash_bwd_dq_fma(Args a) {
     }
     for (int e = threadIdx.x; e < kFmaTile * kHeadDim; e += blockDim.x) {
       const int r = e / kHeadDim, c = e % kHeadDim, row = n0 + r;
-      vs[r][c] = row < a.seq_len ? to_f(V[(long long)row * a.v_st + c]) : 0.f;
+      vs[r][c] = row < a.tk ? to_f(V[(long long)row * a.v_st + c]) : 0.f;
     }
     __syncthreads();
     for (int jj = 0; jj < kFmaTile; ++jj) {
@@ -498,8 +528,8 @@ __global__ void __launch_bounds__(128, 2)
   const int j0 = n0 + warp * 16 + g;  // this thread's kv rows: j0 and j0 + 8
   const int j1 = j0 + 8;
 
-  const int m_start = a.causal ? n0 : 0, m_end = q_end_of(a, n0);
-  const int n_m = (m_end - m_start + kBlock - 1) / kBlock;   // q tiles per query head
+  const int m_start = q_start_of(a, n0), m_end = q_end_of(a, n0);
+  const int n_m = (max(0, m_end - m_start) + kBlock - 1) / kBlock;   // q tiles per query head
   const int n_it = a.group * n_m;
 
   init_barriers(bars, kStagesKV + 1);
@@ -524,7 +554,7 @@ __global__ void __launch_bounds__(128, 2)
       }
       // threads 0-63 copy lse, 64-127 di
       const int r = tid & 63, row = m0 + r;
-      const bool live = row < a.seq_len;
+      const bool live = row < a.tq;
       const float* src = (tid < 64 ? a.lse : a.di) + row_of(a, b, h) + (live ? row : 0);
       cp_async4(smem_u32(stats + (st * 2 + (tid >> 6)) * kBlock + r), src, live);
     }
@@ -613,11 +643,11 @@ __global__ void __launch_bounds__(128, 2)
     fence_acc(dk);
   }
 
-  if constexpr (kRope) unrotate_c(dk, j0, j1, a.seq_len, t, a);
+  if constexpr (kRope) unrotate_c(dk, j0, j1, a.tk, t, a);
   store_rows(static_cast<bf16*>(a.dk) + b * a.dkv_sb + hk * kHeadDim, a.dkv_st, dk, j0, j1,
-             a.seq_len, t);
+             a.tk, t);
   store_rows(static_cast<bf16*>(a.dv) + b * a.dkv_sb + hk * kHeadDim, a.dkv_st, dv, j0, j1,
-             a.seq_len, t);
+             a.tk, t);
 }
 
 template <bool kRope, bool kQhat>
@@ -645,14 +675,13 @@ __global__ void __launch_bounds__(128, 4)
     tma_tile(sdo, &maps.dout, bar, h, m0, b);
   }
   const long long L = row_of(a, b, h);
-  const float l2_a = r0 < a.seq_len ? a.lse[L + r0] * kLog2e : 0.f;
-  const float l2_b = r1 < a.seq_len ? a.lse[L + r1] * kLog2e : 0.f;
-  const float di_a = r0 < a.seq_len ? a.di[L + r0] : 0.f;
-  const float di_b = r1 < a.seq_len ? a.di[L + r1] : 0.f;
+  const float l2_a = r0 < a.tq ? a.lse[L + r0] * kLog2e : 0.f;
+  const float l2_b = r1 < a.tq ? a.lse[L + r1] * kLog2e : 0.f;
+  const float di_a = r0 < a.tq ? a.di[L + r0] : 0.f;
+  const float di_b = r1 < a.tq ? a.di[L + r1] : 0.f;
 
-  const int kv_end = a.causal ? min(a.seq_len, m0 + kBlock) : a.seq_len;
-  const int kv_start = a.causal ? band_start(m0, a.window, kBlock) : 0;
-  const int n_it = (kv_end - kv_start + kBlock - 1) / kBlock;
+  const int kv_start = kv_start_of(a, m0, kBlock);
+  const int n_it = (max(0, kv_end_of(a, m0) - kv_start) + kBlock - 1) / kBlock;
   auto issue = [&](int it) {
     if (it < n_it && tid == 0) {
       const int st = it % kStagesQ, n0 = kv_start + it * kBlock;
@@ -720,22 +749,22 @@ __global__ void __launch_bounds__(128, 4)
     fence_acc(dq);
   }
 
-  if constexpr (kRope) unrotate_c(dq, r0, r1, a.seq_len, t, a);
+  if constexpr (kRope) unrotate_c(dq, r0, r1, a.tq, t, a);
   store_rows(static_cast<bf16*>(a.dq) + b * a.dq_sb + h * kHeadDim, a.dq_st, dq, r0, r1,
-             a.seq_len, t);
+             a.tq, t);
 }
 
 template <bool kRope, bool kQhat>
 cudaError_t launch_wgmma(const Args& a, int batch, int kv_heads, cudaStream_t s) {
   const long long C = (long long)a.num_heads * kHeadDim;
   Maps maps = {};
-  if (!tile_map(&maps.q, a.q, a.num_heads, a.seq_len, batch, a.q_st, a.q_sb) ||
-      !tile_map(&maps.dout, a.dout, a.num_heads, a.seq_len, batch, a.do_st, a.do_sb) ||
-      !tile_map(&maps.k, a.k, kv_heads, a.seq_len, batch, a.k_st, a.k_sb) ||
-      !tile_map(&maps.v, a.v, kv_heads, a.seq_len, batch, a.v_st, a.v_sb) ||
-      (kQhat && !tile_map(&maps.qh, a.qh, a.num_heads, a.seq_len, batch, C, a.seq_len * C)))
+  if (!tile_map(&maps.q, a.q, a.num_heads, a.tq, batch, a.q_st, a.q_sb) ||
+      !tile_map(&maps.dout, a.dout, a.num_heads, a.tq, batch, a.do_st, a.do_sb) ||
+      !tile_map(&maps.k, a.k, kv_heads, a.tk, batch, a.k_st, a.k_sb) ||
+      !tile_map(&maps.v, a.v, kv_heads, a.tk, batch, a.v_st, a.v_sb) ||
+      (kQhat && !tile_map(&maps.qh, a.qh, a.num_heads, a.tq, batch, C, a.tq * C)))
     return cudaErrorInvalidValue;
-  const unsigned tiles = (a.seq_len + kBlock - 1) / kBlock;
+  const unsigned kv_tiles = (a.tk + kBlock - 1) / kBlock, tiles = (a.tq + kBlock - 1) / kBlock;
   auto dkv = flash_bwd_dkv_wgmma<kRope, kQhat>;
   auto dq = flash_bwd_dq_wgmma<kRope, kQhat>;
   cudaError_t err = cudaFuncSetAttribute(dkv, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -743,7 +772,7 @@ cudaError_t launch_wgmma(const Args& a, int batch, int kv_heads, cudaStream_t s)
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem());
   if (err != cudaSuccess) return err;
-  dkv<<<dim3(batch * kv_heads, tiles), 128, dkv_smem<kQhat>(), s>>>(maps, a);
+  dkv<<<dim3(batch * kv_heads, kv_tiles), 128, dkv_smem<kQhat>(), s>>>(maps, a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dq<<<dim3(batch * a.num_heads, tiles), 128, dq_smem(), s>>>(maps, a);
@@ -758,13 +787,17 @@ bool power_of_two(float x) {
 }  // namespace
 
 // dtype: 0 = float32 (FMA instance), 1 = bfloat16 (wgmma instance).
-// di is fp32 scratch of batch * num_heads * seq_len floats; dq is (B, T, C),
-// dk and dv (B, T, kv_heads * D); kv_heads must divide num_heads.  window
-// > 0 (causal only): the band of the forward.  rope_cos/rope_sin: the fp32
-// (positions >= seq_len, 32) rope table, or both null.  bf16 scratch,
-// contiguous: q_rot (B, T, C) and k_rot (B, T, kv_dim) under rope, else
-// null; q_hat (B, T, C) when sm_scale is not a power of two, else null;
-// fp32 takes none.  Launches three kernels on `stream` without
+// q, o, dout, lse and dq have tq rows at positions q_off .. q_off+tq-1; k,
+// v, dk and dv have tk rows at 0 .. tk-1 (causal: key j is visible from
+// query row i when j <= q_off + i, and j > q_off + i - window for window >
+// 0).  di is fp32 scratch of batch * num_heads * tq floats; dq is
+// (B, tq, C), dk and dv (B, tk, kv_heads * D); kv_heads must divide
+// num_heads.  window > 0 (causal only): the band of the forward.
+// rope_cos/rope_sin: the fp32 (positions >= tq, 32) rope table, or both
+// null; rope takes the square block only (tq == tk, q_off == 0).  bf16
+// scratch, contiguous: q_rot (B, tq, C) and k_rot (B, tk, kv_dim) under
+// rope, else null; q_hat (B, tq, C) when sm_scale is not a power of two,
+// else null; fp32 takes none.  Launches three kernels on `stream` without
 // synchronising; returns the first launch error.
 extern "C" int vitrs_flash_bwd(int dtype, const void* q, const void* k, const void* v,
                                const void* o, const void* dout, const float* lse, float* di,
@@ -774,8 +807,9 @@ extern "C" int vitrs_flash_bwd(int dtype, const void* q, const void* k, const vo
                                long long o_st, long long do_sb, long long do_st,
                                long long dq_sb, long long dq_st, long long dkv_sb,
                                long long dkv_st, int batch, int num_heads, int kv_heads,
-                               int seq_len, int causal, int window, float sm_scale,
-                               const float* rope_cos, const float* rope_sin, void* stream) {
+                               int tq, int tk, int q_off, int causal, int window,
+                               float sm_scale, const float* rope_cos, const float* rope_sin,
+                               void* stream) {
   const bool rope = rope_cos != nullptr;
   const bool scratch_ok =
       dtype == 1 ? ((q_rot != nullptr) == rope && (k_rot != nullptr) == rope &&
@@ -783,16 +817,17 @@ extern "C" int vitrs_flash_bwd(int dtype, const void* q, const void* k, const vo
                  : (q_rot == nullptr && k_rot == nullptr && q_hat == nullptr);
   if ((dtype != 0 && dtype != 1) || kv_heads <= 0 || num_heads % kv_heads != 0 ||
       window < 0 || (window > 0 && !causal) || (rope != (rope_sin != nullptr)) || !scratch_ok ||
-      seq_len <= 0 || batch <= 0)
+      tq <= 0 || tk <= 0 || q_off < 0 || (rope && (q_off != 0 || tq != tk)) || batch <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{q,      k,      v,      o,     dout,  lse,   di,     dq,        dk,
          dv,     nullptr, q_sb,  q_st,  k_sb,  k_st,  v_sb,   v_st,      o_sb,
          o_st,   do_sb,  do_st,  dq_sb, dq_st, dkv_sb, dkv_st, num_heads, num_heads / kv_heads,
-         seq_len, causal, window, sm_scale, rope_cos, rope_sin};
+         tq,     tk,     q_off,  causal, window, sm_scale, rope_cos, rope_sin};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 
-  // 1. the pre-pass
-  const long long rows = (long long)batch * seq_len * num_heads;
+  // 1. the pre-pass (its k job runs under rope only, where tk == tq, so
+  // the q rows' threads cover it)
+  const long long rows = (long long)batch * tq * num_heads;
   long long threads = rows * (dtype == 1 ? 8 : 16);
   int jobs = 1;
   if (dtype == 1 && (rope || q_hat != nullptr)) {
@@ -817,10 +852,10 @@ extern "C" int vitrs_flash_bwd(int dtype, const void* q, const void* k, const vo
     if (rope) {
       const long long C = (long long)num_heads * kHeadDim, kvd = (long long)kv_heads * kHeadDim;
       m.q = q_rot;
-      m.q_sb = seq_len * C;
+      m.q_sb = tq * C;
       m.q_st = C;
       m.k = k_rot;
-      m.k_sb = seq_len * kvd;
+      m.k_sb = tk * kvd;
       m.k_st = kvd;
     }
     if (q_hat != nullptr)
@@ -833,8 +868,8 @@ extern "C" int vitrs_flash_bwd(int dtype, const void* q, const void* k, const vo
   }
   // rope is a template argument, so the instances without it carry none of
   // its registers or branches
-  const unsigned tiles = (seq_len + kBlock - 1) / kBlock;
-  const dim3 kv_grid(tiles, kv_heads, batch), q_grid(tiles, num_heads, batch);
+  const dim3 kv_grid((tk + kBlock - 1) / kBlock, kv_heads, batch);
+  const dim3 q_grid((tq + kBlock - 1) / kBlock, num_heads, batch);
   if (rope)
     flash_bwd_dkv_fma<float, true><<<kv_grid, 2 * kBlock, 0, s>>>(a);
   else

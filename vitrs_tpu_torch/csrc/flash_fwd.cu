@@ -26,6 +26,12 @@
 //     Pallas bodies do; scores, the running max m, the running sum l and the
 //     output accumulator stay in fp32; p rounds to the input type for P.V;
 //   * the ragged end is masked against seq_len and tq instead of padding;
+//   * the queries may lie past the keys' end: the wrapper passes the causal
+//     frontier seq_len = min(keys, q_off + tq), so on the ring's past block
+//     that the band cuts (parallel/ring_attention.py: 1023 rows at q_off
+//     1023 against 1023 keys on the 8K window) the frontier falls inside the
+//     block's rows; a row that sees no key (its band starts past seq_len)
+//     gives out 0 and lse -inf.  Under rope the wrapper refuses it;
 //   * sliding window (window > 0, causal only): query at position p sees
 //     keys in (p - window, p]; the kv loop starts at the first tile the
 //     block's band reaches (band_start) as well as stopping at its causal

@@ -19,10 +19,19 @@ Pallas backwards (`_bwd_single` and `_bwd_parts`, running
 * lse comes back compact at (B, NH, T) fp32, and the backward reads it so.
 * The two CUDA libraries also serve the GQA forward and backward (K3,
   ops/flash_attention_gqa.py) and the continuation-prefill forward (K4,
-  ops/flash_prefill.py): `launch_fwd` takes kv_heads, a query length other
-  than the key length and a query offset, `launch_bwd` takes kv_heads, and
-  the plain versions take the same arguments.  Each kernel's wrapper counts
+  ops/flash_prefill.py): `launch_fwd` and `launch_bwd` take kv_heads, a
+  query length other than the key length and a query offset, and the
+  plain versions take the same arguments.  Each kernel's wrapper counts
   its own launches, so a run shows which kernel served it.
+* The rectangle: q rows 0..Tq-1 sit at positions q_offset + i against keys
+  0..Tk-1; causal, row i sees key j <= q_offset + i (and, with a window,
+  j > q_offset + i - window).  The causal frontier is min(Tk, q_offset +
+  Tq): the queries may lie past the keys' end, as on the ring's past block
+  that the band cuts (parallel/ring_attention.py).  A row that sees no key
+  gives out 0 and lse -inf, and zero gradients.  The ops take the offset
+  as a trailing `q_offset` (0 by default); under rope the kernels refuse a
+  query offset past the keys' end (forward) or any rectangle but the
+  square at offset 0 (backward).
 * `flash_attention_qkv` is differentiable: an autograd.Function saves
   (qkv, out, lse) as the JAX package's `_flash_packed_fwd` does, and its
   backward returns the packed dqkv.
@@ -110,7 +119,9 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     causal mode the keys are cut at the frontier q_offset + Tq before any
     arithmetic, so cache slots beyond it are never read (not even as 0 *
     NaN); the kernel never loads them either.  window > 0 (causal only)
-    hides keys at or before position - window.  rope=True rotates q (at
+    hides keys at or before position - window.  The queries may lie past
+    the keys' end (the frontier is then Tk); a row that sees no key gives
+    out 0 and lse -inf.  rope=True rotates q (at
     its positions, sm_scale folded in) and k (at 0..Tk-1) with the fp32
     table and rounds both to their dtype, as the kernel does as it loads
     them; q, k and v arrive unrotated.
@@ -224,14 +235,18 @@ def launch_fwd(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_window(causal, window)
     B, Tq, C = q.shape
     Tk = k.shape[1]
-    if (v.shape != k.shape or Tk == 0 or q_offset < 0
-            or (causal and q_offset + Tq > Tk)):
+    if v.shape != k.shape or Tk == 0 or q_offset < 0:
         raise ValueError(f"{what}: q {tuple(q.shape)} at offset {q_offset} "
                          f"does not fit k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)}")
+    if rope and causal and q_offset + Tq > Tk:
+        raise ValueError(f"{what}: under rope the queries' positions "
+                         f"{q_offset}..{q_offset + Tq - 1} must lie within "
+                         f"the {Tk} keys")
     # the causal frontier: keys past the last query's position are never
-    # loaded, so a cache tail may hold anything
-    seq_len = q_offset + Tq if causal else Tk
+    # loaded, so a cache tail may hold anything; queries past the keys' end
+    # see keys up to the last
+    seq_len = min(Tk, q_offset + Tq) if causal else Tk
     out = torch.empty((B, Tq, C), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, num_heads, Tq), dtype=torch.float32,
                       device=q.device)
@@ -256,18 +271,18 @@ def launch_fwd(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    num_heads: int, causal: bool, sm_scale: float,
-                   window: int = 0, rope: bool = False
+                   window: int = 0, rope: bool = False, q_offset: int = 0
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K1-fwd on q's current stream: MHA self-attention, the
-    contract of `flash_fwd_plain` with q, k and v of one shape.  q/k/v may
-    be strided views into one packed buffer (the last dim must be
-    contiguous).  Raises on anything the kernel does not take, and if the
-    launch is refused."""
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"flash_fwd_cuda: q, k, v must share one (B, T, C) "
-                         f"shape, got {[tuple(t.shape) for t in (q, k, v)]}")
+    """Launch K1-fwd on q's current stream: MHA, the contract of
+    `flash_fwd_plain` with k and v of q's batch and width (their length
+    their own; q at q_offset against them).  q/k/v may be strided views
+    into one packed buffer (the last dim must be contiguous).  Raises on
+    anything the kernel does not take, and if the launch is refused."""
+    if k.shape[::2] != q.shape[::2] or v.shape != k.shape:
+        raise ValueError(f"flash_fwd_cuda: k and v must share q's batch and "
+                         f"width, got {[tuple(t.shape) for t in (q, k, v)]}")
     res = launch_fwd("flash_fwd_cuda", q, k, v, num_heads, num_heads, causal,
-                     sm_scale, window=window, rope=rope)
+                     sm_scale, q_offset, window, rope)
     flash_fwd_cuda.launches += 1
     return res
 
@@ -282,14 +297,16 @@ def _fwd_fake(q, k, v, num_heads, *args):
             q.new_empty((B, num_heads, Tq), dtype=torch.float32))
 
 
-def _flash_fwd_plain_op(q, k, v, num_heads, causal, sm_scale, window, rope):
+def _flash_fwd_plain_op(q, k, v, num_heads, causal, sm_scale, window, rope,
+                        q_offset=0):
     return flash_fwd_plain(q, k, v, num_heads, causal, sm_scale,
-                           window=window, rope=rope)
+                           q_offset=q_offset, window=window, rope=rope)
 
 
 flash_fwd_op = _build.kernel_op(
     "flash_fwd", "(Tensor q, Tensor k, Tensor v, int num_heads, bool causal, "
-    "float sm_scale, int window, bool rope) -> (Tensor, Tensor)",
+    "float sm_scale, int window, bool rope, int q_offset=0) -> "
+    "(Tensor, Tensor)",
     _flash_fwd_plain_op, lambda *a: flash_fwd_cuda(*a), _fwd_fake)
 
 
@@ -321,13 +338,16 @@ def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                     num_heads: int, causal: bool, sm_scale: float,
                     kv_heads: int = 0, window: int = 0, rope: bool = False,
-                    *, fp32_scale: Optional[bool] = None
+                    q_offset: int = 0, *, fp32_scale: Optional[bool] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K2's and K3-bwd's function in plain PyTorch: q, out, do (B, T, C),
-    k, v (B, T, kv_heads*D), lse (B, NH, T) fp32 -> (dq (B, T, C), dk, dv
-    (B, T, kv_heads*D)) in q's dtype.  kv_heads 0 means num_heads; dk and
-    dv are summed over each kv head's group of query heads in fp32, then
-    rounded once, as the kernel does.
+    """K2's and K3-bwd's function in plain PyTorch: q, out, do (B, Tq, C)
+    at positions q_offset.., k, v (B, Tk, kv_heads*D) at 0.., lse
+    (B, NH, Tq) fp32 -> (dq (B, Tq, C), dk, dv (B, Tk, kv_heads*D)) in q's
+    dtype.  kv_heads 0 means num_heads; dk and dv are summed over each kv
+    head's group of query heads in fp32, then rounded once, as the kernel
+    does.  In causal mode the keys past the frontier min(Tk, q_offset + Tq)
+    are cut before any arithmetic, as in `flash_fwd_plain` (their dk and
+    dv are 0); a row that sees no key gets zero gradients.
 
     The numerics of the multi-tile Pallas backward bodies (`_bwd_body`):
     q^ = q * sm_scale rounded to its dtype, s = q^ . k^T in fp32,
@@ -335,19 +355,24 @@ def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ds = p * (do . v^T - di) * sm_scale; dv = p^T . do, dk = ds^T . q with
     the unscaled q, dq = ds . k, with p and ds rounded to the input dtype
     before their products and fp32 accumulation.  rope=True: q and k are
-    first rotated at 0..T-1 and rounded to their dtype (q^ is then the
-    rotated q times sm_scale, rounded again), and dq and dk are rotated
-    back by -theta in fp32 before their rounding, as the Pallas kernels'
-    epilogues do.  window: the forward's band.  fp32_scale: compute s as
-    sm_scale * (q . k^T) in fp32 instead of through q^; None takes the
-    kernel's choice, `scale_in_fp32(sm_scale)` (the same bits where it
-    applies)."""
+    first rotated at their positions and rounded to their dtype (q^ is
+    then the rotated q times sm_scale, rounded again), and dq and dk are
+    rotated back by -theta in fp32 before their rounding, as the Pallas
+    kernels' epilogues do.  window: the forward's band.  fp32_scale:
+    compute s as sm_scale * (q . k^T) in fp32 instead of through q^; None
+    takes the kernel's choice, `scale_in_fp32(sm_scale)` (the same bits
+    where it applies)."""
     _check_window(causal, window)
-    B, T, C = q.shape
+    B, Tq, C = q.shape
+    keys = k.shape[1]
     KH = kv_heads or num_heads
     R = num_heads // KH
     dtype = q.dtype
-    qr, kr = _rotated(q, num_heads, 0, rope), _rotated(k, KH, 0, rope)
+    if causal:
+        k, v = k[:, :q_offset + Tq], v[:, :q_offset + Tq]
+    Tk = k.shape[1]
+    qr, kr = (_rotated(q, num_heads, q_offset, rope),
+              _rotated(k, KH, 0, rope))
     qf, dof = _grouped(qr, num_heads, R), _grouped(do, num_heads, R)
     kf, vf = _grouped(kr, KH, 1), _grouped(v, KH, 1)
     if scale_in_fp32(sm_scale) if fp32_scale is None else fp32_scale:
@@ -355,10 +380,10 @@ def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         qh = (qf * sm_scale).to(dtype).float()
         s = torch.matmul(qh, kf.transpose(-1, -2))
-    lse = lse.reshape(B, KH, R, T)[..., None]
+    lse = lse.reshape(B, KH, R, Tq)[..., None]
     p = torch.exp(s - lse)
     if causal:
-        p = p.masked_fill(_hidden(T, T, 0, window, q.device), 0.0)
+        p = p.masked_fill(_hidden(Tq, Tk, q_offset, window, q.device), 0.0)
     di = (_grouped(out, num_heads, R) * dof).sum(dim=-1, keepdim=True)
     dp = torch.matmul(dof, vf.transpose(-1, -2))
     ds = p * (dp - di) * sm_scale
@@ -367,23 +392,29 @@ def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk = torch.matmul(dsr.transpose(-1, -2), qf).sum(dim=2)
     dq = torch.matmul(dsr, kf)
 
-    def packed(t, heads):   # (B, heads, [group,] T, D) fp32 -> (B, T, heads*D)
+    def packed(t, heads, pos0):   # (B, heads, [group,] T, D) fp32 -> (B, T, W)
         if t.dim() == 5:
             t = t.flatten(1, 2)
-        t = t.transpose(1, 2).reshape(B, T, -1)
+        n = t.shape[2]
+        t = t.transpose(1, 2).reshape(B, n, -1)
         if rope and heads:
-            cos, sin = table_for(T, q.device)
-            t = rotate(t, cos[:T], sin[:T], heads, inverse=True)
+            cos, sin = table_for(pos0 + n, q.device)
+            t = rotate(t, cos[pos0:pos0 + n], sin[pos0:pos0 + n], heads,
+                       inverse=True)
         return t.to(dtype)
 
-    return packed(dq, num_heads), packed(dk, KH), packed(dv, 0)
+    dk, dv = packed(dk, KH, 0), packed(dv, 0, 0)
+    if Tk < keys:           # keys past the causal frontier: no gradient
+        dk, dv = (torch.nn.functional.pad(t, (0, 0, 0, keys - Tk))
+                  for t in (dk, dv))
+    return packed(dq, num_heads, q_offset), dk, dv
 
 
 @functools.cache
 def _bwd_kernel():
     fn = _build.load("flash_bwd").lib.vitrs_flash_bwd
     P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fn.argtypes = ([I] + [P] * 13 + [LL] * 14 + [I] * 6
+    fn.argtypes = ([I] + [P] * 13 + [LL] * 14 + [I] * 8
                    + [ctypes.c_float, P, P, P])
     fn.restype = I
     return fn
@@ -392,39 +423,48 @@ def _bwd_kernel():
 def launch_bwd(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                num_heads: int, kv_heads: int, causal: bool, sm_scale: float,
-               window: int = 0, rope: bool = False
+               window: int = 0, rope: bool = False, q_offset: int = 0
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch csrc/flash_bwd.cu (three kernels: the pre-pass, dK/dV, dQ) on
-    q's current stream: the contract of `flash_bwd_plain`.  Counts nothing:
+    q's current stream: the contract of `flash_bwd_plain`, q, out and do
+    (B, Tq, C) at q_offset against k, v (B, Tk, kv_dim).  Counts nothing:
     K2's `flash_bwd_cuda` and K3's `flash_gqa_bwd_cuda` count their own
     launches.  q/k/v may be strided views into the packed qkv, out and do
     strided (B, T, C) tensors (last dim contiguous).  Raises on anything
-    the kernel does not take, and if a launch is refused."""
+    the kernel does not take (under rope: any block but the square at
+    offset 0), and if a launch is refused."""
     _check_layout(what, (q, k, v, out, do), q)
     _check_heads(what, q, k, num_heads, kv_heads)
     _check_window(causal, window)
-    B, T, C = q.shape
-    if (k.shape[1] != T or v.shape != k.shape or out.shape != q.shape
-            or do.shape != q.shape):
+    B, Tq, C = q.shape
+    Tk = k.shape[1]
+    if (Tk == 0 or q_offset < 0 or v.shape != k.shape
+            or out.shape != q.shape or do.shape != q.shape):
         raise ValueError(f"{what}: q/out/do {[tuple(t.shape) for t in (q, out, do)]}"
-                         f" and k/v {[tuple(t.shape) for t in (k, v)]} do not "
-                         f"match")
-    if (lse.shape != (B, num_heads, T) or lse.dtype != torch.float32
+                         f" at offset {q_offset} and k/v "
+                         f"{[tuple(t.shape) for t in (k, v)]} do not match")
+    if rope and (q_offset or Tk != Tq):
+        raise ValueError(f"{what}: under rope the backward takes square "
+                         f"blocks at offset 0, got {Tq} queries at offset "
+                         f"{q_offset} against {Tk} keys")
+    if (lse.shape != (B, num_heads, Tq) or lse.dtype != torch.float32
             or lse.device != q.device or not lse.is_contiguous()):
         raise ValueError(f"{what}: lse must be a contiguous fp32 "
-                         f"({B}, {num_heads}, {T}) tensor on q's device")
-    dq = torch.empty((B, T, C), dtype=q.dtype, device=q.device)
+                         f"({B}, {num_heads}, {Tq}) tensor on q's device")
+    dq = torch.empty((B, Tq, C), dtype=q.dtype, device=q.device)
     dk, dv = (torch.empty(k.shape, dtype=q.dtype, device=q.device)
               for _ in range(2))
-    di = torch.empty((B, num_heads, T), dtype=torch.float32, device=q.device)
+    di = torch.empty((B, num_heads, Tq), dtype=torch.float32, device=q.device)
     # the bf16 pre-pass's scratch: q and k rotated under rope, q^ when
     # sm_scale is not a power of two (fp32 takes none)
     bf16 = q.dtype == torch.bfloat16
     q_rot, k_rot, q_hat = (
-        torch.empty((B, T, w), dtype=q.dtype, device=q.device) if need else None
-        for w, need in ((C, bf16 and rope), (k.shape[2], bf16 and rope),
-                        (C, bf16 and not scale_in_fp32(sm_scale))))
-    cos, sin = _table_ptrs(rope, T, q.device)
+        torch.empty((B, n, w), dtype=q.dtype, device=q.device) if need
+        else None
+        for n, w, need in ((Tq, C, bf16 and rope),
+                           (Tk, k.shape[2], bf16 and rope),
+                           (Tq, C, bf16 and not scale_in_fp32(sm_scale))))
+    cos, sin = _table_ptrs(rope, Tq, q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _bwd_kernel()(
@@ -437,8 +477,8 @@ def launch_bwd(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             v.stride(0), v.stride(1), out.stride(0), out.stride(1),
             do.stride(0), do.stride(1), dq.stride(0), dq.stride(1),
             dk.stride(0), dk.stride(1),
-            B, num_heads, kv_heads, T, int(causal), int(window),
-            float(sm_scale), cos, sin, stream)
+            B, num_heads, kv_heads, Tq, Tk, q_offset, int(causal),
+            int(window), float(sm_scale), cos, sin, stream)
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
     return dq, dk, dv
@@ -447,16 +487,17 @@ def launch_bwd(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                    num_heads: int, causal: bool, sm_scale: float,
-                   window: int = 0, rope: bool = False
+                   window: int = 0, rope: bool = False, q_offset: int = 0
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch K2 (three kernels: pre-pass, dK/dV, dQ; `launches` counts
     the call once) on q's current stream: MHA, the contract of
-    `flash_bwd_plain` with q, k and v of one shape."""
-    if k.shape != q.shape:
+    `flash_bwd_plain` with k and v of q's batch and width (their length
+    their own; q at q_offset against them)."""
+    if k.shape[::2] != q.shape[::2]:
         raise ValueError(f"flash_bwd_cuda: k {tuple(k.shape)} must have q's "
-                         f"shape {tuple(q.shape)}")
+                         f"batch and width {tuple(q.shape)}")
     res = launch_bwd("flash_bwd_cuda", q, k, v, out, lse, do, num_heads,
-                     num_heads, causal, sm_scale, window, rope)
+                     num_heads, causal, sm_scale, window, rope, q_offset)
     flash_bwd_cuda.launches += 1
     return res
 
@@ -470,15 +511,16 @@ def _bwd_fake(q, k, v, *args):
 
 
 def _flash_bwd_plain_op(q, k, v, out, lse, do, num_heads, causal, sm_scale,
-                        window, rope):
+                        window, rope, q_offset=0):
     return flash_bwd_plain(q, k, v, out, lse, do, num_heads, causal,
-                           sm_scale, window=window, rope=rope)
+                           sm_scale, window=window, rope=rope,
+                           q_offset=q_offset)
 
 
 flash_bwd_op = _build.kernel_op(
     "flash_bwd", "(Tensor q, Tensor k, Tensor v, Tensor out, Tensor lse, "
     "Tensor dout, int num_heads, bool causal, float sm_scale, int window, "
-    "bool rope) -> (Tensor, Tensor, Tensor)",
+    "bool rope, int q_offset=0) -> (Tensor, Tensor, Tensor)",
     _flash_bwd_plain_op, lambda *a: flash_bwd_cuda(*a), _bwd_fake)
 
 

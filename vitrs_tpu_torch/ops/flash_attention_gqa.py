@@ -61,27 +61,28 @@ def split_gqa(qkv: torch.Tensor, num_heads: int, kv_heads: int):
 
 def flash_gqa_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         num_heads: int, kv_heads: int, causal: bool,
-                        sm_scale: float, window: int = 0, rope: bool = False
+                        sm_scale: float, window: int = 0, rope: bool = False,
+                        q_offset: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K3-fwd's function in plain PyTorch: q (B, T, C), k/v (B, T, kv_dim)
-    -> (out (B, T, C) in q's dtype, lse (B, NH, T) fp32), with K1's
-    numerics, band and rotation (`flash_attention.flash_fwd_plain`)."""
+    """K3-fwd's function in plain PyTorch: q (B, Tq, C) at q_offset, k/v
+    (B, Tk, kv_dim) -> (out (B, Tq, C) in q's dtype, lse (B, NH, Tq)
+    fp32), with K1's numerics, band, rectangle and rotation
+    (`flash_attention.flash_fwd_plain`)."""
     return flash_fwd_plain(q, k, v, num_heads, causal, sm_scale,
-                           kv_heads=kv_heads, window=window, rope=rope)
+                           kv_heads=kv_heads, q_offset=q_offset,
+                           window=window, rope=rope)
 
 
 def flash_gqa_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        num_heads: int, kv_heads: int, causal: bool,
-                       sm_scale: float, window: int = 0, rope: bool = False
+                       sm_scale: float, window: int = 0, rope: bool = False,
+                       q_offset: int = 0
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K3-fwd on q's current stream: the contract of
     `flash_gqa_fwd_plain`.  q/k/v may be strided views into the packed qkv
     (last dim contiguous).  Raises on anything the kernel does not take."""
-    if k.shape[1] != q.shape[1]:
-        raise ValueError(f"flash_gqa_fwd_cuda: q {tuple(q.shape)} and k "
-                         f"{tuple(k.shape)} differ in length")
     res = launch_fwd("flash_gqa_fwd_cuda", q, k, v, num_heads, kv_heads,
-                     causal, sm_scale, window=window, rope=rope)
+                     causal, sm_scale, q_offset, window, rope)
     flash_gqa_fwd_cuda.launches += 1
     return res
 
@@ -90,8 +91,8 @@ flash_gqa_fwd_cuda.launches = 0
 
 flash_gqa_fwd_op = _build.kernel_op(
     "flash_gqa_fwd", "(Tensor q, Tensor k, Tensor v, int num_heads, "
-    "int kv_heads, bool causal, float sm_scale, int window, bool rope) -> "
-    "(Tensor, Tensor)", lambda *a: flash_gqa_fwd_plain(*a),
+    "int kv_heads, bool causal, float sm_scale, int window, bool rope, "
+    "int q_offset=0) -> (Tensor, Tensor)", lambda *a: flash_gqa_fwd_plain(*a),
     lambda *a: flash_gqa_fwd_cuda(*a), _fwd_fake)
 
 
@@ -99,27 +100,28 @@ def flash_gqa_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
                         do: torch.Tensor, num_heads: int, kv_heads: int,
                         causal: bool, sm_scale: float, window: int = 0,
-                        rope: bool = False
+                        rope: bool = False, q_offset: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K3-bwd's function in plain PyTorch: (dq (B, T, C), dk, dv
-    (B, T, kv_dim)), dk/dv summed over each group in fp32 and rounded once;
-    under rope dk is rotated back once, after the group sum
-    (`flash_attention.flash_bwd_plain`)."""
+    """K3-bwd's function in plain PyTorch: (dq (B, Tq, C), dk, dv
+    (B, Tk, kv_dim)), dk/dv summed over each group in fp32 and rounded
+    once; under rope dk is rotated back once, after the group sum
+    (`flash_attention.flash_bwd_plain`, q at q_offset)."""
     return flash_bwd_plain(q, k, v, out, lse, do, num_heads, causal,
                            sm_scale, kv_heads=kv_heads, window=window,
-                           rope=rope)
+                           rope=rope, q_offset=q_offset)
 
 
 def flash_gqa_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                        num_heads: int, kv_heads: int, causal: bool,
-                       sm_scale: float, window: int = 0, rope: bool = False
+                       sm_scale: float, window: int = 0, rope: bool = False,
+                       q_offset: int = 0
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch K3-bwd (three kernels: pre-pass, dK/dV, dQ; `launches`
     counts the call once) on q's current stream: the contract of
     `flash_gqa_bwd_plain`."""
     res = launch_bwd("flash_gqa_bwd_cuda", q, k, v, out, lse, do, num_heads,
-                     kv_heads, causal, sm_scale, window, rope)
+                     kv_heads, causal, sm_scale, window, rope, q_offset)
     flash_gqa_bwd_cuda.launches += 1
     return res
 
@@ -129,7 +131,7 @@ flash_gqa_bwd_cuda.launches = 0
 flash_gqa_bwd_op = _build.kernel_op(
     "flash_gqa_bwd", "(Tensor q, Tensor k, Tensor v, Tensor out, Tensor lse, "
     "Tensor dout, int num_heads, int kv_heads, bool causal, float sm_scale, "
-    "int window, bool rope) -> (Tensor, Tensor, Tensor)",
+    "int window, bool rope, int q_offset=0) -> (Tensor, Tensor, Tensor)",
     lambda *a: flash_gqa_bwd_plain(*a), lambda *a: flash_gqa_bwd_cuda(*a),
     _bwd_fake)
 

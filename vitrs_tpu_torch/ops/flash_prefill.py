@@ -72,7 +72,13 @@ def flash_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        sm_scale: float, window: int = 0) -> torch.Tensor:
     """Launch K4 on q's current stream: the contract of
     `flash_prefill_plain`.  q may be a strided view into the chunk's packed
-    qkv, k/v views of one layer's caches (last dim contiguous)."""
+    qkv, k/v views of one layer's caches (last dim contiguous); the chunk
+    must lie within the cache (the rectangle past the keys' end is the
+    ring's, not K4's)."""
+    if q_offset + q.shape[1] > k.shape[1]:
+        raise ValueError(f"flash_prefill_cuda: chunk {q_offset}.."
+                         f"{q_offset + q.shape[1]} does not fit a cache of "
+                         f"{k.shape[1]}")
     out, _ = launch_fwd("flash_prefill_cuda", q, k, v, num_heads, kv_heads,
                         True, sm_scale, q_offset, window)
     flash_prefill_cuda.launches += 1

@@ -18,9 +18,9 @@ Layout: the flash kernels' (B, T/n, C) for q and (B, T/n, kv_heads*D) for
 k and v (the JAX module takes (B, H, T/n, D); the tests transpose).  Under
 GQA only the small kv blocks rotate.
 
-Each hop's block work runs on the flash kernels where their contracts fit
-(ops/flash_attention.py `launch_fwd` / `launch_bwd`: square blocks at
-offset 0), chosen by the block's shape only:
+Each hop's block work runs on the flash kernels (ops/flash_attention.py
+`launch_fwd` / `launch_bwd`, through the `vitrs::` ops), chosen by the
+block's shape only:
 
   * the diagonal block (src == idx): K1-fwd / K3-fwd causal, with the
     window, and K2 / K3-bwd causal;
@@ -28,21 +28,23 @@ offset 0), chosen by the block's shape only:
     window): K1-fwd / K3-fwd and K2 / K3-bwd non-causal;
   * a future block (src > idx, causal): nothing to compute (the JAX scan
     computes it fully masked); the block is still forwarded;
-  * a past block that the band cuts ("band" hops): neither kernel takes a
-    query offset past the keys' end, so this block runs through the plain
-    block on the rectangle the band reaches (the queries that see some key
-    of the block, the keys some query sees), forward and backward, in
-    plain PyTorch on either device.  Its hops are counted
-    (`band_plain_hops`).  On the 8K training window (W=1024, T/n=4096) it
-    is rank 1's one past hop, a 1023 x 1023 rectangle a head.  A key
-    offset in the flash kernels would put it on them (ROADMAP.md Queue 2).
+  * a past block that the band cuts ("band" hops): the same kernels, causal
+    with the window, on the rectangle the band reaches (`_band_window`: the
+    queries [0, rows) that see some key of the block against the keys
+    [first, T/n) some query sees), the queries at offset q_off - k_off -
+    first past the keys' end.  On the 8K training window (W=1024, T/n=4096)
+    it is rank 1's one past hop: 1023 rows at offset 1023 against 1023
+    keys, a head.  Its hops are counted (`band_hops`); they merge into and
+    add to the first `rows` queries and the last keys only.
 
 The forward hops give (out_blk, lse_blk); they merge in fp32 with the lse
 weights into the global out and lse.  The backward hops take the global
 out and lse, so the kernels' pre-pass forms di = rowsum(out * do) and p =
 exp(s - lse) as the JAX backward does; dq and the travelling dk / dv
-accumulate in fp32.  No per-hop score tensor outlives its hop.  On the CPU
-the same hops run on the kernels' plain versions.
+accumulate in fp32.  No hop materialises a score tensor on the card.  On
+the CPU the same hops run on the kernels' plain versions, through the same
+ops; on CUDA tensors every hop reaches a kernel, and a block the kernels
+refuse raises.
 
 `make_cp_train_step` is the dp x cp step: the encoder at the shard's
 global positions (the wpe slice; rope through `rope_qk` at idx*T/n + t,
@@ -86,8 +88,9 @@ from . import gradops
 from .fsdp import batch_tensors
 from .tensor_parallel import _lin, leaf_grads
 
-# hops that took the plain banded block, forward and backward
-band_plain_hops = {"fwd": 0, "bwd": 0}
+# hops whose past block the band cuts (the kernels' rectangle), forward
+# and backward
+band_hops = {"fwd": 0, "bwd": 0}
 _TAGS = (71, 72, 73, 74)     # k, v, dk, dv
 
 
@@ -124,7 +127,8 @@ def ring_of(group=None) -> Ring:
 
 def _route(ring: Ring, src: int, T: int, causal: bool, window: int):
     """The hop's route by the block's shape: "diag", "past" (non-causal
-    kernels), "band" (the plain banded block) or None (a future block)."""
+    kernels), "band" (the causal banded kernels on the rectangle the band
+    reaches) or None (a future block)."""
     if not causal:
         return "past"
     if src == ring.idx:
@@ -156,85 +160,21 @@ def _band_window(Tq: int, Tk: int, q_off: int, k_off: int, window: int):
     return rows, first
 
 
-def band_fwd_plain(q, k, v, num_heads: int, kv_heads: int, sm_scale: float,
-                   q_off: int, k_off: int, window: int):
-    """The plain banded block: q at positions q_off.., k/v at k_off..,
-    causal with the window -> (out (B, Tq, C) in q's dtype, lse (B, NH,
-    Tq) fp32; -inf and 0 where a row sees no key).  Computed by the
-    kernels' plain forward on the rectangle the band reaches."""
-    B, Tq, Cq = q.shape
-    Tk = k.shape[1]
-    out = q.new_zeros((B, Tq, Cq))
-    lse = torch.full((B, num_heads, Tq), -math.inf, device=q.device)
-    rows, first = _band_window(Tq, Tk, q_off, k_off, window)
-    if rows and first < Tk:
-        o, l = FA.flash_fwd_plain(q[:, :rows], k[:, first:], v[:, first:],
-                                  num_heads, True, sm_scale,
-                                  kv_heads=kv_heads,
-                                  q_offset=q_off - k_off - first,
-                                  window=window)
-        out[:, :rows], lse[..., :rows] = o, l
-    return out, lse
-
-
-def band_bwd_plain(q, k, v, out, lse, do, num_heads: int, kv_heads: int,
-                   sm_scale: float, q_off: int, k_off: int, window: int):
-    """The backward of `band_fwd_plain` from the global out and lse, with
-    the numerics of `flash_attention.flash_bwd_plain` (p and ds rounded to
-    the input dtype before their products): fp32 (dq (B, Tq, C), dk, dv
-    (B, Tk, kv_dim)), dk and dv summed over each kv head's group."""
-    B, Tq, Cq = q.shape
-    Tk = k.shape[1]
-    dq = torch.zeros((B, Tq, Cq), device=q.device)
-    dk = torch.zeros(k.shape, device=q.device)
-    dv = torch.zeros(k.shape, device=q.device)
-    rows, first = _band_window(Tq, Tk, q_off, k_off, window)
-    if not rows or first >= Tk:
-        return dq, dk, dv
-    R = num_heads // kv_heads
-    dt = q.dtype
-    qf = FA._grouped(q[:, :rows], num_heads, R)
-    dof = FA._grouped(do[:, :rows], num_heads, R)
-    kf = FA._grouped(k[:, first:], kv_heads, 1)
-    vf = FA._grouped(v[:, first:], kv_heads, 1)
-    if FA.scale_in_fp32(sm_scale):
-        s = torch.matmul(qf, kf.transpose(-1, -2)) * sm_scale
-    else:
-        s = torch.matmul((qf * sm_scale).to(dt).float(), kf.transpose(-1, -2))
-    lse_r = lse[..., :rows].reshape(B, kv_heads, R, rows)[..., None]
-    p = torch.exp(s - torch.where(torch.isfinite(lse_r), lse_r, 0.0))
-    p = p.masked_fill(FA._hidden(rows, Tk - first, q_off - k_off - first,
-                                 window, q.device), 0.0)
-    di = (FA._grouped(out[:, :rows], num_heads, R) * dof).sum(
-        dim=-1, keepdim=True)
-    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - di) * sm_scale
-    pr, dsr = p.to(dt).float(), ds.to(dt).float()
-
-    def packed(t, n):        # (B, heads, [group,] T, D) -> (B, n, heads*D)
-        return t.flatten(1, 2).transpose(1, 2).reshape(B, n, -1) \
-            if t.dim() == 5 else t.transpose(1, 2).reshape(B, n, -1)
-
-    dq[:, :rows] = packed(torch.matmul(dsr, kf), rows)
-    dk[:, first:] = packed(torch.matmul(dsr.transpose(-1, -2), qf).sum(2),
-                           Tk - first)
-    dv[:, first:] = packed(torch.matmul(pr.transpose(-1, -2), dof).sum(2),
-                           Tk - first)
-    return dq, dk, dv
-
-
-def _kernel_fwd(q, k, v, H, KH, causal, sm_scale, window):
+def _kernel_fwd(q, k, v, H, KH, causal, sm_scale, window, q_offset=0):
     if KH == H:
-        return FA.flash_fwd_op(q, k, v, H, causal, sm_scale, window, False)
+        return FA.flash_fwd_op(q, k, v, H, causal, sm_scale, window, False,
+                               q_offset)
     return FG.flash_gqa_fwd_op(q, k, v, H, KH, causal, sm_scale, window,
-                               False)
+                               False, q_offset)
 
 
-def _kernel_bwd(q, k, v, out, lse, do, H, KH, causal, sm_scale, window):
+def _kernel_bwd(q, k, v, out, lse, do, H, KH, causal, sm_scale, window,
+                q_offset=0):
     if KH == H:
         return FA.flash_bwd_op(q, k, v, out, lse, do, H, causal, sm_scale,
-                               window, False)
+                               window, False, q_offset)
     return FG.flash_gqa_bwd_op(q, k, v, out, lse, do, H, KH, causal,
-                               sm_scale, window, False)
+                               sm_scale, window, False, q_offset)
 
 
 def _merge(acc, lse, o, l):
@@ -266,14 +206,18 @@ def _ring_fwd(q, k, v, ring: Ring, H: int, causal: bool, window: int):
         src = (ring.idx - hop) % ring.n
         route = _route(ring, src, T, causal, window)
         if route == "band":
-            band_plain_hops["fwd"] += 1
-            o, l = band_fwd_plain(q, kb, vb, H, KH, sm, ring.idx * T,
-                                  src * T, window)
+            # never the first hop: the diagonal's merge is in acc
+            band_hops["fwd"] += 1
+            rows, first = _band_window(T, T, ring.idx * T, src * T, window)
+            o, l = _kernel_fwd(q[:, :rows], kb[:, first:], vb[:, first:], H,
+                               KH, True, sm, window,
+                               (ring.idx - src) * T - first)
+            acc[:, :rows], lse[..., :rows] = _merge(
+                acc[:, :rows], lse[..., :rows], o, l)
         elif route is not None:
             diag = route == "diag"
             o, l = _kernel_fwd(q, kb, vb, H, KH, diag, sm,
                                window if diag else 0)
-        if route is not None:
             acc, lse = _merge(acc, lse, o, l)
         if hop < h - 1:
             kb, vb = _rotate([kb, vb], ring)
@@ -295,14 +239,19 @@ def _ring_bwd(q, k, v, out, lse, do, ring: Ring, H: int, causal: bool,
         src = (ring.idx - hop) % ring.n
         route = _route(ring, src, T, causal, window)
         if route == "band":
-            band_plain_hops["bwd"] += 1
-            g = band_bwd_plain(q, kb, vb, out, lse, do, H, KH, sm,
-                               ring.idx * T, src * T, window)
+            band_hops["bwd"] += 1
+            rows, first = _band_window(T, T, ring.idx * T, src * T, window)
+            g = _kernel_bwd(q[:, :rows], kb[:, first:], vb[:, first:],
+                            out[:, :rows], lse[..., :rows].contiguous(),
+                            do[:, :rows], H, KH, True, sm, window,
+                            (ring.idx - src) * T - first)
+            dq[:, :rows] += g[0].float()
+            dkb[:, first:] += g[1].float()
+            dvb[:, first:] += g[2].float()
         elif route is not None:
             diag = route == "diag"
             g = _kernel_bwd(q, kb, vb, out, lse, do, H, KH, diag, sm,
                             window if diag else 0)
-        if route is not None:
             dq += g[0].float()
             dkb += g[1].float()
             dvb += g[2].float()

@@ -134,7 +134,7 @@ def _build_variant(name: str):
         return name, None, log[-2000:]
     fn = ctypes.CDLL(os.path.abspath(lib)).vitrs_flash_bwd
     P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fn.argtypes = [I] + [P] * 13 + [LL] * 14 + [I] * 6 + [ctypes.c_float, P, P, P]
+    fn.argtypes = [I] + [P] * 13 + [LL] * 14 + [I] * 8 + [ctypes.c_float, P, P, P]
     fn.restype = I
     regs = [line.split("Used ")[1].split(",")[0] for line in log.splitlines()
             if "Used" in line and "registers" in line]
