@@ -301,6 +301,36 @@ on any failure.  Phases, each printed as it ends:
                     launches and cut hops as designed (cp-window: 24 K3-fwd
                     and 24 K3-bwd a step on rank 1), no flash plain version
                     on the card, state bytes as sliced, peaks, step ms.
+ 54. kernels-head-dims  K1-fwd, K2, K3-fwd / K3-bwd and K4 at head dims
+                    32, 128 and 256 (24, 6, 3 heads at C=768; K3 at 8, 2, 1
+                    kv heads), each head dim its own library
+                    (ops/_build.load(name, D)), against their plain
+                    versions: edge rows T 1/37/200 (bf16 and fp32, MHA and
+                    GQA, causal and full, each twice and bitwise equal),
+                    B=8 T=1024 causal, B=64 T=197 non-causal, rope +
+                    W=1024 at B=2 T=8192 (D=32, 128), K4 (S 1/37/200 in
+                    bf16 and fp32; every chunk of the chunked generates
+                    below at their batch, kv heads and cache; S=512 at
+                    q_offset 7168; NaN tails), and at D=128 the ring's cut hop and rows that
+                    see no key (gradients also within `grad_errors`);
+                    times beside the plain version, SDPA and the bound;
+                    registers and shared memory (a forward spill fails).
+ 55. train-d128     GPT-2 124M at 6 heads of 128 (124,439,808 parameters),
+                    B=8 T=1024, 12 steps through train/loop.train (12 K1-fwd
+                    + 12 K2 a step) and the first batch's fp32 gradient
+                    through the kernels against the dense route (every
+                    leaf within 1e-4 of its L2 norm); then 2 kv heads with
+                    rope + W=1024 at T=8192, B=2 (K3), its gradient on the
+                    first row's 2048 tokens; no flash plain version on the
+                    card.
+ 56. serve-d128     the 6 x 128 model through GenerationEngine (bf16, 8
+                    requests, K1-fwd) and a chunked generate (768 tokens in
+                    256-token chunks: K1-fwd + K4): prefill and decode ms;
+                    fp32 greedy tokens, whole and chunked, equal to the
+                    dense route's.
+ 57. train-d32, train-d256  24 x 32 and 3 x 256 as train-d128, 4 steps;
+                    then 8 / 1 kv heads: 4 steps (K3) and a chunked
+                    generate (K3-fwd + K4).
 
 `python3 chip_smoke.py --phases a,b` runs only the named phases (after the
 device phase) and prints no result lines.
@@ -328,7 +358,11 @@ import numpy as np
 import torch
 
 CSRC = "vitrs_tpu_torch/csrc/"
-LIBS = ("flash_fwd", "flash_bwd", "fused_ce", "fused_adamw", "fused_head_ce")
+# the flash sources once per head dim (ops/_build.load(name, D)), the rest once
+LIBS = (("flash_fwd", 64), ("flash_bwd", 64), "fused_ce", "fused_adamw",
+        "fused_head_ce", ("flash_fwd", 32), ("flash_bwd", 32),
+        ("flash_fwd", 128), ("flash_bwd", 128), ("flash_fwd", 256),
+        ("flash_bwd", 256))
 # NVIDIA H100 SXM peaks (data sheet, dense): bf16 tensor cores, fp32
 # outside them, device memory
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
@@ -381,35 +415,52 @@ def fwd_flops(B, tq, q_off, keys, causal=True, window=0):
     return 4 * B * NH * D * attn_pairs(tq, q_off, keys, causal, window)
 
 
-def attn_fwd_bound(B, tq, q_off, keys, kh, es, causal=True, window=0,
-                   rope=False):
-    """Bound of a flash forward: `fwd_flops` on the tensor cores; reads q
-    and the k/v rows it needs (from the first row the band reaches), and
-    under rope the fp32 cos/sin rows of its positions; writes out and
-    lse."""
-    flops = fwd_flops(B, tq, q_off, keys, causal, window)
-    kv_rows = min(q_off + tq, keys) if causal else keys
-    if causal and window:
-        kv_rows -= max(0, q_off - window + 1)
-    nbytes = (2 * B * tq * C * es + 2 * B * kv_rows * kh * D * es
-              + B * NH * tq * 4 + (2 * (q_off + tq) * D * 4 if rope else 0))
-    return bound(flops, "bf16" if es == 2 else "fp32", nbytes)
-
-
 def bwd_flops(B, T, window=0):
     """Operations of a causal flash backward: 5 products of 2*D flops per
     (query, key) pair; the TFLOP/s each K2/K3-bwd time is printed with."""
     return 10 * B * NH * D * attn_pairs(T, 0, T, True, window)
 
 
-def attn_bwd_bound(B, T, kh, es, window=0, rope=False):
-    """Bound of a causal flash backward: 5 products per pair (s, dp, dv, dk,
-    dq); reads q, k, v, out, do and lse (and the rope table), writes dq, dk,
-    dv."""
-    flops = bwd_flops(B, T, window)
-    nbytes = (4 * B * T * C * es + 4 * B * T * kh * D * es + B * NH * T * 4
-              + (2 * T * D * 4 if rope else 0))
-    return bound(flops, "bf16" if es == 2 else "fp32", nbytes)
+def sdpa(q, k, v, nh, kh, causal=True, mask=None):
+    """One PyTorch call computing the flash forward at any head dim (a
+    yardstick only)."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(
+        heads(q, nh), heads(k, kh), heads(v, kh), attn_mask=mask,
+        is_causal=causal and mask is None, enable_gqa=kh != nh)
+
+
+def sdpa_bwd(q, k, v, do, nh, kh, causal=True, mask=None):
+    """A closure running the backward of `sdpa` (a yardstick only)."""
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = sdpa(*leaves, nh, kh, causal, mask)
+    return lambda: torch.autograd.grad(out, leaves, heads(do, nh),
+                                       retain_graph=True)
+
+
+def fwd_bound(B, nh, kh, d, tq, q_off, keys, es, causal=True, window=0,
+              rope=False):
+    """(flops, bound) of a flash forward at head dim d: 2 products of 2 d
+    flops per visible (query, key) pair; reads q, the k/v rows it needs
+    (from the first row the band reaches) and under rope the fp32 (T, d/2)
+    cos and sin rows of its positions; writes out and lse."""
+    flops = 4 * B * nh * d * attn_pairs(tq, q_off, keys, causal, window)
+    kv_rows = min(q_off + tq, keys) if causal else keys
+    if causal and window:
+        kv_rows -= max(0, q_off - window + 1)
+    nbytes = (2 * B * tq * nh * d * es + 2 * B * kv_rows * kh * d * es
+              + B * nh * tq * 4 + ((q_off + tq) * d * 4 if rope else 0))
+    return flops, bound(flops, "bf16" if es == 2 else "fp32", nbytes)
+
+
+def bwd_bound(B, nh, kh, d, T, es, causal=True, window=0, rope=False):
+    """(flops, bound) of a flash backward at head dim d: 5 products (s, dp,
+    dv, dk, dq) of 2 d flops per visible pair; reads q, k, v, out, do and
+    lse (and the rope table), writes dq, dk, dv."""
+    flops = 10 * B * nh * d * attn_pairs(T, 0, T, causal, window)
+    nbytes = (4 * B * T * nh * d * es + 4 * B * T * kh * d * es
+              + B * nh * T * 4 + (T * d * 4 if rope else 0))
+    return flops, bound(flops, "bf16" if es == 2 else "fp32", nbytes)
 
 
 def bwd_resources(rope=False):
@@ -418,7 +469,7 @@ def bwd_resources(rope=False):
     dQ; csrc/flash_bwd.cu's vitrs_flash_bwd_attrs), at sm_scale 1/8."""
     import ctypes
     from vitrs_tpu_torch.ops import _build
-    fn = _build.load("flash_bwd").lib.vitrs_flash_bwd_attrs
+    fn = _build.load("flash_bwd", D).lib.vitrs_flash_bwd_attrs
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     res = {}
     for i, name in enumerate(("prep", "dkv", "dq")):
@@ -437,7 +488,7 @@ def fwd_resources(rope=False, band=False):
     csrc/flash_fwd.cu's vitrs_flash_fwd_attrs); fails on a spill."""
     import ctypes
     from vitrs_tpu_torch.ops import _build
-    fn = _build.load("flash_fwd").lib.vitrs_flash_fwd_attrs
+    fn = _build.load("flash_fwd", D).lib.vitrs_flash_fwd_attrs
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     res = {}
     for i, name in ((1, "main"), (0, "rope_k")):
@@ -559,49 +610,56 @@ def fwd_edge_cases(tag, gen):
     return worst
 
 
-def out_errors(got, want):
+def out_limit(got, want, rows=True):
+    """`out_errors`' bf16 bound, elementwise: 2^-7 max(|got|, |want|) +
+    2^-6 max(rms, row rms), rms that of want, row rms that of want's row
+    (one position, every channel); rows=False drops the row rms."""
+    g, w = got.float(), want.float()
+    rms = w.square().mean().sqrt()
+    size = (w.square().mean(-1, keepdim=True).sqrt().clamp(min=rms)
+            if rows else rms)
+    return 2.0 ** -7 * torch.maximum(g.abs(), w.abs()) + 2.0 ** -6 * size
+
+
+def out_errors(got, want, rows=True):
     """(elements beyond tolerance, max_abs_err, rms of want) of a flash
     forward's output (K1-fwd, K3-fwd, K4: one kernel) against its plain
     version.
-      bf16: |d| <= 2^-7 max(|got|, |want|) + 2^-6 rms(want).  Each side
-            rounds one fp32 result to bf16, and ulp(x) <= 2^-7 |x|.  Before
-            that, p rounds to bf16 against the kernel's running max but the
-            plain version's final max: relative errors of 2^-9 per term,
-            whose weighted sum over a row's keys stays near 2^-9 of the
-            output's rms.  The rms term follows the output's own size
-            (about 3e-4 at 7K keys), so a dropped kv tile or a frontier
-            moved by a few keys, which move the output by percents of its
-            rms, fail.
+      bf16: |d| <= 2^-7 max(|got|, |want|) + 2^-6 max(rms, row rms)
+            (`out_limit`).  Each side rounds one fp32 result to bf16, and
+            ulp(x) <= 2^-7 |x|.  Before that, p rounds to bf16 against the
+            kernel's running max but the plain version's final max:
+            relative errors of 2^-9 per term, whose weighted sum over a
+            row's keys stays near 2^-9 of that row's output size.  The
+            first causal rows (and a band's) see few keys, so their
+            outputs are several times the tensor's rms, and there a value
+            near 0 can move by 1e-3 (on the card: a row with 68 keys of a
+            T=8192 band, kernel and plain version 1.3e-3 apart, the plain
+            version the further from fp64); rows=False counts what the
+            tensor's rms alone would reject.  The rms term follows the
+            output's own size (about 3e-4 at 7K keys), so a dropped kv tile
+            or a frontier moved by a few keys, which move the output by
+            percents of its rms, fail.
       fp32: 1e-5 abs + rel (only the summation order differs)."""
     g, w = got.float(), want.float()
     d = (g - w).abs()
     rms = w.square().mean().sqrt().item()
     if got.dtype == torch.bfloat16:
-        lim = 2.0 ** -7 * torch.maximum(g.abs(), w.abs()) + 2.0 ** -6 * rms
+        lim = out_limit(got, want, rows)
     else:
         lim = 1e-5 + 1e-5 * w.abs()
     return (d > lim).sum().item(), d.max().item(), rms
 
 
+def out_share(got, want, rows=True):
+    """The largest |got - want| as a share of `out_errors`' bf16 bound."""
+    d = (got.float() - want.float()).abs()
+    return (d / out_limit(got, want, rows)).max().item()
+
+
 def heads(t, h):
-    """(B, T, h*D) -> (B, h, T, D) view, the layout of PyTorch's SDPA."""
-    return t.unflatten(-1, (h, D)).transpose(1, 2)
-
-
-def sdpa_fwd(q, k, v, kh, mask=None):
-    """One PyTorch call computing the flash forward (a yardstick only)."""
-    import torch.nn.functional as F
-    return F.scaled_dot_product_attention(
-        heads(q, NH), heads(k, kh), heads(v, kh), attn_mask=mask,
-        is_causal=mask is None, enable_gqa=kh != NH)
-
-
-def sdpa_bwd(q, k, v, do, kh, mask=None):
-    """A closure running the backward of `sdpa_fwd` (a yardstick only)."""
-    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-    out = sdpa_fwd(*leaves, kh, mask)
-    dout = heads(do, NH)
-    return lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
+    """(B, T, h*d) -> (B, h, T, d) view, the layout of PyTorch's SDPA."""
+    return t.unflatten(-1, (h, t.shape[-1] // h)).transpose(1, 2)
 
 
 def phase_device():
@@ -623,10 +681,12 @@ def phase_device():
                 print(f"[device] ptxas: {line.strip()}")
     # the wgmma kernels must keep their pipeline: ptxas serialises every
     # wgmma (warning C7515) when an accumulator is touched in flight
-    for name in ("flash_fwd", "flash_bwd", "fused_head_ce"):
-        check(libs[name].log, f"{name}: no ptxas log kept beside the library")
-        check("C7515" not in libs[name].log, f"{name}: ptxas serialised wgmma "
-              f"(C7515)")
+    for name, lib in libs.items():
+        if name == "fused_head_ce" or (isinstance(name, tuple)
+                                       and name[0].startswith("flash")):
+            check(lib.log, f"{name}: no ptxas log kept beside the library")
+            check("C7515" not in lib.log, f"{name}: ptxas serialised wgmma "
+                  f"(C7515)")
     return smi
 
 
@@ -687,14 +747,14 @@ def phase_kernels():
         k1 = cuda_ms(lambda: flash_fwd_cuda(q, k, v, NH, True, 0.125))
         k2 = cuda_ms(lambda: flash_fwd_cuda(q, k, v, NH, True, 0.125))
         p2 = cuda_ms(lambda: flash_fwd_plain(q, k, v, NH, True, 0.125))
-        lib = cuda_ms(lambda: sdpa_fwd(q, k, v, NH))
+        lib = cuda_ms(lambda: sdpa(q, k, v, NH, NH))
         flops = fwd_flops(8, T, 0, T)
         times[T] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
                         library_ms=lib, tflops=flops / ((k1 + k2) / 2) / 1e9)
         print(f"[kernels] time bf16 B=8 T={T:4d} NH=12 causal: kernel "
               f"{k1:.4f}/{k2:.4f} ms ({times[T]['tflops']:.1f} TFLOP/s), "
               f"plain {p1:.4f}/{p2:.4f} ms, SDPA {lib:.4f} ms")
-    bound_ms, by = attn_fwd_bound(8, 1024, 0, 1024, NH, 2)
+    bound_ms, by = fwd_bound(8, NH, NH, D, 1024, 0, 1024, 2)[1]
     rsc = fwd_resources()
     res = dict(max_abs_err=worst[torch.bfloat16], **times[1024],
                bound_ms=bound_ms, bound_by=by, resources=rsc,
@@ -818,11 +878,16 @@ def phase_xdevice():
 
 
 
-def timed_pair(kernel, plain, iters=20, warmup=3):
+def timed_pair(kernel, plain, iters=20, warmup=3, plain_iters=None):
     """(kernel ms, plain ms): each the mean of two cuda_ms runs, in the
-    order plain, kernel, kernel, plain, so both halves see the same card."""
-    p1, k1, k2, p2 = (cuda_ms(f, iters, warmup)
-                      for f in (plain, kernel, kernel, plain))
+    order plain, kernel, kernel, plain, so both halves see the same card.
+    plain_iters: the plain version's own count (after one warm-up call),
+    for plain versions that take tens of ms."""
+    pa = (iters, warmup) if plain_iters is None else (plain_iters, 1)
+    p1, k1, k2, p2 = (cuda_ms(f, *a) for f, a in ((plain, pa),
+                                                  (kernel, (iters, warmup)),
+                                                  (kernel, (iters, warmup)),
+                                                  (plain, pa)))
     return (k1 + k2) / 2, (p1 + p2) / 2, (k1, k2, p1, p2)
 
 
@@ -876,8 +941,8 @@ def phase_kernels_train():
     km, pm, raw = timed_pair(
         lambda: FA.flash_bwd_cuda(q, k, v, out, lse, do, NH, True, 0.125),
         lambda: FA.flash_bwd_plain(q, k, v, out, lse, do, NH, True, 0.125))
-    lib = cuda_ms(sdpa_bwd(q, k, v, do, NH))
-    bms, by = attn_bwd_bound(8, 1024, NH, 2)
+    lib = cuda_ms(sdpa_bwd(q, k, v, do, NH, NH))
+    bms, by = bwd_bound(8, NH, NH, D, 1024, 2)[1]
     print(f"[kernels-train] K2 time bf16 B=8 T=1024 NH=12 causal: kernel "
           f"{raw[0]:.4f}/{raw[1]:.4f} ms, plain {raw[2]:.4f}/{raw[3]:.4f} ms, "
           f"SDPA backward {lib:.4f} ms, bound {bms:.4f} ms ({by})")
@@ -1191,12 +1256,13 @@ def phase_kernels_gqa():
     for name, kernel, plain, lib, bnd in (
             ("flash_gqa_fwd", lambda: FG.flash_gqa_fwd_cuda(q, k, v, *args),
              lambda: FG.flash_gqa_fwd_plain(q, k, v, *args),
-             lambda: sdpa_fwd(q, k, v, KH),
-             attn_fwd_bound(8, 1024, 0, 1024, KH, 2)),
+             lambda: sdpa(q, k, v, NH, KH),
+             fwd_bound(8, NH, KH, D, 1024, 0, 1024, 2)[1]),
             ("flash_gqa_bwd",
              lambda: FG.flash_gqa_bwd_cuda(q, k, v, out, lse, do, *args),
              lambda: FG.flash_gqa_bwd_plain(q, k, v, out, lse, do, *args),
-             sdpa_bwd(q, k, v, do, KH), attn_bwd_bound(8, 1024, KH, 2))):
+             sdpa_bwd(q, k, v, do, NH, KH),
+             bwd_bound(8, NH, KH, D, 1024, 2)[1])):
         km, pm, raw = timed_pair(kernel, plain)
         lib_ms = cuda_ms(lib)
         print(f"[kernels-gqa] {name} time {shape}: kernel {raw[0]:.4f}/"
@@ -1260,8 +1326,8 @@ def phase_kernels_prefill():
     km, pm, raw = timed_pair(
         lambda: FP.flash_prefill_cuda(q, k, v, NH, KH, q_off, 0.125),
         lambda: FP.flash_prefill_plain(q, k, v, NH, KH, q_off, 0.125))
-    lib = cuda_ms(lambda: sdpa_fwd(q, k[:, :front], v[:, :front], KH, mask))
-    bms, by = attn_fwd_bound(B, S, q_off, Tk, KH, 2)
+    lib = cuda_ms(lambda: sdpa(q, k[:, :front], v[:, :front], NH, KH, mask=mask))
+    bms, by = fwd_bound(B, NH, KH, D, S, q_off, Tk, 2)[1]
     shape = "bf16 B=8 S=512 q_off=7168 Tk=7936 NH=12 KH=4 D=64"
     print(f"[kernels-prefill] time {shape}: kernel {raw[0]:.4f}/{raw[1]:.4f}"
           f" ms, plain {raw[2]:.4f}/{raw[3]:.4f} ms, SDPA (mask, enable_gqa)"
@@ -1666,12 +1732,13 @@ def phase_kernels_rope_window():
         for part, kern, plain, lib, bnd in (
                 ("fwd", lambda: fwd_k(q, k, v, True, W, True),
                  lambda: fwd_p(q, k, v, True, W, True),
-                 lambda: sdpa_fwd(qr, kr, v, kh, mask),
-                 attn_fwd_bound(B, T, 0, T, kh, 2, window=W, rope=True)),
+                 lambda: sdpa(qr, kr, v, NH, kh, mask=mask),
+                 fwd_bound(B, NH, kh, D, T, 0, T, 2, window=W,
+                           rope=True)[1]),
                 ("bwd", lambda: bwd_k(q, k, v, out, lse, do, True, W, True),
                  lambda: bwd_p(q, k, v, out, lse, do, True, W, True),
-                 sdpa_bwd(qr, kr, v, do, kh, mask),
-                 attn_bwd_bound(B, T, kh, 2, window=W, rope=True))):
+                 sdpa_bwd(qr, kr, v, do, NH, kh, mask=mask),
+                 bwd_bound(B, NH, kh, D, T, 2, window=W, rope=True)[1])):
             km, pm, raw = timed_pair(kern, plain, iters=5, warmup=1)
             lib_ms = cuda_ms(lib, iters=5, warmup=1)
             print(f"[kernels-rope-window] {key}_{part} time {shape}: kernel "
@@ -1703,8 +1770,8 @@ def phase_kernels_rope_window():
             check(win < 0.5 * full, f"windowed K2 {win} ms is not under half "
                   f"the full-causal {full} ms: the band skips nothing")
             res["mha_bwd"]["full_causal_ms"] = full
-            res["mha_bwd"]["full_causal_bound_ms"] = attn_bwd_bound(
-                B, T, kh, 2, rope=True)[0]
+            res["mha_bwd"]["full_causal_bound_ms"] = bwd_bound(
+                B, NH, kh, D, T, 2, rope=True)[1][0]
         del q, k, v, do, out, lse, qr, kr, mask
     # K4 at the serving shape: B=8, the window model's 12 kv heads
     Bp, kh = 8, NH
@@ -1716,8 +1783,8 @@ def phase_kernels_rope_window():
     km, pm, raw = timed_pair(
         lambda: FP.flash_prefill_cuda(q, k, v, NH, kh, q_off, 0.125, W),
         lambda: FP.flash_prefill_plain(q, k, v, NH, kh, q_off, 0.125, W))
-    lib = cuda_ms(lambda: sdpa_fwd(q, k[:, :front], v[:, :front], kh, mask))
-    bms, by = attn_fwd_bound(Bp, S, q_off, Tk, kh, 2, window=W)
+    lib = cuda_ms(lambda: sdpa(q, k[:, :front], v[:, :front], NH, kh, mask=mask))
+    bms, by = fwd_bound(Bp, NH, kh, D, S, q_off, Tk, 2, window=W)[1]
     shape = "bf16 B=8 S=512 q_off=7168 Tk=7936 NH=12 KH=12 D=64 W=1024"
     print(f"[kernels-rope-window] K4 time {shape}: kernel {raw[0]:.4f}/"
           f"{raw[1]:.4f} ms, plain {raw[2]:.4f}/{raw[3]:.4f} ms, SDPA (band "
@@ -1741,8 +1808,8 @@ def phase_kernels_rope_window():
     mask = band_mask(T, 0, T, W)
     ks = [cuda_ms(lambda: FA.flash_fwd_cuda(q, k, v, NH, True, 0.125, W),
                   iters=5, warmup=1) for _ in range(2)]
-    lib = cuda_ms(lambda: sdpa_fwd(q, k, v, NH, mask), iters=5, warmup=1)
-    bms, by = attn_fwd_bound(8, T, 0, T, NH, 2, window=W)
+    lib = cuda_ms(lambda: sdpa(q, k, v, NH, NH, mask=mask), iters=5, warmup=1)
+    bms, by = fwd_bound(8, NH, NH, D, T, 0, T, 2, window=W)[1]
     flops = fwd_flops(8, T, 0, T, window=W)
     km = sum(ks) / 2
     shape = "bf16 B=8 T=7680 NH=12 D=64 W=1024"
@@ -2143,26 +2210,6 @@ VIT_SHAPES = ((64, 197, 12), (256, 197, 6), (256, 197, 12), (8, 17, 2),
               (64, 65, 3))
 
 
-def vit_attn_bound(B, T, nh, es, passes):
-    """Bound of a non-causal flash forward (passes 2: S and P.V) or
-    backward (passes 5: S, dP, dV, dK, dQ) at (B, T, nh, D=64): 2 D flops a
-    product per (query, key) pair over T x T pairs on the tensor cores (or
-    fp32 units); the forward reads qkv and writes out and lse, the backward
-    reads q, k, v, out, do and lse and writes dq, dk, dv."""
-    Cv = nh * D
-    flops = 2 * passes * B * nh * D * T * T
-    tensors = 4 if passes == 2 else 8
-    nbytes = tensors * B * T * Cv * es + B * nh * T * 4
-    return flops, bound(flops, "bf16" if es == 2 else "fp32", nbytes)
-
-
-def sdpa_full(q, k, v, nh):
-    """One PyTorch call computing the non-causal forward (a yardstick)."""
-    import torch.nn.functional as F
-    return F.scaled_dot_product_attention(heads(q, nh), heads(k, nh),
-                                          heads(v, nh))
-
-
 # profiler captures that one device_ms reading may take: a capture has
 # come back without the kernels it traced (once a direct K2 launch's, once
 # an autograd backward's), and the cause is not known; the number taken
@@ -2268,12 +2315,12 @@ def phase_kernels_vit():
         kernels = {
             "fwd": (lambda: FA.flash_fwd_cuda(q, k, v, nh, False, 0.125),
                     lambda: FA.flash_fwd_plain(q, k, v, nh, False, 0.125),
-                    lambda: sdpa_full(q, k, v, nh), 2),
+                    lambda: sdpa(q, k, v, nh, nh, causal=False), 2),
             "bwd": (lambda: FA.flash_bwd_cuda(q, k, v, out, lse, do, nh,
                                               False, 0.125),
                     lambda: FA.flash_bwd_plain(q, k, v, out, lse, do, nh,
                                                False, 0.125),
-                    sdpa_bwd_full(q, k, v, do, nh), 5)}
+                    sdpa_bwd(q, k, v, do, nh, nh, causal=False), 5)}
         if (B, nh) == (256, 12):
             del kernels["bwd"]          # no path trains at this shape
         for part, (kern, plain, lib_fn, passes) in kernels.items():
@@ -2282,7 +2329,10 @@ def phase_kernels_vit():
             dev, caps = device_ms(kern, 1 if part == "fwd" else 3)
             lib = cuda_ms(lib_fn)
             lib_dev, lib_caps = device_ms(lib_fn)
-            flops, (bms, by) = vit_attn_bound(B, T, nh, 2, passes)
+            flops, (bms, by) = (
+                fwd_bound(B, nh, nh, D, T, 0, T, 2, causal=False)
+                if passes == 2 else
+                bwd_bound(B, nh, nh, D, T, 2, causal=False))
             name = "K1-fwd" if part == "fwd" else "K2"
             check(dev is not None, f"{name} {shape}: none of "
                   f"{PROFILE_CAPTURES} traces caught its kernels")
@@ -2351,14 +2401,6 @@ def adamw_at(ns, gen, tag, weight_decay=0.05):
           f"{lib:.4f} ms, bound {bms:.4f} ms ({by})")
     return dict(max_abs_err=worst, ms=km, plain_ms=pm, bound_ms=bms,
                 bound_by=by, library_ms=lib, shape=f"fp32 n={n}")
-
-
-def sdpa_bwd_full(q, k, v, do, nh):
-    """A closure running the backward of `sdpa_full` (a yardstick)."""
-    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-    out = sdpa_full(*leaves, nh)
-    dout = heads(do, nh)
-    return lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
 
 
 def phase_infer_vit(smi, steps=20):
@@ -2545,9 +2587,9 @@ def train_kernel_rows(tag, B, T, gen):
     km, pm, raw = timed_pair(
         lambda: FA.flash_fwd_cuda(q, k, v, NH, True, 0.125),
         lambda: FA.flash_fwd_plain(q, k, v, NH, True, 0.125))
-    lib = cuda_ms(lambda: sdpa_fwd(q, k, v, NH))
+    lib = cuda_ms(lambda: sdpa(q, k, v, NH, NH))
     flops = fwd_flops(B, T, 0, T)
-    bms, by = attn_fwd_bound(B, T, 0, T, NH, 2)
+    bms, by = fwd_bound(B, NH, NH, D, T, 0, T, 2)[1]
     res["flash_fwd"] = dict(max_abs_err=err, ms=km, plain_ms=pm, bound_ms=bms,
                             bound_by=by, library_ms=lib,
                             tflops=flops / km / 1e9, shape=shape,
@@ -2574,9 +2616,9 @@ def train_kernel_rows(tag, B, T, gen):
     km, pm, raw = timed_pair(
         lambda: FA.flash_bwd_cuda(q, k, v, out, lse, do, NH, True, 0.125),
         lambda: FA.flash_bwd_plain(q, k, v, out, lse, do, NH, True, 0.125))
-    lib = cuda_ms(sdpa_bwd(q, k, v, do, NH))
+    lib = cuda_ms(sdpa_bwd(q, k, v, do, NH, NH))
     flops = bwd_flops(B, T)
-    bms, by = attn_bwd_bound(B, T, NH, 2)
+    bms, by = bwd_bound(B, NH, NH, D, T, 2)[1]
     res["flash_bwd"] = dict(max_abs_err=max(errs), ms=km, plain_ms=pm,
                             bound_ms=bms, bound_by=by, library_ms=lib,
                             tflops=flops / km / 1e9, shape=shape)
@@ -2672,8 +2714,8 @@ def phase_kernels_moe():
     km, pm, raw = timed_pair(
         lambda: FP.flash_prefill_cuda(q, k, v, NH, KH, q_off, 0.125),
         lambda: FP.flash_prefill_plain(q, k, v, NH, KH, q_off, 0.125))
-    lib = cuda_ms(lambda: sdpa_fwd(q, k[:, :front], v[:, :front], KH, mask))
-    bms, by = attn_fwd_bound(B, S, q_off, Tk, KH, 2)
+    lib = cuda_ms(lambda: sdpa(q, k[:, :front], v[:, :front], NH, KH, mask=mask))
+    bms, by = fwd_bound(B, NH, KH, D, S, q_off, Tk, 2)[1]
     flops = fwd_flops(B, S, q_off, Tk)
     res["flash_prefill"] = dict(max_abs_err=worst, ms=km, plain_ms=pm,
                                 bound_ms=bms, bound_by=by, library_ms=lib,
@@ -3936,7 +3978,7 @@ def phase_kernels_families():
     kernels take a few microseconds, and a whole smoke run has seen three
     captures in a row miss K2's), SDPA's non-causal forward and backward
     on the same tensors (by events, and the largest of three device
-    readings), and the bound (`vit_attn_bound`)."""
+    readings), and the bound (`fwd_bound` / `bwd_bound`)."""
     from vitrs_tpu_torch.ops import flash_attention as FA
     gen = torch.Generator(device="cuda").manual_seed(12)
     res = {}
@@ -3990,12 +4032,12 @@ def phase_kernels_families():
         parts = {
             "fwd": (lambda: FA.flash_fwd_cuda(q, k, v, nh, False, 0.125),
                     lambda: FA.flash_fwd_plain(q, k, v, nh, False, 0.125),
-                    lambda: sdpa_full(q, k, v, nh), 2, 1),
+                    lambda: sdpa(q, k, v, nh, nh, causal=False), 2, 1),
             "bwd": (lambda: FA.flash_bwd_cuda(q, k, v, out, lse, do, nh,
                                               False, 0.125),
                     lambda: FA.flash_bwd_plain(q, k, v, out, lse, do, nh,
                                                False, 0.125),
-                    sdpa_bwd_full(q, k, v, do, nh), 5, 3)}
+                    sdpa_bwd(q, k, v, do, nh, nh, causal=False), 5, 3)}
         for part, (kern, plain, lib_fn, passes, n_kern) in parts.items():
             km, pm, raw = timed_pair(kern, plain)
             dev, caps = device_ms(kern, n_kern, captures=FAMILY_CAPTURES)
@@ -4005,7 +4047,10 @@ def phase_kernels_families():
             lib_dev = max((d for d, _ in lib_reads if d), default=None)
             lib_caps = sum(c for _, c in lib_reads)
             lib = cuda_ms(lib_fn)
-            flops, (bms, by) = vit_attn_bound(B, T, nh, 2, passes)
+            flops, (bms, by) = (
+                fwd_bound(B, nh, nh, D, T, 0, T, 2, causal=False)
+                if passes == 2 else
+                bwd_bound(B, nh, nh, D, T, 2, causal=False))
             name = "K1-fwd" if part == "fwd" else "K2"
             check(dev is not None, f"{name} {shape}: none of "
                   f"{FAMILY_CAPTURES} traces caught its kernels")
@@ -5070,26 +5115,13 @@ TP_PP_SHAPES = ((8, 1024, 6, True), (2, 1024, 12, True), (64, 197, 6, False),
                 (4, 1024, 12, True), (4, 1024, 6, True))
 
 
-def attn_bound_nh(B, T, nh, passes, causal):
-    """(operations, (bound_ms, bound_by)) of a bf16 flash forward (passes
-    2) or backward (passes 5) at (B, T, nh, D=64): 2 D flops a product per
-    (query, key) pair, the causal triangle or T x T; the forward reads q,
-    k, v and writes out and lse, the backward reads q, k, v, out, do and
-    lse and writes dq, dk, dv."""
-    pairs = attn_pairs(T, 0, T, causal)
-    flops = 2 * passes * B * nh * D * pairs
-    tensors = 4 if passes == 2 else 8
-    nbytes = tensors * B * T * nh * D * 2 + B * nh * T * 4
-    return flops, bound(flops, "bf16", nbytes)
-
-
 def phase_kernels_tp_pp():
     """K1-fwd and K2 (bf16) at TP_PP_SHAPES against their plain versions
     (K1-fwd to `out_errors`, values beyond it held to the fp64 softmax
     where causal; lse 1e-4; dq/dk/dv 2e-2 abs + rel, kernels-train's),
     then kernel and plain by events (plain, kernel, kernel, plain), the
     kernel's device time by the profiler, SDPA's forward and backward on
-    the same tensors, and the bound (`attn_bound_nh`)."""
+    the same tensors, and the bound (`fwd_bound` / `bwd_bound`)."""
     from vitrs_tpu_torch.ops import flash_attention as FA
     gen = torch.Generator(device="cuda").manual_seed(14)
     res = {}
@@ -5125,11 +5157,11 @@ def phase_kernels_tp_pp():
             errs.append(d.max().item())
         del ref, ref_lse, got, want
         if causal:
-            lib_f = (lambda: F_sdpa(q, k, v, nh, True))
-            lib_b = sdpa_bwd_nh(q, k, v, do, nh, True)
+            lib_f = (lambda: sdpa(q, k, v, nh, nh, True))
+            lib_b = sdpa_bwd(q, k, v, do, nh, nh, True)
         else:
-            lib_f = (lambda: sdpa_full(q, k, v, nh))
-            lib_b = sdpa_bwd_full(q, k, v, do, nh)
+            lib_f = (lambda: sdpa(q, k, v, nh, nh, causal=False))
+            lib_b = sdpa_bwd(q, k, v, do, nh, nh, causal=False)
         parts = {
             "flash_fwd": (lambda: FA.flash_fwd_cuda(q, k, v, nh, causal,
                                                     0.125),
@@ -5145,7 +5177,9 @@ def phase_kernels_tp_pp():
             km, pm, raw = timed_pair(kern, plain)
             dev, caps = device_ms(kern, nk)
             lib = cuda_ms(lib_fn)
-            flops, (bms, by) = attn_bound_nh(B, T, nh, passes, causal)
+            flops, (bms, by) = (
+                fwd_bound(B, nh, nh, D, T, 0, T, 2, causal)
+                if passes == 2 else bwd_bound(B, nh, nh, D, T, 2, causal))
             name = "K1-fwd" if kname == "flash_fwd" else "K2"
             print(f"[kernels-tp-pp] {name} {shape}: max_abs_err {e:.3e}"
                   + (f" (out rms {rms:.3e}, {judged}, lse {lse_err:.3e})"
@@ -5162,21 +5196,6 @@ def phase_kernels_tp_pp():
                 tflops=flops / km / 1e9, shape=shape)
         del qkv, do, q, k, v, out, lse
     return res
-
-
-def F_sdpa(q, k, v, nh, causal):
-    """PyTorch's SDPA at nh heads (a yardstick only)."""
-    import torch.nn.functional as F
-    return F.scaled_dot_product_attention(heads(q, nh), heads(k, nh),
-                                          heads(v, nh), is_causal=causal)
-
-
-def sdpa_bwd_nh(q, k, v, do, nh, causal):
-    """A closure running the backward of `F_sdpa` (a yardstick only)."""
-    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-    out = F_sdpa(*leaves, nh, causal)
-    dout = heads(do, nh)
-    return lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
 
 
 XTP_OVR = dict(XDP_OVR, num_layers=4)     # interleaved v=2 needs L % 4 == 0
@@ -6286,6 +6305,680 @@ def phase_meshes_cp_ep(smi, dev="cuda:0"):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Head dims 32, 128 and 256: the flash libraries built once per head dim
+# (ops/_build.load(name, D)), at GPT-2 124M's width C = 768
+# ---------------------------------------------------------------------------
+
+HD_NEW = (32, 128, 256)
+HD_HEADS = {32: 24, 128: 6, 256: 3}    # heads of D at C = 768
+HD_KV = {32: 8, 128: 2, 256: 1}                # the K3 rows' kv heads
+# GPT-2 124M with 2 kv heads of 128, rope, W=1024 at T=8192: the q/k/v
+# projection at kv width 256 (as 4 kv heads of 64) and 7,168 more wpe rows
+HD_GQA_WINDOW_PARAMS = 120_495_360
+# the chunked generates: prompt and chunk length; K4 runs each chunk after
+# the first.  Per head dim, each generate's (dtype, batch, kv heads, new
+# tokens): serve-d128's bf16 and fp32 ones (the MHA model), train-d32's and
+# train-d256's (the GQA models)
+HD_PROMPT, HD_CHUNK = 768, 256
+HD_K4_PATHS = {128: (("bfloat16", 8, 6, 1), ("float32", 2, 6, 32)),
+               32: (("bfloat16", 2, 8, 8),), 256: (("bfloat16", 2, 1, 8),)}
+
+
+def hd_cache_len(new):
+    """The cache a chunked generate of HD_PROMPT + `new` tokens allocates
+    (models/generate.py: rounded up to PREFILL_BLOCK)."""
+    from vitrs_tpu_torch.ops.flash_prefill import PREFILL_BLOCK
+    return -(-(HD_PROMPT + new) // PREFILL_BLOCK) * PREFILL_BLOCK
+
+
+def hd_plain(fn, groups, q, k, v, nh, kh, *rest, **kw):
+    """A flash plain version (fwd: rest empty; bwd: rest = out, lse, do)
+    over `groups` slices of whole kv heads and their query heads, the
+    results concatenated: the plain versions build (B, heads, Tq, Tk) fp32
+    tensors, which past T = 4096 at 24 heads outgrow the card."""
+    d = q.shape[-1] // nh
+    hq, hk = nh // groups, kh // groups
+    outs = []
+    for g in range(groups):
+        def cut(t, n):
+            return t[..., g * n * d:(g + 1) * n * d]
+        args = [cut(q, hq), cut(k, hk), cut(v, hk)]
+        if rest:
+            out, lse, do = rest
+            args += [cut(out, hq), lse[:, g * hq:(g + 1) * hq], cut(do, hq)]
+        outs.append(fn(*args, hq, kv_heads=hk, **kw))
+    dims = (-1, 1) if not rest else (-1, -1, -1)
+    return tuple(torch.cat(list(parts), dim=dm)
+                 for parts, dm in zip(zip(*outs), dims))
+
+
+def hd_resources(d, rope=False, band=False):
+    """{kernel: registers, spill bytes, shared memory, threads} of the bf16
+    flash kernels built for head dim d (vitrs_flash_fwd_attrs /
+    vitrs_flash_bwd_attrs of the d library, at sm_scale 1/sqrt(d)); fails
+    on a spill in the forward."""
+    import ctypes
+    from vitrs_tpu_torch.ops import _build
+    from vitrs_tpu_torch.ops.flash_attention import scale_in_fp32
+    qhat = int(not scale_in_fp32(1.0 / math.sqrt(d)))
+    res = {}
+    for lib, kernels, flag in (
+            ("flash_fwd", ((1, "fwd"), (0, "fwd_rope_k")), int(band)),
+            ("flash_bwd", ((0, "bwd_prep"), (1, "bwd_dkv"), (2, "bwd_dq")),
+             qhat)):
+        fn = getattr(_build.load(lib, d).lib, f"vitrs_{lib}_attrs")
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        for i, name in kernels:
+            if name == "fwd_rope_k" and not rope:
+                continue
+            out = (ctypes.c_int * 5)()
+            rc = fn(i, int(rope), flag, ctypes.cast(out, ctypes.c_void_p))
+            check(rc == 0, f"{lib} D={d} attrs({name}): CUDA error {rc}")
+            res[name] = dict(registers=out[0], spill_bytes=out[1],
+                             smem_bytes=out[2] + out[3], threads=out[4])
+            if lib == "flash_fwd":
+                check(out[1] == 0, f"flash forward D={d} {name} spills "
+                      f"{out[1]} bytes a thread")
+    return res
+
+
+def hd_check_fwd(where, got, want, rel_lse=False):
+    """A forward (out, lse) against its plain version: out as `out_errors`,
+    lse 1e-4 bf16 / 1e-5 fp32 (relative to max(1, |lse|) with rel_lse),
+    rows that see no key equal (lse -inf, out 0).  In bf16 prints out's
+    share of the bound and what the tensor's rms alone would reject, at
+    T = 8192 (rel_lse) always, else where over 0.9 or any.  Returns
+    max_abs_err."""
+    (out, lse), (ref, ref_lse) = got, want
+    check(torch.isfinite(out).all().item(), f"{where}: out non-finite")
+    bad, err, _ = out_errors(out, ref)
+    check(bad == 0, f"{where}: {bad} out values beyond tolerance "
+          f"(max_abs_err {err:.3e})")
+    if out.dtype == torch.bfloat16:
+        share, flat = out_share(out, ref), out_errors(out, ref, rows=False)[0]
+        if rel_lse or share > 0.9 or flat:
+            head = where.split()[0]
+            print(f"[{head}] {where[len(head) + 1:]}: out at {share:.3f} of "
+                  f"`out_errors`' bound; the tensor's rms alone would "
+                  f"reject {flat}")
+    dead = torch.isinf(ref_lse)
+    check(torch.equal(torch.isinf(lse), dead), f"{where}: rows that see no "
+          f"key differ")
+    live = ~dead
+    d = (lse - ref_lse).abs()[live]
+    if rel_lse:
+        d = d / ref_lse.abs()[live].clamp_min(1.0)
+    lerr = d.max().item() if d.numel() else 0.0
+    tol = 1e-4 if out.dtype == torch.bfloat16 else 1e-5
+    check(lerr <= tol, f"{where}: lse err {lerr} > {tol}")
+    return err
+
+
+def hd_check_bwd(where, got, want, rms_bound=True):
+    """(dq, dk, dv) against the plain version: in bf16 2e-2 abs + rel (p
+    and ds round to bf16 against the kernel's and the plain version's fp32
+    values, which differ in their last bits) and, with rms_bound,
+    `grad_errors`' bound, which follows the tensor's rms (not where a
+    single key makes dq = ds k cancellation noise: T = 1); in fp32 1e-4
+    abs + rel, as every K2 check.  Returns max_abs_err."""
+    bf16 = got[0].dtype == torch.bfloat16
+    tol = 2e-2 if bf16 else 1e-4
+    worst = 0.0
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        check(a.shape == b.shape and a.dtype == b.dtype, f"{where}: {name} "
+              f"{tuple(a.shape)} {a.dtype}")
+        d = (a.float() - b.float()).abs()
+        bad = ((d > tol + tol * b.float().abs()).sum().item()
+               + (~torch.isfinite(a)).sum().item())
+        check(bad == 0, f"{where}: {bad} {name} values beyond {tol}")
+        if bf16 and rms_bound:
+            bad, err, rms = grad_errors(a, b)
+            check(bad == 0, f"{where}: {bad} {name} values beyond "
+                  f"grad_errors' bound (max_abs_err {err:.3e}, rms {rms:.3e})")
+        worst = max(worst, d.max().item())
+    return worst
+
+
+def hd_timed(tag, what, kernel, plain, library, nkernels, flops, bnd,
+             plain_iters=None):
+    """Times a kernel at its shape: events (`timed_pair`), the profiler's
+    device time (`nkernels` kernels a call), the library call; prints and
+    returns the kernels-line numbers."""
+    _, _, (k1, k2, p1, p2) = timed_pair(kernel, plain,
+                                        plain_iters=plain_iters)
+    dev, caps = device_ms(kernel, nkernels)
+    lib = cuda_ms(library) if library is not None else None
+    km = dev if dev is not None else (k1 + k2) / 2
+    bms, by = bnd
+    print(f"[{tag}] {what}: kernel {k1:.4f}/{k2:.4f} ms by events, "
+          f"{dev if dev is None else round(dev, 4)} ms device (capture "
+          f"{caps}); plain {p1:.4f}/{p2:.4f} ms; library "
+          f"{'none' if lib is None else f'{lib:.4f} ms'}; bound {bms:.4f} ms "
+          f"({by}), {bms / km:.1%} of it, {flops / km / 1e9:.1f} TFLOP/s")
+    return dict(ms=km, ms_events=[k1, k2], device_ms=dev, plain_ms=(p1 + p2) / 2,
+                library_ms=lib, bound_ms=bms, bound_by=by,
+                tflops=flops / km / 1e9)
+
+
+def phase_kernels_head_dims():
+    """K1-fwd, K2, K3-fwd / K3-bwd and K4 at head dims 32, 128 and 256
+    (24, 6 and 3 heads at C = 768; K3 at 8, 2 and 1 kv heads) against
+    their plain versions: the edge rows (T = 1, 37, 200; MHA and GQA,
+    causal and full, bf16 and fp32, every call twice and bitwise equal);
+    the square B=8 T=1024 causal and the ViT shape B=64 T=197 non-causal;
+    rope + W=1024 at B=2 T=8192 (D = 32, 128); K4 (edge chunks S = 1, 37,
+    200 in bf16 and fp32; every chunk that the chunked generates of
+    serve-d128 and train-d32 / train-d256 give it, at HD_K4_PATHS; S=512
+    at q_offset 7168; NaN cache tails); at D = 128 the ring's cut hop (queries past the keys'
+    end) and rows that see no key.  Then each kernel's time beside its
+    plain version, SDPA and the bound, and its registers and shared
+    memory.  Tolerances as `hd_check_fwd` / `hd_check_bwd`."""
+    from vitrs_tpu_torch.ops import flash_attention as FA
+    from vitrs_tpu_torch.ops import flash_attention_gqa as FG
+    from vitrs_tpu_torch.ops import flash_prefill as FP
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    bf16, f32 = torch.bfloat16, torch.float32
+    res = {}
+
+    def inputs(B, T, nh, kh, d, dtype, tk=None):
+        q, do = (torch.randn(B, T, nh * d, generator=gen, device="cuda")
+                 .to(dtype) for _ in range(2))
+        k, v = (torch.randn(B, tk or T, kh * d, generator=gen, device="cuda")
+                .to(dtype) for _ in range(2))
+        return q, k, v, do
+
+    def fwd(q, k, v, nh, kh, *a):
+        if kh == nh:
+            return FA.flash_fwd_cuda(q, k, v, nh, *a)
+        return FG.flash_gqa_fwd_cuda(q, k, v, nh, kh, *a)
+
+    def bwd(q, k, v, out, lse, do, nh, kh, *a):
+        if kh == nh:
+            return FA.flash_bwd_cuda(q, k, v, out, lse, do, nh, *a)
+        return FG.flash_gqa_bwd_cuda(q, k, v, out, lse, do, nh, kh, *a)
+
+    for d in HD_NEW:
+        nh, kv, sm = HD_HEADS[d], HD_KV[d], 1.0 / math.sqrt(d)
+        tag = f"kernels-d{d}"
+        r = {}
+        # the edge rows: one tile, a ragged one, several; both widths
+        worst = {"fwd": 0.0, "bwd": 0.0}
+        n = 0
+        for dtype in (bf16, f32):
+            for T in (1, 37, 200):
+                for causal in (True, False):
+                    for kh in (nh, kv):
+                        q, k, v, do = inputs(2, T, nh, kh, d, dtype)
+                        a = (causal, sm)
+                        got, again = fwd(q, k, v, nh, kh, *a), fwd(q, k, v, nh, kh, *a)
+                        want = FG.flash_gqa_fwd_plain(q, k, v, nh, kh, *a)
+                        g = bwd(q, k, v, *got, do, nh, kh, *a)
+                        g2 = bwd(q, k, v, *got, do, nh, kh, *a)
+                        gw = FG.flash_gqa_bwd_plain(q, k, v, *got, do, nh, kh, *a)
+                        torch.cuda.synchronize()
+                        where = (f"{tag} {str(dtype)[6:]} T={T} KH={kh} "
+                                 f"causal={int(causal)}")
+                        check(all(torch.equal(x, y) for x, y in
+                                  zip((*got, *g), (*again, *g2))),
+                              f"{where}: two calls differ")
+                        worst["fwd"] = max(worst["fwd"], hd_check_fwd(
+                            where, got, want))
+                        worst["bwd"] = max(worst["bwd"], hd_check_bwd(
+                            where, g, gw, rms_bound=T > 1))
+                        n += 1
+        print(f"[{tag}] {n} edge cases (T 1/37/200, KH {nh}/{kv}, causal "
+              f"and full, bf16 and fp32) within tolerance: forward "
+              f"max_abs_err {worst['fwd']:.3e}, backward {worst['bwd']:.3e}; "
+              f"each twice, bitwise equal")
+
+        # the square path, MHA and GQA, bf16: checked, then timed
+        for kh, kf, kb in ((nh, "flash_fwd", "flash_bwd"),
+                           (kv, "flash_gqa_fwd", "flash_gqa_bwd")):
+            B, T = 8, 1024
+            q, k, v, do = inputs(B, T, nh, kh, d, bf16)
+            got = fwd(q, k, v, nh, kh, True, sm)
+            want = FG.flash_gqa_fwd_plain(q, k, v, nh, kh, True, sm)
+            g = bwd(q, k, v, *got, do, nh, kh, True, sm)
+            g2 = bwd(q, k, v, *got, do, nh, kh, True, sm)
+            gw = FG.flash_gqa_bwd_plain(q, k, v, *got, do, nh, kh, True, sm)
+            torch.cuda.synchronize()
+            where = f"{tag} bf16 B={B} T={T} NH={nh} KH={kh} causal"
+            ef = hd_check_fwd(where, got, want)
+            check(all(torch.equal(x, y) for x, y in zip(g, g2)),
+                  f"{where}: backward differs between two calls")
+            eb = hd_check_bwd(where, g, gw)
+            flops, bnd = fwd_bound(B, nh, kh, d, T, 0, T, 2)
+            r[kf] = dict(max_abs_err=max(ef, worst["fwd"]), shape=where[len(tag) + 1:],
+                         **hd_timed(tag, f"{kf} {where}", lambda: fwd(
+                             q, k, v, nh, kh, True, sm), lambda: FG.flash_gqa_fwd_plain(
+                             q, k, v, nh, kh, True, sm), lambda: sdpa(
+                             q, k, v, nh, kh), 1, flops, bnd))
+            out, lse = got
+            flops, bnd = bwd_bound(B, nh, kh, d, T, 2)
+            r[kb] = dict(max_abs_err=max(eb, worst["bwd"]), shape=where[len(tag) + 1:],
+                         **hd_timed(tag, f"{kb} {where}", lambda: bwd(
+                             q, k, v, out, lse, do, nh, kh, True, sm),
+                             lambda: FG.flash_gqa_bwd_plain(
+                                 q, k, v, out, lse, do, nh, kh, True, sm),
+                             sdpa_bwd(q, k, v, do, nh, kh), 3, flops, bnd))
+            del q, k, v, do, got, want, g, g2, gw, out, lse
+
+        # the ViT shape, non-causal, MHA
+        B, T = 64, 197
+        q, k, v, do = inputs(B, T, nh, nh, d, bf16)
+        got = FA.flash_fwd_cuda(q, k, v, nh, False, sm)
+        g = FA.flash_bwd_cuda(q, k, v, *got, do, nh, False, sm)
+        want = FA.flash_fwd_plain(q, k, v, nh, False, sm)
+        gw = FA.flash_bwd_plain(q, k, v, *got, do, nh, False, sm)
+        torch.cuda.synchronize()
+        where = f"{tag} bf16 B={B} T={T} NH={nh} non-causal"
+        ef, eb = hd_check_fwd(where, got, want), hd_check_bwd(where, g, gw)
+        out, lse = got
+        flops, bnd = fwd_bound(B, nh, nh, d, T, 0, T, 2, causal=False)
+        r["flash_fwd"]["vit"] = dict(max_abs_err=ef, **hd_timed(
+            tag, f"flash_fwd {where}",
+            lambda: FA.flash_fwd_cuda(q, k, v, nh, False, sm),
+            lambda: FA.flash_fwd_plain(q, k, v, nh, False, sm),
+            lambda: sdpa(q, k, v, nh, nh, causal=False), 1, flops, bnd))
+        flops, bnd = bwd_bound(B, nh, nh, d, T, 2, causal=False)
+        r["flash_bwd"]["vit"] = dict(max_abs_err=eb, **hd_timed(
+            tag, f"flash_bwd {where}",
+            lambda: FA.flash_bwd_cuda(q, k, v, out, lse, do, nh, False, sm),
+            lambda: FA.flash_bwd_plain(q, k, v, out, lse, do, nh, False, sm),
+            sdpa_bwd(q, k, v, do, nh, nh, causal=False), 3, flops, bnd))
+        del q, k, v, do, got, g, want, gw, out, lse
+
+        # rope + the band at T=8192 (the train-window model's shape)
+        if d in FA.ROPE_HEAD_DIMS:
+            B, T, W = 2, 8192, 1024
+            groups = nh // 6
+            mask = band_mask(T, 0, T, W)
+            for kh, kf, kb in ((nh, "flash_fwd", "flash_bwd"),
+                               (kv, "flash_gqa_fwd", "flash_gqa_bwd")):
+                q, k, v, do = inputs(B, T, nh, kh, d, bf16)
+                a = (True, sm, W, True)
+                got = fwd(q, k, v, nh, kh, *a)
+                g = bwd(q, k, v, *got, do, nh, kh, *a)
+                pw = dict(window=W, rope=True)
+                want = hd_plain(FA.flash_fwd_plain, groups, q, k, v, nh, kh,
+                                causal=True, sm_scale=sm, **pw)
+                gw = hd_plain(FA.flash_bwd_plain, groups, q, k, v, nh, kh,
+                              *got, do, causal=True, sm_scale=sm, **pw)
+                torch.cuda.synchronize()
+                where = f"{tag} bf16 B={B} T={T} NH={nh} KH={kh} rope W={W}"
+                ef = hd_check_fwd(where, got, want, rel_lse=True)
+                eb = hd_check_bwd(where, g, gw)
+                del want, gw
+                out, lse = got
+                qr = FA._rotated(q, nh, 0, True)
+                kr = FA._rotated(k, kh, 0, True)
+                flops, bnd = fwd_bound(B, nh, kh, d, T, 0, T, 2,
+                                       window=W, rope=True)
+                r[kf]["rope_window"] = dict(max_abs_err=ef, **hd_timed(
+                    tag, f"{kf} {where}", lambda: fwd(q, k, v, nh, kh, *a),
+                    lambda: hd_plain(FA.flash_fwd_plain, groups, q, k, v, nh,
+                                     kh, causal=True, sm_scale=sm, **pw),
+                    lambda: sdpa(qr, kr, v, nh, kh, mask=mask), 2, flops,
+                    bnd, plain_iters=2))
+                flops, bnd = bwd_bound(B, nh, kh, d, T, 2, window=W,
+                                       rope=True)
+                r[kb]["rope_window"] = dict(max_abs_err=eb, **hd_timed(
+                    tag, f"{kb} {where}",
+                    lambda: bwd(q, k, v, out, lse, do, nh, kh, *a),
+                    lambda: hd_plain(FA.flash_bwd_plain, groups, q, k, v, nh,
+                                     kh, out, lse, do, causal=True,
+                                     sm_scale=sm, **pw),
+                    sdpa_bwd(qr, kr, v, do, nh, kh, mask=mask), 3, flops,
+                    bnd, plain_iters=2))
+                del q, k, v, do, got, g, out, lse, qr, kr
+            del mask
+            torch.cuda.empty_cache()
+
+        # K4's edge rows: chunks off the 64 grid, one row, a cache tail of
+        # NaN past the chunk's frontier; bf16 and fp32
+        n = 0
+        for dtype in (bf16, f32):
+            for S, q_off, Tk in ((1, 517, 768), (37, 100, 256), (200, 133, 512)):
+                q, k, v, _ = inputs(2, S, nh, kv, d, dtype, tk=Tk)
+                k[:, q_off + S:] = float("nan")
+                v[:, q_off + S:] = float("nan")
+                got = FP.flash_prefill_qkv(q, k, v, nh, kv, q_off)
+                want = FP.flash_prefill_plain(q, k, v, nh, kv, q_off, sm)
+                torch.cuda.synchronize()
+                where = (f"{tag} {str(dtype)[6:]} K4 S={S} q_offset={q_off} "
+                         f"cache {Tk} KH={kv}")
+                check(torch.isfinite(got).all().item(), f"{where}: non-finite")
+                bad, _, _ = out_errors(got, want)
+                check(bad == 0, f"{where}: {bad} values beyond tolerance")
+                n += 1
+        print(f"[{tag}] K4: {n} edge chunks (S 1/37/200 off the 64 grid, "
+              f"NaN cache tails, bf16 and fp32) within tolerance")
+
+        # K4 at its main path's geometry (every continuation chunk of the
+        # chunked generates of serve-d128 and train-d32 / train-d256, at
+        # their batch, kv heads and cache length; the bf16 last chunk timed,
+        # the kernels-line row's numbers), then the last 512-token chunk of
+        # an 8K prompt (the row's `long_context`)
+        checked, timed = [], {}
+        cases = [(getattr(torch, dname), B, kh, HD_CHUNK, q_off,
+                  hd_cache_len(new), dname == "bfloat16"
+                  and q_off == HD_PROMPT - HD_CHUNK)
+                 for dname, B, kh, new in HD_K4_PATHS[d]
+                 for q_off in range(HD_CHUNK, HD_PROMPT, HD_CHUNK)]
+        cases.append((bf16, 8, kv, 512, 7168, 7936, True))
+        for dtype, B, kh, S, q_off, Tk, time_it in cases:
+            q, k, v, _ = inputs(B, S, nh, kh, d, dtype, tk=Tk)
+            k[:, q_off + S:] = float("nan")
+            v[:, q_off + S:] = float("nan")
+            got = FP.flash_prefill_qkv(q, k, v, nh, kh, q_off)
+            again = FP.flash_prefill_qkv(q, k, v, nh, kh, q_off)
+            want = FP.flash_prefill_plain(q, k, v, nh, kh, q_off, sm)
+            torch.cuda.synchronize()
+            where = (f"{tag} {str(dtype)[6:]} K4 B={B} S={S} q_offset={q_off}"
+                     f" cache {Tk} KH={kh}")
+            check(torch.isfinite(got).all().item() and torch.equal(got, again),
+                  f"{where}: non-finite, or two calls differ")
+            bad, ep, _ = out_errors(got, want)
+            check(bad == 0, f"{where}: {bad} values beyond tolerance")
+            checked.append(dict(shape=where[len(tag) + 1:], max_abs_err=ep))
+            if time_it:
+                mask = band_mask(S, q_off, q_off + S, q_off + S + 1)
+                kc, vc = k[:, :q_off + S], v[:, :q_off + S]
+                flops, bnd = fwd_bound(B, nh, kh, d, S, q_off, q_off + S, 2)
+                timed[S] = dict(max_abs_err=ep, shape=where[len(tag) + 1:],
+                                **hd_timed(
+                    tag, f"flash_prefill {where}",
+                    lambda: FP.flash_prefill_qkv(q, k, v, nh, kh, q_off),
+                    lambda: FP.flash_prefill_plain(q, k, v, nh, kh, q_off, sm),
+                    lambda: sdpa(q, kc, vc, nh, kh, mask=mask), 1, flops,
+                    bnd))
+                del mask, kc, vc
+            del q, k, v, got, again, want
+        ep = max(c["max_abs_err"] for c in checked[:-1])
+        print(f"[{tag}] K4 on its path: {len(checked) - 1} chunks of the "
+              f"chunked generates within tolerance, each twice, bitwise "
+              f"equal (max_abs_err {ep:.3e})")
+        r["flash_prefill"] = dict(timed[HD_CHUNK], path_chunks=checked[:-1],
+                                  long_context=timed[512])
+
+        # the ring's cut hop (queries past the keys' end) and rows that see
+        # no key
+        if d == 128:
+            rect = []
+            for dtype in (bf16, f32):
+                for tq, q_off, keys, W, kh in ((1023, 1023, 1023, 1024, kv),
+                                               (1023, 1023, 1023, 1024, nh),
+                                               (200, 100, 150, 90, kv)):
+                    q, k, v, do = inputs(2, tq, nh, kh, d, dtype, tk=keys)
+                    a = (True, sm, W, False, q_off)
+                    got = fwd(q, k, v, nh, kh, *a)
+                    g = bwd(q, k, v, *got, do, nh, kh, *a)
+                    want = FG.flash_gqa_fwd_plain(q, k, v, nh, kh, *a)
+                    gw = FG.flash_gqa_bwd_plain(q, k, v, *got, do, nh, kh, *a)
+                    torch.cuda.synchronize()
+                    where = (f"{tag} {str(dtype)[6:]} rectangle {tq} rows at "
+                             f"q_offset {q_off} against {keys} keys W={W} "
+                             f"KH={kh}")
+                    ef = hd_check_fwd(where, got, want)
+                    dead = torch.isinf(got[1]).sum().item()
+                    eb = hd_check_bwd(where, g, gw)
+                    rect.append(dict(where=where[len(tag) + 1:], out_err=ef,
+                                     grad_err=eb, rows_without_keys=dead))
+                    print(f"[{tag}] {where[len(tag) + 1:]}: out max_abs_err "
+                          f"{ef:.3e}, dq/dk/dv {eb:.3e}, {dead} (head, row)s "
+                          f"see no key (as the plain version)")
+            r["flash_gqa_fwd"]["rectangles"] = rect
+
+        rsc = hd_resources(d)
+        if d in FA.ROPE_HEAD_DIMS:
+            rsc.update({f"{k}_rope_band": v for k, v in
+                        hd_resources(d, rope=True, band=True).items()})
+        print(f"[{tag}] resources: " + "; ".join(
+            f"{k} {v['registers']} registers, {v['spill_bytes']} B spilled, "
+            f"{v['smem_bytes']} B shared, {v['threads']} threads"
+            for k, v in rsc.items()))
+        for kname in r:
+            r[kname]["resources"] = rsc
+        res[d] = r
+        torch.cuda.empty_cache()
+    return res
+
+
+def hd_grads_vs_dense(tag, overrides, B, rows=None, T=None):
+    """The first batch's fp32 loss and gradient of GPT-2 124M at a head dim
+    (`overrides`, the loop's seeded initial parameters and loader) through
+    the flash route (the kernels' fp32 instances) against the dense route
+    (use_flash=False): loss rtol 1e-5, every leaf within 1e-4 of its L2
+    norm (summation order alone: about 1e-6; a kernel gone wrong at one
+    head dim moves its leaves by percents).  rows / T cut the batch (the
+    dense route's fp32 (B, heads, T, T) tensors at T=8192 outgrow the
+    card).  Returns {leaf: relative L2 error} and the losses."""
+    from vitrs_tpu_torch import params as P
+    from vitrs_tpu_torch.config import get_config
+    from vitrs_tpu_torch.models import model as M
+    from vitrs_tpu_torch.train import loop
+    over = dict(overrides)
+    kv = over.pop("num_kv_heads", 0)
+    cfg = get_config("gpt2-124m", num_kv_heads=kv, **over)
+    tc = loop.TrainConfig(preset="gpt2-124m", dataset="", batch_size=B,
+                          kv_heads=kv, model_overrides=over or None)
+    loader, _ = loop._loader(tc, cfg, 0, device_normalize=False,
+                             shard=(0, 1))
+    x, y = loader.next_batch()
+    x, y = x[:rows, :T], y[:rows, :T]
+    cfg32 = cfg.replace(dtype="float32")
+    host = P.init_params(cfg32, torch.Generator().manual_seed(tc.seed))
+    xs, ys = (torch.as_tensor(np.ascontiguousarray(a), device="cuda").long()
+              for a in (x, y))
+
+    def run(c):
+        p = {k: t.to("cuda").requires_grad_(True) for k, t in host.items()}
+        reset_counts()
+        loss = M.loss_fn(p, xs, ys, c)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), {k: (t.grad if t.grad is not None
+                                 else torch.zeros_like(t))
+                             for k, t in p.items()}, read_counts()
+    lf, gf, cf = run(cfg32)
+    L = cfg.num_layers
+    fk, bk = (("flash_gqa_fwd", "flash_gqa_bwd") if kv
+              else ("flash_fwd", "flash_bwd"))
+    check(cf[fk] == L and cf[bk] == L, f"{tag} fp32 flash route launches {cf}")
+    ld, gd, cd = run(cfg32.replace(use_flash=False))
+    check(cd[fk] == 0 and cd[bk] == 0, f"{tag} dense route launches {cd}")
+    errs = {k: ((gf[k] - gd[k]).norm() / gd[k].norm().clamp_min(1e-30)).item()
+            for k in gd}
+    worst = max(errs, key=errs.get)
+    check(abs(lf - ld) <= 1e-5 * abs(ld), f"{tag} fp32 loss flash {lf} vs "
+          f"dense {ld}")
+    check(errs[worst] <= 1e-4, f"{tag} fp32 gradient of {worst}: relative "
+          f"L2 error {errs[worst]:.3e} against the dense route; {errs}")
+    print(f"[{tag}] first batch ({xs.shape[0]} x {xs.shape[1]}) fp32 through "
+          f"the kernels vs the dense route: loss {lf:.6f} / {ld:.6f}; worst "
+          f"leaf {worst} {errs[worst]:.3e} (L2, relative, bound 1e-4; median "
+          f"{float(np.median(list(errs.values()))):.3e}); {L} {fk} + {L} {bk} "
+          f"launches, none on the dense route")
+    del gf, gd, host
+    torch.cuda.empty_cache()
+    return dict(loss=[lf, ld], grad_rel_err=errs, worst=worst)
+
+
+def hd_chunked_generate(tag, cfg, pp, path):
+    """A chunked prefill of seeded HD_PROMPT-token prompts in HD_CHUNK
+    chunks through the kernels (the first chunk K1-fwd or K3-fwd, the rest
+    K4), greedy, with prepared params pp, at `path`, an entry of
+    HD_K4_PATHS (the geometry kernels-head-dims holds K4 at):
+    (launches, tokens, ms of the generate call)."""
+    from vitrs_tpu_torch.models import generate as G
+    dname, B, kh, max_new = path
+    T0, chunk = HD_PROMPT, HD_CHUNK
+    check(cfg.dtype == dname and cfg.kv_heads == kh, f"{tag} chunked "
+          f"generate: {cfg.dtype}, {cfg.kv_heads} kv heads off its path "
+          f"{path}")
+    prompt = torch.as_tensor(np.random.default_rng(T0).integers(
+        0, cfg.vocab_size, (B, T0)), device="cuda")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = G.generate(pp, prompt, cfg, max_new, temperature=0.0,
+                     prefill_chunk=chunk)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    L = cfg.num_layers
+    first = "flash_gqa_fwd" if cfg.is_gqa else "flash_fwd"
+    want = designed(**{first: L, "flash_prefill": L * (T0 // chunk - 1)})
+    check(counts == want, f"{tag} chunked generate launches {counts} != "
+          f"{want}")
+    check(out.shape == (B, T0 + max_new), f"{tag} generate shape")
+    return counts, out, ms
+
+
+def phase_train_head_dim(smi, d):
+    """GPT-2 124M at full width and depth with heads of d (C = 768): 12
+    steps at D = 128, 4 at 32 and 256, B=8 T=1024, through
+    train/loop.train (12 K1-fwd, 12 K2 a step, as designed) and the first
+    batch's fp32 gradient against the dense route; then with HD_KV[d] kv
+    heads: at D = 128 the train-window model (rope, W=1024, T=8192, B=2)
+    for 12 steps (K3 with the rotation and the band; its gradient check
+    on the first row's 2048 tokens), at 32 and 256 four steps at T=1024
+    and a chunked generate (K3-fwd, then K4).  No flash plain version runs on
+    the card (`_watch_plain`)."""
+    from vitrs_tpu_torch import params as P
+    from vitrs_tpu_torch.config import get_config
+    from vitrs_tpu_torch.models import model as M
+    _watch_plain()
+    PLAIN_ON_CARD.update(fwd=0, bwd=0)
+    nh, kv = HD_HEADS[d], HD_KV[d]
+    steps = 12 if d == 128 else 4
+    tag = f"train-d{d}"
+    counts, res = phase_train(smi, steps=steps, overrides={"num_heads": nh},
+                              tag=f"[{tag}]", n_params=124_439_808)
+    res["grads"] = hd_grads_vs_dense(tag, {"num_heads": nh}, 8)
+    if d == 128:
+        gcounts, gres = phase_train(
+            smi, kv_heads=kv, overrides=dict(WINDOW, num_heads=nh), B=2,
+            tag=f"[{tag}-gqa]", n_params=HD_GQA_WINDOW_PARAMS)
+        gres["grads"] = hd_grads_vs_dense(
+            f"{tag}-gqa", dict(WINDOW, num_heads=nh, num_kv_heads=kv), 2,
+            rows=1, T=2048)
+    else:
+        gcounts, gres = phase_train(smi, steps=4, kv_heads=kv,
+                                    overrides={"num_heads": nh}, B=8,
+                                    tag=f"[{tag}-gqa]",
+                                    n_params=114_990_336)  # kv width 256
+        cfg = get_config("gpt2-124m", num_heads=nh, num_kv_heads=kv,
+                         dtype="bfloat16")
+        pp = M.prepare_params({k: t.to("cuda") for k, t in P.init_params(
+            cfg, torch.Generator().manual_seed(5)).items()}, cfg)
+        pcounts, _, _ = hd_chunked_generate(tag, cfg, pp, HD_K4_PATHS[d][0])
+        del pp
+        gres["generate_launches"] = pcounts
+        print(f"[{tag}-gqa] chunked generate (B=2, 768-token prompt in "
+              f"256-token chunks): flash_gqa_fwd "
+              f"{pcounts['flash_gqa_fwd']}, flash_prefill "
+              f"{pcounts['flash_prefill']} launches")
+    check(PLAIN_ON_CARD == {"fwd": 0, "bwd": 0}, f"[{tag}] a flash plain "
+          f"version ran on the card {PLAIN_ON_CARD}")
+    print(f"[{tag}] flash plain versions called on the card: 0")
+    return counts, res, gcounts, gres
+
+
+def phase_serve_d128(smi):
+    """The 6 x 128 model (GPT-2 124M's width, seeded random weights)
+    served: bf16 through GenerationEngine (8 requests, whole-prompt
+    prefill through K1-fwd, launches == 12 x prefill dispatches), prefill
+    ms and decode ms a token; a chunked generate (768-token prompts in
+    256-token chunks: K1-fwd, then K4; a 512-token chunk leaves no second
+    chunk within GPT-2's 1024 positions); then fp32 greedy tokens, whole
+    and chunked, equal to the dense route's (use_flash=False)."""
+    from vitrs_tpu_torch import params as P
+    from vitrs_tpu_torch.config import get_config
+    from vitrs_tpu_torch.models import generate as G
+    from vitrs_tpu_torch.models import model as M
+    from vitrs_tpu_torch.serving_gen import GenerationEngine
+    _watch_plain()
+    PLAIN_ON_CARD.update(fwd=0, bwd=0)
+    cfg = get_config("gpt2-124m", num_heads=6, dtype="bfloat16")
+    L = cfg.num_layers
+    check(P.num_parameters(cfg) == 124_439_808, "gpt2-124m 6 x 128 params")
+    host = P.init_params(cfg, torch.Generator().manual_seed(0))
+    params = {k: v.to("cuda") for k, v in host.items()}
+    rng = np.random.default_rng(0)
+    lengths = (5, 37, 128, 300, 511, 700, 900, 960)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lengths]
+    res = {}
+    for rnd in range(2):                      # warm-up, then timed
+        eng = GenerationEngine(params, cfg, max_slots=8, max_len=1024,
+                               prompt_buckets=(128, 512, 1024),
+                               decode_chunk=16)
+        for p in prompts:
+            eng.submit(p, max_new=32)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._admit()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        outs = dict(eng.run())
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    counts = read_counts()
+    check(counts == designed(flash_fwd=L * eng.prefill_dispatches),
+          f"[serve-d128] engine launches {counts}")
+    for i, n in enumerate(lengths):
+        check(len(outs[i]) == n + 32, f"[serve-d128] request {i} length")
+    res.update(prefill_ms=(t1 - t0) * 1e3, decode_ms_per_token=(t2 - t1)
+               * 1e3 / 32, engine_launches=counts["flash_fwd"],
+               prefill_dispatches=eng.prefill_dispatches)
+    print(f"[serve-d128] 6 x 128 gpt2-124m bf16 engine, 8 requests x 32 new: "
+          f"{eng.prefill_dispatches} prefill dispatches, {counts['flash_fwd']}"
+          f" K1-fwd launches; prefill {res['prefill_ms']:.2f} ms, decode "
+          f"{res['decode_ms_per_token']:.3f} ms a step of 8 tokens  ({smi})")
+    pp = M.prepare_params(params, cfg)
+    for _ in range(2):                        # warm-up, then timed
+        pcounts, _, ms = hd_chunked_generate("[serve-d128]", cfg, pp,
+                                             HD_K4_PATHS[128][0])
+    res.update(chunked_prefill_ms=ms, chunked_launches=pcounts)
+    print(f"[serve-d128] chunked prefill B=8, 768 tokens in 256-token "
+          f"chunks, 1 new token: flash_fwd {pcounts['flash_fwd']}, "
+          f"flash_prefill {pcounts['flash_prefill']} launches; {ms:.2f} ms")
+    del params, eng, pp
+    # fp32 greedy: the kernels (fp32 instances) against the dense route
+    cfg32 = cfg.replace(dtype="float32")
+    pp = M.prepare_params({k: v.to("cuda") for k, v in host.items()}, cfg32)
+    _, B, _, new = HD_K4_PATHS[128][1]       # float32, MHA
+    prompt = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (B, HD_PROMPT)), device="cuda")
+    toks = {}
+    for route, c in (("flash", cfg32), ("dense", cfg32.replace(use_flash=False))):
+        for chunk in (0, HD_CHUNK):
+            reset_counts()
+            toks[route, chunk] = G.generate(pp, prompt, c, new, temperature=0.0,
+                                            prefill_chunk=chunk).cpu()
+            n = read_counts()
+            want = (designed(flash_fwd=L, flash_prefill=(
+                HD_PROMPT // HD_CHUNK - 1) * L if chunk else 0)
+                    if route == "flash" else designed())
+            check(n == want, f"[serve-d128] fp32 {route} chunk {chunk} "
+                  f"launches {n} != {want}")
+    for chunk in (0, HD_CHUNK):
+        a, b = toks["flash", chunk], toks["dense", chunk]
+        diff = (a != b).nonzero()
+        check(diff.numel() == 0, f"[serve-d128] fp32 greedy chunk {chunk}: "
+              f"first token that differs from the dense route at (row, "
+              f"position) {diff[0].tolist() if diff.numel() else None}")
+    check(PLAIN_ON_CARD == {"fwd": 0, "bwd": 0}, f"[serve-d128] a flash "
+          f"plain version ran on the card {PLAIN_ON_CARD}")
+    print(f"[serve-d128] fp32 greedy, B=2, 768-token prompt + 32 new: whole "
+          f"(K1-fwd) and chunked (K1-fwd + K4) tokens equal to the dense "
+          f"route's; flash plain versions on the card: 0")
+    res["fp32_greedy_equal"] = True
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch sees no CUDA device")
@@ -6353,6 +7046,11 @@ def main():
         ("meshes-tp-pp", lambda: phase_meshes_tp_pp(smi)),
         ("kernels-cp", phase_kernels_cp),
         ("meshes-cp-ep", lambda: phase_meshes_cp_ep(smi)),
+        ("kernels-head-dims", phase_kernels_head_dims),
+        ("train-d128", lambda: phase_train_head_dim(smi, 128)),
+        ("serve-d128", lambda: phase_serve_d128(smi)),
+        ("train-d32", lambda: phase_train_head_dim(smi, 32)),
+        ("train-d256", lambda: phase_train_head_dim(smi, 256)),
     )
     # the serving artifacts of serve-export, read again by serve-batching
     export_dir = tempfile.mkdtemp(prefix="vitrs_smoke_export_")
@@ -6613,6 +7311,36 @@ def main():
                                        cpep.items() if key in row}
     kernels[0]["cp_rectangles"] = kcp["rect"]
     kernels[0]["cp_merge"] = kcp["merge"]
+    # this slice: the flash kernels at head dims 32, 128 and 256, each row's
+    # launches from its head dim's training run (K1-fwd / K2 MHA, K3 with
+    # kv heads) or chunked prefill (K4: serve-d128's bf16 one, else the GQA
+    # model's of phase train-d32 / train-d256), and its time and error at
+    # that run's shapes (K4: its last chunk)
+    hd, serve128 = R["kernels-head-dims"], R["serve-d128"]
+    fp = "vitrs_tpu/ops/flash_prefill.py:"
+    for d in HD_NEW:
+        counts, tres, gcounts, gres = R[f"train-d{d}"]
+        prefill = (serve128["chunked_launches"] if d == 128
+                   else gres["generate_launches"])["flash_prefill"]
+        rows = (
+            ("flash_fwd", fa + "567", [fa + "374"], counts, dict(
+                train=tres, **({"serve": serve128, "serve_launches":
+                               serve128["engine_launches"]} if d == 128
+                               else {}))),
+            ("flash_bwd", fa + "844", [fa + "986", fa + "901", fa + "418"],
+             counts, {"kernels_per_launch": 3}),
+            ("flash_gqa_fwd", fg + "358", [fg + "262"], gcounts,
+             dict(train=gres)),
+            ("flash_gqa_bwd", fg + "499", [fg + "538", fg + "470", fg + "309"],
+             gcounts, {"kernels_per_launch": 3}),
+            ("flash_prefill", fp + "123", [], {"flash_prefill": prefill}, {}))
+        for kname, rep_, also, cnt, extra in rows:
+            src = "flash_bwd.cu" if kname.endswith("bwd") else "flash_fwd.cu"
+            check(cnt[kname] > 0, f"{kname} at D={d}: no launch on its path")
+            kernels.append(dict(
+                name=f"{kname}_d{d}", route="cuda", source=CSRC + src,
+                replaces=rep_, also_replaces=also, head_dim=d,
+                launches=cnt[kname], **extra, **hd[d][kname]))
     print("[smoke] context and expert parallelism: " + json.dumps(cpep))
     print("[smoke] tensor, sequence, vocab, pipeline and 3-D parallelism: "
           + json.dumps(tppp))

@@ -1,6 +1,7 @@
 """PyTorch port: the binary checkpoint loads in both directions."""
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -117,3 +118,35 @@ def test_geometry_mismatch_raises(tmp_path):
         TC.load_checkpoint(path, tcfg.replace(channels=64))
     _, cfg, _ = TC.load_checkpoint(path, tcfg.replace(dtype="bfloat16"))
     assert cfg.dtype == "bfloat16"
+
+
+def test_native_reader_reads_the_same_bytes(tmp_path, monkeypatch):
+    """A range at or past NATIVE_MIN_BYTES goes through native/ckptio.cpp's
+    multi-threaded `vitrs_read_range` (the threshold lowered to 0 here, so
+    that a small file takes it): the same bytes as a plain read, and the
+    same checkpoint both ways."""
+    tcfg = small_cfgs()[1]
+    path = str(tmp_path / "native.bin")
+    TC.save_checkpoint(path, np_params(tcfg), tcfg, m=np.ones(TP.num_parameters(
+        tcfg), np.float32), v=np.full(TP.num_parameters(tcfg), 2.0,
+                                      np.float32), step=3, cursor=11)
+    plain, _, plain_extras = TC.load_checkpoint(path)
+    size = os.path.getsize(path)
+    with open(path, "rb") as f:
+        want = np.frombuffer(f.read(), np.uint8)
+    assert TC._native_lib() is not None, "native/ckptio.cpp did not build"
+    calls = []
+    real = TC._native_lib
+    monkeypatch.setattr(TC, "_native_lib", lambda: calls.append(1) or real())
+    monkeypatch.setattr(TC, "NATIVE_MIN_BYTES", 0)
+    np.testing.assert_array_equal(TC._read_range(path, 0, size), want)
+    np.testing.assert_array_equal(TC._read_range(path, 1000, 4099),
+                                  want[1000:5099])
+    native, _, extras = TC.load_checkpoint(path)
+    assert len(calls) == 2 + 3          # two ranges, then params, m/v, cursor
+    assert set(native) == set(plain)
+    for k in plain:
+        assert native[k].tobytes() == plain[k].tobytes(), k
+    for k in ("m", "v"):
+        assert extras[k].tobytes() == plain_extras[k].tobytes()
+    assert (extras["step"], extras["cursor"]) == (3, 11)

@@ -96,15 +96,17 @@ def test_cuda_wrapper_refuses_cpu_tensors():
 
 @pytest.mark.parametrize("nh,d,flash", [(12, 64, True), (2, 64, True),
                                         (2, 8, False), (25, 64, True),
-                                        (4, 32, False), (3, 64, True),
-                                        (1, 64, True), (2, 128, False)])
+                                        (4, 32, True), (3, 64, True),
+                                        (1, 64, True), (2, 128, True),
+                                        (3, 256, True), (2, 384, False)])
 def test_routing_follows_jax_supports(nh, d, flash):
-    """The port routes by its kernels' rule (D = 64, any head count).  At
-    D = 64 that is the JAX package's rule too, which runs odd head counts
-    on flash with phantom heads (`padded_num_heads`); other head dims go to
-    dense attention here, to flash there where its kernel tiles them."""
+    """The port routes by its kernels' rule (D = 32, 64, 128 or 256, any
+    head count).  At those head dims that is the JAX package's rule too,
+    which runs head counts its blocks cannot tile on flash with phantom
+    heads (`padded_num_heads`); D <= 16 and D >= 384 go to dense attention
+    here, to flash there (ROADMAP.md Queue 2)."""
     assert TA.supports(nh, d) == flash
-    if d == 64:
+    if d in (32, 64, 128, 256):
         assert (JFA.padded_num_heads(nh, d) is not None) == flash
 
 

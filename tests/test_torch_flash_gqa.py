@@ -142,11 +142,11 @@ def test_attention_gqa_routes_like_jax(monkeypatch):
 
 def test_supports_gqa_and_split_pinned_to_jax():
     """The port carries no `supports_gqa` (a rule about 128-lane kv
-    blocks): at head_dim 64 its K3 takes a GQA geometry exactly when the
-    JAX package sends it to a flash kernel, natively (JAX `supports_gqa`)
-    or through its expanded-weight MHA route with phantom heads
-    (`padded_num_heads`); other head dims go to dense attention (the port
-    has no kernel for them)."""
+    blocks): at head dims 32, 64, 128 and 256 its K3 takes a GQA geometry
+    whenever the JAX package sends it to a flash kernel, natively (JAX
+    `supports_gqa`) or through its expanded-weight MHA route with phantom
+    heads (`padded_num_heads`); other head dims go to dense attention (the
+    port has no kernel for them)."""
     from vitrs_tpu.ops import flash_attention as JFA
     extra = set()
     for H in (1, 2, 3, 4, 5, 6, 8, 12, 16, 25):
@@ -155,10 +155,10 @@ def test_supports_gqa_and_split_pinned_to_jax():
                 continue
             for hd in (8, 32, 48, 64, 128, 256):
                 k3 = TA.supports(H, hd, KVH)
-                assert k3 == (hd == 64), (H, KVH, hd)
-                if hd == 64:
+                assert k3 == (hd in (32, 64, 128, 256)), (H, KVH, hd)
+                if k3:
                     assert JFA.padded_num_heads(H, hd) is not None
-                if JFG.supports_gqa(H, KVH, hd) and hd == 64:
+                if JFG.supports_gqa(H, KVH, hd) and hd >= 32:
                     assert k3, (H, KVH, hd)
                 elif k3:
                     extra.add((H, KVH, hd))

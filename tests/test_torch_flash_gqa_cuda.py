@@ -1,7 +1,8 @@
 """PyTorch port, on the card: K3 (the GQA forward and backward of
 csrc/flash_fwd.cu and csrc/flash_bwd.cu) and K4 (the continuation-prefill
-forward of csrc/flash_fwd.cu) against their plain PyTorch versions, and the
-GQA paths counting their own launches.
+forward of csrc/flash_fwd.cu) against their plain PyTorch versions, at
+head dim 64 and, at GPT-2 124M's C = 768, at 32 (24 heads), 128 (6) and
+256 (3), and the GQA paths counting their own launches.
 
 These need an NVIDIA GPU with sm_90a and nvcc: each test skips without a
 CUDA device (decided inside the `cuda` fixture, never at import).  Run them
@@ -43,27 +44,33 @@ def cuda():
     return torch.device("cuda")
 
 
-def _gqa(cuda, dtype, B, T, KH, seed):
+def _gqa(cuda, dtype, B, T, KH, seed, d=D):
     g = torch.Generator(device=cuda).manual_seed(seed)
-    qkv = torch.randn(B, T, C + 2 * KH * D, generator=g, device=cuda)
+    qkv = torch.randn(B, T, C + 2 * KH * d, generator=g, device=cuda)
     do = torch.randn(B, T, C, generator=g, device=cuda)
     return qkv.to(dtype), do.to(dtype)
 
 
+# (head dim, kv heads) at C = 768: 64's as before, then GQA and MQA at the
+# other head dims
+GEOMS = [(64, 4), (64, 1), (64, 3), (32, 8), (32, 1), (128, 2), (128, 1),
+         (256, 1)]
+
+
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("T", [1, 37, 200, 1024])
-@pytest.mark.parametrize("KH", [4, 1, 3])
+@pytest.mark.parametrize("d,KH", GEOMS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_gqa_fwd_and_bwd_match_plain(cuda, dtype, KH, T, causal):
-    qkv, do = _gqa(cuda, dtype, 2, T, KH, T + KH)
-    q, k, v = FG.split_gqa(qkv, NH, KH)
+def test_gqa_fwd_and_bwd_match_plain(cuda, dtype, d, KH, T, causal):
+    nh, sm = C // d, 1.0 / math.sqrt(d)
+    qkv, do = _gqa(cuda, dtype, 2, T, KH, T + KH, d)
+    q, k, v = FG.split_gqa(qkv, nh, KH)
     b_fwd, b_bwd = FG.flash_gqa_fwd_cuda.launches, FG.flash_gqa_bwd_cuda.launches
     k1, k2 = FA.flash_fwd_cuda.launches, FA.flash_bwd_cuda.launches
-    out, lse = FG.flash_gqa_fwd_cuda(q, k, v, NH, KH, causal, SCALE)
-    ref, ref_lse = FG.flash_gqa_fwd_plain(q, k, v, NH, KH, causal, SCALE)
-    got = FG.flash_gqa_bwd_cuda(q, k, v, out, lse, do, NH, KH, causal, SCALE)
-    want = FG.flash_gqa_bwd_plain(q, k, v, out, lse, do, NH, KH, causal,
-                                  SCALE)
+    out, lse = FG.flash_gqa_fwd_cuda(q, k, v, nh, KH, causal, sm)
+    ref, ref_lse = FG.flash_gqa_fwd_plain(q, k, v, nh, KH, causal, sm)
+    got = FG.flash_gqa_bwd_cuda(q, k, v, out, lse, do, nh, KH, causal, sm)
+    want = FG.flash_gqa_bwd_plain(q, k, v, out, lse, do, nh, KH, causal, sm)
     torch.cuda.synchronize()
     assert (FG.flash_gqa_fwd_cuda.launches, FG.flash_gqa_bwd_cuda.launches) \
         == (b_fwd + 1, b_bwd + 1)
@@ -75,7 +82,7 @@ def test_gqa_fwd_and_bwd_match_plain(cuda, dtype, KH, T, causal):
         assert a.dtype == dtype and a.shape == b.shape
         torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol,
                                    msg=name)
-    assert got[1].shape == (2, T, KH * D)
+    assert got[1].shape == (2, T, KH * d)
 
 
 @pytest.mark.parametrize("sm_scale", [SCALE, 0.1])
@@ -134,20 +141,22 @@ def test_gqa_autograd_runs_k3_both_ways(cuda):
                                         (64, 7000, 7168), (512, 7168, 7936),
                                         (100, 1001, 1280), (1, 517, 768),
                                         (129, 7103, 7424)])
-@pytest.mark.parametrize("KH", [4, 12])
+@pytest.mark.parametrize("d,KH", [(64, 4), (64, 12), (32, 8), (128, 2),
+                                  (128, 6), (256, 1)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_prefill_matches_plain_and_never_reads_the_tail(cuda, dtype, KH, S,
-                                                        q_off, Tk):
+def test_prefill_matches_plain_and_never_reads_the_tail(cuda, dtype, d, KH,
+                                                        S, q_off, Tk):
+    nh = C // d
     g = torch.Generator(device=cuda).manual_seed(S + q_off + KH)
     q = torch.randn(2, S, C, generator=g, device=cuda).to(dtype)
-    k, v = (torch.randn(2, Tk, KH * D, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(2, Tk, KH * d, generator=g, device=cuda).to(dtype)
             for _ in range(2))
     k[:, q_off + S:] = float("nan")
     v[:, q_off + S:] = float("nan")
     before = FP.flash_prefill_cuda.launches
-    got = FP.flash_prefill_qkv(q, k, v, NH, KH, q_off)
-    again = FP.flash_prefill_qkv(q, k, v, NH, KH, q_off)
-    want = FP.flash_prefill_plain(q, k, v, NH, KH, q_off, SCALE)
+    got = FP.flash_prefill_qkv(q, k, v, nh, KH, q_off)
+    again = FP.flash_prefill_qkv(q, k, v, nh, KH, q_off)
+    want = FP.flash_prefill_plain(q, k, v, nh, KH, q_off, 1.0 / math.sqrt(d))
     torch.cuda.synchronize()
     assert FP.flash_prefill_cuda.launches == before + 2
     assert torch.isfinite(got).all() and torch.equal(got, again)

@@ -79,8 +79,9 @@ def test_contract_raises_value_error():
         TP.flash_prefill_qkv(q, k[:, :500], v[:, :500], 4, 2, 0)
     with pytest.raises(ValueError, match="does not fit"):
         TP.flash_prefill_qkv(q, k, v, 4, 2, 480)
-    with pytest.raises(ValueError, match="geometry"):      # head_dim 32
-        TP.flash_prefill_qkv(q[..., :2 * D], k[..., :D], v[..., :D], 4, 2, 0)
+    with pytest.raises(ValueError, match="geometry"):      # head_dim 16
+        TP.flash_prefill_qkv(q[..., :D], k[..., :D // 2], v[..., :D // 2],
+                             4, 2, 0)
     with pytest.raises(ValueError, match="geometry"):      # k/v width
         TP.flash_prefill_qkv(q, k, v, 4, 1, 0)
     with pytest.raises(ValueError, match="window"):
@@ -90,11 +91,12 @@ def test_contract_raises_value_error():
 
 
 def test_supports_prefill_pinned_to_jax():
-    """At head_dim 64, K4 takes every geometry the JAX kernel takes, and
-    also those the JAX kernel's 128-lane kv blocks refuse (MQA) where the
-    port's other flash kernels run: the geometries of a fresh-prompt
-    prefill.  Other head dims, which the JAX kernel may tile, go to dense
-    cache attention here (the port has no kernel for them)."""
+    """At head dims 32, 64, 128 and 256, K4 takes every geometry the JAX
+    kernel takes, and also those the JAX kernel's 128-lane kv blocks refuse
+    (MQA at 64, D = 256) where the port's other flash kernels run: the
+    geometries of a fresh-prompt prefill.  Other head dims, which the JAX
+    kernel may tile (D = 8, 16), go to dense cache attention here (the
+    port has no kernel for them)."""
     extra = set()
     for nh in (1, 2, 3, 4, 6, 8, 12, 16, 20, 25):
         for kh in range(1, nh + 1):
@@ -102,9 +104,9 @@ def test_supports_prefill_pinned_to_jax():
                 continue
             for hd in (8, 16, 32, 48, 64, 128, 256):
                 port = TP.supports_prefill(nh, kh, hd)
-                assert port == TA.supports(nh, hd, kh) == (hd == 64), \
-                    (nh, kh, hd)
-                if JP.supports_prefill(nh, kh, hd) and hd == 64:
+                assert port == TA.supports(nh, hd, kh) == (
+                    hd in (32, 64, 128, 256)), (nh, kh, hd)
+                if JP.supports_prefill(nh, kh, hd) and hd >= 32:
                     assert port, (nh, kh, hd)
                 elif port:
                     extra.add((nh, kh, hd))

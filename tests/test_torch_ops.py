@@ -17,7 +17,8 @@ from vitrs_tpu_torch.ops import (flash_attention as FA,
                                  fused_ce as CE, fused_head_ce as HC)
 
 CHECKS = ("test_schema", "test_faketensor")
-D = FA.HEAD_DIM
+D = 64             # GPT-2's head dim, one of FA.HEAD_DIMS
+assert D in FA.HEAD_DIMS
 
 
 def _t(rng, *shape, dtype=torch.float32):

@@ -9,6 +9,9 @@ sqrt(e / 7680) = 0.019.
     rounded to bf16 on both sides;
   * faults that move the output by a few percent of its rms fail: a
     dropped 64-key tile, and a causal frontier moved by 4 keys;
+  * rows that see few keys (a causal tensor's first rows) are held to
+    their own size: their rounding passes, which the tensor's rms alone
+    would reject, and a frontier moved in them fails;
   * fp32: other summation orders pass at 1e-5, an error of 1e-4 fails.
 
 The sliding window's edge is a finer fault: a band that ends one key early
@@ -66,6 +69,43 @@ def test_bf16_bound_passes_rounding_and_fails_faults(fault, caught):
     assert (bad > 0) == caught, (fault, bad, err, rms)
     if caught:
         assert bad > 100
+
+
+def _few_keys_case(seed, fault, few=68, many=1024, D=64):
+    """64 rows that see `few` keys (a causal or banded tensor's first rows)
+    above 960 rows that see `many`: p rounded against another max, and
+    with `fault` the few-key rows' last 4 keys dropped."""
+    rng = np.random.default_rng(seed)
+    v = torch.from_numpy(rng.standard_normal((many, D), dtype=np.float32))
+    v = v.bfloat16().float()
+    gots, wants = [], []
+    for rows, n in ((64, few), (960, many)):
+        p = torch.softmax(torch.from_numpy(
+            rng.standard_normal((rows, n), dtype=np.float32)), dim=-1)
+        pw = p.bfloat16().float()
+        wants.append((pw @ v[:n]) / pw.sum(-1, keepdim=True))
+        eps = torch.from_numpy(rng.uniform(-2.0 ** -9, 2.0 ** -9, p.shape)
+                               .astype(np.float32))
+        pk = (p * (1 + eps)).bfloat16().float()
+        if fault and n == few:
+            pk[:, -4:] = 0.0
+        gots.append((pk @ v[:n]) / pk.sum(-1, keepdim=True))
+    return (torch.cat(gots)[None].bfloat16(),
+            torch.cat(wants)[None].bfloat16())
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bf16_bound_follows_the_size_of_rows_with_few_keys(seed):
+    """Rows with few keys have outputs several times the tensor's rms, and
+    p's rounding moves them in proportion: the row-rms term passes it
+    where the tensor's rms alone rejects a few values (as one draw on the
+    card did, a row with 68 keys at T=8192), and a frontier 4 keys short
+    in those rows still fails most of their values."""
+    got, want = _few_keys_case(seed, fault=False)
+    assert out_errors(got, want)[0] == 0
+    assert out_errors(got, want, rows=False)[0] > 0
+    got, want = _few_keys_case(seed, fault=True)
+    assert out_errors(got, want)[0] > 64 * 64 // 2
 
 
 def test_fp32_bound():

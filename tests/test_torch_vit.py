@@ -3,8 +3,8 @@ numpy parameters, images and labels.
 
   * patchify / unpatchify, `vit_encode` (CLS pool, mean pool, keep_ids),
     `vit_forward` logits and `vit_loss` with every gradient against
-    jax.value_and_grad, at head_dim 64 (the port's kernel route: the
-    kernels' plain versions on the CPU) and head_dim 32 (the dense route);
+    jax.value_and_grad, at head_dim 64 and 32 (the port's kernel route: the
+    kernels' plain versions on the CPU) and head_dim 16 (the dense route);
   * stochastic depth and head dropout given the same keep flags; the mixup
     loss given the same lambda and permutation; uint8 normalisation;
   * one `make_dp_train_step` step in vit mode against the JAX step on a
@@ -67,8 +67,8 @@ B = 4
 # a small vit: 16x16 images, 4x4 patches -> 16 patches + CLS = T 17
 SMALL_VIT = dict(num_layers=2, channels=128, num_heads=2, img_size=16,
                  patch_size=4, num_classes=10, vocab_size=10, max_seq_len=17)
-# head_dim 64 takes the port's kernel route, 32 its dense route
-HEADS = {"d64": 2, "d32": 4}
+# head_dims 64 and 32 take the port's kernel route, 16 its dense route
+HEADS = {"d64": 2, "d32": 4, "d16": 8}
 
 
 def vit_cfgs(**overrides):
@@ -143,7 +143,7 @@ def test_vit_encode_matches_jax(case):
 
 
 @pytest.mark.parametrize("pool", ["cls", "mean"])
-@pytest.mark.parametrize("route", ["d64", "d32"])
+@pytest.mark.parametrize("route", ["d64", "d32", "d16"])
 def test_vit_logits_match_jax(route, pool):
     jcfg, tcfg = vit_cfgs(num_heads=HEADS[route], pool=pool)
     arrs, jp = _params(tcfg, 2)
@@ -157,24 +157,24 @@ def test_vit_logits_match_jax(route, pool):
 
 
 def test_routes_are_the_ones_named(monkeypatch):
-    """d64 runs the flash route (the kernels' plain versions), d32 the dense
-    route."""
+    """d64 and d32 run the flash route (the kernels' plain versions), d16
+    the dense route."""
     calls = []
     plain = TFA.flash_fwd_plain
     monkeypatch.setattr(TFA, "flash_fwd_plain",
                         lambda *a, **k: calls.append(1) or plain(*a, **k))
-    for route in ("d64", "d32"):
+    for route in ("d64", "d32", "d16"):
         _, tcfg = vit_cfgs(num_heads=HEADS[route])
         arrs, _ = _params(tcfg)
         x, _ = _images(tcfg)
         calls.clear()
         TM.vit_forward(TP.from_numpy(arrs, tcfg, "cpu"), torch.from_numpy(x),
                        tcfg)
-        assert len(calls) == (tcfg.num_layers if route == "d64" else 0)
+        assert len(calls) == (0 if route == "d16" else tcfg.num_layers)
 
 
 @pytest.mark.parametrize("smoothing", [0.0, 0.1])
-@pytest.mark.parametrize("route", ["d64", "d32"])
+@pytest.mark.parametrize("route", ["d64", "d32", "d16"])
 def test_vit_loss_and_all_grads_match_jax(route, smoothing):
     jcfg, tcfg = vit_cfgs(num_heads=HEADS[route], label_smoothing=smoothing)
     arrs, jp = _params(tcfg, 3)

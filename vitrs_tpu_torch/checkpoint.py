@@ -6,12 +6,15 @@ parameter tensor as contiguous f32 in canonical order, then, when the header
 says so, the AdamW m and v vectors and an i64 dataloader cursor.  A file
 written by either package loads in the other.
 
-Reads are plain file reads; the JAX package's multi-threaded native reader
-(native/ckptio.cpp) is not ported yet.
+Ranges of NATIVE_MIN_BYTES (32 MB) or more are read by the multi-threaded
+native reader (native/ckptio.cpp `vitrs_read_range`, pread over up to 8
+threads), as the JAX package reads them; smaller ranges, or a reader that
+does not build or has another ABI, take a plain file read.
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
 from typing import Dict, Mapping, Optional, Tuple
 
@@ -24,6 +27,9 @@ from .params import num_parameters, param_shapes, tensor_order
 MAGIC = 20240326
 HEADER_I32 = 256
 HEADER_BYTES = 1024
+# ranges at least this long go through the native reader; below it a plain
+# read wins on latency (the JAX package's threshold)
+NATIVE_MIN_BYTES = 32 << 20
 
 
 def _header(cfg: ViTConfig, version: int, step: int, has_opt: bool,
@@ -102,7 +108,37 @@ def save_checkpoint(path: str, params: Mapping, cfg: ViTConfig,
     os.replace(tmp, path)
 
 
+def _native_lib():
+    """native/ckptio.cpp (built by g++ at first use), or None where it does
+    not build or its ABI is not the one called here."""
+    from .native import build
+    lib = build.load("ckptio")
+    if lib is None:
+        return None
+    try:
+        if lib.vitrs_ckptio_abi() != 1:
+            return None
+    except AttributeError:
+        return None
+    lib.vitrs_read_range.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                     ctypes.c_int64, ctypes.c_void_p,
+                                     ctypes.c_int]
+    lib.vitrs_read_range.restype = ctypes.c_int
+    return lib
+
+
 def _read_range(path: str, offset: int, nbytes: int) -> np.ndarray:
+    """Bytes [offset, offset + nbytes) of the file: the native pread over
+    up to 8 threads for a range of NATIVE_MIN_BYTES or more, else (or if
+    the native read fails) a plain read."""
+    lib = _native_lib() if nbytes >= NATIVE_MIN_BYTES else None
+    if lib is not None:
+        out = np.empty(nbytes, np.uint8)
+        rc = lib.vitrs_read_range(os.fsencode(path), offset, nbytes,
+                                  out.ctypes.data,
+                                  min(os.cpu_count() or 1, 8))
+        if rc == 0:
+            return out
     with open(path, "rb") as f:
         f.seek(offset)
         buf = f.read(nbytes)

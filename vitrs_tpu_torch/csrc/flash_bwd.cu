@@ -1,4 +1,6 @@
-// K2 and K3-bwd: the flash-attention backward, written for Hopper (sm_90a).
+// K2 and K3-bwd: the flash-attention backward, written for Hopper (sm_90a),
+// built once per head dim D in {32, 64, 128, 256} (-DVITRS_HEAD_DIM,
+// ops/_build.py).
 //
 // Replaces the Pallas backward kernels, one function at two geometries:
 //   K2      vitrs_tpu/ops/flash_attention.py  _bwd_single_kernel (one tile;
@@ -17,7 +19,7 @@
 //   ds = p * (do . v^T - di) * sm_scale;
 //   dv += p(rounded)^T . do;  dk += ds(rounded)^T . q (unscaled q);
 //   dq += ds(rounded) . k;  dq, dk, dv written in the input type.
-// When sm_scale is a power of two (1/8 at D = 64), q * sm_scale is exact in
+// When sm_scale is a power of two (1/8 at D = 64, 1/16 at D = 256), q * sm_scale is exact in
 // bf16, so q^ . k^T equals sm_scale * (q . k^T) bit for bit: the bf16
 // kernels then read q itself and scale s in fp32, and q^ is never formed.
 // Sliding window (window > 0, causal only): p is 0 outside the band
@@ -42,7 +44,8 @@
 // kernel's kv loop ends at min(tk, q_off + m0 + 64); every bound is formed
 // once a block, so at q_off = 0, tq = tk the loops are those of the square
 // block.  A row that sees no key gets zero gradients; keys past the causal
-// frontier get zero dk and dv.  Rope takes the square block only.
+// frontier get zero dk and dv.  Rope takes the square block only, at D <
+// 256 (the JAX kernels have no rope at D = 256; the port routes it densely).
 // TPU-shaped choices are not carried over: no 128-lane head groups, no
 // (B, H, T, 128) lane-broadcast lse, no padded T, no VMEM admission estimate
 // choosing between a combined and a split kernel, no phantom kv lanes.
@@ -54,12 +57,17 @@
 //                 rounded into scratch (B, T, C) and (B, T, kv_dim), so the
 //                 main loops read plain tiles (about 50 MB at B=2, T=8192);
 //                 when sm_scale is not a power of two, also q^ (B, T, C).
-//   2. dK/dV      one block (a warpgroup) per (kv tile of 64 rows, kv head,
-//                 batch); a loop over the R query heads of the group and,
-//                 inside it, over the q tiles that see the tile (in causal
-//                 mode from the diagonal down) accumulates dk and dv in
-//                 registers, so they leave summed over the group, at kv
-//                 width;
+//   2. dK/dV      one block per (kv tile of 64 rows, kv head, batch); a loop
+//                 over the R query heads of the group and, inside it, over
+//                 the q tiles that see the tile (in causal mode from the
+//                 diagonal down) accumulates dk and dv in registers, so they
+//                 leave summed over the group, at kv width.  At D <= 64 the
+//                 block is one warpgroup; at D >= 128, where dk and dv alone
+//                 would take D floats a thread, two warpgroups: each owns
+//                 half of D's columns of dk and dv, computes S^T and dP^T
+//                 for half of the tile's q rows, and hands P^T and dS^T to
+//                 the other through two bf16 tiles in shared memory
+//                 (FlashAttention-3's split at head dim 256);
 //   3. dQ         one block (a warpgroup) per (q tile of 64 rows, query
 //                 head, batch); a loop over the kv tiles (of kv head h / R)
 //                 up to the diagonal accumulates dq.  Causal q tiles launch
@@ -101,9 +109,14 @@
 // q tile (S^T -> p -> dV, dP^T -> dS -> dK, then a wait) and its 179
 // registers, two blocks an SM: utils/bwd_variants.py's ablations put a
 // third of its time on the dK product's tail.
+// At D = 128 and 256 the products run over D / 16 k-steps and their dV, dK,
+// dQ sides on one m64n64k16 a 64-column atom (m64n32k16 at D = 32); the
+// dK/dV ring is 3 deep (2 at D = 256: K, V and two stages of q and do are
+// 192 KB), and D = 256 takes a power-of-two sm_scale only (its q^ tiles
+// would not fit; the model's 1/16 is one).
 // The fp32 instance (a cross-check against the plain PyTorch version at fp32
-// accuracy) uses FMA with two threads per row, each owning half of D, and
-// rotates q and k itself as it stages them.
+// accuracy) uses FMA with max(2, D / 32) threads per row, each owning a
+// slice of D, and rotates q and k itself as it stages them.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -114,13 +127,30 @@ namespace {
 
 using namespace vitrs;
 
-constexpr int kHeadDim = 64;    // D of every GPT-2 preset; the wrapper checks it
+#ifndef VITRS_HEAD_DIM
+#error "build with -DVITRS_HEAD_DIM=D (ops/_build.load(name, D))"
+#endif
+
+constexpr int kHeadDim = VITRS_HEAD_DIM;  // D of this library; the wrapper checks it
 constexpr int kBlock = 64;      // rows per q or kv tile
-constexpr int kFmaTile = 32;    // rows per staged tile, FMA path
 constexpr int kHalf = kHeadDim / 2;  // also rope's pairing: dim c with c + kHalf
-constexpr int kTile = kBlock * kHeadDim * 2;  // bytes of one bf16 tile in smem
-constexpr int kStagesKV = 3;    // depth of the dK/dV kernel's q/do ring
-constexpr int kStagesQ = 2;     // depth of the dQ kernel's K/V ring (4 blocks an SM fit)
+constexpr bool kRopeOk = kHeadDim != 256;  // rope instances exist below D = 256
+constexpr bool kQhatOk = kHeadDim != 256;  // q^ instances (sm_scale not a power of two)
+using Tile = HeadTile<kHeadDim>;
+constexpr int kTile = Tile::kBytes;  // bytes of one bf16 tile in smem (64 rows of D)
+// FMA path: threads per row, each owning kFmaPart columns; rows per staged
+// tile (its three tiles stay within 24 KB of static shared memory)
+constexpr int kFmaSplit = kHeadDim <= 64 ? 2 : kHeadDim / 32;
+constexpr int kFmaPart = kHeadDim / kFmaSplit;
+constexpr int kFmaTile = kHeadDim <= 64 ? 32 : 2048 / kHeadDim;
+constexpr int kDkvGroups = kHeadDim <= 64 ? 1 : 2;   // warpgroups of a dK/dV block
+constexpr int kStagesKV = kHeadDim == 256 ? 2 : 3;   // depth of the dK/dV kernel's q/do ring
+constexpr int kStagesQ = 2;     // depth of the dQ kernel's K/V ring (4 blocks an SM fit at D <= 64)
+constexpr int kDqMinBlocks = kHeadDim <= 64 ? 4 : (kHeadDim == 128 ? 2 : 1);
+// threads a row of the pre-pass's di job: one 16-byte vector each, at most a warp
+__host__ __device__ constexpr int prep_lanes(int vec) {
+  return kHeadDim / vec < 32 ? kHeadDim / vec : 32;
+}
 
 // Tensor maps of the bf16 instance's tiles (kernel parameters, as TMA needs)
 struct Maps {
@@ -199,8 +229,9 @@ __device__ __forceinline__ int kv_end_of(const Args& a, int m0) {
 }
 
 // ---------------------------------------------------------------------------
-// Launch 1, the pre-pass.  blockIdx.y picks the job: 0 di; 1 the q rows
-// (rotated and/or q^); 2 the k rows (rotated).  Jobs 1 and 2 are bf16 only.
+// Launch 1, the pre-pass.  blockIdx.y picks the job: 0 di (prep_lanes
+// threads a row); 1 the q rows (rotated and/or q^); 2 the k rows (rotated).
+// Jobs 1 and 2 are bf16 only.
 // ---------------------------------------------------------------------------
 struct Prep {
   bf16* q_rot;   // (B, T, C) or nullptr
@@ -212,7 +243,7 @@ struct Prep {
 template <typename T>
 __global__ void __launch_bounds__(256) flash_bwd_prep(Args a, Prep p) {
   constexpr int kVec = 16 / sizeof(T);        // elements per 16-byte load
-  constexpr int kLanes = kHeadDim / kVec;     // threads per row: 8 bf16, 16 fp32
+  constexpr int kLanes = prep_lanes(kVec);    // threads per row: 8 bf16, 16 fp32 at D = 64
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const int T_ = blockIdx.y == 2 ? a.tk : a.tq;   // job 2 runs over the k rows
   if (blockIdx.y == 0) {
@@ -225,14 +256,17 @@ __global__ void __launch_bounds__(256) flash_bwd_prep(Args a, Prep p) {
     const int t = bt % T_, b = bt / T_;
     float s = 0.f;
     if (live) {
-      const uint4 ov = *reinterpret_cast<const uint4*>(
-          static_cast<const T*>(a.o) + b * a.o_sb + t * a.o_st + h * kHeadDim + c * kVec);
-      const uint4 dv = *reinterpret_cast<const uint4*>(
-          static_cast<const T*>(a.dout) + b * a.do_sb + t * a.do_st + h * kHeadDim + c * kVec);
-      const T* oe = reinterpret_cast<const T*>(&ov);
-      const T* de = reinterpret_cast<const T*>(&dv);
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) s = fmaf(to_f(oe[e]), to_f(de[e]), s);
+      for (int vc = c; vc < kHeadDim / kVec; vc += kLanes) {
+        const uint4 ov = *reinterpret_cast<const uint4*>(
+            static_cast<const T*>(a.o) + b * a.o_sb + t * a.o_st + h * kHeadDim + vc * kVec);
+        const uint4 dv = *reinterpret_cast<const uint4*>(
+            static_cast<const T*>(a.dout) + b * a.do_sb + t * a.do_st + h * kHeadDim + vc * kVec);
+        const T* oe = reinterpret_cast<const T*>(&ov);
+        const T* de = reinterpret_cast<const T*>(&dv);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) s = fmaf(to_f(oe[e]), to_f(de[e]), s);
+      }
     }
     // the kLanes threads of a row are neighbours in one warp
 #pragma unroll
@@ -245,7 +279,8 @@ __global__ void __launch_bounds__(256) flash_bwd_prep(Args a, Prep p) {
     const int heads = q_job ? a.num_heads : a.num_heads / a.group;
     const long long rows = (long long)p.batch * T_ * heads;
     const bool rope = a.rope_cos != nullptr;
-    const int per_row = rope ? 4 : 8;  // rope: a thread rotates columns c..c+7 with c+32..c+39
+    // rope: a thread rotates columns c..c+7 with c+D/2..c+D/2+7
+    const int per_row = rope ? kHalf / 8 : kHeadDim / 8;
     const long long r = i / per_row;
     if (r >= rows) return;
     const int c = (i % per_row) * 8;
@@ -258,7 +293,7 @@ __global__ void __launch_bounds__(256) flash_bwd_prep(Args a, Prep p) {
     const long long dst = bt * heads * kHeadDim + h * kHeadDim + c;  // contiguous (B, T, W)
     if (rope) {
       uint4 lo, hi;
-      rope_row8(src, a.rope_cos + (long long)t * kHalf + c, a.rope_sin + (long long)t * kHalf + c,
+      rope_row8<kHalf>(src, a.rope_cos + (long long)t * kHalf + c, a.rope_sin + (long long)t * kHalf + c,
                 lo, hi);
       bf16* rot = q_job ? p.q_rot : p.k_rot;
       *reinterpret_cast<uint4*>(rot + dst) = lo;
@@ -274,51 +309,63 @@ __global__ void __launch_bounds__(256) flash_bwd_prep(Args a, Prep p) {
   }
 }
 
-// The FMA instance's rotation of a row split over a thread pair: this
-// thread holds dims c0 + d (c0 = 0 or 32) of `x`, its partner (lane ^ 1)
-// the other half.  Rotated by the table row `pos` (inverse: by -theta).
-// Every thread of the warp must call it.
-__device__ __forceinline__ void rope_split(float (&x)[kHalf], int half, const Args& a,
+// The FMA instance's rotation of a row split over kFmaSplit threads: this
+// thread (part `part` of its row) holds dims part * kFmaPart + d of `x`;
+// the pair of dim c < D/2, c + D/2, sits kFmaSplit / 2 lanes away.  Rotated
+// by the table row `pos` (inverse: by -theta).  Every thread of the warp
+// must call it.
+__device__ __forceinline__ void rope_split(float (&x)[kFmaPart], int part, const Args& a,
                                            int pos, bool inverse) {
-  const float* cr = a.rope_cos + (long long)pos * kHalf;
-  const float* sr = a.rope_sin + (long long)pos * kHalf;
+  const bool upper = part >= kFmaSplit / 2;
+  const int tc = (part * kFmaPart) % kHalf;   // the table column of x[0]
+  const float* cr = a.rope_cos + (long long)pos * kHalf + tc;
+  const float* sr = a.rope_sin + (long long)pos * kHalf + tc;
 #pragma unroll
-  for (int d = 0; d < kHalf; ++d) {
-    const float other = __shfl_xor_sync(0xffffffffu, x[d], 1);
-    float x1 = half ? other : x[d], x2 = half ? x[d] : other;
+  for (int d = 0; d < kFmaPart; ++d) {
+    const float other = __shfl_xor_sync(0xffffffffu, x[d], kFmaSplit / 2);
+    float x1 = upper ? other : x[d], x2 = upper ? x[d] : other;
     rope_pair(x1, x2, cr[d], inverse ? -sr[d] : sr[d]);
-    x[d] = half ? x2 : x1;
+    x[d] = upper ? x2 : x1;
   }
 }
 
+// the dot product of a row split over its kFmaSplit threads (neighbours in
+// one warp), summed across them
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int off = 1; off < kFmaSplit; off <<= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
 // ---------------------------------------------------------------------------
-// FMA instance (fp32): two threads per row, each owning half of D; the dot
-// products over D are finished with one shuffle between the pair.
+// FMA instance (fp32): kFmaSplit threads per row, each owning kFmaPart
+// columns of D; the dot products over D are finished with shuffles between
+// them.
 // ---------------------------------------------------------------------------
 template <typename T, bool kRope>
-__global__ void __launch_bounds__(2 * kBlock) flash_bwd_dkv_fma(Args a) {
+__global__ void __launch_bounds__(kFmaSplit * kBlock) flash_bwd_dkv_fma(Args a) {
   __shared__ float qh[kFmaTile][kHeadDim];   // q^ (scaled, rounded)
   __shared__ float qu[kFmaTile][kHeadDim];   // q
   __shared__ float ds_[kFmaTile][kHeadDim];  // do
   __shared__ float lse_s[kFmaTile], di_s[kFmaTile];
   const int b = blockIdx.z, hk = blockIdx.y, n0 = blockIdx.x * kBlock;
-  const int j = n0 + (threadIdx.x >> 1), half = threadIdx.x & 1;
-  const int c0 = half * kHalf;
+  const int j = n0 + threadIdx.x / kFmaSplit, part = threadIdx.x % kFmaSplit;
+  const int c0 = part * kFmaPart;
   const bool live = j < a.tk;
   const T* K = static_cast<const T*>(a.k) + b * a.k_sb + (long long)j * a.k_st + hk * kHeadDim;
   const T* V = static_cast<const T*>(a.v) + b * a.v_sb + (long long)j * a.v_st + hk * kHeadDim;
 
-  float kr[kHalf], vr[kHalf], dk[kHalf], dv[kHalf];
+  float kr[kFmaPart], vr[kFmaPart], dk[kFmaPart], dv[kFmaPart];
 #pragma unroll
-  for (int d = 0; d < kHalf; ++d) {
+  for (int d = 0; d < kFmaPart; ++d) {
     kr[d] = live ? to_f(K[c0 + d]) : 0.f;
     vr[d] = live ? to_f(V[c0 + d]) : 0.f;
     dk[d] = dv[d] = 0.f;
   }
   if constexpr (kRope) {
-    rope_split(kr, half, a, live ? j : 0, false);
+    rope_split(kr, part, a, live ? j : 0, false);
 #pragma unroll
-    for (int d = 0; d < kHalf; ++d) kr[d] = to_f(from_f<T>(kr[d]));
+    for (int d = 0; d < kFmaPart; ++d) kr[d] = to_f(from_f<T>(kr[d]));
   }
   const int m_start = q_start_of(a, n0), m_end = q_end_of(a, n0);
   // the query heads of this kv head; dk and dv sum over all of them
@@ -358,41 +405,41 @@ __global__ void __launch_bounds__(2 * kBlock) flash_bwd_dkv_fma(Args a) {
       for (int ii = 0; ii < kFmaTile; ++ii) {
         float s = 0.f, dp = 0.f;
 #pragma unroll
-        for (int d = 0; d < kHalf; ++d) {
+        for (int d = 0; d < kFmaPart; ++d) {
           s = fmaf(qh[ii][c0 + d], kr[d], s);
           dp = fmaf(ds_[ii][c0 + d], vr[d], dp);
         }
-        s += __shfl_xor_sync(0xffffffffu, s, 1);
-        dp += __shfl_xor_sync(0xffffffffu, dp, 1);
+        s = row_sum(s);
+        dp = row_sum(dp);
         const float p = visible(a, m0 + ii, j) ? expf(s - lse_s[ii]) : 0.f;
         const float dsv = p * (dp - di_s[ii]) * a.sm_scale;
         const float pr = to_f(from_f<T>(p)), dsr = to_f(from_f<T>(dsv));
 #pragma unroll
-        for (int d = 0; d < kHalf; ++d) {
+        for (int d = 0; d < kFmaPart; ++d) {
           dv[d] = fmaf(pr, ds_[ii][c0 + d], dv[d]);
           dk[d] = fmaf(dsr, qu[ii][c0 + d], dk[d]);
         }
       }
     }
   }
-  if constexpr (kRope) rope_split(dk, half, a, live ? j : 0, true);
+  if constexpr (kRope) rope_split(dk, part, a, live ? j : 0, true);
   if (!live) return;
   T* DK = static_cast<T*>(a.dk) + b * a.dkv_sb + (long long)j * a.dkv_st + hk * kHeadDim + c0;
   T* DV = static_cast<T*>(a.dv) + b * a.dkv_sb + (long long)j * a.dkv_st + hk * kHeadDim + c0;
 #pragma unroll
-  for (int d = 0; d < kHalf; ++d) {
+  for (int d = 0; d < kFmaPart; ++d) {
     DK[d] = from_f<T>(dk[d]);
     DV[d] = from_f<T>(dv[d]);
   }
 }
 
 template <typename T, bool kRope>
-__global__ void __launch_bounds__(2 * kBlock) flash_bwd_dq_fma(Args a) {
+__global__ void __launch_bounds__(kFmaSplit * kBlock) flash_bwd_dq_fma(Args a) {
   __shared__ float ks[kFmaTile][kHeadDim];
   __shared__ float vs[kFmaTile][kHeadDim];
   const int b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * kBlock;
-  const int i = m0 + (threadIdx.x >> 1), half = threadIdx.x & 1;
-  const int c0 = half * kHalf;
+  const int i = m0 + threadIdx.x / kFmaSplit, part = threadIdx.x % kFmaSplit;
+  const int c0 = part * kFmaPart;
   const bool live = i < a.tq;
   const T* Q = static_cast<const T*>(a.q) + b * a.q_sb + (long long)i * a.q_st + h * kHeadDim;
   const T* DO = static_cast<const T*>(a.dout) + b * a.do_sb + (long long)i * a.do_st + h * kHeadDim;
@@ -401,20 +448,20 @@ __global__ void __launch_bounds__(2 * kBlock) flash_bwd_dq_fma(Args a) {
   const T* V = static_cast<const T*>(a.v) + b * a.v_sb + hk * kHeadDim;
   const long long L = row_of(a, b, h);
 
-  float qr[kHalf], dor[kHalf], dq[kHalf];
+  float qr[kFmaPart], dor[kFmaPart], dq[kFmaPart];
 #pragma unroll
-  for (int d = 0; d < kHalf; ++d) {
+  for (int d = 0; d < kFmaPart; ++d) {
     qr[d] = live ? to_f(Q[c0 + d]) : 0.f;
     dor[d] = live ? to_f(DO[c0 + d]) : 0.f;
     dq[d] = 0.f;
   }
   if constexpr (kRope) {
-    rope_split(qr, half, a, live ? i : 0, false);
+    rope_split(qr, part, a, live ? i : 0, false);
 #pragma unroll
-    for (int d = 0; d < kHalf; ++d) qr[d] = to_f(from_f<T>(qr[d]));
+    for (int d = 0; d < kFmaPart; ++d) qr[d] = to_f(from_f<T>(qr[d]));
   }
 #pragma unroll
-  for (int d = 0; d < kHalf; ++d) qr[d] = to_f(from_f<T>(qr[d] * a.sm_scale));
+  for (int d = 0; d < kFmaPart; ++d) qr[d] = to_f(from_f<T>(qr[d] * a.sm_scale));
   const float lse = live ? a.lse[L + i] : 0.f;
   const float di = live ? a.di[L + i] : 0.f;
   const int kv_end = kv_end_of(a, m0);
@@ -441,33 +488,34 @@ __global__ void __launch_bounds__(2 * kBlock) flash_bwd_dq_fma(Args a) {
     for (int jj = 0; jj < kFmaTile; ++jj) {
       float s = 0.f, dp = 0.f;
 #pragma unroll
-      for (int d = 0; d < kHalf; ++d) {
+      for (int d = 0; d < kFmaPart; ++d) {
         s = fmaf(qr[d], ks[jj][c0 + d], s);
         dp = fmaf(dor[d], vs[jj][c0 + d], dp);
       }
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
-      dp += __shfl_xor_sync(0xffffffffu, dp, 1);
+      s = row_sum(s);
+      dp = row_sum(dp);
       const float p = visible(a, i, n0 + jj) ? expf(s - lse) : 0.f;
       const float dsr = to_f(from_f<T>(p * (dp - di) * a.sm_scale));
 #pragma unroll
-      for (int d = 0; d < kHalf; ++d) dq[d] = fmaf(dsr, ks[jj][c0 + d], dq[d]);
+      for (int d = 0; d < kFmaPart; ++d) dq[d] = fmaf(dsr, ks[jj][c0 + d], dq[d]);
     }
   }
-  if constexpr (kRope) rope_split(dq, half, a, live ? i : 0, true);
+  if constexpr (kRope) rope_split(dq, part, a, live ? i : 0, true);
   if (!live) return;
   T* DQ = static_cast<T*>(a.dq) + b * a.dq_sb + (long long)i * a.dq_st + h * kHeadDim + c0;
 #pragma unroll
-  for (int d = 0; d < kHalf; ++d) DQ[d] = from_f<T>(dq[d]);
+  for (int d = 0; d < kFmaPart; ++d) DQ[d] = from_f<T>(dq[d]);
 }
 // ---------------------------------------------------------------------------
 // bf16 instance: wgmma, a cp.async ring, swizzled tiles.
 // ---------------------------------------------------------------------------
 
-// Rotate the accumulators of a 64 x 64 tile (this thread's rows r0, r1 =
-// r0 + 8; column nt * 8 + 2t + e pairs with the same column of tile nt + 4)
-// back by -theta at the rows' positions; rows >= n are left alone.
-__device__ __forceinline__ void unrotate_c(float (&acc)[8][4], int r0, int r1, int n, int t,
-                                           const Args& a) {
+// Rotate the accumulators of a 64 x D tile (this thread's rows r0, r1 =
+// r0 + 8; column nt * 8 + 2t + e pairs with the same column of tile
+// nt + D / 16) back by -theta at the rows' positions; rows >= n are left
+// alone.
+__device__ __forceinline__ void unrotate_c(float (&acc)[kHeadDim / 8][4], int r0, int r1, int n,
+                                           int t, const Args& a) {
 #pragma unroll
   for (int nt = 0; nt < kHeadDim / 16; ++nt) {
 #pragma unroll
@@ -475,16 +523,18 @@ __device__ __forceinline__ void unrotate_c(float (&acc)[8][4], int r0, int r1, i
       const int r = (i & 2) ? r1 : r0;
       if (r >= n) continue;
       const long long idx = (long long)r * kHalf + nt * 8 + 2 * t + (i & 1);
-      rope_pair(acc[nt][i], acc[nt + 4][i], a.rope_cos[idx], -a.rope_sin[idx]);
+      rope_pair(acc[nt][i], acc[nt + kHeadDim / 16][i], a.rope_cos[idx], -a.rope_sin[idx]);
     }
   }
 }
 
-// rows r0 and r1 = r0 + 8 of a 64-wide accumulator into a bf16 matrix
-__device__ __forceinline__ void store_rows(bf16* base, long long stride, const float (&acc)[8][4],
+// rows r0 and r1 = r0 + 8 of an accumulator 8 N8 columns wide into a bf16
+// matrix
+template <int N8>
+__device__ __forceinline__ void store_rows(bf16* base, long long stride, const float (&acc)[N8][4],
                                            int r0, int r1, int n, int t) {
 #pragma unroll
-  for (int nt = 0; nt < kHeadDim / 8; ++nt) {
+  for (int nt = 0; nt < N8; ++nt) {
     const int c = nt * 8 + 2 * t;
     if (r0 < n)
       *reinterpret_cast<__nv_bfloat162*>(base + (long long)r0 * stride + c) =
@@ -497,15 +547,18 @@ __device__ __forceinline__ void store_rows(bf16* base, long long stride, const f
 
 // Dynamic shared memory, 1024-byte aligned for the swizzle (1 KB of slack
 // is requested for it).
-//   dK/dV: K, V, then per stage q, do (and q^); per stage lse, di; then
+//   dK/dV: K, V, then per stage q, do (and q^); at D >= 128 the P^T and
+//          dS^T tiles (64 x 64 bf16 each); per stage lse, di; then
 //          kStagesKV + 1 mbarriers (one per stage, one for K and V).
 //   dQ:    q (or q^), do; per stage K, V; then kStagesQ + 1 mbarriers (one
 //          per stage, one for the q and do tiles).
 template <bool kQhat>
 __host__ __device__ constexpr int dkv_tiles() { return 2 + kStagesKV * (kQhat ? 3 : 2); }
+constexpr int kShared = kDkvGroups == 2 ? 2 * 8192 : 0;   // P^T and dS^T
 template <bool kQhat>
 __host__ __device__ constexpr int dkv_smem() {
-  return 1024 + dkv_tiles<kQhat>() * kTile + kStagesKV * 2 * kBlock * 4 + (kStagesKV + 1) * 8;
+  return 1024 + dkv_tiles<kQhat>() * kTile + kShared + kStagesKV * 2 * kBlock * 4 +
+         (kStagesKV + 1) * 8;
 }
 __host__ __device__ constexpr int dq_smem() {
   return 1024 + (2 + 2 * kStagesQ) * kTile + (kStagesQ + 1) * 8;
@@ -535,8 +588,8 @@ __global__ void __launch_bounds__(128, 2)
   init_barriers(bars, kStagesKV + 1);
   if (tid == 0) {
     mbar_expect(bars + 8 * kStagesKV, 2 * kTile);
-    tma_tile(sK, &maps.k, bars + 8 * kStagesKV, hk, n0, b);
-    tma_tile(sV, &maps.v, bars + 8 * kStagesKV, hk, n0, b);
+    tma_head<kHeadDim>(sK, &maps.k, bars + 8 * kStagesKV, hk, n0, b);
+    tma_head<kHeadDim>(sV, &maps.v, bars + 8 * kStagesKV, hk, n0, b);
   }
   // iteration it: query head hk * group + it / n_m, q tile m_start + (it % n_m) * 64,
   // in stage it % kStagesKV.  Thread 0 starts the tiles' TMA copies; every
@@ -548,9 +601,9 @@ __global__ void __launch_bounds__(128, 2)
       if (tid == 0) {
         const uint32_t s0 = base + (2 + st * kPer) * kTile, bar = bars + 8 * st;
         mbar_expect(bar, kPer * kTile);
-        tma_tile(s0, &maps.q, bar, h, m0, b);
-        tma_tile(s0 + kTile, &maps.dout, bar, h, m0, b);
-        if constexpr (kQhat) tma_tile(s0 + 2 * kTile, &maps.qh, bar, h, m0, b);
+        tma_head<kHeadDim>(s0, &maps.q, bar, h, m0, b);
+        tma_head<kHeadDim>(s0 + kTile, &maps.dout, bar, h, m0, b);
+        if constexpr (kQhat) tma_head<kHeadDim>(s0 + 2 * kTile, &maps.qh, bar, h, m0, b);
       }
       // threads 0-63 copy lse, 64-127 di
       const int r = tid & 63, row = m0 + r;
@@ -563,7 +616,7 @@ __global__ void __launch_bounds__(128, 2)
 #pragma unroll
   for (int s = 0; s < kStagesKV - 1; ++s) issue(s);
 
-  float dk[8][4], dv[8][4];
+  float dk[kHeadDim / 8][4], dv[kHeadDim / 8][4];
   zero(dk);
   zero(dv);
   const float s_mul = (kQhat ? 1.f : a.sm_scale) * kLog2e;
@@ -583,9 +636,9 @@ __global__ void __launch_bounds__(128, 2)
     // S^T = K q^T (or K q^^T) and dP^T = V do^T: 64 kv rows x 64 q columns
     float s[8][4], dp[8][4];
     wg_fence();
-    product_rows(s, sK, sqs);
+    product_rows<kHeadDim>(s, sK, sqs);
     wg_commit();
-    product_rows(dp, sV, sdo);
+    product_rows<kHeadDim>(dp, sV, sdo);
     wg_commit();
     issue(it + kStagesKV - 1);   // into the stage iteration it - 1 read, while the products run
 
@@ -622,7 +675,7 @@ __global__ void __launch_bounds__(128, 2)
     to_a(pa, s);
     wg_fence();
     fence_acc(dv);
-    product_cols(dv, pa, sdo);
+    product_cols<kHeadDim>(dv, pa, sdo);
     wg_commit();
 
     wg_wait<1>();          // dP^T done (dV may still run)
@@ -636,7 +689,7 @@ __global__ void __launch_bounds__(128, 2)
     to_a(da, dp);
     wg_fence();
     fence_acc(dk);
-    product_cols(dk, da, sq);
+    product_cols<kHeadDim>(dk, da, sq);
     wg_commit();
     wg_wait<0>();
     fence_acc(dv);
@@ -650,8 +703,200 @@ __global__ void __launch_bounds__(128, 2)
              a.tk, t);
 }
 
+// dK/dV at D >= 128: two warpgroups a block.  dk and dv of 64 kv rows x D
+// would be D floats a thread in one warpgroup (128 at D = 128, 256 at 256:
+// past the register file), so warpgroup w owns columns [w D/2, (w+1) D/2)
+// of both; the S^T and dP^T of each q tile are split by q rows instead: w
+// computes them for rows [32w, 32w + 32) (m64n32k16 over D), forms P^T and
+// dS^T for those rows and writes them, rounded to bf16, into the shared
+// P^T and dS^T tiles (64 kv rows x 64 q rows, the 128-byte swizzle); after
+// a block barrier each warpgroup runs dV += P^T do and dK += dS^T q for its
+// columns with both operands from shared memory.  Under rope (D = 128) dk's
+// pairs (c, c + 64) lie in the two warpgroups, so the epilogue rotates it
+// back through shared memory.
 template <bool kRope, bool kQhat>
-__global__ void __launch_bounds__(128, 4)
+__global__ void __launch_bounds__(256, 1)
+    flash_bwd_dkv_wgmma2(const __grid_constant__ Maps maps, Args a) {
+  using X = HeadTile<64>;   // the P^T and dS^T tiles
+  constexpr int kCols = kHeadDim / 2;   // this warpgroup's columns of dk and dv
+  extern __shared__ uint8_t smem[];
+  const uint32_t base = aligned_base(smem);
+  const uint32_t sK = base, sV = base + kTile;
+  constexpr int kPer = kQhat ? 3 : 2;   // tiles per stage: q, do (, q^)
+  const uint32_t sP = base + dkv_tiles<kQhat>() * kTile, sDS = sP + X::kBytes;
+  float* stats = reinterpret_cast<float*>(smem + (sDS + X::kBytes - smem_u32(smem)));
+  const uint32_t bars = smem_u32(stats + kStagesKV * 2 * kBlock);  // stage barriers, then K/V's
+  uint8_t* const p_tile = smem + (sP - smem_u32(smem));
+  uint8_t* const ds_tile = smem + (sDS - smem_u32(smem));
+  const int kv_heads = a.num_heads / a.group;
+  const int b = blockIdx.x / kv_heads, hk = blockIdx.x % kv_heads, n0 = blockIdx.y * kBlock;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kr = warp * 16 + g;        // this thread's kv rows in the tile: kr, kr + 8
+  const int j0 = n0 + kr, j1 = j0 + 8;
+  const int q0 = 32 * wg;              // this warpgroup's q rows of a tile (S^T, dP^T)
+
+  const int m_start = q_start_of(a, n0), m_end = q_end_of(a, n0);
+  const int n_m = (max(0, m_end - m_start) + kBlock - 1) / kBlock;   // q tiles per query head
+  const int n_it = a.group * n_m;
+
+  init_barriers(bars, kStagesKV + 1);
+  if (tid == 0) {
+    mbar_expect(bars + 8 * kStagesKV, 2 * kTile);
+    tma_head<kHeadDim>(sK, &maps.k, bars + 8 * kStagesKV, hk, n0, b);
+    tma_head<kHeadDim>(sV, &maps.v, bars + 8 * kStagesKV, hk, n0, b);
+  }
+  // as flash_bwd_dkv_wgmma's: thread 0 starts the tiles' TMA copies, the
+  // first warpgroup copies lse and di
+  auto issue = [&](int it) {
+    if (it < n_it) {
+      const int st = it % kStagesKV;
+      const int h = hk * a.group + it / n_m, m0 = m_start + (it % n_m) * kBlock;
+      if (tid == 0) {
+        const uint32_t s0 = base + (2 + st * kPer) * kTile, bar = bars + 8 * st;
+        mbar_expect(bar, kPer * kTile);
+        tma_head<kHeadDim>(s0, &maps.q, bar, h, m0, b);
+        tma_head<kHeadDim>(s0 + kTile, &maps.dout, bar, h, m0, b);
+        if constexpr (kQhat) tma_head<kHeadDim>(s0 + 2 * kTile, &maps.qh, bar, h, m0, b);
+      }
+      if (tid < 128) {   // threads 0-63 copy lse, 64-127 di
+        const int r = tid & 63, row = m0 + r;
+        const bool live = row < a.tq;
+        const float* src = (tid < 64 ? a.lse : a.di) + row_of(a, b, h) + (live ? row : 0);
+        cp_async4(smem_u32(stats + (st * 2 + (tid >> 6)) * kBlock + r), src, live);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < kStagesKV - 1; ++s) issue(s);
+
+  float dk[kCols / 8][4], dv[kCols / 8][4];
+  zero(dk);
+  zero(dv);
+  const float s_mul = (kQhat ? 1.f : a.sm_scale) * kLog2e;
+  mbar_wait(bars + 8 * kStagesKV, 0);   // K and V
+
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % kStagesKV;
+    cp_async_wait<kStagesKV - 2>();           // this thread's lse/di copy of tile it
+    mbar_wait(bars + 8 * st, (it / kStagesKV) & 1);   // its q, do (, q^) tiles
+    // lse/di visible to all; stage (it - 1) % kStagesKV and the P^T / dS^T
+    // tiles are free (both warpgroups are past iteration it - 1's products)
+    __syncthreads();
+    const int m0 = m_start + (it % n_m) * kBlock;
+    const uint32_t sq = base + (2 + st * kPer) * kTile, sdo = sq + kTile;
+    const uint32_t sqs = kQhat ? sq + 2 * kTile : sq;   // the q operand of S^T
+    const float* lse_s = stats + st * 2 * kBlock;
+    const float* di_s = lse_s + kBlock;
+
+    // S^T = K q^T (or K q^^T) and dP^T = V do^T: 64 kv rows x this
+    // warpgroup's 32 q rows
+    float s[4][4], dp[4][4];
+    wg_fence();
+    product_rows32<kHeadDim>(s, sK, sqs, q0);
+    wg_commit();
+    product_rows32<kHeadDim>(dp, sV, sdo, q0);
+    wg_commit();
+    issue(it + kStagesKV - 1);   // into the stage iteration it - 1 read, while the products run
+
+    // this thread's q columns: q0 + nt * 8 + 2t + e
+    float l2[4][2], dd[4][2];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        l2[nt][e] = lse_s[q0 + nt * 8 + 2 * t + e] * kLog2e;
+        dd[nt][e] = di_s[q0 + nt * 8 + 2 * t + e];
+      }
+
+    wg_wait<1>();
+    fence_acc(s);
+    // P^T in place; a tile inside the band and the causal frontier skips the mask
+    if (tile_full(a, m0, n0)) {
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[nt][i] = ex2(fmaf(s[nt][i], s_mul, -l2[nt][i & 1]));
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int qc = q0 + nt * 8 + 2 * t + (i & 1);
+          const float p = ex2(fmaf(s[nt][i], s_mul, -l2[nt][i & 1]));
+          s[nt][i] = visible(a, m0 + qc, (i & 2) ? j1 : j0) ? p : 0.f;
+        }
+    }
+    wg_wait<0>();
+    fence_acc(dp);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dp[nt][i] = s[nt][i] * (dp[nt][i] - dd[nt][i & 1]) * a.sm_scale;
+    // P^T and dS^T, rounded to bf16, into the shared tiles for both warpgroups
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int col = q0 + nt * 8 + 2 * t;
+      *reinterpret_cast<uint32_t*>(p_tile + X::offset(kr, col)) = pack_f32(s[nt][0], s[nt][1]);
+      *reinterpret_cast<uint32_t*>(p_tile + X::offset(kr + 8, col)) =
+          pack_f32(s[nt][2], s[nt][3]);
+      *reinterpret_cast<uint32_t*>(ds_tile + X::offset(kr, col)) = pack_f32(dp[nt][0], dp[nt][1]);
+      *reinterpret_cast<uint32_t*>(ds_tile + X::offset(kr + 8, col)) =
+          pack_f32(dp[nt][2], dp[nt][3]);
+    }
+    // the generic-proxy stores, before wgmma (the async proxy) reads them
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+
+    // dV += P^T do and dK += dS^T q over this warpgroup's columns
+    wg_fence();
+    fence_acc(dv);
+    fence_acc(dk);
+    product_cols_ss<kHeadDim>(dv, sP, sdo, wg * kCols / 64);
+    product_cols_ss<kHeadDim>(dk, sDS, sq, wg * kCols / 64);
+    wg_commit();
+    wg_wait<0>();
+    fence_acc(dv);
+    fence_acc(dk);
+  }
+
+  const int c0 = wg * kCols;   // this warpgroup's first column
+  bf16* const DK = static_cast<bf16*>(a.dk) + b * a.dkv_sb + hk * kHeadDim;
+  if constexpr (kRope) {
+    // dk rotated back by -theta at its keys' positions: each pair (c, c +
+    // D/2) through a 64 x D fp32 buffer over the ring (every copy into it
+    // has landed and every product reading it is done)
+    __syncthreads();
+    float* buf = reinterpret_cast<float*>(smem + (base - smem_u32(smem)));
+#pragma unroll
+    for (int nt = 0; nt < kCols / 8; ++nt) {
+      const int c = c0 + nt * 8 + 2 * t;
+      buf[kr * kHeadDim + c] = dk[nt][0];
+      buf[kr * kHeadDim + c + 1] = dk[nt][1];
+      buf[(kr + 8) * kHeadDim + c] = dk[nt][2];
+      buf[(kr + 8) * kHeadDim + c + 1] = dk[nt][3];
+    }
+    __syncthreads();
+    for (int e = tid; e < kBlock * kHalf; e += 256) {
+      const int r = e / kHalf, c = e % kHalf, j = n0 + r;
+      if (j >= a.tk) continue;
+      float x1 = buf[r * kHeadDim + c], x2 = buf[r * kHeadDim + c + kHalf];
+      const long long idx = (long long)j * kHalf + c;
+      rope_pair(x1, x2, a.rope_cos[idx], -a.rope_sin[idx]);
+      DK[(long long)j * a.dkv_st + c] = __float2bfloat16_rn(x1);
+      DK[(long long)j * a.dkv_st + c + kHalf] = __float2bfloat16_rn(x2);
+    }
+  } else {
+    store_rows(DK + c0, a.dkv_st, dk, j0, j1, a.tk, t);
+  }
+  store_rows(static_cast<bf16*>(a.dv) + b * a.dkv_sb + hk * kHeadDim + c0, a.dkv_st, dv, j0, j1,
+             a.tk, t);
+}
+
+template <bool kRope, bool kQhat>
+__global__ void __launch_bounds__(128, kDqMinBlocks)
     flash_bwd_dq_wgmma(const __grid_constant__ Maps maps, Args a) {
   extern __shared__ uint8_t smem[];
   const uint32_t base = aligned_base(smem);
@@ -671,8 +916,8 @@ __global__ void __launch_bounds__(128, 4)
   if (tid == 0) {
     const uint32_t bar = bars + 8 * kStagesQ;
     mbar_expect(bar, 2 * kTile);
-    tma_tile(sq, kQhat ? &maps.qh : &maps.q, bar, h, m0, b);
-    tma_tile(sdo, &maps.dout, bar, h, m0, b);
+    tma_head<kHeadDim>(sq, kQhat ? &maps.qh : &maps.q, bar, h, m0, b);
+    tma_head<kHeadDim>(sdo, &maps.dout, bar, h, m0, b);
   }
   const long long L = row_of(a, b, h);
   const float l2_a = r0 < a.tq ? a.lse[L + r0] * kLog2e : 0.f;
@@ -687,14 +932,14 @@ __global__ void __launch_bounds__(128, 4)
       const int st = it % kStagesQ, n0 = kv_start + it * kBlock;
       const uint32_t s0 = skv + 2 * st * kTile, bar = bars + 8 * st;
       mbar_expect(bar, 2 * kTile);
-      tma_tile(s0, &maps.k, bar, hk, n0, b);
-      tma_tile(s0 + kTile, &maps.v, bar, hk, n0, b);
+      tma_head<kHeadDim>(s0, &maps.k, bar, hk, n0, b);
+      tma_head<kHeadDim>(s0 + kTile, &maps.v, bar, hk, n0, b);
     }
   };
 #pragma unroll
   for (int s = 0; s < kStagesQ - 1; ++s) issue(s);
 
-  float dq[8][4];
+  float dq[kHeadDim / 8][4];
   zero(dq);
   const float s_mul = (kQhat ? 1.f : a.sm_scale) * kLog2e;
   mbar_wait(bars + 8 * kStagesQ, 0);   // q (or q^) and do
@@ -708,9 +953,9 @@ __global__ void __launch_bounds__(128, 4)
     // S = q K^T (or q^ K^T) and dP = do V^T: 64 q rows x 64 kv columns
     float s[8][4], dp[8][4];
     wg_fence();
-    product_rows(s, sq, sk);
+    product_rows<kHeadDim>(s, sq, sk);
     wg_commit();
-    product_rows(dp, sdo, sv);
+    product_rows<kHeadDim>(dp, sdo, sv);
     wg_commit();
     issue(it + kStagesQ - 1);
     wg_wait<1>();
@@ -743,7 +988,7 @@ __global__ void __launch_bounds__(128, 4)
     to_a(da, dp);
     wg_fence();
     fence_acc(dq);
-    product_cols(dq, da, sk);
+    product_cols<kHeadDim>(dq, da, sk);
     wg_commit();
     wg_wait<0>();
     fence_acc(dq);
@@ -754,29 +999,47 @@ __global__ void __launch_bounds__(128, 4)
              a.tq, t);
 }
 
+// this head dim's dK/dV kernel: one warpgroup at D <= 64, two at D >= 128
+template <bool kRope, bool kQhat>
+auto dkv_kernel() {
+  if constexpr (kDkvGroups == 1)
+    return flash_bwd_dkv_wgmma<kRope, kQhat>;
+  else
+    return flash_bwd_dkv_wgmma2<kRope, kQhat>;
+}
+
 template <bool kRope, bool kQhat>
 cudaError_t launch_wgmma(const Args& a, int batch, int kv_heads, cudaStream_t s) {
   const long long C = (long long)a.num_heads * kHeadDim;
   Maps maps = {};
-  if (!tile_map(&maps.q, a.q, a.num_heads, a.tq, batch, a.q_st, a.q_sb) ||
-      !tile_map(&maps.dout, a.dout, a.num_heads, a.tq, batch, a.do_st, a.do_sb) ||
-      !tile_map(&maps.k, a.k, kv_heads, a.tk, batch, a.k_st, a.k_sb) ||
-      !tile_map(&maps.v, a.v, kv_heads, a.tk, batch, a.v_st, a.v_sb) ||
-      (kQhat && !tile_map(&maps.qh, a.qh, a.num_heads, a.tq, batch, C, a.tq * C)))
+  if (!tile_map<kHeadDim>(&maps.q, a.q, a.num_heads, a.tq, batch, a.q_st, a.q_sb) ||
+      !tile_map<kHeadDim>(&maps.dout, a.dout, a.num_heads, a.tq, batch, a.do_st, a.do_sb) ||
+      !tile_map<kHeadDim>(&maps.k, a.k, kv_heads, a.tk, batch, a.k_st, a.k_sb) ||
+      !tile_map<kHeadDim>(&maps.v, a.v, kv_heads, a.tk, batch, a.v_st, a.v_sb) ||
+      (kQhat && !tile_map<kHeadDim>(&maps.qh, a.qh, a.num_heads, a.tq, batch, C, a.tq * C)))
     return cudaErrorInvalidValue;
   const unsigned kv_tiles = (a.tk + kBlock - 1) / kBlock, tiles = (a.tq + kBlock - 1) / kBlock;
-  auto dkv = flash_bwd_dkv_wgmma<kRope, kQhat>;
+  auto dkv = dkv_kernel<kRope, kQhat>();
   auto dq = flash_bwd_dq_wgmma<kRope, kQhat>;
   cudaError_t err = cudaFuncSetAttribute(dkv, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          dkv_smem<kQhat>());
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem());
   if (err != cudaSuccess) return err;
-  dkv<<<dim3(batch * kv_heads, kv_tiles), 128, dkv_smem<kQhat>(), s>>>(maps, a);
+  dkv<<<dim3(batch * kv_heads, kv_tiles), 128 * kDkvGroups, dkv_smem<kQhat>(), s>>>(maps, a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dq<<<dim3(batch * a.num_heads, tiles), 128, dq_smem(), s>>>(maps, a);
   return cudaGetLastError();
+}
+
+// the bf16 kernels of an instance this head dim has (D = 256: no rope, no q^)
+template <bool kRope, bool kQhat>
+cudaError_t launch_checked(const Args& m, int batch, int kv_heads, cudaStream_t s) {
+  if constexpr ((kRope && !kRopeOk) || (kQhat && !kQhatOk))
+    return cudaErrorInvalidValue;
+  else
+    return launch_wgmma<kRope, kQhat>(m, batch, kv_heads, s);
 }
 
 bool power_of_two(float x) {
@@ -791,13 +1054,14 @@ bool power_of_two(float x) {
 // v, dk and dv have tk rows at 0 .. tk-1 (causal: key j is visible from
 // query row i when j <= q_off + i, and j > q_off + i - window for window >
 // 0).  di is fp32 scratch of batch * num_heads * tq floats; dq is
-// (B, tq, C), dk and dv (B, tk, kv_heads * D); kv_heads must divide
-// num_heads.  window > 0 (causal only): the band of the forward.
-// rope_cos/rope_sin: the fp32 (positions >= tq, 32) rope table, or both
-// null; rope takes the square block only (tq == tk, q_off == 0).  bf16
-// scratch, contiguous: q_rot (B, tq, C) and k_rot (B, tk, kv_dim) under
-// rope, else null; q_hat (B, tq, C) when sm_scale is not a power of two,
-// else null; fp32 takes none.  Launches three kernels on `stream` without
+// (B, tq, C), dk and dv (B, tk, kv_heads * D), every head
+// vitrs_flash_bwd_head_dim() wide; kv_heads must divide num_heads.  window
+// > 0 (causal only): the band of the forward.  rope_cos/rope_sin: the fp32
+// (positions >= tq, D/2) rope table, or both null; rope takes the square
+// block only (tq == tk, q_off == 0), at D < 256.  bf16 scratch,
+// contiguous: q_rot (B, tq, C) and k_rot (B, tk, kv_dim) under rope, else
+// null; q_hat (B, tq, C) when sm_scale is not a power of two (D < 256: at
+// D = 256 bf16 takes a power of two), else null; fp32 takes none.  Launches three kernels on `stream` without
 // synchronising; returns the first launch error.
 extern "C" int vitrs_flash_bwd(int dtype, const void* q, const void* k, const void* v,
                                const void* o, const void* dout, const float* lse, float* di,
@@ -817,7 +1081,8 @@ extern "C" int vitrs_flash_bwd(int dtype, const void* q, const void* k, const vo
                  : (q_rot == nullptr && k_rot == nullptr && q_hat == nullptr);
   if ((dtype != 0 && dtype != 1) || kv_heads <= 0 || num_heads % kv_heads != 0 ||
       window < 0 || (window > 0 && !causal) || (rope != (rope_sin != nullptr)) || !scratch_ok ||
-      tq <= 0 || tk <= 0 || q_off < 0 || (rope && (q_off != 0 || tq != tk)) || batch <= 0)
+      tq <= 0 || tk <= 0 || q_off < 0 || (rope && (q_off != 0 || tq != tk)) || batch <= 0 ||
+      (rope && !kRopeOk) || (q_hat != nullptr && !kQhatOk))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{q,      k,      v,      o,     dout,  lse,   di,     dq,        dk,
          dv,     nullptr, q_sb,  q_st,  k_sb,  k_st,  v_sb,   v_st,      o_sb,
@@ -828,11 +1093,11 @@ extern "C" int vitrs_flash_bwd(int dtype, const void* q, const void* k, const vo
   // 1. the pre-pass (its k job runs under rope only, where tk == tq, so
   // the q rows' threads cover it)
   const long long rows = (long long)batch * tq * num_heads;
-  long long threads = rows * (dtype == 1 ? 8 : 16);
+  long long threads = rows * (dtype == 1 ? prep_lanes(8) : prep_lanes(4));
   int jobs = 1;
   if (dtype == 1 && (rope || q_hat != nullptr)) {
     jobs = rope ? 3 : 2;
-    const long long q_threads = rows * (rope ? 4 : 8);
+    const long long q_threads = rows * (rope ? kHalf / 8 : kHeadDim / 8);
     if (q_threads > threads) threads = q_threads;
   }
   const dim3 prep_grid(static_cast<unsigned>((threads + 255) / 256), jobs);
@@ -859,32 +1124,54 @@ extern "C" int vitrs_flash_bwd(int dtype, const void* q, const void* k, const vo
       m.k_st = kvd;
     }
     if (q_hat != nullptr)
-      err = rope ? launch_wgmma<true, true>(m, batch, kv_heads, s)
-                 : launch_wgmma<false, true>(m, batch, kv_heads, s);
+      err = rope ? launch_checked<true, true>(m, batch, kv_heads, s)
+                 : launch_checked<false, true>(m, batch, kv_heads, s);
     else
-      err = rope ? launch_wgmma<true, false>(m, batch, kv_heads, s)
-                 : launch_wgmma<false, false>(m, batch, kv_heads, s);
+      err = rope ? launch_checked<true, false>(m, batch, kv_heads, s)
+                 : launch_checked<false, false>(m, batch, kv_heads, s);
     return static_cast<int>(err);
   }
   // rope is a template argument, so the instances without it carry none of
   // its registers or branches
   const dim3 kv_grid((tk + kBlock - 1) / kBlock, kv_heads, batch);
   const dim3 q_grid((tq + kBlock - 1) / kBlock, num_heads, batch);
-  if (rope)
-    flash_bwd_dkv_fma<float, true><<<kv_grid, 2 * kBlock, 0, s>>>(a);
-  else
-    flash_bwd_dkv_fma<float, false><<<kv_grid, 2 * kBlock, 0, s>>>(a);
+  constexpr int kFmaThreads = kFmaSplit * kBlock;
+  if (rope) {
+    if constexpr (kRopeOk) flash_bwd_dkv_fma<float, true><<<kv_grid, kFmaThreads, 0, s>>>(a);
+  } else {
+    flash_bwd_dkv_fma<float, false><<<kv_grid, kFmaThreads, 0, s>>>(a);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (rope)
-    flash_bwd_dq_fma<float, true><<<q_grid, 2 * kBlock, 0, s>>>(a);
-  else
-    flash_bwd_dq_fma<float, false><<<q_grid, 2 * kBlock, 0, s>>>(a);
+  if (rope) {
+    if constexpr (kRopeOk) flash_bwd_dq_fma<float, true><<<q_grid, kFmaThreads, 0, s>>>(a);
+  } else {
+    flash_bwd_dq_fma<float, false><<<q_grid, kFmaThreads, 0, s>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// Resources of one bf16 kernel as compiled: kernel 0 the pre-pass, 1 dK/dV,
-// 2 dQ; out = {registers per thread,
+// the head dim this library was built for
+extern "C" int vitrs_flash_bwd_head_dim() { return kHeadDim; }
+
+namespace {
+
+// the kernel function of attrs' (kernel, rope, qhat), or nullptr where this
+// head dim has no such instance
+template <bool kRope, bool kQhat>
+const void* kernel_fn(int kernel) {
+  if constexpr ((kRope && !kRopeOk) || (kQhat && !kQhatOk)) {
+    return nullptr;
+  } else {
+    if (kernel == 1) return reinterpret_cast<const void*>(dkv_kernel<kRope, kQhat>());
+    return reinterpret_cast<const void*>(flash_bwd_dq_wgmma<kRope, kQhat>);
+  }
+}
+
+}  // namespace
+
+// Resources of one bf16 kernel as compiled: kernel 0 the pre-pass, 1 dK/dV
+// (two warpgroups at D >= 128), 2 dQ; out = {registers per thread,
 // local (spill) bytes per thread, static shared bytes, dynamic shared bytes
 // per block, threads per block}.
 extern "C" int vitrs_flash_bwd_attrs(int kernel, int rope, int qhat, int* out) {
@@ -894,18 +1181,12 @@ extern "C" int vitrs_flash_bwd_attrs(int kernel, int rope, int qhat, int* out) {
   if (kernel == 0) {
     fn = reinterpret_cast<const void*>(flash_bwd_prep<bf16>);
     threads = 256;
-  } else if (kernel == 1) {
-    fn = rope ? (qhat ? reinterpret_cast<const void*>(flash_bwd_dkv_wgmma<true, true>)
-                      : reinterpret_cast<const void*>(flash_bwd_dkv_wgmma<true, false>))
-              : (qhat ? reinterpret_cast<const void*>(flash_bwd_dkv_wgmma<false, true>)
-                      : reinterpret_cast<const void*>(flash_bwd_dkv_wgmma<false, false>));
-    dyn = qhat ? dkv_smem<true>() : dkv_smem<false>();
-  } else if (kernel == 2) {
-    fn = rope ? (qhat ? reinterpret_cast<const void*>(flash_bwd_dq_wgmma<true, true>)
-                      : reinterpret_cast<const void*>(flash_bwd_dq_wgmma<true, false>))
-              : (qhat ? reinterpret_cast<const void*>(flash_bwd_dq_wgmma<false, true>)
-                      : reinterpret_cast<const void*>(flash_bwd_dq_wgmma<false, false>));
-    dyn = dq_smem();
+  } else if (kernel == 1 || kernel == 2) {
+    fn = rope ? (qhat ? kernel_fn<true, true>(kernel) : kernel_fn<true, false>(kernel))
+              : (qhat ? kernel_fn<false, true>(kernel) : kernel_fn<false, false>(kernel));
+    if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    dyn = kernel == 2 ? dq_smem() : (qhat ? dkv_smem<true>() : dkv_smem<false>());
+    threads = kernel == 1 ? 128 * kDkvGroups : 128;
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

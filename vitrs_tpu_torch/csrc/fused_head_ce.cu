@@ -222,8 +222,8 @@ __device__ __forceinline__ void product(float (&acc)[kBN / 8][4], uint32_t base,
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk)
-      Wgmma<kBN>::mma(acc, desc(sx + xoff + kk * 32), desc(sx + kXBytes + kk * 32),
-                      k > 0 || kk > 0);
+      Wgmma<kBN>::mma(acc, HeadTile<64>::desc(sx + xoff + kk * 32),
+                      HeadTile<64>::desc(sx + kXBytes + kk * 32), k > 0 || kk > 0);
     wg_commit();
     if (kPingPong && k == ksteps - 1 && tid == 0) mbar_arrive(turn);
     if (k > 0) {

@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the flash kernels (flash_fwd.cu,
-// flash_bwd.cu): tiles copied by the tensor memory accelerator (TMA) into
-// shared memory with completion on mbarriers, 4-byte cp.async, and warpgroup
-// products (wgmma m64n64k16, bf16 in, fp32 accumulate) reading swizzled
-// tiles through shared-memory descriptors.  Every tile here is 64 rows of 64
-// bf16 (one head of D = 64), 8 KB.  Each .cu file is built into its own
-// library, so these are plain inline functions.
+// flash_bwd.cu) and K8 (fused_head_ce.cu): tiles copied by the tensor memory
+// accelerator (TMA) into shared memory with completion on mbarriers, 4-byte
+// cp.async, and warpgroup products (wgmma m64nNk16, bf16 in, fp32
+// accumulate) reading swizzled tiles through shared-memory descriptors.  A
+// flash tile is 64 rows of one head of D bf16 columns (`HeadTile<D>`, D =
+// 32, 64, 128 or 256).  Each .cu file is built into its own library (the
+// flash sources once per head dim), so these are plain inline functions.
 
 #pragma once
 
@@ -23,19 +24,68 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// A 64 x 64 bf16 tile in shared memory has 128-byte rows under the 128-byte
-// swizzle (16-byte chunk c of row r at r * 128 + (c ^ r % 8) * 16), written
-// so by the tensor memory accelerator (TMA) from a 4-D tensor map (d, head,
-// t, b) of the (B, T, W) matrix, one 64-row box per tile: rows past seq_len
-// read as zeros.  Its base is 1024-byte aligned, so it is also the layout
-// wgmma's 128-byte-swizzle descriptors read.
+// The shared-memory tile of 64 rows of one head of D bf16 columns.  Its
+// rows are cut into swizzle atoms of kAtomCols columns: at D >= 64, D / 64
+// atoms of 64 x 64 (8 KB, 128-byte rows under the 128-byte swizzle: 16-byte
+// chunk c of row r at r * 128 + (c ^ r % 8) * 16), one after another; at
+// D = 32 one atom of 64 x 32 (4 KB, 64-byte rows under the 64-byte swizzle:
+// chunk c of row r at r * 64 + (c ^ (r / 2) % 4) * 16; a 128-byte box would
+// read the next head's columns).  The tensor memory accelerator (TMA) writes
+// it from a 4-D tensor map (column in the atom, atom, t, b) of the (B, T, W)
+// matrix, one 64-row box per atom (`tma_head`): rows past seq_len read as
+// zeros.  Its base is 1024-byte aligned, so it is also the layout wgmma's
+// swizzled descriptors read (`HeadTile::desc`).
+template <int D>
+struct HeadTile {
+  static_assert(D == 32 || D == 64 || D == 128 || D == 256, "head dims 32, 64, 128, 256");
+  static constexpr int kAtomCols = D < 64 ? D : 64;
+  static constexpr int kRowBytes = 2 * kAtomCols;      // 128 or 64
+  static constexpr int kAtoms = D / kAtomCols;
+  static constexpr int kAtomBytes = 64 * kRowBytes;    // 8 KB or 4 KB
+  static constexpr int kBytes = kAtoms * kAtomBytes;   // 64 * D * 2
+  static constexpr int kSteps = D / 16;                // k-steps of a product over D
+
+  // byte offset of (row, col) in the tile
+  __device__ static __forceinline__ int offset(int row, int col) {
+    const int c = col % kAtomCols;
+    const int sw = kRowBytes == 128 ? (row & 7) : ((row >> 1) & 3);
+    return (col / kAtomCols) * kAtomBytes + row * kRowBytes +
+           ((((c >> 3) ^ sw) << 4) | ((c & 7) << 1));
+  }
+  // wgmma shared-memory descriptor: start address, leading offset 16 B
+  // (unused: an operand never spans two atoms), stride 8 rows, and the
+  // swizzle (1: 128-byte, 2: 64-byte).  K-major operands step 16 columns by
+  // `kstep`; MN-major ones step 16 rows by 16 * kRowBytes.
+  __device__ static __forceinline__ uint64_t desc(uint32_t saddr) {
+    return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) | (1ull << 16) |
+           (static_cast<uint64_t>(8 * kRowBytes >> 4) << 32) |
+           (static_cast<uint64_t>(kRowBytes == 128 ? 1 : 2) << 62);
+  }
+  // byte offset of k-step kk (columns 16 kk .. 16 kk + 15) of a K-major tile
+  __device__ static __forceinline__ uint32_t kstep(int kk) {
+    return (kk * 16 / kAtomCols) * kAtomBytes + (kk * 16 % kAtomCols) * 2;
+  }
+};
+
+// one box (64 rows of one atom) of the tensor map into shared memory
 __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int head, int row, int b) {
+                                         int atom, int row, int b) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(head), "r"(row), "r"(b), "r"(bar)
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(atom), "r"(row), "r"(b), "r"(bar)
       : "memory");
+}
+
+// rows row .. row + 63 of head `head` (all its atoms) into the tile at dst;
+// HeadTile<D>::kBytes land on `bar`
+template <int D>
+__device__ __forceinline__ void tma_head(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int head, int row, int b) {
+  using H = HeadTile<D>;
+#pragma unroll
+  for (int a = 0; a < H::kAtoms; ++a)
+    tma_tile(dst + a * H::kAtomBytes, map, bar, head * H::kAtoms + a, row, b);
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar) {
@@ -75,16 +125,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// wgmma shared-memory descriptor of a swizzled tile: start address, leading
-// offset 16 B (unused by these layouts), stride 1024 B between 8-row groups,
-// 128-byte swizzle.  K-major operands (K, the q/do tiles of S and dP) step
-// 16 columns by +32 B; MN-major ones (B of dV, dK, dQ, P.V) step 16 rows by
-// +2 KB.
-__device__ __forceinline__ uint64_t desc(uint32_t saddr) {
-  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
-         (1ull << 62);
-}
-
 __device__ __forceinline__ void wg_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -98,9 +138,10 @@ __device__ __forceinline__ void wg_wait() {
 
 // keeps the compiler from moving accesses of an accumulator across the
 // asynchronous products that write it
-__device__ __forceinline__ void fence_acc(float (&x)[8][4]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&x)[N][4]) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+f"(x[i][j])::"memory");
 }
@@ -134,35 +175,154 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t da, uint64_t
       : "memory");
 }
 
-// d += A . B, A (64 x 16) in registers (mma.sync's A fragment per warp), B
-// (16 x 64) MN-major in shared memory
-__device__ __forceinline__ void wgmma_rs(float (&d)[8][4], const uint32_t (&a)[4], uint64_t db) {
+// The accumulator of m64n32 (float[4][4]): the same layout over 4 column
+// tiles.
+#define WG_D16(d)                                                                            \
+  "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),  \
+      "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]),             \
+      "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+#define WG_REGS16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+
+// d (+)= A . B at n = 32, A (64 x 16) and B (16 x 32) both K-major in shared
+// memory
+__device__ __forceinline__ void wgmma_ss32(float (&d)[4][4], uint64_t da, uint64_t db,
+                                           int accumulate) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : WG_D(d)
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " WG_REGS16
+      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : WG_D16(d)
+      : "l"(da), "l"(db), "r"(accumulate)
+      : "memory");
+}
+
+// d += A . B at n = 32, A in registers, B (16 x 32) MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs32(float (&d)[4][4], const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " WG_REGS16
+      ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : WG_D16(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
       : "memory");
 }
 
-// acc = A . B^T over D = 64: A and B 64-row K-major tiles
+// The 32 accumulators of column tiles o .. o + 7 of a wider m64
+// accumulator float[N][4] (columns 8 o .. 8 o + 63)
+#define WG_D_AT(d, o)                                                                        \
+  "+f"(d[o][0]), "+f"(d[o][1]), "+f"(d[o][2]), "+f"(d[o][3]), "+f"(d[o + 1][0]),             \
+      "+f"(d[o + 1][1]), "+f"(d[o + 1][2]), "+f"(d[o + 1][3]), "+f"(d[o + 2][0]),            \
+      "+f"(d[o + 2][1]), "+f"(d[o + 2][2]), "+f"(d[o + 2][3]), "+f"(d[o + 3][0]),            \
+      "+f"(d[o + 3][1]), "+f"(d[o + 3][2]), "+f"(d[o + 3][3]), "+f"(d[o + 4][0]),            \
+      "+f"(d[o + 4][1]), "+f"(d[o + 4][2]), "+f"(d[o + 4][3]), "+f"(d[o + 5][0]),            \
+      "+f"(d[o + 5][1]), "+f"(d[o + 5][2]), "+f"(d[o + 5][3]), "+f"(d[o + 6][0]),            \
+      "+f"(d[o + 6][1]), "+f"(d[o + 6][2]), "+f"(d[o + 6][3]), "+f"(d[o + 7][0]),            \
+      "+f"(d[o + 7][1]), "+f"(d[o + 7][2]), "+f"(d[o + 7][3])
+
+// d[kO .. kO + 7] += A . B at n = 64, A (64 x 16) in registers (mma.sync's
+// A fragment per warp), B (16 x 64) MN-major in shared memory
+template <int kO, int N>
+__device__ __forceinline__ void wgmma_rs_at(float (&d)[N][4], const uint32_t (&a)[4],
+                                            uint64_t db) {
+  static_assert(kO + 8 <= N, "accumulator columns");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_D_AT(d, kO)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
+
+// d[kO .. kO + 7] += A . B at n = 64, A (64 x 16) K-major and B (16 x 64)
+// MN-major, both in shared memory
+template <int kO, int N>
+__device__ __forceinline__ void wgmma_ss_mn_at(float (&d)[N][4], uint64_t da, uint64_t db) {
+  static_assert(kO + 8 <= N, "accumulator columns");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS
+      ", %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : WG_D_AT(d, kO)
+      : "l"(da), "l"(db), "r"(1)
+      : "memory");
+}
+
+// acc = A . B^T over D: A and B 64-row K-major tiles of one head of D
+template <int D>
 __device__ __forceinline__ void product_rows(float (&acc)[8][4], uint32_t sa, uint32_t sb) {
+  using H = HeadTile<D>;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_ss(acc, desc(sa + kk * 32), desc(sb + kk * 32), kk);
+  for (int kk = 0; kk < H::kSteps; ++kk)
+    wgmma_ss(acc, H::desc(sa + H::kstep(kk)), H::desc(sb + H::kstep(kk)), kk);
 }
 
-// acc += X . B over 64 rows of the tile B: X (64 x 64, fp32 accumulators of
-// another product) rounded to bf16 as the A operand, B read MN-major
-__device__ __forceinline__ void product_cols(float (&acc)[8][4], const uint32_t (&xa)[4][4],
+// acc = A . B^T over D for 32 rows of B: A a 64-row tile, B rows
+// r0 .. r0 + 31 of one (r0 a multiple of 8)
+template <int D>
+__device__ __forceinline__ void product_rows32(float (&acc)[4][4], uint32_t sa, uint32_t sb,
+                                               int r0) {
+  using H = HeadTile<D>;
+  const uint32_t sb0 = sb + r0 * H::kRowBytes;
+#pragma unroll
+  for (int kk = 0; kk < H::kSteps; ++kk)
+    wgmma_ss32(acc, H::desc(sa + H::kstep(kk)), H::desc(sb0 + H::kstep(kk)), kk);
+}
+
+// One k-step of an m64 accumulator of 8 N8 columns against the 64-column
+// atoms A, A + 1, .. of B (128-byte swizzle, MN-major, 8 KB apart from sb):
+// A from registers (xa), or with kSmem from the descriptor da.
+template <bool kSmem, int N8, int A = 0>
+__device__ __forceinline__ void atoms_step(float (&acc)[N8][4], const uint32_t (&xa)[4],
+                                           uint64_t da, uint32_t sb) {
+  if constexpr (8 * A < N8) {
+    const uint64_t db = HeadTile<64>::desc(sb + A * HeadTile<64>::kBytes);
+    if constexpr (kSmem)
+      wgmma_ss_mn_at<8 * A>(acc, da, db);
+    else
+      wgmma_rs_at<8 * A>(acc, xa, db);
+    atoms_step<kSmem, N8, A + 1>(acc, xa, da, sb);
+  }
+}
+
+// acc (64 x D) += X . B over 64 rows of the tile B (one head of D, read
+// MN-major): X (64 x 64, fp32 accumulators of another product) rounded to
+// bf16 as the A operand, one wgmma a k-step and a 64-column atom (n = 32 at
+// D = 32)
+template <int D>
+__device__ __forceinline__ void product_cols(float (&acc)[D / 8][4], const uint32_t (&xa)[4][4],
                                              uint32_t sb) {
+  using H = HeadTile<D>;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, xa[kk], desc(sb + kk * 2048));
+  for (int kk = 0; kk < 4; ++kk) {
+    if constexpr (D == 32)
+      wgmma_rs32(acc, xa[kk], H::desc(sb + kk * 16 * H::kRowBytes));
+    else
+      atoms_step<false>(acc, xa[kk], 0, sb + kk * 16 * H::kRowBytes);
+  }
 }
 
-__device__ __forceinline__ void to_a(uint32_t (&xa)[4][4], const float (&x)[8][4]) {
+// acc (64 x 8 N8) += X . B[:, 64 a0 ..]: X a 64 x 64 bf16 tile in shared
+// memory (128-byte swizzle, K-major), B 64 rows of a head of D >= 128 read
+// MN-major from its atom a0 on
+template <int D, int N8>
+__device__ __forceinline__ void product_cols_ss(float (&acc)[N8][4], uint32_t sx, uint32_t sb,
+                                                int a0) {
+  using H = HeadTile<D>;
+  using X = HeadTile<64>;
+  static_assert(D >= 128, "two warpgroups split D >= 128 only");
+  const uint32_t none[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) acc_to_a(xa[kk], x[2 * kk], x[2 * kk + 1]);
+  for (int kk = 0; kk < 4; ++kk)
+    atoms_step<true>(acc, none, X::desc(sx + X::kstep(kk)),
+                     sb + a0 * H::kAtomBytes + kk * 16 * H::kRowBytes);
+}
+
+template <int N>
+__device__ __forceinline__ void to_a(uint32_t (&xa)[N / 2][4], const float (&x)[N][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 2; ++kk) acc_to_a(xa[kk], x[2 * kk], x[2 * kk + 1]);
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -211,22 +371,27 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return fn;
 }
 
-// The TMA map of a bf16 (B, T, heads * 64) matrix with batch and time strides
-// sb, st (elements) as 4-D (d, head, t, b), one 64 x 64 swizzled tile per
-// box; t runs to seq_len, so rows at or past it read as zeros.  False if the
-// encoder refuses it: the base and both strides must be 16-byte multiples.
+// The TMA map of a bf16 (B, T, heads * D) matrix with batch and time strides
+// sb, st (elements) as 4-D (column in the atom, atom, t, b), one 64-row
+// swizzled atom of `HeadTile<D>` per box; t runs to seq_len, so rows at or
+// past it read as zeros.  False if the encoder refuses it: the base and
+// both strides must be 16-byte multiples.
+template <int D>
 inline bool tile_map(CUtensorMap* map, const void* ptr, int heads, int seq_len, int batch,
                      long long st, long long sb) {
+  using H = HeadTile<D>;
   const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(heads),
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(H::kAtomCols),
+                              static_cast<cuuint64_t>(heads) * H::kAtoms,
                               static_cast<cuuint64_t>(seq_len), static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {64 * 2, static_cast<cuuint64_t>(st) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(H::kRowBytes),
+                                 static_cast<cuuint64_t>(st) * 2, static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(H::kAtomCols), 1, 64, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                H::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -81,17 +81,17 @@ __device__ __forceinline__ void rope_pair(float& x1, float& x2, float c, float s
   x2 = y2;
 }
 
-// Eight pairs of one row of a 64-wide bf16 head: x points at column c of
-// the row (c a multiple of 8 below 32), cs and sn at column c of the table
-// row of its position.  Columns c..c+7 and c+32..c+39 rotated, rounded to
-// bf16 and packed into lo and hi.  kScaled: the rotation by cos and sin
-// times `scale` (each product rounded on its own), which folds a softmax
-// scale into q as the kernels' plain versions do.
-template <bool kScaled = false>
+// Eight pairs of one row of a bf16 head of 2 kHalf columns: x points at
+// column c of the row (c a multiple of 8 below kHalf), cs and sn at column c
+// of the table row of its position.  Columns c..c+7 and c+kHalf..c+kHalf+7
+// rotated, rounded to bf16 and packed into lo and hi.  kScaled: the rotation
+// by cos and sin times `scale` (each product rounded on its own), which
+// folds a softmax scale into q as the kernels' plain versions do.
+template <int kHalf, bool kScaled = false>
 __device__ __forceinline__ void rope_row8(const bf16* x, const float* cs, const float* sn,
                                           uint4& lo, uint4& hi, float scale = 1.f) {
   const uint4 x1 = *reinterpret_cast<const uint4*>(x);
-  const uint4 x2 = *reinterpret_cast<const uint4*>(x + 32);
+  const uint4 x2 = *reinterpret_cast<const uint4*>(x + kHalf);
   const bf16* e1 = reinterpret_cast<const bf16*>(&x1);
   const bf16* e2 = reinterpret_cast<const bf16*>(&x2);
   uint32_t* l32 = reinterpret_cast<uint32_t*>(&lo);

@@ -186,7 +186,8 @@ def _project_and_attend(ln1: torch.Tensor, p: Mapping[str, torch.Tensor],
     takes the plain composition with the quirk softmax."""
     rope = cfg.pos_emb == "rope"
     if (cfg.use_flash and not cfg.quirks
-            and flash_supports(cfg.num_heads, cfg.head_size, cfg.kv_heads)):
+            and flash_supports(cfg.num_heads, cfg.head_size, cfg.kv_heads,
+                               rope)):
         return qkv_attention(ln1, p["qkvw"], p["qkvb"], cfg.num_heads, causal,
                              cfg.window, rope, kv_heads=cfg.kv_heads)
     w, b = expand_qkv_weight(p["qkvw"], p["qkvb"], cfg.num_heads,

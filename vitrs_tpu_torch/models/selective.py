@@ -134,7 +134,7 @@ def attn_branch(x: torch.Tensor, p: Mapping[str, torch.Tensor],
     """The pre-LN attention residual branch with lean saved state (p: one
     layer's params as `model.train_params` gives them)."""
     if cfg.use_flash and flash_supports(cfg.num_heads, cfg.head_size,
-                                        cfg.kv_heads):
+                                        cfg.kv_heads, cfg.pos_emb == "rope"):
         return _AttnBranch.apply(x, *(p[k] for k in ATTN_KEYS),
                                  cfg.num_heads, cfg.kv_heads, causal,
                                  cfg.window, cfg.pos_emb == "rope")

@@ -4,8 +4,11 @@ Each `csrc/<name>.cu` exposes a plain C interface and is compiled by nvcc
 alone, for sm_90a, into `vitrs_tpu_torch/_build/` (listed in .gitignore),
 then loaded with ctypes.  No PyTorch header is included, so a build takes
 seconds; the library is named by a hash of the sources and flags, so an
-edited source builds anew and an unchanged one is reused.  Nothing here runs
-at import time: the CPU tests import every module without a CUDA toolkit.
+edited source builds anew and an unchanged one is reused.  The flash
+sources are built once per head dim (`load(name, head_dim)`: the same
+source with -DVITRS_HEAD_DIM=D into `lib<name>_d<D>_<hash>.so`), each at
+the first call that needs it.  Nothing here runs at import time: the CPU
+tests import every module without a CUDA toolkit.
 
 `kernel_op` registers each kernel as a `torch.library` custom op in the
 `vitrs` namespace, the one rule every kernel's caller follows: the kernel
@@ -27,6 +30,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 
@@ -35,6 +39,8 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the sources built once per head dim; they have no default head dim
+PER_HEAD_DIM = ("flash_fwd", "flash_bwd")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,8 +66,16 @@ def nvcc() -> str:
     return found
 
 
-def _digest(src: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def flags_for(head_dim: Optional[int] = None) -> tuple:
+    """nvcc's flags for a source, with head_dim one built for that head dim
+    (-DVITRS_HEAD_DIM=D)."""
+    if head_dim is None:
+        return NVCC_FLAGS
+    return NVCC_FLAGS + (f"-DVITRS_HEAD_DIM={int(head_dim)}",)
+
+
+def _digest(src: str, flags=NVCC_FLAGS) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
     for path in [src] + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
         with open(path, "rb") as f:
             h.update(f.read())
@@ -69,13 +83,21 @@ def _digest(src: str) -> str:
 
 
 @functools.cache
-def load(name: str) -> Library:
-    """Build (once per source version) and load `csrc/<name>.cu`.  nvcc's
-    output is kept beside the library (`.log`), so a reused build still
-    reports its ptxas lines.  Raises RuntimeError with nvcc's output when
-    the build fails."""
+def load(name: str, head_dim: Optional[int] = None) -> Library:
+    """Build (once per source version) and load `csrc/<name>.cu`.  A source
+    of PER_HEAD_DIM takes a head_dim and is built for it (-DVITRS_HEAD_DIM,
+    which enters the hash and the file name, so each head dim has one
+    library of its own); any other takes none (ValueError otherwise).
+    nvcc's output is kept beside the library (`.log`), so a reused build
+    still reports its ptxas lines.  Raises RuntimeError with nvcc's output
+    when the build fails."""
+    if (head_dim is None) == (name in PER_HEAD_DIM):
+        raise ValueError(f"load({name!r}, head_dim={head_dim}): the sources "
+                         f"{PER_HEAD_DIM} take a head_dim, the others none")
     src = os.path.join(CSRC_DIR, name + ".cu")
-    path = os.path.join(BUILD_DIR, f"lib{name}_{_digest(src)}.so")
+    flags = flags_for(head_dim)
+    tag = name if head_dim is None else f"{name}_d{int(head_dim)}"
+    path = os.path.join(BUILD_DIR, f"lib{tag}_{_digest(src, flags)}.so")
     seconds, log = 0.0, ""
     if os.path.exists(path) and os.path.exists(path + ".log"):
         with open(path + ".log") as f:
@@ -85,7 +107,7 @@ def load(name: str) -> Library:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         t0 = time.perf_counter()
-        res = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+        res = subprocess.run([nvcc(), *flags, "-o", tmp, src],
                              capture_output=True, text=True)
         seconds = time.perf_counter() - t0
         log = res.stdout + res.stderr
@@ -145,8 +167,12 @@ def kernel_op(name: str, schema: str, cpu, cuda, fake,
 
 
 def load_all(names) -> dict:
-    """`load` each of `names` (a name per `csrc/<name>.cu`), running their
-    nvcc builds at the same time.  Returns {name: Library}."""
+    """`load` each of `names` (a name per `csrc/<name>.cu`, or a (name,
+    head_dim) pair), running their nvcc builds at the same time.  Returns
+    {name or pair: Library}."""
     names = list(names)
+
+    def one(n):
+        return load(*n) if isinstance(n, tuple) else load(n)
     with concurrent.futures.ThreadPoolExecutor(max(1, len(names))) as ex:
-        return dict(zip(names, ex.map(load, names)))
+        return dict(zip(names, ex.map(one, names)))

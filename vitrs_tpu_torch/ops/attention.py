@@ -3,7 +3,8 @@
 
 The JAX package sends attention to its Pallas flash kernel on a TPU and to
 dense XLA elsewhere.  Here the flash path is every geometry the port's
-kernels take (`supports`): on a CUDA tensor the hand-written kernels
+kernels take (`supports`: head dims 32, 64, 128 and 256, any kv_heads
+dividing num_heads): on a CUDA tensor the hand-written kernels
 (K1-fwd and K2 for MHA, ops/flash_attention.py; K3 for GQA,
 ops/flash_attention_gqa.py), on a CPU tensor their plain PyTorch versions.
 Other geometries, and `use_flash=False`, go to dense attention.  Both
@@ -25,24 +26,31 @@ import numpy as np
 import torch
 
 from . import basic
-from .flash_attention import HEAD_DIM, flash_attention_qkv
+from .flash_attention import HEAD_DIMS, ROPE_HEAD_DIMS, flash_attention_qkv
 from .flash_attention_gqa import flash_gqa_qkv, split_gqa
 from .rope import rope_qk
 
 
-def supports(num_heads: int, head_dim: int, kv_heads: int = 0) -> bool:
-    """The port's routing rule, its kernels' own: head_dim 64 (the D the
-    kernels are built for), any head count, and kv_heads (0: num_heads)
-    dividing num_heads.  At D = 64 it routes as the JAX package does, which
-    pads an odd head count with phantom heads (`padded_num_heads`): so
-    gpt2-1558m's 25 heads run on the kernels, unpadded (their grid has a
-    block row per head).  The packages part at other head dims: the JAX
-    kernel also tiles D = 32, 128 and 256, the port sends them to dense
-    attention (it has no kernel for them).  gpt-nano (D = 8) is dense in
-    both."""
+def supports(num_heads: int, head_dim: int, kv_heads: int = 0,
+             rope: bool = False) -> bool:
+    """The port's routing rule, its kernels' own: head_dim 32, 64, 128 or
+    256 (the D the kernels are built for), any head count, and kv_heads
+    (0: num_heads) dividing num_heads; under rope (rotated inside the
+    kernels) 32, 64 or 128.  That covers every geometry at those head dims
+    that the JAX package sends to a Pallas kernel: it pads a head count
+    its 128-lane blocks cannot tile with phantom heads
+    (`padded_num_heads`), so gpt2-1558m's 25 heads run on the kernels in
+    both (here unpadded: the grid has a block row per head).  The port's
+    kernels also take the GQA geometries the JAX package sends to its
+    expanded MHA route, and D = 256 under GQA: the same function.  Rope at
+    D = 256 is dense in both (the JAX kernels assert on it, `_rope_table`;
+    the JAX package computes it densely on the CPU).  The packages part at
+    D <= 16 and D >= 384: the JAX kernel tiles them (gpt-nano's D = 8 with
+    16 phantom heads, `padded_num_heads(2, 8)`; D = 384 at 2 heads), the
+    port sends them to dense attention (ROADMAP.md Queue 2)."""
     kv_heads = kv_heads or num_heads
-    return (head_dim == HEAD_DIM and kv_heads > 0
-            and num_heads % kv_heads == 0)
+    return (head_dim in (ROPE_HEAD_DIMS if rope else HEAD_DIMS)
+            and kv_heads > 0 and num_heads % kv_heads == 0)
 
 
 def rope_packed(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -66,7 +74,7 @@ def attention(qkv: torch.Tensor, num_heads: int, causal: bool = True,
     quirks=True, the reference's softmax as written (G5, G11), which no
     kernel computes."""
     head_dim = qkv.shape[-1] // (3 * num_heads)
-    if quirks or not (use_flash and supports(num_heads, head_dim)):
+    if quirks or not (use_flash and supports(num_heads, head_dim, rope=rope)):
         if rope:
             qkv = rope_packed(qkv, num_heads)
         return basic.attention_dense(qkv, num_heads, causal=causal,
@@ -145,7 +153,7 @@ def attention_gqa(qkv: torch.Tensor, num_heads: int, kv_heads: int,
         return attention(qkv, num_heads, causal=causal, window=window,
                          rope=rope, use_flash=use_flash)
     head_dim = qkv.shape[-1] // (num_heads + 2 * kv_heads)
-    if not (use_flash and supports(num_heads, head_dim, kv_heads)):
+    if not (use_flash and supports(num_heads, head_dim, kv_heads, rope)):
         return attention(expand_packed(qkv, num_heads, kv_heads), num_heads,
                          causal=causal, window=window, rope=rope,
                          use_flash=False)

@@ -32,6 +32,12 @@ Pallas backwards (`_bwd_single` and `_bwd_parts`, running
   as a trailing `q_offset` (0 by default); under rope the kernels refuse a
   query offset past the keys' end (forward) or any rectangle but the
   square at offset 0 (backward).
+* Head dims: each CUDA source is built once per head dim D in `HEAD_DIMS`
+  (32, 64, 128, 256; `_build.load(name, D)`), and a call takes D from its
+  shapes (C // num_heads).  Rope runs in the kernels at D < 256 (the JAX
+  kernels assert on rope at D = 256, and the JAX package computes it
+  densely on the CPU; the port routes it densely, ops/attention.py).  The
+  bf16 backward at D = 256 takes a power-of-two sm_scale (the model's 1/16).
 * `flash_attention_qkv` is differentiable: an autograd.Function saves
   (qkv, out, lse) as the JAX package's `_flash_packed_fwd` does, and its
   backward returns the packed dqkv.
@@ -54,7 +60,9 @@ import torch
 from . import _build
 from .rope import rope_table, rotate
 
-HEAD_DIM = 64       # the kernel's head_dim: D of every GPT-2 preset
+# the head dims the kernels are built for; a call takes D = C // num_heads
+HEAD_DIMS = (32, 64, 128, 256)
+ROPE_HEAD_DIMS = (32, 64, 128)    # the head dims whose kernels rotate
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -95,16 +103,17 @@ def _rotated(x: torch.Tensor, heads: int, pos0: int, rope: bool,
     if not rope:
         return x if scale is None else (x.float() * scale).to(x.dtype)
     T = x.shape[1]
-    cos, sin = table_for(pos0 + T, x.device)
+    cos, sin = table_for(pos0 + T, x.shape[2] // heads, x.device)
     return rotate(x, cos[pos0:pos0 + T], sin[pos0:pos0 + T], heads,
                   scale=scale).to(x.dtype)
 
 
-def table_for(rows: int, device):
-    """The rope table the kernels read for `rows` positions: `rope_table`
-    at rows rounded up to 256, so that a few table sizes serve every call
-    (the rows a table holds do not depend on its length)."""
-    return rope_table(-(-rows // 256) * 256, HEAD_DIM, device)
+def table_for(rows: int, head_dim: int, device):
+    """The rope table the kernels read for `rows` positions of heads of
+    head_dim: `rope_table` at rows rounded up to 256, so that a few table
+    sizes serve every call (the rows a table holds do not depend on its
+    length)."""
+    return rope_table(-(-rows // 256) * 256, head_dim, device)
 
 
 def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -156,9 +165,19 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse.reshape(B, num_heads, Tq)
 
 
+def _library(name: str, head_dim: int) -> ctypes.CDLL:
+    """csrc/<name>.cu built for head_dim, checked to be that build."""
+    lib = _build.load(name, head_dim).lib
+    built = getattr(lib, f"vitrs_{name}_head_dim")()
+    if built != head_dim:
+        raise RuntimeError(f"{name}: the library for head_dim {head_dim} "
+                           f"was built for {built}")
+    return lib
+
+
 @functools.cache
-def _kernel():
-    fn = _build.load("flash_fwd").lib.vitrs_flash_fwd
+def _kernel(head_dim: int):
+    fn = _library("flash_fwd", head_dim).vitrs_flash_fwd
     P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     fn.argtypes = ([I] + [P] * 6 + [LL] * 8 + [I] * 8
                    + [ctypes.c_float, P, P, P])
@@ -200,21 +219,30 @@ def _check_layout(what: str, ts, ref: torch.Tensor):
                              f"{t.stride()} of {t.element_size()} bytes)")
 
 
-def _check_heads(what: str, q, k, num_heads: int, kv_heads: int):
-    if q.shape[2] != num_heads * HEAD_DIM:
-        raise ValueError(f"{what} takes head_dim {HEAD_DIM}, got C="
+def _check_heads(what: str, q, k, num_heads: int, kv_heads: int,
+                 rope: bool) -> int:
+    """The head dim D = C // num_heads of a call, checked: one of
+    HEAD_DIMS (ROPE_HEAD_DIMS under rope), k/v at kv_heads (dividing
+    num_heads) x D."""
+    D = q.shape[2] // num_heads if num_heads > 0 else 0
+    if num_heads <= 0 or q.shape[2] != num_heads * D or D not in HEAD_DIMS:
+        raise ValueError(f"{what} takes head dims {HEAD_DIMS}, got C="
                          f"{q.shape[2]} with {num_heads} heads")
-    if kv_heads <= 0 or num_heads % kv_heads or k.shape[2] != kv_heads * HEAD_DIM:
+    if rope and D not in ROPE_HEAD_DIMS:
+        raise ValueError(f"{what}: rope runs in the kernels at head dims "
+                         f"{ROPE_HEAD_DIMS}, got {D}")
+    if kv_heads <= 0 or num_heads % kv_heads or k.shape[2] != kv_heads * D:
         raise ValueError(f"{what}: k/v width {k.shape[2]} is not kv_heads="
-                         f"{kv_heads} (dividing {num_heads}) x {HEAD_DIM}")
+                         f"{kv_heads} (dividing {num_heads}) x {D}")
+    return D
 
 
-def _table_ptrs(rope: bool, rows: int, device):
+def _table_ptrs(rope: bool, rows: int, head_dim: int, device):
     """(cos, sin) data pointers of the rope table for `rows` positions, or
     two nulls without rope."""
     if not rope:
         return None, None
-    cos, sin = table_for(rows, device)
+    cos, sin = table_for(rows, head_dim, device)
     return cos.data_ptr(), sin.data_ptr()
 
 
@@ -231,7 +259,7 @@ def launch_fwd(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scratch allocated here.  Raises on anything the kernel does not take,
     and if the launch is refused."""
     _check_layout(what, (q, k, v), q)
-    _check_heads(what, q, k, num_heads, kv_heads)
+    D = _check_heads(what, q, k, num_heads, kv_heads, rope)
     _check_window(causal, window)
     B, Tq, C = q.shape
     Tk = k.shape[1]
@@ -253,10 +281,10 @@ def launch_fwd(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     k_rot = (torch.empty((B, seq_len, k.shape[2]), dtype=q.dtype,
                          device=q.device)
              if rope and q.dtype == torch.bfloat16 else None)
-    cos, sin = _table_ptrs(rope, max(seq_len, q_offset + Tq), q.device)
+    cos, sin = _table_ptrs(rope, max(seq_len, q_offset + Tq), D, q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _kernel()(
+        rc = _kernel(D)(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), lse.data_ptr(),
             None if k_rot is None else k_rot.data_ptr(),
@@ -398,7 +426,7 @@ def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         n = t.shape[2]
         t = t.transpose(1, 2).reshape(B, n, -1)
         if rope and heads:
-            cos, sin = table_for(pos0 + n, q.device)
+            cos, sin = table_for(pos0 + n, t.shape[2] // heads, q.device)
             t = rotate(t, cos[pos0:pos0 + n], sin[pos0:pos0 + n], heads,
                        inverse=True)
         return t.to(dtype)
@@ -411,8 +439,8 @@ def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 @functools.cache
-def _bwd_kernel():
-    fn = _build.load("flash_bwd").lib.vitrs_flash_bwd
+def _bwd_kernel(head_dim: int):
+    fn = _library("flash_bwd", head_dim).vitrs_flash_bwd
     P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     fn.argtypes = ([I] + [P] * 13 + [LL] * 14 + [I] * 8
                    + [ctypes.c_float, P, P, P])
@@ -432,9 +460,10 @@ def launch_bwd(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launches.  q/k/v may be strided views into the packed qkv, out and do
     strided (B, T, C) tensors (last dim contiguous).  Raises on anything
     the kernel does not take (under rope: any block but the square at
-    offset 0), and if a launch is refused."""
+    offset 0; at D = 256 in bf16, a sm_scale that is not a power of two),
+    and if a launch is refused."""
     _check_layout(what, (q, k, v, out, do), q)
-    _check_heads(what, q, k, num_heads, kv_heads)
+    D = _check_heads(what, q, k, num_heads, kv_heads, rope)
     _check_window(causal, window)
     B, Tq, C = q.shape
     Tk = k.shape[1]
@@ -447,6 +476,10 @@ def launch_bwd(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{what}: under rope the backward takes square "
                          f"blocks at offset 0, got {Tq} queries at offset "
                          f"{q_offset} against {Tk} keys")
+    if (D == 256 and q.dtype == torch.bfloat16
+            and not scale_in_fp32(sm_scale)):
+        raise ValueError(f"{what}: the bf16 backward at head_dim 256 takes "
+                         f"a power-of-two sm_scale, got {sm_scale}")
     if (lse.shape != (B, num_heads, Tq) or lse.dtype != torch.float32
             or lse.device != q.device or not lse.is_contiguous()):
         raise ValueError(f"{what}: lse must be a contiguous fp32 "
@@ -464,10 +497,10 @@ def launch_bwd(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         for n, w, need in ((Tq, C, bf16 and rope),
                            (Tk, k.shape[2], bf16 and rope),
                            (Tq, C, bf16 and not scale_in_fp32(sm_scale))))
-    cos, sin = _table_ptrs(rope, Tq, q.device)
+    cos, sin = _table_ptrs(rope, Tq, D, q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _bwd_kernel()(
+        rc = _bwd_kernel(D)(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),

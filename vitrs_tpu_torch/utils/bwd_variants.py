@@ -41,7 +41,7 @@ VARIANTS = {
     # dQ blocks of up to 3 warpgroups, the query heads of one kv head, that
     # share every staged K/V tile (the largest divisor of the group <= 3)
     "dq-shared-kv": [
-        ("__launch_bounds__(128, 4)\n    flash_bwd_dq_wgmma",
+        ("__launch_bounds__(128, kDqMinBlocks)\n    flash_bwd_dq_wgmma",
          "__launch_bounds__(384)\n    flash_bwd_dq_wgmma"),
         ("""  const uint32_t sq = base, sdo = base + kTile;
   const uint32_t skv = base + 2 * kTile;""",
@@ -60,14 +60,15 @@ VARIANTS = {
         ("""  if (tid == 0) {
     const uint32_t bar = bars + 8 * kStagesQ;
     mbar_expect(bar, 2 * kTile);
-    tma_tile(sq, kQhat ? &maps.qh : &maps.q, bar, h, m0, b);
-    tma_tile(sdo, &maps.dout, bar, h, m0, b);
+    tma_head<kHeadDim>(sq, kQhat ? &maps.qh : &maps.q, bar, h, m0, b);
+    tma_head<kHeadDim>(sdo, &maps.dout, bar, h, m0, b);
   }""", """  if (threadIdx.x == 0) {
     const uint32_t bar = bars + 8 * kStagesQ;
     mbar_expect(bar, 2 * heads * kTile);
     for (int w = 0; w < heads; ++w) {
-      tma_tile(base + 2 * w * kTile, kQhat ? &maps.qh : &maps.q, bar, h0 + w, m0, b);
-      tma_tile(base + (2 * w + 1) * kTile, &maps.dout, bar, h0 + w, m0, b);
+      tma_head<kHeadDim>(base + 2 * w * kTile, kQhat ? &maps.qh : &maps.q, bar, h0 + w,
+                         m0, b);
+      tma_head<kHeadDim>(base + (2 * w + 1) * kTile, &maps.dout, bar, h0 + w, m0, b);
     }
   }"""),
         ("    if (it < n_it && tid == 0) {", "    if (it < n_it && threadIdx.x == 0) {"),
@@ -78,24 +79,25 @@ VARIANTS = {
   dq<<<dim3(batch * a.num_heads / heads, tiles), 128 * heads, dq_smem(), s>>>(maps, a);"""),
     ],
     "dq-3-stages": [("constexpr int kStagesQ = 2;", "constexpr int kStagesQ = 3;")],
-    "dkv-2-stages": [("constexpr int kStagesKV = 3;", "constexpr int kStagesKV = 2;")],
+    "dkv-2-stages": [("constexpr int kStagesKV = kHeadDim == 256 ? 2 : 3;",
+                      "constexpr int kStagesKV = 2;")],
     "dkv-3-blocks": [(_DKV, _DKV.replace("(128, 2)", "(128, 3)"))],
     # the dK product of q tile m left running into iteration m + 1 (waited
     # there with S^T and dP^T); the ring refills the stage of m - 1 one
     # iteration later, so it is one deeper for the same lookahead
     "dkv-overlap-dk": [
-        ("constexpr int kStagesKV = 3;", "constexpr int kStagesKV = 4;"),
+        ("constexpr int kStagesKV = kHeadDim == 256 ? 2 : 3;", "constexpr int kStagesKV = 4;"),
         ("  for (int s = 0; s < kStagesKV - 1; ++s) issue(s);",
          "  for (int s = 0; s < kStagesKV - 2; ++s) issue(s);"),
         ("    cp_async_wait<kStagesKV - 2>();", "    cp_async_wait<kStagesKV - 3>();"),
         ("    issue(it + kStagesKV - 1);", "    issue(it + kStagesKV - 2);"),
-        ("""    product_cols(dk, da, sq);
+        ("""    product_cols<kHeadDim>(dk, da, sq);
     wg_commit();
     wg_wait<0>();
     fence_acc(dv);
     fence_acc(dk);
   }
-""", """    product_cols(dk, da, sq);
+""", """    product_cols<kHeadDim>(dk, da, sq);
     wg_commit();
   }
   wg_wait<0>();
@@ -108,10 +110,10 @@ VARIANTS = {
                 "fmaf(s[nt][i], s_mul, -l2[nt][i & 1])")],
     "no-dkv-copies": [
         ("""        mbar_expect(bar, kPer * kTile);
-        tma_tile(s0, &maps.q, bar, h, m0, b);
-        tma_tile(s0 + kTile, &maps.dout, bar, h, m0, b);""",
+        tma_head<kHeadDim>(s0, &maps.q, bar, h, m0, b);
+        tma_head<kHeadDim>(s0 + kTile, &maps.dout, bar, h, m0, b);""",
          "        mbar_expect(bar, 0);")],
-    "no-dk-product": [("    product_cols(dk, da, sq);\n", "")],
+    "no-dk-product": [("    product_cols<kHeadDim>(dk, da, sq);\n", "")],
 }
 
 
@@ -127,8 +129,9 @@ def _build_variant(name: str):
     with open(path, "w") as f:
         f.write(src)
     lib = os.path.join(OUT, f"lib_{name}.so")
-    res = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC_DIR,
-                          "-o", lib, path], capture_output=True, text=True)
+    res = subprocess.run([_build.nvcc(), *_build.flags_for(D), "-I",
+                          _build.CSRC_DIR, "-o", lib, path],
+                         capture_output=True, text=True)
     log = res.stdout + res.stderr
     if res.returncode:
         return name, None, log[-2000:]
@@ -194,7 +197,7 @@ def main(argv=None):
     want = FA.flash_bwd_plain(q, k, v, out, lse, do, NH, True, 0.125, kv_heads=4,
                               window=300, rope=True)
     for name, fn in fns.items():
-        FA._bwd_kernel = lambda fn=fn: fn
+        FA._bwd_kernel = lambda head_dim, fn=fn: fn
         got = FA.launch_bwd("variant", q, k, v, out, lse, do, NH, 4, True, 0.125, 300, True)
         err = max(((a.float() - b.float()).abs() / (2e-2 + 2e-2 * b.float().abs())).max().item()
                   for a, b in zip(got, want))
@@ -206,7 +209,7 @@ def main(argv=None):
     data = [(s, _inputs(*s, 1)) for s in shapes]
     order = list(fns) + list(fns)[::-1]
     for name in order:
-        FA._bwd_kernel = lambda fn=fns[name]: fn
+        FA._bwd_kernel = lambda head_dim, fn=fns[name]: fn
         for (B, T, KH, W, rope), x in data:
             ms = _kernel_ms(lambda: FA.launch_bwd("variant", *x[:5], x[5], NH, KH, True,
                                                   0.125, W, rope))

@@ -42,8 +42,8 @@ ROT = r"""    if constexpr (kRope) {
       if (j < a.seq_len) {
 #pragma unroll
         for (int c = (tid & 1) * 16; c < (tid & 1) * 16 + 16; c += 2) {
-          __nv_bfloat162* lo = reinterpret_cast<__nv_bfloat162*>(kt + swizzled(r, c));
-          __nv_bfloat162* hi = reinterpret_cast<__nv_bfloat162*>(kt + swizzled(r, c + kHalf));
+          __nv_bfloat162* lo = reinterpret_cast<__nv_bfloat162*>(kt + Tile::offset(r, c));
+          __nv_bfloat162* hi = reinterpret_cast<__nv_bfloat162*>(kt + Tile::offset(r, c + kHalf));
           float x1 = __bfloat162float(lo->x), x2 = __bfloat162float(hi->x);
           float y1 = __bfloat162float(lo->y), y2 = __bfloat162float(hi->y);
           const float* cs = a.rope_cos + (long long)j * kHalf + c;
@@ -62,13 +62,17 @@ ROT = r"""    if constexpr (kRope) {
 VARIANTS = {
     # a 3-deep K/V ring (58 KB: three blocks an SM instead of five)
     "3-stages": [("constexpr int kStages = 2;", "constexpr int kStages = 3;"),
-                 ("__launch_bounds__(128, 5)", "__launch_bounds__(128, 3)")],
+                 ("__launch_bounds__(128, kMinBlocks)", "__launch_bounds__(128, 3)")],
     # a 128-row q block: two warpgroups sharing each staged K/V tile (half
     # the K/V traffic per q row), each skipping the tiles outside its own
     # rows' range; 3-deep ring, 66 KB, two blocks an SM
     "2-warpgroups": [
         ("""constexpr int kStages = 2;      // depth of the K/V ring
-constexpr int kTile = kBlockN * kHeadDim * 2;  // bytes of one bf16 tile in smem
+constexpr int kTile = Tile::kBytes;  // bytes of one bf16 tile in smem (64 rows of D)
+// blocks an SM the registers are budgeted for: the O accumulator is D / 2
+// floats a thread, and the shared memory below allows 2 blocks at D = 128
+constexpr int kMinBlocks = kHeadDim <= 64 ? 5 : (kHeadDim == 128 ? 2 : 1);
+constexpr int kRopeLanes = kHalf / 8;   // threads a row of the rope pre-pass
 
 // Dynamic shared memory: per stage a K tile and a V tile, then the Q tile,
 // then one mbarrier per stage; 1 KB of slack for the 1024-byte alignment of
@@ -78,7 +82,11 @@ __host__ __device__ constexpr int fwd_smem() {
 }""",
          """constexpr int kStages = 3;      // depth of the K/V ring
 constexpr int kWarpgroups = 2;  // per block, each kBlockM q rows sharing every K/V tile
-constexpr int kTile = kBlockN * kHeadDim * 2;  // bytes of one bf16 tile in smem
+constexpr int kTile = Tile::kBytes;  // bytes of one bf16 tile in smem (64 rows of D)
+// blocks an SM the registers are budgeted for: the O accumulator is D / 2
+// floats a thread, and the shared memory below allows 2 blocks at D = 128
+constexpr int kMinBlocks = kHeadDim <= 64 ? 5 : (kHeadDim == 128 ? 2 : 1);
+constexpr int kRopeLanes = kHalf / 8;   // threads a row of the rope pre-pass
 
 // Dynamic shared memory: per stage a K tile and a V tile, then a Q tile per
 // warpgroup, then one mbarrier per stage; 1 KB of slack for the 1024-byte
@@ -86,7 +94,7 @@ constexpr int kTile = kBlockN * kHeadDim * 2;  // bytes of one bf16 tile in smem
 __host__ __device__ constexpr int fwd_smem() {
   return 1024 + (2 * kStages + kWarpgroups) * kTile + kStages * 8;
 }"""),
-        ("""__global__ void __launch_bounds__(128, 5)
+        ("""__global__ void __launch_bounds__(128, kMinBlocks)
     flash_fwd_wgmma(const __grid_constant__ Maps maps, Args a) {
   extern __shared__ uint8_t smem[];
   const uint32_t base = aligned_base(smem);   // stage st: K at + 2 st kTile, V after it
@@ -134,17 +142,17 @@ __host__ __device__ constexpr int fwd_smem() {
 """),
         ("""  // Q, pre-scaled (under rope: rotated at its positions with sm_scale folded
   // into cos and sin) and rounded to bf16, into the swizzled Q tile that
-  // S = Q.K^T reads.  Two threads a row, each two pairs of 16-byte chunks
-  // (columns c..c+7 with c+32..c+39, the pairs rope rotates), so the loads
-  // are coalesced.  (Q as wgmma's register A operand instead read wrong
+  // S = Q.K^T reads.  Two threads a row, each D / 32 pairs of 16-byte chunks
+  // (columns c..c+7 with c+D/2..c+D/2+7, the pairs rope rotates), so the
+  // loads are coalesced.  (Q as wgmma's register A operand instead read wrong
   // values from the second kv tile on: PERF.md.)
   {
     const int r = tid >> 1, row = m0 + r;""",
          """  // Q, pre-scaled (under rope: rotated at its positions with sm_scale folded
   // into cos and sin) and rounded to bf16, into the warpgroup's swizzled Q
-  // tile that S = Q.K^T reads.  Two threads a row, each two pairs of 16-byte
-  // chunks (columns c..c+7 with c+32..c+39, the pairs rope rotates), so the
-  // loads are coalesced.  (Q as wgmma's register A operand instead read
+  // tile that S = Q.K^T reads.  Two threads a row, each D / 32 pairs of
+  // 16-byte chunks (columns c..c+7 with c+D/2..c+D/2+7, the pairs rope
+  // rotates), so the loads are coalesced.  (Q as wgmma's register A operand instead read
   // wrong values from the second kv tile on: PERF.md.)
   {
     const int r = (tid & 127) >> 1, row = m0 + r;"""),
@@ -154,7 +162,7 @@ __host__ __device__ constexpr int fwd_smem() {
     // S = Q K^T for 64 rows x 64 keys
     float s[kBlockN / 8][4];
     wg_fence();
-    product_rows(s, sq, sk);
+    product_rows<kHeadDim>(s, sq, sk);
     wg_commit();
     // every warp is past tile it - 1's products: refill its stage while
     // this tile's run
@@ -169,7 +177,7 @@ __host__ __device__ constexpr int fwd_smem() {
     float s[kBlockN / 8][4];
     if (mine) {
       wg_fence();
-      product_rows(s, sq, sk);
+      product_rows<kHeadDim>(s, sq, sk);
       wg_commit();
     }
     // every warp is past tile it - 1's products: refill its stage while
@@ -204,8 +212,8 @@ __host__ __device__ constexpr int fwd_smem() {
                ("ex2(fmaf(s[nt][1], kLog2e, nl_a))", "fmaf(s[nt][1], kLog2e, nl_a)"),
                ("ex2(fmaf(s[nt][2], kLog2e, nl_b))", "fmaf(s[nt][2], kLog2e, nl_b)"),
                ("ex2(fmaf(s[nt][3], kLog2e, nl_b))", "fmaf(s[nt][3], kLog2e, nl_b)")],
-    "no-pv": [("    product_cols(o, pa, sv);\n", "")],
-    "no-s": [("    product_rows(s, sq, sk);\n", "    zero(s);\n")],
+    "no-pv": [("    product_cols<kHeadDim>(o, pa, sv);\n", "")],
+    "no-s": [("    product_rows<kHeadDim>(s, sq, sk);\n", "    zero(s);\n")],
 }
 
 
@@ -221,8 +229,9 @@ def _build_variant(name: str):
     with open(path, "w") as f:
         f.write(src)
     lib = os.path.join(OUT, f"libfwd_{name}.so")
-    res = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC_DIR,
-                          "-o", lib, path], capture_output=True, text=True)
+    res = subprocess.run([_build.nvcc(), *_build.flags_for(D), "-I",
+                          _build.CSRC_DIR, "-o", lib, path],
+                         capture_output=True, text=True)
     log = res.stdout + res.stderr
     if res.returncode:
         return name, None, log[-2000:]
@@ -260,7 +269,7 @@ TIMED = [("K1-fwd", 8, 1024, 12, 0, 1024, 0, False),
 
 
 def _run(fn, q, k, v, KH, q_off, causal, W, rope):
-    FA._kernel = lambda fn=fn: fn
+    FA._kernel = lambda head_dim, fn=fn: fn
     return FA.launch_fwd("variant", q, k, v, NH, KH, causal, 0.125, q_off, W, rope)
 
 
