@@ -249,10 +249,11 @@ on any failure.  Phases, each printed as it ends:
  48. meshes         dp=2, fsdp=2 (2 ranks) and dp=2,fsdp=2 (4 ranks)
                     sharing cuda:0 over gloo (staged through host memory):
                     a small fp32 step against one process stepping the
-                    whole batch (xdevice-dp), then GPT-2 124M, B=8, T=1024,
+                    whole batch (xdevice-dp), then GPT-2 124M (4 of its 12
+                    layers, MESH_LAYERS), B=8, T=1024,
                     6 steps through train/loop.train (train-dp, -fsdp,
                     -hybrid): falling loss, each rank's launches a step
-                    (K7 over 62,219,904 values on the ZeRO-1 path), state
+                    (K7 over half the parameters on the ZeRO-1 path), state
                     bytes as the shards predict, peaks, step ms (ranks
                     time-sliced on one card: not a scaling number).
  49. comm-nccl      a one-rank NCCL group on cuda:0 runs each collective of
@@ -290,16 +291,16 @@ on any failure.  Phases, each printed as it ends:
  53. meshes-cp-ep   ranks sharing cuda:0 over gloo: the small fp32 model's
                     step under cp=2 (dense and banded AdamW, Adafactor),
                     ep=2 and ep=2,tp=2 (AdamW, Adafactor) against one
-                    process; then gpt2-124m-4k (B=4, AdamW) and the
-                    train-window model (T=8192, B=2, Adafactor: the banded
-                    ring) under cp=2, gpt2-moe-8e (B=8) under ep=2 (AdamW,
+                    process; then, at 4 of their 12 layers, gpt2-124m-4k
+                    (B=4, AdamW) and the train-window model (T=8192, B=2,
+                    Adafactor: the banded ring) under cp=2, gpt2-moe-8e (B=8) under ep=2 (AdamW,
                     clip) and ep=2,tp=2 (Adafactor): the first batch's
                     fp32 gradient against one process (every leaf within
                     1e-4 of its L2 norm under cp, 2e-2 under ep), then 6
                     steps each: every rank's loss
                     equal and step 1's as one process's (rtol 1e-3),
-                    launches and cut hops as designed (cp-window: 24 K3-fwd
-                    and 24 K3-bwd a step on rank 1), no flash plain version
+                    launches and cut hops as designed (cp-window: 8 K3-fwd
+                    and 8 K3-bwd a step on rank 1), no flash plain version
                     on the card, state bytes as sliced, peaks, step ms.
  54. kernels-head-dims  K1-fwd, K2, K3-fwd / K3-bwd and K4 at head dims
                     32, 128 and 256 (24, 6, 3 heads at C=768; K3 at 8, 2, 1
@@ -312,9 +313,12 @@ on any failure.  Phases, each printed as it ends:
                     bf16 and fp32; every chunk of the chunked generates
                     below at their batch, kv heads and cache; S=512 at
                     q_offset 7168; NaN tails), and at D=128 the ring's cut hop and rows that
-                    see no key (gradients also within `grad_errors`);
+                    see no key (gradients also within `grad_errors`, with
+                    its one-term rounding allowance, `bwd_term_norms`);
                     times beside the plain version, SDPA and the bound;
                     registers and shared memory (a forward spill fails).
+                    Each case draws its inputs from a generator seeded
+                    from its own parameters (`hd_gen`).
  55. train-d128     GPT-2 124M at 6 heads of 128 (124,439,808 parameters),
                     B=8 T=1024, 12 steps through train/loop.train (12 K1-fwd
                     + 12 K2 a step) and the first batch's fp32 gradient
@@ -331,9 +335,42 @@ on any failure.  Phases, each printed as it ends:
  57. train-d32, train-d256  24 x 32 and 3 x 256 as train-d128, 4 steps;
                     then 8 / 1 kv heads: 4 steps (K3) and a chunked
                     generate (K3-fwd + K4).
+     kernels-head-dims also holds the ends: D = 8, 16, 384 and 512 (96,
+                    48, 2 and 2 heads; 8, 8, 1, 1 kv heads; D = 512 at
+                    C = 1024) as the others (no ViT shape; rope + W=1024 at
+                    T=8192 at D = 16; rope + W=33 edge rows at D <= 16;
+                    the cut hop at each), the exp bound beside the square
+                    rows at D <= 16, and the D = 16 build's D = 1, 2 and 4
+                    (16 heads, 4 kv heads): edge rows and K4's; and the
+                    largest admitted D, 1024 (2 heads, 1 kv head), and 640,
+                    the odd atom count (2 heads at gpt2-774m's C = 1280):
+                    edge rows, B=8 T=1024 causal MHA and GQA, K4's edges.
+ 58. nano           gpt-nano (2 heads of 8): `cli.train --preset gpt-nano`
+                    6 steps on the card (2 K1-fwd + 2 K2 + 1 K7 a step),
+                    then fp32 greedy tokens through GenerationEngine equal
+                    to the dense route's.
+ 59. train-d8, train-d16, train-d384, train-d512  GPT-2 124M's width at 96
+                    x 8, 48 x 16 and 2 x 384, gpt2-350m's (24 layers) at
+                    2 x 512, B=8 T=1024, 4 steps (L K1-fwd + L K2 a step)
+                    and the first batch's fp32 gradient against the dense
+                    route; GQA: at D = 16 the window model (8 kv heads,
+                    rope, W=1024, T=8192, B=2, 12 steps, gradient on 2048
+                    tokens), at 8 / 384 / 512 (8 / 1 / 1 kv heads) 4 steps
+                    (K3) and the first batch's fp32 gradient; a chunked
+                    generate of the GQA model at 16, 384 and 512 (K3-fwd
+                    + K4).
+ 60. serve-d8       the 96 x 8 model as serve-d128: engine prefill, chunked
+                    prefill through K4, decode, fp32 greedy tokens equal to
+                    the dense route's.
 
 `python3 chip_smoke.py --phases a,b` runs only the named phases (after the
-device phase) and prints no result lines.
+device phase) and prints no result lines.  It also runs the phases that
+only run on request:
+     bwd-seeds      D = 32's rope + W=1024 T=8192 backward (24 heads, and
+                    8 kv heads) on HD_SEEDS seeds: the kernel and the plain
+                    version against the unrounded fp32 function, and the
+                    values past `grad_errors` with and without its
+                    one-term rounding allowance (PERF.md §7).
 
 Every kernel also gets a bound (the least time the card could take: the
 larger of its operations over the card's peak for their type and its bytes
@@ -353,6 +390,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -362,11 +400,18 @@ CSRC = "vitrs_tpu_torch/csrc/"
 LIBS = (("flash_fwd", 64), ("flash_bwd", 64), "fused_ce", "fused_adamw",
         "fused_head_ce", ("flash_fwd", 32), ("flash_bwd", 32),
         ("flash_fwd", 128), ("flash_bwd", 128), ("flash_fwd", 256),
-        ("flash_bwd", 256))
+        ("flash_bwd", 256), ("flash_fwd", 16), ("flash_bwd", 16),
+        ("flash_fwd", 384), ("flash_bwd", 384), ("flash_fwd", 512),
+        ("flash_bwd", 512), ("flash_fwd", 640), ("flash_bwd", 640),
+        ("flash_fwd", 1024), ("flash_bwd", 1024))
 # NVIDIA H100 SXM peaks (data sheet, dense): bf16 tensor cores, fp32
 # outside them, device memory
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 HBM_BYTES_S = 3.35e12
+# exponentials a second on the special function units: 16 ex2 a clock an
+# SM x 132 SMs at the 1.83 GHz that the tensor cores' 989 TFLOP/s assume
+# (the bound of the flash kernels at D <= 16: one exp a (query, key) pair)
+EX2_PER_S = 16 * 132 * 1.83e9
 NH, D, C = 12, 64, 768           # GPT-2 124M attention geometry
 
 
@@ -1038,8 +1083,9 @@ def designed(**counts):
 
 
 def phase_train(smi, steps=12, kv_heads=0, overrides=None, B=8, tag=None,
-                n_params=None, head_ce=False, optimizer="adamw", lr=6e-4):
-    """GPT-2 124M, full width and depth, through train/loop.train; with
+                n_params=None, head_ce=False, optimizer="adamw", lr=6e-4,
+                preset="gpt2-124m"):
+    """GPT-2 124M (or `preset`), full width and depth, through train/loop.train; with
     kv_heads, its GQA variant through K3; `overrides` are the TrainConfig's
     model_overrides (the long-context rope + window model); head_ce sets
     ops/fused_head_ce.ENABLE, so the loss runs through K8 (and K6) instead
@@ -1051,12 +1097,12 @@ def phase_train(smi, steps=12, kv_heads=0, overrides=None, B=8, tag=None,
     from vitrs_tpu_torch.train import loop
     tag = tag or ("[train-gqa]" if kv_heads else "[train]")
     overrides = dict(overrides or {})
-    cfg = get_config("gpt2-124m", num_kv_heads=kv_heads, **overrides)
+    cfg = get_config(preset, num_kv_heads=kv_heads, **overrides)
     n_params = n_params or (114_990_336 if kv_heads == 4 else 124_439_808)
     check(P.num_parameters(cfg) == n_params, f"{tag} parameter count")
     T = cfg.max_seq_len
     with tempfile.TemporaryDirectory() as work:
-        tc = loop.TrainConfig(preset="gpt2-124m", dataset="", steps=steps,
+        tc = loop.TrainConfig(preset=preset, dataset="", steps=steps,
                               batch_size=B, warmup=2, min_lr=lr / 10,
                               weight_decay=0.1, dtype="bfloat16", log_every=1,
                               ckpt_every=0, workdir=work,
@@ -1093,7 +1139,7 @@ def phase_train(smi, steps=12, kv_heads=0, overrides=None, B=8, tag=None,
     mfu = float(np.median([r["mfu"] for r in steady]))
     step_ms = B * T / tok_s * 1e3
     what = ", ".join(f"{k}={v}" for k, v in overrides.items())
-    print(f"{tag} gpt2-124m kv_heads={cfg.kv_heads} {what} ({n_params} "
+    print(f"{tag} {preset} kv_heads={cfg.kv_heads} {what} ({n_params} "
           f"params) bf16/fp32-master B={B} T={T} {steps} steps: "
           f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
     print(f"{tag} losses {losses}")
@@ -4660,14 +4706,20 @@ def _export_case(tag, cfg, params, x, eager, smi, work):
     return path, row
 
 
+# the depth of the exported models: torch.export traces a graph a layer on
+# the host, and every layer's ops are the same
+EXPORT_LAYERS = 4
+
+
 def phase_serve_export(smi, work):
-    """GPT-2 124M (bf16, seeded weights, B=4, T=1024) and ViT-B/16 (B=64)
-    through `serving.export_forward` and `ServedModel` on the card."""
+    """GPT-2 124M (bf16, seeded weights, B=4, T=1024) and ViT-B/16 (B=64),
+    both at full width and EXPORT_LAYERS of their 12 layers, through
+    `serving.export_forward` and `ServedModel` on the card."""
     from vitrs_tpu_torch import params as P
     from vitrs_tpu_torch.config import get_config
     from vitrs_tpu_torch.models import model as M
     res = {}
-    cfg = get_config("gpt2-124m", dtype="bfloat16")
+    cfg = get_config("gpt2-124m", dtype="bfloat16", num_layers=EXPORT_LAYERS)
     params = P.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     pp = M.prepare_params(params, cfg)
     tok = torch.randint(0, cfg.vocab_size, (4, cfg.max_seq_len),
@@ -4676,7 +4728,7 @@ def phase_serve_export(smi, work):
         "gpt2-124m", cfg, params, tok,
         lambda t: M.gpt_forward(pp, t.long(), cfg), smi, work)
     del params, pp
-    cfg = get_config("vit-b-16", dtype="bfloat16")
+    cfg = get_config("vit-b-16", dtype="bfloat16", num_layers=EXPORT_LAYERS)
     params = P.init_params(cfg, torch.Generator(device="cuda").manual_seed(1))
     pp = M.prepare_params(params, cfg)
     img = torch.randn(64, cfg.img_size, cfg.img_size, cfg.in_chans,
@@ -4782,8 +4834,16 @@ def phase_debug():
 
 XDP_OVR = dict(num_layers=2, num_heads=2, channels=128, max_seq_len=64,
                vocab_size=16500)
-MESH_RUNS = (("dp=2", 2), ("fsdp=2", 2), ("dp=2,fsdp=2", 4))
+# one spawn a world size: (ranks, the meshes its ranks run in turn)
+MESH_RUNS = ((2, ("dp=2", "fsdp=2")), (4, ("dp=2,fsdp=2",)))
 TRAIN_STEPS = 6
+# the depth of every full-width mesh run (meshes, meshes-tp-pp,
+# meshes-cp-ep): the presets' widths at 4 of their 12 layers (divisible by
+# the interleaved pipeline's pp x v = 4).  A run's time is its steps, its
+# set-up and its fp32 gradient check, all linear in depth, on a host its
+# ranks share; a layer's collectives, hops, all-to-alls and kernel routes
+# are the same at any depth.
+MESH_LAYERS = 4
 
 
 def _xdp_cfg():
@@ -4861,10 +4921,13 @@ def _rank_state_bytes(cfg, spec, device):
 
 
 def _rank_main(rank, world, spec, rdv, work, out_path, dev="cuda:0",
-               preset="gpt2-124m"):
-    """One rank of a mesh run on `dev` (cuda:0, shared) over gloo: the
-    small model's step (xdevice-dp), then `preset` through train/loop.train
-    (train-*).  dev "cpu" and a small preset rehearse it without a card."""
+               preset="gpt2-124m", specs=None):
+    """One rank of a meshes spawn on `dev` (cuda:0, shared) over gloo: for
+    each mesh of `specs` (default: spec alone) in turn, the small model's
+    step (xdevice-dp), then `preset` through train/loop.train (train-*) in
+    a workdir of its own (rank 0 keeps its metrics records); results under
+    "runs", one a mesh.  dev "cpu" and a small preset rehearse it without
+    a card."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from vitrs_tpu_torch.config import get_config
@@ -4878,41 +4941,49 @@ def _rank_main(rank, world, spec, rdv, work, out_path, dev="cuda:0",
         torch.cuda.set_device(device)
     multihost.initialize("file://" + rdv, world, rank, backend="gloo",
                          device=dev, timeout=900)
-    res = {"route": CL.route(None, device)}
-    reset_counts()
-    res["xdp"] = _xdp_step(spec, device)
-    res["xdp_counts"] = read_counts()
-    cfg = get_config(preset, dtype="bfloat16")
-    res["state_bytes"] = _rank_state_bytes(cfg, spec, device)
-    if cuda:
-        torch.cuda.empty_cache()
-    sizes, orig = [], FW.adamw_cuda
-
-    def recording(p, *a, **k):
-        sizes.append(p.numel())
-        return orig(p, *a, **k)
-
-    recording.launches = 0
-    FW.adamw_cuda = recording
-    reset_counts()
-    if cuda:
-        torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    try:
-        summary = loop.train(loop.TrainConfig(
-            preset=preset, dataset="", steps=TRAIN_STEPS, batch_size=8,
-            lr=6e-4, warmup=2, min_lr=6e-5, weight_decay=0.1,
-            dtype="bfloat16", log_every=1, ckpt_every=0, workdir=work,
-            mesh=spec, device=dev))
+    res = {"route": CL.route(None, device), "runs": []}
+    for i, sp in enumerate(specs or (spec,)):
+        run = {}
+        reset_counts()
+        run["xdp"] = _xdp_step(sp, device)
+        run["xdp_counts"] = read_counts()
+        cfg = get_config(preset, dtype="bfloat16", num_layers=MESH_LAYERS)
+        run["state_bytes"] = _rank_state_bytes(cfg, sp, device)
         if cuda:
-            torch.cuda.synchronize()
-        counts = read_counts()      # the recording wrapper holds K7's
-    finally:
-        FW.adamw_cuda = orig
-    res.update(counts=counts, adamw_sizes=sorted(set(sizes)),
-               peak=torch.cuda.max_memory_allocated() if cuda else 0,
-               wall=time.perf_counter() - t0,
-               final_loss=summary["final_loss"])
+            torch.cuda.empty_cache()
+        sizes, orig = [], FW.adamw_cuda
+
+        def recording(p, *a, **k):
+            sizes.append(p.numel())
+            return orig(p, *a, **k)
+
+        recording.launches = 0
+        FW.adamw_cuda = recording
+        reset_counts()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        wd = os.path.join(work, str(i))
+        t0 = time.perf_counter()
+        try:
+            summary = loop.train(loop.TrainConfig(
+                preset=preset, dataset="", steps=TRAIN_STEPS, batch_size=8,
+                lr=6e-4, warmup=2, min_lr=6e-5, weight_decay=0.1,
+                dtype="bfloat16", log_every=1, ckpt_every=0, workdir=wd,
+                mesh=sp, device=dev,
+                model_overrides={"num_layers": MESH_LAYERS}))
+            if cuda:
+                torch.cuda.synchronize()
+            counts = read_counts()      # the recording wrapper holds K7's
+        finally:
+            FW.adamw_cuda = orig
+        run.update(counts=counts, adamw_sizes=sorted(set(sizes)),
+                   peak=torch.cuda.max_memory_allocated() if cuda else 0,
+                   wall=time.perf_counter() - t0,
+                   final_loss=summary["final_loss"])
+        if rank == 0:
+            with open(os.path.join(wd, "metrics.jsonl")) as f:
+                run["recs"] = [json.loads(line) for line in f]
+        res["runs"].append(run)
     torch.save(res, out_path)
     torch.distributed.destroy_process_group()
 
@@ -4978,16 +5049,18 @@ def _hold(tag, got, want, rtol, atol, grads=None, lr=0.0):
 
 def phase_meshes(smi, dev="cuda:0", preset="gpt2-124m"):
     """xdevice-dp and train-dp / train-fsdp / train-hybrid: for each of
-    dp=2, fsdp=2 (2 ranks) and dp=2,fsdp=2 (4 ranks), ranks that share
+    dp=2, fsdp=2 (2 ranks: one spawn runs both) and dp=2,fsdp=2 (4
+    ranks), ranks that share
     cuda:0 over gloo run (a) one step of a small fp32 model (D=64, so that
     it takes the kernels), held against one process stepping the whole
     batch: ZeRO-1 at tests/test_data_parallel.py's tolerances (loss rtol
     1e-5, params rtol 2e-4 atol 5e-5, m rtol 2e-4 atol 1e-7), FSDP and the
     hybrid at tests/test_fsdp.py's (loss rtol 1e-6, params rtol 2e-6 atol
     1e-7), values whose gradient is fp32 noise within lr; (b) GPT-2 124M at
-    full width and depth through train/loop.train, global B=8, T=1024, 6
-    steps: finite, falling loss, each rank's launches a step (K1-fwd 12,
-    K2 12, K5 1, K6 1, K7 1 over its 62,219,904 values on the ZeRO-1
+    full width and MESH_LAYERS of its layers through train/loop.train,
+    global B=8, T=1024, 6 steps: finite, falling loss, each rank's
+    launches a step (K1-fwd and K2 once a layer, K5 1, K6 1, K7 1 over its
+    half of the parameters on the ZeRO-1
     path), its parameter + state bytes equal to what the shards predict,
     its peak; step ms (ranks time-sliced on one card: not a scaling
     number).  dev "cpu" and a small preset rehearse it without a card."""
@@ -4996,9 +5069,15 @@ def phase_meshes(smi, dev="cuda:0", preset="gpt2-124m"):
     device = torch.device(dev)
     res = {}
     refs = {kind: _xdp_step(kind, device) for kind in ("dp=1", "fsdp=1")}
-    n124 = P.num_parameters(get_config(preset))
-    for spec, world in MESH_RUNS:
-        ranks, recs, wall = _mesh_run(spec, world, dev=dev, preset=preset)
+    n124 = P.num_parameters(get_config(preset, num_layers=MESH_LAYERS))
+    runs = []
+    for world, specs in MESH_RUNS:
+        ranks, _, wall = _mesh_run(specs[0], world, dev=dev, preset=preset,
+                                   specs=specs)
+        runs += [(spec, world, ranks[0]["route"], [r["runs"][i] for r in ranks],
+                  wall) for i, spec in enumerate(specs)]
+    for spec, world, route, ranks, wall in runs:
+        recs = ranks[0]["recs"]
         tag = f"[mesh {spec}]"
         zero1 = "fsdp" not in spec
         lref, pref, mref, gref = refs["dp=1" if zero1 else "fsdp=1"]
@@ -5023,7 +5102,7 @@ def phase_meshes(smi, dev="cuda:0", preset="gpt2-124m"):
             else:
                 merr = max(merr, _hold(f"{tag} xdevice m", m, mref, 2e-6,
                                        1e-7))
-        L, S = 12, TRAIN_STEPS
+        L, S = MESH_LAYERS, TRAIN_STEPS
         want = designed(flash_fwd=L * S, flash_bwd=L * S, ce_fwd=S, ce_bwd=S,
                         adamw=S if zero1 else 0)
         for r, out in enumerate(ranks):
@@ -5040,7 +5119,7 @@ def phase_meshes(smi, dev="cuda:0", preset="gpt2-124m"):
               and losses[-1] < losses[0], f"{tag} losses {losses}")
         ips = float(np.median([rec["imgs_per_sec"] for rec in recs[2:]]))
         step_ms = 8 / ips * 1e3
-        row = dict(world=world, route=ranks[0]["route"], xdevice_loss=lref,
+        row = dict(world=world, route=route, xdevice_loss=lref,
                    xdevice_param_err=perr, xdevice_m_err=merr,
                    losses=losses, step_ms=step_ms,
                    launches_per_step={k: v // S for k, v in
@@ -5048,7 +5127,7 @@ def phase_meshes(smi, dev="cuda:0", preset="gpt2-124m"):
                    adamw_values=ranks[0]["adamw_sizes"],
                    state_bytes=[o["state_bytes"][0] for o in ranks],
                    peak_gib=[o["peak"] / 2**30 for o in ranks],
-                   wall_s=wall)
+                   spawn_wall_s=wall)
         res[spec] = row
         print(f"{tag} {world} ranks on {dev} over {row['route']}: "
               f"xdevice step vs one process: loss {lref:.6f}, params max err "
@@ -5061,7 +5140,7 @@ def phase_meshes(smi, dev="cuda:0", preset="gpt2-124m"):
               f"(as predicted); peak a rank "
               f"{[round(x, 3) for x in row['peak_gib']]} GiB; {step_ms:.1f} "
               f"ms a step (ranks time-sliced on one card, not a scaling "
-              f"number); wall {wall:.1f} s  ({smi})")
+              f"number); the spawn's wall {wall:.1f} s  ({smi})")
     return res
 
 
@@ -5199,20 +5278,21 @@ def phase_kernels_tp_pp():
 
 
 XTP_OVR = dict(XDP_OVR, num_layers=4)     # interleaved v=2 needs L % 4 == 0
-# one spawn a row: (ranks, the small model's steps (spec, optimizer), the
-# full-width runs (preset, spec, global B) through train/loop.train)
+# one spawn a row, one a world size (its ranks run every mesh of the row
+# in turn; process start-up and set-up, not the steps, dominate a spawn):
+# (ranks, the small model's steps (spec, optimizer), the full-width runs
+# (preset, spec, global B) through train/loop.train)
 TP_PP_RUNS = (
-    (2, (("tp=2", "adamw"), ("tp=2", "adafactor"), ("tp=2", "muon")),
-     (("gpt2-124m", "tp=2", 8), ("vit-b-16", "tp=2", 64))),
-    (4, (("dp=2,tp=2,sp,vp", "adamw"),),
-     (("gpt2-124m", "dp=2,tp=2,sp,vp", 8),)),
-    (2, (("pp=2", "adamw"), ("pp=2,schedule=1f1b,mb=4", "adamw"),
+    (2, (("tp=2", "adamw"), ("tp=2", "adafactor"), ("tp=2", "muon"),
+         ("pp=2", "adamw"), ("pp=2,schedule=1f1b,mb=4", "adamw"),
          ("pp=2,schedule=1f1b-interleaved,v=2,mb=4", "adamw"),
          ("pp=2,schedule=1f1b,mb=4", "adafactor")),
-     (("gpt2-124m", "pp=2,schedule=1f1b,mb=4", 8),
+     (("gpt2-124m", "tp=2", 8), ("vit-b-16", "tp=2", 64),
+      ("gpt2-124m", "pp=2,schedule=1f1b,mb=4", 8),
       ("gpt2-124m", "pp=2,schedule=1f1b-interleaved,v=2,mb=4", 8))),
-    (4, (("tp=2,pp=2", "adamw"), ("tp=2,pp=2", "adafactor")),
-     (("gpt2-124m", "tp=2,pp=2", 8),)),
+    (4, (("dp=2,tp=2,sp,vp", "adamw"), ("tp=2,pp=2", "adamw"),
+         ("tp=2,pp=2", "adafactor")),
+     (("gpt2-124m", "dp=2,tp=2,sp,vp", 8), ("gpt2-124m", "tp=2,pp=2", 8))),
 )
 # the small steps' lr, and the seventh slot (wd; Muon: its AdamW lr)
 SMALL_LR = {"adamw": (1e-3, 0.1), "adafactor": (1e-2, 0.1),
@@ -5343,7 +5423,7 @@ def _tp_pp_rank(rank, world, spec, rdv, work, out_path, dev="cuda:0",
             kind=plan.kind, loss=float(out[2]),
             params=plan.to_canonical(out[0]))
     for i, (preset, rspec, batch) in enumerate(runs):
-        cfg = get_config(preset, dtype="bfloat16")
+        cfg = get_config(preset, dtype="bfloat16", num_layers=MESH_LAYERS)
         plan = MS.make_plan(cfg, MS.parse_mesh(rspec), "adamw", device)
         row = {"state_bytes": _tp_pp_state_bytes(cfg, plan),
                "kind": plan.kind}
@@ -5362,7 +5442,8 @@ def _tp_pp_rank(rank, world, spec, rdv, work, out_path, dev="cuda:0",
             batch_size=batch, lr=3e-4 if vit else 6e-4, warmup=2,
             min_lr=1e-5 if vit else 6e-5, weight_decay=0.05 if vit else 0.1,
             dtype="bfloat16", log_every=1, ckpt_every=0, workdir=wd,
-            mesh=rspec, device=dev, prefetch=0))
+            mesh=rspec, device=dev, prefetch=0,
+            model_overrides={"num_layers": MESH_LAYERS}))
         if cuda:
             torch.cuda.synchronize()
         row.update(counts=read_counts(),
@@ -5379,14 +5460,14 @@ def _tp_pp_rank(rank, world, spec, rdv, work, out_path, dev="cuda:0",
 
 def _designed_tp_pp(kind, spec, rank, data, S=TRAIN_STEPS):
     """The launches a rank makes over S steps of GPT-2 124M / ViT-B/16
-    (12 layers) under `spec`: K1-fwd and K2 once a local layer a
+    (MESH_LAYERS layers) under `spec`: K1-fwd and K2 once a local layer a
     microbatch (the port keeps each microbatch's graph: no recompute);
     K5 and K6 once a microbatch on the last stage of a non-VP gpt head; no
     K7 (`adamw_tree`, as in JAX)."""
     from vitrs_tpu_torch.train import mesh as MS
     ms = MS.parse_mesh(spec)
     mb = (ms.microbatches or ms.pp) if ms.pp > 1 else 1
-    layers = 12 // ms.pp
+    layers = MESH_LAYERS // ms.pp
     last = ms.pp == 1 or rank % ms.pp == ms.pp - 1
     ce = mb if (last and not ms.vp and data == "gpt") else 0
     return designed(flash_fwd=layers * mb * S, flash_bwd=layers * mb * S,
@@ -5868,14 +5949,17 @@ CP_EP_RUNS = (
     (2, (("cp=2", "adamw", "dense"), ("cp=2", "adamw", "banded"),
          ("cp=2", "adafactor", "dense"), ("ep=2", "adamw", "moe"),
          ("ep=2", "adafactor", "moe")),
-     (("cp-4k", "gpt2-124m-4k", "cp=2", 4, "adamw", dict(lr=6e-4)),
+     (("cp-4k", "gpt2-124m-4k", "cp=2", 4, "adamw",
+       dict(lr=6e-4, model_overrides=dict(num_layers=MESH_LAYERS))),
       ("cp-window", "gpt2-124m", "cp=2", 2, "adafactor",
-       dict(lr=1e-2, kv_heads=4, model_overrides=WINDOW)),
+       dict(lr=1e-2, kv_heads=4,
+            model_overrides=dict(WINDOW, num_layers=MESH_LAYERS))),
       ("ep", "gpt2-moe-8e", "ep=2", 8, "adamw",
-       dict(lr=6e-4, clip_norm=1.0)))),
+       dict(lr=6e-4, clip_norm=1.0,
+            model_overrides=dict(num_layers=MESH_LAYERS))))),
     (4, (("ep=2,tp=2", "adamw", "moe"), ("ep=2,tp=2", "adafactor", "moe")),
      (("ep-tp", "gpt2-moe-8e", "ep=2,tp=2", 8, "adafactor",
-       dict(lr=1e-2)),)),
+       dict(lr=1e-2, model_overrides=dict(num_layers=MESH_LAYERS))),)),
 )
 
 
@@ -6156,14 +6240,14 @@ def _run_cfg(preset, fields):
 
 def _designed_cp_ep(name, rank, S=TRAIN_STEPS):
     """(launches, cut hops (fwd, bwd)) a rank makes over S steps of a
-    full-width run (12 layers): under cp every rank runs its diagonal hop,
-    rank 1 its past hop too (K1-fwd / K2 at cp-4k; at cp-window the band
-    cuts it, so K3-fwd / K3-bwd on the rectangle the band reaches: 12
-    forward and 12 backward cut hops a step, 24 K3 launches each way on
-    rank 1, 12 on rank 0); K5 and K6 once a step; K7 once a step on cp's
-    ZeRO-1 shard; ep and ep x tp K1-fwd and K2 once a layer (NH=12 and 6),
-    no K7."""
-    L = 12
+    full-width run of L = MESH_LAYERS layers: under cp every rank runs its
+    diagonal hop, rank 1 its past hop too (K1-fwd / K2 at cp-4k; at
+    cp-window the band cuts it, so K3-fwd / K3-bwd on the rectangle the
+    band reaches: L forward and L backward cut hops a step, 2L K3 launches
+    each way on rank 1, L on rank 0); K5 and K6 once a step; K7 once a step
+    on cp's ZeRO-1 shard; ep and ep x tp K1-fwd and K2 once a layer (NH=12
+    and 6), no K7."""
+    L = MESH_LAYERS
     ce = dict(ce_fwd=S, ce_bwd=S)
     if name == "cp-4k":
         return designed(flash_fwd=L * S * (1 + rank),
@@ -6183,7 +6267,8 @@ def phase_meshes_cp_ep(smi, dev="cuda:0"):
     against one process stepping the whole batch (`_cp_ep_reference`) at
     the CPU tests' tolerances: loss rtol 2e-5; params AdamW rtol 2e-4 atol
     5e-5, Adafactor rtol 1e-4 atol 2e-4, a value whose gradient is fp32
-    noise within lr; (b) at full width and depth through train/loop.train,
+    noise within lr; (b) at full width (4 of the presets' 12 layers,
+    MESH_LAYERS) through train/loop.train,
     6 steps: gpt2-124m-4k (B=4, AdamW) and the train-window model (rope +
     W=1024, 4 kv heads, T=8192, B=2, Adafactor: the banded ring) under
     cp=2, gpt2-moe-8e (B=8) under ep=2 (AdamW, clip 1.0) and ep=2,tp=2
@@ -6306,13 +6391,37 @@ def phase_meshes_cp_ep(smi, dev="cuda:0"):
 
 
 # ---------------------------------------------------------------------------
-# Head dims 32, 128 and 256: the flash libraries built once per head dim
-# (ops/_build.load(name, D)), at GPT-2 124M's width C = 768
+# Head dims 32, 128 and 256, then the ends 8, 16, 384 and 512: the flash
+# libraries built once per head dim (ops/_build.load(name, D); one D = 16
+# build serves every D <= 16), at GPT-2 124M's width C = 768 (D = 512 at
+# gpt2-350m's C = 1024)
 # ---------------------------------------------------------------------------
 
 HD_NEW = (32, 128, 256)
-HD_HEADS = {32: 24, 128: 6, 256: 3}    # heads of D at C = 768
-HD_KV = {32: 8, 128: 2, 256: 1}                # the K3 rows' kv heads
+HD_ENDS = (8, 16, 384, 512)
+HD_EDGE_ONLY = (1, 2, 4)      # the D = 16 build's other head dims: edge rows
+# the largest admitted head dim and the odd atom count (ten 64-column
+# atoms, five 128-column slices): checked, not timed (no model path)
+HD_CHECK_ONLY = (640, 1024)
+# heads of D at C = 768 (1024 at D = 512, 1280 at 640, 2048 at 1024); D =
+# 1, 2, 4 at 16 heads
+HD_HEADS = {32: 24, 128: 6, 256: 3, 8: 96, 16: 48, 384: 2, 512: 2,
+            1: 16, 2: 16, 4: 16, 640: 2, 1024: 2}
+HD_KV = {32: 8, 128: 2, 256: 1, 8: 8, 16: 8, 384: 1, 512: 1,
+         1: 4, 2: 4, 4: 4, 640: 1, 1024: 1}    # the K3 rows' kv heads
+# each kernels-head-dims case draws from its own generator, seeded from
+# HD_SEED and the case's parameters (`hd_gen`); bwd-seeds draws D = 32's
+# rope case at seeds 0 .. HD_SEEDS - 1
+HD_SEED, HD_SEEDS = 17, 12
+HD_PRESET = {512: "gpt2-350m"}                 # else gpt2-124m
+# the rope + W=1024, T=8192 kernel rows (the GQA window model's shape)
+HD_ROPE_T8K = (32, 128, 16)
+# parameters of the models the head-dim phases train: the MHA model at
+# each D, and its GQA variant (the window model at D = 16 and 128)
+HD_PARAMS = {d: 124_439_808 for d in (8, 16, 32, 128, 256, 384)}
+HD_PARAMS[512] = 354_823_168
+HD_GQA_PARAMS = {8: 111_446_784, 16: 118_132_992, 32: 114_990_336,
+                 256: 114_990_336, 384: 117_352_704, 512: 329_632_768}
 # GPT-2 124M with 2 kv heads of 128, rope, W=1024 at T=8192: the q/k/v
 # projection at kv width 256 (as 4 kv heads of 64) and 7,168 more wpe rows
 HD_GQA_WINDOW_PARAMS = 120_495_360
@@ -6322,7 +6431,73 @@ HD_GQA_WINDOW_PARAMS = 120_495_360
 # train-d256's (the GQA models)
 HD_PROMPT, HD_CHUNK = 768, 256
 HD_K4_PATHS = {128: (("bfloat16", 8, 6, 1), ("float32", 2, 6, 32)),
-               32: (("bfloat16", 2, 8, 8),), 256: (("bfloat16", 2, 1, 8),)}
+               32: (("bfloat16", 2, 8, 8),), 256: (("bfloat16", 2, 1, 8),),
+               8: (("bfloat16", 8, 96, 1), ("float32", 2, 96, 32)),
+               16: (("bfloat16", 2, 8, 8),), 384: (("bfloat16", 2, 1, 8),),
+               512: (("bfloat16", 2, 1, 8),)}
+
+
+def hd_gen(*case, seed=HD_SEED):
+    """A generator on the card seeded from `seed` and a case's parameters,
+    so that a case draws the same inputs whatever runs before it."""
+    return torch.Generator(device="cuda").manual_seed(
+        zlib.crc32(repr((seed,) + case).encode()))
+
+
+def bwd_term_norms(q, k, v, out, lse, do, num_heads, kv_heads, causal,
+                   sm_scale, window=0, rope=False, q_offset=0):
+    """For each element of (dq, dk, dv), the L2 norm of the terms of its
+    sum as `flash_gqa_bwd_plain` (same arguments) forms them (dq[i, c] = sum_j ds[i, j] k[j, c],
+    dk[j, c] = sum over the group's heads and i of ds[i, j] q[i, c],
+    dv[j, c] = sum of p[i, j] do[i, c], p and ds rounded to the input
+    type), fp32, laid out as the gradients.  Where the kernel and the plain
+    version round one p or ds from fp32 values a few ulps apart (the
+    kernel's ex2.approx, its own summation order) to neighbouring bf16
+    values, the element moves by one bf16 ulp of that term, at most 2^-7
+    of it, so at most 2^-7 of this norm: `hd_check_bwd` passes this as
+    `grad_errors`' `parts`.  Under rope, dq and dk are rotated back
+    pairwise, so each column of a pair takes the pair's norm."""
+    from vitrs_tpu_torch.ops import flash_attention as FA
+    B, Tq, _ = q.shape
+    keys = k.shape[1]
+    KH = kv_heads or num_heads
+    R = num_heads // KH
+    dtype = q.dtype
+    if causal:
+        k, v = k[:, :q_offset + Tq], v[:, :q_offset + Tq]
+    Tk = k.shape[1]
+    qf = FA._grouped(FA._rotated(q, num_heads, q_offset, rope), num_heads, R)
+    kf = FA._grouped(FA._rotated(k, KH, 0, rope), KH, 1)
+    dof, vf = FA._grouped(do, num_heads, R), FA._grouped(v, KH, 1)
+    if FA.scale_in_fp32(sm_scale):
+        s = torch.matmul(qf, kf.transpose(-1, -2)) * sm_scale
+    else:
+        s = torch.matmul((qf * sm_scale).to(dtype).float(),
+                         kf.transpose(-1, -2))
+    p = torch.exp(s - lse.reshape(B, KH, R, Tq)[..., None])
+    del s
+    if causal:
+        p = p.masked_fill(FA._hidden(Tq, Tk, q_offset, window, q.device), 0.0)
+    di = (FA._grouped(out, num_heads, R) * dof).sum(dim=-1, keepdim=True)
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - di) * sm_scale
+    p2, ds2 = (t.to(dtype).float().square() for t in (p, ds))
+    del p, ds
+    dv = torch.matmul(p2.transpose(-1, -2), dof.square()).sum(dim=2)
+    dk = torch.matmul(ds2.transpose(-1, -2), qf.square()).sum(dim=2)
+    dq = torch.matmul(ds2, kf.square()).flatten(1, 2)
+
+    def packed(t, pairs):      # (B, heads, T, D) squares -> (B, T, W) norms
+        if pairs:
+            h = t.shape[-1] // 2
+            t = (t[..., :h] + t[..., h:]).repeat(1, 1, 1, 2)
+        n = t.shape[2]
+        return t.transpose(1, 2).reshape(B, n, -1).sqrt()
+
+    dk, dv = packed(dk, rope), packed(dv, False)
+    if Tk < keys:
+        dk, dv = (torch.nn.functional.pad(t, (0, 0, 0, keys - Tk))
+                  for t in (dk, dv))
+    return packed(dq, rope), dk, dv
 
 
 def hd_cache_len(new):
@@ -6360,17 +6535,18 @@ def hd_resources(d, rope=False, band=False):
     on a spill in the forward."""
     import ctypes
     from vitrs_tpu_torch.ops import _build
-    from vitrs_tpu_torch.ops.flash_attention import scale_in_fp32
+    from vitrs_tpu_torch.ops.flash_attention import build_dim, scale_in_fp32
     qhat = int(not scale_in_fp32(1.0 / math.sqrt(d)))
     res = {}
     for lib, kernels, flag in (
             ("flash_fwd", ((1, "fwd"), (0, "fwd_rope_k")), int(band)),
             ("flash_bwd", ((0, "bwd_prep"), (1, "bwd_dkv"), (2, "bwd_dq")),
              qhat)):
-        fn = getattr(_build.load(lib, d).lib, f"vitrs_{lib}_attrs")
+        fn = getattr(_build.load(lib, build_dim(d)).lib, f"vitrs_{lib}_attrs")
         fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
         for i, name in kernels:
-            if name == "fwd_rope_k" and not rope:
+            # D <= 16 rotates k as it stages it: no pre-pass
+            if name == "fwd_rope_k" and (not rope or d <= 16):
                 continue
             out = (ctypes.c_int * 5)()
             rc = fn(i, int(rope), flag, ctypes.cast(out, ctypes.c_void_p))
@@ -6415,17 +6591,21 @@ def hd_check_fwd(where, got, want, rel_lse=False):
     return err
 
 
-def hd_check_bwd(where, got, want, rms_bound=True):
+def hd_check_bwd(where, got, want, terms, rms_bound=True):
     """(dq, dk, dv) against the plain version: in bf16 2e-2 abs + rel (p
     and ds round to bf16 against the kernel's and the plain version's fp32
     values, which differ in their last bits) and, with rms_bound,
     `grad_errors`' bound, which follows the tensor's rms (not where a
-    single key makes dq = ds k cancellation noise: T = 1); in fp32 1e-4
-    abs + rel, as every K2 check.  Returns max_abs_err."""
+    single key makes dq = ds k cancellation noise: T = 1), widened by 2^-7
+    of the L2 norm of each element's terms (`bwd_term_norms`, from
+    `terms()`, called only where a value is past the rms bound alone): one
+    term that the two round to neighbouring bf16 values, where one large p
+    or ds dominates an element (a key that early rows weigh near 1); in
+    fp32 1e-4 abs + rel, as every K2 check.  Returns max_abs_err."""
     bf16 = got[0].dtype == torch.bfloat16
     tol = 2e-2 if bf16 else 1e-4
-    worst = 0.0
-    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+    worst, norms = 0.0, None
+    for i, (name, a, b) in enumerate(zip(("dq", "dk", "dv"), got, want)):
         check(a.shape == b.shape and a.dtype == b.dtype, f"{where}: {name} "
               f"{tuple(a.shape)} {a.dtype}")
         d = (a.float() - b.float()).abs()
@@ -6434,6 +6614,14 @@ def hd_check_bwd(where, got, want, rms_bound=True):
         check(bad == 0, f"{where}: {bad} {name} values beyond {tol}")
         if bf16 and rms_bound:
             bad, err, rms = grad_errors(a, b)
+            if bad:
+                norms = terms() if norms is None else norms
+                past = bad
+                bad, err, rms = grad_errors(a, b, norms[i])
+                print(f"[{where.split()[0]}] {where.split(' ', 1)[1]}: "
+                      f"{past} {name} values past the rms bound alone, "
+                      f"{bad} past it with the one-term allowance "
+                      f"(max_abs_err {err:.3e}, rms {rms:.3e})")
             check(bad == 0, f"{where}: {bad} {name} values beyond "
                   f"grad_errors' bound (max_abs_err {err:.3e}, rms {rms:.3e})")
         worst = max(worst, d.max().item())
@@ -6477,16 +6665,20 @@ def phase_kernels_head_dims():
     from vitrs_tpu_torch.ops import flash_attention as FA
     from vitrs_tpu_torch.ops import flash_attention_gqa as FG
     from vitrs_tpu_torch.ops import flash_prefill as FP
-    gen = torch.Generator(device="cuda").manual_seed(17)
     bf16, f32 = torch.bfloat16, torch.float32
     res = {}
 
-    def inputs(B, T, nh, kh, d, dtype, tk=None):
+    def inputs(B, T, nh, kh, d, dtype, tk=None, *case):
+        """q, k, v, do of one case, from its own generator (`hd_gen`)"""
+        gen = hd_gen(B, T, nh, kh, d, str(dtype), tk, *case)
         q, do = (torch.randn(B, T, nh * d, generator=gen, device="cuda")
                  .to(dtype) for _ in range(2))
         k, v = (torch.randn(B, tk or T, kh * d, generator=gen, device="cuda")
                 .to(dtype) for _ in range(2))
         return q, k, v, do
+
+    def terms(q, k, v, out, lse, do, nh, kh, *a):
+        return lambda: bwd_term_norms(q, k, v, out, lse, do, nh, kh, *a)
 
     def fwd(q, k, v, nh, kh, *a):
         if kh == nh:
@@ -6498,39 +6690,79 @@ def phase_kernels_head_dims():
             return FA.flash_bwd_cuda(q, k, v, out, lse, do, nh, *a)
         return FG.flash_gqa_bwd_cuda(q, k, v, out, lse, do, nh, kh, *a)
 
-    for d in HD_NEW:
+    def edges(d, nh, kv, tag):
+        """The edge rows: one tile, a ragged one, several; both widths,
+        causal and full, bf16 and fp32, each call twice; at an even D <=
+        16 also rope + a band (W=33, T=150), which those head dims rotate
+        as they stage q and k.  Returns the worst errors."""
+        sm = 1.0 / math.sqrt(d)
+        worst = {"fwd": 0.0, "bwd": 0.0}
+        n = 0
+        cases = [(T, causal, 0, False) for T in (1, 37, 200)
+                 for causal in (True, False)]
+        if d <= 16 and d % 2 == 0:
+            cases.append((150, True, 33, True))
+        for dtype in (bf16, f32):
+            for T, causal, W, rope in cases:
+                for kh in (nh, kv):
+                    q, k, v, do = inputs(2, T, nh, kh, d, dtype, None, causal)
+                    a = (causal, sm) + ((W, rope) if rope else ())
+                    got, again = fwd(q, k, v, nh, kh, *a), fwd(q, k, v, nh, kh, *a)
+                    want = FG.flash_gqa_fwd_plain(q, k, v, nh, kh, *a)
+                    g = bwd(q, k, v, *got, do, nh, kh, *a)
+                    g2 = bwd(q, k, v, *got, do, nh, kh, *a)
+                    gw = FG.flash_gqa_bwd_plain(q, k, v, *got, do, nh, kh, *a)
+                    torch.cuda.synchronize()
+                    where = (f"{tag} {str(dtype)[6:]} T={T} KH={kh} "
+                             f"causal={int(causal)}"
+                             + (f" rope W={W}" if rope else ""))
+                    check(all(torch.equal(x, y) for x, y in
+                              zip((*got, *g), (*again, *g2))),
+                          f"{where}: two calls differ")
+                    worst["fwd"] = max(worst["fwd"], hd_check_fwd(
+                        where, got, want))
+                    worst["bwd"] = max(worst["bwd"], hd_check_bwd(
+                        where, g, gw, terms(q, k, v, *got, do, nh, kh, *a),
+                        rms_bound=T > 1))
+                    n += 1
+        print(f"[{tag}] {n} edge cases (T 1/37/200, KH {nh}/{kv}, causal "
+              f"and full, bf16 and fp32"
+              + (", rope + W=33 at T=150" if len(cases) > 6 else "")
+              + f") within tolerance: forward max_abs_err "
+              f"{worst['fwd']:.3e}, backward {worst['bwd']:.3e}; each twice, "
+              f"bitwise equal")
+        return worst
+
+    def k4_edges(d, nh, kv, tag):
+        """K4's edge rows: chunks off the 64 grid, one row, a cache tail
+        of NaN past the chunk's frontier; bf16 and fp32."""
+        sm = 1.0 / math.sqrt(d)
+        n, worst = 0, 0.0
+        for dtype in (bf16, f32):
+            for S, q_off, Tk in ((1, 517, 768), (37, 100, 256), (200, 133, 512)):
+                q, k, v, _ = inputs(2, S, nh, kv, d, dtype, Tk, q_off)
+                k[:, q_off + S:] = float("nan")
+                v[:, q_off + S:] = float("nan")
+                got = FP.flash_prefill_qkv(q, k, v, nh, kv, q_off)
+                want = FP.flash_prefill_plain(q, k, v, nh, kv, q_off, sm)
+                torch.cuda.synchronize()
+                where = (f"{tag} {str(dtype)[6:]} K4 S={S} q_offset={q_off} "
+                         f"cache {Tk} KH={kv}")
+                check(torch.isfinite(got).all().item(), f"{where}: non-finite")
+                bad, err, _ = out_errors(got, want)
+                check(bad == 0, f"{where}: {bad} values beyond tolerance")
+                worst = max(worst, err)
+                n += 1
+        print(f"[{tag}] K4: {n} edge chunks (S 1/37/200 off the 64 grid, "
+              f"NaN cache tails, bf16 and fp32) within tolerance "
+              f"(max_abs_err {worst:.3e})")
+        return worst
+
+    for d in HD_NEW + HD_ENDS:
         nh, kv, sm = HD_HEADS[d], HD_KV[d], 1.0 / math.sqrt(d)
         tag = f"kernels-d{d}"
         r = {}
-        # the edge rows: one tile, a ragged one, several; both widths
-        worst = {"fwd": 0.0, "bwd": 0.0}
-        n = 0
-        for dtype in (bf16, f32):
-            for T in (1, 37, 200):
-                for causal in (True, False):
-                    for kh in (nh, kv):
-                        q, k, v, do = inputs(2, T, nh, kh, d, dtype)
-                        a = (causal, sm)
-                        got, again = fwd(q, k, v, nh, kh, *a), fwd(q, k, v, nh, kh, *a)
-                        want = FG.flash_gqa_fwd_plain(q, k, v, nh, kh, *a)
-                        g = bwd(q, k, v, *got, do, nh, kh, *a)
-                        g2 = bwd(q, k, v, *got, do, nh, kh, *a)
-                        gw = FG.flash_gqa_bwd_plain(q, k, v, *got, do, nh, kh, *a)
-                        torch.cuda.synchronize()
-                        where = (f"{tag} {str(dtype)[6:]} T={T} KH={kh} "
-                                 f"causal={int(causal)}")
-                        check(all(torch.equal(x, y) for x, y in
-                                  zip((*got, *g), (*again, *g2))),
-                              f"{where}: two calls differ")
-                        worst["fwd"] = max(worst["fwd"], hd_check_fwd(
-                            where, got, want))
-                        worst["bwd"] = max(worst["bwd"], hd_check_bwd(
-                            where, g, gw, rms_bound=T > 1))
-                        n += 1
-        print(f"[{tag}] {n} edge cases (T 1/37/200, KH {nh}/{kv}, causal "
-              f"and full, bf16 and fp32) within tolerance: forward "
-              f"max_abs_err {worst['fwd']:.3e}, backward {worst['bwd']:.3e}; "
-              f"each twice, bitwise equal")
+        worst = edges(d, nh, kv, tag)
 
         # the square path, MHA and GQA, bf16: checked, then timed
         for kh, kf, kb in ((nh, "flash_fwd", "flash_bwd"),
@@ -6547,13 +6779,15 @@ def phase_kernels_head_dims():
             ef = hd_check_fwd(where, got, want)
             check(all(torch.equal(x, y) for x, y in zip(g, g2)),
                   f"{where}: backward differs between two calls")
-            eb = hd_check_bwd(where, g, gw)
+            eb = hd_check_bwd(where, g, gw, terms(q, k, v, *got, do, nh, kh,
+                                                  True, sm))
             flops, bnd = fwd_bound(B, nh, kh, d, T, 0, T, 2)
             r[kf] = dict(max_abs_err=max(ef, worst["fwd"]), shape=where[len(tag) + 1:],
                          **hd_timed(tag, f"{kf} {where}", lambda: fwd(
                              q, k, v, nh, kh, True, sm), lambda: FG.flash_gqa_fwd_plain(
                              q, k, v, nh, kh, True, sm), lambda: sdpa(
-                             q, k, v, nh, kh), 1, flops, bnd))
+                             q, k, v, nh, kh), 1, flops, bnd,
+                             plain_iters=None if d in HD_NEW else 3))
             out, lse = got
             flops, bnd = bwd_bound(B, nh, kh, d, T, 2)
             r[kb] = dict(max_abs_err=max(eb, worst["bwd"]), shape=where[len(tag) + 1:],
@@ -6561,36 +6795,53 @@ def phase_kernels_head_dims():
                              q, k, v, out, lse, do, nh, kh, True, sm),
                              lambda: FG.flash_gqa_bwd_plain(
                                  q, k, v, out, lse, do, nh, kh, True, sm),
-                             sdpa_bwd(q, k, v, do, nh, kh), 3, flops, bnd))
+                             sdpa_bwd(q, k, v, do, nh, kh), 3, flops, bnd,
+                             plain_iters=None if d in HD_NEW else 3))
+            # one exp a visible pair, forward and backward: the function's
+            # own least (this backward recomputes p in both its dK/dV and
+            # its dQ kernel, two a pair, a cost of the design)
+            if d <= 16:
+                pairs = B * nh * attn_pairs(T, 0, T, True)
+                r[kf]["ex2_bound_ms"] = r[kb]["ex2_bound_ms"] = (
+                    pairs / EX2_PER_S * 1e3)
+                print(f"[{tag}] {kf} / {kb} NH={nh} KH={kh}: exp bound "
+                      f"{r[kf]['ex2_bound_ms']:.4f} / "
+                      f"{r[kb]['ex2_bound_ms']:.4f} ms ({pairs} pairs at "
+                      f"{EX2_PER_S:.4g} exps a second): "
+                      f"{r[kf]['ex2_bound_ms'] / r[kf]['ms']:.1%} / "
+                      f"{r[kb]['ex2_bound_ms'] / r[kb]['ms']:.1%} of it")
             del q, k, v, do, got, want, g, g2, gw, out, lse
 
-        # the ViT shape, non-causal, MHA
-        B, T = 64, 197
-        q, k, v, do = inputs(B, T, nh, nh, d, bf16)
-        got = FA.flash_fwd_cuda(q, k, v, nh, False, sm)
-        g = FA.flash_bwd_cuda(q, k, v, *got, do, nh, False, sm)
-        want = FA.flash_fwd_plain(q, k, v, nh, False, sm)
-        gw = FA.flash_bwd_plain(q, k, v, *got, do, nh, False, sm)
-        torch.cuda.synchronize()
-        where = f"{tag} bf16 B={B} T={T} NH={nh} non-causal"
-        ef, eb = hd_check_fwd(where, got, want), hd_check_bwd(where, g, gw)
-        out, lse = got
-        flops, bnd = fwd_bound(B, nh, nh, d, T, 0, T, 2, causal=False)
-        r["flash_fwd"]["vit"] = dict(max_abs_err=ef, **hd_timed(
-            tag, f"flash_fwd {where}",
-            lambda: FA.flash_fwd_cuda(q, k, v, nh, False, sm),
-            lambda: FA.flash_fwd_plain(q, k, v, nh, False, sm),
-            lambda: sdpa(q, k, v, nh, nh, causal=False), 1, flops, bnd))
-        flops, bnd = bwd_bound(B, nh, nh, d, T, 2, causal=False)
-        r["flash_bwd"]["vit"] = dict(max_abs_err=eb, **hd_timed(
-            tag, f"flash_bwd {where}",
-            lambda: FA.flash_bwd_cuda(q, k, v, out, lse, do, nh, False, sm),
-            lambda: FA.flash_bwd_plain(q, k, v, out, lse, do, nh, False, sm),
-            sdpa_bwd(q, k, v, do, nh, nh, causal=False), 3, flops, bnd))
-        del q, k, v, do, got, g, want, gw, out, lse
+        # the ViT shape, non-causal, MHA (head dims a ViT preset has)
+        if d in HD_NEW:
+            B, T = 64, 197
+            q, k, v, do = inputs(B, T, nh, nh, d, bf16)
+            got = FA.flash_fwd_cuda(q, k, v, nh, False, sm)
+            g = FA.flash_bwd_cuda(q, k, v, *got, do, nh, False, sm)
+            want = FA.flash_fwd_plain(q, k, v, nh, False, sm)
+            gw = FA.flash_bwd_plain(q, k, v, *got, do, nh, False, sm)
+            torch.cuda.synchronize()
+            where = f"{tag} bf16 B={B} T={T} NH={nh} non-causal"
+            ef = hd_check_fwd(where, got, want)
+            eb = hd_check_bwd(where, g, gw, terms(q, k, v, *got, do, nh, nh,
+                                                  False, sm))
+            out, lse = got
+            flops, bnd = fwd_bound(B, nh, nh, d, T, 0, T, 2, causal=False)
+            r["flash_fwd"]["vit"] = dict(max_abs_err=ef, **hd_timed(
+                tag, f"flash_fwd {where}",
+                lambda: FA.flash_fwd_cuda(q, k, v, nh, False, sm),
+                lambda: FA.flash_fwd_plain(q, k, v, nh, False, sm),
+                lambda: sdpa(q, k, v, nh, nh, causal=False), 1, flops, bnd))
+            flops, bnd = bwd_bound(B, nh, nh, d, T, 2, causal=False)
+            r["flash_bwd"]["vit"] = dict(max_abs_err=eb, **hd_timed(
+                tag, f"flash_bwd {where}",
+                lambda: FA.flash_bwd_cuda(q, k, v, out, lse, do, nh, False, sm),
+                lambda: FA.flash_bwd_plain(q, k, v, out, lse, do, nh, False, sm),
+                sdpa_bwd(q, k, v, do, nh, nh, causal=False), 3, flops, bnd))
+            del q, k, v, do, got, g, want, gw, out, lse
 
         # rope + the band at T=8192 (the train-window model's shape)
-        if d in FA.ROPE_HEAD_DIMS:
+        if d in HD_ROPE_T8K:
             B, T, W = 2, 8192, 1024
             groups = nh // 6
             mask = band_mask(T, 0, T, W)
@@ -6608,7 +6859,9 @@ def phase_kernels_head_dims():
                 torch.cuda.synchronize()
                 where = f"{tag} bf16 B={B} T={T} NH={nh} KH={kh} rope W={W}"
                 ef = hd_check_fwd(where, got, want, rel_lse=True)
-                eb = hd_check_bwd(where, g, gw)
+                eb = hd_check_bwd(where, g, gw, lambda: hd_plain(
+                    bwd_term_norms, groups, q, k, v, nh, kh, *got, do,
+                    causal=True, sm_scale=sm, **pw))
                 del want, gw
                 out, lse = got
                 qr = FA._rotated(q, nh, 0, True)
@@ -6619,8 +6872,8 @@ def phase_kernels_head_dims():
                     tag, f"{kf} {where}", lambda: fwd(q, k, v, nh, kh, *a),
                     lambda: hd_plain(FA.flash_fwd_plain, groups, q, k, v, nh,
                                      kh, causal=True, sm_scale=sm, **pw),
-                    lambda: sdpa(qr, kr, v, nh, kh, mask=mask), 2, flops,
-                    bnd, plain_iters=2))
+                    lambda: sdpa(qr, kr, v, nh, kh, mask=mask),
+                    2 if d > 16 else 1, flops, bnd, plain_iters=2))
                 flops, bnd = bwd_bound(B, nh, kh, d, T, 2, window=W,
                                        rope=True)
                 r[kb]["rope_window"] = dict(max_abs_err=eb, **hd_timed(
@@ -6635,25 +6888,8 @@ def phase_kernels_head_dims():
             del mask
             torch.cuda.empty_cache()
 
-        # K4's edge rows: chunks off the 64 grid, one row, a cache tail of
-        # NaN past the chunk's frontier; bf16 and fp32
-        n = 0
-        for dtype in (bf16, f32):
-            for S, q_off, Tk in ((1, 517, 768), (37, 100, 256), (200, 133, 512)):
-                q, k, v, _ = inputs(2, S, nh, kv, d, dtype, tk=Tk)
-                k[:, q_off + S:] = float("nan")
-                v[:, q_off + S:] = float("nan")
-                got = FP.flash_prefill_qkv(q, k, v, nh, kv, q_off)
-                want = FP.flash_prefill_plain(q, k, v, nh, kv, q_off, sm)
-                torch.cuda.synchronize()
-                where = (f"{tag} {str(dtype)[6:]} K4 S={S} q_offset={q_off} "
-                         f"cache {Tk} KH={kv}")
-                check(torch.isfinite(got).all().item(), f"{where}: non-finite")
-                bad, _, _ = out_errors(got, want)
-                check(bad == 0, f"{where}: {bad} values beyond tolerance")
-                n += 1
-        print(f"[{tag}] K4: {n} edge chunks (S 1/37/200 off the 64 grid, "
-              f"NaN cache tails, bf16 and fp32) within tolerance")
+        # K4's edge rows
+        k4_edges(d, nh, kv, tag)
 
         # K4 at its main path's geometry (every continuation chunk of the
         # chunked generates of serve-d128 and train-d32 / train-d256, at
@@ -6666,9 +6902,11 @@ def phase_kernels_head_dims():
                   and q_off == HD_PROMPT - HD_CHUNK)
                  for dname, B, kh, new in HD_K4_PATHS[d]
                  for q_off in range(HD_CHUNK, HD_PROMPT, HD_CHUNK)]
-        cases.append((bf16, 8, kv, 512, 7168, 7936, True))
+        n_path = len(cases)
+        if d in HD_NEW:
+            cases.append((bf16, 8, kv, 512, 7168, 7936, True))
         for dtype, B, kh, S, q_off, Tk, time_it in cases:
-            q, k, v, _ = inputs(B, S, nh, kh, d, dtype, tk=Tk)
+            q, k, v, _ = inputs(B, S, nh, kh, d, dtype, Tk, q_off)
             k[:, q_off + S:] = float("nan")
             v[:, q_off + S:] = float("nan")
             got = FP.flash_prefill_qkv(q, k, v, nh, kh, q_off)
@@ -6692,25 +6930,27 @@ def phase_kernels_head_dims():
                     lambda: FP.flash_prefill_qkv(q, k, v, nh, kh, q_off),
                     lambda: FP.flash_prefill_plain(q, k, v, nh, kh, q_off, sm),
                     lambda: sdpa(q, kc, vc, nh, kh, mask=mask), 1, flops,
-                    bnd))
+                    bnd, plain_iters=None if d in HD_NEW else 3))
                 del mask, kc, vc
             del q, k, v, got, again, want
-        ep = max(c["max_abs_err"] for c in checked[:-1])
-        print(f"[{tag}] K4 on its path: {len(checked) - 1} chunks of the "
+        ep = max(c["max_abs_err"] for c in checked[:n_path])
+        print(f"[{tag}] K4 on its path: {n_path} chunks of the "
               f"chunked generates within tolerance, each twice, bitwise "
               f"equal (max_abs_err {ep:.3e})")
-        r["flash_prefill"] = dict(timed[HD_CHUNK], path_chunks=checked[:-1],
-                                  long_context=timed[512])
+        r["flash_prefill"] = dict(timed[HD_CHUNK], path_chunks=checked[:n_path],
+                                  **({"long_context": timed[512]}
+                                     if 512 in timed else {}))
 
         # the ring's cut hop (queries past the keys' end) and rows that see
         # no key
-        if d == 128:
+        if d == 128 or d in HD_ENDS:
             rect = []
             for dtype in (bf16, f32):
                 for tq, q_off, keys, W, kh in ((1023, 1023, 1023, 1024, kv),
                                                (1023, 1023, 1023, 1024, nh),
                                                (200, 100, 150, 90, kv)):
-                    q, k, v, do = inputs(2, tq, nh, kh, d, dtype, tk=keys)
+                    q, k, v, do = inputs(2, tq, nh, kh, d, dtype, keys, q_off,
+                                         W)
                     a = (True, sm, W, False, q_off)
                     got = fwd(q, k, v, nh, kh, *a)
                     g = bwd(q, k, v, *got, do, nh, kh, *a)
@@ -6722,7 +6962,8 @@ def phase_kernels_head_dims():
                              f"KH={kh}")
                     ef = hd_check_fwd(where, got, want)
                     dead = torch.isinf(got[1]).sum().item()
-                    eb = hd_check_bwd(where, g, gw)
+                    eb = hd_check_bwd(where, g, gw, terms(
+                        q, k, v, *got, do, nh, kh, *a))
                     rect.append(dict(where=where[len(tag) + 1:], out_err=ef,
                                      grad_err=eb, rows_without_keys=dead))
                     print(f"[{tag}] {where[len(tag) + 1:]}: out max_abs_err "
@@ -6742,26 +6983,163 @@ def phase_kernels_head_dims():
             r[kname]["resources"] = rsc
         res[d] = r
         torch.cuda.empty_cache()
+
+    # the D = 16 build's other head dims: edge rows and K4's (last, so that
+    # the head dims above draw the inputs they drew before these existed)
+    for d in HD_EDGE_ONLY:
+        nh, kv = HD_HEADS[d], HD_KV[d]
+        tag = f"kernels-d{d}"
+        res[d] = dict(edges=edges(d, nh, kv, tag), k4=k4_edges(d, nh, kv, tag),
+                      resources=hd_resources(d, rope=d % 2 == 0, band=True))
+
+    # the largest admitted head dim and the odd atom count: edge rows, the
+    # square path MHA and GQA in bf16 (checked, each backward twice and
+    # bitwise equal; not timed: no model path) and K4's edges
+    for d in HD_CHECK_ONLY:
+        nh, kv, sm = HD_HEADS[d], HD_KV[d], 1.0 / math.sqrt(d)
+        tag = f"kernels-d{d}"
+        square = {}
+        for kh in (nh, kv):
+            B, T = 8, 1024
+            q, k, v, do = inputs(B, T, nh, kh, d, bf16)
+            got = fwd(q, k, v, nh, kh, True, sm)
+            want = FG.flash_gqa_fwd_plain(q, k, v, nh, kh, True, sm)
+            g = bwd(q, k, v, *got, do, nh, kh, True, sm)
+            g2 = bwd(q, k, v, *got, do, nh, kh, True, sm)
+            gw = FG.flash_gqa_bwd_plain(q, k, v, *got, do, nh, kh, True, sm)
+            torch.cuda.synchronize()
+            where = f"{tag} bf16 B={B} T={T} NH={nh} KH={kh} causal"
+            check(all(torch.equal(x, y) for x, y in zip(g, g2)),
+                  f"{where}: backward differs between two calls")
+            ef = hd_check_fwd(where, got, want)
+            eb = hd_check_bwd(where, g, gw, terms(q, k, v, *got, do, nh, kh,
+                                                  True, sm))
+            square[f"KH={kh}"] = dict(out_err=ef, grad_err=eb)
+            print(f"[{tag}] {where[len(tag) + 1:]}: out max_abs_err "
+                  f"{ef:.3e}, dq/dk/dv {eb:.3e}; backward twice, bitwise "
+                  f"equal")
+            del q, k, v, do, got, want, g, g2, gw
+        res[d] = dict(edges=edges(d, nh, kv, tag), square=square,
+                      k4=k4_edges(d, nh, kv, tag), resources=hd_resources(d))
+        print(f"[{tag}] resources: " + "; ".join(
+            f"{k} {v['registers']} registers, {v['spill_bytes']} B spilled, "
+            f"{v['smem_bytes']} B shared, {v['threads']} threads"
+            for k, v in res[d]["resources"].items()))
+        torch.cuda.empty_cache()
     return res
 
 
-def hd_grads_vs_dense(tag, overrides, B, rows=None, T=None):
-    """The first batch's fp32 loss and gradient of GPT-2 124M at a head dim
+def phase_bwd_seeds():
+    """D = 32's rope + W=1024 B=2 T=8192 backward, MHA (24 heads) and GQA
+    (8 kv heads), at seeds 0 .. HD_SEEDS - 1 (on request only).  For each
+    seed and each of dq, dk, dv: the kernel's and the plain version's
+    errors against the unrounded function (`flash_bwd_plain` on the inputs
+    in fp32: no bf16 rounding of the rotated q and k, q^, p or ds), rms and
+    largest; of the values where the two differ, how many the kernel holds
+    nearer to it and how many farther; the values past `grad_errors` of
+    kernel against plain with the rms bound alone and with the one-term
+    allowance (`bwd_term_norms`), and of each against the unrounded
+    function.  Prints the values past the rms bound, then one JSON line."""
+    from vitrs_tpu_torch.ops import flash_attention as FA
+    from vitrs_tpu_torch.ops import flash_attention_gqa as FG
+    d, B, T, W = 32, 2, 8192, 1024
+    nh, kv, sm = HD_HEADS[d], HD_KV[d], 1.0 / math.sqrt(d)
+    groups, a = nh // 6, (True, sm, W, True)
+    pw = dict(causal=True, sm_scale=sm, window=W, rope=True)
+    rows = []
+    for seed in range(HD_SEEDS):
+        for kh in (nh, kv):
+            gen = hd_gen(B, T, nh, kh, d, "bwd-seeds", seed=seed)
+            q, do = (torch.randn(B, T, nh * d, generator=gen, device="cuda")
+                     .to(torch.bfloat16) for _ in range(2))
+            k, v = (torch.randn(B, T, kh * d, generator=gen, device="cuda")
+                    .to(torch.bfloat16) for _ in range(2))
+            if kh == nh:
+                out, lse = FA.flash_fwd_cuda(q, k, v, nh, *a)
+                g = FA.flash_bwd_cuda(q, k, v, out, lse, do, nh, *a)
+            else:
+                out, lse = FG.flash_gqa_fwd_cuda(q, k, v, nh, kh, *a)
+                g = FG.flash_gqa_bwd_cuda(q, k, v, out, lse, do, nh, kh, *a)
+            gw = hd_plain(FA.flash_bwd_plain, groups, q, k, v, nh, kh, out,
+                          lse, do, **pw)
+            ref = hd_plain(FA.flash_bwd_plain, groups, *(t.float() for t in (
+                q, k, v)), nh, kh, out.float(), lse, do.float(), **pw)
+            norms = hd_plain(bwd_term_norms, groups, q, k, v, nh, kh, out,
+                             lse, do, **pw)
+            torch.cuda.synchronize()
+            for name, x, y, r, t in zip(("dq", "dk", "dv"), g, gw, ref, norms):
+                xf, yf = x.float(), y.float()
+                ek, ep = (xf - r).abs(), (yf - r).abs()
+                apart = xf != yf
+                row = dict(
+                    seed=seed, kv_heads=kh, grad=name,
+                    rms_err_kernel=ek.square().mean().sqrt().item(),
+                    rms_err_plain=ep.square().mean().sqrt().item(),
+                    max_err_kernel=ek.max().item(),
+                    max_err_plain=ep.max().item(),
+                    differ=apart.sum().item(),
+                    kernel_nearer=(ek < ep)[apart].sum().item(),
+                    kernel_farther=(ek > ep)[apart].sum().item(),
+                    past_rms_bound=grad_errors(x, y)[0],
+                    past_with_allowance=grad_errors(x, y, t)[0],
+                    kernel_past_vs_exact=grad_errors(x, r)[0],
+                    plain_past_vs_exact=grad_errors(y, r)[0])
+                rows.append(row)
+                if row["past_rms_bound"]:
+                    dd = (xf - yf).abs()
+                    rms = yf.square().mean().sqrt()
+                    rr = yf.square().mean(-1, keepdim=True).sqrt().clamp(min=rms)
+                    lim = 2.0 ** -7 * torch.maximum(xf.abs(), yf.abs()) + 2.0 ** -6 * rr
+                    for i in torch.nonzero(dd > lim)[:8].tolist():
+                        i = tuple(i)
+                        print(f"[bwd-seeds] seed {seed} KH={kh} {name} "
+                              f"{i}: kernel {xf[i].item():.6f}, plain "
+                              f"{yf[i].item():.6f}, unrounded "
+                              f"{r[i].item():.6f}; rms bound "
+                              f"{lim[i].item():.3e}, term norm "
+                              f"{t[i].item():.3e}, allowance "
+                              f"{2.0 ** -7 * t[i].item():.3e}")
+                print(f"[bwd-seeds] seed {seed} KH={kh} {name}: rms err "
+                      f"kernel {row['rms_err_kernel']:.4e} plain "
+                      f"{row['rms_err_plain']:.4e}; max {row['max_err_kernel']:.3e}"
+                      f" / {row['max_err_plain']:.3e}; {row['differ']} differ, "
+                      f"kernel nearer {row['kernel_nearer']}, farther "
+                      f"{row['kernel_farther']}; past the rms bound "
+                      f"{row['past_rms_bound']}, with the allowance "
+                      f"{row['past_with_allowance']}; against the unrounded "
+                      f"function kernel {row['kernel_past_vs_exact']}, plain "
+                      f"{row['plain_past_vs_exact']}")
+            del q, k, v, do, out, lse, g, gw, ref, norms
+            torch.cuda.empty_cache()
+    tot = {key: sum(r[key] for r in rows) for key in (
+        "differ", "kernel_nearer", "kernel_farther", "past_rms_bound",
+        "past_with_allowance", "kernel_past_vs_exact", "plain_past_vs_exact")}
+    print("[bwd-seeds] totals over " + f"{HD_SEEDS} seeds x 2 geometries x 3 "
+          f"gradients: " + json.dumps(tot))
+    print("[bwd-seeds] " + json.dumps(rows))
+    return rows
+
+
+def hd_grads_vs_dense(tag, overrides, B, rows=None, T=None,
+                      preset="gpt2-124m"):
+    """The first batch's fp32 loss and gradient of GPT-2 124M (or
+    `preset`) at a head dim
     (`overrides`, the loop's seeded initial parameters and loader) through
     the flash route (the kernels' fp32 instances) against the dense route
     (use_flash=False): loss rtol 1e-5, every leaf within 1e-4 of its L2
     norm (summation order alone: about 1e-6; a kernel gone wrong at one
     head dim moves its leaves by percents).  rows / T cut the batch (the
     dense route's fp32 (B, heads, T, T) tensors at T=8192 outgrow the
-    card).  Returns {leaf: relative L2 error} and the losses."""
+    card).  Returns {leaf: relative L2 error}, the losses and the flash
+    route's launches."""
     from vitrs_tpu_torch import params as P
     from vitrs_tpu_torch.config import get_config
     from vitrs_tpu_torch.models import model as M
     from vitrs_tpu_torch.train import loop
     over = dict(overrides)
     kv = over.pop("num_kv_heads", 0)
-    cfg = get_config("gpt2-124m", num_kv_heads=kv, **over)
-    tc = loop.TrainConfig(preset="gpt2-124m", dataset="", batch_size=B,
+    cfg = get_config(preset, num_kv_heads=kv, **over)
+    tc = loop.TrainConfig(preset=preset, dataset="", batch_size=B,
                           kv_heads=kv, model_overrides=over or None)
     loader, _ = loop._loader(tc, cfg, 0, device_normalize=False,
                              shard=(0, 1))
@@ -6802,7 +7180,7 @@ def hd_grads_vs_dense(tag, overrides, B, rows=None, T=None):
           f"launches, none on the dense route")
     del gf, gd, host
     torch.cuda.empty_cache()
-    return dict(loss=[lf, ld], grad_rel_err=errs, worst=worst)
+    return dict(loss=[lf, ld], grad_rel_err=errs, worst=worst, launches=cf)
 
 
 def hd_chunked_generate(tag, cfg, pp, path):
@@ -6837,30 +7215,38 @@ def hd_chunked_generate(tag, cfg, pp, path):
 
 
 def phase_train_head_dim(smi, d):
-    """GPT-2 124M at full width and depth with heads of d (C = 768): 12
-    steps at D = 128, 4 at 32 and 256, B=8 T=1024, through
-    train/loop.train (12 K1-fwd, 12 K2 a step, as designed) and the first
-    batch's fp32 gradient against the dense route; then with HD_KV[d] kv
-    heads: at D = 128 the train-window model (rope, W=1024, T=8192, B=2)
-    for 12 steps (K3 with the rotation and the band; its gradient check
-    on the first row's 2048 tokens), at 32 and 256 four steps at T=1024
-    and a chunked generate (K3-fwd, then K4).  No flash plain version runs on
-    the card (`_watch_plain`)."""
+    """GPT-2 124M at full width and depth with heads of d (C = 768; D = 512
+    at gpt2-350m's C = 1024 and 24 layers), B=8 T=1024: 12 steps at D =
+    128, 4 at the others, through train/loop.train (L K1-fwd, L K2 a step,
+    as designed) and the first batch's fp32 gradient against the dense
+    route; then with HD_KV[d] kv heads: at D = 128 and 16 the train-window
+    model (rope, W=1024, T=8192, B=2, 12 steps; K3 with the rotation
+    and the band; its gradient check on the first row's 2048 tokens), at
+    the others four steps at T=1024 (L K3-fwd, L K3-bwd a step), at 8, 384
+    and 512 also the first batch's fp32 gradient against the dense route;
+    and, but at D = 128 and 8 (served by serve-d128 / serve-d8), a chunked
+    generate of the GQA model (K3-fwd, then K4).  No flash plain version
+    runs on the card (`_watch_plain`)."""
     from vitrs_tpu_torch import params as P
     from vitrs_tpu_torch.config import get_config
     from vitrs_tpu_torch.models import model as M
     _watch_plain()
     PLAIN_ON_CARD.update(fwd=0, bwd=0)
     nh, kv = HD_HEADS[d], HD_KV[d]
+    preset = HD_PRESET.get(d, "gpt2-124m")
     steps = 12 if d == 128 else 4
     tag = f"train-d{d}"
     counts, res = phase_train(smi, steps=steps, overrides={"num_heads": nh},
-                              tag=f"[{tag}]", n_params=124_439_808)
-    res["grads"] = hd_grads_vs_dense(tag, {"num_heads": nh}, 8)
-    if d == 128:
+                              tag=f"[{tag}]", n_params=HD_PARAMS[d],
+                              preset=preset)
+    res["grads"] = hd_grads_vs_dense(tag, {"num_heads": nh}, 8, preset=preset)
+    if d in (128, 16):
+        # 12 steps: at lr 6e-4 after a 2-step warm-up the window model's
+        # loss rises above step 1's at step 4 before it falls
         gcounts, gres = phase_train(
-            smi, kv_heads=kv, overrides=dict(WINDOW, num_heads=nh), B=2,
-            tag=f"[{tag}-gqa]", n_params=HD_GQA_WINDOW_PARAMS)
+            smi, steps=12, kv_heads=kv,
+            overrides=dict(WINDOW, num_heads=nh), B=2, tag=f"[{tag}-gqa]",
+            n_params=HD_GQA_WINDOW_PARAMS if d == 128 else HD_GQA_PARAMS[d])
         gres["grads"] = hd_grads_vs_dense(
             f"{tag}-gqa", dict(WINDOW, num_heads=nh, num_kv_heads=kv), 2,
             rows=1, T=2048)
@@ -6868,8 +7254,13 @@ def phase_train_head_dim(smi, d):
         gcounts, gres = phase_train(smi, steps=4, kv_heads=kv,
                                     overrides={"num_heads": nh}, B=8,
                                     tag=f"[{tag}-gqa]",
-                                    n_params=114_990_336)  # kv width 256
-        cfg = get_config("gpt2-124m", num_heads=nh, num_kv_heads=kv,
+                                    n_params=HD_GQA_PARAMS[d], preset=preset)
+        if d not in (32, 256):
+            gres["grads"] = hd_grads_vs_dense(
+                f"{tag}-gqa", {"num_heads": nh, "num_kv_heads": kv}, 8,
+                preset=preset)
+    if d not in (128, 8):
+        cfg = get_config(preset, num_heads=nh, num_kv_heads=kv,
                          dtype="bfloat16")
         pp = M.prepare_params({k: t.to("cuda") for k, t in P.init_params(
             cfg, torch.Generator().manual_seed(5)).items()}, cfg)
@@ -6886,14 +7277,15 @@ def phase_train_head_dim(smi, d):
     return counts, res, gcounts, gres
 
 
-def phase_serve_d128(smi):
-    """The 6 x 128 model (GPT-2 124M's width, seeded random weights)
-    served: bf16 through GenerationEngine (8 requests, whole-prompt
-    prefill through K1-fwd, launches == 12 x prefill dispatches), prefill
-    ms and decode ms a token; a chunked generate (768-token prompts in
-    256-token chunks: K1-fwd, then K4; a 512-token chunk leaves no second
-    chunk within GPT-2's 1024 positions); then fp32 greedy tokens, whole
-    and chunked, equal to the dense route's (use_flash=False)."""
+def phase_serve_head_dim(smi, d):
+    """GPT-2 124M's width at HD_HEADS[d] heads of d (6 x 128, 96 x 8;
+    seeded random weights) served: bf16 through GenerationEngine (8
+    requests, whole-prompt prefill through K1-fwd, launches == 12 x
+    prefill dispatches), prefill ms and decode ms a token; a chunked
+    generate (768-token prompts in 256-token chunks: K1-fwd, then K4; a
+    512-token chunk leaves no second chunk within GPT-2's 1024 positions);
+    then fp32 greedy tokens, whole and chunked, equal to the dense route's
+    (use_flash=False)."""
     from vitrs_tpu_torch import params as P
     from vitrs_tpu_torch.config import get_config
     from vitrs_tpu_torch.models import generate as G
@@ -6901,9 +7293,10 @@ def phase_serve_d128(smi):
     from vitrs_tpu_torch.serving_gen import GenerationEngine
     _watch_plain()
     PLAIN_ON_CARD.update(fwd=0, bwd=0)
-    cfg = get_config("gpt2-124m", num_heads=6, dtype="bfloat16")
+    nh, tag = HD_HEADS[d], f"[serve-d{d}]"
+    cfg = get_config("gpt2-124m", num_heads=nh, dtype="bfloat16")
     L = cfg.num_layers
-    check(P.num_parameters(cfg) == 124_439_808, "gpt2-124m 6 x 128 params")
+    check(P.num_parameters(cfg) == 124_439_808, f"gpt2-124m {nh} x {d} params")
     host = P.init_params(cfg, torch.Generator().manual_seed(0))
     params = {k: v.to("cuda") for k, v in host.items()}
     rng = np.random.default_rng(0)
@@ -6927,31 +7320,47 @@ def phase_serve_d128(smi):
         t2 = time.perf_counter()
     counts = read_counts()
     check(counts == designed(flash_fwd=L * eng.prefill_dispatches),
-          f"[serve-d128] engine launches {counts}")
+          f"{tag} engine launches {counts}")
     for i, n in enumerate(lengths):
-        check(len(outs[i]) == n + 32, f"[serve-d128] request {i} length")
+        check(len(outs[i]) == n + 32, f"{tag} request {i} length")
     res.update(prefill_ms=(t1 - t0) * 1e3, decode_ms_per_token=(t2 - t1)
                * 1e3 / 32, engine_launches=counts["flash_fwd"],
                prefill_dispatches=eng.prefill_dispatches)
-    print(f"[serve-d128] 6 x 128 gpt2-124m bf16 engine, 8 requests x 32 new: "
+    print(f"{tag} {nh} x {d} gpt2-124m bf16 engine, 8 requests x 32 new: "
           f"{eng.prefill_dispatches} prefill dispatches, {counts['flash_fwd']}"
           f" K1-fwd launches; prefill {res['prefill_ms']:.2f} ms, decode "
           f"{res['decode_ms_per_token']:.3f} ms a step of 8 tokens  ({smi})")
     pp = M.prepare_params(params, cfg)
     for _ in range(2):                        # warm-up, then timed
-        pcounts, _, ms = hd_chunked_generate("[serve-d128]", cfg, pp,
-                                             HD_K4_PATHS[128][0])
+        pcounts, _, ms = hd_chunked_generate(tag, cfg, pp, HD_K4_PATHS[d][0])
     res.update(chunked_prefill_ms=ms, chunked_launches=pcounts)
-    print(f"[serve-d128] chunked prefill B=8, 768 tokens in 256-token "
+    print(f"{tag} chunked prefill B=8, 768 tokens in 256-token "
           f"chunks, 1 new token: flash_fwd {pcounts['flash_fwd']}, "
           f"flash_prefill {pcounts['flash_prefill']} launches; {ms:.2f} ms")
     del params, eng, pp
-    # fp32 greedy: the kernels (fp32 instances) against the dense route
-    cfg32 = cfg.replace(dtype="float32")
+    res["fp32_greedy_equal"] = hd_greedy_vs_dense(
+        tag, cfg.replace(dtype="float32"), host, HD_K4_PATHS[d][1])
+    check(PLAIN_ON_CARD == {"fwd": 0, "bwd": 0}, f"{tag} a flash "
+          f"plain version ran on the card {PLAIN_ON_CARD}")
+    print(f"{tag} fp32 greedy, B=2, 768-token prompt + 32 new: whole "
+          f"(K1-fwd) and chunked (K1-fwd + K4) tokens equal to the dense "
+          f"route's; flash plain versions on the card: 0")
+    return res
+
+
+def hd_greedy_vs_dense(tag, cfg32, host, path):
+    """fp32 greedy tokens of a seeded prompt of HD_PROMPT tokens, whole and
+    in HD_CHUNK chunks, through the kernels (fp32 instances) against the
+    dense route (use_flash=False), at `path` of HD_K4_PATHS (float32, MHA):
+    equal, with K1-fwd L times and K4 L a chunk past the first."""
+    from vitrs_tpu_torch.models import generate as G
+    from vitrs_tpu_torch.models import model as M
+    L = cfg32.num_layers
     pp = M.prepare_params({k: v.to("cuda") for k, v in host.items()}, cfg32)
-    _, B, _, new = HD_K4_PATHS[128][1]       # float32, MHA
+    dname, B, _, new = path
+    check(dname == "float32", f"{tag} greedy path {path}")
     prompt = torch.as_tensor(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (B, HD_PROMPT)), device="cuda")
+        0, cfg32.vocab_size, (B, HD_PROMPT)), device="cuda")
     toks = {}
     for route, c in (("flash", cfg32), ("dense", cfg32.replace(use_flash=False))):
         for chunk in (0, HD_CHUNK):
@@ -6962,21 +7371,85 @@ def phase_serve_d128(smi):
             want = (designed(flash_fwd=L, flash_prefill=(
                 HD_PROMPT // HD_CHUNK - 1) * L if chunk else 0)
                     if route == "flash" else designed())
-            check(n == want, f"[serve-d128] fp32 {route} chunk {chunk} "
+            check(n == want, f"{tag} fp32 {route} chunk {chunk} "
                   f"launches {n} != {want}")
     for chunk in (0, HD_CHUNK):
         a, b = toks["flash", chunk], toks["dense", chunk]
         diff = (a != b).nonzero()
-        check(diff.numel() == 0, f"[serve-d128] fp32 greedy chunk {chunk}: "
+        check(diff.numel() == 0, f"{tag} fp32 greedy chunk {chunk}: "
               f"first token that differs from the dense route at (row, "
               f"position) {diff[0].tolist() if diff.numel() else None}")
-    check(PLAIN_ON_CARD == {"fwd": 0, "bwd": 0}, f"[serve-d128] a flash "
-          f"plain version ran on the card {PLAIN_ON_CARD}")
-    print(f"[serve-d128] fp32 greedy, B=2, 768-token prompt + 32 new: whole "
-          f"(K1-fwd) and chunked (K1-fwd + K4) tokens equal to the dense "
-          f"route's; flash plain versions on the card: 0")
-    res["fp32_greedy_equal"] = True
-    return res
+    return True
+
+
+def phase_nano(smi):
+    """gpt-nano itself (2 heads of 8, T=16, vocab 97), the repo's own
+    preset whose attention the JAX package runs on its Pallas kernels with
+    16 phantom heads: `python -m vitrs_tpu_torch.cli.train --preset
+    gpt-nano` on the card (its main, in this process), 6 steps at B=32 (2
+    K1-fwd + 2 K2 + 1 K7 a step, no plain flash version on the card); then fp32
+    greedy generation of 8 prompts through GenerationEngine (bucket 16)
+    against the dense route's tokens (use_flash=False), equal."""
+    from vitrs_tpu_torch import params as P
+    from vitrs_tpu_torch.cli import train as CT
+    from vitrs_tpu_torch.config import get_config
+    from vitrs_tpu_torch.serving_gen import GenerationEngine
+    _watch_plain()
+    PLAIN_ON_CARD.update(fwd=0, bwd=0)
+    cfg = get_config("gpt-nano")
+    L, steps = cfg.num_layers, 6
+    check(cfg.head_size == 8 and cfg.num_heads == 2, "gpt-nano geometry")
+    with tempfile.TemporaryDirectory() as work:
+        reset_counts()
+        t0 = time.perf_counter()
+        CT.main(["--preset", "gpt-nano", "--dataset", "", "--steps",
+                 str(steps), "--batch-size", "32", "--log-every", "1",
+                 "--warmup", "1", "--ckpt-every", "0", "--workdir", work])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        with open(os.path.join(work, "metrics.jsonl")) as f:
+            losses = [json.loads(line)["loss"] for line in f]
+    # a vocab of 97 takes the plain cross-entropy (fused_ce.supports: the
+    # JAX rule wants V >= 16384), as in the JAX package
+    want = designed(flash_fwd=L * steps, flash_bwd=L * steps, adamw=steps)
+    check(counts == want, f"[nano] cli.train launches {counts} != {want}")
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"[nano] losses {losses}")
+    print(f"[nano] cli.train --preset gpt-nano, {steps} steps B=32 T=16 on "
+          f"the card: losses {[round(x, 4) for x in losses]}; launches "
+          f"flash_fwd {counts['flash_fwd']}, flash_bwd {counts['flash_bwd']}"
+          f"; wall {wall:.1f} s incl. init  ({smi})")
+    cfg32 = cfg.replace(dtype="float32")
+    host = P.init_params(cfg32, torch.Generator().manual_seed(3))
+    params = {k: v.to("cuda") for k, v in host.items()}
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (1, 3, 5, 7, 8,
+                                                            9, 10, 12)]
+    toks, gen_counts = {}, {}
+    for route, c in (("flash", cfg32), ("dense", cfg32.replace(use_flash=False))):
+        eng = GenerationEngine(params, c, max_slots=8, max_len=16,
+                               prompt_buckets=(16,))
+        for p in prompts:
+            eng.submit(p, max_new=16 - len(p))
+        reset_counts()
+        toks[route] = dict(eng.run())
+        gen_counts[route] = read_counts()
+        check(gen_counts[route] == designed(**(
+            {"flash_fwd": L * eng.prefill_dispatches} if route == "flash"
+            else {})), f"[nano] {route} engine launches {gen_counts[route]}")
+    check(toks["flash"].keys() == toks["dense"].keys() and all(
+        np.array_equal(toks["flash"][i], toks["dense"][i])
+        for i in toks["flash"]), f"[nano] fp32 greedy tokens differ from "
+        f"the dense route's: {toks}")
+    check(PLAIN_ON_CARD == {"fwd": 0, "bwd": 0}, f"[nano] a flash plain "
+          f"version ran on the card {PLAIN_ON_CARD}")
+    print(f"[nano] fp32 greedy through GenerationEngine, 8 prompts of 1-12 "
+          f"tokens to 16: tokens equal to the dense route's; "
+          f"{gen_counts['flash']['flash_fwd']} K1-fwd launches; flash plain "
+          f"versions on the card: 0")
+    return counts, dict(losses=losses, wall_s=wall,
+                        engine_launches=gen_counts["flash"]["flash_fwd"])
 
 
 def main():
@@ -7048,10 +7521,18 @@ def main():
         ("meshes-cp-ep", lambda: phase_meshes_cp_ep(smi)),
         ("kernels-head-dims", phase_kernels_head_dims),
         ("train-d128", lambda: phase_train_head_dim(smi, 128)),
-        ("serve-d128", lambda: phase_serve_d128(smi)),
+        ("serve-d128", lambda: phase_serve_head_dim(smi, 128)),
         ("train-d32", lambda: phase_train_head_dim(smi, 32)),
         ("train-d256", lambda: phase_train_head_dim(smi, 256)),
+        ("nano", lambda: phase_nano(smi)),
+        ("train-d8", lambda: phase_train_head_dim(smi, 8)),
+        ("serve-d8", lambda: phase_serve_head_dim(smi, 8)),
+        ("train-d16", lambda: phase_train_head_dim(smi, 16)),
+        ("train-d384", lambda: phase_train_head_dim(smi, 384)),
+        ("train-d512", lambda: phase_train_head_dim(smi, 512)),
     )
+    # the phases that run only when --phases names them
+    on_request = (("bwd-seeds", phase_bwd_seeds),)
     # the serving artifacts of serve-export, read again by serve-batching
     export_dir = tempfile.mkdtemp(prefix="vitrs_smoke_export_")
     # the streaming phase decodes with the native libjpeg pipeline, else
@@ -7062,8 +7543,10 @@ def main():
         "pil": f"PIL, the loader's fallback ({why})",
         None: f"none, so the phase is left out ({why})"}[decoder])
     try:
-        for name, fn in phases:
+        for name, fn in phases + on_request:
             if name == "train-vit-stream" and decoder is None:
+                continue
+            if name in dict(on_request) and (only is None or name not in only):
                 continue
             if only is None or name in only:
                 t0 = time.perf_counter()
@@ -7316,17 +7799,28 @@ def main():
     # kv heads) or chunked prefill (K4: serve-d128's bf16 one, else the GQA
     # model's of phase train-d32 / train-d256), and its time and error at
     # that run's shapes (K4: its last chunk)
-    hd, serve128 = R["kernels-head-dims"], R["serve-d128"]
+    # and (this slice) at the ends 8, 16, 384 and 512: K1-fwd / K2 from
+    # train-d{D}, K3 from its GQA training run, K4 from serve-d8
+    # or its chunked generate; gpt-nano's own launches beside D = 8's
+    hd = R["kernels-head-dims"]
+    served = {128: R["serve-d128"], 8: R["serve-d8"]}
     fp = "vitrs_tpu/ops/flash_prefill.py:"
-    for d in HD_NEW:
+    for d in HD_NEW + HD_ENDS:
         counts, tres, gcounts, gres = R[f"train-d{d}"]
-        prefill = (serve128["chunked_launches"] if d == 128
+        serve = served.get(d)
+        prefill = (serve["chunked_launches"] if serve
                    else gres["generate_launches"])["flash_prefill"]
         rows = (
             ("flash_fwd", fa + "567", [fa + "374"], counts, dict(
-                train=tres, **({"serve": serve128, "serve_launches":
-                               serve128["engine_launches"]} if d == 128
-                               else {}))),
+                train=tres, **({"serve": serve, "serve_launches":
+                               serve["engine_launches"]} if serve
+                               else {}),
+                **({"nano": R["nano"][1], "nano_launches": R["nano"][0][
+                    "flash_fwd"]} if d == 8 else {}),
+                **({"small_build_edges": {e: hd[e] for e in HD_EDGE_ONLY}}
+                   if d == 16 else {}),
+                **({"large_build_checks": {e: hd[e] for e in HD_CHECK_ONLY}}
+                   if d == 512 else {}))),
             ("flash_bwd", fa + "844", [fa + "986", fa + "901", fa + "418"],
              counts, {"kernels_per_launch": 3}),
             ("flash_gqa_fwd", fg + "358", [fg + "262"], gcounts,

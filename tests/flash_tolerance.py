@@ -2,7 +2,8 @@
 CUDA kernel) to its plain PyTorch version: `chip_smoke.out_errors`, loaded
 from the checkout's root, so that the smoke and the tests share one rule
 (its docstring gives the reasoning); and the ring hops' gradient bound,
-`chip_smoke.grad_errors`, with `summed_hops`.  Imports no JAX: the card-only tests
+`chip_smoke.grad_errors`, with `summed_hops`, and the one-term allowance of the
+head-dim checks, `bwd_term_norms`.  Imports no JAX: the card-only tests
 use it on a machine without JAX."""
 
 import importlib.util
@@ -16,6 +17,7 @@ out_errors = chip_smoke.out_errors
 band_edge_qk = chip_smoke.band_edge_qk
 grad_errors = chip_smoke.grad_errors
 summed_hops = chip_smoke.summed_hops
+bwd_term_norms = chip_smoke.bwd_term_norms
 
 
 def assert_out_close(got, want):

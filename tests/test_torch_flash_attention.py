@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from vitrs_tpu.ops import attention as JA
 from vitrs_tpu.ops import basic as JB
 from vitrs_tpu.ops import flash_attention as JFA
 from vitrs_tpu_torch.ops import attention as TA
@@ -95,27 +96,31 @@ def test_cuda_wrapper_refuses_cpu_tensors():
 
 
 @pytest.mark.parametrize("nh,d,flash", [(12, 64, True), (2, 64, True),
-                                        (2, 8, False), (25, 64, True),
+                                        (2, 8, True), (25, 64, True),
                                         (4, 32, True), (3, 64, True),
                                         (1, 64, True), (2, 128, True),
-                                        (3, 256, True), (2, 384, False)])
+                                        (3, 256, True), (2, 384, True)])
 def test_routing_follows_jax_supports(nh, d, flash):
-    """The port routes by its kernels' rule (D = 32, 64, 128 or 256, any
-    head count).  At those head dims that is the JAX package's rule too,
-    which runs head counts its blocks cannot tile on flash with phantom
-    heads (`padded_num_heads`); D <= 16 and D >= 384 go to dense attention
-    here, to flash there (ROADMAP.md Queue 2)."""
+    """The port routes by its kernels' rule (every divisor of 128 and every
+    multiple of 128 up to 1024 as head dim, any head count).  That is the
+    JAX package's rule too, which runs head counts its blocks cannot tile
+    on flash with phantom heads (`padded_num_heads`: gpt-nano's 2 heads of
+    8 as 16)."""
     assert TA.supports(nh, d) == flash
-    if d in (32, 64, 128, 256):
-        assert (JFA.padded_num_heads(nh, d) is not None) == flash
+    assert (JFA.padded_num_heads(nh, d) is not None) == flash
 
 
-def test_dense_route_for_unsupported_geometry():
-    """gpt-nano's D=8 goes to dense attention, as in the JAX package."""
-    qkv = np.random.default_rng(8).standard_normal((2, 11, 48),
+def test_dense_route_for_unsupported_geometry(monkeypatch):
+    """Rope at D = 256 goes to dense attention with an explicit rotation,
+    as in the JAX package (whose kernels' rope table asserts there): no
+    flash plain version runs, and the result is the JAX function's."""
+    calls = _counting(monkeypatch, TFA, "flash_fwd_plain")
+    qkv = np.random.default_rng(8).standard_normal((2, 11, 3 * 256),
                                                    dtype=np.float32)
-    got = TA.attention(torch.from_numpy(qkv), 2, causal=True)
-    want, _ = JB.attention_dense(jnp.asarray(qkv), 2, causal=True)
+    assert not TA.supports(1, 256, rope=True)
+    got = TA.attention(torch.from_numpy(qkv), 1, causal=True, rope=True)
+    want = JA.attention(jnp.asarray(qkv), 1, causal=True, rope=True)
+    assert calls == []
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 

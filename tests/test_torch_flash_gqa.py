@@ -33,6 +33,7 @@ from vitrs_tpu.ops import attention as JA
 from vitrs_tpu.ops import basic as JB
 from vitrs_tpu.ops import flash_attention_gqa as JFG
 from vitrs_tpu_torch.ops import attention as TA
+from vitrs_tpu_torch.ops import flash_attention as TFA
 from vitrs_tpu_torch.ops import basic as TB
 from vitrs_tpu_torch.ops import flash_attention_gqa as TFG
 
@@ -121,16 +122,17 @@ def test_autograd_matches_expanded_dense(H, KVH, causal):
 
 
 def test_attention_gqa_routes_like_jax(monkeypatch):
-    """A flash geometry goes to K3's route, a geometry the JAX kernel does
-    not tile (D=8) to dense attention over the expansion, MHA to the MHA
-    route; each agrees with the JAX function (its dense route on the CPU)."""
+    """A flash geometry goes to K3's route (D=64, and D=8, which the JAX
+    package tiles with phantom heads), a head dim no kernel tiles (D=48) to
+    dense attention over the expansion, MHA to the MHA route; each agrees
+    with the JAX function (its dense route on the CPU)."""
     calls = []
     plain = TFG.flash_gqa_fwd_plain
     monkeypatch.setattr(TFG, "flash_gqa_fwd_plain",
                         lambda *a: calls.append(a[3:5]) or plain(*a))
     rng = np.random.default_rng(9)
-    for H, KVH, hd, k3 in ((4, 2, 64, True), (4, 1, 8, False),
-                           (4, 4, 64, False)):
+    for H, KVH, hd, k3 in ((4, 2, 64, True), (4, 1, 8, True),
+                           (4, 1, 48, False), (4, 4, 64, False)):
         x = rng.standard_normal((2, 19, (H + 2 * KVH) * hd), dtype=np.float32)
         calls.clear()
         got = TA.attention_gqa(torch.from_numpy(x), H, KVH)
@@ -142,11 +144,11 @@ def test_attention_gqa_routes_like_jax(monkeypatch):
 
 def test_supports_gqa_and_split_pinned_to_jax():
     """The port carries no `supports_gqa` (a rule about 128-lane kv
-    blocks): at head dims 32, 64, 128 and 256 its K3 takes a GQA geometry
+    blocks): at every head dim of HEAD_DIMS its K3 takes a GQA geometry
     whenever the JAX package sends it to a flash kernel, natively (JAX
     `supports_gqa`) or through its expanded-weight MHA route with phantom
-    heads (`padded_num_heads`); other head dims go to dense attention (the
-    port has no kernel for them)."""
+    heads (`padded_num_heads`); a head dim no kernel tiles (48) goes to
+    dense attention in both."""
     from vitrs_tpu.ops import flash_attention as JFA
     extra = set()
     for H in (1, 2, 3, 4, 5, 6, 8, 12, 16, 25):
@@ -155,10 +157,9 @@ def test_supports_gqa_and_split_pinned_to_jax():
                 continue
             for hd in (8, 32, 48, 64, 128, 256):
                 k3 = TA.supports(H, hd, KVH)
-                assert k3 == (hd in (32, 64, 128, 256)), (H, KVH, hd)
-                if k3:
-                    assert JFA.padded_num_heads(H, hd) is not None
-                if JFG.supports_gqa(H, KVH, hd) and hd >= 32:
+                assert k3 == (hd in TFA.HEAD_DIMS), (H, KVH, hd)
+                assert (JFA.padded_num_heads(H, hd) is not None) == k3
+                if JFG.supports_gqa(H, KVH, hd):
                     assert k3, (H, KVH, hd)
                 elif k3:
                     extra.add((H, KVH, hd))

@@ -18,7 +18,7 @@ and the port's routing rule against the JAX package's.
     D = 32 and 128, with a poisoned cache tail;
   * `supports` / `supports_prefill` against `padded_num_heads`,
     `supports_gqa` and `supports_prefill` over a table of geometries, with
-    rope at D = 256 dense in the port (the JAX kernels assert there:
+    rope at D >= 256 dense in the port (the JAX kernels assert there:
     `_rope_table`);
   * a 2-layer model at C = 256 with 2, 8 and 1 heads (D = 128, 32, 256):
     loss and all 16 gradients against jax.value_and_grad of the JAX model
@@ -26,8 +26,8 @@ and the port's routing rule against the JAX package's.
     train/loop.train with `model_overrides` through the flash route;
   * the ops' schemas and fake versions at each head dim, and torch.export
     of a D = 128 model (`serving.export_forward`);
-  * the build rule: one library key per head dim for the flash sources
-    (`_build.load` refuses a flash source without a head dim).
+  * the build rule: one library key per built head dim for the flash
+    sources (`_build.load` refuses a flash source without a head dim).
 
 Tolerances: kernel functions 2e-5 (fp32, the same rounding points, another
 summation order; the JAX suite's flash tolerance), the GQA backward
@@ -181,26 +181,25 @@ def test_prefill_rectangle_matches_pallas(d, nh, kh, s, q_off):
 
 
 def test_routing_table_against_jax():
-    """The port's kernels take every geometry at D = 32, 64, 128 and 256
-    that the JAX package tiles (MHA with phantom heads, native GQA, K4),
-    none at D <= 16 or D >= 384 (which the JAX package tiles: ROADMAP.md
-    Queue 2), and rope at D = 256 only on the dense route, as the JAX
-    package computes it on the CPU (its kernels' table asserts there)."""
-    kernel_dims = (32, 64, 128, 256)
+    """The port's kernels take every geometry that the JAX package tiles
+    (MHA with phantom heads, native GQA, K4) at D = 8 to 384, D <= 16 and
+    D = 384 included; rope at D >= 256 only on the dense route, as the JAX
+    package computes it on the CPU (its kernels' table asserts there).
+    The full table, every divisor of 128 and every multiple of 128 up to
+    1024, is tests/test_torch_flash_head_dim_ends.py's."""
     for nh in (1, 2, 3, 4, 6, 8, 12, 16, 24, 25):
         for kh in [k for k in range(1, nh + 1) if nh % k == 0]:
             for d in (8, 16, 32, 64, 128, 256, 384):
                 port = TA.supports(nh, d, kh)
-                assert port == (d in kernel_dims), (nh, kh, d)
+                assert port, (nh, kh, d)
                 assert TFP.supports_prefill(nh, kh, d) == port
-                assert TA.supports(nh, d, kh, rope=True) == (
-                    d in (32, 64, 128)), (nh, kh, d)
-                if d in kernel_dims:
-                    assert JFA.padded_num_heads(nh, d) is not None
-                    if kh != nh and JFG.supports_gqa(nh, kh, d):
-                        assert port
-                    if JP.supports_prefill(nh, kh, d):
-                        assert port
+                assert TA.supports(nh, d, kh, rope=True) == (d <= 128), \
+                    (nh, kh, d)
+                assert JFA.padded_num_heads(nh, d) is not None
+                if kh != nh and JFG.supports_gqa(nh, kh, d):
+                    assert port
+                if JP.supports_prefill(nh, kh, d):
+                    assert port
     assert JFA.padded_num_heads(2, 8) == 16       # gpt-nano: phantom heads
     assert JFA.padded_num_heads(2, 384) == 2
     assert JFG.supports_gqa(6, 2, 128) and JFG.supports_gqa(8, 4, 32)
@@ -317,12 +316,13 @@ def test_export_at_head_dim_128(tmp_path):
 def test_build_key_is_one_per_head_dim(name, head_dim):
     """A flash source builds only for a named head dim, and any other
     source for none: the refusal comes before nvcc is looked for, and each
-    head dim's flags (the define) enter the library's hash."""
+    built head dim's flags (the define) enter the library's hash: one
+    library per head dim, the D = 16 one serving every D <= 16."""
     from vitrs_tpu_torch.ops import _build
     with pytest.raises(ValueError, match="head_dim"):
         _build.load(name, head_dim)
     src = _build.CSRC_DIR + "/flash_fwd.cu"
-    digests = {_build._digest(src, _build.flags_for(d))
-               for d in TFA.HEAD_DIMS}
-    assert len(digests) == len(TFA.HEAD_DIMS)
+    built = {TFA.build_dim(d) for d in TFA.HEAD_DIMS}
+    digests = {_build._digest(src, _build.flags_for(d)) for d in built}
+    assert len(digests) == len(built) == len(TFA.HEAD_DIMS) - 4
     assert _build.flags_for(None) == _build.NVCC_FLAGS

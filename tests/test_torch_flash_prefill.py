@@ -26,6 +26,7 @@ import torch
 
 from vitrs_tpu.ops import flash_prefill as JP
 from vitrs_tpu_torch.ops import attention as TA
+from vitrs_tpu_torch.ops import flash_attention as TFA
 from vitrs_tpu_torch.ops import flash_prefill as TP
 
 D, TK = 64, 512
@@ -79,9 +80,9 @@ def test_contract_raises_value_error():
         TP.flash_prefill_qkv(q, k[:, :500], v[:, :500], 4, 2, 0)
     with pytest.raises(ValueError, match="does not fit"):
         TP.flash_prefill_qkv(q, k, v, 4, 2, 480)
-    with pytest.raises(ValueError, match="geometry"):      # head_dim 16
-        TP.flash_prefill_qkv(q[..., :D], k[..., :D // 2], v[..., :D // 2],
-                             4, 2, 0)
+    with pytest.raises(ValueError, match="geometry"):      # head_dim 48
+        TP.flash_prefill_qkv(q[..., :4 * 48], k[..., :2 * 48],
+                             v[..., :2 * 48], 4, 2, 0)
     with pytest.raises(ValueError, match="geometry"):      # k/v width
         TP.flash_prefill_qkv(q, k, v, 4, 1, 0)
     with pytest.raises(ValueError, match="window"):
@@ -91,12 +92,11 @@ def test_contract_raises_value_error():
 
 
 def test_supports_prefill_pinned_to_jax():
-    """At head dims 32, 64, 128 and 256, K4 takes every geometry the JAX
-    kernel takes, and also those the JAX kernel's 128-lane kv blocks refuse
-    (MQA at 64, D = 256) where the port's other flash kernels run: the
-    geometries of a fresh-prompt prefill.  Other head dims, which the JAX
-    kernel may tile (D = 8, 16), go to dense cache attention here (the
-    port has no kernel for them)."""
+    """At every head dim of HEAD_DIMS (D = 8 and 16 included), K4 takes
+    every geometry the JAX kernel takes, and also those the JAX kernel's
+    128-lane kv blocks refuse (MQA at 64, D = 256) where the port's other
+    flash kernels run: the geometries of a fresh-prompt prefill.  A head
+    dim no kernel tiles (48) goes to dense cache attention in both."""
     extra = set()
     for nh in (1, 2, 3, 4, 6, 8, 12, 16, 20, 25):
         for kh in range(1, nh + 1):
@@ -105,8 +105,8 @@ def test_supports_prefill_pinned_to_jax():
             for hd in (8, 16, 32, 48, 64, 128, 256):
                 port = TP.supports_prefill(nh, kh, hd)
                 assert port == TA.supports(nh, hd, kh) == (
-                    hd in (32, 64, 128, 256)), (nh, kh, hd)
-                if JP.supports_prefill(nh, kh, hd) and hd >= 32:
+                    hd in TFA.HEAD_DIMS), (nh, kh, hd)
+                if JP.supports_prefill(nh, kh, hd):
                     assert port, (nh, kh, hd)
                 elif port:
                     extra.add((nh, kh, hd))

@@ -70,10 +70,10 @@ def _assert_grads(got, want):
 def test_loss_and_all_grads_match_jax(route, monkeypatch):
     if route == "flash":
         jcfg, tcfg = JCFG, TCFG
-    else:       # gpt-nano's D=8 is no flash geometry: expanded weight
+    else:       # gpt-nano's D=8 with use_flash off: expanded weight
         jcfg, tcfg = (c.replace(num_kv_heads=1, max_seq_len=T)
                       for c in small_cfgs())
-        jcfg, tcfg = (c.replace(num_heads=2, channels=16)
+        jcfg, tcfg = (c.replace(num_heads=2, channels=16, use_flash=False)
                       for c in (jcfg, tcfg))
     calls = []
     bwd = TFG.flash_gqa_bwd_plain

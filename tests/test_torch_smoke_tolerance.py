@@ -26,13 +26,20 @@ The ring hops' gradient bound (`grad_errors`, the kernels-cp phase), on
 the CPU at two ring blocks of 1024 (MHA) and 2048 (one kv head): the hops'
 summed bf16 gradients pass against the plain gradient of the whole
 sequence, and the sum with rank 1's past hop dropped, halved or scaled by
-0.95 fails in dq, dk and dv alike."""
+0.95 fails in dq, dk and dv alike.
+
+The one-term allowance of the head-dim checks (`bwd_term_norms`): per
+element of dq, dk and dv, the L2 norm of its sum's terms, against the
+terms written out one head and one element at a time (GQA groups, the
+band, rope's pairs)."""
 
 import numpy as np
 import pytest
 import torch
 
-from flash_tolerance import band_edge_qk, grad_errors, out_errors, summed_hops
+from flash_tolerance import (band_edge_qk, bwd_term_norms, grad_errors,
+                             out_errors, summed_hops)
+from vitrs_tpu_torch.ops import flash_attention as FA
 from vitrs_tpu_torch.ops.flash_attention import flash_bwd_plain, flash_fwd_plain
 from vitrs_tpu_torch.parallel import ring_attention as RA
 
@@ -201,3 +208,42 @@ def test_ring_grad_bound_passes_the_summed_hops_and_fails_a_past_hop_fault(
             assert bad == 0, (name, bad, err, rms)
         else:       # thousands of values of the past hop's block move
             assert bad > 1000, (name, scale, bad, err, rms)
+
+
+@pytest.mark.parametrize("rope,kh", [(False, 2), (True, 2), (True, 1)])
+def test_bwd_term_norms_are_the_norms_of_each_sums_terms(rope, kh):
+    T, nh, D, W = 12, 2, 8, 5
+    sm = 1.0 / np.sqrt(D)                  # not a power of two: q^ rounds
+    rng = np.random.default_rng(kh + 2 * rope)
+    q, do = (torch.from_numpy(rng.standard_normal((1, T, nh * D), dtype=np.float32))
+             .bfloat16() for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((1, T, kh * D), dtype=np.float32))
+            .bfloat16() for _ in range(2))
+    out, lse = flash_fwd_plain(q, k, v, nh, True, sm, kv_heads=kh, window=W,
+                               rope=rope)
+    got = bwd_term_norms(q, k, v, out, lse, do, nh, kh, True, sm, W, rope)
+    qr, kr = FA._rotated(q, nh, 0, rope)[0].float(), FA._rotated(k, kh, 0, rope)[0].float()
+    sq = [np.zeros((T, nh * D)), np.zeros((T, kh * D)), np.zeros((T, kh * D))]
+    for h in range(nh):
+        g = h // (nh // kh)
+        qh, dh, oh = (t[:, h * D:(h + 1) * D] for t in (qr, do[0].float(), out[0].float()))
+        kg, vg = kr[:, g * D:(g + 1) * D], v[0, :, g * D:(g + 1) * D].float()
+        di = (oh * dh).sum(-1)
+        for i in range(T):
+            for j in range(max(0, i - W + 1), i + 1):
+                s = ((qh[i] * sm).bfloat16().float() * kg[j]).sum()
+                p = torch.exp(s - lse[0, h, i])
+                ds = p * ((dh[i] * vg[j]).sum() - di[i]) * sm
+                p, ds = p.bfloat16().float(), ds.bfloat16().float()
+                for c in range(D):
+                    sq[0][i, h * D + c] += float(ds * kg[j, c]) ** 2
+                    sq[1][j, g * D + c] += float(ds * qh[i, c]) ** 2
+                    sq[2][j, g * D + c] += float(p * dh[i, c]) ** 2
+    for n in (0, 1):                     # rope: the pair (c, c + D/2)
+        if rope:
+            x = sq[n].reshape(T, -1, 2, D // 2)
+            sq[n] = np.broadcast_to(x.sum(2, keepdims=True), x.shape).reshape(T, -1)
+    for name, a, w in zip(("dq", "dk", "dv"), got, sq):
+        assert a.shape == (1,) + w.shape and a.dtype == torch.float32, name
+        np.testing.assert_allclose(a[0].numpy(), np.sqrt(w), rtol=1e-4,
+                                   atol=1e-6, err_msg=name)

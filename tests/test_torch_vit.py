@@ -67,8 +67,15 @@ B = 4
 # a small vit: 16x16 images, 4x4 patches -> 16 patches + CLS = T 17
 SMALL_VIT = dict(num_layers=2, channels=128, num_heads=2, img_size=16,
                  patch_size=4, num_classes=10, vocab_size=10, max_seq_len=17)
-# head_dims 64 and 32 take the port's kernel route, 16 its dense route
-HEADS = {"d64": 2, "d32": 4, "d16": 8}
+# each route's (heads, use_flash): head dims 64 and 32 take the port's
+# kernel route, d16 its dense route (use_flash=False; D = 16 itself is on
+# the kernels, which tile every divisor of 128)
+ROUTES = {"d64": (2, True), "d32": (4, True), "d16": (8, False)}
+
+
+def _route(route):
+    heads, flash = ROUTES[route]
+    return dict(num_heads=heads, use_flash=flash)
 
 
 def vit_cfgs(**overrides):
@@ -145,7 +152,7 @@ def test_vit_encode_matches_jax(case):
 @pytest.mark.parametrize("pool", ["cls", "mean"])
 @pytest.mark.parametrize("route", ["d64", "d32", "d16"])
 def test_vit_logits_match_jax(route, pool):
-    jcfg, tcfg = vit_cfgs(num_heads=HEADS[route], pool=pool)
+    jcfg, tcfg = vit_cfgs(pool=pool, **_route(route))
     arrs, jp = _params(tcfg, 2)
     x, _ = _images(tcfg, 2)
     want = JM.vit_forward(jp, jnp.asarray(x), jcfg)
@@ -164,19 +171,19 @@ def test_routes_are_the_ones_named(monkeypatch):
     monkeypatch.setattr(TFA, "flash_fwd_plain",
                         lambda *a, **k: calls.append(1) or plain(*a, **k))
     for route in ("d64", "d32", "d16"):
-        _, tcfg = vit_cfgs(num_heads=HEADS[route])
+        _, tcfg = vit_cfgs(**_route(route))
         arrs, _ = _params(tcfg)
         x, _ = _images(tcfg)
         calls.clear()
         TM.vit_forward(TP.from_numpy(arrs, tcfg, "cpu"), torch.from_numpy(x),
                        tcfg)
-        assert len(calls) == (0 if route == "d16" else tcfg.num_layers)
+        assert len(calls) == (tcfg.num_layers if tcfg.use_flash else 0)
 
 
 @pytest.mark.parametrize("smoothing", [0.0, 0.1])
 @pytest.mark.parametrize("route", ["d64", "d32", "d16"])
 def test_vit_loss_and_all_grads_match_jax(route, smoothing):
-    jcfg, tcfg = vit_cfgs(num_heads=HEADS[route], label_smoothing=smoothing)
+    jcfg, tcfg = vit_cfgs(label_smoothing=smoothing, **_route(route))
     arrs, jp = _params(tcfg, 3)
     x, y = _images(tcfg, 3)
     jloss, jgrads = jax.value_and_grad(JM.loss_fn)(jp, jnp.asarray(x),

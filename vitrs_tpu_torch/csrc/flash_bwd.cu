@@ -1,6 +1,8 @@
 // K2 and K3-bwd: the flash-attention backward, written for Hopper (sm_90a),
-// built once per head dim D in {32, 64, 128, 256} (-DVITRS_HEAD_DIM,
-// ops/_build.py).
+// built once per head dim (-DVITRS_HEAD_DIM, ops/_build.py): D in {32, 64,
+// 128, 256}, every multiple of 128 from 384 to 1024, and one build at D =
+// 16 that serves every head dim D <= 16 (the true D arrives at run time;
+// rows are padded to 16 columns), as flash_fwd.cu.
 //
 // Replaces the Pallas backward kernels, one function at two geometries:
 //   K2      vitrs_tpu/ops/flash_attention.py  _bwd_single_kernel (one tile;
@@ -44,8 +46,9 @@
 // kernel's kv loop ends at min(tk, q_off + m0 + 64); every bound is formed
 // once a block, so at q_off = 0, tq = tk the loops are those of the square
 // block.  A row that sees no key gets zero gradients; keys past the causal
-// frontier get zero dk and dv.  Rope takes the square block only, at D <
-// 256 (the JAX kernels have no rope at D = 256; the port routes it densely).
+// frontier get zero dk and dv.  Rope takes the square block only, at an
+// even D <= 128 (the JAX kernels have no rope at D >= 256; the port routes
+// it densely).
 // TPU-shaped choices are not carried over: no 128-lane head groups, no
 // (B, H, T, 128) lane-broadcast lse, no padded T, no VMEM admission estimate
 // choosing between a combined and a split kernel, no phantom kv lanes.
@@ -114,9 +117,30 @@
 // dK/dV ring is 3 deep (2 at D = 256: K, V and two stages of q and do are
 // 192 KB), and D = 256 takes a power-of-two sm_scale only (its q^ tiles
 // would not fit; the model's 1/16 is one).
+// At D >= 384 (flash_bwd_dkv_sliced, flash_bwd_dq_sliced) dk and dv of 64
+// kv rows would be 2 D floats a thread even split over two warpgroups, and
+// K, V, q and do tiles 4 x 64 x D x 2 bytes (192 KB at 384): a block (a
+// third grid axis) accumulates one 64-column slice of dk and dv, or of dq,
+// in registers (as the D = 64 kernels do), and recomputes S^T and dP^T (S
+// and dP) over the full D, streamed through a 2-stage ring one 64-column
+// atom of each operand a stage; the stage of a tile's last atom also
+// brings the slice's columns of do and q (dK/dV) or K (dQ) for the
+// products into the slice.  Shared memory does not grow with D (98 KB for
+// dK/dV, 81 KB for dQ: two blocks an SM); the price is D / 64 times the S
+// and dP products (6x at 384, 8x at 512), a simple design that is right
+// first.  No rope there (the JAX kernels assert on it); q^ is formed by the
+// pre-pass as at D < 256.
+// At D <= 16 (flash_bwd_dkv_small, flash_bwd_dq_small) each warp of a
+// 64-row block runs mma.sync m16n8k16 on tiles staged with plain loads into
+// zero-filled 16-column shared tiles (rows, or transposed where a product
+// reads them as its B operand): S^T, dP^T, S and dP are one k-step; q and k
+// are rotated (rope) and q^ formed as they are staged, so the pre-pass only
+// computes di (one thread a row).  Bounded, as the forward, by the
+// exponentials (one a (query, key) pair, in each of the two kernels).
 // The fp32 instance (a cross-check against the plain PyTorch version at fp32
-// accuracy) uses FMA with max(2, D / 32) threads per row, each owning a
-// slice of D, and rotates q and k itself as it stages them.
+// accuracy) uses FMA with 2 (D <= 64), D / 32 (D <= 256) or 16 threads per
+// row, one at D <= 16, each owning a slice of D, and rotates q and k itself
+// as it stages them.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -132,24 +156,32 @@ using namespace vitrs;
 #endif
 
 constexpr int kHeadDim = VITRS_HEAD_DIM;  // D of this library; the wrapper checks it
+// The D = 16 build serves every head dim D <= 16 (1, 2, 4, 8, 16): its
+// kernels read D from Args::head_dim and pad a row to 16 columns.
+constexpr bool kSmall = kHeadDim == 16;
+// D >= 384: dK/dV and dQ blocks of one 64-column slice, S and dP streamed
+// over D in atoms
+constexpr bool kSliced = kHeadDim >= 384;
+static_assert(kSmall || kHeadDim == 32 || kHeadDim == 64 || kHeadDim == 128 ||
+                  kHeadDim == 256 || (kHeadDim % 128 == 0 && kHeadDim <= 1024),
+              "head dims 16 (serving D <= 16), 32, 64, 128, 256 and multiples of 128 to 1024");
 constexpr int kBlock = 64;      // rows per q or kv tile
 constexpr int kHalf = kHeadDim / 2;  // also rope's pairing: dim c with c + kHalf
-constexpr bool kRopeOk = kHeadDim != 256;  // rope instances exist below D = 256
+constexpr bool kRopeOk = kHeadDim <= 128;  // rope instances exist at D <= 128
 constexpr bool kQhatOk = kHeadDim != 256;  // q^ instances (sm_scale not a power of two)
-using Tile = HeadTile<kHeadDim>;
-constexpr int kTile = Tile::kBytes;  // bytes of one bf16 tile in smem (64 rows of D)
 // FMA path: threads per row, each owning kFmaPart columns; rows per staged
 // tile (its three tiles stay within 24 KB of static shared memory)
-constexpr int kFmaSplit = kHeadDim <= 64 ? 2 : kHeadDim / 32;
+constexpr int kFmaSplit = kSmall ? 1 : (kHeadDim <= 64 ? 2 : (kHeadDim <= 256 ? kHeadDim / 32 : 16));
 constexpr int kFmaPart = kHeadDim / kFmaSplit;
 constexpr int kFmaTile = kHeadDim <= 64 ? 32 : 2048 / kHeadDim;
-constexpr int kDkvGroups = kHeadDim <= 64 ? 1 : 2;   // warpgroups of a dK/dV block
+constexpr int kDkvGroups = kHeadDim <= 64 ? 1 : 2;   // warpgroups of a dK/dV block (D <= 256)
 constexpr int kStagesKV = kHeadDim == 256 ? 2 : 3;   // depth of the dK/dV kernel's q/do ring
 constexpr int kStagesQ = 2;     // depth of the dQ kernel's K/V ring (4 blocks an SM fit at D <= 64)
 constexpr int kDqMinBlocks = kHeadDim <= 64 ? 4 : (kHeadDim == 128 ? 2 : 1);
-// threads a row of the pre-pass's di job: one 16-byte vector each, at most a warp
+// threads a row of the pre-pass's di job: one 16-byte vector each, at most
+// a warp (one thread a row, scalar loads, at D <= 16)
 __host__ __device__ constexpr int prep_lanes(int vec) {
-  return kHeadDim / vec < 32 ? kHeadDim / vec : 32;
+  return kSmall ? 1 : (kHeadDim / vec < 32 ? kHeadDim / vec : 32);
 }
 
 // Tensor maps of the bf16 instance's tiles (kernel parameters, as TMA needs)
@@ -185,9 +217,15 @@ struct Args {
   int causal;
   int window;         // > 0: the causal band (i - window, i]; 0: none
   float sm_scale;
-  const float* rope_cos;  // (positions, kHalf) fp32, or nullptr: no rope
+  const float* rope_cos;  // (positions, D/2) fp32, or nullptr: no rope
   const float* rope_sin;
+  int head_dim;       // D: kHeadDim, or at most 16 in the D = 16 build
 };
+
+// the call's head dim: a constant except in the D = 16 build
+__device__ __forceinline__ int head_dim_of(const Args& a) {
+  return kSmall ? a.head_dim : kHeadDim;
+}
 
 __device__ __forceinline__ long long row_of(const Args& a, int b, int h) {
   return ((long long)b * a.num_heads + h) * a.tq;
@@ -228,6 +266,73 @@ __device__ __forceinline__ int kv_end_of(const Args& a, int m0) {
   return a.causal ? min(a.tk, m0 + a.q_off + kBlock) : a.tk;
 }
 
+// The tensor-core kernels' probabilities, in place: p = 2^(s s_mul - lse
+// log2 e), 0 where the pair is hidden (a tile inside the band and the
+// causal frontier, `tile_full`, skips the mask); then dS = p (dP - di)
+// sm_scale in place of dP.  The dK/dV kernels hold S^T (probs_t, grads_t):
+// this thread's kv rows j0 and j0 + 8 and q columns q0 + 8 nt + 2t + e of
+// the q tile at m0, whose lse log2 e and di are l2[nt][e] and dd[nt][e];
+// the dQ kernels S (probs, grads): q rows r0 and r0 + 8 (lse log2 e l2_a,
+// l2_b; di di_a, di_b) and kv columns n0 + 8 nt + 2t + e.
+template <int N>
+__device__ __forceinline__ void probs_t(const Args& a, float (&s)[N][4],
+                                        const float (&l2)[N][2], float s_mul, int m0, int q0,
+                                        int n0, int j0, int t) {
+  if (tile_full(a, m0, n0)) {
+#pragma unroll
+    for (int nt = 0; nt < N; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[nt][i] = ex2(fmaf(s[nt][i], s_mul, -l2[nt][i & 1]));
+  } else {
+#pragma unroll
+    for (int nt = 0; nt < N; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int qc = q0 + nt * 8 + 2 * t + (i & 1);
+        const float p = ex2(fmaf(s[nt][i], s_mul, -l2[nt][i & 1]));
+        s[nt][i] = visible(a, m0 + qc, (i & 2) ? j0 + 8 : j0) ? p : 0.f;
+      }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void grads_t(const Args& a, float (&dp)[N][4], const float (&s)[N][4],
+                                        const float (&dd)[N][2]) {
+#pragma unroll
+  for (int nt = 0; nt < N; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dp[nt][i] = s[nt][i] * (dp[nt][i] - dd[nt][i & 1]) * a.sm_scale;
+}
+
+__device__ __forceinline__ void probs(const Args& a, float (&s)[8][4], float l2_a, float l2_b,
+                                      float s_mul, int m0, int n0, int r0, int t) {
+  if (tile_full(a, m0, n0)) {
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[nt][i] = ex2(fmaf(s[nt][i], s_mul, (i & 2) ? -l2_b : -l2_a));
+  } else {
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = n0 + nt * 8 + 2 * t + (i & 1);
+        const bool second = (i & 2) != 0;
+        const float p = ex2(fmaf(s[nt][i], s_mul, second ? -l2_b : -l2_a));
+        s[nt][i] = visible(a, second ? r0 + 8 : r0, col) ? p : 0.f;
+      }
+  }
+}
+
+__device__ __forceinline__ void grads(const Args& a, float (&dp)[8][4], const float (&s)[8][4],
+                                      float di_a, float di_b) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      dp[nt][i] = s[nt][i] * (dp[nt][i] - ((i & 2) ? di_b : di_a)) * a.sm_scale;
+}
+
 // ---------------------------------------------------------------------------
 // Launch 1, the pre-pass.  blockIdx.y picks the job: 0 di (prep_lanes
 // threads a row); 1 the q rows (rotated and/or q^); 2 the k rows (rotated).
@@ -246,6 +351,21 @@ __global__ void __launch_bounds__(256) flash_bwd_prep(Args a, Prep p) {
   constexpr int kLanes = prep_lanes(kVec);    // threads per row: 8 bf16, 16 fp32 at D = 64
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const int T_ = blockIdx.y == 2 ? a.tk : a.tq;   // job 2 runs over the k rows
+  if (kSmall && blockIdx.y == 0) {
+    // one thread a row of head_dim <= 16 columns, scalar loads
+    const int hd = a.head_dim;
+    const long long r = i;
+    if (r >= (long long)p.batch * T_ * a.num_heads) return;
+    const int h = r % a.num_heads;
+    const long long bt = r / a.num_heads;
+    const int t = bt % T_, b = bt / T_;
+    const T* o = static_cast<const T*>(a.o) + b * a.o_sb + t * a.o_st + h * hd;
+    const T* d = static_cast<const T*>(a.dout) + b * a.do_sb + t * a.do_st + h * hd;
+    float s = 0.f;
+    for (int c = 0; c < hd; ++c) s = fmaf(to_f(o[c]), to_f(d[c]), s);
+    a.di[row_of(a, b, h) + t] = s;
+    return;
+  }
   if (blockIdx.y == 0) {
     const long long rows = (long long)p.batch * T_ * a.num_heads;
     const long long r = i / kLanes;
@@ -274,7 +394,7 @@ __global__ void __launch_bounds__(256) flash_bwd_prep(Args a, Prep p) {
     if (live && c == 0) a.di[row_of(a, b, h) + t] = s;
     return;
   }
-  if constexpr (sizeof(T) == 2) {
+  if constexpr (sizeof(T) == 2 && !kSmall) {
     const bool q_job = blockIdx.y == 1;
     const int heads = q_job ? a.num_heads : a.num_heads / a.group;
     const long long rows = (long long)p.batch * T_ * heads;
@@ -329,6 +449,50 @@ __device__ __forceinline__ void rope_split(float (&x)[kFmaPart], int part, const
   }
 }
 
+// The same at D <= 16, where one thread holds a whole row of head_dim = 2H
+// columns (H a power of two, so the pairs' registers are fixed at compile
+// time)
+template <int H>
+__device__ __forceinline__ void rope_row_h(float (&x)[kFmaPart], const Args& a, int pos,
+                                           bool inverse) {
+#pragma unroll
+  for (int d = 0; d < H; ++d) {
+    const float c = a.rope_cos[(long long)pos * H + d], s = a.rope_sin[(long long)pos * H + d];
+    rope_pair(x[d], x[d + H], c, inverse ? -s : s);
+  }
+}
+
+__device__ __forceinline__ void rope_row(float (&x)[kFmaPart], int part, const Args& a, int pos,
+                                         bool inverse) {
+  if constexpr (kSmall) {
+    switch (a.head_dim / 2) {
+      case 8: rope_row_h<8>(x, a, pos, inverse); break;
+      case 4: rope_row_h<4>(x, a, pos, inverse); break;
+      case 2: rope_row_h<2>(x, a, pos, inverse); break;
+      case 1: rope_row_h<1>(x, a, pos, inverse); break;
+      default: break;
+    }
+  } else {
+    rope_split(x, part, a, pos, inverse);
+  }
+}
+
+// element c of row `row` of a head of hd columns at x (a row stride st),
+// rotated at table row `row` under rope, before rounding; 0 past hd or n
+template <typename T, bool kRope>
+__device__ __forceinline__ float row_elem(const T* x, long long st, int row, int n, int c, int hd,
+                                          const Args& a) {
+  if (row >= n || c >= hd) return 0.f;
+  const T* xr = x + (long long)row * st;
+  if constexpr (kRope) {
+    const int half = hd / 2;
+    const long long p = (long long)row * half;
+    return rope_elem<false>(xr, c, half, a.rope_cos + p, a.rope_sin + p);
+  } else {
+    return to_f(xr[c]);
+  }
+}
+
 // the dot product of a row split over its kFmaSplit threads (neighbours in
 // one warp), summed across them
 __device__ __forceinline__ float row_sum(float x) {
@@ -340,7 +504,7 @@ __device__ __forceinline__ float row_sum(float x) {
 // ---------------------------------------------------------------------------
 // FMA instance (fp32): kFmaSplit threads per row, each owning kFmaPart
 // columns of D; the dot products over D are finished with shuffles between
-// them.
+// them.  Columns past the call's head dim (D <= 16) are zeros.
 // ---------------------------------------------------------------------------
 template <typename T, bool kRope>
 __global__ void __launch_bounds__(kFmaSplit * kBlock) flash_bwd_dkv_fma(Args a) {
@@ -348,53 +512,35 @@ __global__ void __launch_bounds__(kFmaSplit * kBlock) flash_bwd_dkv_fma(Args a) 
   __shared__ float qu[kFmaTile][kHeadDim];   // q
   __shared__ float ds_[kFmaTile][kHeadDim];  // do
   __shared__ float lse_s[kFmaTile], di_s[kFmaTile];
+  const int hd = head_dim_of(a);
   const int b = blockIdx.z, hk = blockIdx.y, n0 = blockIdx.x * kBlock;
   const int j = n0 + threadIdx.x / kFmaSplit, part = threadIdx.x % kFmaSplit;
   const int c0 = part * kFmaPart;
   const bool live = j < a.tk;
-  const T* K = static_cast<const T*>(a.k) + b * a.k_sb + (long long)j * a.k_st + hk * kHeadDim;
-  const T* V = static_cast<const T*>(a.v) + b * a.v_sb + (long long)j * a.v_st + hk * kHeadDim;
+  const T* K = static_cast<const T*>(a.k) + b * a.k_sb + hk * hd;
+  const T* V = static_cast<const T*>(a.v) + b * a.v_sb + hk * hd;
 
   float kr[kFmaPart], vr[kFmaPart], dk[kFmaPart], dv[kFmaPart];
 #pragma unroll
   for (int d = 0; d < kFmaPart; ++d) {
-    kr[d] = live ? to_f(K[c0 + d]) : 0.f;
-    vr[d] = live ? to_f(V[c0 + d]) : 0.f;
+    kr[d] = to_f(from_f<T>(row_elem<T, kRope>(K, a.k_st, j, a.tk, c0 + d, hd, a)));
+    vr[d] = row_elem<T, false>(V, a.v_st, j, a.tk, c0 + d, hd, a);
     dk[d] = dv[d] = 0.f;
-  }
-  if constexpr (kRope) {
-    rope_split(kr, part, a, live ? j : 0, false);
-#pragma unroll
-    for (int d = 0; d < kFmaPart; ++d) kr[d] = to_f(from_f<T>(kr[d]));
   }
   const int m_start = q_start_of(a, n0), m_end = q_end_of(a, n0);
   // the query heads of this kv head; dk and dv sum over all of them
   for (int h = hk * a.group; h < (hk + 1) * a.group; ++h) {
-    const T* Q = static_cast<const T*>(a.q) + b * a.q_sb + h * kHeadDim;
-    const T* DO = static_cast<const T*>(a.dout) + b * a.do_sb + h * kHeadDim;
+    const T* Q = static_cast<const T*>(a.q) + b * a.q_sb + h * hd;
+    const T* DO = static_cast<const T*>(a.dout) + b * a.do_sb + h * hd;
     const long long L = row_of(a, b, h);
     for (int m0 = m_start; m0 < m_end; m0 += kFmaTile) {
       __syncthreads();
-      for (int i = threadIdx.x; i < kFmaTile * kHalf; i += blockDim.x) {
-        const int r = i / kHalf, c = i % kHalf, row = m0 + r;
-        float x1 = 0.f, x2 = 0.f;
-        if (row < a.tq) {
-          x1 = to_f(Q[(long long)row * a.q_st + c]);
-          x2 = to_f(Q[(long long)row * a.q_st + c + kHalf]);
-          if constexpr (kRope)
-            rope_pair(x1, x2, a.rope_cos[(long long)row * kHalf + c],
-                      a.rope_sin[(long long)row * kHalf + c]);
-        }
-        x1 = to_f(from_f<T>(x1));
-        x2 = to_f(from_f<T>(x2));
-        qu[r][c] = x1;
-        qu[r][c + kHalf] = x2;
-        qh[r][c] = to_f(from_f<T>(x1 * a.sm_scale));
-        qh[r][c + kHalf] = to_f(from_f<T>(x2 * a.sm_scale));
-      }
       for (int i = threadIdx.x; i < kFmaTile * kHeadDim; i += blockDim.x) {
         const int r = i / kHeadDim, c = i % kHeadDim, row = m0 + r;
-        ds_[r][c] = row < a.tq ? to_f(DO[(long long)row * a.do_st + c]) : 0.f;
+        const float x = to_f(from_f<T>(row_elem<T, kRope>(Q, a.q_st, row, a.tq, c, hd, a)));
+        qu[r][c] = x;
+        qh[r][c] = to_f(from_f<T>(x * a.sm_scale));
+        ds_[r][c] = row_elem<T, false>(DO, a.do_st, row, a.tq, c, hd, a);
       }
       if (threadIdx.x < kFmaTile) {
         const int row = m0 + threadIdx.x;
@@ -422,12 +568,13 @@ __global__ void __launch_bounds__(kFmaSplit * kBlock) flash_bwd_dkv_fma(Args a) 
       }
     }
   }
-  if constexpr (kRope) rope_split(dk, part, a, live ? j : 0, true);
+  if constexpr (kRope) rope_row(dk, part, a, live ? j : 0, true);
   if (!live) return;
-  T* DK = static_cast<T*>(a.dk) + b * a.dkv_sb + (long long)j * a.dkv_st + hk * kHeadDim + c0;
-  T* DV = static_cast<T*>(a.dv) + b * a.dkv_sb + (long long)j * a.dkv_st + hk * kHeadDim + c0;
+  T* DK = static_cast<T*>(a.dk) + b * a.dkv_sb + (long long)j * a.dkv_st + hk * hd + c0;
+  T* DV = static_cast<T*>(a.dv) + b * a.dkv_sb + (long long)j * a.dkv_st + hk * hd + c0;
 #pragma unroll
   for (int d = 0; d < kFmaPart; ++d) {
+    if (c0 + d >= hd) continue;
     DK[d] = from_f<T>(dk[d]);
     DV[d] = from_f<T>(dv[d]);
   }
@@ -437,52 +584,36 @@ template <typename T, bool kRope>
 __global__ void __launch_bounds__(kFmaSplit * kBlock) flash_bwd_dq_fma(Args a) {
   __shared__ float ks[kFmaTile][kHeadDim];
   __shared__ float vs[kFmaTile][kHeadDim];
+  const int hd = head_dim_of(a);
   const int b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * kBlock;
   const int i = m0 + threadIdx.x / kFmaSplit, part = threadIdx.x % kFmaSplit;
   const int c0 = part * kFmaPart;
   const bool live = i < a.tq;
-  const T* Q = static_cast<const T*>(a.q) + b * a.q_sb + (long long)i * a.q_st + h * kHeadDim;
-  const T* DO = static_cast<const T*>(a.dout) + b * a.do_sb + (long long)i * a.do_st + h * kHeadDim;
+  const T* Q = static_cast<const T*>(a.q) + b * a.q_sb + h * hd;
+  const T* DO = static_cast<const T*>(a.dout) + b * a.do_sb + h * hd;
   const int hk = h / a.group;  // this query head's kv head
-  const T* K = static_cast<const T*>(a.k) + b * a.k_sb + hk * kHeadDim;
-  const T* V = static_cast<const T*>(a.v) + b * a.v_sb + hk * kHeadDim;
+  const T* K = static_cast<const T*>(a.k) + b * a.k_sb + hk * hd;
+  const T* V = static_cast<const T*>(a.v) + b * a.v_sb + hk * hd;
   const long long L = row_of(a, b, h);
 
+  // q rotated (under rope) and rounded, then q^ = q * sm_scale rounded
   float qr[kFmaPart], dor[kFmaPart], dq[kFmaPart];
 #pragma unroll
   for (int d = 0; d < kFmaPart; ++d) {
-    qr[d] = live ? to_f(Q[c0 + d]) : 0.f;
-    dor[d] = live ? to_f(DO[c0 + d]) : 0.f;
+    const float x = to_f(from_f<T>(row_elem<T, kRope>(Q, a.q_st, i, a.tq, c0 + d, hd, a)));
+    qr[d] = to_f(from_f<T>(x * a.sm_scale));
+    dor[d] = row_elem<T, false>(DO, a.do_st, i, a.tq, c0 + d, hd, a);
     dq[d] = 0.f;
   }
-  if constexpr (kRope) {
-    rope_split(qr, part, a, live ? i : 0, false);
-#pragma unroll
-    for (int d = 0; d < kFmaPart; ++d) qr[d] = to_f(from_f<T>(qr[d]));
-  }
-#pragma unroll
-  for (int d = 0; d < kFmaPart; ++d) qr[d] = to_f(from_f<T>(qr[d] * a.sm_scale));
   const float lse = live ? a.lse[L + i] : 0.f;
   const float di = live ? a.di[L + i] : 0.f;
   const int kv_end = kv_end_of(a, m0);
   for (int n0 = kv_start_of(a, m0, kFmaTile); n0 < kv_end; n0 += kFmaTile) {
     __syncthreads();
-    for (int e = threadIdx.x; e < kFmaTile * kHalf; e += blockDim.x) {
-      const int r = e / kHalf, c = e % kHalf, row = n0 + r;
-      float x1 = 0.f, x2 = 0.f;
-      if (row < a.tk) {
-        x1 = to_f(K[(long long)row * a.k_st + c]);
-        x2 = to_f(K[(long long)row * a.k_st + c + kHalf]);
-        if constexpr (kRope)
-          rope_pair(x1, x2, a.rope_cos[(long long)row * kHalf + c],
-                    a.rope_sin[(long long)row * kHalf + c]);
-      }
-      ks[r][c] = to_f(from_f<T>(x1));
-      ks[r][c + kHalf] = to_f(from_f<T>(x2));
-    }
     for (int e = threadIdx.x; e < kFmaTile * kHeadDim; e += blockDim.x) {
       const int r = e / kHeadDim, c = e % kHeadDim, row = n0 + r;
-      vs[r][c] = row < a.tk ? to_f(V[(long long)row * a.v_st + c]) : 0.f;
+      ks[r][c] = to_f(from_f<T>(row_elem<T, kRope>(K, a.k_st, row, a.tk, c, hd, a)));
+      vs[r][c] = row_elem<T, false>(V, a.v_st, row, a.tk, c, hd, a);
     }
     __syncthreads();
     for (int jj = 0; jj < kFmaTile; ++jj) {
@@ -500,15 +631,259 @@ __global__ void __launch_bounds__(kFmaSplit * kBlock) flash_bwd_dq_fma(Args a) {
       for (int d = 0; d < kFmaPart; ++d) dq[d] = fmaf(dsr, ks[jj][c0 + d], dq[d]);
     }
   }
-  if constexpr (kRope) rope_split(dq, part, a, live ? i : 0, true);
+  if constexpr (kRope) rope_row(dq, part, a, live ? i : 0, true);
   if (!live) return;
-  T* DQ = static_cast<T*>(a.dq) + b * a.dq_sb + (long long)i * a.dq_st + h * kHeadDim + c0;
+  T* DQ = static_cast<T*>(a.dq) + b * a.dq_sb + (long long)i * a.dq_st + h * hd + c0;
 #pragma unroll
-  for (int d = 0; d < kFmaPart; ++d) DQ[d] = from_f<T>(dq[d]);
+  for (int d = 0; d < kFmaPart; ++d)
+    if (c0 + d < hd) DQ[d] = from_f<T>(dq[d]);
 }
+
+#if VITRS_HEAD_DIM == 16
+// ---------------------------------------------------------------------------
+// bf16 instance at D <= 16: mma.sync m16n8k16 a warp (16 rows of a 64-row
+// block) on operands staged with plain loads into zero-filled 16-column
+// tiles, rows or transposed, as each product reads them.  S^T, dP^T, S and
+// dP are one k-step each; dV, dK and dQ one n8 tile at D <= 8, two at 16.
+// q^ = q * sm_scale rounded is formed as q is staged (whatever sm_scale:
+// with a power of two it is exact, the plain version's fp32 scaling).
+// ---------------------------------------------------------------------------
+constexpr int kRow = 24;    // bf16 a row of a staged 16-column tile (48 bytes:
+                            // a warp's fragment reads hit 32 distinct banks)
+constexpr int kTRow = 72;   // bf16 a row of a transposed tile (64 rows + 8)
+
+// mma.sync's A fragment of rows r and r + 8, columns 2t .. 2t + 9, of a
+// zero-padded 16-column operand whose element (row, col) is f(row, col)
+template <typename F>
+__device__ __forceinline__ void frag_a(uint32_t (&x)[4], int r, int t, F f) {
+  x[0] = pack_f32(f(r, 2 * t), f(r, 2 * t + 1));
+  x[1] = pack_f32(f(r + 8, 2 * t), f(r + 8, 2 * t + 1));
+  x[2] = pack_f32(f(r, 2 * t + 8), f(r, 2 * t + 9));
+  x[3] = pack_f32(f(r + 8, 2 * t + 8), f(r + 8, 2 * t + 9));
+}
+
+// B fragment words of n8 column tile `row8` (rows row8 .. row8 + 7 of a
+// row-major staged tile: S's and dP's keys or queries) at k-step offset k0
+__device__ __forceinline__ uint32_t word(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// dst (+)= A . tile^T over one k-step, for the 8 n8 tiles of a 64-row tile
+__device__ __forceinline__ void rows_product(float (&d)[8][4], const uint32_t (&x)[4],
+                                             bf16 (*tile)[kRow], int g, int t) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const bf16* r = tile[nt * 8 + g] + 2 * t;
+    mma_bf16(d[nt], x, word(r), word(r + 8));
+  }
+}
+
+// acc (16 rows x hd) += X . B, X the 16 x 64 A fragments xa (4 k-steps of
+// 16), B (64 x 16) stored transposed in bt (column c of B is row c of bt)
+__device__ __forceinline__ void cols_product(float (&acc)[2][4], const uint32_t (&xa)[4][4],
+                                             bf16 (*bt)[kTRow], int g, int t, int hd) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const bf16* c0 = bt[g] + 16 * kk + 2 * t;
+    mma_bf16(acc[0], xa[kk], word(c0), word(c0 + 8));
+    if (hd > 8) {   // columns 8..15
+      const bf16* c1 = c0 + 8 * kTRow;
+      mma_bf16(acc[1], xa[kk], word(c1), word(c1 + 8));
+    }
+  }
+}
+
+// rows r0, r0 + 8 of a 16-column accumulator into a bf16 (rows, head of hd)
+// matrix; under kRope first rotated back by -theta at their positions
+// through the fp32 buffer buf (the pairs (c, c + hd/2) lie in other lanes)
+template <bool kRope>
+__device__ __forceinline__ void store_small(bf16* base, long long stride, float (&acc)[2][4],
+                                            float (*buf)[17], int m0, int r0, int n, int t,
+                                            int hd, const Args& a) {
+  if constexpr (kRope) {
+    const int rl = r0 - m0, half = hd / 2;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) buf[rl + 4 * (i & 2)][8 * j + 2 * t + (i & 1)] = acc[j][i];
+    __syncthreads();
+    for (int e = threadIdx.x; e < kBlock * half; e += blockDim.x) {
+      const int r = e / half, c = e % half, row = m0 + r;
+      if (row >= n) continue;
+      float x1 = buf[r][c], x2 = buf[r][c + half];
+      const long long idx = (long long)row * half + c;
+      rope_pair(x1, x2, a.rope_cos[idx], -a.rope_sin[idx]);
+      base[(long long)row * stride + c] = __float2bfloat16_rn(x1);
+      base[(long long)row * stride + c + half] = __float2bfloat16_rn(x2);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = r0 + 4 * (i & 2), col = 8 * j + 2 * t + (i & 1);
+        if (row < n && col < hd) base[(long long)row * stride + col] = __float2bfloat16_rn(acc[j][i]);
+      }
+  }
+}
+
+template <bool kRope>
+__global__ void __launch_bounds__(128) flash_bwd_dkv_small(Args a) {
+  __shared__ __align__(16) bf16 qh_s[kBlock][kRow];   // q^ rows (S^T = K q^^T)
+  __shared__ __align__(16) bf16 do_s[kBlock][kRow];   // do rows (dP^T = V do^T)
+  __shared__ __align__(16) bf16 qt_s[16][kTRow];      // q transposed (dK += dS^T q)
+  __shared__ __align__(16) bf16 dot_s[16][kTRow];     // do transposed (dV += P^T do)
+  __shared__ float lse_s[kBlock], di_s[kBlock];
+  __shared__ float buf[kRope ? kBlock : 1][17];
+  const int hd = a.head_dim;
+  const int kv_heads = a.num_heads / a.group;
+  const int b = blockIdx.x / kv_heads, hk = blockIdx.x % kv_heads, n0 = blockIdx.y * kBlock;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int j0 = n0 + warp * 16 + g;  // this thread's kv rows: j0 and j0 + 8
+  const bf16* K = static_cast<const bf16*>(a.k) + b * a.k_sb + hk * hd;
+  const bf16* V = static_cast<const bf16*>(a.v) + b * a.v_sb + hk * hd;
+  // this warp's 16 kv rows of K (rotated, rounded) and V as A fragments
+  uint32_t ka[4], va[4];
+  frag_a(ka, j0, t, [&](int j, int c) {
+    return to_f(__float2bfloat16_rn(row_elem<bf16, kRope>(K, a.k_st, j, a.tk, c, hd, a)));
+  });
+  frag_a(va, j0, t, [&](int j, int c) { return row_elem<bf16, false>(V, a.v_st, j, a.tk, c, hd, a); });
+
+  float dk[2][4], dv[2][4];
+  zero(dk);
+  zero(dv);
+  const int m_start = q_start_of(a, n0), m_end = q_end_of(a, n0);
+  for (int h = hk * a.group; h < (hk + 1) * a.group; ++h) {
+    const bf16* Q = static_cast<const bf16*>(a.q) + b * a.q_sb + h * hd;
+    const bf16* DO = static_cast<const bf16*>(a.dout) + b * a.do_sb + h * hd;
+    const long long L = row_of(a, b, h);
+    for (int m0 = m_start; m0 < m_end; m0 += kBlock) {
+      __syncthreads();   // every warp is past the last q tile's reads
+      for (int i = tid; i < kBlock * 16; i += 128) {
+        const int r = i >> 4, c = i & 15, row = m0 + r;
+        const bf16 x = __float2bfloat16_rn(row_elem<bf16, kRope>(Q, a.q_st, row, a.tq, c, hd, a));
+        const bf16 dy = __float2bfloat16_rn(row_elem<bf16, false>(DO, a.do_st, row, a.tq, c, hd, a));
+        qh_s[r][c] = __float2bfloat16_rn(__bfloat162float(x) * a.sm_scale);
+        qt_s[c][r] = x;
+        do_s[r][c] = dy;
+        dot_s[c][r] = dy;
+      }
+      {
+        const int r = tid & 63, row = m0 + r;
+        (tid < 64 ? lse_s : di_s)[r] = row < a.tq ? (tid < 64 ? a.lse : a.di)[L + row] : 0.f;
+      }
+      __syncthreads();
+      // S^T = K q^^T and dP^T = V do^T: 16 kv rows x 64 q columns a warp
+      float s[8][4], dp[8][4];
+      zero(s);
+      zero(dp);
+      rows_product(s, ka, qh_s, g, t);
+      rows_product(dp, va, do_s, g, t);
+      // P^T and dS^T; this thread's q columns: nt * 8 + 2t + e
+      float l2[8][2], dd[8][2];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          l2[nt][e] = lse_s[nt * 8 + 2 * t + e] * kLog2e;
+          dd[nt][e] = di_s[nt * 8 + 2 * t + e];
+        }
+      probs_t(a, s, l2, kLog2e, m0, 0, n0, j0, t);
+      grads_t(a, dp, s, dd);
+      // dV += P^T do, dK += dS^T q
+      uint32_t pa[4][4], da[4][4];
+      to_a(pa, s);
+      to_a(da, dp);
+      cols_product(dv, pa, dot_s, g, t, hd);
+      cols_product(dk, da, qt_s, g, t, hd);
+    }
+  }
+  bf16* DK = static_cast<bf16*>(a.dk) + b * a.dkv_sb + hk * hd;
+  bf16* DV = static_cast<bf16*>(a.dv) + b * a.dkv_sb + hk * hd;
+  store_small<kRope>(DK, a.dkv_st, dk, buf, n0, j0, a.tk, t, hd, a);
+  store_small<false>(DV, a.dkv_st, dv, buf, n0, j0, a.tk, t, hd, a);
+}
+
+template <bool kRope>
+__global__ void __launch_bounds__(128) flash_bwd_dq_small(Args a) {
+  __shared__ __align__(16) bf16 ks[kBlock][kRow];    // K rows (S = q^ K^T)
+  __shared__ __align__(16) bf16 vs[kBlock][kRow];    // V rows (dP = do V^T)
+  __shared__ __align__(16) bf16 kt[16][kTRow];       // K transposed (dQ += dS K)
+  __shared__ float buf[kRope ? kBlock : 1][17];
+  const int hd = a.head_dim;
+  const int b = blockIdx.x / a.num_heads, h = blockIdx.x % a.num_heads;
+  const int hk = h / a.group;   // its kv head
+  // causal: the heaviest q tiles (most kv tiles) first
+  const int m0 = (a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kBlock;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = m0 + warp * 16 + g;  // this thread's q rows: r0 and r1
+  const int r1 = r0 + 8;
+  const bf16* Q = static_cast<const bf16*>(a.q) + b * a.q_sb + h * hd;
+  const bf16* DO = static_cast<const bf16*>(a.dout) + b * a.do_sb + h * hd;
+  const bf16* K = static_cast<const bf16*>(a.k) + b * a.k_sb + hk * hd;
+  const bf16* V = static_cast<const bf16*>(a.v) + b * a.v_sb + hk * hd;
+  // this warp's 16 rows of q^ (q rotated and rounded, times sm_scale,
+  // rounded) and do as A fragments
+  uint32_t qa[4], doa[4];
+  frag_a(qa, r0, t, [&](int i, int c) {
+    const float x = __bfloat162float(__float2bfloat16_rn(row_elem<bf16, kRope>(Q, a.q_st, i, a.tq, c, hd, a)));
+    return to_f(__float2bfloat16_rn(x * a.sm_scale));
+  });
+  frag_a(doa, r0, t, [&](int i, int c) { return row_elem<bf16, false>(DO, a.do_st, i, a.tq, c, hd, a); });
+  const long long L = row_of(a, b, h);
+  const float l2_a = r0 < a.tq ? a.lse[L + r0] * kLog2e : 0.f;
+  const float l2_b = r1 < a.tq ? a.lse[L + r1] * kLog2e : 0.f;
+  const float di_a = r0 < a.tq ? a.di[L + r0] : 0.f;
+  const float di_b = r1 < a.tq ? a.di[L + r1] : 0.f;
+
+  float dq[2][4];
+  zero(dq);
+  const int kv_end = kv_end_of(a, m0);
+  for (int n0 = kv_start_of(a, m0, kBlock); n0 < kv_end; n0 += kBlock) {
+    __syncthreads();   // every warp is past the last kv tile's reads
+    for (int i = tid; i < kBlock * 16; i += 128) {
+      const int r = i >> 4, c = i & 15, row = n0 + r;
+      const bf16 x = __float2bfloat16_rn(row_elem<bf16, kRope>(K, a.k_st, row, a.tk, c, hd, a));
+      ks[r][c] = x;
+      kt[c][r] = x;
+      vs[r][c] = __float2bfloat16_rn(row_elem<bf16, false>(V, a.v_st, row, a.tk, c, hd, a));
+    }
+    __syncthreads();
+    // S = q^ K^T and dP = do V^T: 16 q rows x 64 kv columns a warp
+    float s[8][4], dp[8][4];
+    zero(s);
+    zero(dp);
+    rows_product(s, qa, ks, g, t);
+    rows_product(dp, doa, vs, g, t);
+    probs(a, s, l2_a, l2_b, kLog2e, m0, n0, r0, t);
+    grads(a, dp, s, di_a, di_b);
+    // dQ += dS K
+    uint32_t da[4][4];
+    to_a(da, dp);
+    cols_product(dq, da, kt, g, t, hd);
+  }
+  store_small<kRope>(static_cast<bf16*>(a.dq) + b * a.dq_sb + h * hd, a.dq_st, dq, buf, m0, r0,
+                     a.tq, t, hd, a);
+}
+
+template <bool kRope, bool kQhat>
+cudaError_t launch_bf16(const Args& a, int batch, int kv_heads, cudaStream_t s) {
+  const unsigned kv_tiles = (a.tk + kBlock - 1) / kBlock, tiles = (a.tq + kBlock - 1) / kBlock;
+  flash_bwd_dkv_small<kRope><<<dim3(batch * kv_heads, kv_tiles), 128, 0, s>>>(a);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_small<kRope><<<dim3(batch * a.num_heads, tiles), 128, 0, s>>>(a);
+  return cudaGetLastError();
+}
+#else
 // ---------------------------------------------------------------------------
 // bf16 instance: wgmma, a cp.async ring, swizzled tiles.
 // ---------------------------------------------------------------------------
+
+using Tile = HeadTile<kHeadDim>;
+constexpr int kTile = Tile::kBytes;  // bytes of one bf16 tile in smem (64 rows of D)
 
 // Rotate the accumulators of a 64 x D tile (this thread's rows r0, r1 =
 // r0 + 8; column nt * 8 + 2t + e pairs with the same column of tile
@@ -654,22 +1029,7 @@ __global__ void __launch_bounds__(128, 2)
 
     wg_wait<1>();
     fence_acc(s);
-    // P^T in place; a tile inside the band and the causal frontier skips the mask
-    if (tile_full(a, m0, n0)) {
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[nt][i] = ex2(fmaf(s[nt][i], s_mul, -l2[nt][i & 1]));
-    } else {
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int qc = nt * 8 + 2 * t + (i & 1);
-          const float p = ex2(fmaf(s[nt][i], s_mul, -l2[nt][i & 1]));
-          s[nt][i] = visible(a, m0 + qc, (i & 2) ? j1 : j0) ? p : 0.f;
-        }
-    }
+    probs_t(a, s, l2, s_mul, m0, 0, n0, j0, t);
     // dV += P^T do
     uint32_t pa[4][4];
     to_a(pa, s);
@@ -680,10 +1040,7 @@ __global__ void __launch_bounds__(128, 2)
 
     wg_wait<1>();          // dP^T done (dV may still run)
     fence_acc(dp);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dp[nt][i] = s[nt][i] * (dp[nt][i] - dd[nt][i & 1]) * a.sm_scale;
+    grads_t(a, dp, s, dd);
     // dK += dS^T q
     uint32_t da[4][4];
     to_a(da, dp);
@@ -813,28 +1170,10 @@ __global__ void __launch_bounds__(256, 1)
 
     wg_wait<1>();
     fence_acc(s);
-    // P^T in place; a tile inside the band and the causal frontier skips the mask
-    if (tile_full(a, m0, n0)) {
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[nt][i] = ex2(fmaf(s[nt][i], s_mul, -l2[nt][i & 1]));
-    } else {
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int qc = q0 + nt * 8 + 2 * t + (i & 1);
-          const float p = ex2(fmaf(s[nt][i], s_mul, -l2[nt][i & 1]));
-          s[nt][i] = visible(a, m0 + qc, (i & 2) ? j1 : j0) ? p : 0.f;
-        }
-    }
+    probs_t(a, s, l2, s_mul, m0, q0, n0, j0, t);
     wg_wait<0>();
     fence_acc(dp);
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dp[nt][i] = s[nt][i] * (dp[nt][i] - dd[nt][i & 1]) * a.sm_scale;
+    grads_t(a, dp, s, dd);
     // P^T and dS^T, rounded to bf16, into the shared tiles for both warpgroups
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
@@ -960,29 +1299,10 @@ __global__ void __launch_bounds__(128, kDqMinBlocks)
     issue(it + kStagesQ - 1);
     wg_wait<1>();
     fence_acc(s);
-    if (tile_full(a, m0, n0)) {
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[nt][i] = ex2(fmaf(s[nt][i], s_mul, (i & 2) ? -l2_b : -l2_a));
-    } else {
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int col = n0 + nt * 8 + 2 * t + (i & 1);
-          const bool second = (i & 2) != 0;
-          const float p = ex2(fmaf(s[nt][i], s_mul, second ? -l2_b : -l2_a));
-          s[nt][i] = visible(a, second ? r1 : r0, col) ? p : 0.f;
-        }
-    }
+    probs(a, s, l2_a, l2_b, s_mul, m0, n0, r0, t);
     wg_wait<0>();
     fence_acc(dp);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        dp[nt][i] = s[nt][i] * (dp[nt][i] - ((i & 2) ? di_b : di_a)) * a.sm_scale;
+    grads(a, dp, s, di_a, di_b);
     // dQ += dS K
     uint32_t da[4][4];
     to_a(da, dp);
@@ -999,14 +1319,275 @@ __global__ void __launch_bounds__(128, kDqMinBlocks)
              a.tq, t);
 }
 
-// this head dim's dK/dV kernel: one warpgroup at D <= 64, two at D >= 128
+
+// ---------------------------------------------------------------------------
+// D >= 384: dK, dV and dQ a 64-column slice a block (blockIdx.z), the
+// contraction of S and dP streamed over D in 64-column atoms.
+// ---------------------------------------------------------------------------
+using Atom = HeadTile<64>;
+constexpr int kAtoms = kHeadDim >= 64 ? kHeadDim / 64 : 1;
+constexpr int kStagesL = 2;    // depth of the sliced kernels' rings
+// a dK/dV stage: atoms of K, V, q (q^ when kQhat) and do, and at a q tile's
+// last atom also the slice's atoms of do and q (dV's and dK's B operands)
+constexpr int kDkvStage = 6 * Atom::kBytes;
+// a dQ stage: atoms of q (or q^), do, K and V, and at a kv tile's last atom
+// also the slice's atom of K (dQ's B operand)
+constexpr int kDqStage = 5 * Atom::kBytes;
+__host__ __device__ constexpr int dkv_sliced_smem() {
+  return 1024 + kStagesL * kDkvStage + 2 * 2 * kBlock * 4 + kStagesL * 8;
+}
+__host__ __device__ constexpr int dq_sliced_smem() {
+  return 1024 + kStagesL * kDqStage + kStagesL * 8;
+}
+
+// acc (+)= A . B^T over one 64-column atom: A and B 64-row K-major atoms
+// (the first k-step overwrites acc when `first`)
+__device__ __forceinline__ void atom_rows(float (&acc)[8][4], uint32_t sa, uint32_t sb, bool first) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss(acc, Atom::desc(sa + Atom::kstep(kk)), Atom::desc(sb + Atom::kstep(kk)),
+             !first || kk > 0);
+}
+
+// dK/dV of 64 kv rows x the slice's 64 columns, one warpgroup.  Iteration
+// it is q tile it / kAtoms of the group's query heads (as flash_bwd_dkv_wgmma
+// walks them) and atom it % kAtoms: S^T and dP^T accumulate over the atoms,
+// and at the last one P^T and dS^T are formed and dV += P^T do, dK +=
+// dS^T q run on the slice's columns.  lse and di of a q tile arrive by
+// cp.async with its first atom, into the half of `stats` of the tile's
+// parity.
+template <bool kQhat>
+__global__ void __launch_bounds__(128, 2)
+    flash_bwd_dkv_sliced(const __grid_constant__ Maps maps, Args a) {
+  extern __shared__ uint8_t smem[];
+  const uint32_t base = aligned_base(smem);
+  float* stats = reinterpret_cast<float*>(smem + (base - smem_u32(smem)) + kStagesL * kDkvStage);
+  const uint32_t bars = smem_u32(stats + 2 * 2 * kBlock);
+  const int kv_heads = a.num_heads / a.group;
+  const int b = blockIdx.x / kv_heads, hk = blockIdx.x % kv_heads, n0 = blockIdx.y * kBlock;
+  const int slice = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int j0 = n0 + warp * 16 + g;  // this thread's kv rows: j0 and j0 + 8
+  const int j1 = j0 + 8;
+
+  const int m_start = q_start_of(a, n0), m_end = q_end_of(a, n0);
+  const int n_m = (max(0, m_end - m_start) + kBlock - 1) / kBlock;   // q tiles per query head
+  const int n_it = a.group * n_m * kAtoms;
+
+  init_barriers(bars, kStagesL);
+  auto issue = [&](int it) {
+    if (it < n_it) {
+      const int st = it % kStagesL, tile = it / kAtoms, at = it % kAtoms;
+      const int h = hk * a.group + tile / n_m, m0 = m_start + (tile % n_m) * kBlock;
+      if (tid == 0) {
+        const uint32_t s0 = base + st * kDkvStage, bar = bars + 8 * st;
+        const bool last = at == kAtoms - 1;
+        mbar_expect(bar, (last ? 6 : 4) * Atom::kBytes);
+        tma_tile(s0, &maps.k, bar, hk * kAtoms + at, n0, b);
+        tma_tile(s0 + Atom::kBytes, &maps.v, bar, hk * kAtoms + at, n0, b);
+        tma_tile(s0 + 2 * Atom::kBytes, kQhat ? &maps.qh : &maps.q, bar, h * kAtoms + at, m0, b);
+        tma_tile(s0 + 3 * Atom::kBytes, &maps.dout, bar, h * kAtoms + at, m0, b);
+        if (last) {
+          tma_tile(s0 + 4 * Atom::kBytes, &maps.dout, bar, h * kAtoms + slice, m0, b);
+          tma_tile(s0 + 5 * Atom::kBytes, &maps.q, bar, h * kAtoms + slice, m0, b);
+        }
+      }
+      if (at == 0) {   // threads 0-63 copy lse, 64-127 di
+        const int r = tid & 63, row = m0 + r;
+        const bool live = row < a.tq;
+        const float* src = (tid < 64 ? a.lse : a.di) + row_of(a, b, h) + (live ? row : 0);
+        cp_async4(smem_u32(stats + ((tile & 1) * 2 + (tid >> 6)) * kBlock + r), src, live);
+      }
+    }
+    cp_async_commit();
+  };
+  issue(0);
+
+  float dk[8][4], dv[8][4], s[8][4], dp[8][4];
+  zero(dk);
+  zero(dv);
+  zero(s);
+  zero(dp);
+  const float s_mul = (kQhat ? 1.f : a.sm_scale) * kLog2e;
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % kStagesL, tile = it / kAtoms, at = it % kAtoms;
+    const int m0 = m_start + (tile % n_m) * kBlock;
+    cp_async_wait<0>();          // this thread's lse/di copies so far
+    mbar_wait(bars + 8 * st, (it / kStagesL) & 1);
+    __syncthreads();             // lse/di visible to all; stage (it - 1) % kStagesL is free
+    const uint32_t s0 = base + st * kDkvStage;
+
+    // S^T (+)= K q^T (or K q^^T) and dP^T (+)= V do^T over this atom
+    fence_acc(s);
+    fence_acc(dp);
+    wg_fence();
+    atom_rows(s, s0, s0 + 2 * Atom::kBytes, at == 0);
+    wg_commit();
+    atom_rows(dp, s0 + Atom::kBytes, s0 + 3 * Atom::kBytes, at == 0);
+    wg_commit();
+    issue(it + kStagesL - 1);    // into the stage iteration it - 1 read
+    if (at != kAtoms - 1) {
+      wg_wait<0>();
+      fence_acc(s);
+      fence_acc(dp);
+      continue;
+    }
+
+    // this thread's q columns: nt * 8 + 2t + e
+    const float* lse_s = stats + (tile & 1) * 2 * kBlock;
+    const float* di_s = lse_s + kBlock;
+    float l2[8][2], dd[8][2];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        l2[nt][e] = lse_s[nt * 8 + 2 * t + e] * kLog2e;
+        dd[nt][e] = di_s[nt * 8 + 2 * t + e];
+      }
+    wg_wait<1>();
+    fence_acc(s);
+    probs_t(a, s, l2, s_mul, m0, 0, n0, j0, t);
+    // dV += P^T do[:, slice]
+    uint32_t pa[4][4];
+    to_a(pa, s);
+    wg_fence();
+    fence_acc(dv);
+    product_cols<64>(dv, pa, s0 + 4 * Atom::kBytes);
+    wg_commit();
+    wg_wait<1>();          // dP^T done (dV may still run)
+    fence_acc(dp);
+    grads_t(a, dp, s, dd);
+    // dK += dS^T q[:, slice]
+    uint32_t da[4][4];
+    to_a(da, dp);
+    wg_fence();
+    fence_acc(dk);
+    product_cols<64>(dk, da, s0 + 5 * Atom::kBytes);
+    wg_commit();
+    wg_wait<0>();
+    fence_acc(dv);
+    fence_acc(dk);
+  }
+  const int c0 = hk * kHeadDim + slice * 64;
+  store_rows(static_cast<bf16*>(a.dk) + b * a.dkv_sb + c0, a.dkv_st, dk, j0, j1, a.tk, t);
+  store_rows(static_cast<bf16*>(a.dv) + b * a.dkv_sb + c0, a.dkv_st, dv, j0, j1, a.tk, t);
+}
+
+// dQ of 64 q rows x the slice's 64 columns, one warpgroup: iteration it is
+// kv tile it / kAtoms and atom it % kAtoms; S and dP accumulate over the
+// atoms, and at the last one dQ += dS K[:, slice].
+template <bool kQhat>
+__global__ void __launch_bounds__(128, 2)
+    flash_bwd_dq_sliced(const __grid_constant__ Maps maps, Args a) {
+  extern __shared__ uint8_t smem[];
+  const uint32_t base = aligned_base(smem);
+  const uint32_t bars = base + kStagesL * kDqStage;
+  const int b = blockIdx.x / a.num_heads, slice = blockIdx.z;
+  const int h = blockIdx.x % a.num_heads, hk = h / a.group;   // and its kv head
+  // causal: the heaviest q tiles (most kv tiles) first
+  const int m0 = (a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kBlock;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = m0 + warp * 16 + g;  // this thread's q rows: r0 and r0 + 8
+  const int r1 = r0 + 8;
+
+  init_barriers(bars, kStagesL);
+  const long long L = row_of(a, b, h);
+  const float l2_a = r0 < a.tq ? a.lse[L + r0] * kLog2e : 0.f;
+  const float l2_b = r1 < a.tq ? a.lse[L + r1] * kLog2e : 0.f;
+  const float di_a = r0 < a.tq ? a.di[L + r0] : 0.f;
+  const float di_b = r1 < a.tq ? a.di[L + r1] : 0.f;
+
+  const int kv_start = kv_start_of(a, m0, kBlock);
+  const int n_it = (max(0, kv_end_of(a, m0) - kv_start) + kBlock - 1) / kBlock * kAtoms;
+  auto issue = [&](int it) {
+    if (it < n_it && tid == 0) {
+      const int st = it % kStagesL, at = it % kAtoms, n0 = kv_start + it / kAtoms * kBlock;
+      const uint32_t s0 = base + st * kDqStage, bar = bars + 8 * st;
+      const bool last = at == kAtoms - 1;
+      mbar_expect(bar, (last ? 5 : 4) * Atom::kBytes);
+      tma_tile(s0, kQhat ? &maps.qh : &maps.q, bar, h * kAtoms + at, m0, b);
+      tma_tile(s0 + Atom::kBytes, &maps.dout, bar, h * kAtoms + at, m0, b);
+      tma_tile(s0 + 2 * Atom::kBytes, &maps.k, bar, hk * kAtoms + at, n0, b);
+      tma_tile(s0 + 3 * Atom::kBytes, &maps.v, bar, hk * kAtoms + at, n0, b);
+      if (last) tma_tile(s0 + 4 * Atom::kBytes, &maps.k, bar, hk * kAtoms + slice, n0, b);
+    }
+  };
+  issue(0);
+
+  float dq[8][4], s[8][4], dp[8][4];
+  zero(dq);
+  zero(s);
+  zero(dp);
+  const float s_mul = (kQhat ? 1.f : a.sm_scale) * kLog2e;
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % kStagesL, at = it % kAtoms, n0 = kv_start + it / kAtoms * kBlock;
+    mbar_wait(bars + 8 * st, (it / kStagesL) & 1);
+    __syncthreads();       // stage (it - 1) % kStagesL is free
+    const uint32_t s0 = base + st * kDqStage;
+
+    // S (+)= q K^T (or q^ K^T) and dP (+)= do V^T over this atom
+    fence_acc(s);
+    fence_acc(dp);
+    wg_fence();
+    atom_rows(s, s0, s0 + 2 * Atom::kBytes, at == 0);
+    wg_commit();
+    atom_rows(dp, s0 + Atom::kBytes, s0 + 3 * Atom::kBytes, at == 0);
+    wg_commit();
+    issue(it + kStagesL - 1);
+    if (at != kAtoms - 1) {
+      wg_wait<0>();
+      fence_acc(s);
+      fence_acc(dp);
+      continue;
+    }
+    wg_wait<1>();
+    fence_acc(s);
+    probs(a, s, l2_a, l2_b, s_mul, m0, n0, r0, t);
+    wg_wait<0>();
+    fence_acc(dp);
+    grads(a, dp, s, di_a, di_b);
+    // dQ += dS K[:, slice]
+    uint32_t da[4][4];
+    to_a(da, dp);
+    wg_fence();
+    fence_acc(dq);
+    product_cols<64>(dq, da, s0 + 4 * Atom::kBytes);
+    wg_commit();
+    wg_wait<0>();
+    fence_acc(dq);
+  }
+  store_rows(static_cast<bf16*>(a.dq) + b * a.dq_sb + h * kHeadDim + slice * 64, a.dq_st, dq, r0,
+             r1, a.tq, t);
+}
+
+// this head dim's dK/dV kernel: one warpgroup at D <= 64, two at 128 and
+// 256, a 64-column slice from 384
 template <bool kRope, bool kQhat>
 auto dkv_kernel() {
-  if constexpr (kDkvGroups == 1)
+  if constexpr (kSliced)
+    return flash_bwd_dkv_sliced<kQhat>;
+  else if constexpr (kDkvGroups == 1)
     return flash_bwd_dkv_wgmma<kRope, kQhat>;
   else
     return flash_bwd_dkv_wgmma2<kRope, kQhat>;
 }
+
+template <bool kRope, bool kQhat>
+auto dq_kernel() {
+  if constexpr (kSliced)
+    return flash_bwd_dq_sliced<kQhat>;
+  else
+    return flash_bwd_dq_wgmma<kRope, kQhat>;
+}
+
+template <bool kQhat>
+__host__ __device__ constexpr int dkv_smem_of() {
+  return kSliced ? dkv_sliced_smem() : dkv_smem<kQhat>();
+}
+__host__ __device__ constexpr int dq_smem_of() { return kSliced ? dq_sliced_smem() : dq_smem(); }
+constexpr int kDkvThreads = kSliced ? 128 : 128 * kDkvGroups;
 
 template <bool kRope, bool kQhat>
 cudaError_t launch_wgmma(const Args& a, int batch, int kv_heads, cudaStream_t s) {
@@ -1019,28 +1600,31 @@ cudaError_t launch_wgmma(const Args& a, int batch, int kv_heads, cudaStream_t s)
       (kQhat && !tile_map<kHeadDim>(&maps.qh, a.qh, a.num_heads, a.tq, batch, C, a.tq * C)))
     return cudaErrorInvalidValue;
   const unsigned kv_tiles = (a.tk + kBlock - 1) / kBlock, tiles = (a.tq + kBlock - 1) / kBlock;
+  const unsigned slices = kSliced ? kAtoms : 1;
   auto dkv = dkv_kernel<kRope, kQhat>();
-  auto dq = flash_bwd_dq_wgmma<kRope, kQhat>;
+  auto dq = dq_kernel<kRope, kQhat>();
   cudaError_t err = cudaFuncSetAttribute(dkv, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         dkv_smem<kQhat>());
+                                         dkv_smem_of<kQhat>());
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem());
+  err = cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem_of());
   if (err != cudaSuccess) return err;
-  dkv<<<dim3(batch * kv_heads, kv_tiles), 128 * kDkvGroups, dkv_smem<kQhat>(), s>>>(maps, a);
+  dkv<<<dim3(batch * kv_heads, kv_tiles, slices), kDkvThreads, dkv_smem_of<kQhat>(), s>>>(maps, a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dq<<<dim3(batch * a.num_heads, tiles), 128, dq_smem(), s>>>(maps, a);
+  dq<<<dim3(batch * a.num_heads, tiles, slices), 128, dq_smem_of(), s>>>(maps, a);
   return cudaGetLastError();
 }
 
-// the bf16 kernels of an instance this head dim has (D = 256: no rope, no q^)
+// the bf16 kernels of an instance this head dim has (D = 256: no rope, no
+// q^; D >= 384: no rope)
 template <bool kRope, bool kQhat>
-cudaError_t launch_checked(const Args& m, int batch, int kv_heads, cudaStream_t s) {
+cudaError_t launch_bf16(const Args& m, int batch, int kv_heads, cudaStream_t s) {
   if constexpr ((kRope && !kRopeOk) || (kQhat && !kQhatOk))
     return cudaErrorInvalidValue;
   else
     return launch_wgmma<kRope, kQhat>(m, batch, kv_heads, s);
 }
+#endif
 
 bool power_of_two(float x) {
   int e;
@@ -1049,20 +1633,23 @@ bool power_of_two(float x) {
 
 }  // namespace
 
-// dtype: 0 = float32 (FMA instance), 1 = bfloat16 (wgmma instance).
+// dtype: 0 = float32 (FMA instance), 1 = bfloat16 (tensor-core instance).
 // q, o, dout, lse and dq have tq rows at positions q_off .. q_off+tq-1; k,
 // v, dk and dv have tk rows at 0 .. tk-1 (causal: key j is visible from
 // query row i when j <= q_off + i, and j > q_off + i - window for window >
 // 0).  di is fp32 scratch of batch * num_heads * tq floats; dq is
-// (B, tq, C), dk and dv (B, tk, kv_heads * D), every head
-// vitrs_flash_bwd_head_dim() wide; kv_heads must divide num_heads.  window
-// > 0 (causal only): the band of the forward.  rope_cos/rope_sin: the fp32
-// (positions >= tq, D/2) rope table, or both null; rope takes the square
-// block only (tq == tk, q_off == 0), at D < 256.  bf16 scratch,
-// contiguous: q_rot (B, tq, C) and k_rot (B, tk, kv_dim) under rope, else
-// null; q_hat (B, tq, C) when sm_scale is not a power of two (D < 256: at
-// D = 256 bf16 takes a power of two), else null; fp32 takes none.  Launches three kernels on `stream` without
-// synchronising; returns the first launch error.
+// (B, tq, C), dk and dv (B, tk, kv_heads * D), every head head_dim wide:
+// vitrs_flash_bwd_head_dim(), or in its D = 16 build any power of two up
+// to 16; kv_heads must divide num_heads.  window > 0 (causal only): the
+// band of the forward.  rope_cos/rope_sin: the fp32 (positions >= tq,
+// head_dim/2) rope table, or both null; rope takes the square block only
+// (tq == tk, q_off == 0), at an even head_dim <= 128.  bf16 scratch at
+// head_dim >= 32, contiguous: q_rot (B, tq, C) and k_rot (B, tk, kv_dim)
+// under rope, else null; q_hat (B, tq, C) when sm_scale is not a power of
+// two (at D = 256 bf16 takes a power of two), else null; fp32, and bf16
+// at head_dim <= 16 (whose kernels rotate and scale as they stage), take
+// none.  Launches three kernels on `stream` without synchronising; returns
+// the first launch error.
 extern "C" int vitrs_flash_bwd(int dtype, const void* q, const void* k, const void* v,
                                const void* o, const void* dout, const float* lse, float* di,
                                void* dq, void* dk, void* dv, void* q_rot, void* k_rot,
@@ -1071,23 +1658,59 @@ extern "C" int vitrs_flash_bwd(int dtype, const void* q, const void* k, const vo
                                long long o_st, long long do_sb, long long do_st,
                                long long dq_sb, long long dq_st, long long dkv_sb,
                                long long dkv_st, int batch, int num_heads, int kv_heads,
-                               int tq, int tk, int q_off, int causal, int window,
+                               int head_dim, int tq, int tk, int q_off, int causal, int window,
                                float sm_scale, const float* rope_cos, const float* rope_sin,
                                void* stream) {
   const bool rope = rope_cos != nullptr;
+  const bool dim_ok = kSmall ? (head_dim >= 1 && head_dim <= 16 && (head_dim & (head_dim - 1)) == 0)
+                             : head_dim == kHeadDim;
   const bool scratch_ok =
-      dtype == 1 ? ((q_rot != nullptr) == rope && (k_rot != nullptr) == rope &&
-                    (q_hat != nullptr) == !power_of_two(sm_scale))
-                 : (q_rot == nullptr && k_rot == nullptr && q_hat == nullptr);
-  if ((dtype != 0 && dtype != 1) || kv_heads <= 0 || num_heads % kv_heads != 0 ||
+      dtype == 1 && !kSmall
+          ? ((q_rot != nullptr) == rope && (k_rot != nullptr) == rope &&
+             (q_hat != nullptr) == !power_of_two(sm_scale))
+          : (q_rot == nullptr && k_rot == nullptr && q_hat == nullptr);
+  if ((dtype != 0 && dtype != 1) || kv_heads <= 0 || num_heads % kv_heads != 0 || !dim_ok ||
       window < 0 || (window > 0 && !causal) || (rope != (rope_sin != nullptr)) || !scratch_ok ||
       tq <= 0 || tk <= 0 || q_off < 0 || (rope && (q_off != 0 || tq != tk)) || batch <= 0 ||
-      (rope && !kRopeOk) || (q_hat != nullptr && !kQhatOk))
+      (rope && (!kRopeOk || head_dim % 2 != 0)) || (q_hat != nullptr && !kQhatOk))
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a{q,      k,      v,      o,     dout,  lse,   di,     dq,        dk,
-         dv,     nullptr, q_sb,  q_st,  k_sb,  k_st,  v_sb,   v_st,      o_sb,
-         o_st,   do_sb,  do_st,  dq_sb, dq_st, dkv_sb, dkv_st, num_heads, num_heads / kv_heads,
-         tq,     tk,     q_off,  causal, window, sm_scale, rope_cos, rope_sin};
+  Args a{};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.o = o;
+  a.dout = dout;
+  a.lse = lse;
+  a.di = di;
+  a.dq = dq;
+  a.dk = dk;
+  a.dv = dv;
+  a.qh = nullptr;
+  a.q_sb = q_sb;
+  a.q_st = q_st;
+  a.k_sb = k_sb;
+  a.k_st = k_st;
+  a.v_sb = v_sb;
+  a.v_st = v_st;
+  a.o_sb = o_sb;
+  a.o_st = o_st;
+  a.do_sb = do_sb;
+  a.do_st = do_st;
+  a.dq_sb = dq_sb;
+  a.dq_st = dq_st;
+  a.dkv_sb = dkv_sb;
+  a.dkv_st = dkv_st;
+  a.num_heads = num_heads;
+  a.group = num_heads / kv_heads;
+  a.tq = tq;
+  a.tk = tk;
+  a.q_off = q_off;
+  a.causal = causal;
+  a.window = window;
+  a.sm_scale = sm_scale;
+  a.rope_cos = rope_cos;
+  a.rope_sin = rope_sin;
+  a.head_dim = head_dim;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 
   // 1. the pre-pass (its k job runs under rope only, where tk == tq, so
@@ -1095,7 +1718,7 @@ extern "C" int vitrs_flash_bwd(int dtype, const void* q, const void* k, const vo
   const long long rows = (long long)batch * tq * num_heads;
   long long threads = rows * (dtype == 1 ? prep_lanes(8) : prep_lanes(4));
   int jobs = 1;
-  if (dtype == 1 && (rope || q_hat != nullptr)) {
+  if (dtype == 1 && (rope || q_hat != nullptr) && !kSmall) {
     jobs = rope ? 3 : 2;
     const long long q_threads = rows * (rope ? kHalf / 8 : kHeadDim / 8);
     if (q_threads > threads) threads = q_threads;
@@ -1111,10 +1734,10 @@ extern "C" int vitrs_flash_bwd(int dtype, const void* q, const void* k, const vo
   if (err != cudaSuccess) return static_cast<int>(err);
 
   if (dtype == 1) {
-    // 2-3. the main kernels read the rotated copies and q^
+    // 2-3. the main kernels read the rotated copies and q^ (D >= 32)
     Args m = a;
     m.qh = q_hat;
-    if (rope) {
+    if (rope && !kSmall) {
       const long long C = (long long)num_heads * kHeadDim, kvd = (long long)kv_heads * kHeadDim;
       m.q = q_rot;
       m.q_sb = tq * C;
@@ -1124,11 +1747,11 @@ extern "C" int vitrs_flash_bwd(int dtype, const void* q, const void* k, const vo
       m.k_st = kvd;
     }
     if (q_hat != nullptr)
-      err = rope ? launch_checked<true, true>(m, batch, kv_heads, s)
-                 : launch_checked<false, true>(m, batch, kv_heads, s);
+      err = rope ? launch_bf16<true, true>(m, batch, kv_heads, s)
+                 : launch_bf16<false, true>(m, batch, kv_heads, s);
     else
-      err = rope ? launch_checked<true, false>(m, batch, kv_heads, s)
-                 : launch_checked<false, false>(m, batch, kv_heads, s);
+      err = rope ? launch_bf16<true, false>(m, batch, kv_heads, s)
+                 : launch_bf16<false, false>(m, batch, kv_heads, s);
     return static_cast<int>(err);
   }
   // rope is a template argument, so the instances without it carry none of
@@ -1151,27 +1774,32 @@ extern "C" int vitrs_flash_bwd(int dtype, const void* q, const void* k, const vo
   return static_cast<int>(cudaGetLastError());
 }
 
-// the head dim this library was built for
+// the head dim this library was built for (16: every head dim up to 16)
 extern "C" int vitrs_flash_bwd_head_dim() { return kHeadDim; }
 
 namespace {
 
 // the kernel function of attrs' (kernel, rope, qhat), or nullptr where this
-// head dim has no such instance
+// head dim has no such instance (D <= 16 forms q^ whatever qhat says)
 template <bool kRope, bool kQhat>
 const void* kernel_fn(int kernel) {
   if constexpr ((kRope && !kRopeOk) || (kQhat && !kQhatOk)) {
     return nullptr;
   } else {
+#if VITRS_HEAD_DIM == 16
+    if (kernel == 1) return reinterpret_cast<const void*>(flash_bwd_dkv_small<kRope>);
+    return reinterpret_cast<const void*>(flash_bwd_dq_small<kRope>);
+#else
     if (kernel == 1) return reinterpret_cast<const void*>(dkv_kernel<kRope, kQhat>());
-    return reinterpret_cast<const void*>(flash_bwd_dq_wgmma<kRope, kQhat>);
+    return reinterpret_cast<const void*>(dq_kernel<kRope, kQhat>());
+#endif
   }
 }
 
 }  // namespace
 
 // Resources of one bf16 kernel as compiled: kernel 0 the pre-pass, 1 dK/dV
-// (two warpgroups at D >= 128), 2 dQ; out = {registers per thread,
+// (two warpgroups at D = 128 and 256), 2 dQ; out = {registers per thread,
 // local (spill) bytes per thread, static shared bytes, dynamic shared bytes
 // per block, threads per block}.
 extern "C" int vitrs_flash_bwd_attrs(int kernel, int rope, int qhat, int* out) {
@@ -1185,8 +1813,10 @@ extern "C" int vitrs_flash_bwd_attrs(int kernel, int rope, int qhat, int* out) {
     fn = rope ? (qhat ? kernel_fn<true, true>(kernel) : kernel_fn<true, false>(kernel))
               : (qhat ? kernel_fn<false, true>(kernel) : kernel_fn<false, false>(kernel));
     if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    dyn = kernel == 2 ? dq_smem() : (qhat ? dkv_smem<true>() : dkv_smem<false>());
-    threads = kernel == 1 ? 128 * kDkvGroups : 128;
+#if VITRS_HEAD_DIM != 16
+    dyn = kernel == 2 ? dq_smem_of() : (qhat ? dkv_smem_of<true>() : dkv_smem_of<false>());
+    threads = kernel == 1 ? kDkvThreads : 128;
+#endif
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -4,8 +4,10 @@
 // cp.async, and warpgroup products (wgmma m64nNk16, bf16 in, fp32
 // accumulate) reading swizzled tiles through shared-memory descriptors.  A
 // flash tile is 64 rows of one head of D bf16 columns (`HeadTile<D>`, D =
-// 32, 64, 128 or 256).  Each .cu file is built into its own library (the
-// flash sources once per head dim), so these are plain inline functions.
+// 32 or a multiple of 64; the flash kernels at D <= 16 use none of this,
+// their rows being too short for TMA).  Each .cu file is built into its own
+// library (the flash sources once per head dim), so these are plain inline
+// functions.
 
 #pragma once
 
@@ -37,7 +39,7 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // swizzled descriptors read (`HeadTile::desc`).
 template <int D>
 struct HeadTile {
-  static_assert(D == 32 || D == 64 || D == 128 || D == 256, "head dims 32, 64, 128, 256");
+  static_assert(D == 32 || (D % 64 == 0 && D <= 1024), "head dims 32 and multiples of 64");
   static constexpr int kAtomCols = D < 64 ? D : 64;
   static constexpr int kRowBytes = 2 * kAtomCols;      // 128 or 64
   static constexpr int kAtoms = D / kAtomCols;

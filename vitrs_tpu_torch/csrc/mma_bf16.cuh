@@ -81,6 +81,25 @@ __device__ __forceinline__ void rope_pair(float& x1, float& x2, float c, float s
   x2 = y2;
 }
 
+// Column c of a row of a head of 2 half columns, rotated: x points at the
+// row, cs and sn at the table row of its position; c pairs with c + half
+// (or c - half).  kScaled: cos and sin times `scale`, as `rope_row8`.  The
+// rotated value before its rounding to the storage type, the same bits as
+// the pair's rotation in `rope_row8` and the plain versions.
+template <bool kScaled, typename T>
+__device__ __forceinline__ float rope_elem(const T* x, int c, int half, const float* cs,
+                                           const float* sn, float scale = 1.f) {
+  const int p = c < half ? c : c - half;
+  float x1 = to_f(x[p]), x2 = to_f(x[p + half]);
+  float cc = cs[p], ss = sn[p];
+  if constexpr (kScaled) {
+    cc = __fmul_rn(cc, scale);
+    ss = __fmul_rn(ss, scale);
+  }
+  rope_pair(x1, x2, cc, ss);
+  return c < half ? x1 : x2;
+}
+
 // Eight pairs of one row of a bf16 head of 2 kHalf columns: x points at
 // column c of the row (c a multiple of 8 below kHalf), cs and sn at column c
 // of the table row of its position.  Columns c..c+7 and c+kHalf..c+kHalf+7

@@ -3,8 +3,8 @@
 
 The JAX package sends attention to its Pallas flash kernel on a TPU and to
 dense XLA elsewhere.  Here the flash path is every geometry the port's
-kernels take (`supports`: head dims 32, 64, 128 and 256, any kv_heads
-dividing num_heads): on a CUDA tensor the hand-written kernels
+kernels take (`supports`: every divisor of 128 and every multiple of 128
+up to 1024 as head dim, any kv_heads dividing num_heads): on a CUDA tensor the hand-written kernels
 (K1-fwd and K2 for MHA, ops/flash_attention.py; K3 for GQA,
 ops/flash_attention_gqa.py), on a CPU tensor their plain PyTorch versions.
 Other geometries, and `use_flash=False`, go to dense attention.  Both
@@ -33,21 +33,22 @@ from .rope import rope_qk
 
 def supports(num_heads: int, head_dim: int, kv_heads: int = 0,
              rope: bool = False) -> bool:
-    """The port's routing rule, its kernels' own: head_dim 32, 64, 128 or
-    256 (the D the kernels are built for), any head count, and kv_heads
-    (0: num_heads) dividing num_heads; under rope (rotated inside the
-    kernels) 32, 64 or 128.  That covers every geometry at those head dims
-    that the JAX package sends to a Pallas kernel: it pads a head count
-    its 128-lane blocks cannot tile with phantom heads
-    (`padded_num_heads`), so gpt2-1558m's 25 heads run on the kernels in
+    """The port's routing rule, its kernels' own: head_dim in HEAD_DIMS
+    (every divisor of 128 and every multiple of 128 up to 1024), any head
+    count, and kv_heads (0: num_heads) dividing num_heads; under rope
+    (rotated inside the kernels) the even head dims up to 128.  That
+    covers every geometry that the JAX package sends to a Pallas kernel up
+    to D = 1024: it pads a head count its 128-lane blocks cannot tile with
+    phantom heads (`padded_num_heads`), so gpt-nano's 2 heads of 8 (16
+    phantom heads) and gpt2-1558m's 25 heads of 64 run on the kernels in
     both (here unpadded: the grid has a block row per head).  The port's
     kernels also take the GQA geometries the JAX package sends to its
-    expanded MHA route, and D = 256 under GQA: the same function.  Rope at
-    D = 256 is dense in both (the JAX kernels assert on it, `_rope_table`;
-    the JAX package computes it densely on the CPU).  The packages part at
-    D <= 16 and D >= 384: the JAX kernel tiles them (gpt-nano's D = 8 with
-    16 phantom heads, `padded_num_heads(2, 8)`; D = 384 at 2 heads), the
-    port sends them to dense attention (ROADMAP.md Queue 2)."""
+    expanded MHA route, and D >= 256 under GQA: the same function.  Rope
+    at D >= 256 is dense in both (the JAX kernels assert on it,
+    `_rope_table`; the JAX package computes it densely on the CPU), and so
+    is rope at D = 1, which has no pair to rotate.  Past D = 1024, which
+    the JAX kernels tile, the port's fp32 forward would need 2048 threads
+    a block: dense (ROADMAP.md Queue 2)."""
     kv_heads = kv_heads or num_heads
     return (head_dim in (ROPE_HEAD_DIMS if rope else HEAD_DIMS)
             and kv_heads > 0 and num_heads % kv_heads == 0)

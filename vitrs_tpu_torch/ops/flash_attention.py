@@ -32,12 +32,17 @@ Pallas backwards (`_bwd_single` and `_bwd_parts`, running
   as a trailing `q_offset` (0 by default); under rope the kernels refuse a
   query offset past the keys' end (forward) or any rectangle but the
   square at offset 0 (backward).
-* Head dims: each CUDA source is built once per head dim D in `HEAD_DIMS`
-  (32, 64, 128, 256; `_build.load(name, D)`), and a call takes D from its
-  shapes (C // num_heads).  Rope runs in the kernels at D < 256 (the JAX
-  kernels assert on rope at D = 256, and the JAX package computes it
-  densely on the CPU; the port routes it densely, ops/attention.py).  The
-  bf16 backward at D = 256 takes a power-of-two sm_scale (the model's 1/16).
+* Head dims: `HEAD_DIMS`, every D the JAX kernels tile up to 1024 (the
+  divisors of 128 and the multiples of 128).  Each CUDA source is built
+  once per head dim (`_build.load(name, build_dim(D))`), except that one
+  build at D = 16 serves every D <= 16 (the kernels read the true D at run
+  time), and a call takes D from its shapes (C // num_heads).  Rope runs in
+  the kernels at the even D <= 128 (the JAX kernels assert on rope at
+  D >= 256, and the JAX package computes it densely on the CPU; the port
+  routes it densely, ops/attention.py).  The bf16 backward at D = 256 takes
+  a power-of-two sm_scale (the model's 1/16).  At D <= 16 the kernels read
+  their rows with plain loads, so any view whose last dim is contiguous
+  serves; from D = 32 the bf16 kernels read by TMA (`tma_mappable`).
 * `flash_attention_qkv` is differentiable: an autograd.Function saves
   (qkv, out, lse) as the JAX package's `_flash_packed_fwd` does, and its
   backward returns the packed dqkv.
@@ -60,9 +65,10 @@ import torch
 from . import _build
 from .rope import rope_table, rotate
 
-# the head dims the kernels are built for; a call takes D = C // num_heads
-HEAD_DIMS = (32, 64, 128, 256)
-ROPE_HEAD_DIMS = (32, 64, 128)    # the head dims whose kernels rotate
+# the head dims the kernels take; a call takes D = C // num_heads
+SMALL_BUILD = 16                  # the build that serves every D <= 16
+HEAD_DIMS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 384, 512, 640, 768, 896, 1024)
+ROPE_HEAD_DIMS = (2, 4, 8, 16, 32, 64, 128)    # the head dims whose kernels rotate
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -159,18 +165,27 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l = p.sum(dim=-1, keepdim=True)
     pv = torch.matmul(p.to(v.dtype).float(), _grouped(v, KH, 1))
     inv = torch.where(l > 0, 1.0 / l, torch.zeros_like(l))
-    out = (pv * inv).to(q.dtype).permute(0, 3, 1, 2, 4).reshape(B, Tq, C)
+    out = ((pv * inv).to(q.dtype).permute(0, 3, 1, 2, 4).reshape(B, Tq, C)
+           .contiguous())     # at D = 1 the reshape can be a strided view
     lse = torch.where(l > 0, ref + torch.log(l),
                       torch.full_like(l, -math.inf))[..., 0]
     return out, lse.reshape(B, num_heads, Tq)
 
 
+def build_dim(head_dim: int) -> int:
+    """The head dim of the library that serves head_dim: SMALL_BUILD for
+    every D <= 16, else D itself."""
+    return SMALL_BUILD if head_dim <= SMALL_BUILD else head_dim
+
+
 def _library(name: str, head_dim: int) -> ctypes.CDLL:
-    """csrc/<name>.cu built for head_dim, checked to be that build."""
-    lib = _build.load(name, head_dim).lib
+    """csrc/<name>.cu built for build_dim(head_dim), checked to be that
+    build."""
+    want = build_dim(head_dim)
+    lib = _build.load(name, want).lib
     built = getattr(lib, f"vitrs_{name}_head_dim")()
-    if built != head_dim:
-        raise RuntimeError(f"{name}: the library for head_dim {head_dim} "
+    if built != want:
+        raise RuntimeError(f"{name}: the library for head_dim {want} "
                            f"was built for {built}")
     return lib
 
@@ -179,7 +194,7 @@ def _library(name: str, head_dim: int) -> ctypes.CDLL:
 def _kernel(head_dim: int):
     fn = _library("flash_fwd", head_dim).vitrs_flash_fwd
     P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fn.argtypes = ([I] + [P] * 6 + [LL] * 8 + [I] * 8
+    fn.argtypes = ([I] + [P] * 6 + [LL] * 8 + [I] * 9
                    + [ctypes.c_float, P, P, P])
     fn.restype = I
     return fn
@@ -199,11 +214,13 @@ def tma_mappable(t: torch.Tensor) -> bool:
             and t.stride(1) * es % 16 == 0 and t.stride(0) * es % 16 == 0)
 
 
-def _check_layout(what: str, ts, ref: torch.Tensor):
+def _check_layout(what: str, ts, ref: torch.Tensor, num_heads: int):
     """The kernels' layout rules for every tensor they read or write: on
     ref's CUDA device, in its dtype (float32 or bfloat16), (B, T, W) views
-    that `tma_mappable` takes.  Raises before any launch: there is no
-    fallback for a view the kernels cannot read."""
+    that `tma_mappable` takes (at head dims <= 16, whose kernels read rows
+    with plain loads, any view with a contiguous last dim).  Raises before
+    any launch: there is no fallback for a view the kernels cannot read."""
+    small = num_heads > 0 and ref.shape[-1] // num_heads <= SMALL_BUILD
     for t in ts:
         if t.device.type != "cuda" or t.device != ref.device:
             raise ValueError(f"{what}: tensors must be on one CUDA device")
@@ -213,7 +230,7 @@ def _check_layout(what: str, ts, ref: torch.Tensor):
         if t.dim() != 3 or t.shape[0] != ref.shape[0]:
             raise ValueError(f"{what}: (B, T, W) tensors of one batch, got "
                              f"{[tuple(x.shape) for x in ts]}")
-        if not tma_mappable(t):
+        if not (t.stride(2) == 1 if small else tma_mappable(t)):
             raise ValueError(f"{what}: a view TMA cannot map (base "
                              f"address {t.data_ptr() % 16} mod 16, strides "
                              f"{t.stride()} of {t.element_size()} bytes)")
@@ -223,7 +240,8 @@ def _check_heads(what: str, q, k, num_heads: int, kv_heads: int,
                  rope: bool) -> int:
     """The head dim D = C // num_heads of a call, checked: one of
     HEAD_DIMS (ROPE_HEAD_DIMS under rope), k/v at kv_heads (dividing
-    num_heads) x D."""
+    num_heads) x D.  A D the kernels do not take raises: there is no
+    fallback to dense attention here."""
     D = q.shape[2] // num_heads if num_heads > 0 else 0
     if num_heads <= 0 or q.shape[2] != num_heads * D or D not in HEAD_DIMS:
         raise ValueError(f"{what} takes head dims {HEAD_DIMS}, got C="
@@ -258,7 +276,7 @@ def launch_fwd(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     under rope: a pre-pass writes k rotated into (B, seq_len, kv_dim)
     scratch allocated here.  Raises on anything the kernel does not take,
     and if the launch is refused."""
-    _check_layout(what, (q, k, v), q)
+    _check_layout(what, (q, k, v), q, num_heads)
     D = _check_heads(what, q, k, num_heads, kv_heads, rope)
     _check_window(causal, window)
     B, Tq, C = q.shape
@@ -278,9 +296,11 @@ def launch_fwd(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((B, Tq, C), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, num_heads, Tq), dtype=torch.float32,
                       device=q.device)
+    # the bf16 pre-pass's rotated k (D <= 16 rotates k as it stages it)
     k_rot = (torch.empty((B, seq_len, k.shape[2]), dtype=q.dtype,
                          device=q.device)
-             if rope and q.dtype == torch.bfloat16 else None)
+             if rope and q.dtype == torch.bfloat16 and D > SMALL_BUILD
+             else None)
     cos, sin = _table_ptrs(rope, max(seq_len, q_offset + Tq), D, q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -290,7 +310,7 @@ def launch_fwd(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             None if k_rot is None else k_rot.data_ptr(),
             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-            B, num_heads, kv_heads, Tq, seq_len, q_offset, int(causal),
+            B, num_heads, kv_heads, D, Tq, seq_len, q_offset, int(causal),
             int(window), float(sm_scale), cos, sin, stream)
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
@@ -429,7 +449,7 @@ def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             cos, sin = table_for(pos0 + n, t.shape[2] // heads, q.device)
             t = rotate(t, cos[pos0:pos0 + n], sin[pos0:pos0 + n], heads,
                        inverse=True)
-        return t.to(dtype)
+        return t.to(dtype).contiguous()
 
     dk, dv = packed(dk, KH, 0), packed(dv, 0, 0)
     if Tk < keys:           # keys past the causal frontier: no gradient
@@ -442,7 +462,7 @@ def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _bwd_kernel(head_dim: int):
     fn = _library("flash_bwd", head_dim).vitrs_flash_bwd
     P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fn.argtypes = ([I] + [P] * 13 + [LL] * 14 + [I] * 8
+    fn.argtypes = ([I] + [P] * 13 + [LL] * 14 + [I] * 9
                    + [ctypes.c_float, P, P, P])
     fn.restype = I
     return fn
@@ -462,7 +482,7 @@ def launch_bwd(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the kernel does not take (under rope: any block but the square at
     offset 0; at D = 256 in bf16, a sm_scale that is not a power of two),
     and if a launch is refused."""
-    _check_layout(what, (q, k, v, out, do), q)
+    _check_layout(what, (q, k, v, out, do), q, num_heads)
     D = _check_heads(what, q, k, num_heads, kv_heads, rope)
     _check_window(causal, window)
     B, Tq, C = q.shape
@@ -489,8 +509,9 @@ def launch_bwd(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               for _ in range(2))
     di = torch.empty((B, num_heads, Tq), dtype=torch.float32, device=q.device)
     # the bf16 pre-pass's scratch: q and k rotated under rope, q^ when
-    # sm_scale is not a power of two (fp32 takes none)
-    bf16 = q.dtype == torch.bfloat16
+    # sm_scale is not a power of two (fp32, and D <= 16, whose kernels
+    # rotate and scale as they stage, take none)
+    bf16 = q.dtype == torch.bfloat16 and D > SMALL_BUILD
     q_rot, k_rot, q_hat = (
         torch.empty((B, n, w), dtype=q.dtype, device=q.device) if need
         else None
@@ -510,7 +531,7 @@ def launch_bwd(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             v.stride(0), v.stride(1), out.stride(0), out.stride(1),
             do.stride(0), do.stride(1), dq.stride(0), dq.stride(1),
             dk.stride(0), dk.stride(1),
-            B, num_heads, kv_heads, Tq, Tk, q_offset, int(causal),
+            B, num_heads, kv_heads, D, Tq, Tk, q_offset, int(causal),
             int(window), float(sm_scale), cos, sin, stream)
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")

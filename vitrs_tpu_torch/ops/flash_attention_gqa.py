@@ -19,8 +19,8 @@ to 128 lanes (`pad_gqa_weight`, `kvd_padded`), the split-cell grid
 (`_q_split`), the 128-lane kv blocks of `_geom`, the VMEM budgets, and
 `supports_gqa`, the rule that sends the geometries those blocks cannot
 tile to the JAX package's expanded-weight MHA route.  The port's kernels
-take any kv_heads dividing num_heads at head dims 32, 64, 128 and 256, MQA
-included.
+take any kv_heads dividing num_heads at every head dim of
+`flash_attention.HEAD_DIMS`, MQA included.
 
 * The kernels are the custom ops `vitrs::flash_gqa_fwd` and
   `vitrs::flash_gqa_bwd` (`_build.kernel_op`).  A CUDA tensor goes to the

@@ -8,8 +8,8 @@ with the causal frontier of query i at q_offset+i.  The Pallas kernel is
 the online-softmax tile kernel instantiated with separate q and k/v of
 different lengths and a static q_off; here it is the same CUDA kernel as
 K1-fwd and K3-fwd (`csrc/flash_fwd.cu`), launched with tq = S, q_off and
-kv_heads, reading the cache at kv width (MHA is kv_heads == num_heads), at head dims
-32, 64, 128 and 256.
+kv_heads, reading the cache at kv width (MHA is kv_heads == num_heads), at every
+head dim the kernels take (`flash_attention.HEAD_DIMS`).
 Its kv loop stops at each block's causal frontier, so cache slots at or
 beyond q_offset+S are never read and may hold anything.
 
@@ -48,12 +48,12 @@ PREFILL_BLOCK = 256
 
 def supports_prefill(num_heads: int, kv_heads: int, head_dim: int) -> bool:
     """Whether K4 takes the geometry: the rule K1-fwd and K3 follow
-    (`attention.supports`: head_dim 32, 64, 128 or 256, any head count,
-    kv_heads dividing num_heads; the chunk arrives rotated, so rope does
-    not enter).  That takes every geometry the JAX kernel takes at those
-    head dims (D | 128 with kv blocks that fill 128 lanes), and more: MQA
-    at head_dim 64 and D = 256, which the JAX package serves with dense
-    cache attention (here K4: the same function)."""
+    (`attention.supports`: the head dims of `flash_attention.HEAD_DIMS`,
+    any head count, kv_heads dividing num_heads; the chunk arrives
+    rotated, so rope does not enter).  That takes every geometry the JAX
+    kernel takes (D | 128 with kv blocks that fill 128 lanes), and more:
+    MQA at head_dim 64, and D >= 256, which the JAX package serves with
+    dense cache attention (here K4: the same function)."""
     return supports(num_heads, head_dim, kv_heads)
 
 

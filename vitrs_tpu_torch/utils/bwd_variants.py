@@ -74,9 +74,10 @@ VARIANTS = {
         ("    if (it < n_it && tid == 0) {", "    if (it < n_it && threadIdx.x == 0) {"),
         ("return 1024 + (2 + 2 * kStagesQ) * kTile",
          "return 1024 + (2 * 3 + 2 * kStagesQ) * kTile"),
-        ("  dq<<<dim3(batch * a.num_heads, tiles), 128, dq_smem(), s>>>(maps, a);",
+        ("  dq<<<dim3(batch * a.num_heads, tiles, slices), 128, dq_smem_of(), s>>>(maps, a);",
          """  const int heads = a.group % 3 == 0 ? 3 : a.group % 2 == 0 ? 2 : 1;
-  dq<<<dim3(batch * a.num_heads / heads, tiles), 128 * heads, dq_smem(), s>>>(maps, a);"""),
+  dq<<<dim3(batch * a.num_heads / heads, tiles, slices), 128 * heads, dq_smem_of(),
+       s>>>(maps, a);"""),
     ],
     "dq-3-stages": [("constexpr int kStagesQ = 2;", "constexpr int kStagesQ = 3;")],
     "dkv-2-stages": [("constexpr int kStagesKV = kHeadDim == 256 ? 2 : 3;",
@@ -137,7 +138,7 @@ def _build_variant(name: str):
         return name, None, log[-2000:]
     fn = ctypes.CDLL(os.path.abspath(lib)).vitrs_flash_bwd
     P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fn.argtypes = [I] + [P] * 13 + [LL] * 14 + [I] * 8 + [ctypes.c_float, P, P, P]
+    fn.argtypes = [I] + [P] * 13 + [LL] * 14 + [I] * 9 + [ctypes.c_float, P, P, P]
     fn.restype = I
     regs = [line.split("Used ")[1].split(",")[0] for line in log.splitlines()
             if "Used" in line and "registers" in line]

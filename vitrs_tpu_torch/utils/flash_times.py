@@ -1,9 +1,11 @@
 """Device ms of the flash kernels on the square training path: K1-fwd / K2
 and K3-fwd / K3-bwd (4 kv heads) at B=8 T=1024 causal, and both with rope
-and the band (W=1024) at B=2 T=8192, each the profiler's kernel time of one
-call (utils/profiling.op_breakdown), from captures that caught every
-kernel of their calls.  Prints the card's name and power limit, then one
-JSON line {shape: {"fwd": [ms, ...], "bwd": [ms, ...]}}.
+and the band (W=1024) at B=2 T=8192, all at head dim 64; then K1-fwd / K2 at
+B=8 T=1024 causal at head dims 32, 128 and 256 (GPT-2 124M's width: 24, 6
+and 3 heads).  Each is the profiler's kernel time of one call
+(utils/profiling.op_breakdown), from captures that caught every kernel of
+their calls.  Prints the card's name and power limit, then one JSON line
+{shape: {"fwd": [ms, ...], "bwd": [ms, ...]}}.
 
     python vitrs_tpu_torch/utils/flash_times.py [ROOT]
 
@@ -26,6 +28,9 @@ SHAPES = (("K1-fwd/K2 B=8 T=1024", 8, 1024, NH, 0, False),
           ("K3 KH=4 B=8 T=1024", 8, 1024, 4, 0, False),
           ("K1-fwd/K2 rope W=1024 B=2 T=8192", 2, 8192, NH, 1024, True),
           ("K3 KH=4 rope W=1024 B=2 T=8192", 2, 8192, 4, 1024, True))
+# (name, head dim): the other head dims' square rows, MHA at C = 768
+HEAD_DIM_SHAPES = (("K1-fwd/K2 D=32 B=8 T=1024", 32), ("K1-fwd/K2 D=128 B=8 T=1024", 128),
+                   ("K1-fwd/K2 D=256 B=8 T=1024", 256))
 CAPTURES, ITERS = 3, 20
 
 
@@ -82,6 +87,16 @@ def main(argv=None):
         out, lse = fwd()
         res[name] = {"fwd": _device_ms(fwd, 2 if rope else 1),
                      "bwd": _device_ms(bwd, 3)}
+        del q, do, k, v, out, lse
+    for name, d in HEAD_DIM_SHAPES:
+        nh, sm = C // d, d ** -0.5
+        q, do, k, v = (torch.randn(8, 1024, C, generator=gen, device="cuda")
+                       .bfloat16() for _ in range(4))
+        out, lse = FA.flash_fwd_cuda(q, k, v, nh, True, sm)
+        res[name] = {
+            "fwd": _device_ms(lambda: FA.flash_fwd_cuda(q, k, v, nh, True, sm), 1),
+            "bwd": _device_ms(lambda: FA.flash_bwd_cuda(q, k, v, out, lse, do, nh,
+                                                        True, sm), 3)}
         del q, do, k, v, out, lse
     print(json.dumps(res))
 

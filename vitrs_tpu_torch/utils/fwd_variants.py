@@ -67,38 +67,16 @@ VARIANTS = {
     # the K/V traffic per q row), each skipping the tiles outside its own
     # rows' range; 3-deep ring, 66 KB, two blocks an SM
     "2-warpgroups": [
-        ("""constexpr int kStages = 2;      // depth of the K/V ring
-constexpr int kTile = Tile::kBytes;  // bytes of one bf16 tile in smem (64 rows of D)
-// blocks an SM the registers are budgeted for: the O accumulator is D / 2
-// floats a thread, and the shared memory below allows 2 blocks at D = 128
-constexpr int kMinBlocks = kHeadDim <= 64 ? 5 : (kHeadDim == 128 ? 2 : 1);
-constexpr int kRopeLanes = kHalf / 8;   // threads a row of the rope pre-pass
-
-// Dynamic shared memory: per stage a K tile and a V tile, then the Q tile,
-// then one mbarrier per stage; 1 KB of slack for the 1024-byte alignment of
-// the swizzle.
-__host__ __device__ constexpr int fwd_smem() {
-  return 1024 + (2 * kStages + 1) * kTile + kStages * 8;
-}""",
-         """constexpr int kStages = 3;      // depth of the K/V ring
-constexpr int kWarpgroups = 2;  // per block, each kBlockM q rows sharing every K/V tile
-constexpr int kTile = Tile::kBytes;  // bytes of one bf16 tile in smem (64 rows of D)
-// blocks an SM the registers are budgeted for: the O accumulator is D / 2
-// floats a thread, and the shared memory below allows 2 blocks at D = 128
-constexpr int kMinBlocks = kHeadDim <= 64 ? 5 : (kHeadDim == 128 ? 2 : 1);
-constexpr int kRopeLanes = kHalf / 8;   // threads a row of the rope pre-pass
-
-// Dynamic shared memory: per stage a K tile and a V tile, then a Q tile per
-// warpgroup, then one mbarrier per stage; 1 KB of slack for the 1024-byte
-// alignment of the swizzle.
-__host__ __device__ constexpr int fwd_smem() {
-  return 1024 + (2 * kStages + kWarpgroups) * kTile + kStages * 8;
-}"""),
+        ("constexpr int kStages = 2;      // depth of the K/V ring",
+         "constexpr int kStages = 3;      // depth of the K/V ring\n"
+         "constexpr int kWarpgroups = 2;  // per block, each kBlockM q rows sharing every K/V tile"),
+        ("  return 1024 + kStages * kStageBytes + kTile + kStages * 8;",
+         "  return 1024 + kStages * kStageBytes + kWarpgroups * kTile + kStages * 8;"),
         ("""__global__ void __launch_bounds__(128, kMinBlocks)
     flash_fwd_wgmma(const __grid_constant__ Maps maps, Args a) {
   extern __shared__ uint8_t smem[];
   const uint32_t base = aligned_base(smem);   // stage st: K at + 2 st kTile, V after it
-  const uint32_t sq = base + 2 * kStages * kTile;
+  const uint32_t sq = base + kStages * kStageBytes;
   const uint32_t bars = sq + kTile;
   uint8_t* const q_tile = smem + (sq - smem_u32(smem));
   const int b = blockIdx.x / a.num_heads, h = blockIdx.x % a.num_heads;
@@ -108,7 +86,6 @@ __host__ __device__ constexpr int fwd_smem() {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int r0 = m0 + warp * 16 + g;  // this thread's rows: r0 and r0 + 8
-  const int r1 = r0 + 8;
 
   const int kv_start = kv_start_of<kBand>(a, m0, kBlockN);
   const int n_it = (kv_end_of(a, m0) - kv_start + kBlockN - 1) / kBlockN;
@@ -120,8 +97,8 @@ __host__ __device__ constexpr int fwd_smem() {
   const int tid = threadIdx.x, wg = tid >> 7;
   const int warp = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const uint32_t sq = base + (2 * kStages + wg) * kTile;   // this warpgroup's Q tile
-  const uint32_t bars = base + (2 * kStages + kWarpgroups) * kTile;
+  const uint32_t sq = base + kStages * kStageBytes + wg * kTile;   // this warpgroup's Q tile
+  const uint32_t bars = base + kStages * kStageBytes + kWarpgroups * kTile;
   uint8_t* const q_tile = smem + (sq - smem_u32(smem));
   const int b = blockIdx.x / a.num_heads, h = blockIdx.x % a.num_heads;
   const int hk = h / a.group;   // this query head's kv head
@@ -129,7 +106,6 @@ __host__ __device__ constexpr int fwd_smem() {
   const int mb = (a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kBlockM * kWarpgroups;
   const int m0 = mb + wg * kBlockM;   // this warpgroup's q tile
   const int r0 = m0 + warp * 16 + g;  // this thread's rows: r0 and r0 + 8
-  const int r1 = r0 + 8;
 
   // the block's kv tiles: from the first warpgroup's band start to the
   // causal frontier of the last one holding q rows; each warpgroup skips
@@ -140,23 +116,16 @@ __host__ __device__ constexpr int fwd_smem() {
   const int my_start = kv_start_of<kBand>(a, m0, kBlockN);
   const int my_end = m0 < a.tq ? kv_end_of(a, m0) : 0;
 """),
-        ("""  // Q, pre-scaled (under rope: rotated at its positions with sm_scale folded
-  // into cos and sin) and rounded to bf16, into the swizzled Q tile that
-  // S = Q.K^T reads.  Two threads a row, each D / 32 pairs of 16-byte chunks
-  // (columns c..c+7 with c+D/2..c+D/2+7, the pairs rope rotates), so the
-  // loads are coalesced.  (Q as wgmma's register A operand instead read wrong
-  // values from the second kv tile on: PERF.md.)
-  {
-    const int r = tid >> 1, row = m0 + r;""",
-         """  // Q, pre-scaled (under rope: rotated at its positions with sm_scale folded
-  // into cos and sin) and rounded to bf16, into the warpgroup's swizzled Q
-  // tile that S = Q.K^T reads.  Two threads a row, each D / 32 pairs of
-  // 16-byte chunks (columns c..c+7 with c+D/2..c+D/2+7, the pairs rope
-  // rotates), so the loads are coalesced.  (Q as wgmma's register A operand instead read
-  // wrong values from the second kv tile on: PERF.md.)
-  {
-    const int r = (tid & 127) >> 1, row = m0 + r;"""),
-        ("""    const uint32_t sk = base + 2 * st * kTile, sv = sk + kTile;
+        # the Q tile and out of a warpgroup: its own 64 rows
+        ("  const int tid = threadIdx.x, r = tid >> 1, row = m0 + r;",
+         "  const int tid = threadIdx.x, r = (tid & 127) >> 1, row = m0 + r;"),
+        ("  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;\n"
+         "  const int g = lane >> 2, t = lane & 3;\n  float inv[2];\n  finish_rows",
+         "  const int tid = threadIdx.x, warp = (tid >> 5) & 3, lane = tid & 31;\n"
+         "  const int g = lane >> 2, t = lane & 3;\n  float inv[2];\n  finish_rows"),
+        ("  const int r = tid >> 1, row = m0 + r;\n  if (row < a.tq) {",
+         "  const int r = (tid & 127) >> 1, row = m0 + r;\n  if (row < a.tq) {"),
+        ("""    const uint32_t sk = base + st * kStageBytes, sv = sk + kTile;
     mbar_wait(bars + 8 * st, (it / kStages) & 1);
 
     // S = Q K^T for 64 rows x 64 keys
@@ -169,7 +138,7 @@ __host__ __device__ constexpr int fwd_smem() {
     __syncthreads();
     if (it > 0) issue(it + kStages - 1);
     wg_wait<0>();""",
-         """    const uint32_t sk = base + 2 * st * kTile, sv = sk + kTile;
+         """    const uint32_t sk = base + st * kStageBytes, sv = sk + kTile;
     const bool mine = n0 >= my_start && n0 < my_end;   // uniform in the warpgroup
     mbar_wait(bars + 8 * st, (it / kStages) & 1);
 
@@ -186,16 +155,11 @@ __host__ __device__ constexpr int fwd_smem() {
     if (it > 0) issue(it + kStages - 1);
     if (!mine) continue;
     wg_wait<0>();"""),
-        ("""  {
-    const int r = tid >> 1, row = m0 + r;
-    if (row < a.tq) {""",
-         """  {
-    const int r = (tid & 127) >> 1, row = m0 + r;
-    if (row < a.tq) {"""),
         ("""  const unsigned tiles = (a.tq + kBlockM - 1) / kBlockM;
-  kernel<<<dim3(batch * a.num_heads, tiles), 128, fwd_smem(), s>>>(maps, a);""",
+  kernel<<<dim3(batch * a.num_heads, tiles, kHeadDim / kSlice), 128, fwd_smem(), s>>>(maps, a);""",
          """  const unsigned blocks = (a.tq + kBlockM * kWarpgroups - 1) / (kBlockM * kWarpgroups);
-  kernel<<<dim3(batch * a.num_heads, blocks), 128 * kWarpgroups, fwd_smem(), s>>>(maps, a);"""),
+  kernel<<<dim3(batch * a.num_heads, blocks, kHeadDim / kSlice), 128 * kWarpgroups, fwd_smem(),
+           s>>>(maps, a);"""),
     ],
     # q tiles in launch order (lightest first under the causal mask)
     "light-first": [("(a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kBlockM",
@@ -204,7 +168,9 @@ __host__ __device__ constexpr int fwd_smem() {
     # wgmma) instead of the pre-pass's rotated copy in device memory
     "rope-in-smem": [
         ("  if (kRope) {\n    const long long threads", "  if (false) {\n    const long long threads"),
-        ("    mbar_wait(bars + 8 * st, (it / kStages) & 1);\n",
+        ("    const uint32_t sk = base + st * kStageBytes, sv = sk + kTile;\n"
+         "    mbar_wait(bars + 8 * st, (it / kStages) & 1);\n",
+         "    const uint32_t sk = base + st * kStageBytes, sv = sk + kTile;\n"
          "    mbar_wait(bars + 8 * st, (it / kStages) & 1);\n"
          + ROT.replace("KS", "sk").replace("KN0", "n0"))],
     # ablations
@@ -212,7 +178,7 @@ __host__ __device__ constexpr int fwd_smem() {
                ("ex2(fmaf(s[nt][1], kLog2e, nl_a))", "fmaf(s[nt][1], kLog2e, nl_a)"),
                ("ex2(fmaf(s[nt][2], kLog2e, nl_b))", "fmaf(s[nt][2], kLog2e, nl_b)"),
                ("ex2(fmaf(s[nt][3], kLog2e, nl_b))", "fmaf(s[nt][3], kLog2e, nl_b)")],
-    "no-pv": [("    product_cols<kHeadDim>(o, pa, sv);\n", "")],
+    "no-pv": [("    product_cols<kSlice>(o, pa, sv);\n", "")],
     "no-s": [("    product_rows<kHeadDim>(s, sq, sk);\n", "    zero(s);\n")],
 }
 
@@ -237,7 +203,7 @@ def _build_variant(name: str):
         return name, None, log[-2000:]
     fn = ctypes.CDLL(os.path.abspath(lib)).vitrs_flash_fwd
     P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fn.argtypes = [I] + [P] * 6 + [LL] * 8 + [I] * 8 + [ctypes.c_float, P, P, P]
+    fn.argtypes = [I] + [P] * 6 + [LL] * 8 + [I] * 9 + [ctypes.c_float, P, P, P]
     fn.restype = I
     regs = [line.split("Used ")[1].split(",")[0] for line in log.splitlines()
             if "Used" in line and "registers" in line]
