@@ -68,6 +68,7 @@ from ..ops.attention import (expand_qkv_weight, rope_packed,
                              supports as flash_supports)
 from ..ops.fused_qkv_attention import qkv_attention
 from ..ops.moe import moe_mlp
+from ..utils import trace
 
 BLOCK_KEYS = ("ln1w", "ln1b", "qkvw", "qkvb", "attprojw", "attprojb",
               "ln2w", "ln2b", "fcw", "fcb", "fcprojw", "fcprojb")
@@ -475,21 +476,22 @@ def vit_forward(params: Mapping[str, torch.Tensor], images: torch.Tensor,
     from it (`draw_masks`); otherwise neither runs, as in the JAX function
     without an rng.  params from `prepare_params` or `train_params`.
     return_aux: (logits, the mean weighted MoE router loss)."""
-    x = vit_encode(images, params, cfg)
-    masks = (draw_masks(cfg, x.shape[0], generator, x.device)
-             if train and generator is not None else {})
-    x = transformer(x, params, cfg, causal=False,
-                    keep=masks.get("drop_path"), return_aux=return_aux)
-    aux = None
-    if return_aux:
-        x, aux = x
-    lnf = basic.layernorm_cv(x, params["lnfw"], params["lnfb"])
-    pooled = lnf[:, 0] if cfg.pool == "cls" else lnf.mean(dim=1)
-    if "head" in masks:
-        pooled = torch.where(masks["head"], pooled / (1.0 - cfg.drop_rate),
-                             0.0)
-    logits = basic.linear(pooled, params["headw"].to(pooled.dtype),
-                          params["headb"].to(pooled.dtype)).float()
+    with trace.span("model.vit_forward"):
+        x = vit_encode(images, params, cfg)
+        masks = (draw_masks(cfg, x.shape[0], generator, x.device)
+                 if train and generator is not None else {})
+        x = transformer(x, params, cfg, causal=False,
+                        keep=masks.get("drop_path"), return_aux=return_aux)
+        aux = None
+        if return_aux:
+            x, aux = x
+        lnf = basic.layernorm_cv(x, params["lnfw"], params["lnfb"])
+        pooled = lnf[:, 0] if cfg.pool == "cls" else lnf.mean(dim=1)
+        if "head" in masks:
+            pooled = torch.where(masks["head"],
+                                 pooled / (1.0 - cfg.drop_rate), 0.0)
+        logits = basic.linear(pooled, params["headw"].to(pooled.dtype),
+                              params["headb"].to(pooled.dtype)).float()
     return (logits, aux) if return_aux else logits
 
 

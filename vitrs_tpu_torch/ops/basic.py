@@ -25,6 +25,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils import trace
+
 LN_EPS = 1e-5
 GELU_COEF = 0.044715
 INV_SQRT2 = 0.7071067811865476
@@ -65,13 +67,15 @@ def layernorm_bwd_from_stats(x: torch.Tensor, w: torch.Tensor,
 class _LayerNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, b):
-        out, mean, rstd = layernorm(x, w, b)
+        with trace.span("op.layernorm"):
+            out, mean, rstd = layernorm(x, w, b)
         ctx.save_for_backward(x, w, mean, rstd)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        return layernorm_bwd_from_stats(*ctx.saved_tensors, dout)
+        with trace.span("op.layernorm"):
+            return layernorm_bwd_from_stats(*ctx.saved_tensors, dout)
 
 
 def layernorm_cv(x: torch.Tensor, w: torch.Tensor,
@@ -115,13 +119,16 @@ class _Gelu(torch.autograd.Function):
     def forward(ctx, x, erf):
         ctx.save_for_backward(x)
         ctx.erf = erf
-        return gelu_erf(x) if erf else gelu(x)
+        with trace.span("op.gelu"):
+            return gelu_erf(x) if erf else gelu(x)
 
     @staticmethod
     def backward(ctx, dout):
         (x,) = ctx.saved_tensors
-        local = (gelu_erf_grad_local if ctx.erf else gelu_grad_local)(x.float())
-        return (local * dout.float()).to(x.dtype), None
+        with trace.span("op.gelu"):
+            local = (gelu_erf_grad_local if ctx.erf
+                     else gelu_grad_local)(x.float())
+            return (local * dout.float()).to(x.dtype), None
 
 
 def gelu_cv(x: torch.Tensor) -> torch.Tensor:

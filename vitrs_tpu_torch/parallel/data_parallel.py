@@ -62,6 +62,7 @@ from ..models import model as M
 from ..ops import basic
 from ..ops import optimizer as opt
 from ..ops._build import to_device
+from ..utils import trace
 
 _ONE_DEVICE = ("a Mesh drives one device in each process: more ranks come "
                 "from torch.distributed, one process a rank "
@@ -185,10 +186,12 @@ def replicate(tree, mesh: Mesh):
 def normalize_images(x: torch.Tensor, mean, std) -> torch.Tensor:
     """uint8 (B, H, W, C) -> (x/255 - mean) * (1/std) in fp32, the JAX
     step's formula (1/std taken in fp32 on the host)."""
-    mean_t = torch.as_tensor(np.asarray(mean, np.float32), device=x.device)
-    inv_t = torch.as_tensor(1.0 / np.asarray(std, np.float32),
-                            device=x.device)
-    return (x.float() * (1.0 / 255.0) - mean_t) * inv_t
+    with trace.span("data.normalize"):
+        mean_t = torch.as_tensor(np.asarray(mean, np.float32),
+                                 device=x.device)
+        inv_t = torch.as_tensor(1.0 / np.asarray(std, np.float32),
+                                device=x.device)
+        return (x.float() * (1.0 / 255.0) - mean_t) * inv_t
 
 
 def mixup_draw(alpha: float, step: int, batch: int,
@@ -309,23 +312,33 @@ def make_dp_train_step(cfg: ViTConfig, mesh: Mesh, accum_steps: int = 1,
     grad_buf = {}
 
     def step_fn(params, m, v, inputs, targets, step, lr, wd):
-        flat_p, flat_g = _grads_into_arena(params, cfg, grad_buf,
-                                           "make_dp_train_step")
-        x, y = _batch_on(inputs, targets, device, cfg, normalize)
+        with trace.span("train.step"):
+            return _step(params, m, v, inputs, targets, step, lr, wd)
+
+    def _step(params, m, v, inputs, targets, step, lr, wd):
+        with trace.span("train.batch"):
+            flat_p, flat_g = _grads_into_arena(params, cfg, grad_buf,
+                                               "make_dp_train_step")
+            x, y = _batch_on(inputs, targets, device, cfg, normalize)
         micro = x.shape[0] // accum_steps
         loss = torch.zeros((), device=device)
         for i in range(accum_steps):
             rows = slice(i * micro, (i + 1) * micro)
-            if use_mixup:
-                lam, perm = mixup_draw(mixup_alpha, step, x.shape[0], rank)
-                li = mixup_loss(params, x, y, lam, to_device(perm, device),
-                                cfg)
-            else:
-                gen = (step_generator(step, i if accum_steps > 1 else None,
-                                      rank)
-                       if needs_gen else None)
-                li = M.loss_fn(params, x[rows], y[rows], cfg, generator=gen)
-            li.backward()
+            with trace.span("train.forward"):
+                if use_mixup:
+                    lam, perm = mixup_draw(mixup_alpha, step, x.shape[0],
+                                           rank)
+                    li = mixup_loss(params, x, y, lam,
+                                    to_device(perm, device), cfg)
+                else:
+                    gen = (step_generator(step,
+                                          i if accum_steps > 1 else None,
+                                          rank)
+                           if needs_gen else None)
+                    li = M.loss_fn(params, x[rows], y[rows], cfg,
+                                   generator=gen)
+            with trace.span("train.backward"):
+                li.backward()
             loss += li.detach()
         if accum_steps > 1:
             loss /= accum_steps
@@ -342,30 +355,33 @@ def make_dp_train_step(cfg: ViTConfig, mesh: Mesh, accum_steps: int = 1,
             g_shard = flat_g
         gnorm = None
         if clip_norm > 0.0 or return_grad_norm:
-            # the JAX form (norm² summed over the shards);
-            # torch.linalg.vector_norm's fp32 CPU reduction loses ~1e-4
-            # relative over millions of values
-            sq = g_shard.square().sum()
-            gnorm = (C.all_reduce(sq, group) if N > 1 else sq).sqrt()
-        if clip_norm > 0.0:
-            g_shard.mul_(torch.clamp(clip_norm / (gnorm + 1e-6), max=1.0))
+            with trace.span("train.clip"):
+                # the JAX form (norm² summed over the shards);
+                # torch.linalg.vector_norm's fp32 CPU reduction loses ~1e-4
+                # relative over millions of values
+                sq = g_shard.square().sum()
+                gnorm = (C.all_reduce(sq, group) if N > 1 else sq).sqrt()
+                if clip_norm > 0.0:
+                    g_shard.mul_(torch.clamp(clip_norm / (gnorm + 1e-6),
+                                             max=1.0))
         lr, wd = float(lr), float(wd)
         k = hi - lo
         p_shard, g_own, m_own, v_own = (flat_p[lo:hi], g_shard[:k], m[:k],
                                         v[:k])
-        if decay_2d_only:
-            # AdamW without decay, then the masked decoupled term from the
-            # pre-update shard: exact, since AdamW's decay term reads the
-            # old p too
-            p_old = p_shard.clone()
-            opt.adamw_step(p_shard, g_own, m_own, v_own, step, lr,
-                           weight_decay=0.0)
-            with torch.no_grad():
-                p_shard.sub_(_decay_mask_flat(cfg, n_pad, device)[lo:hi]
-                             * p_old * (lr * wd))
-        else:
-            opt.adamw_step(p_shard, g_own, m_own, v_own, step, lr,
-                           weight_decay=wd)
+        with trace.span("train.optimizer"):
+            if decay_2d_only:
+                # AdamW without decay, then the masked decoupled term from
+                # the pre-update shard: exact, since AdamW's decay term
+                # reads the old p too
+                p_old = p_shard.clone()
+                opt.adamw_step(p_shard, g_own, m_own, v_own, step, lr,
+                               weight_decay=0.0)
+                with torch.no_grad():
+                    p_shard.sub_(_decay_mask_flat(cfg, n_pad, device)[lo:hi]
+                                 * p_old * (lr * wd))
+            else:
+                opt.adamw_step(p_shard, g_own, m_own, v_own, step, lr,
+                               weight_decay=wd)
         if N > 1:
             with torch.no_grad():
                 mine = torch.zeros(shard, device=device)

@@ -44,6 +44,7 @@ import torch
 from .config import ViTConfig
 from .models import generate as G
 from .models import model as M
+from .utils import trace
 
 
 @dataclass
@@ -70,7 +71,13 @@ class GenerationEngine:
     serve from; the engine keeps its own copy with the float matmul weights
     in cfg.dtype.  `prefill_dispatches` counts prefill passes.  paged:
     n_pages <= 0 sizes the pool to the dense equivalent, max_slots x
-    max_len / PAGE pages + the sink."""
+    max_len / PAGE pages + the sink.
+
+    While a torch.profiler session records, the engine marks its phases
+    (`utils/trace.py`): `gen.submit` (the request id), `gen.admit`,
+    `gen.prefill` (prompt and computed tokens), `gen.decode` (the tick's
+    launch) and `gen.sample` (the host read and sampling; the ids given
+    their first token)."""
 
     def __init__(self, params: Mapping[str, torch.Tensor], cfg: ViTConfig,
                  max_slots: int, max_len: int, seed: int = 0,
@@ -150,6 +157,7 @@ class GenerationEngine:
         self._next_rid += 1
         self.pending.append(_Request(rid, prompt, max_new, temperature,
                                      top_k, top_p, eos_id))
+        trace.event("gen.submit", rid=rid)
         return rid
 
     def _bucket(self, n: int) -> int:
@@ -229,13 +237,18 @@ class GenerationEngine:
             prompts[K:] = prompts[K - 1]
             slots[K:] = slots[K - 1]
             pids[K:] = pids[K - 1]
-            if self.paged:
-                G.prefill_into_pages_multi(self.params, self._dev(prompts),
-                                           self.caches, self._dev(pids),
-                                           self.cfg)
-            else:
-                G.prefill_into_slots(self.params, self._dev(prompts),
-                                     self.caches, self._dev(slots), self.cfg)
+            tokens = (dict(real_tokens=sum(len(r.prompt) for r in group),
+                           computed_tokens=K_pad * head_bucket)
+                      if trace.recording() else {})
+            with trace.span("gen.prefill", **tokens):
+                if self.paged:
+                    G.prefill_into_pages_multi(
+                        self.params, self._dev(prompts), self.caches,
+                        self._dev(pids), self.cfg)
+                else:
+                    G.prefill_into_slots(self.params, self._dev(prompts),
+                                         self.caches, self._dev(slots),
+                                         self.cfg)
             self.prefill_dispatches += 1
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
@@ -250,33 +263,43 @@ class GenerationEngine:
                               req.top_k, req.top_p)
         return int(G._categorical(lg, self._host_gen)[0])
 
+    def _firsts(self) -> dict:
+        """`gen.sample`'s record while a profiler records: the ids of the
+        active requests that the tick gives their first token."""
+        if not trace.recording():
+            return {}
+        return {"first": [r.rid for r in self.active.values() if not r.out]}
+
     def step(self) -> List[_Request]:
         """One decode tick for every active slot; returns newly finished."""
-        self._admit()
+        with trace.span("gen.admit"):
+            self._admit()
         if not self.active:
             return []
-        if self.paged:
-            # a slot whose next write crosses its allocation gets a page
-            for slot in self.active:
-                self._grow(slot, int(self._pos[slot]) + 1)
-            logits, self.caches = G.decode_step_paged(
-                self.params, self._dev(self._tokens), self.caches,
-                self._dev(self._table), self._dev(self._pos), self.cfg)
-        else:
-            logits, self.caches = G.decode_step_multi(
-                self.params, self._dev(self._tokens), self.caches,
-                self._dev(self._pos), self.cfg)
-        logits = logits.cpu().numpy()
+        with trace.span("gen.decode"):
+            if self.paged:
+                # a slot whose next write crosses its allocation gets a page
+                for slot in self.active:
+                    self._grow(slot, int(self._pos[slot]) + 1)
+                logits, self.caches = G.decode_step_paged(
+                    self.params, self._dev(self._tokens), self.caches,
+                    self._dev(self._table), self._dev(self._pos), self.cfg)
+            else:
+                logits, self.caches = G.decode_step_multi(
+                    self.params, self._dev(self._tokens), self.caches,
+                    self._dev(self._pos), self.cfg)
         done: List[_Request] = []
-        for slot, req in list(self.active.items()):
-            nxt = self._sample_host(req, logits[slot])
-            req.out.append(nxt)
-            self._tokens[slot] = nxt
-            self._pos[slot] += 1
-            hit_eos = req.eos_id is not None and nxt == req.eos_id
-            if len(req.out) >= req.max_new or hit_eos:
-                done.append(req)
-                self._retire(slot)
+        with trace.span("gen.sample", **self._firsts()):
+            logits = logits.cpu().numpy()
+            for slot, req in list(self.active.items()):
+                nxt = self._sample_host(req, logits[slot])
+                req.out.append(nxt)
+                self._tokens[slot] = nxt
+                self._pos[slot] += 1
+                hit_eos = req.eos_id is not None and nxt == req.eos_id
+                if len(req.out) >= req.max_new or hit_eos:
+                    done.append(req)
+                    self._retire(slot)
         self.finished.extend(done)
         return done
 
@@ -286,7 +309,8 @@ class GenerationEngine:
         host discards those tokens.  Paged: every page the chunk writes is
         allocated first; where the pool is short of them, one tick runs
         instead (`step`)."""
-        self._admit()
+        with trace.span("gen.admit"):
+            self._admit()
         if not self.active:
             return []
         room = min(self.max_len - int(self._pos[s]) for s in self.active)
@@ -302,31 +326,33 @@ class GenerationEngine:
         temps = np.zeros(self.max_slots, np.float32)
         for slot, req in self.active.items():
             temps[slot] = req.temperature
-        args = (self.params, self._dev(self._tokens), self.caches)
-        if self.paged:
-            toks, self.caches, _ = G.decode_ticks_paged(
-                *args, self._dev(self._table), self._dev(self._pos), n,
-                self._dev(temps), self.cfg, self.top_k, self.top_p,
-                self._dev_gen)
-        else:
-            toks, self.caches, _ = G.decode_ticks_multi(
-                *args, self._dev(self._pos), n, self._dev(temps), self.cfg,
-                self.top_k, self.top_p, self._dev_gen)
-        toks = toks.cpu().numpy()                  # (n, B): one host read
+        with trace.span("gen.decode"):
+            args = (self.params, self._dev(self._tokens), self.caches)
+            if self.paged:
+                toks, self.caches, _ = G.decode_ticks_paged(
+                    *args, self._dev(self._table), self._dev(self._pos), n,
+                    self._dev(temps), self.cfg, self.top_k, self.top_p,
+                    self._dev_gen)
+            else:
+                toks, self.caches, _ = G.decode_ticks_multi(
+                    *args, self._dev(self._pos), n, self._dev(temps),
+                    self.cfg, self.top_k, self.top_p, self._dev_gen)
         done: List[_Request] = []
-        live = dict(self.active)
-        for t in range(n):
-            for slot, req in list(live.items()):
-                nxt = int(toks[t, slot])
-                req.out.append(nxt)
-                hit_eos = req.eos_id is not None and nxt == req.eos_id
-                if len(req.out) >= req.max_new or hit_eos:
-                    done.append(req)
-                    del live[slot]
-                    self._retire(slot)
-        for slot in live:
-            self._tokens[slot] = int(toks[n - 1, slot])
-            self._pos[slot] += n
+        with trace.span("gen.sample", **self._firsts()):
+            toks = toks.cpu().numpy()              # (n, B): one host read
+            live = dict(self.active)
+            for t in range(n):
+                for slot, req in list(live.items()):
+                    nxt = int(toks[t, slot])
+                    req.out.append(nxt)
+                    hit_eos = req.eos_id is not None and nxt == req.eos_id
+                    if len(req.out) >= req.max_new or hit_eos:
+                        done.append(req)
+                        del live[slot]
+                        self._retire(slot)
+            for slot in live:
+                self._tokens[slot] = int(toks[n - 1, slot])
+                self._pos[slot] += n
         self.finished.extend(done)
         return done
 

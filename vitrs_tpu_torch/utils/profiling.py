@@ -33,6 +33,14 @@ card's name.  It needs a CUDA device.
 fn under the profiler, exported as a Chrome trace (chrome://tracing,
 Perfetto) into out_dir, as the JAX loop's `jax.profiler` trace goes to
 workdir/profile/; it returns fn's result with the trace's summary.
+
+Both carry the program's own spans (`utils/trace.py`): the engine's
+`gen.admit` / `gen.prefill` / `gen.decode` / `gen.sample`, the training
+step's `train.step` and its phases, `model.vit_forward`, `data.normalize`,
+and `op.layernorm` / `op.gelu` forward and backward, the backward ones on
+autograd's device thread.  They are host ranges only while a profiler
+records (no device-row annotation, so the groups' device time is the
+kernels' alone), and cost nothing but the call otherwise.
 """
 
 from __future__ import annotations
