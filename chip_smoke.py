@@ -22,8 +22,9 @@ on any failure.  Phases, each printed as it ends:
                     fails) and shared memory.
   3. serve          GPT-2 124M (full width, seeded random weights, bf16)
                     through GenerationEngine: 8 greedy requests, chunked and
-                    per-tick decode, launches == 12 x prefill dispatches;
-                    then TextEngine.
+                    per-tick decode, launches == 12 x prefill dispatches
+                    (K1-fwd) and 12 x (prefill dispatches + decode ticks)
+                    (GELU); then TextEngine.
   4. xdevice        a small fp32 model through the engine on CUDA (kernel)
                     and on the CPU (plain version): same greedy tokens,
                     prefill logits within 1e-4.
@@ -105,8 +106,8 @@ on any failure.  Phases, each printed as it ends:
                     and backward; K7 over ViT-B/16's 87,335,656 values
                     beside AdamW(fused=True).
  20. infer-vit      ViT-S/16 (seeded random weights, bf16, B=256) through
-                    the infer CLI's function: 12 K1-fwd launches a forward,
-                    finite logits near the fp32 CPU forward's; images/s,
+                    the infer CLI's function: 12 K1-fwd and 12 GELU
+                    launches a forward, finite logits near the fp32 CPU forward's; images/s,
                     latency, MFU, peak memory.
  21. train-vit      ViT-B/16 (87,335,656 parameters) at full width and
                     depth, B=64, synthetic-imagenet (uint8, normalised on
@@ -362,6 +363,15 @@ on any failure.  Phases, each printed as it ends:
  60. serve-d8       the 96 x 8 model as serve-d128: engine prefill, chunked
                     prefill through K4, decode, fp32 greedy tokens equal to
                     the dense route's.
+ 61. kernels-gelu   the GELU kernels (csrc/gelu.cu), forward and backward,
+                    tanh and exact, against the eager chain of ops/basic.py
+                    at the benchmark cells' activations ((64 * 1024, 3072),
+                    (128 * 197, 3072), (256 * 197, 3072) bf16): the forward
+                    bit for bit, the backward within one bf16 ulp, then each
+                    form's times beside the byte bound (4 / 6 bytes an
+                    element) and its share, the eager chain's time and
+                    F.gelu's (its backward: aten.gelu_backward), and the
+                    kernels' registers and spills from ptxas (a spill fails).
 
 `python3 chip_smoke.py --phases a,b` runs only the named phases (after the
 device phase) and prints no result lines.  It also runs the phases that
@@ -371,6 +381,13 @@ only run on request:
                     version against the unrounded fp32 function, and the
                     values past `grad_errors` with and without its
                     one-term rounding allowance (PERF.md §7).
+
+Each phase that counts launches holds every kernel to its designed count,
+GELU's two included (`gelu_fwd` / `gelu_bwd`, csrc/gelu.cu): one forward
+a layer a forward pass (a training or inference forward, an engine
+prefill pass or decode tick, a generate chunk or token; twice under
+remat, whose backward runs the MLP's forward again) and one backward a
+layer a backward pass, on the dense route as on the flash one.
 
 Every kernel also gets a bound (the least time the card could take: the
 larger of its operations over the card's peak for their type and its bytes
@@ -403,7 +420,7 @@ LIBS = (("flash_fwd", 64), ("flash_bwd", 64), "fused_ce", "fused_adamw",
         ("flash_bwd", 256), ("flash_fwd", 16), ("flash_bwd", 16),
         ("flash_fwd", 384), ("flash_bwd", 384), ("flash_fwd", 512),
         ("flash_bwd", 512), ("flash_fwd", 640), ("flash_bwd", 640),
-        ("flash_fwd", 1024), ("flash_bwd", 1024))
+        ("flash_fwd", 1024), ("flash_bwd", 1024), "gelu")
 # NVIDIA H100 SXM peaks (data sheet, dense): bf16 tensor cores, fp32
 # outside them, device memory
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
@@ -814,7 +831,6 @@ def phase_serve(smi):
     from vitrs_tpu_torch.config import get_config
     from vitrs_tpu_torch.data.tokenizer import ByteBPETokenizer
     from vitrs_tpu_torch.models import model as M
-    from vitrs_tpu_torch.ops.flash_attention import flash_fwd_cuda
     from vitrs_tpu_torch.serving_gen import GenerationEngine, TextEngine
 
     cfg = get_config("gpt2-124m", dtype="bfloat16")
@@ -831,7 +847,7 @@ def phase_serve(smi):
                                decode_chunk=chunk)
         for p in prompts:
             eng.submit(p, max_new=32)
-        flash_fwd_cuda.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         eng._admit()                       # the prefill passes, timed alone
         torch.cuda.synchronize()
@@ -839,15 +855,20 @@ def phase_serve(smi):
         outs = dict(eng.run())
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        launches = flash_fwd_cuda.launches
-        check(launches > 0 and launches == cfg.num_layers * eng.prefill_dispatches,
-              f"kernel launches {launches} != {cfg.num_layers} x "
-              f"{eng.prefill_dispatches} prefill dispatches")
-        return eng, outs, launches, (t1 - t0) * 1e3, 8 * 32 / (t2 - t1)
+        counts = read_counts()
+        # K1-fwd a layer a prefill pass; GELU a layer a prefill pass and a
+        # decode tick
+        L, passes = cfg.num_layers, eng.prefill_dispatches
+        want = designed(flash_fwd=L * passes,
+                        gelu_fwd=L * (passes + eng.decode_ticks))
+        check(counts["flash_fwd"] > 0 and counts == want,
+              f"[serve] chunk {chunk}: launches {counts} != designed {want}")
+        return eng, outs, counts, (t1 - t0) * 1e3, 8 * 32 / (t2 - t1)
 
     serve(16)                                  # warm-up: cuBLAS, allocator
-    eng, outs16, launches, prefill_ms, tok_s = serve(16)
-    _, outs1, launches1, prefill_ms1, tok_s1 = serve(1)
+    eng, outs16, counts, prefill_ms, tok_s = serve(16)
+    _, outs1, counts1, prefill_ms1, tok_s1 = serve(1)
+    launches, launches1 = counts["flash_fwd"], counts1["flash_fwd"]
     for i, n in enumerate(lengths):
         check(len(outs16[i]) == n + 32, f"request {i}: length {len(outs16[i])}")
         check(np.array_equal(outs16[i], outs1[i]), f"request {i}: chunk 16 != 1")
@@ -859,10 +880,12 @@ def phase_serve(smi):
     check(torch.isfinite(logits).all().item(), "non-finite logits")
     print(f"[serve] gpt2-124m bf16, 8 requests x 32 new, prompts {lengths}")
     print(f"[serve] chunk 16: {eng.prefill_dispatches} prefill dispatches, "
-          f"{launches} kernel launches, prefill {prefill_ms:.3f} ms, decode "
-          f"{tok_s:.1f} tok/s  ({smi})")
-    print(f"[serve] chunk 1: {launches1} kernel launches, prefill "
-          f"{prefill_ms1:.3f} ms, decode {tok_s1:.1f} tok/s, same tokens")
+          f"{eng.decode_ticks} decode ticks, {launches} K1-fwd and "
+          f"{counts['gelu_fwd']} GELU launches, prefill {prefill_ms:.3f} ms, "
+          f"decode {tok_s:.1f} tok/s  ({smi})")
+    print(f"[serve] chunk 1: {launches1} K1-fwd and {counts1['gelu_fwd']} "
+          f"GELU launches, prefill {prefill_ms1:.3f} ms, decode "
+          f"{tok_s1:.1f} tok/s, same tokens")
 
     tok = ByteBPETokenizer()
     # the byte tokenizer has 257 ids: a model of that vocab, same trunk
@@ -874,7 +897,7 @@ def phase_serve(smi):
     check(len(texts) == 2 and all(isinstance(t, str) for t in texts),
           "TextEngine output")
     print(f"[serve] TextEngine: {texts!r}")
-    return launches, prefill_ms, tok_s
+    return launches, prefill_ms, tok_s, counts
 
 
 def phase_xdevice():
@@ -885,7 +908,6 @@ def phase_xdevice():
     from vitrs_tpu_torch.config import get_config
     from vitrs_tpu_torch.models import generate as G
     from vitrs_tpu_torch.models import model as M
-    from vitrs_tpu_torch.ops.flash_attention import flash_fwd_cuda
     from vitrs_tpu_torch.serving_gen import GenerationEngine
 
     cfg = get_config("gpt-nano").replace(num_layers=2, num_heads=2,
@@ -895,18 +917,19 @@ def phase_xdevice():
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in (3, 17, 40, 55)]
     outs = {}
     for dev in ("cuda", "cpu"):
-        flash_fwd_cuda.launches = 0
+        reset_counts()
         eng = GenerationEngine({k: v.to(dev) for k, v in params.items()},
                                cfg, max_slots=2, max_len=64,
                                prompt_buckets=(16, 32, 64), decode_chunk=4)
         for p in prompts:
             eng.submit(p, max_new=8)
         outs[dev] = dict(eng.run())
-        if dev == "cuda":
-            check(flash_fwd_cuda.launches == cfg.num_layers * eng.prefill_dispatches,
-                  "xdevice: the CUDA engine's prefill did not use the kernel")
-        else:
-            check(flash_fwd_cuda.launches == 0, "xdevice: kernel ran on CPU")
+        L, passes = cfg.num_layers, eng.prefill_dispatches
+        want = (designed(flash_fwd=L * passes,
+                         gelu_fwd=L * (passes + eng.decode_ticks))
+                if dev == "cuda" else designed())
+        check(read_counts() == want, f"xdevice: the {dev} engine's launches "
+              f"{read_counts()} != designed {want}")
     for i in range(len(prompts)):
         check(np.array_equal(outs["cuda"][i], outs["cpu"][i]),
               f"xdevice: request {i} tokens differ")
@@ -1057,13 +1080,15 @@ def _counters():
     from vitrs_tpu_torch.ops import flash_prefill as FP
     from vitrs_tpu_torch.ops import fused_adamw as FW
     from vitrs_tpu_torch.ops import fused_ce as CE
+    from vitrs_tpu_torch.ops import fused_gelu as GL
     from vitrs_tpu_torch.ops import fused_head_ce as FH
     return {"flash_fwd": FA.flash_fwd_cuda, "flash_bwd": FA.flash_bwd_cuda,
             "flash_gqa_fwd": FG.flash_gqa_fwd_cuda,
             "flash_gqa_bwd": FG.flash_gqa_bwd_cuda,
             "flash_prefill": FP.flash_prefill_cuda,
             "ce_fwd": CE.ce_fwd_cuda, "ce_bwd": CE.ce_bwd_cuda,
-            "adamw": FW.adamw_cuda, "head_ce_fwd": FH.head_ce_fwd_cuda}
+            "adamw": FW.adamw_cuda, "head_ce_fwd": FH.head_ce_fwd_cuda,
+            "gelu_fwd": GL.gelu_fwd_cuda, "gelu_bwd": GL.gelu_bwd_cuda}
 
 
 def reset_counts():
@@ -1128,7 +1153,8 @@ def phase_train(smi, steps=12, kv_heads=0, overrides=None, B=8, tag=None,
                 else ("flash_fwd", "flash_bwd"))
     loss_kernel = {"head_ce_fwd": steps} if head_ce else {"ce_fwd": steps}
     want = designed(**{fwd: L * steps, bwd: L * steps}, ce_bwd=steps,
-                    adamw=steps if optimizer == "adamw" else 0, **loss_kernel)
+                    adamw=steps if optimizer == "adamw" else 0,
+                    gelu_fwd=L * steps, gelu_bwd=L * steps, **loss_kernel)
     check(counts == want, f"{tag} launches {counts} != designed {want}")
     losses = [r["loss"] for r in recs]
     check(len(losses) == steps and all(np.isfinite(losses)),
@@ -1146,8 +1172,9 @@ def phase_train(smi, steps=12, kv_heads=0, overrides=None, B=8, tag=None,
     print(f"{tag} {optimizer}: launches per step: {fwd} "
           f"{counts[fwd] // steps}, {bwd} {counts[bwd] // steps} (3 kernels "
           f"each), {'head_ce_fwd' if head_ce else 'ce_fwd'}/ce_bwd"
-          f"{'/adamw' if optimizer == 'adamw' else ''} 1, every other "
-          f"kernel 0")
+          f"{'/adamw' if optimizer == 'adamw' else ''} 1, gelu_fwd "
+          f"{counts['gelu_fwd'] // steps}, gelu_bwd "
+          f"{counts['gelu_bwd'] // steps}, every other kernel 0")
     print(f"{tag} steady (steps 3-{steps}, median): {step_ms:.2f} ms/step, "
           f"{tok_s:.1f} tok/s, MFU {mfu:.4f} of 989 TFLOP/s; "
           f"max_memory_allocated {peak / 2**30:.3f} GiB; wall {wall:.1f} s "
@@ -1201,7 +1228,8 @@ def phase_xdevice_train(cfg=None, tag="xdevice-train"):
     L = cfg.num_layers
     fwd, bwd = (("flash_gqa_fwd", "flash_gqa_bwd") if cfg.is_gqa
                 else ("flash_fwd", "flash_bwd"))
-    want = designed(**{fwd: 2 * L, bwd: 2 * L}, ce_fwd=2, ce_bwd=2, adamw=1)
+    want = designed(**{fwd: 2 * L, bwd: 2 * L}, ce_fwd=2, ce_bwd=2, adamw=1,
+                    gelu_fwd=2 * L, gelu_bwd=2 * L)
     check(out["cuda"][4] == want, f"{tag}: CUDA launches {out['cuda'][4]}")
     check(not any(out["cpu"][4].values()), f"{tag}: a kernel ran on CPU")
     lc, lp = out["cuda"][0], out["cpu"][0]
@@ -1441,10 +1469,13 @@ def phase_serve_gqa(smi):
     for chunk in (512, 0):
         ms1, c1 = run(chunk, 1)
         msn, cn = run(chunk, 128)
-        want = designed(flash_gqa_fwd=L,
-                        flash_prefill=L * (T0 // chunk - 1) if chunk else 0)
-        check(c1 == want and cn == want,
-              f"serve-gqa chunk {chunk}: launches {c1} / {cn} != {want}")
+        # GELU a layer a prefill chunk and a decode step
+        chunks = T0 // chunk if chunk else 1
+        want = designed(flash_gqa_fwd=L, flash_prefill=L * (chunks - 1),
+                        gelu_fwd=L * chunks)
+        wantn = dict(want, gelu_fwd=L * (chunks + 127))
+        check(c1 == want and cn == wantn, f"serve-gqa chunk {chunk}: "
+              f"launches {c1} / {cn} != {want} / {wantn}")
         per_tok = (msn - ms1) / 127
         res[chunk] = dict(prefill_ms=ms1, gen128_ms=msn,
                           tok_s=B * 128 / msn * 1e3, ms_per_new_token=per_tok,
@@ -1499,7 +1530,7 @@ def phase_serve_gqa(smi):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     counts = read_counts()
-    want = designed(flash_fwd=L, flash_prefill=L * 6)
+    want = designed(flash_fwd=L, flash_prefill=L * 6, gelu_fwd=L * 7)
     check(counts == want, f"serve-mha chunked: launches {counts} != {want}")
     check(out.shape == (4, 3585), "serve-mha shape")
     print(f"[serve-gqa] MHA gpt2-124m B=4 3584-token prompt, chunk 512: "
@@ -1533,7 +1564,8 @@ def phase_xdevice_gqa():
         toks[dev] = G.generate(pp, prompt.to(dev), cfg, 8, temperature=0.0,
                                prefill_chunk=16).cpu()
         counts = read_counts()
-        want = (designed(flash_gqa_fwd=2, flash_prefill=4) if dev == "cuda"
+        want = (designed(flash_gqa_fwd=2, flash_prefill=4,
+                         gelu_fwd=2 * (3 + 7)) if dev == "cuda"
                 else designed())
         check(counts == want, f"xdevice-gqa generate on {dev}: {counts}")
         caches = G.init_kv_cache(cfg, 2, 256, device=dev)
@@ -2125,8 +2157,9 @@ def phase_serve_window(smi):
                                    prefill_chunk=chunk)
         timed(lambda: gen(2))                  # warm-up: cuBLAS, allocator
         _, ms1, counts = timed(lambda: gen(1))
-        want = designed(flash_fwd=L,
-                        flash_prefill=L * (T0 // chunk - 1) if chunk else 0)
+        chunks = T0 // chunk if chunk else 1
+        want = designed(flash_fwd=L, flash_prefill=L * (chunks - 1),
+                        gelu_fwd=L * chunks)
         check(counts == want, f"serve-window chunk {chunk}: launches "
               f"{counts} != {want}")
         res[chunk] = dict(prefill_ms=ms1, launches=counts)
@@ -2151,8 +2184,12 @@ def phase_serve_window(smi):
                                                    temperature=0.0))
     ring, sn, cn = timed(lambda: G.generate_streaming(pp, prompt, cfg, n,
                                                       temperature=0.0))
-    check(c1 == designed() and cn == designed(),
-          f"serve-window: the ring path launched a kernel: {cn}")
+    # the ring path runs no flash kernel; GELU a layer a ring chunk of the
+    # prompt and a decode step
+    chunks = -(-T0 // cfg.window)
+    check(c1 == designed(gelu_fwd=L * chunks)
+          and cn == designed(gelu_fwd=L * (chunks + n - 1)),
+          f"serve-window: the ring path's launches {c1} / {cn}")
     check(ring.shape == (B, T0 + n) and bool(
         ((ring[:, T0:] >= 0) & (ring[:, T0:] < cfg.vocab_size)).all()),
         "serve-window: streaming output")
@@ -2197,7 +2234,8 @@ def phase_xdevice_window():
             toks[dev] = G.generate(pp, prompt.to(dev), cfg, 8,
                                    temperature=0.0, prefill_chunk=16).cpu()
             got = read_counts()
-            want = (designed(**{fwd: 2, "flash_prefill": 4}) if dev == "cuda"
+            want = (designed(**{fwd: 2, "flash_prefill": 4},
+                             gelu_fwd=2 * (3 + 7)) if dev == "cuda"
                     else designed())
             check(got == want, f"xdevice-window generate on {dev}: {got}")
             caches = G.init_kv_cache(cfg, 2, 256, device=dev)
@@ -2452,8 +2490,8 @@ def adamw_at(ns, gen, tag, weight_decay=0.05):
 def phase_infer_vit(smi, steps=20):
     """vit-s-16 (22,434,664 parameters, seeded random weights) in bf16 at
     B=256 through the infer CLI's function (cli/infer.run: one warm-up
-    forward, then `steps`): 12 K1-fwd launches a forward and no other
-    kernel, finite logits; the first 4 images' logits within 5e-2 (of
+    forward, then `steps`): 12 K1-fwd and 12 GELU launches a forward and
+    no other kernel, finite logits; the first 4 images' logits within 5e-2 (of
     their largest value) of the same model's fp32 forward on the CPU (the
     plain versions).  Prints images/s, latency, MFU on forward FLOPs, and
     peak memory."""
@@ -2469,7 +2507,7 @@ def phase_infer_vit(smi, steps=20):
     counts = read_counts()
     logits = rec.pop("logits")
     L = cfg.num_layers
-    want = designed(flash_fwd=L * (steps + 1))
+    want = designed(flash_fwd=L * (steps + 1), gelu_fwd=L * (steps + 1))
     check(counts == want, f"[infer-vit] launches {counts} != designed {want}")
     check(tuple(logits.shape) == (256, 1000)
           and bool(torch.isfinite(logits).all()), "[infer-vit] logits")
@@ -2546,7 +2584,8 @@ def phase_xdevice_vit():
                         {k: t.detach().cpu() for k, t in new.items()},
                         step_loss.item(), read_counts())
         L = cfg.num_layers
-        want = designed(flash_fwd=2 * L, flash_bwd=2 * L, adamw=1)
+        want = designed(flash_fwd=2 * L, flash_bwd=2 * L, adamw=1,
+                        gelu_fwd=2 * L, gelu_bwd=2 * L)
         check(out["cuda"][4] == want, f"xdevice-vit {tag}: CUDA launches "
               f"{out['cuda'][4]}")
         check(not any(out["cpu"][4].values()),
@@ -2856,7 +2895,7 @@ def phase_train_moe(smi, steps=12):
         with open(os.path.join(work, "metrics.jsonl")) as f:
             recs = [json.loads(line) for line in f]
     want = designed(flash_fwd=L * steps, flash_bwd=L * steps, ce_fwd=steps,
-                    ce_bwd=steps)
+                    ce_bwd=steps, gelu_fwd=L * steps, gelu_bwd=L * steps)
     check(counts == want, f"[train-moe] launches {counts} != designed {want}")
     losses = [r["loss"] for r in recs]
     check(len(losses) == steps and all(np.isfinite(losses)),
@@ -2874,8 +2913,9 @@ def phase_train_moe(smi, steps=12):
     print(f"[train-moe] losses {losses}")
     print(f"[train-moe] launches per step: flash_fwd "
           f"{counts['flash_fwd'] // steps}, flash_bwd "
-          f"{counts['flash_bwd'] // steps} (3 kernels each), ce_fwd/ce_bwd 1, "
-          f"adamw and every other kernel 0")
+          f"{counts['flash_bwd'] // steps} (3 kernels each), gelu_fwd / "
+          f"gelu_bwd as many, ce_fwd/ce_bwd 1, adamw and every other kernel "
+          f"0")
     print(f"[train-moe] steady (steps 3-{steps}, median): {step_ms:.2f} "
           f"ms/step, {tok_s:.1f} tok/s, sparse MFU {mfu:.4f} of 989 TFLOP/s; "
           f"max_memory_allocated {peak / 2**30:.3f} GiB; wall {wall:.1f} s "
@@ -2938,7 +2978,9 @@ def phase_serve_moe(smi):
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         counts = read_counts()
-        want = designed(flash_fwd=L * eng.prefill_dispatches)
+        want = designed(flash_fwd=L * eng.prefill_dispatches,
+                        gelu_fwd=L * (eng.prefill_dispatches
+                                      + eng.decode_ticks))
         check(counts["flash_fwd"] > 0 and counts == want,
               f"[serve-moe] launches {counts} != {want}")
         for i, n in enumerate(lengths):
@@ -2975,9 +3017,12 @@ def phase_serve_moe(smi):
     for chunk in (256, 0):
         ms1, c1 = run(chunk, 1)
         msn, cn = run(chunk, 33)
-        want = designed(flash_fwd=L, flash_prefill=2 * L if chunk else 0)
-        check(c1 == want and cn == want,
-              f"[serve-moe] generate chunk {chunk}: {c1} / {cn} != {want}")
+        chunks = 768 // chunk if chunk else 1
+        want = designed(flash_fwd=L, flash_prefill=L * (chunks - 1),
+                        gelu_fwd=L * chunks)
+        wantn = dict(want, gelu_fwd=L * (chunks + 32))
+        check(c1 == want and cn == wantn, f"[serve-moe] generate chunk "
+              f"{chunk}: {c1} / {cn} != {want} / {wantn}")
         gen_res[chunk] = dict(prefill_ms=ms1, ms_per_new_token=(msn - ms1) / 32,
                               launches=c1)
         print(f"[serve-moe] generate 768-token prompt, chunk {chunk}: "
@@ -3077,7 +3122,8 @@ def phase_xdevice_moe():
         want = _moe_step_on("cpu", cfg, params, x, y, optimizer)
         tag = f"xdevice-moe {optimizer}"
         check(got[5] == designed(flash_fwd=L, flash_bwd=L, ce_fwd=1,
-                                 ce_bwd=1), f"{tag}: CUDA launches {got[5]}")
+                                 ce_bwd=1, gelu_fwd=L, gelu_bwd=L),
+              f"{tag}: CUDA launches {got[5]}")
         check(not any(want[5].values()), f"{tag}: a kernel ran on the CPU")
         check(len(got[4]) == len(want[4]) == L and all(
             torch.equal(a, b) for a, b in zip(got[4], want[4])),
@@ -3140,9 +3186,11 @@ def phase_xdevice_moe():
         reset_counts()
         toks[dev] = G.generate(pp, prompt.to(dev), cfg, 8, temperature=0.0,
                                prefill_chunk=16).cpu()
-        want = (designed(flash_fwd=L, flash_prefill=2 * L) if dev == "cuda"
+        want = (designed(flash_fwd=L, flash_prefill=2 * L,
+                         gelu_fwd=L * (3 + 7)) if dev == "cuda"
                 else designed())
-        check(read_counts() == want, f"xdevice-moe generate on {dev}")
+        check(read_counts() == want, f"xdevice-moe generate on {dev}: "
+              f"{read_counts()}")
     check(torch.equal(toks["cuda"], toks["cpu"]),
           "xdevice-moe: chunked generate tokens differ")
     print("[xdevice-moe] fp32 chunked generate (chunk 16, 8 new): tokens "
@@ -3244,8 +3292,11 @@ def phase_train_remat(smi, steps=12):
             with open(os.path.join(work, "metrics.jsonl")) as f:
                 recs = [json.loads(line) for line in f]
         fwd = L * steps * (2 if remat == "full" else 1)
+        # either remat runs GELU's forward again in the backward
         want = designed(flash_fwd=fwd, flash_bwd=L * steps, ce_fwd=steps,
-                        ce_bwd=steps, adamw=steps)
+                        ce_bwd=steps, adamw=steps,
+                        gelu_fwd=L * steps * (2 if remat else 1),
+                        gelu_bwd=L * steps)
         check(counts == want, f"[train-remat {remat}] launches {counts} != "
               f"designed {want}")
         losses = [r["loss"] for r in recs]
@@ -3264,7 +3315,9 @@ def phase_train_remat(smi, steps=12):
         print(f"[train-remat] gpt2-124m-4k remat={remat} ({REMAT_PARAMS} "
               f"params) bf16/fp32-master B={B} T={T} {steps} steps: loss "
               f"{losses[0]:.4f} -> {losses[-1]:.4f}; launches per step K1-fwd "
-              f"{r['fwd_per_step']:g}, K2 {r['bwd_per_step']:g}, K5/K6/K7 1")
+              f"{r['fwd_per_step']:g}, K2 {r['bwd_per_step']:g}, GELU "
+              f"{counts['gelu_fwd'] / steps:g} / {counts['gelu_bwd'] / steps:g}, "
+              f"K5/K6/K7 1")
         print(f"[train-remat] remat={remat} steady (steps 3-{steps}, median): "
               f"{r['step_ms']:.2f} ms/step, {tok_s:.1f} tok/s, MFU {mfu:.4f}; "
               f"max_memory_allocated {r['peak_gib']:.3f} GiB  ({smi})")
@@ -3285,7 +3338,9 @@ def phase_train_remat(smi, steps=12):
         TOK.get_tokens(None, cfg.vocab_size, seed=0), B, T).next_batch())
     l0, g0, c0 = _remat_grads(cfg, False, x, y)
     l1, g1, c1 = _remat_grads(cfg, True, x, y)
-    check(c0 == c1 == designed(flash_fwd=L, flash_bwd=L, ce_fwd=1, ce_bwd=1),
+    want = designed(flash_fwd=L, flash_bwd=L, ce_fwd=1, ce_bwd=1,
+                    gelu_fwd=L, gelu_bwd=L)
+    check(c0 == want and c1 == dict(want, gelu_fwd=2 * L),
           f"[train-remat] gradient step launches {c0} / {c1}")
     check(abs(l1 - l0) <= 1e-6 * abs(l0), f"[train-remat] loss {l1} vs {l0}")
     worst, exact = 0.0, 0
@@ -3373,7 +3428,9 @@ def phase_train_vit(smi, steps=12, B=64):
         counts, recs, summary, peak, wall, files = _vit_run(steps, B,
                                                             prefetch)
         want = designed(flash_fwd=L * (steps + eval_batches),
-                        flash_bwd=L * steps, adamw=steps)
+                        flash_bwd=L * steps, adamw=steps,
+                        gelu_fwd=L * (steps + eval_batches),
+                        gelu_bwd=L * steps)
         check(counts == want, f"[train-vit] launches {counts} != designed "
               f"{want}")
         losses = [r["loss"] for r in recs]
@@ -3483,7 +3540,8 @@ def phase_train_vit_stream(smi, decoder, steps=12, B=64):
     L = 12
     evb = VSHARD_PER // B
     check(counts == designed(flash_fwd=L * (steps + evb), flash_bwd=L * steps,
-                             adamw=steps),
+                             adamw=steps, gelu_fwd=L * (steps + evb),
+                             gelu_bwd=L * steps),
           f"[train-vit-stream] launches {counts}")
     losses = [r["loss"] for r in recs]
     check(len(losses) == steps and all(np.isfinite(losses)),
@@ -3541,7 +3599,8 @@ def phase_resume(smi, steps=12, B=8):
                       "rb") as f:
                 ckpts[name] = f.read()
     check(counts == designed(flash_fwd=12 * steps, flash_bwd=12 * steps,
-                             ce_fwd=steps, ce_bwd=steps, adamw=steps),
+                             ce_fwd=steps, ce_bwd=steps, adamw=steps,
+                             gelu_fwd=12 * steps, gelu_bwd=12 * steps),
           f"[resume] launches {counts}")
     check(logs["straight"] == logs["resumed"] and len(logs["straight"]) == steps,
           f"[resume] losses {logs['straight']} vs {logs['resumed']}")
@@ -3655,7 +3714,9 @@ def phase_serve_paged(smi):
     for chunk in (1, 16):
         eng, outs, wall, peak, counts, groups = _engine_run(
             pp, cfg, prompts, decode_chunk=chunk, paged=True, n_pages=n_pages)
-        check(counts == designed(flash_fwd=L * eng.prefill_dispatches)
+        check(counts == designed(flash_fwd=L * eng.prefill_dispatches,
+                                 gelu_fwd=L * (eng.prefill_dispatches
+                                               + eng.decode_ticks))
               and len(groups) == eng.prefill_dispatches,
               f"[serve-paged] chunk {chunk}: launches {counts}, "
               f"{eng.prefill_dispatches} prefill groups")
@@ -3738,10 +3799,12 @@ def phase_serve_int8(smi):
         for chunk in (512, 0):
             ms1, c1 = run(chunk, 1, int8)
             msn, cn = run(chunk, 33, int8)
-            want = designed(flash_gqa_fwd=L,
-                            flash_prefill=L * (T0 // chunk - 1) if chunk else 0)
-            check(c1 == want and cn == want, f"[serve-int8] int8 {int8} "
-                  f"chunk {chunk}: launches {c1} / {cn} != {want}")
+            chunks = T0 // chunk if chunk else 1
+            want = designed(flash_gqa_fwd=L, flash_prefill=L * (chunks - 1),
+                            gelu_fwd=L * chunks)
+            wantn = dict(want, gelu_fwd=L * (chunks + 32))
+            check(c1 == want and cn == wantn, f"[serve-int8] int8 {int8} "
+                  f"chunk {chunk}: launches {c1} / {cn} != {want} / {wantn}")
             key = f"{'int8' if int8 else 'bf16'}_{chunk}"
             res[key] = dict(prefill_ms=ms1, ms_per_new_token=(msn - ms1) / 32,
                             launches=c1)
@@ -3810,7 +3873,9 @@ def phase_serve_int8(smi):
     for name, prm in (("w8", qp), ("bf16", pp)):
         eng, outs, wall, peak, counts, _ = _engine_run(prm, cfg, prompts,
                                                        decode_chunk=16)
-        check(counts == designed(flash_fwd=L * eng.prefill_dispatches),
+        check(counts == designed(flash_fwd=L * eng.prefill_dispatches,
+                                 gelu_fwd=L * (eng.prefill_dispatches
+                                               + eng.decode_ticks)),
               f"[serve-int8] {name} engine launches {counts}")
         runs[name] = (outs, 8 * 32 / wall, peak, counts)
     gen = {k: np.stack([v[0][i][n:] for i, n in enumerate(SERVE_LENGTHS)])
@@ -3870,7 +3935,8 @@ def phase_serve_beam(smi):
     beam, b_ms, bc = timed(lambda: G.generate_beam(pp, prompt, cfg, N,
                                                    beams=4))
     for c in (gc, oc, bc):
-        check(c == designed(flash_fwd=L), f"[serve-beam] launches {c}")
+        check(c == designed(flash_fwd=L, gelu_fwd=L * N),
+              f"[serve-beam] launches {c}")
     check(torch.equal(one, greedy), "[serve-beam] beams=1 != greedy")
     check(beam.shape == (B, T0 + N) and torch.equal(beam[:, :T0], prompt),
           "[serve-beam] shape")
@@ -3919,7 +3985,8 @@ def phase_serve_spec(smi):
     want = G.generate(tp, prompt, tcfg, N, temperature=0.0)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    check(read_counts() == designed(flash_fwd=tcfg.num_layers),
+    check(read_counts() == designed(flash_fwd=tcfg.num_layers,
+                                    gelu_fwd=tcfg.num_layers * N),
           "[serve-spec] generate launches")
     res = dict(plain_ms_per_token=plain_ms / N)
     for name, d, dc in (("draft", dp, dcfg), ("self", tp, tcfg)):
@@ -3930,7 +3997,12 @@ def phase_serve_spec(smi):
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         counts = read_counts()
-        check(counts == designed(flash_fwd=tcfg.num_layers + dc.num_layers),
+        # GELU: both prefills, then a round's K draft steps and one verify
+        calls = stats["target_calls"]
+        check(counts == designed(
+            flash_fwd=tcfg.num_layers + dc.num_layers,
+            gelu_fwd=tcfg.num_layers * (1 + calls)
+            + dc.num_layers * (1 + K * calls)),
               f"[serve-spec] {name}: launches {counts}")
         check(out.shape == (1, T0 + N) and torch.equal(out[:, :T0], prompt)
               and bool(((out >= 0) & (out < tcfg.vocab_size)).all()),
@@ -3959,8 +4031,8 @@ def phase_serve_spec(smi):
 def phase_infer_vit_quant(smi, steps=10):
     """vit-s-16 and vit-b-16 (bf16, seeded random weights) at B=256
     through the infer CLI's function with quant none, w8 and w8a8 (w8a8's
-    products on the int8 tensor cores, `torch._int_mm`): 12 K1-fwd
-    launches a forward and no other kernel; the int8 logits track the bf16
+    products on the int8 tensor cores, `torch._int_mm`): 12 K1-fwd and
+    12 GELU launches a forward and no other kernel; the int8 logits track the bf16
     forward's within the JAX package's bounds (tests/test_quant.py: mean
     relative 0.04 w8, 0.08 w8a8); images/s, latency, peak memory."""
     from vitrs_tpu_torch.cli import infer
@@ -3976,7 +4048,8 @@ def phase_infer_vit_quant(smi, steps=10):
             counts = read_counts()
             logits = rec.pop("logits").float()
             L = get_config(preset).num_layers
-            check(counts == designed(flash_fwd=L * (steps + 1)),
+            check(counts == designed(flash_fwd=L * (steps + 1),
+                                     gelu_fwd=L * (steps + 1)),
                   f"[infer-vit-quant] {preset} {quant}: launches {counts}")
             check(tuple(logits.shape) == (256, 1000)
                   and bool(torch.isfinite(logits).all()),
@@ -4154,7 +4227,8 @@ def phase_pretrain_mae(smi, steps=12, B=64):
         peak = torch.cuda.max_memory_allocated()
         with open(os.path.join(args.workdir, "metrics.jsonl")) as f:
             recs = [json.loads(line) for line in f]
-        want = designed(flash_fwd=16 * steps, flash_bwd=16 * steps)
+        want = designed(flash_fwd=16 * steps, flash_bwd=16 * steps,
+                        gelu_fwd=16 * steps, gelu_bwd=16 * steps)
         check(counts == want, f"[pretrain-mae] launches {counts} != "
               f"designed {want}")
         losses = summary["losses"]
@@ -4172,7 +4246,8 @@ def phase_pretrain_mae(smi, steps=12, B=64):
               f"{losses[-1]:.4f}; losses {losses}")
         print(f"[pretrain-mae] launches per step: flash_fwd "
               f"{counts['flash_fwd'] // steps}, flash_bwd "
-              f"{counts['flash_bwd'] // steps}, every other kernel 0; steady "
+              f"{counts['flash_bwd'] // steps}, gelu_fwd / gelu_bwd as many, "
+              f"every other kernel 0; steady "
               f"(median of steps 3-{steps} but 8): {step_ms:.2f} ms/step, "
               f"{ips:.1f} images/s; traced step busy "
               f"{busy if busy is None else round(busy, 4)} of the step; "
@@ -4254,7 +4329,9 @@ def phase_finetune_lora(smi, full_train, steps=12, B=8):
               and counts["adamw"] == 0 and counts["flash_fwd"] >= L * steps
               and (counts["flash_fwd"] - L * steps) % L == 0
               and counts["ce_fwd"] - steps == (counts["flash_fwd"]
-                                                - L * steps) // L,
+                                                - L * steps) // L
+              and counts["gelu_fwd"] == counts["flash_fwd"]
+              and counts["gelu_bwd"] == L * steps,
               f"[finetune-lora] launches {counts}")
         losses = s["losses"]
         check(len(losses) == steps and all(np.isfinite(losses)),
@@ -4315,8 +4392,8 @@ def phase_train_clip(smi, steps=8, B=64):
     16 heads, T=257, 768-dim embeddings), B=64, fp32 masters and bf16
     compute: 8 steps of `clip_loss` against seeded random unit text
     embeddings, AdamW per tensor (`adamw_tree`, lr 1e-4, no decay) on one
-    seeded batch: finite, falling loss; 24 K1-fwd and 24 K2 a step and no
-    other kernel; step ms (median of steps 3-8 by events), the busy share
+    seeded batch: finite, falling loss; 24 K1-fwd, 24 K2 and 24 GELU
+    launches each way a step and no other kernel; step ms (median of steps 3-8 by events), the busy share
     of a traced step, peak memory."""
     from vitrs_tpu_torch import params as P
     from vitrs_tpu_torch.config import get_config
@@ -4357,7 +4434,8 @@ def phase_train_clip(smi, steps=8, B=64):
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     L = cfg.num_layers
-    check(counts == designed(flash_fwd=L * steps, flash_bwd=L * steps),
+    check(counts == designed(flash_fwd=L * steps, flash_bwd=L * steps,
+                             gelu_fwd=L * steps, gelu_bwd=L * steps),
           f"[train-clip] launches {counts}")
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
           f"[train-clip] losses {losses}")
@@ -4370,7 +4448,8 @@ def phase_train_clip(smi, steps=8, B=64):
           f"losses {losses}")
     print(f"[train-clip] launches per step: flash_fwd "
           f"{counts['flash_fwd'] // steps}, flash_bwd "
-          f"{counts['flash_bwd'] // steps}, every other kernel 0; steady "
+          f"{counts['flash_bwd'] // steps}, gelu_fwd / gelu_bwd as many, "
+          f"every other kernel 0; steady "
           f"(median of steps 3-{steps}): {step_ms:.2f} ms/step, "
           f"{B / step_ms * 1e3:.1f} images/s; traced step busy "
           f"{prof['busy_ms']} ms = {busy:.4f} of the step; "
@@ -4412,7 +4491,9 @@ def phase_quirks(smi):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = read_counts()
-    check(counts == designed(adamw=2), f"[quirks] launches {counts}")
+    # 2 steps of 12 layers: GELU, no flash or CE kernel
+    check(counts == designed(adamw=2, gelu_fwd=2 * 12, gelu_bwd=2 * 12),
+          f"[quirks] launches {counts}")
     check(-1.0 <= summary["final_loss"] <= 0.0,
           f"[quirks] loss {summary['final_loss']}")
     print(f"[quirks] gpt2-124m quirks=True fp32 B=2 T=1024, 2 steps through "
@@ -4466,10 +4547,12 @@ def phase_quirks(smi):
     out = G.generate(pp, prompt, gcfg, max_new=8, temperature=0.0,
                      prefill_chunk=128)
     gen_counts = read_counts()
-    check(tuple(out.shape) == (2, 264) and gen_counts == designed(),
+    # GELU a layer a prompt chunk (2) and a decode step (7)
+    check(tuple(out.shape) == (2, 264)
+          and gen_counts == designed(gelu_fwd=gcfg.num_layers * (2 + 7)),
           f"[quirks] generate shape {tuple(out.shape)}, launches {gen_counts}")
     print(f"[quirks] gpt2-124m quirk generate (B=2, 256-token prompt in "
-          f"chunks of 128, 8 new): no kernel launched {gen_counts}")
+          f"chunks of 128, 8 new): no flash kernel launched {gen_counts}")
     del pp
     return dict(final_loss=summary["final_loss"], counts=counts,
                 nano_loss_rel_err=lerr, nano_grad_worst_of_tol=worst,
@@ -4573,6 +4656,7 @@ def phase_ops():
     dispatcher: K1-fwd at B=64 T=50 NH=12 (the host-bound shape) called
     through its wrapper and through the op, by events and by the host
     clock, in turns (wrapper, op, op, wrapper)."""
+    from vitrs_tpu_torch.ops import basic
     from vitrs_tpu_torch.ops import flash_attention as FA
     from vitrs_tpu_torch.ops import flash_attention_gqa as FG
     from vitrs_tpu_torch.ops import flash_prefill as FP
@@ -4598,6 +4682,7 @@ def phase_ops():
     tgt = torch.randint(0, V, (R,), generator=gen, device="cuda")
     clse, _ = CE.ce_fwd_cuda(logits, tgt, V)
     n = 1 << 20
+    h = rnd(B, T, 4 * C)
     cases = {
         "flash_fwd": (FA.flash_fwd_op, (q, k, v, NH, True, 0.125, 0, False)),
         "flash_bwd": (FA.flash_bwd_op, (q, k, v, out, lse, do, NH, True,
@@ -4620,6 +4705,8 @@ def phase_ops():
                                  rnd(n, dtype=torch.float32),
                                  rnd(n, dtype=torch.float32).abs(), 3.0,
                                  1e-3, 0.9, 0.999, 1e-8, 0.1)),
+        "gelu_fwd": (basic.gelu_fwd_op, (h, False)),
+        "gelu_bwd": (basic.gelu_bwd_op, (h, rnd(B, T, 4 * C), True)),
     }
     res = {}
     for name, (op, args) in cases.items():
@@ -4682,7 +4769,8 @@ def _export_case(tag, cfg, params, x, eager, smi, work):
         got = served(x)
         torch.cuda.synchronize()
         counts = read_counts()
-    check(counts == designed(flash_fwd=cfg.num_layers),
+    check(counts == designed(flash_fwd=cfg.num_layers,
+                             gelu_fwd=cfg.num_layers),
           f"[serve-export] {tag}: launches a call {counts}")
     check(got.dtype == want.dtype and got.shape == want.shape,
           f"[serve-export] {tag}: {got.dtype} {tuple(got.shape)}")
@@ -5104,7 +5192,8 @@ def phase_meshes(smi, dev="cuda:0", preset="gpt2-124m"):
                                        1e-7))
         L, S = MESH_LAYERS, TRAIN_STEPS
         want = designed(flash_fwd=L * S, flash_bwd=L * S, ce_fwd=S, ce_bwd=S,
-                        adamw=S if zero1 else 0)
+                        adamw=S if zero1 else 0, gelu_fwd=L * S,
+                        gelu_bwd=L * S)
         for r, out in enumerate(ranks):
             check(out["counts"] == want,
                   f"{tag} rank {r} launches {out['counts']} != {want}")
@@ -5471,7 +5560,8 @@ def _designed_tp_pp(kind, spec, rank, data, S=TRAIN_STEPS):
     last = ms.pp == 1 or rank % ms.pp == ms.pp - 1
     ce = mb if (last and not ms.vp and data == "gpt") else 0
     return designed(flash_fwd=layers * mb * S, flash_bwd=layers * mb * S,
-                    ce_fwd=ce * S, ce_bwd=ce * S)
+                    ce_fwd=ce * S, ce_bwd=ce * S,
+                    gelu_fwd=layers * mb * S, gelu_bwd=layers * mb * S)
 
 
 def phase_meshes_tp_pp(smi, dev="cuda:0"):
@@ -6248,7 +6338,8 @@ def _designed_cp_ep(name, rank, S=TRAIN_STEPS):
     on cp's ZeRO-1 shard; ep and ep x tp K1-fwd and K2 once a layer (NH=12
     and 6), no K7."""
     L = MESH_LAYERS
-    ce = dict(ce_fwd=S, ce_bwd=S)
+    # every rank runs its layers' MLP once a step, whatever its hops
+    ce = dict(ce_fwd=S, ce_bwd=S, gelu_fwd=L * S, gelu_bwd=L * S)
     if name == "cp-4k":
         return designed(flash_fwd=L * S * (1 + rank),
                         flash_bwd=L * S * (1 + rank), adamw=S, **ce), [0, 0]
@@ -7207,7 +7298,8 @@ def hd_chunked_generate(tag, cfg, pp, path):
     counts = read_counts()
     L = cfg.num_layers
     first = "flash_gqa_fwd" if cfg.is_gqa else "flash_fwd"
-    want = designed(**{first: L, "flash_prefill": L * (T0 // chunk - 1)})
+    want = designed(**{first: L, "flash_prefill": L * (T0 // chunk - 1)},
+                    gelu_fwd=L * (T0 // chunk + max_new - 1))
     check(counts == want, f"{tag} chunked generate launches {counts} != "
           f"{want}")
     check(out.shape == (B, T0 + max_new), f"{tag} generate shape")
@@ -7319,7 +7411,9 @@ def phase_serve_head_dim(smi, d):
         torch.cuda.synchronize()
         t2 = time.perf_counter()
     counts = read_counts()
-    check(counts == designed(flash_fwd=L * eng.prefill_dispatches),
+    check(counts == designed(flash_fwd=L * eng.prefill_dispatches,
+                             gelu_fwd=L * (eng.prefill_dispatches
+                                           + eng.decode_ticks)),
           f"{tag} engine launches {counts}")
     for i, n in enumerate(lengths):
         check(len(outs[i]) == n + 32, f"{tag} request {i} length")
@@ -7368,9 +7462,11 @@ def hd_greedy_vs_dense(tag, cfg32, host, path):
             toks[route, chunk] = G.generate(pp, prompt, c, new, temperature=0.0,
                                             prefill_chunk=chunk).cpu()
             n = read_counts()
+            passes = (HD_PROMPT // HD_CHUNK if chunk else 1) + new - 1
             want = (designed(flash_fwd=L, flash_prefill=(
-                HD_PROMPT // HD_CHUNK - 1) * L if chunk else 0)
-                    if route == "flash" else designed())
+                HD_PROMPT // HD_CHUNK - 1) * L if chunk else 0,
+                gelu_fwd=L * passes)
+                    if route == "flash" else designed(gelu_fwd=L * passes))
             check(n == want, f"{tag} fp32 {route} chunk {chunk} "
                   f"launches {n} != {want}")
     for chunk in (0, HD_CHUNK):
@@ -7412,7 +7508,8 @@ def phase_nano(smi):
             losses = [json.loads(line)["loss"] for line in f]
     # a vocab of 97 takes the plain cross-entropy (fused_ce.supports: the
     # JAX rule wants V >= 16384), as in the JAX package
-    want = designed(flash_fwd=L * steps, flash_bwd=L * steps, adamw=steps)
+    want = designed(flash_fwd=L * steps, flash_bwd=L * steps, adamw=steps,
+                    gelu_fwd=L * steps, gelu_bwd=L * steps)
     check(counts == want, f"[nano] cli.train launches {counts} != {want}")
     check(len(losses) == steps and all(np.isfinite(losses)),
           f"[nano] losses {losses}")
@@ -7435,9 +7532,11 @@ def phase_nano(smi):
         reset_counts()
         toks[route] = dict(eng.run())
         gen_counts[route] = read_counts()
+        passes = eng.prefill_dispatches + eng.decode_ticks
         check(gen_counts[route] == designed(**(
             {"flash_fwd": L * eng.prefill_dispatches} if route == "flash"
-            else {})), f"[nano] {route} engine launches {gen_counts[route]}")
+            else {}), gelu_fwd=L * passes),
+              f"[nano] {route} engine launches {gen_counts[route]}")
     check(toks["flash"].keys() == toks["dense"].keys() and all(
         np.array_equal(toks["flash"][i], toks["dense"][i])
         for i in toks["flash"]), f"[nano] fp32 greedy tokens differ from "
@@ -7450,6 +7549,107 @@ def phase_nano(smi):
           f"versions on the card: 0")
     return counts, dict(losses=losses, wall_s=wall,
                         engine_launches=gen_counts["flash"]["flash_fwd"])
+
+
+# the benchmark cells' MLP activations (rows, 4C): GPT-2 124M training
+# (B=64, T=1024), ViT-B/16 training (B=128, T=197) and inference (B=256)
+GELU_SHAPES = (("gpt2-124m.train", (64 * 1024, 3072)),
+               ("vit-b-16.train", (128 * 197, 3072)),
+               ("vit-b-16.infer", (256 * 197, 3072)))
+
+
+def bf16_ulps(a, b):
+    """Per-element distance of two bf16 tensors in units in the last place
+    (their bit patterns as ordered integers)."""
+    def ordered(t):
+        i = t.view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -32768 - i, i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def gelu_resources():
+    """{kernel: (registers, spill store bytes, spill load bytes)} of every
+    instance in csrc/gelu.cu, from ptxas's log; fails on a spill."""
+    import re
+    from vitrs_tpu_torch.ops import _build
+    res, name = {}, None
+    for line in _build.load("gelu").log.splitlines():
+        m = re.search(r"entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            res[name] = [None, None, None]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            res[name][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            res[name][0] = int(m.group(1))
+    check(len(res) == 8, f"gelu: {len(res)} kernels in ptxas's log, not 8")
+    for name, (regs, st, ld) in res.items():
+        check(st == 0 and ld == 0, f"gelu kernel {name} spills {st} / {ld} "
+              f"bytes")
+    return res
+
+
+def phase_kernels_gelu():
+    """The GELU kernels against the eager chain at the cells' shapes, then
+    their times, both forms, forward and backward, bf16."""
+    import torch.nn.functional as F
+    from vitrs_tpu_torch.ops import basic
+    from vitrs_tpu_torch.ops import fused_gelu as FG
+    rsc = gelu_resources()
+    for name, (regs, st, ld) in sorted(rsc.items()):
+        print(f"[kernels-gelu] {name}: {regs} registers, {st} / {ld} B "
+              f"spilled")
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    bf16 = torch.bfloat16
+    res = {}
+    for cell, shape in GELU_SHAPES:
+        x = (3.0 * torch.randn(shape, generator=gen, device="cuda")).to(bf16)
+        dy = torch.randn(shape, generator=gen, device="cuda").to(bf16)
+        n = x.numel()
+        for erf in (False, True):
+            form = "erf" if erf else "tanh"
+            got = FG.gelu_fwd_cuda(x, erf)
+            want = basic.gelu_fwd_plain(x, erf)
+            diff = (got.view(torch.int16) != want.view(torch.int16)).sum()
+            check(diff.item() == 0, f"gelu {form} forward at {shape}: "
+                  f"{diff.item()} values differ from the eager chain")
+            del got, want
+            got = FG.gelu_bwd_cuda(x, dy, erf)
+            want = basic.gelu_bwd_plain(x, dy, erf)
+            ulp = bf16_ulps(got, want).max().item()
+            check(ulp <= 1.0, f"gelu {form} backward at {shape}: "
+                  f"{ulp} bf16 ulps from the eager chain")
+            del got, want
+            approx = "none" if erf else "tanh"
+            rows = {}
+            for way, nbytes, kern, plain, lib in (
+                    ("fwd", 4 * n, lambda: FG.gelu_fwd_cuda(x, erf),
+                     lambda: basic.gelu_fwd_plain(x, erf),
+                     lambda: F.gelu(x, approximate=approx)),
+                    ("bwd", 6 * n, lambda: FG.gelu_bwd_cuda(x, dy, erf),
+                     lambda: basic.gelu_bwd_plain(x, dy, erf),
+                     lambda: torch.ops.aten.gelu_backward(
+                         dy, x, approximate=approx))):
+                km, pm, raw = timed_pair(kern, plain, iters=20,
+                                         plain_iters=5)
+                lib_ms = cuda_ms(lib)
+                bms = nbytes / HBM_BYTES_S * 1e3
+                rows[way] = dict(ms=km, plain_ms=pm, library_ms=lib_ms,
+                                 bound_ms=bms, bound_by="bytes",
+                                 share=bms / km, raw=raw)
+                print(f"[kernels-gelu] {cell} {shape} {form} {way}: kernel "
+                      f"{raw[0]:.4f}/{raw[1]:.4f} ms ({100 * bms / km:.1f}% "
+                      f"of the {bms:.4f} ms byte bound), eager chain "
+                      f"{raw[2]:.4f}/{raw[3]:.4f} ms, F.gelu "
+                      f"{lib_ms:.4f} ms")
+            rows["bwd_max_ulp"] = ulp
+            res[f"{cell}.{form}"] = rows
+        del x, dy
+    res["resources"] = rsc
+    return res
 
 
 def main():
@@ -7530,6 +7730,7 @@ def main():
         ("train-d16", lambda: phase_train_head_dim(smi, 16)),
         ("train-d384", lambda: phase_train_head_dim(smi, 384)),
         ("train-d512", lambda: phase_train_head_dim(smi, 512)),
+        ("kernels-gelu", phase_kernels_gelu),
     )
     # the phases that run only when --phases names them
     on_request = (("bwd-seeds", phase_bwd_seeds),)
@@ -7559,7 +7760,7 @@ def main():
         print(f"[smoke] ran {sorted(R)}")
         return
     k1 = R["kernels"]
-    serve_launches, prefill_ms, tok_s = R["serve"]
+    serve_launches, prefill_ms, tok_s, serve_counts = R["serve"]
     ktrain = R["kernels-train"]
     counts, train = R["train"]
     kgqa, kprefill = R["kernels-gqa"], R["kernels-prefill"]
@@ -7835,6 +8036,19 @@ def main():
                 name=f"{kname}_d{d}", route="cuda", source=CSRC + src,
                 replaces=rep_, also_replaces=also, head_dim=d,
                 launches=cnt[kname], **extra, **hd[d][kname]))
+    # GELU replaces no Pallas kernel: the JAX package's gelu_cv /
+    # gelu_erf_cv are jnp that XLA fuses on the TPU; launches (forward,
+    # backward) on the main paths: GPT-2 124M training, ViT-B/16 training
+    # (its end-of-run evaluation included), vit-s-16 inference and the
+    # engine (a layer a prefill pass and a decode tick)
+    gpt_counts = R["train"][0]
+    kernels.append(dict(
+        name="gelu", route="cuda", source=CSRC + "gelu.cu", replaces=None,
+        launches=[gpt_counts["gelu_fwd"], gpt_counts["gelu_bwd"]],
+        vit_launches=[vit_counts["gelu_fwd"], vit_counts["gelu_bwd"]],
+        infer_launches=[infer_counts["gelu_fwd"], infer_counts["gelu_bwd"]],
+        serve_launches=[serve_counts["gelu_fwd"], serve_counts["gelu_bwd"]],
+        **R["kernels-gelu"]))
     print("[smoke] context and expert parallelism: " + json.dumps(cpep))
     print("[smoke] tensor, sequence, vocab, pipeline and 3-D parallelism: "
           + json.dumps(tppp))

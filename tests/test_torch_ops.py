@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from vitrs_tpu_torch.ops import (flash_attention as FA,
+from vitrs_tpu_torch.ops import (basic, flash_attention as FA,
                                  flash_attention_gqa as FG,
                                  flash_prefill as FP, fused_adamw as FW,
                                  fused_ce as CE, fused_head_ce as HC)
@@ -83,6 +83,13 @@ def _cases():
         "adamw_": (FW.adamw_op, (_t(rng, n), _t(rng, n), _t(rng, n),
                                  _t(rng, n).abs(), 3.0, 1e-2, 0.9, 0.999,
                                  1e-8, 0.1)),
+        "gelu_fwd": (basic.gelu_fwd_op, (_t(rng, 3, n, dtype=torch.bfloat16),
+                                      False)),
+        "gelu_fwd_erf": (basic.gelu_fwd_op, (_t(rng, n), True)),
+        "gelu_bwd": (basic.gelu_bwd_op, (_t(rng, n), _t(rng, n), False)),
+        "gelu_bwd_erf": (basic.gelu_bwd_op, (_t(rng, 2, n, dtype=torch.bfloat16),
+                                          _t(rng, 2, n, dtype=torch.bfloat16),
+                                          True)),
     }
 
 
@@ -97,7 +104,8 @@ def test_ops_live_in_one_namespace():
     names = {op.name() for op, _ in _cases().values()}
     assert names == {f"vitrs::{n}" for n in (
         "flash_fwd", "flash_bwd", "flash_gqa_fwd", "flash_gqa_bwd",
-        "flash_prefill", "ce_fwd", "ce_bwd", "head_ce_fwd", "adamw_")}
+        "flash_prefill", "ce_fwd", "ce_bwd", "head_ce_fwd", "gelu_fwd",
+        "gelu_bwd", "adamw_")}
 
 
 def test_adamw_op_updates_in_place_as_the_plain_version():

@@ -150,7 +150,7 @@ class _MlpBranch(torch.autograd.Function):
     def forward(ctx, x, ln2w, ln2b, fcw, fcb, fcprojw, fcprojb, erf):
         ln2, mean, rstd = basic.layernorm(x, ln2w, ln2b)
         h = basic.linear(ln2, fcw, fcb)
-        g = basic.gelu_erf(h) if erf else basic.gelu(h)
+        g = basic.gelu_fwd_op(h, erf)
         ctx.save_for_backward(x, ln2w, ln2b, fcw, fcb, fcprojw, mean, rstd)
         ctx.erf = erf
         return basic.linear(g, fcprojw, fcprojb)
@@ -160,11 +160,9 @@ class _MlpBranch(torch.autograd.Function):
         x, ln2w, ln2b, fcw, fcb, fcprojw, mean, rstd = ctx.saved_tensors
         ln2 = _norm_from_stats(x, ln2w, ln2b, mean, rstd)
         h = basic.linear(ln2, fcw, fcb)
-        g = basic.gelu_erf(h) if ctx.erf else basic.gelu(h)
+        g = basic.gelu_fwd_op(h, ctx.erf)
         dg, dfcprojw, dfcprojb = _linear_bwd(db, g, fcprojw, True)
-        local = (basic.gelu_erf_grad_local if ctx.erf
-                 else basic.gelu_grad_local)(h.float())
-        dh = (local * dg.float()).to(h.dtype)
+        dh = basic.gelu_bwd_op(h, dg.contiguous(), ctx.erf)
         dln2, dfcw, dfcb = _linear_bwd(dh, ln2, fcw, True)
         dx, dln2w, dln2b = basic.layernorm_bwd_from_stats(x, ln2w, mean, rstd,
                                                           dln2)

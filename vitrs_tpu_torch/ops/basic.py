@@ -10,7 +10,10 @@ the JAX package's element order inside a patch (row, column, channel).
 The JAX package's custom-VJP ops (`layernorm_cv`, `gelu_cv`,
 `gelu_erf_cv`) are autograd.Functions here with the same saved tensors and
 the same hand-written backward; everything else differentiates through
-PyTorch's autograd, as it does through jax.grad there.
+PyTorch's autograd, as it does through jax.grad there.  GELU's two
+directions are the ops `vitrs::gelu_fwd` / `vitrs::gelu_bwd`: on the card
+one hand-written kernel each (`ops/fused_gelu.py`), on the CPU the plain
+functions of this module.
 
 The quirk ops reproduce the reference's math as written (quirks=True):
 G5, the causal softmax leaves a token's own weight unnormalised; G11, the
@@ -26,6 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..utils import trace
+from . import _build, fused_gelu
 
 LN_EPS = 1e-5
 GELU_COEF = 0.044715
@@ -112,23 +116,48 @@ def gelu_erf_grad_local(xf: torch.Tensor) -> torch.Tensor:
     return cdf + xf * pdf
 
 
+def gelu_fwd_plain(x: torch.Tensor, erf: bool) -> torch.Tensor:
+    """`vitrs::gelu_fwd` in plain PyTorch: `gelu_erf` or `gelu`."""
+    return gelu_erf(x) if erf else gelu(x)
+
+
+def gelu_bwd_plain(x: torch.Tensor, dy: torch.Tensor,
+                   erf: bool) -> torch.Tensor:
+    """`vitrs::gelu_bwd` in plain PyTorch: dx at x in fp32, rounded once to
+    x's dtype."""
+    local = (gelu_erf_grad_local if erf else gelu_grad_local)(x.float())
+    return (local * dy.float()).to(x.dtype)
+
+
+gelu_fwd_op = _build.kernel_op(
+    "gelu_fwd", "(Tensor x, bool erf) -> Tensor",
+    lambda *a: gelu_fwd_plain(*a), lambda *a: fused_gelu.gelu_fwd_cuda(*a),
+    lambda x, erf: x.new_empty(x.shape))
+
+gelu_bwd_op = _build.kernel_op(
+    "gelu_bwd", "(Tensor x, Tensor dy, bool erf) -> Tensor",
+    lambda *a: gelu_bwd_plain(*a), lambda *a: fused_gelu.gelu_bwd_cuda(*a),
+    lambda x, dy, erf: x.new_empty(x.shape))
+
+
 class _Gelu(torch.autograd.Function):
-    """GELU saving only its input; the gradient is recomputed in fp32."""
+    """GELU saving only its input; the gradient is recomputed in fp32.  Both
+    directions are the ops above: one kernel on the card, the plain
+    functions on the CPU."""
 
     @staticmethod
     def forward(ctx, x, erf):
+        x = x.contiguous()
         ctx.save_for_backward(x)
         ctx.erf = erf
         with trace.span("op.gelu"):
-            return gelu_erf(x) if erf else gelu(x)
+            return gelu_fwd_op(x, erf)
 
     @staticmethod
     def backward(ctx, dout):
         (x,) = ctx.saved_tensors
         with trace.span("op.gelu"):
-            local = (gelu_erf_grad_local if ctx.erf
-                     else gelu_grad_local)(x.float())
-            return (local * dout.float()).to(x.dtype), None
+            return gelu_bwd_op(x, dout.contiguous(), ctx.erf), None
 
 
 def gelu_cv(x: torch.Tensor) -> torch.Tensor:

@@ -40,8 +40,8 @@ import torch
 
 from .config import ViTConfig
 # the kernels' ops, which an exported graph calls by name
-from .ops import (flash_attention, flash_attention_gqa,  # noqa: F401
-                  flash_prefill, fused_ce)
+from .ops import (basic, flash_attention,  # noqa: F401
+                  flash_attention_gqa, flash_prefill, fused_ce)
 
 _MAGIC = b"VITRSPT1"
 

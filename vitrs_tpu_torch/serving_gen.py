@@ -69,7 +69,8 @@ class GenerationEngine:
 
     params: the canonical tensor dict (or its int8 form), on the device to
     serve from; the engine keeps its own copy with the float matmul weights
-    in cfg.dtype.  `prefill_dispatches` counts prefill passes.  paged:
+    in cfg.dtype.  `prefill_dispatches` counts prefill passes and
+    `decode_ticks` decode passes (one token a slot).  paged:
     n_pages <= 0 sizes the pool to the dense equivalent, max_slots x
     max_len / PAGE pages + the sink.
 
@@ -132,6 +133,7 @@ class GenerationEngine:
             self.caches = G.init_kv_cache(cfg, max_slots, max_len,
                                           device=self.device)
         self.prefill_dispatches = 0
+        self.decode_ticks = 0
 
     # ------------------------------------------------------------- intake
 
@@ -288,6 +290,7 @@ class GenerationEngine:
                 logits, self.caches = G.decode_step_multi(
                     self.params, self._dev(self._tokens), self.caches,
                     self._dev(self._pos), self.cfg)
+            self.decode_ticks += 1
         done: List[_Request] = []
         with trace.span("gen.sample", **self._firsts()):
             logits = logits.cpu().numpy()
@@ -337,6 +340,7 @@ class GenerationEngine:
                 toks, self.caches, _ = G.decode_ticks_multi(
                     *args, self._dev(self._pos), n, self._dev(temps),
                     self.cfg, self.top_k, self.top_p, self._dev_gen)
+            self.decode_ticks += n
         done: List[_Request] = []
         with trace.span("gen.sample", **self._firsts()):
             toks = toks.cpu().numpy()              # (n, B): one host read

@@ -64,6 +64,7 @@ GROUPS = (
     ("fused head + CE (K8)", r"head_ce"),
     ("fused CE (K5/K6)", r"ce_fwd|ce_bwd"),
     ("fused AdamW (K7)", r"adamw"),
+    ("fused GELU", r"vitrs_gelu"),
     ("cuBLAS matmul", r"nvjet|gemm|cutlass|xmma|cublas"),
     # indexing kernels of any model: the MoE layer's routing, dispatch and
     # combine (ops/moe.py: row gathers, the slot map's scatter, the k-major
